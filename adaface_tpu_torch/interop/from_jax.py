@@ -1,0 +1,84 @@
+"""Weight bridge from the JAX package's flax param trees to the port.
+
+The trees arrive as nested dicts of numpy arrays (e.g.
+`jax.tree_util.tree_map(np.asarray, pipe.unet_params)`); the port's modules
+carry the flax names, so the map is mechanical:
+
+- Conv `kernel` HWIO -> `weight` OIHW;  Dense `kernel` [in, out] -> `weight` [out, in];
+- LayerNorm `scale` and Embed `embedding` -> `weight`;
+- every other leaf (biases, the bare GroupNorm `*_scale`/`*_bias`) as is.
+
+Each `*_state_dict_from_jax` returns what `load_state_dict(strict=True)` takes.
+`jax_tree_from_module` is the inverse, for round-trip checks.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from adaface_tpu_torch.personalization.static_embedding import StaticEmbedderParams
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for path, leaf in _leaves(tree):
+        a = np.asarray(leaf)
+        name = path[-1]
+        if name == "kernel":
+            name = "weight"
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        elif name in ("scale", "embedding"):
+            name = "weight"
+        sd[".".join(path[:-1] + (name,))] = torch.tensor(np.ascontiguousarray(a))
+    return sd
+
+
+clip_state_dict_from_jax = unet_state_dict_from_jax = state_dict_from_jax
+
+
+def vae_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The decode half (`decoder`, `post_quant_conv`) of an AutoencoderKL tree."""
+    return state_dict_from_jax({k: params[k] for k in ("decoder", "post_quant_conv")})
+
+
+def static_embedder_from_jax(p: Any) -> StaticEmbedderParams:
+    """A JAX StaticEmbedderParams (or a dict of its fields) -> the port's."""
+    get = (lambda n: p.get(n)) if isinstance(p, Mapping) else (lambda n: getattr(p, n))
+    conv = lambda n: None if get(n) is None else torch.from_numpy(np.array(get(n)))
+    return StaticEmbedderParams(
+        basis_rand_weights=conv("basis_rand_weights"),
+        basis_comm_weights=conv("basis_comm_weights"),
+        basis_vecs=conv("basis_vecs"), pre_vecs=conv("pre_vecs"), bias=conv("bias"))
+
+
+def jax_tree_from_module(module: nn.Module) -> Dict[str, Any]:
+    """The flax-layout tree of numpy arrays for a port module."""
+    tree: Dict[str, Any] = {}
+    for mod_name, mod in module.named_modules():
+        for name, p in mod.named_parameters(recurse=False):
+            a = p.detach().cpu().numpy()
+            if name == "weight" and isinstance(mod, nn.Conv2d):
+                name, a = "kernel", a.transpose(2, 3, 1, 0)
+            elif name == "weight" and isinstance(mod, nn.Linear):
+                name, a = "kernel", a.T
+            elif name == "weight" and isinstance(mod, nn.LayerNorm):
+                name = "scale"
+            elif name == "weight" and isinstance(mod, nn.Embedding):
+                name = "embedding"
+            node = tree
+            for part in mod_name.split(".") if mod_name else ():
+                node = node.setdefault(part, {})
+            node[name] = np.ascontiguousarray(a)
+    return tree

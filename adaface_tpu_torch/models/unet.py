@@ -1,0 +1,327 @@
+"""SD v1.5 U-Net for inference, NHWC at the interface (counterpart of
+`adaface_tpu/models/unet.py` with its default arms).
+
+- The context is a native [L, B, T, D] tensor (or [1, B, T, D], broadcast over
+  layers); conditioned layer `layer_idx` reads context `CA_LAYER_INDEX[...]`.
+  An optional separate K-context has the same shape.
+- Every attention goes through `ops.flash_attention.flash_attention_blc`: the
+  Hopper kernel for self-attention at L >= 256 on the card, the einsum path
+  for the 77-key cross-attention and the 8x8 mid block.
+- `cfg_dedup`: x and timesteps arrive at batch B with a [L, 2B, T, D]
+  context; the stem (in_conv, the first ResBlock, the first self-attention)
+  runs once at B and the stream is tiled to 2B right before the first
+  cross-attention.
+- `precompute_cross_kv` hoists the loop-invariant cross-attention K/V
+  projections out of the sampling loop.
+
+Submodules carry the flax tree's names (`down_0_res_0.in_conv`,
+`down_0_attn_0.block_0.attn1.to_q`, ...). Capture and subject-token
+convolutional attention are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from adaface_tpu_torch.ops.basic import conv_nhwc, geglu, group_norm, timestep_embedding
+from adaface_tpu_torch.ops.flash_attention import flash_attention_blc
+from adaface_tpu_torch.ops.subpixel import upsample2x_conv
+
+# layer_idx -> cross-attention (context) index, as in the JAX package
+CA_LAYER_INDEX = {1: 0, 2: 1, 4: 2, 5: 3, 7: 4, 8: 5, 12: 6, 16: 7,
+                  17: 8, 18: 9, 19: 10, 20: 11, 21: 12, 22: 13, 23: 14, 24: 15}
+NUM_CA_LAYERS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    model_channels: int = 320
+    channel_mult: tuple = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    attention_levels: tuple = (0, 1, 2)
+    num_heads: int = 8
+    context_dim: int = 768
+
+    @classmethod
+    def sd_v1(cls, **kw) -> "UNetConfig":
+        return cls(**kw)
+
+    @classmethod
+    def tiny(cls, **kw) -> "UNetConfig":
+        d = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                 attention_levels=(0, 1), num_heads=4, context_dim=16)
+        d.update(kw)
+        return cls(**d)
+
+
+def _conv(cin: int, cout: int, kernel: int = 3, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2)
+
+
+class ResBlock(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, emb_dim: int):
+        super().__init__()
+        self.in_norm_scale = nn.Parameter(torch.empty(in_ch))
+        self.in_norm_bias = nn.Parameter(torch.empty(in_ch))
+        self.in_conv = _conv(in_ch, out_ch)
+        self.emb_proj = nn.Linear(emb_dim, out_ch)
+        self.out_norm_scale = nn.Parameter(torch.empty(out_ch))
+        self.out_norm_bias = nn.Parameter(torch.empty(out_ch))
+        self.out_conv = _conv(out_ch, out_ch)
+        self.skip = _conv(in_ch, out_ch, kernel=1) if in_ch != out_ch else None
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        h = F.silu(group_norm(x, self.in_norm_scale, self.in_norm_bias, 32, 1e-5))
+        h = conv_nhwc(self.in_conv, h)
+        h = h + self.emb_proj(F.silu(emb))[:, None, None, :]
+        h = F.silu(group_norm(h, self.out_norm_scale, self.out_norm_bias, 32, 1e-5))
+        h = conv_nhwc(self.out_conv, h)
+        if self.skip is not None:
+            x = conv_nhwc(self.skip, x)
+        return x + h
+
+
+class UNetCrossAttention(nn.Module):
+    """Multi-head attention on packed [B, L, H*D] projections; self-attention
+    when no context is given. `kv` takes hoisted (k, v) projections."""
+
+    def __init__(self, dim: int, ctx_dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_k = nn.Linear(ctx_dim, dim, bias=False)
+        self.to_v = nn.Linear(ctx_dim, dim, bias=False)
+        self.to_out = nn.Linear(dim, dim)
+
+    def forward(self, x, ctx_v=None, ctx_k=None, kv=None):
+        q = self.to_q(x)
+        if ctx_v is None:
+            ctx_v = ctx_k = x
+        elif ctx_k is None:
+            ctx_k = ctx_v
+        if kv is not None:
+            k, v = kv
+        else:
+            k, v = self.to_k(ctx_k), self.to_v(ctx_v)
+        d = q.shape[-1] // self.num_heads
+        return self.to_out(flash_attention_blc(q, k, v, self.num_heads, scale=d ** -0.5))
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, dim: int, ctx_dim: int, num_heads: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = UNetCrossAttention(dim, dim, num_heads)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn2 = UNetCrossAttention(dim, ctx_dim, num_heads)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff_in = nn.Linear(dim, dim * 8)  # GEGLU: 2 x 4*dim
+        self.ff_out = nn.Linear(dim * 4, dim)
+
+    def forward(self, x, ctx_v, ctx_k, kv=None, cfg_tile: bool = False):
+        x = x + self.attn1(self.norm1(x))
+        if cfg_tile:
+            x = torch.cat([x, x], dim=0)
+        x = x + self.attn2(self.norm2(x), ctx_v, ctx_k, kv)
+        return x + self.ff_out(geglu(self.ff_in(self.norm3(x))))
+
+
+class SpatialTransformer(nn.Module):
+    def __init__(self, ch: int, ctx_dim: int, num_heads: int):
+        super().__init__()
+        self.norm_scale = nn.Parameter(torch.empty(ch))
+        self.norm_bias = nn.Parameter(torch.empty(ch))
+        self.proj_in = _conv(ch, ch, kernel=1)
+        self.block_0 = TransformerBlock(ch, ctx_dim, num_heads)
+        self.proj_out = _conv(ch, ch, kernel=1)
+
+    def forward(self, x, ctx_v, ctx_k, kv=None, cfg_tile: bool = False):
+        b, hh, ww, c = x.shape
+        h = group_norm(x, self.norm_scale, self.norm_bias, 32, 1e-6)
+        h = conv_nhwc(self.proj_in, h).reshape(b, hh * ww, c)
+        h = self.block_0(h, ctx_v, ctx_k, kv, cfg_tile)
+        if cfg_tile:  # the block returned 2B rows; tile the residual to match
+            x = torch.cat([x, x], dim=0)
+        h = conv_nhwc(self.proj_out, h.reshape(x.shape[0], hh, ww, c))
+        return x + h
+
+
+class Downsample(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = _conv(ch, ch, stride=2)
+
+    def forward(self, x):
+        return conv_nhwc(self.conv, x)
+
+
+class Upsample(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = _conv(ch, ch)
+
+    def forward(self, x):
+        return upsample2x_conv(x, self.conv.weight, self.conv.bias)
+
+
+def ca_layer_module_names(cfg: UNetConfig) -> Dict[int, str]:
+    """layer_idx -> SpatialTransformer name, in the UNet's layer walk (input
+    blocks, middle, output blocks; downsamples and upsamples take an index)."""
+    names = {}
+    layer_idx = 1
+    for level in range(len(cfg.channel_mult)):
+        for blk in range(cfg.num_res_blocks):
+            if level in cfg.attention_levels:
+                names[layer_idx] = f"down_{level}_attn_{blk}"
+            layer_idx += 1
+        if level != len(cfg.channel_mult) - 1:
+            layer_idx += 1
+    names[layer_idx] = "mid_attn"
+    layer_idx += 1
+    for level in reversed(range(len(cfg.channel_mult))):
+        for blk in range(cfg.num_res_blocks + 1):
+            if level in cfg.attention_levels:
+                names[layer_idx] = f"up_{level}_attn_{blk}"
+            layer_idx += 1
+    return names
+
+
+class UNetModel(nn.Module):
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        ch0 = cfg.model_channels
+        emb_dim = ch0 * 4
+        attn_names = ca_layer_module_names(cfg)
+        by_name = {name: idx for idx, name in attn_names.items()}
+
+        def spatial(name: str, ch: int) -> SpatialTransformer:
+            # layers outside CA_LAYER_INDEX (toy configs only) run attn2 as
+            # self-attention, so their K/V project from the stream itself
+            mapped = by_name[name] in CA_LAYER_INDEX
+            return SpatialTransformer(ch, cfg.context_dim if mapped else ch, cfg.num_heads)
+
+        self.time_embed_0 = nn.Linear(ch0, emb_dim)
+        self.time_embed_2 = nn.Linear(emb_dim, emb_dim)
+        self.in_conv = _conv(cfg.in_channels, ch0)
+        skip_chs = [ch0]
+        ch = ch0
+        for level, mult in enumerate(cfg.channel_mult):
+            for blk in range(cfg.num_res_blocks):
+                self.add_module(f"down_{level}_res_{blk}", ResBlock(ch, ch0 * mult, emb_dim))
+                ch = ch0 * mult
+                if level in cfg.attention_levels:
+                    name = f"down_{level}_attn_{blk}"
+                    self.add_module(name, spatial(name, ch))
+                skip_chs.append(ch)
+            if level != len(cfg.channel_mult) - 1:
+                self.add_module(f"down_{level}_downsample", Downsample(ch))
+                skip_chs.append(ch)
+        self.mid_res_0 = ResBlock(ch, ch, emb_dim)
+        self.mid_attn = spatial("mid_attn", ch)
+        self.mid_res_1 = ResBlock(ch, ch, emb_dim)
+        for level in reversed(range(len(cfg.channel_mult))):
+            for blk in range(cfg.num_res_blocks + 1):
+                out_ch = ch0 * cfg.channel_mult[level]
+                self.add_module(f"up_{level}_res_{blk}",
+                                ResBlock(ch + skip_chs.pop(), out_ch, emb_dim))
+                ch = out_ch
+                if level in cfg.attention_levels:
+                    name = f"up_{level}_attn_{blk}"
+                    self.add_module(name, spatial(name, ch))
+                if level != 0 and blk == cfg.num_res_blocks:
+                    self.add_module(f"up_{level}_upsample", Upsample(ch))
+        self.out_norm_scale = nn.Parameter(torch.empty(ch))
+        self.out_norm_bias = nn.Parameter(torch.empty(ch))
+        self.out_conv = _conv(ch, cfg.out_channels)
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
+                context_k: Optional[torch.Tensor] = None, cfg_dedup: bool = False,
+                cross_kv: Optional[Tuple] = None) -> torch.Tensor:
+        """x [B, H, W, C] (B = half the context batch under cfg_dedup),
+        timesteps [B], context [L|1, B', T, D]. Returns fp32 eps
+        [B', H, W, out_channels]."""
+        c = self.cfg
+        if cfg_dedup and 0 not in c.attention_levels:
+            raise ValueError("cfg_dedup needs an attention block at level 0 to tile at")
+        dtype = self.in_conv.weight.dtype
+        emb = self.time_embed_0(timestep_embedding(timesteps, c.model_channels).to(dtype))
+        emb = self.time_embed_2(F.silu(emb))
+        if context.dim() == 3:
+            context = context[None]
+        if context_k is not None and context_k.dim() == 3:
+            context_k = context_k[None]
+
+        def spatial(layer_idx: int, h: torch.Tensor, name: str) -> torch.Tensor:
+            cv = ck = kv = None
+            if layer_idx in CA_LAYER_INDEX:
+                i = CA_LAYER_INDEX[layer_idx]
+                cv = context[i % context.shape[0]]
+                ck = cv if context_k is None else context_k[i % context_k.shape[0]]
+                if cross_kv is not None:
+                    kv = cross_kv[i]
+            return getattr(self, name)(h, cv, ck, kv, cfg_tile=cfg_dedup and layer_idx == 1)
+
+        h = conv_nhwc(self.in_conv, x.to(dtype))
+        hs = [h]
+        layer_idx = 1
+        for level in range(len(c.channel_mult)):
+            for blk in range(c.num_res_blocks):
+                h = getattr(self, f"down_{level}_res_{blk}")(h, emb)
+                if level in c.attention_levels:
+                    h = spatial(layer_idx, h, f"down_{level}_attn_{blk}")
+                if cfg_dedup and layer_idx == 1:
+                    # the first spatial tiled the stream to 2B; so does all
+                    # that was computed at B before it
+                    emb = torch.cat([emb, emb], dim=0)
+                    hs = [torch.cat([e, e], dim=0) for e in hs]
+                hs.append(h)
+                layer_idx += 1
+            if level != len(c.channel_mult) - 1:
+                h = getattr(self, f"down_{level}_downsample")(h)
+                hs.append(h)
+                layer_idx += 1
+        h = self.mid_res_0(h, emb)
+        h = spatial(layer_idx, h, "mid_attn")
+        h = self.mid_res_1(h, emb)
+        layer_idx += 1
+        for level in reversed(range(len(c.channel_mult))):
+            for blk in range(c.num_res_blocks + 1):
+                h = torch.cat([h, hs.pop()], dim=-1)
+                h = getattr(self, f"up_{level}_res_{blk}")(h, emb)
+                if level in c.attention_levels:
+                    h = spatial(layer_idx, h, f"up_{level}_attn_{blk}")
+                if level != 0 and blk == c.num_res_blocks:
+                    h = getattr(self, f"up_{level}_upsample")(h)
+                layer_idx += 1
+        h = F.silu(group_norm(h, self.out_norm_scale, self.out_norm_bias, 32, 1e-5))
+        return conv_nhwc(self.out_conv, h).float()
+
+
+def precompute_cross_kv(unet: UNetModel, context: torch.Tensor,
+                        context_k: Optional[torch.Tensor] = None) -> tuple:
+    """The cross-attention K/V projections of every conditioned layer, once:
+    entry CA_LAYER_INDEX[layer_idx] is (k, v), each [B, T, inner]; None for
+    an index with no attention block."""
+    if context.dim() == 3:
+        context = context[None]
+    if context_k is not None and context_k.dim() == 3:
+        context_k = context_k[None]
+    dtype = unet.in_conv.weight.dtype
+    out = [None] * NUM_CA_LAYERS
+    for layer_idx, name in ca_layer_module_names(unet.cfg).items():
+        if layer_idx not in CA_LAYER_INDEX:
+            continue
+        i = CA_LAYER_INDEX[layer_idx]
+        cv = context[i % context.shape[0]]
+        ck = cv if context_k is None else context_k[i % context_k.shape[0]]
+        att = getattr(unet, name).block_0.attn2
+        out[i] = (att.to_k(ck.to(dtype)), att.to_v(cv.to(dtype)))
+    return tuple(out)

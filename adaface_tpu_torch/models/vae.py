@@ -1,0 +1,152 @@
+"""SD VAE decoder, NHWC at the interface (counterpart of the decode half of
+`adaface_tpu/models/vae.py`: `post_quant_conv` + `Decoder`, GroupNorm eps
+1e-6). The mid-block attention is single-head and query-chunked (512 query
+rows at a time from 1024 tokens up), plain torch. The encoder is not ported
+yet. Submodules carry the flax tree's names under `decoder.`."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from adaface_tpu_torch.ops.basic import conv_nhwc, group_norm
+from adaface_tpu_torch.ops.subpixel import upsample2x_conv
+
+SD_VAE_SCALE_FACTOR = 0.18215
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    ch: int = 128
+    ch_mult: tuple = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    out_channels: int = 3
+    z_channels: int = 4
+    embed_dim: int = 4
+
+    @classmethod
+    def sd_v1(cls) -> "VAEConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls) -> "VAEConfig":
+        return cls(ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=4, embed_dim=4)
+
+
+def _conv(cin: int, cout: int, kernel: int = 3) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, kernel, padding=kernel // 2)
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.norm1_scale = nn.Parameter(torch.empty(in_ch))
+        self.norm1_bias = nn.Parameter(torch.empty(in_ch))
+        self.conv1 = _conv(in_ch, out_ch)
+        self.norm2_scale = nn.Parameter(torch.empty(out_ch))
+        self.norm2_bias = nn.Parameter(torch.empty(out_ch))
+        self.conv2 = _conv(out_ch, out_ch)
+        self.nin_shortcut = _conv(in_ch, out_ch, 1) if in_ch != out_ch else None
+
+    def forward(self, x):
+        h = F.silu(group_norm(x, self.norm1_scale, self.norm1_bias, 32, 1e-6))
+        h = conv_nhwc(self.conv1, h)
+        h = F.silu(group_norm(h, self.norm2_scale, self.norm2_bias, 32, 1e-6))
+        h = conv_nhwc(self.conv2, h)
+        if self.nin_shortcut is not None:
+            x = conv_nhwc(self.nin_shortcut, x)
+        return x + h
+
+
+class AttnBlock(nn.Module):
+    """Single-head spatial self-attention (the unmasked decode path)."""
+
+    CHUNK = 512
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.norm_scale = nn.Parameter(torch.empty(ch))
+        self.norm_bias = nn.Parameter(torch.empty(ch))
+        self.q = _conv(ch, ch, 1)
+        self.k = _conv(ch, ch, 1)
+        self.v = _conv(ch, ch, 1)
+        self.proj_out = _conv(ch, ch, 1)
+
+    def forward(self, x):
+        b, hh, ww, c = x.shape
+        l = hh * ww
+        h = group_norm(x, self.norm_scale, self.norm_bias, 32, 1e-6)
+        qf, kf, vf = (conv_nhwc(m, h).reshape(b, l, c) for m in (self.q, self.k, self.v))
+        scale = c ** -0.5
+        kt = kf.transpose(1, 2)
+        if l >= 1024:
+            # query-chunked: the fp32 logits slab is [B, 512, L], not [B, L, L]
+            outs = []
+            for s in range(0, l, self.CHUNK):
+                lg = torch.matmul(qf[:, s:s + self.CHUNK], kt).float() * scale
+                outs.append(torch.matmul(torch.softmax(lg, dim=-1).to(vf.dtype), vf))
+            out = torch.cat(outs, dim=1)
+        else:
+            probs = torch.softmax(torch.matmul(qf, kt).float() * scale, dim=-1)
+            out = torch.matmul(probs.to(vf.dtype), vf)
+        return x + conv_nhwc(self.proj_out, out.reshape(b, hh, ww, c))
+
+
+class Upsample(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = _conv(ch, ch)
+
+    def forward(self, x):
+        return upsample2x_conv(x, self.conv.weight, self.conv.bias)
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        block_in = cfg.ch * cfg.ch_mult[-1]
+        self.conv_in = _conv(cfg.z_channels, block_in)
+        self.mid_block_1 = ResnetBlock(block_in, block_in)
+        self.mid_attn_1 = AttnBlock(block_in)
+        self.mid_block_2 = ResnetBlock(block_in, block_in)
+        ch = block_in
+        for i in reversed(range(len(cfg.ch_mult))):
+            for j in range(cfg.num_res_blocks + 1):
+                self.add_module(f"up_{i}_block_{j}", ResnetBlock(ch, cfg.ch * cfg.ch_mult[i]))
+                ch = cfg.ch * cfg.ch_mult[i]
+            if i != 0:
+                self.add_module(f"up_{i}_upsample", Upsample(ch))
+        self.norm_out_scale = nn.Parameter(torch.empty(ch))
+        self.norm_out_bias = nn.Parameter(torch.empty(ch))
+        self.conv_out = _conv(ch, cfg.out_channels)
+
+    def forward(self, z):
+        c = self.cfg
+        h = conv_nhwc(self.conv_in, z)
+        h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
+        for i in reversed(range(len(c.ch_mult))):
+            for j in range(c.num_res_blocks + 1):
+                h = getattr(self, f"up_{i}_block_{j}")(h)
+            if i != 0:
+                h = getattr(self, f"up_{i}_upsample")(h)
+        h = F.silu(group_norm(h, self.norm_out_scale, self.norm_out_bias, 32, 1e-6))
+        return conv_nhwc(self.conv_out, h)
+
+
+class AutoencoderKL(nn.Module):
+    """Decode half of the SD autoencoder: [B, h, w, embed_dim] latents ->
+    [B, H, W, 3] images in about [-1, 1]."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.decoder = Decoder(cfg)
+        self.post_quant_conv = _conv(cfg.embed_dim, cfg.z_channels, 1)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        z = z.to(self.post_quant_conv.weight.dtype)
+        return self.decoder(conv_nhwc(self.post_quant_conv, z))

@@ -1,0 +1,75 @@
+"""Elementwise and normalization building blocks (counterpart of
+`adaface_tpu/ops/basic.py`). Statistics are fp32 whatever the input dtype;
+outputs come back in the input dtype."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embeddings [B, dim] in [cos, sin] order."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=timesteps.device)
+                      / half)
+    args = timesteps.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm over the channel (last) axis of an N...C tensor, as the JAX
+    package computes it: per-channel fp32 sums of x and x^2 over the spatial
+    axes, grouped, one-pass variance E[x^2] - mean^2 clamped at 0, then one
+    per-(batch, channel) affine. eps is 1e-5 in UNet ResBlocks and the UNet
+    output norm, 1e-6 in SpatialTransformer and the VAE."""
+    b, c = x.shape[0], x.shape[-1]
+    g = num_groups
+    red = tuple(range(1, x.dim() - 1))
+    n = x[0].numel() // c * (c // g)
+    xf = x.float()
+    s1 = xf.sum(dim=red).view(b, g, c // g).sum(-1)
+    s2 = (xf * xf).sum(dim=red).view(b, g, c // g).sum(-1)
+    mean = s1 / n
+    var = torch.clamp_min(s2 / n - mean * mean, 0.0)
+    rstd = torch.rsqrt(var + eps)
+    sc = rstd.repeat_interleave(c // g, dim=1) * scale.float()[None]
+    bi = bias.float()[None] - mean.repeat_interleave(c // g, dim=1) * sc
+    shape = (b,) + (1,) * (x.dim() - 2) + (c,)
+    return (xf * sc.view(shape) + bi.view(shape)).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
+               bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis; torch computes the statistics in fp32
+    for bf16 inputs as well."""
+    cast = lambda p: None if p is None else p.to(x.dtype)
+    return F.layer_norm(x, x.shape[-1:], cast(scale), cast(bias), eps)
+
+
+def conv_nhwc(conv: torch.nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """Apply a torch conv to an NHWC tensor. The permutes are views: a
+    contiguous NHWC tensor is an NCHW tensor in channels_last memory, which
+    is the layout cuDNN runs bf16 convolutions in."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's quick-GELU: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def geglu(x: torch.Tensor) -> torch.Tensor:
+    """GEGLU gate of the UNet feed-forward: last dim 2d -> d, a * gelu(g),
+    with the tanh-approximate GELU (jax.nn.gelu's default)."""
+    a, g = x.chunk(2, dim=-1)
+    return a * F.gelu(g, approximate="tanh")
