@@ -3,16 +3,20 @@
 // Replaces two TPU kernels of the JAX package, which compute one function:
 //   K1  adaface_tpu/ops/flash_attention.py:578  _flash_kernel_heads_pvt
 //   K4  adaface_tpu/ops/flash_attention.py:544  _flash_kernel_heads_short
-// both reached through _flash_forward_blc / flash_attention_blc.
+// both reached through _flash_forward_blc / flash_attention_blc; and, when
+// asked for the row statistics, the backward's recompute pass
+//   K3a adaface_tpu/ops/flash_attention.py:236  _row_lse_kernel
+// whose lse2 = m + log2(l) this kernel already holds at its end.
 //
 // Function, for each (batch b, head h, query row i):
 //   s_j = (q_i . k_j) * scale * log2(e)
 //   if a key bias is given: s_j = max(s_j + bias[b, j] * log2(e), -100)
 //   o_i = sum_j 2^s_j v_j / sum_j 2^s_j
+//   lse[b, h, i] = log2(sum_j 2^s_j)            (only when lse != nullptr)
 // q, k, v are [B, L, H*D] views (each with its own batch and row stride, so
 // the three thirds of a fused [B, L, 3*H*D] projection work without a copy);
-// head h is the column panel [h*D, (h+1)*D). The output is packed [B, Lq, H*D].
-// bf16 in and out, fp32 accumulation.
+// head h is the column panel [h*D, (h+1)*D). The output is packed [B, Lq, H*D]
+// bf16, lse fp32 [B, H, Lq]. bf16 in, fp32 accumulation.
 //
 // The TPU kernels use a max-free softmax (LN-bounded scores cannot overflow
 // exp2). This kernel keeps a running row maximum instead (the online
@@ -36,100 +40,26 @@
 // Later work (wgmma, TMA, exp2 emulation on the FMA pipe) is for a PR that
 // makes it fast.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace flash;
 
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per K/V tile
-constexpr int WARPS = 4;     // 16 query rows per warp
-constexpr int THREADS = WARPS * 32;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float SCORE_FLOOR = -100.0f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global -> shared; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two transposed 8x8 b16 matrices: the B operand of P V from row-major V.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Low half holds `lo` (the smaller column index), as the mma fragments expect.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Stage rows [row0, row0 + 64) of one head panel (D columns, row stride
-// `stride` elements) into a shared tile with leading dimension LD. Rows past
-// `nrows` are written as zeros.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int row0, int nrows,
-                                          int tid) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-#pragma unroll 4
-  for (int i = tid; i < 64 * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    const bool valid = row0 + r < nrows;
-    const bf16* g = valid ? src + (long long)(row0 + r) * stride + c : src;
-    cp_async_16(dst + r * LD + c, g, valid);
-  }
-}
+constexpr int BQ = TILE;  // query rows per block
+constexpr int BK = TILE;  // keys per K/V tile
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const float* __restrict__ bias,
-                        bf16* __restrict__ o, int Lq, int Lk,
+                        bf16* __restrict__ o, float* __restrict__ lse, int Lq, int Lk,
                         long long sq_b, long long sq_l, long long sk_b,
                         long long sk_l, long long sv_b, long long sv_l,
                         long long so_b, long long so_l, float sc_log2) {
   constexpr int DP = (D + 15) / 16 * 16;  // MMA depth granule
   constexpr int LD = DP + 8;              // +16 bytes per row against bank conflicts
   constexpr int NT_D = DP / 8;            // n-tiles of the output panel
-  constexpr int KS_D = DP / 16;           // k-steps of Q K^T
   constexpr int NT_K = BK / 8;            // n-tiles of the score tile
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -151,12 +81,7 @@ flash_fwd_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vp = v + b * sv_b + (long long)h * D;
   const float* bp = bias == nullptr ? nullptr : bias + (long long)b * Lk;
 
-  // Zero the pad columns [D, DP) of every tile once; cp.async never writes them.
-  if constexpr (DP > D) {
-    constexpr int PADC = DP - D;
-    for (int i = tid; i < (BQ + 4 * BK) * PADC; i += THREADS)
-      Qs[(i / PADC) * LD + D + i % PADC] = __float2bfloat16(0.0f);
-  }
+  zero_pad_columns<D, DP, LD>(Qs, 5, tid);  // Q and both K/V buffers
 
   load_tile<D, LD>(Qs, qp, sq_l, q0, Lq, tid);
   load_tile<D, LD>(Ks, kp, sk_l, 0, Lk, tid);
@@ -192,20 +117,7 @@ flash_fwd_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[NT_K][4];
 #pragma unroll
     for (int n = 0; n < NT_K; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < KS_D; ++kk) {
-      const bf16* qa = Qs + (wrow + g) * LD + kk * 16 + t * 2;
-      uint32_t a[4];
-      a[0] = ld_u32(qa);
-      a[1] = ld_u32(qa + 8 * LD);
-      a[2] = ld_u32(qa + 8);
-      a[3] = ld_u32(qa + 8 * LD + 8);
-#pragma unroll
-      for (int n = 0; n < NT_K; ++n) {
-        const bf16* kb = Kt + (n * 8 + g) * LD + kk * 16 + t * 2;
-        mma_16816(s[n], a, ld_u32(kb), ld_u32(kb + 8));
-      }
-    }
+    mma_rows_by_tile<DP, LD>(s, Qs, wrow, Kt, g, t);
 
     // log2-domain scores, bias and floor, ragged-edge keys excluded.
     float mx[2] = {m_run[0], m_run[1]};
@@ -253,86 +165,64 @@ flash_fwd_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // O += P V.
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-#pragma unroll
-      for (int nd = 0; nd < NT_D; ++nd) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, Vt + (j * 16 + (lane & 15)) * LD + nd * 8);
-        mma_16816(acc[nd], pa[j], b0, b1);
-      }
-    }
+    mma_p_by_tile<DP, LD>(acc, pa, Vt, lane);
     __syncthreads();  // the next iteration's prefetch overwrites this buffer
   }
 
   float inv[2];
+  const int row0 = q0 + wrow + g;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.0f / l;
+    if (lse != nullptr && t == 0 && row0 + 8 * r < Lq)
+      lse[((long long)b * gridDim.y + h) * Lq + row0 + 8 * r] = m_run[r] + log2f(l);
   }
-  bf16* op = o + b * so_b + (long long)h * D;
-  const int row0 = q0 + wrow + g;
-#pragma unroll
-  for (int nd = 0; nd < NT_D; ++nd) {
-    const int col = nd * 8 + t * 2;
-    if (col < D) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = row0 + 8 * r;
-        if (row < Lq)
-          *reinterpret_cast<uint32_t*>(op + row * so_l + col) =
-              pack_bf16x2(acc[nd][2 * r] * inv[r], acc[nd][2 * r + 1] * inv[r]);
-      }
-    }
-  }
+  store_rows<D, DP>(o + b * so_b + (long long)h * D, so_l, acc, inv[0], inv[1], row0,
+                    Lq, t);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* bias, void* o,
-           int B, int H, int Lq, int Lk, long long sq_b, long long sq_l,
+           void* lse, int B, int H, int Lq, int Lk, long long sq_b, long long sq_l,
            long long sk_b, long long sk_l, long long sv_b, long long sv_l,
            long long so_b, long long so_l, float sc_log2, cudaStream_t stream) {
   constexpr int DP = (D + 15) / 16 * 16;
   constexpr int LD = DP + 8;
   const size_t smem = (size_t)(BQ + 4 * BK) * LD * sizeof(bf16);
-  // Opt in to more than 48 KB of dynamic shared memory once per head dim
-  // (thread-safe static initialisation), not on every launch.
-  static const cudaError_t attr_err = cudaFuncSetAttribute(
-      flash_fwd_packed_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static const cudaError_t attr_err = allow_smem(flash_fwd_packed_kernel<D>, smem);
   if (attr_err != cudaSuccess) return (int)attr_err;
   const dim3 grid((Lq + BQ - 1) / BQ, H, B);
   flash_fwd_packed_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<bf16*>(o), Lq, Lk, sq_b, sq_l, sk_b, sk_l, sv_b, sv_l, so_b,
-      so_l, sc_log2);
+      static_cast<bf16*>(o), static_cast<float*>(lse), Lq, Lk, sq_b, sq_l, sk_b,
+      sk_l, sv_b, sv_l, so_b, so_l, sc_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Built for the UNet's head dims 40, 80 and 160. Strides are in elements.
-// Returns a cudaError_t value (0 on success).
+// `bias` and `lse` may be null. Returns a cudaError_t value (0 on success).
 extern "C" int flash_attn_packed_fwd(const void* q, const void* k, const void* v,
-                                     const void* bias, void* o, int B, int H,
-                                     int Lq, int Lk, int D, long long sq_b,
+                                     const void* bias, void* o, void* lse, int B,
+                                     int H, int Lq, int Lk, int D, long long sq_b,
                                      long long sq_l, long long sk_b, long long sk_l,
                                      long long sv_b, long long sv_l, long long so_b,
                                      long long so_l, float sc_log2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40:
-      return launch<40>(q, k, v, bias, o, B, H, Lq, Lk, sq_b, sq_l, sk_b, sk_l,
+      return launch<40>(q, k, v, bias, o, lse, B, H, Lq, Lk, sq_b, sq_l, sk_b, sk_l,
                         sv_b, sv_l, so_b, so_l, sc_log2, s);
     case 80:
-      return launch<80>(q, k, v, bias, o, B, H, Lq, Lk, sq_b, sq_l, sk_b, sk_l,
+      return launch<80>(q, k, v, bias, o, lse, B, H, Lq, Lk, sq_b, sq_l, sk_b, sk_l,
                         sv_b, sv_l, so_b, so_l, sc_log2, s);
     case 160:
-      return launch<160>(q, k, v, bias, o, B, H, Lq, Lk, sq_b, sq_l, sk_b, sk_l,
+      return launch<160>(q, k, v, bias, o, lse, B, H, Lq, Lk, sq_b, sq_l, sk_b, sk_l,
                          sv_b, sv_l, so_b, so_l, sc_log2, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -49,8 +49,10 @@ clip_state_dict_from_jax = unet_state_dict_from_jax = state_dict_from_jax
 
 
 def vae_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The decode half (`decoder`, `post_quant_conv`) of an AutoencoderKL tree."""
-    return state_dict_from_jax({k: params[k] for k in ("decoder", "post_quant_conv")})
+    """The whole AutoencoderKL tree: `encoder`, `quant_conv`, `decoder` and
+    `post_quant_conv`."""
+    return state_dict_from_jax(
+        {k: params[k] for k in ("encoder", "quant_conv", "decoder", "post_quant_conv")})
 
 
 def static_embedder_from_jax(p: Any) -> StaticEmbedderParams:

@@ -1,10 +1,11 @@
-"""Build and load the port's hand-written CUDA kernel library.
+"""Build and load the port's hand-written CUDA kernel libraries.
 
-`csrc/<name>.cu` compiles with plain `nvcc` for `sm_90a` into a shared
+Each `csrc/<name>.cu` compiles with plain `nvcc` for `sm_90a` into a shared
 library with a C interface, loaded with `ctypes`. Libraries go to
-`adaface_tpu_torch/_build/`, named by a hash of the source and the flags, so
-a fresh checkout builds at first use and an edited source rebuilds. Nothing
-here runs at import time.
+`adaface_tpu_torch/_build/`, named by a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so a fresh checkout builds at first use
+and an edited source or header rebuilds. `build_all` starts one nvcc per
+source at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -35,28 +36,56 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str = "flash_attn_packed") -> str:
+def _start(name: str):
+    """(output path, temp path, running nvcc) for `name`, or None when the
+    library is built already."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return out, tmp, proc
+
+
+def _finish(name: str, job) -> str:
+    if job is None:
+        return ""
+    out, tmp, proc = job
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"kernel build failed: nvcc exited {proc.returncode} "
+                           f"for {name}\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return log
+
+
+def build(name: str) -> str:
     """Compile `csrc/<name>.cu` unless it is built already. Returns the
     compiler log (register and shared-memory use per kernel), or "" when the
     library was already there; raises if nvcc fails."""
-    out = library_path(name)
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                          check=False)
-    if proc.returncode:
-        raise RuntimeError(f"kernel build failed: nvcc exited {proc.returncode} "
-                           f"for {name}\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return proc.stdout
+    return _finish(name, _start(name))
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every source, one nvcc each, all started together; waits for
+    all of them and returns name -> compiler log."""
+    jobs = {p.stem: _start(p.stem) for p in sorted(CSRC.glob("*.cu"))}
+    try:
+        return {name: _finish(name, job) for name, job in jobs.items()}
+    finally:
+        for job in jobs.values():
+            if job is not None and job[2].poll() is None:
+                job[2].kill()
+                job[2].wait()
 
 
 def load(name: str) -> ctypes.CDLL:

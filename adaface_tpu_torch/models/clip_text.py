@@ -59,7 +59,8 @@ class CLIPAttention(nn.Module):
         d = w // h
         split = lambda t: t.view(b, l, h, d).transpose(1, 2)
         q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
-        logits = torch.matmul(q * d ** -0.5, k.transpose(-1, -2)).float()
+        # fp32 score product, as the JAX encoder's preferred_element_type
+        logits = torch.matmul((q * d ** -0.5).float(), k.float().transpose(-1, -2))
         # finfo.min, not -inf, as the JAX encoder masks
         logits = logits.masked_fill(~causal, torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)

@@ -1,4 +1,4 @@
-"""SD v1.5 U-Net for inference, NHWC at the interface (counterpart of
+"""SD v1.5 U-Net, NHWC at the interface (counterpart of
 `adaface_tpu/models/unet.py` with its default arms).
 
 - The context is a native [L, B, T, D] tensor (or [1, B, T, D], broadcast over
@@ -13,10 +13,17 @@
   cross-attention.
 - `precompute_cross_kv` hoists the loop-invariant cross-attention K/V
   projections out of the sampling loop.
+- Training: `img_mask` [B, H0, W0, 1] (the augmentation's valid area) is
+  nearest-resized to each level (torch index semantics) and masks the keys
+  of every self-attention as a bias `where(mask, 0, -1e30)`; `capture`
+  returns, for the layers in `DISTILL_LAYER_INDICES`, the cross-attention's
+  `q`, `attn`, `attnscore` (the pre-softmax scaled fp32 scores), `k`, `v`
+  and the block output `outfeat` (only `capture_keys` when given), computed
+  on the einsum path.
 
 Submodules carry the flax tree's names (`down_0_res_0.in_conv`,
-`down_0_attn_0.block_0.attn1.to_q`, ...). Capture and subject-token
-convolutional attention are not ported yet.
+`down_0_attn_0.block_0.attn1.to_q`, ...). Subject-token convolutional
+attention and rematerialization are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from adaface_tpu_torch.ops.subpixel import upsample2x_conv
 CA_LAYER_INDEX = {1: 0, 2: 1, 4: 2, 5: 3, 7: 4, 8: 5, 12: 6, 16: 7,
                   17: 8, 18: 9, 19: 10, 20: 11, 21: 12, 22: 13, 23: 14, 24: 15}
 NUM_CA_LAYERS = 16
+# layers whose activations feed the distillation losses
+DISTILL_LAYER_INDICES = (7, 8, 12, 16, 17, 18, 19, 20, 21, 22, 23, 24)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +74,14 @@ def _conv(cin: int, cout: int, kernel: int = 3, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2)
 
 
+def _nearest_resize_mask(m: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """torch F.interpolate(mode='nearest') indices: src = floor(dst*in/out)."""
+    ih, iw = m.shape[1:3]
+    ridx = torch.arange(h, device=m.device) * ih // h
+    cidx = torch.arange(w, device=m.device) * iw // w
+    return m[:, ridx][:, :, cidx]
+
+
 class ResBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int):
         super().__init__()
@@ -90,7 +107,9 @@ class ResBlock(nn.Module):
 
 class UNetCrossAttention(nn.Module):
     """Multi-head attention on packed [B, L, H*D] projections; self-attention
-    when no context is given. `kv` takes hoisted (k, v) projections."""
+    when no context is given. `kv` takes hoisted (k, v) projections,
+    `key_bias` [B, Lk] an additive key bias. Returns (out, captured dict or
+    None); `capture` takes the einsum path, whose scores it returns."""
 
     def __init__(self, dim: int, ctx_dim: int, num_heads: int):
         super().__init__()
@@ -100,7 +119,8 @@ class UNetCrossAttention(nn.Module):
         self.to_v = nn.Linear(ctx_dim, dim, bias=False)
         self.to_out = nn.Linear(dim, dim)
 
-    def forward(self, x, ctx_v=None, ctx_k=None, kv=None):
+    def forward(self, x, ctx_v=None, ctx_k=None, kv=None, key_bias=None,
+                capture: bool = False):
         q = self.to_q(x)
         if ctx_v is None:
             ctx_v = ctx_k = x
@@ -110,8 +130,23 @@ class UNetCrossAttention(nn.Module):
             k, v = kv
         else:
             k, v = self.to_k(ctx_k), self.to_v(ctx_v)
-        d = q.shape[-1] // self.num_heads
-        return self.to_out(flash_attention_blc(q, k, v, self.num_heads, scale=d ** -0.5))
+        h = self.num_heads
+        d = q.shape[-1] // h
+        scale = d ** -0.5
+        if not capture:
+            out = flash_attention_blc(q, k, v, h, key_bias=key_bias, scale=scale)
+            return self.to_out(out), None
+        if key_bias is not None:
+            raise ValueError("capture is for the cross-attention, which takes no key bias")
+        b, lq, _ = q.shape
+        split = lambda t: t.reshape(b, t.shape[1], h, d).transpose(1, 2)
+        qh, kh, vh = split(q), split(k), split(v)
+        sim = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+        attn = torch.softmax(sim, dim=-1)
+        out = torch.matmul(attn.to(vh.dtype), vh).transpose(1, 2).reshape(b, lq, h * d)
+        # q scaled by sqrt(scale) so q.q^T products carry the full scale
+        aux = {"q": qh * scale ** 0.5, "attn": attn, "attnscore": sim, "k": kh, "v": vh}
+        return self.to_out(out), aux
 
 
 class TransformerBlock(nn.Module):
@@ -125,12 +160,14 @@ class TransformerBlock(nn.Module):
         self.ff_in = nn.Linear(dim, dim * 8)  # GEGLU: 2 x 4*dim
         self.ff_out = nn.Linear(dim * 4, dim)
 
-    def forward(self, x, ctx_v, ctx_k, kv=None, cfg_tile: bool = False):
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x, ctx_v, ctx_k, kv=None, cfg_tile: bool = False, key_bias=None,
+                capture: bool = False):
+        x = x + self.attn1(self.norm1(x), key_bias=key_bias)[0]
         if cfg_tile:
             x = torch.cat([x, x], dim=0)
-        x = x + self.attn2(self.norm2(x), ctx_v, ctx_k, kv)
-        return x + self.ff_out(geglu(self.ff_in(self.norm3(x))))
+        a2, aux = self.attn2(self.norm2(x), ctx_v, ctx_k, kv, capture=capture)
+        x = x + a2
+        return x + self.ff_out(geglu(self.ff_in(self.norm3(x)))), aux
 
 
 class SpatialTransformer(nn.Module):
@@ -142,15 +179,20 @@ class SpatialTransformer(nn.Module):
         self.block_0 = TransformerBlock(ch, ctx_dim, num_heads)
         self.proj_out = _conv(ch, ch, kernel=1)
 
-    def forward(self, x, ctx_v, ctx_k, kv=None, cfg_tile: bool = False):
+    def forward(self, x, ctx_v, ctx_k, kv=None, cfg_tile: bool = False, img_mask=None,
+                capture: bool = False):
         b, hh, ww, c = x.shape
         h = group_norm(x, self.norm_scale, self.norm_bias, 32, 1e-6)
         h = conv_nhwc(self.proj_in, h).reshape(b, hh * ww, c)
-        h = self.block_0(h, ctx_v, ctx_k, kv, cfg_tile)
+        key_bias = None
+        if img_mask is not None:
+            keep = _nearest_resize_mask(img_mask, hh, ww).reshape(b, hh * ww) > 0
+            key_bias = torch.where(keep, 0.0, -1e30).to(torch.float32)
+        h, aux = self.block_0(h, ctx_v, ctx_k, kv, cfg_tile, key_bias, capture)
         if cfg_tile:  # the block returned 2B rows; tile the residual to match
             x = torch.cat([x, x], dim=0)
         h = conv_nhwc(self.proj_out, h.reshape(x.shape[0], hh, ww, c))
-        return x + h
+        return x + h, aux
 
 
 class Downsample(nn.Module):
@@ -244,11 +286,15 @@ class UNetModel(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
                 context_k: Optional[torch.Tensor] = None, cfg_dedup: bool = False,
-                cross_kv: Optional[Tuple] = None) -> torch.Tensor:
+                cross_kv: Optional[Tuple] = None, img_mask: Optional[torch.Tensor] = None,
+                capture: bool = False, capture_keys: Optional[Tuple[str, ...]] = None):
         """x [B, H, W, C] (B = half the context batch under cfg_dedup),
-        timesteps [B], context [L|1, B', T, D]. Returns fp32 eps
-        [B', H, W, out_channels]."""
+        timesteps [B], context [L|1, B', T, D], img_mask [B, H0, W0, 1].
+        Returns fp32 eps [B', H, W, out_channels]; with `capture`, (eps,
+        {layer_idx: captured tensors})."""
         c = self.cfg
+        if cfg_dedup and (capture or img_mask is not None):
+            raise ValueError("cfg_dedup is inference-only (no capture or img_mask)")
         if cfg_dedup and 0 not in c.attention_levels:
             raise ValueError("cfg_dedup needs an attention block at level 0 to tile at")
         dtype = self.in_conv.weight.dtype
@@ -259,6 +305,8 @@ class UNetModel(nn.Module):
         if context_k is not None and context_k.dim() == 3:
             context_k = context_k[None]
 
+        captures = {}
+
         def spatial(layer_idx: int, h: torch.Tensor, name: str) -> torch.Tensor:
             cv = ck = kv = None
             if layer_idx in CA_LAYER_INDEX:
@@ -267,7 +315,15 @@ class UNetModel(nn.Module):
                 ck = cv if context_k is None else context_k[i % context_k.shape[0]]
                 if cross_kv is not None:
                     kv = cross_kv[i]
-            return getattr(self, name)(h, cv, ck, kv, cfg_tile=cfg_dedup and layer_idx == 1)
+            do_cap = capture and layer_idx in DISTILL_LAYER_INDICES
+            h, aux = getattr(self, name)(h, cv, ck, kv, cfg_tile=cfg_dedup and layer_idx == 1,
+                                         img_mask=img_mask, capture=do_cap)
+            if do_cap:
+                aux["outfeat"] = h
+                if capture_keys is not None:
+                    aux = {k: v for k, v in aux.items() if k in capture_keys}
+                captures[layer_idx] = aux
+            return h
 
         h = conv_nhwc(self.in_conv, x.to(dtype))
         hs = [h]
@@ -302,7 +358,8 @@ class UNetModel(nn.Module):
                     h = getattr(self, f"up_{level}_upsample")(h)
                 layer_idx += 1
         h = F.silu(group_norm(h, self.out_norm_scale, self.out_norm_bias, 32, 1e-5))
-        return conv_nhwc(self.out_conv, h).float()
+        eps = conv_nhwc(self.out_conv, h).float()
+        return (eps, captures) if capture else eps
 
 
 def precompute_cross_kv(unet: UNetModel, context: torch.Tensor,

@@ -1,8 +1,10 @@
-"""SD VAE decoder, NHWC at the interface (counterpart of the decode half of
-`adaface_tpu/models/vae.py`: `post_quant_conv` + `Decoder`, GroupNorm eps
-1e-6). The mid-block attention is single-head and query-chunked (512 query
-rows at a time from 1024 tokens up), plain torch. The encoder is not ported
-yet. Submodules carry the flax tree's names under `decoder.`."""
+"""SD VAE (AutoencoderKL), NHWC at the interface (counterpart of
+`adaface_tpu/models/vae.py` without the fg-mask isolation of the mid
+attention): `Encoder` + `quant_conv` (`encode` -> mean, logvar) and
+`post_quant_conv` + `Decoder` (`decode`), GroupNorm eps 1e-6. The mid-block
+attention is single-head with fp32 scores, query-chunked (512 query rows at
+a time from 1024 tokens up), plain torch. Submodules carry the flax tree's
+names under `encoder.` and `decoder.`."""
 
 from __future__ import annotations
 
@@ -23,9 +25,11 @@ class VAEConfig:
     ch: int = 128
     ch_mult: tuple = (1, 2, 4, 4)
     num_res_blocks: int = 2
+    in_channels: int = 3
     out_channels: int = 3
     z_channels: int = 4
     embed_dim: int = 4
+    double_z: bool = True
 
     @classmethod
     def sd_v1(cls) -> "VAEConfig":
@@ -62,7 +66,9 @@ class ResnetBlock(nn.Module):
 
 
 class AttnBlock(nn.Module):
-    """Single-head spatial self-attention (the unmasked decode path)."""
+    """Single-head spatial self-attention (the unmasked path): scores from
+    an fp32 product (the JAX package's `preferred_element_type`), fp32
+    softmax, probabilities cast to v's dtype for the value product."""
 
     CHUNK = 512
 
@@ -81,16 +87,16 @@ class AttnBlock(nn.Module):
         h = group_norm(x, self.norm_scale, self.norm_bias, 32, 1e-6)
         qf, kf, vf = (conv_nhwc(m, h).reshape(b, l, c) for m in (self.q, self.k, self.v))
         scale = c ** -0.5
-        kt = kf.transpose(1, 2)
+        kt = kf.float().transpose(1, 2)
         if l >= 1024:
             # query-chunked: the fp32 logits slab is [B, 512, L], not [B, L, L]
             outs = []
             for s in range(0, l, self.CHUNK):
-                lg = torch.matmul(qf[:, s:s + self.CHUNK], kt).float() * scale
+                lg = torch.matmul(qf[:, s:s + self.CHUNK].float(), kt) * scale
                 outs.append(torch.matmul(torch.softmax(lg, dim=-1).to(vf.dtype), vf))
             out = torch.cat(outs, dim=1)
         else:
-            probs = torch.softmax(torch.matmul(qf, kt).float() * scale, dim=-1)
+            probs = torch.softmax(torch.matmul(qf.float(), kt) * scale, dim=-1)
             out = torch.matmul(probs.to(vf.dtype), vf)
         return x + conv_nhwc(self.proj_out, out.reshape(b, hh, ww, c))
 
@@ -102,6 +108,50 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         return upsample2x_conv(x, self.conv.weight, self.conv.bias)
+
+
+class Downsample(nn.Module):
+    """Pad right and bottom by one, then a stride-2 VALID 3x3 conv (the
+    reference's (0, 1, 0, 1) pad; a symmetric pad 1 samples other pixels)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = nn.Conv2d(ch, ch, 3, stride=2, padding=0)
+
+    def forward(self, x):
+        return conv_nhwc(self.conv, F.pad(x, (0, 0, 0, 1, 0, 1)))
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.conv_in = _conv(cfg.in_channels, cfg.ch)
+        ch = cfg.ch
+        for i, mult in enumerate(cfg.ch_mult):
+            for j in range(cfg.num_res_blocks):
+                self.add_module(f"down_{i}_block_{j}", ResnetBlock(ch, cfg.ch * mult))
+                ch = cfg.ch * mult
+            if i != len(cfg.ch_mult) - 1:
+                self.add_module(f"down_{i}_downsample", Downsample(ch))
+        self.mid_block_1 = ResnetBlock(ch, ch)
+        self.mid_attn_1 = AttnBlock(ch)
+        self.mid_block_2 = ResnetBlock(ch, ch)
+        self.norm_out_scale = nn.Parameter(torch.empty(ch))
+        self.norm_out_bias = nn.Parameter(torch.empty(ch))
+        self.conv_out = _conv(ch, 2 * cfg.z_channels if cfg.double_z else cfg.z_channels)
+
+    def forward(self, x):
+        c = self.cfg
+        h = conv_nhwc(self.conv_in, x)
+        for i in range(len(c.ch_mult)):
+            for j in range(c.num_res_blocks):
+                h = getattr(self, f"down_{i}_block_{j}")(h)
+            if i != len(c.ch_mult) - 1:
+                h = getattr(self, f"down_{i}_downsample")(h)
+        h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
+        h = F.silu(group_norm(h, self.norm_out_scale, self.norm_out_bias, 32, 1e-6))
+        return conv_nhwc(self.conv_out, h)
 
 
 class Decoder(nn.Module):
@@ -138,14 +188,24 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Decode half of the SD autoencoder: [B, h, w, embed_dim] latents ->
-    [B, H, W, 3] images in about [-1, 1]."""
+    """[B, H, W, 3] images in about [-1, 1] <-> [B, h, w, embed_dim] latents."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
+        mul = 2 if cfg.double_z else 1
+        self.quant_conv = _conv(mul * cfg.z_channels, mul * cfg.embed_dim, 1)
         self.post_quant_conv = _conv(cfg.embed_dim, cfg.z_channels, 1)
+
+    def encode(self, x: torch.Tensor):
+        """(mean, logvar), each [B, h, w, embed_dim]; logvar clamped to
+        [-30, 20] as in DiagonalGaussianDistribution."""
+        x = x.to(self.quant_conv.weight.dtype)
+        moments = conv_nhwc(self.quant_conv, self.encoder(x))
+        mean, logvar = moments.chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         z = z.to(self.post_quant_conv.weight.dtype)

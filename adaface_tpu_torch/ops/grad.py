@@ -1,0 +1,38 @@
+"""Gradient-flow utilities (counterpart of `adaface_tpu/ops/grad.py`).
+
+- `scale_grad`: identity forward, gradient times `alpha` backward (the
+  reference's `gen_gradient_scaler`); alpha 1 is a no-op, 0 a detach.
+- `add_noise_to_tensor`: Gaussian noise with a std relative to the tensor's
+  own (population, ddof 0) std, which is detached.
+
+`perturb_params` is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def scale_grad(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    if alpha == 1:
+        return x
+    if alpha == 0:
+        return x.detach()
+    return x * alpha + (x * (1.0 - alpha)).detach()
+
+
+def add_noise_to_tensor(ts: torch.Tensor, noise_std: float,
+                        generator: Optional[torch.Generator] = None,
+                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ts + noise * noise_std * mean(std(ts, -1)), the std relative to the
+    tensor's own: the population std (ddof 0; torch.std defaults to the
+    unbiased one), detached. The unit noise is `noise` when given (tests pass
+    the same numbers to both packages), else drawn from `generator` on ts's
+    device. (The JAX function's absolute-std and keep-norm variants have no
+    caller here.)"""
+    std = noise_std * ts.detach().std(dim=-1, unbiased=False).mean()
+    if noise is None:
+        noise = torch.randn(ts.shape, generator=generator, device=ts.device, dtype=ts.dtype)
+    return ts + noise.to(ts.dtype) * std

@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int) -> np.ndarray:
@@ -21,11 +22,24 @@ def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int) -> np.
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """Full-resolution (T=1000) schedule constants, float32 [T] arrays."""
+    """Full-resolution (T=1000) schedule constants, float32 [T] arrays (the
+    square roots taken in float64, as the JAX package does)."""
 
     betas: np.ndarray
     alphas_cumprod: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
     num_timesteps: int = 1000
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """Forward noising q(x_t | x_0) = sqrt(acp_t) x_0 + sqrt(1 - acp_t)
+        noise, for t [B] int."""
+        shape = (-1,) + (1,) * (x_start.dim() - 1)
+        idx = t.long().to(x_start.device)
+        a = torch.as_tensor(self.sqrt_alphas_cumprod, device=x_start.device)[idx]
+        s = torch.as_tensor(self.sqrt_one_minus_alphas_cumprod, device=x_start.device)[idx]
+        return a.view(shape) * x_start + s.view(shape) * noise
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,8 +60,11 @@ def make_diffusion_schedule(num_timesteps: int = 1000, linear_start: float = 8.5
     """SD v1.5's "linear" schedule: betas a linspace in sqrt space, squared."""
     betas = np.linspace(linear_start ** 0.5, linear_end ** 0.5, num_timesteps,
                         dtype=np.float64) ** 2
+    acp = np.cumprod(1.0 - betas)
     return DiffusionSchedule(betas=betas.astype(np.float32),
-                             alphas_cumprod=np.cumprod(1.0 - betas).astype(np.float32),
+                             alphas_cumprod=acp.astype(np.float32),
+                             sqrt_alphas_cumprod=np.sqrt(acp).astype(np.float32),
+                             sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - acp).astype(np.float32),
                              num_timesteps=num_timesteps)
 
 

@@ -27,18 +27,48 @@ class StaticEmbedderParams:
 
 def init_static_embedder(generator: torch.Generator, num_layers: int = 16,
                          num_vectors: int = 1, emb_dim: int = 768, rank: int = 6,
+                         init_vecs: Optional[np.ndarray] = None,
+                         init_vec_weights: Optional[np.ndarray] = None,
+                         init_noise_stds=(0.1, 0.04), has_bias: bool = True,
                          device=None) -> StaticEmbedderParams:
-    """The JAX package's init without init words, with draws from
-    `generator` (on `device`): standard-normal rank weights around common
-    weights 1/rank, random basis vectors normalized to 1/4 with the last one
-    zeroed, zero bias. (Init-word vectors, `pre_vecs`, come with training.)"""
+    """The JAX package's init, with draws from `generator` (on `device`):
+    standard-normal rank weights; random basis vectors normalized to 1/4
+    with the last one zeroed; zero bias when `has_bias`. With `init_vecs`
+    [N, D] (class-word embeddings): pre_vecs repeat them for each of the K
+    vectors, the common weights are 1/N (times 0.4 past the N init words,
+    or `init_vec_weights` on them) and the random weights are scaled by
+    init_noise_stds[1] on the init words and [0] past them; without, the
+    common weights are 1/rank. fp32 throughout."""
     L, K, r, D = num_layers, num_vectors, rank, emb_dim
     brw = torch.randn((L, K, r), generator=generator, device=device)
-    bcw = torch.full((1, K, r), 1.0 / r, device=device)
-    bv = torch.randn((K, r, D), generator=generator, device=device)
-    bv = bv / torch.linalg.norm(bv, dim=-1, keepdim=True) / 4.0
-    bv[-1] = 0.0
-    return StaticEmbedderParams(brw, bcw, bv, None, torch.zeros((L, K, D), device=device))
+    if init_vecs is not None:
+        iv = torch.as_tensor(np.asarray(init_vecs, np.float32), device=device)
+        N = iv.shape[0]
+        pre_vecs = iv[None].repeat(K, 1, 1)
+        bcw = torch.full((1, K, r), 1.0 / N, device=device)
+        bcw[:, :, N:] *= 0.4
+        if init_vec_weights is not None:
+            bcw[:, :, :N] = torch.as_tensor(np.asarray(init_vec_weights, np.float32),
+                                            device=device)[None, None, :]
+        brw[:, :, :N] *= init_noise_stds[1]
+        brw[:, :, N:] *= init_noise_stds[0]
+    else:
+        N = 0
+        pre_vecs = None
+        bcw = torch.full((1, K, r), 1.0 / r, device=device)
+    basis_vecs = None
+    if r - N > 0:
+        bv = torch.randn((K, r - N, D), generator=generator, device=device)
+        basis_vecs = bv / torch.linalg.norm(bv, dim=-1, keepdim=True) / 4.0
+        basis_vecs[-1] = 0.0
+    bias = torch.zeros((L, K, D), device=device) if has_bias else None
+    return StaticEmbedderParams(brw, bcw, basis_vecs, pre_vecs, bias)
+
+
+def embedder_leaves(p: StaticEmbedderParams):
+    """(field name, tensor) of the embedder's present leaves, in field order."""
+    return [(f.name, getattr(p, f.name)) for f in dataclasses.fields(p)
+            if getattr(p, f.name) is not None]
 
 
 def compute_static_embedding(p: StaticEmbedderParams) -> torch.Tensor:

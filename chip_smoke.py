@@ -7,29 +7,47 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each of which exits non-zero on failure:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
-  2. build: every CUDA kernel from `adaface_tpu_torch/csrc/`, with nvcc;
-  3. kernel vs plain: the packed flash-attention kernel against its plain
-     fp32 PyTorch version at every main-path shape, a fused-qkv input and a
-     key bias with a fully masked row, each gated on max abs and relative L2
-     error; planted faults must fail the same gate; kernel, plain and SDPA
-     times;
-  4. reference: the SD-width CLIP, UNet and VAE in bf16 on the card against
+  2. build: every CUDA kernel source in `adaface_tpu_torch/csrc/`, one nvcc
+     each, started together;
+  3. forward kernel vs plain: the packed flash-attention forward against its
+     plain fp32 PyTorch version at every generate shape, a fused-qkv input
+     and a key bias with a fully masked row, each gated on max abs and
+     relative L2 error; planted faults must fail the same gate; kernel,
+     plain and SDPA times;
+  4. backward kernels vs plain: at the training shapes (B3 L4096 d40, B3
+     L1024 d80, B3 L256 d160, with a 30% key mask plus a fully masked batch
+     row, and without bias), the forward's lse and the dq and dk/dv/dbias
+     kernels against the plain backward on the same bf16 inputs; planted
+     faults (a skipped 64-key tile, delta omitted, dk without its scale)
+     must fail the gate; kernel, plain and SDPA-backward times;
+  5. reference: the SD-width CLIP, UNet and VAE in bf16 on the card against
      the same weights in fp32 on the CPU, on a small input;
-  5. main path: `StableDiffusionPipeline.generate` at SD-v1.5 width, batch 8,
-     512x512, DDIM-50, CFG 10->4, bf16, random weights, one 9-vector subject
-     placeholder: one warm-up and 3 timed requests, each of which must launch
-     the kernel exactly 750 times;
-  6. profile: stage times, and device time by kernel category and the
-     device's idle share for one whole request.
+  6. generate: `StableDiffusionPipeline.generate` at SD-v1.5 width, batch
+     8, 512x512, DDIM-50, CFG 10->4, bf16, random weights, one 9-vector
+     subject placeholder: one warm-up and 3 timed requests, each of which
+     must launch the forward kernel exactly 750 times;
+  7. generate profile: stage times, and device time by kernel category and
+     the device's idle share for one whole request;
+  8. training reference: one recon loss and its embedder gradients at SD
+     widths on a 32x32 latent, bf16 on the card against fp32 on the CPU;
+  9. training: the recon-only `Trainer.fit` (batch 3, 512x512, 2-step
+     accumulation, Prodigy, clip 0.5) for 8 micro-steps, each of which must
+     launch exactly 15 forward, 14 dq and 14 dk/dv kernels (the UNet's
+     first self-attention precedes everything trained, so it has no
+     backward); metrics finite,
+     embedders moved, the checkpoint reloads; s per micro-step, peak memory
+     and one profiled micro-step.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense) for the bounds.
@@ -53,8 +71,12 @@ REFERENCE_TOL = {"clip": 5e-2, "unet eps": 5e-2, "vae decode": 1e-1}
 STEPS, BATCH, SIZE = 50, 8, 512
 PROMPT = "a photo of a z , , , , , , , , person"
 SOURCE = "adaface_tpu_torch/csrc/flash_attn_packed.cu"
+BWD_SOURCE = "adaface_tpu_torch/csrc/flash_attn_bwd.cu"
 K1 = "adaface_tpu/ops/flash_attention.py:578"  # _flash_kernel_heads_pvt
 K4 = "adaface_tpu/ops/flash_attention.py:544"  # _flash_kernel_heads_short
+K3A = "adaface_tpu/ops/flash_attention.py:236"  # _row_lse_kernel
+K3B = "adaface_tpu/ops/flash_attention.py:252"  # _bwd_dq_kernel
+K3C = "adaface_tpu/ops/flash_attention.py:272"  # _bwd_dkv_kernel
 # (B, L, H, d) -> (TPU kernel replaced, launches per generate call)
 MAIN_SHAPES = {
     (16, 4096, 8, 40): (K1, 200),
@@ -62,6 +84,32 @@ MAIN_SHAPES = {
     (16, 1024, 8, 80): (K1, 250),
     (16, 256, 8, 160): (K4, 250),
 }
+
+
+# Training: (B, L, H, d) of every self-attention at L >= 256 in one recon
+# micro-step at 512x512, batch 3 -> (TPU forward kernel, launches per
+# micro-step of the forward, of dq and of dk/dv). Five self-attentions run
+# at each shape. The first (layer 1) comes before anything that depends on
+# the trained embedders, so autograd records no graph for it: it runs the
+# forward without lse and no backward, as XLA drops its backward in JAX.
+TRAIN_SHAPES = {(3, 4096, 8, 40): (K1, 5, 4), (3, 1024, 8, 80): (K1, 5, 5),
+                (3, 256, 8, 160): (K4, 5, 5)}
+TRAIN_STEPS = 8  # micro-steps, 4 optimizer updates
+# Backward gate, kernel vs the plain fp32 backward on the same bf16 inputs.
+# Measured on an H100 at these shapes: dq/dk/dv relative L2 2.2e-3..2.4e-3
+# (bf16 rounding of ds, p and the outputs), max abs 1.0e-3..7.1e-3 growing
+# with d; lse 2e-6 abs; dbias (fp32 sums of fp32 ds) relative 6e-7. Planted
+# faults give relative L2 far above these limits; the script checks it.
+BWD_REL_TOL = 1e-2
+BWD_ABS_TOL = {40: 5e-3, 80: 1e-2, 160: 2.5e-2}
+LSE_ABS_TOL = 1e-4
+DBIAS_REL_TOL = 1e-4
+# Training reference, bf16 card vs fp32 CPU through CLIP, the UNet forward
+# and backward and the losses: relative error of the loss (measured 9.2e-5
+# on an H100) and relative L2 error of each embedder leaf's gradient
+# (measured 2.2e-2..2.7e-2).
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GRAD_TOL = 1e-1
 
 
 def fail(msg):
@@ -94,8 +142,11 @@ def time_ms(torch, fn, reps=10, rounds=10, warmup=2):
 
 
 def bound(b, lq, lk, h, d, exp2_rate, with_bias):
-    dp = (d + 15) // 16 * 16
-    t_mma = 4 * b * h * lq * lk * dp / PEAK_BF16_FLOPS
+    """Least time of the forward: 4*B*H*Lq*Lk*d tensor-core flops (the real
+    head dim, not the kernel's padded tile), B*H*Lq*Lk exp2, or the bytes of
+    q, k, v (and the bias) read once and o written once, whichever is
+    largest."""
+    t_mma = 4 * b * h * lq * lk * d / PEAK_BF16_FLOPS
     t_exp = b * h * lq * lk / exp2_rate
     nbytes = 2 * h * d * (2 * b * lq + 2 * b * lk) + (4 * b * lk if with_bias else 0)
     t_bytes = nbytes / PEAK_HBM_BYTES
@@ -125,11 +176,21 @@ def phase_card(torch):
 
 def phase_build(kernels):
     t0 = time.time()
-    log = kernels.build()
-    say(f"[build] {time.time() - t0:.1f} s, libraries {[p.name for p in kernels.BUILD_DIR.glob('*.so')]}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            say(f"[build]   {line.strip()}")
+    logs = kernels.build_all()
+    say(f"[build] {time.time() - t0:.1f} s for {len(logs)} sources in parallel, libraries "
+        f"{[p.name for p in kernels.BUILD_DIR.glob('*.so')]}")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                say(f"[build]   {name}: {line.split('_Z')[-1].split('EEEv')[0][-40:]}")
+            elif "registers" in line or "spill" in line or "error" in line:
+                say(f"[build]   {name}:   {line.strip()}")
+
+
+def n_launches(fa, kind=None):
+    """Kernel launches counted since `launches_by_shape` was last cleared,
+    of one kind ("fwd", "dq", "dkv") or of all."""
+    return sum(n for key, n in fa.launches_by_shape.items() if kind in (None, key[0]))
 
 
 def kernel_errors(out, plain):
@@ -181,11 +242,11 @@ def phase_kernels(torch, fa, card, exp2_rate):
             bias = torch.zeros((b, l), device="cuda")
             bias[0] = -1e30
             bias[1:, torch.rand(l, generator=gen, device="cuda") > 0.6] = -1e30
-        fa.launches = 0
+        fa.launches_by_shape.clear()
         out = fa.flash_attention_blc_cuda(q, k, v, h, key_bias=bias)
         torch.cuda.synchronize()
-        if fa.launches != 1:
-            fail(f"kernel wrapper counted {fa.launches} launches for one call")
+        if n_launches(fa) != 1:
+            fail(f"kernel wrapper counted {n_launches(fa)} launches for one call")
         plain = fa.flash_attention_blc_plain(q, k, v, h, key_bias=bias)
         if not torch.isfinite(out).all():
             fail(f"{kind} B{b} L{l} H{h} d{d}: non-finite kernel output")
@@ -205,7 +266,6 @@ def phase_kernels(torch, fa, card, exp2_rate):
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask, scale=d ** -0.5))
         bound_ms, bound_by = bound(b, l, l, h, d, exp2_rate, bias is not None)
-        fa.launches = 0
         fa.launches_by_shape.clear()
         say(f"[kernel] {label:44s}: max abs err {err:.3e} (tol {KERNEL_ABS_TOL[d]}) "
             f"rel L2 {rel:.3e} (tol {KERNEL_REL_TOL}) kernel {ms:.4f} ms plain "
@@ -219,6 +279,157 @@ def phase_kernels(torch, fa, card, exp2_rate):
                                       bound_ms=bound_ms, bound_by=bound_by,
                                       library_ms=library_ms)
         del q, k, v, out, plain
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bwd_bound(b, l, h, d, exp2_rate, mma_products, out_tensors, with_bias):
+    """Least time of a backward kernel: mma_products x 2*B*H*L^2*d
+    tensor-core flops (the real head dim), B*H*L^2 exp2, or the bytes of q,
+    k, v, dO, lse, delta (and the bias) read once and `out_tensors`
+    [B, L, H*D] bf16 outputs written once, whichever is largest."""
+    t_mma = 2 * mma_products * b * h * l * l * d / PEAK_BF16_FLOPS
+    t_exp = b * h * l * l / exp2_rate
+    nbytes = (2 * b * l * h * d * (4 + out_tensors) + 2 * 4 * b * h * l
+              + (4 * b * l if with_bias else 0))
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return max(t_mma, t_exp, t_bytes) * 1e3, ("bytes" if t_bytes >= max(t_mma, t_exp)
+                                               else "operations")
+
+
+def _gate_bwd(got, plain, d, what):
+    """(max abs, rel L2, passes) of one backward output against fp32."""
+    err, rel = kernel_errors(got, plain)
+    if what == "o":
+        ok = gate_passes(got, plain, d)
+    elif what == "lse":
+        ok = err <= LSE_ABS_TOL
+    elif what == "dbias":
+        ok = rel <= DBIAS_REL_TOL
+    else:
+        ok = err <= BWD_ABS_TOL[d] and rel <= BWD_REL_TOL
+    return err, rel, ok
+
+
+def phase_backward_kernels(torch, fa, card, exp2_rate):
+    """The forward's lse and the dq and dk/dv/dbias kernels at the training
+    shapes against the plain backward, planted faults, and times."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for (b, l, h, d), (replaces, _, _) in TRAIN_SHAPES.items():
+        for with_bias in (True, False):
+            inner = h * d
+            rand = lambda: torch.randn((b, l, inner), generator=gen, device="cuda").bfloat16()
+            q, k, v, do = rand(), rand(), rand(), rand()
+            bias = None
+            if with_bias:
+                bias = torch.where(torch.rand((b, l), generator=gen, device="cuda") > 0.3,
+                                   0.0, -1e30)
+                bias[0] = -1e30  # a fully masked batch row
+            scale = d ** -0.5
+            label = f"B{b} L{l} H{h} d{d} {'bias' if with_bias else 'no bias'}"
+            fa.launches_by_shape.clear()
+            out, lse = fa.flash_attention_blc_cuda(q, k, v, h, bias, return_lse=True)
+            delta = fa.row_delta(out, do, h)
+            dq = fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, h)
+            dk, dv, dbias = fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, h,
+                                                  need_dbias=True)
+            torch.cuda.synchronize()
+            counted = [n_launches(fa, kind) for kind in ("fwd", "dq", "dkv")]
+            if counted != [1, 1, 1]:
+                fail(f"{label}: wrappers counted {counted} fwd/dq/dkv launches for one "
+                     f"call each")
+            plain_out = fa.flash_attention_blc_plain(q, k, v, h, bias)
+            plain_lse = fa.row_lse_plain(q, k, h, bias)
+            pdq, pdk, pdv, pdb = fa.flash_backward_plain(q, k, v, bias, out, do, lse, h)
+            checks = [("o", out, plain_out), ("lse", lse, plain_lse), ("dq", dq, pdq),
+                      ("dk", dk, pdk),
+                      ("dv", dv, pdv), ("dbias", dbias.sum(1), pdb.sum(1))]
+            errs = {}
+            for what, got, ref in checks:
+                if not torch.isfinite(got).all():
+                    fail(f"{label}: non-finite {what}")
+                err, rel, ok = _gate_bwd(got, ref, d, what)
+                errs[what] = (err, rel)
+                say(f"[backward] {label:26s} {what:5s}: max abs err {err:.3e} rel L2 "
+                    f"{rel:.3e}{'' if ok else '  FAILS THE GATE'}")
+                if not ok:
+                    fail(f"{label}: {what} disagrees with the plain backward")
+            # planted faults, made with the plain version and rounded like
+            # the kernels' outputs; each must fail the gate
+            tile_dq = fa.flash_backward_plain(q, k[:, 64:], v[:, 64:],
+                                              None if bias is None else bias[:, 64:],
+                                              out, do, lse, h)[0]
+            no_delta = fa.flash_backward_plain(q, k, v, bias, torch.zeros_like(out), do,
+                                               lse, h)
+            skipped_dk = pdk.clone()
+            skipped_dk[:, :64] = 0
+            faults = [("key tile 0 skipped", "dq", tile_dq, pdq),
+                      ("key tile 0 skipped", "dk", skipped_dk, pdk),
+                      ("delta omitted", "dq", no_delta[0], pdq),
+                      ("delta omitted", "dk", no_delta[1], pdk),
+                      ("dk without its scale", "dk", pdk / scale, pdk)]
+            for name, what, wrong, ref in faults:
+                err, rel, ok = _gate_bwd(wrong.bfloat16(), ref, d, what)
+                say(f"[backward]   planted fault, {name} ({what}): max abs err {err:.3e} "
+                    f"rel L2 {rel:.3e}")
+                if ok:
+                    fail(f"{label}: the gate passes a planted fault ({name}, {what})")
+            del tile_dq, no_delta, skipped_dk
+            if not with_bias:
+                continue
+            # times at the training configuration (with the bias); the
+            # forward with and without its lse output, alternated
+            fwd_times = {False: [], True: []}
+            for want_lse in (False, True, True, False):
+                fwd_times[want_lse].append(time_ms(torch, lambda: fa.flash_attention_blc_cuda(
+                    q, k, v, h, bias, return_lse=want_lse)))
+            fwd_ms = statistics.mean(fwd_times[True])
+            fwd_nolse_ms = statistics.mean(fwd_times[False])
+            dq_ms = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse,
+                                                                delta, h))
+            dkv_ms = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse,
+                                                                  delta, h))
+            fwd_plain_ms = time_ms(torch, lambda: (fa.flash_attention_blc_plain(
+                q, k, v, h, bias), fa.row_lse_plain(q, k, h, bias)), reps=2, rounds=3)
+            bwd_plain_ms = time_ms(torch, lambda: fa.flash_backward_plain(
+                q, k, v, bias, out, do, lse, h), reps=2, rounds=3)
+            qh, kh, vh = (t.unflatten(-1, (h, d)).transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            mask = bias.to(torch.bfloat16)[:, None, None, :]
+            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                          scale=scale)
+            fwd_lib_ms = time_ms(torch, lambda: sdpa().detach())
+            o_lib = sdpa()
+            g_lib = do.unflatten(-1, (h, d)).transpose(1, 2)
+            bwd_lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qh, kh, vh), g_lib, retain_graph=True))
+            del o_lib, qh, kh, vh
+            fwd_bound = bound(b, l, l, h, d, exp2_rate, True)
+            dq_bound = bwd_bound(b, l, h, d, exp2_rate, 3, 1, True)
+            dkv_bound = bwd_bound(b, l, h, d, exp2_rate, 4, 2, True)
+            rows[("fwd", b, l, h, d)] = dict(
+                replaces=f"{replaces} (+ {K3A} as the lse output)",
+                max_abs_err=errs["o"][0], ms=fwd_ms, plain_ms=fwd_plain_ms,
+                bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=fwd_lib_ms)
+            rows[("dq", b, l, h, d)] = dict(
+                replaces=K3B, max_abs_err=errs["dq"][0], ms=dq_ms, plain_ms=bwd_plain_ms,
+                bound_ms=dq_bound[0], bound_by=dq_bound[1], library_ms=bwd_lib_ms)
+            rows[("dkv", b, l, h, d)] = dict(
+                replaces=K3C, max_abs_err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
+                plain_ms=bwd_plain_ms, bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
+                library_ms=bwd_lib_ms)
+            say(f"[backward] {label}: fwd+lse {fwd_ms:.4f} ms, fwd without lse "
+                f"{fwd_nolse_ms:.4f} ms (lse costs {fwd_ms / fwd_nolse_ms - 1:+.1%}; bound "
+                f"{fwd_bound[0]:.4f}, "
+                f"sdpa fwd {fwd_lib_ms:.4f}), dq {dq_ms:.4f} ms (bound {dq_bound[0]:.4f} "
+                f"{dq_bound[1]}), dk/dv {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} "
+                f"{dkv_bound[1]}), sdpa backward {bwd_lib_ms:.4f} ms, plain fwd "
+                f"{fwd_plain_ms:.3f} ms, plain backward {bwd_plain_ms:.3f} ms [{card}]")
+            del q, k, v, do, out, lse, delta, dq, dk, dv, dbias, pdq, pdk, pdv, pdb
+    fa.launches_by_shape.clear()
     torch.cuda.empty_cache()
     return rows
 
@@ -252,11 +463,11 @@ def phase_reference(torch, pipe):
         unet_cpu = cpu_copy(pipe.unet)
         eps_cpu = unet_cpu(x, t, ctx, cfg_dedup=True, cross_kv=precompute_cross_kv(unet_cpu, ctx))
         del unet_cpu
-        fa_launches = _fa().launches
+        fa_launches = n_launches(_fa())
         ctx_d = ctx.cuda().to(torch.bfloat16)
         eps_gpu = pipe.unet(x.cuda(), t.cuda(), ctx_d, cfg_dedup=True,
                             cross_kv=precompute_cross_kv(pipe.unet, ctx_d))
-        if _fa().launches - fa_launches != 5:
+        if n_launches(_fa()) - fa_launches != 5:
             fail("the small-input UNet call did not take the kernel 5 times")
         vae_cpu = cpu_copy(pipe.vae)
         img_cpu = vae_cpu.decode(z)
@@ -288,14 +499,14 @@ def phase_main_path(torch, pipe, card):
     say(f"[main] warm-up request {time.time() - t0:.3f} s [{card}]")
     times = []
     for i in range(3):
-        fa.launches = 0
         fa.launches_by_shape.clear()
         torch.cuda.synchronize()
         t0 = time.time()
         imgs = pipe.generate(prompts, seed=i + 1, **kw)
         times.append(time.time() - t0)
-        counts = {(b, lq, h, d): n for (b, lq, lk, h, d), n in fa.launches_by_shape.items()}
-        launches = fa.launches
+        counts = {(b, lq, h, d): n for (kind, b, lq, lk, h, d), n
+                  in fa.launches_by_shape.items() if kind == "fwd"}
+        launches = n_launches(fa)
         say(f"[main] request {i}: {times[-1]:.3f} s, {BATCH / times[-1]:.4f} img/s, "
             f"kernel launches {launches} {sorted(counts.items())} [{card}]")
         if launches != 750 or counts != {s: n for s, (_, n) in MAIN_SHAPES.items()}:
@@ -319,7 +530,11 @@ def phase_main_path(torch, pipe, card):
 
 def _category(name):
     if "flash_fwd_packed" in name:
-        return "flash_attn_packed (this port's kernel)"
+        return "flash_attn_packed forward (this port's kernel)"
+    if "flash_bwd_dq" in name:
+        return "flash_attn_bwd dq (this port's kernel)"
+    if "flash_bwd_dkv" in name:
+        return "flash_attn_bwd dk/dv (this port's kernel)"
     if "fprop" in name or "conv" in name.lower() or "dgrad" in name:
         return "convolutions (cuDNN)"
     if "gemm" in name.lower() or "nvjet" in name or "cutlass" in name:
@@ -332,8 +547,6 @@ def _category(name):
 def phase_profile(torch, pipe, card):
     """Stage times, then one whole request under torch.profiler: device
     kernel time by category and the device's idle share of the request."""
-    from torch.profiler import ProfilerActivity, profile
-
     from adaface_tpu_torch.models.unet import precompute_cross_kv
 
     prompts = [PROMPT] * BATCH
@@ -353,18 +566,29 @@ def phase_profile(torch, pipe, card):
         f"one UNet call (B{2 * BATCH} 64x64) {unet_ms:.3f} ms, VAE decode (B{BATCH}) "
         f"{vae_ms:.3f} ms [{card}]")
     kw = dict(num_steps=STEPS, guidance_scale=(10.0, 4.0), height=SIZE, width=SIZE)
+    profile_breakdown(torch, lambda: pipe.generate(prompts, seed=4, **kw), "profile",
+                      "one request", card)
+
+
+def profile_breakdown(torch, fn, tag, what, card):
+    """Run fn() once under torch.profiler: device kernel time by category,
+    the top kernels, and the device's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
         t0 = time.time()
-        pipe.generate(prompts, seed=4, **kw)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     dev = lambda e: getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
     kernels = [e for e in prof.key_averages() if dev(e) > 0
                and str(getattr(e, "device_type", "")).endswith("CUDA")]
     total_ms = sum(dev(e) for e in kernels) / 1e3
     if total_ms == 0:
-        say("[profile] the profiler reported no device time: breakdown not measured")
+        say(f"[{tag}] the profiler reported no device time: breakdown not measured")
         return
-    say(f"[profile] one request under the profiler: wall {wall_ms:.1f} ms, device "
+    say(f"[{tag}] {what} under the profiler: wall {wall_ms:.1f} ms, device "
         f"kernel time {total_ms:.1f} ms, device idle share {1 - total_ms / wall_ms:.3f} "
         f"[{card}]")
     by_cat = {}
@@ -373,9 +597,232 @@ def phase_profile(torch, pipe, card):
         c[0] += dev(e) / 1e3
         c[1] += e.count
     for cat, (ms, n) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
-        say(f"[profile]   {ms:9.1f} ms {100 * ms / total_ms:5.1f}% {n:7d} launches  {cat}")
+        say(f"[{tag}]   {ms:9.1f} ms {100 * ms / total_ms:5.1f}% {n:7d} launches  {cat}")
     for e in sorted(kernels, key=dev, reverse=True)[:10]:
-        say(f"[profile]   top {dev(e) / 1e3:9.1f} ms x{e.count:<6d} {e.key[:100]}")
+        say(f"[{tag}]   top {dev(e) / 1e3:9.1f} ms x{e.count:<6d} {e.key[:100]}")
+
+
+def add_training_placeholders(torch, pipe):
+    """`z` (9 vectors) and background `y` (4), rank 10, initialized from the
+    CLIP token embeddings of "person" and "unknown" as the JAX training
+    script does; fp32 on the pipeline's device."""
+    tok, mgr = pipe.tokenizer, pipe.embedding_manager
+    table = pipe.clip.token_embedding.weight.detach().float().cpu().numpy()
+    gen = torch.Generator(device=pipe.device).manual_seed(11)
+    for s, k, bg, word in (("z", 9, False, "person"), ("y", 4, True, "unknown")):
+        tid = tok.extra_tokens.get(s) or tok.add_placeholder(s)
+        mgr.add_placeholder(s, token_id=tid, num_vectors=k, is_background=bg,
+                            init_vecs=table[tok.encode(word)], rank=10,
+                            emb_dim=table.shape[1], generator=gen, device=pipe.device)
+
+
+def make_dataset(folder, size=SIZE):
+    """A `PersonalizedDataset` whose images and fg masks are made from a
+    seed instead of read from files (the card's machine has no PIL);
+    augmentation and prompts are the port's own."""
+    import numpy as np
+
+    from adaface_tpu_torch.data.personalized import PersonalizedDataset, SubjectSpec
+
+    for i in range(4):
+        for name in (f"{i}.png", f"{i}_mask.png"):
+            open(os.path.join(folder, name), "wb").close()
+
+    class SeededImages(PersonalizedDataset):
+        def _load(self, rec):
+            i = int(os.path.basename(rec.path).split(".")[0])
+            g = np.random.default_rng(100 + i)
+            image = g.integers(0, 256, (size, size, 3), dtype=np.uint8)
+            mask = np.zeros((size, size), np.uint8)
+            mask[size // 5 + 8 * i: size - size // 5, size // 4: size - size // 4 + 8 * i] = 255
+            return image, mask, True
+
+    return SeededImages([SubjectSpec("subject", folder)], size=size, seed=0)
+
+
+def train_configs(logdir):
+    from adaface_tpu_torch.training.iter_plan import IterPlanConfig
+    from adaface_tpu_torch.training.trainer import TrainerConfig
+
+    return (TrainerConfig(batch_size=3, accumulate_grad_batches=2, grad_clip=0.5,
+                          d_coef=10.0, max_steps=TRAIN_STEPS,
+                          log_every_steps=10 ** 6, ckpt_every_steps=10 ** 6, logdir=logdir),
+            IterPlanConfig(composition_regs_iter_gap=0, do_zero_shot=False,
+                           prompt_emb_delta_reg_weight=2e-4, mix_prompt_distill_weight=2e-4,
+                           arc2face_distill_iter_prob=0.0))
+
+
+def phase_train_reference(torch, pipe, trainer_cls, tmp):
+    """One recon loss and its embedder gradients at SD widths on a 32x32
+    latent (batch 1): bf16 on the card vs the same weights in fp32 on the
+    CPU, through the trainer's own batch preparation and step."""
+    import dataclasses
+
+    from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
+    from adaface_tpu_torch.training.iter_plan import IterPlan
+    from adaface_tpu_torch.training.train_step import make_recon_train_step
+
+    tcfg, pcfg = train_configs(os.path.join(tmp, "ref"))
+    tcfg = dataclasses.replace(tcfg, batch_size=1)
+    ds_dir = os.path.join(tmp, "ref_subject")
+    os.makedirs(ds_dir)
+    trainer = trainer_cls(pipe, make_dataset(ds_dir, size=256), tcfg, pcfg)
+    plan = IterPlan(use_background_token=True)
+    batch = trainer.build_recon_batch(plan)  # 32x32 latents from the card's VAE
+    step = trainer._get_recon_step(True)
+
+    def copy_embedders(mgr, device):
+        return {s: dataclasses.replace(p, **{n: t.detach().float().to(device)
+                                             .clone().requires_grad_(True)
+                                             for n, t in embedder_leaves(p)})
+                for s, p in mgr.embedders.items()}
+
+    def cpu_copy(m):
+        with torch.device("meta"):
+            c = type(m)(m.cfg)
+        c = c.to_empty(device="cpu")
+        c.load_state_dict({k: v.float().cpu() for k, v in m.state_dict().items()})
+        return c.eval().requires_grad_(False)
+
+    emb_gpu = copy_embedders(pipe.embedding_manager, pipe.device)
+    loss_gpu, m_gpu = step.loss_fn(emb_gpu, batch)
+    loss_gpu.backward()
+    cpu_step = make_recon_train_step(
+        cpu_copy(pipe.clip), cpu_copy(pipe.unet), pipe.base_sched, None,
+        skip_weights=pipe.skip_weights,
+        bg_weight=tcfg.bg_recon_weight, emb_reg_weight=trainer._emb_reg_w,
+        prompt_delta_weight=trainer._delta_w,
+        complem_weight=tcfg.fg_bg_complementary_loss_weight,
+        xlayer_weight=tcfg.fg_bg_xlayer_consist_loss_weight, use_bg_token=True,
+        do_zero_shot=False, bg_placeholders=frozenset({"y"}))
+    to_cpu = lambda t: None if t is None else t.detach().float().cpu()
+    batch_cpu = batch._replace(**{f: to_cpu(getattr(batch, f)) for f in
+                                  ("latents", "fg_mask", "noise", "img_mask", "have_fg_mask")},
+                               timesteps=batch.timesteps.cpu())
+    emb_cpu = copy_embedders(pipe.embedding_manager, "cpu")
+    t0 = time.time()
+    loss_cpu, m_cpu = cpu_step.loss_fn(emb_cpu, batch_cpu)
+    loss_cpu.backward()
+    say(f"[train-ref] fp32 CPU loss and gradients in {time.time() - t0:.1f} s")
+    trainer.close()
+    worst = 0.0
+    for k in sorted(m_cpu):
+        a, b = m_gpu[k].item(), m_cpu[k].item()
+        say(f"[train-ref] {k:22s} card {a:.6e} cpu {b:.6e} relative error "
+            f"{abs(a - b) / max(abs(b), 1e-12):.3e}")
+        if not torch.isfinite(m_gpu[k]):
+            fail(f"training reference: non-finite {k} on the card")
+    loss_err = abs(loss_gpu.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    if not loss_err <= TRAIN_LOSS_TOL:
+        fail(f"training reference: loss off by {loss_err:.3e} (tol {TRAIN_LOSS_TOL})")
+    for s in sorted(emb_cpu):
+        for (n, g), (_, c) in zip(embedder_leaves(emb_gpu[s]), embedder_leaves(emb_cpu[s])):
+            e = rel_err(g.grad, c.grad)
+            worst = max(worst, e)
+            say(f"[train-ref] grad {s}.{n:18s} relative L2 error {e:.3e} (|g| {c.grad.norm():.3e})")
+            if not torch.isfinite(g.grad).all() or not e <= TRAIN_GRAD_TOL:
+                fail(f"training reference: gradient {s}.{n} off by {e:.3e} "
+                     f"(tol {TRAIN_GRAD_TOL})")
+    say(f"[train-ref] loss relative error {loss_err:.3e} (tol {TRAIN_LOSS_TOL}); worst gradient "
+        f"relative L2 error {worst:.3e} (tol {TRAIN_GRAD_TOL})")
+
+
+def phase_train(torch, pipe, fa, trainer_cls, tmp, card):
+    """The recon-only Trainer.fit at SD width: TRAIN_STEPS micro-steps, each
+    timed and each checked for its launches (TRAIN_SHAPES: 15 forward, 14 dq
+    and 14 dk/dv); then one more micro-step under the profiler."""
+    import numpy as np
+
+    from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
+    from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
+
+    tcfg, pcfg = train_configs(os.path.join(tmp, "run"))
+    ds_dir = os.path.join(tmp, "subject")
+    os.makedirs(ds_dir)
+    trainer = trainer_cls(pipe, make_dataset(ds_dir), tcfg, pcfg)
+    mgr = pipe.embedding_manager
+    leaves = lambda: {(s, n): t.detach().clone() for s, p in mgr.embedders.items()
+                      for n, t in embedder_leaves(p)}
+    start = leaves()
+    want = {"fwd": {s: n for s, (_, n, _) in TRAIN_SHAPES.items()}}
+    want["dq"] = want["dkv"] = {s: n for s, (_, _, n) in TRAIN_SHAPES.items()}
+    totals = {}
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches_by_shape.clear()
+    for i in range(TRAIN_STEPS):
+        before = dict(fa.launches_by_shape)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trainer.fit(i + 1)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        step_counts = {}
+        for (kind, b, lq, lk, h, d), n in fa.launches_by_shape.items():
+            n -= before.get((kind, b, lq, lk, h, d), 0)
+            if n:
+                step_counts.setdefault(kind, {})[(b, lq, h, d)] = n
+        say(f"[train] micro-step {i}: {times[-1]:.3f} s, launches "
+            f"{ {k: sorted(v.values()) for k, v in sorted(step_counts.items())} } [{card}]")
+        if step_counts != want:
+            fail(f"micro-step {i}: expected the launches {want}, got {step_counts}")
+        if i == 1:  # the first optimizer update
+            moved = max(float((t - start[key]).abs().max()) for key, t in leaves().items())
+            finite = all(bool(torch.isfinite(t).all()) for t in leaves().values())
+            say(f"[train] after the first update: embedders moved by up to {moved:.3e}, "
+                f"finite {finite}")
+            if not finite or not moved > 0:
+                fail("the first optimizer update left the embedders unchanged or non-finite")
+    for (kind, b, lq, lk, h, d), n in fa.launches_by_shape.items():
+        totals[(kind, b, lq, h, d)] = n
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    recs = [json.loads(l) for l in open(os.path.join(tcfg.logdir, "metrics.jsonl"))]
+    steps = [r for r in recs if "loss" in r]
+    if len(steps) != TRAIN_STEPS or not all(
+            np.isfinite(v) for r in steps for v in r.values() if isinstance(v, float)):
+        fail(f"metrics: {len(steps)} step records, or a non-finite value")
+    say(f"[train] metrics of the last micro-step: "
+        f"{ {k: round(v, 6) for k, v in steps[-1].items() if isinstance(v, float)} }")
+    reloaded = EmbeddingManager.load_native(os.path.join(tcfg.logdir, "embeddings_last.npz"))
+    for s, p in mgr.embedders.items():
+        for n, t in embedder_leaves(p):
+            if not np.array_equal(getattr(reloaded.embedders[s], n).numpy(),
+                                  t.detach().cpu().numpy()):
+                fail(f"checkpoint reload: {s}.{n} differs")
+    med = statistics.median(times[1:])
+    say(f"[train] recon micro-step, batch 3 512x512, bf16: median {med:.3f} s after the "
+        f"first ({times[0]:.3f} s), {3 / med:.3f} images/s, {2 * med:.3f} s per optimizer "
+        f"update; peak memory {peak:.2f} GiB; checkpoint reloads [{card}]")
+    profile_breakdown(torch, lambda: trainer.fit(TRAIN_STEPS + 1), "train-profile",
+                      "one recon micro-step", card)
+    train_stages(torch, trainer, card)
+    trainer.close()
+    return totals
+
+
+def train_stages(torch, trainer, card):
+    """Where a micro-step's wall time goes, one more micro-step taken apart:
+    drawing and augmenting the examples (host numpy), the whole batch
+    preparation (that, tokenizing, the VAE encode and the host RNG draws),
+    and the recon step (loss, backward, optimizer), each ended by a
+    synchronize."""
+    from adaface_tpu_torch.training.iter_plan import plan_iteration
+
+    plan = plan_iteration(trainer.rng, trainer.global_step, trainer.plan_cfg)
+    t0 = time.time()
+    trainer._draw_examples(trainer.cfg.batch_size)
+    t1 = time.time()
+    batch = trainer.build_recon_batch(plan)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    trainer._get_recon_step(plan.use_background_token)(trainer.mgr.embedders, batch)
+    torch.cuda.synchronize()
+    t3 = time.time()
+    say(f"[train] stages of one micro-step: examples drawn and augmented on the host "
+        f"{(t1 - t0) * 1e3:.1f} ms, whole batch preparation with the VAE encode "
+        f"{(t2 - t1) * 1e3:.1f} ms, recon step (loss, backward, optimizer) "
+        f"{(t3 - t2) * 1e3:.1f} ms [{card}]")
 
 
 def main():
@@ -387,13 +834,16 @@ def main():
         from adaface_tpu_torch import kernels
         from adaface_tpu_torch.data.tokenizer import HashTokenizer
         from adaface_tpu_torch.pipeline import StableDiffusionPipeline
+        from adaface_tpu_torch.training.trainer import Trainer
     except ImportError as e:
         fail(f"the port is not importable beside this script: {e}")
     fa = _fa()
+    t_start = time.time()
 
     card, exp2_rate = phase_card(torch)
     phase_build(kernels)
     rows = phase_kernels(torch, fa, card, exp2_rate)
+    bwd_rows = phase_backward_kernels(torch, fa, card, exp2_rate)
 
     t0 = time.time()
     tok = HashTokenizer()
@@ -403,18 +853,31 @@ def main():
         "z", token_id=tid, num_vectors=9, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(7))
     n_params = sum(p.numel() for m in (pipe.clip, pipe.unet, pipe.vae) for p in m.parameters())
-    say(f"[main] SD-v1.5-width pipeline ({n_params / 1e6:.1f} M parameters, bf16) built "
-        f"in {time.time() - t0:.1f} s")
+    say(f"[main] SD-v1.5-width pipeline ({n_params / 1e6:.1f} M parameters with the VAE "
+        f"encoder, bf16) built in {time.time() - t0:.1f} s")
 
     phase_reference(torch, pipe)
     counts = phase_main_path(torch, pipe, card)
     phase_profile(torch, pipe, card)
+
+    add_training_placeholders(torch, pipe)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train_reference(torch, pipe, Trainer, tmp)
+        train_counts = phase_train(torch, pipe, fa, Trainer, tmp, card)
 
     entries = []
     for (b, l, h, d), (replaces, _) in MAIN_SHAPES.items():
         entries.append(dict(name=f"flash_attn_packed B{b} L{l} H{h} d{d}", route="cuda",
                             source=SOURCE, replaces=replaces, launches=counts[(b, l, h, d)],
                             **rows[(b, l, h, d)]))
+    names = {"fwd": ("flash_attn_packed fwd (lse when recorded)", SOURCE),
+             "dq": ("flash_attn_bwd dq", BWD_SOURCE),
+             "dkv": ("flash_attn_bwd dk/dv", BWD_SOURCE)}
+    for (kind, b, l, h, d), row in bwd_rows.items():
+        name, source = names[kind]
+        entries.append(dict(name=f"{name} B{b} L{l} H{h} d{d} (training)", route="cuda",
+                            source=source, launches=train_counts[(kind, b, l, h, d)], **row))
+    say(f"[main] whole script {time.time() - t_start:.1f} s")
     say(json.dumps({"kernels": entries}))
     say(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

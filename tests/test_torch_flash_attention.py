@@ -66,13 +66,13 @@ def test_short_sequences_take_einsum_path(rng, lq, lk):
     b, heads, d = 2, 4, 40
     q, k, v = _inputs(rng, b, lq, lk, heads * d)
     bias = np.where(rng.random((b, lk)) > 0.2, 0.0, -1e30).astype(np.float32)
-    tfa.launches = 0
+    tfa.launches_by_shape.clear()
     ref = jfa.flash_attention_blc(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads,
                                   key_bias=jnp.asarray(bias))
     got = tfa.flash_attention_blc(torch.from_numpy(q), torch.from_numpy(k),
                                   torch.from_numpy(v), heads, key_bias=torch.from_numpy(bias))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
-    assert tfa.launches == 0
+    assert not tfa.launches_by_shape
 
 
 def test_plain_version_matches_reference_attention(rng):

@@ -74,8 +74,6 @@ def ported(jpipe):
 @pytest.mark.parametrize("name", ["clip", "unet", "vae"])
 def test_bridge_round_trip_bit_exact(jpipe, ported, name):
     tree = _np_tree(getattr(jpipe, f"{name}_params"))
-    if name == "vae":
-        tree = {k: tree[k] for k in ("decoder", "post_quant_conv")}
     back = from_jax.jax_tree_from_module(ported[name])
     flat_a = jax.tree_util.tree_flatten_with_path(tree)[0]
     flat_b = dict(jax.tree_util.tree_flatten_with_path(back)[0])
