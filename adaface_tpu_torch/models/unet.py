@@ -1,5 +1,5 @@
 """SD v1.5 U-Net, NHWC at the interface (counterpart of
-`adaface_tpu/models/unet.py` with its default arms).
+`adaface_tpu/models/unet.py` with its default arms and the two knobs below).
 
 - The context is a native [L, B, T, D] tensor (or [1, B, T, D], broadcast over
   layers); conditioned layer `layer_idx` reads context `CA_LAYER_INDEX[...]`.
@@ -13,6 +13,11 @@
   cross-attention.
 - `precompute_cross_kv` hoists the loop-invariant cross-attention K/V
   projections out of the sampling loop.
+- Two knobs of the JAX package, off by default and read at call time:
+  `ADAFACE_GN_MAX_ELEMS` sends the GroupNorm+SiLU of every ResBlock and of
+  the output norm whose slab passes its gates to the fused kernel
+  (`ops.fused_norm.group_norm_silu`); `ADAFACE_FUSED_FF=1` the feed-forward
+  of every transformer block that does not capture (`ops.fused_ff`).
 - Training: `img_mask` [B, H0, W0, 1] (the augmentation's valid area) is
   nearest-resized to each level (torch index semantics) and masks the keys
   of every self-attention as a bias `where(mask, 0, -1e30)`; `capture`
@@ -35,8 +40,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from adaface_tpu_torch.ops.basic import conv_nhwc, geglu, group_norm, timestep_embedding
+from adaface_tpu_torch.ops import fused_ff
+from adaface_tpu_torch.ops.basic import conv_nhwc, group_norm, timestep_embedding
 from adaface_tpu_torch.ops.flash_attention import flash_attention_blc
+from adaface_tpu_torch.ops.fused_norm import group_norm_silu
 from adaface_tpu_torch.ops.subpixel import upsample2x_conv
 
 # layer_idx -> cross-attention (context) index, as in the JAX package
@@ -95,10 +102,10 @@ class ResBlock(nn.Module):
         self.skip = _conv(in_ch, out_ch, kernel=1) if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = F.silu(group_norm(x, self.in_norm_scale, self.in_norm_bias, 32, 1e-5))
+        h = group_norm_silu(x, self.in_norm_scale, self.in_norm_bias, 32, 1e-5)
         h = conv_nhwc(self.in_conv, h)
         h = h + self.emb_proj(F.silu(emb))[:, None, None, :]
-        h = F.silu(group_norm(h, self.out_norm_scale, self.out_norm_bias, 32, 1e-5))
+        h = group_norm_silu(h, self.out_norm_scale, self.out_norm_bias, 32, 1e-5)
         h = conv_nhwc(self.out_conv, h)
         if self.skip is not None:
             x = conv_nhwc(self.skip, x)
@@ -167,7 +174,11 @@ class TransformerBlock(nn.Module):
             x = torch.cat([x, x], dim=0)
         a2, aux = self.attn2(self.norm2(x), ctx_v, ctx_k, kv, capture=capture)
         x = x + a2
-        return x + self.ff_out(geglu(self.ff_in(self.norm3(x)))), aux
+        # the fused feed-forward (ADAFACE_FUSED_FF=1) runs unless the block
+        # captures, as in the JAX package; the weights go in transposed views
+        ff = fused_ff.ln_geglu_ff_unfused if capture else fused_ff.ln_geglu_ff
+        return ff(x, self.norm3.weight, self.norm3.bias, self.ff_in.weight.t(),
+                  self.ff_in.bias, self.ff_out.weight.t(), self.ff_out.bias), aux
 
 
 class SpatialTransformer(nn.Module):
@@ -357,7 +368,7 @@ class UNetModel(nn.Module):
                 if level != 0 and blk == c.num_res_blocks:
                     h = getattr(self, f"up_{level}_upsample")(h)
                 layer_idx += 1
-        h = F.silu(group_norm(h, self.out_norm_scale, self.out_norm_bias, 32, 1e-5))
+        h = group_norm_silu(h, self.out_norm_scale, self.out_norm_bias, 32, 1e-5)
         eps = conv_nhwc(self.out_conv, h).float()
         return (eps, captures) if capture else eps
 

@@ -1,0 +1,166 @@
+"""Fused LayerNorm + GEGLU feed-forward + residual of the UNet transformer
+blocks (counterpart of `adaface_tpu/ops/fused_ff.py`).
+
+`ln_geglu_ff(x, ...)` = x + Linear(F -> C)(a * gelu_tanh(g)) with [a | g] =
+Linear(C -> 2F)(LayerNorm(x)), weights in the JAX layout (w1 [C, 2F], w2
+[F, C]; the UNet passes its nn.Linear weights transposed, as views).
+
+- `ADAFACE_FUSED_FF` other than "1" (the default): `ln_geglu_ff_unfused`,
+  the chain of torch ops the UNet ran before the knob existed
+  (`F.layer_norm`, `F.linear`, GEGLU, `F.linear`, residual).
+- `ADAFACE_FUSED_FF=1`: the kernel's function. On a CUDA tensor the
+  hand-written Hopper kernels of `csrc/ln_geglu_ff.cu` (LayerNorm, GEMM1 +
+  GEGLU, GEMM2 + residual: three launches that replace the TPU kernel
+  `_ff_kernel`), on a CPU tensor its plain version `ln_geglu_ff_plain`,
+  which is `_reference_ln_geglu_ff` with its roundings.
+  The gradient, `LnGegluFF`, saves only the inputs and recomputes through
+  the plain chain (`_ff_core_bwd`), for the inputs that need one: the UNet's
+  frozen weights get none.
+
+`launches_by_shape` counts kernel calls per (B, L, C); callers may clear it
+to count one run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from adaface_tpu_torch import kernels, knobs
+from adaface_tpu_torch.ops.basic import geglu
+from adaface_tpu_torch.ops.grad import recompute_grads
+
+# columns per CTA tile of both GEMMs; C and F must be multiples of it
+KERNEL_COL_TILE = 64
+KERNEL_MAX_C = 2048  # the LayerNorm launch holds a row in one warp's registers
+
+launches_by_shape: Dict[Tuple[int, int, int], int] = {}
+
+_fn = None
+
+
+def ln_geglu_ff_unfused(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
+    """The torch chain the knob replaces: nn.LayerNorm (torch's statistics),
+    nn.Linear (bias added before the cast), GEGLU, nn.Linear, residual."""
+    y = F.layer_norm(x, x.shape[-1:], ln_scale, ln_bias, eps)
+    return x + F.linear(geglu(F.linear(y, w1.t(), b1)), w2.t(), b2)
+
+
+def ln_geglu_ff_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
+    """The kernel's function in plain torch ops (`_reference_ln_geglu_ff`):
+    one-pass fp32 LayerNorm statistics clamped at 0, the LN affine in fp32
+    then a cast to x's dtype; u = (y . w1 in fp32) cast, plus b1; value and
+    gate halves, a * gelu_tanh(g) cast; o = (h . w2 in fp32) cast, plus b2;
+    x + o. Products run in fp32 (fp64 for fp64 inputs)."""
+    dt = x.dtype
+    cdt = torch.promote_types(dt, torch.float32)
+    xf = x.to(cdt)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp_min((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, 0.0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = (y * ln_scale.to(cdt) + ln_bias.to(cdt)).to(dt)
+    u = torch.matmul(y.to(cdt), w1.to(cdt)).to(dt) + b1.to(dt)
+    a, g = u.chunk(2, dim=-1)
+    h = (a * F.gelu(g, approximate="tanh")).to(dt)
+    o = torch.matmul(h.to(cdt), w2.to(cdt)).to(dt) + b2.to(dt)
+    return x + o
+
+
+def _lib_fn():
+    global _fn
+    if _fn is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _fn = kernels.load("ln_geglu_ff").ln_geglu_ff_fwd
+        _fn.argtypes = [p] * 10 + [i] * 3 + [ctypes.c_float, p]
+        _fn.restype = ctypes.c_int
+    return _fn
+
+
+def _operand(t: torch.Tensor, shape: tuple, name: str, device) -> torch.Tensor:
+    """`t` as a contiguous bf16 tensor on `device`; a weight that arrives as
+    the transpose of a contiguous tensor (nn.Linear's, as the UNet passes it)
+    becomes that tensor again without a copy."""
+    if tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{name} must be {list(shape)} on {device}, got "
+                         f"{list(t.shape)} on {t.device}")
+    t = t.detach().to(torch.bfloat16).contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start 16-byte aligned, got {t.data_ptr():#x}")
+    return t
+
+
+def ln_geglu_ff_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
+    """Launch the Hopper kernels on a bf16 CUDA x [B, L, C]; raises on
+    anything they do not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"x is on {x.device}, not a CUDA device")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA kernel takes bfloat16, x is {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, L, C], got {tuple(x.shape)}")
+    b, l, c = x.shape
+    f = w2.shape[0]
+    if c % KERNEL_COL_TILE or f % KERNEL_COL_TILE or c > KERNEL_MAX_C or b * l == 0:
+        raise ValueError(f"the kernel needs C and F multiples of {KERNEL_COL_TILE}, C <= "
+                         f"{KERNEL_MAX_C} and rows; got x {tuple(x.shape)}, F {f}")
+    dev = x.device
+    x = _operand(x, (b, l, c), "x", dev)
+    w1t = _operand(w1.t(), (2 * f, c), "w1^T", dev)
+    w2t = _operand(w2.t(), (c, f), "w2^T", dev)
+    vecs = [_operand(t, (n,), name, dev) for t, n, name in
+            ((ln_scale, c, "ln_scale"), (ln_bias, c, "ln_bias"), (b1, 2 * f, "b1"),
+             (b2, c, "b2"))]
+    y = torch.empty_like(x)
+    h = torch.empty((b * l, f), dtype=torch.bfloat16, device=dev)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        err = _lib_fn()(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w1t.data_ptr(),
+                        vecs[2].data_ptr(), w2t.data_ptr(), vecs[3].data_ptr(), y.data_ptr(),
+                        h.data_ptr(), out.data_ptr(), b * l, c, f, eps,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"ln_geglu_ff_fwd failed: CUDA error {err} (B, L, C, F = "
+                           f"{b}, {l}, {c}, {f})")
+    launches_by_shape[(b, l, c)] = launches_by_shape.get((b, l, c), 0) + 1
+    return out
+
+
+class LnGegluFF(torch.autograd.Function):
+    """The kernel (CUDA) or its plain version (CPU) forward; saves only the
+    inputs, and the backward recomputes `ln_geglu_ff_plain` and
+    differentiates it for the inputs that need a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
+        args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
+        ctx.save_for_backward(*args)
+        ctx.eps = eps
+        if x.device.type == "cuda":
+            return ln_geglu_ff_cuda(*args, eps)
+        return ln_geglu_ff_plain(*args, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_grads(lambda *a: ln_geglu_ff_plain(*a, ctx.eps), ctx.saved_tensors,
+                               ctx.needs_input_grad[:7], g) + (None,)
+
+
+def ln_geglu_ff(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """x + FF(LN(x)), x [B, L, C], w1 [C, 2F] (value | gate), b1 [2F], w2
+    [F, C], b2 [C]: the fused kernel under `ADAFACE_FUSED_FF=1`, else the
+    unfused torch chain."""
+    if knobs.get("ADAFACE_FUSED_FF") != "1":
+        return ln_geglu_ff_unfused(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no ln_geglu_ff path for device {x.device}")
+    args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return LnGegluFF.apply(*args, eps)
+    if x.device.type == "cuda":
+        return ln_geglu_ff_cuda(*args, eps)
+    return ln_geglu_ff_plain(*args, eps)

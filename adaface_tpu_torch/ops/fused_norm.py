@@ -1,0 +1,167 @@
+"""Fused GroupNorm(+affine)+SiLU over the channel (last) axis of an N...C
+tensor (counterpart of `adaface_tpu/ops/fused_norm.py`).
+
+`group_norm_silu` keeps the JAX function's gates exactly: a slab that fails
+one (channels not a multiple of the groups, `N * C` above
+`ADAFACE_GN_MAX_ELEMS`, fewer than 3 dims, `N` not a multiple of 8) takes
+`_plain`, the port's `ops.basic.group_norm` cast to x's dtype and then SiLU,
+which is what the UNet's ResBlocks computed before the knob existed. The
+threshold is read at call time (the JAX package reads it once, at import);
+its default 0 sends every site to `_plain`.
+
+A slab that passes the gates goes to the kernel's function: on a CUDA tensor
+the hand-written Hopper kernel `csrc/gn_silu.cu` (which replaces the TPU
+kernel `_gn_silu_kernel`), on a CPU tensor its plain version
+`group_norm_silu_plain`. That function applies SiLU in fp32 before the cast,
+so on bf16 inputs it differs from `_plain` by one rounding. Its gradient,
+`GroupNormSiLU`, recomputes through `_plain` and differentiates it, as the
+JAX package's `_fused_bwd` does; there is no backward kernel.
+
+`launches_by_shape` counts kernel calls (a stats and a normalise launch
+each) per (B, N, C); callers may clear it to count one run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from adaface_tpu_torch import kernels, knobs
+from adaface_tpu_torch.ops.basic import group_norm
+from adaface_tpu_torch.ops.grad import recompute_grads
+
+# Elements of x per stats chunk: each image's rows are split into chunks of
+# about this many elements, one CTA each, so that a batch fills the card.
+_CHUNK_ELEMS = 32768
+
+launches_by_shape: Dict[Tuple[int, int, int], int] = {}
+
+_fn = None
+
+
+def rows_per_chunk(c: int) -> int:
+    """Rows of one image that one CTA of the stats pass sums: about
+    `_CHUNK_ELEMS` elements, a multiple of 8 rows."""
+    return (-(-_CHUNK_ELEMS // c) + 7) // 8 * 8
+
+
+def _plain(x, scale, bias, num_groups, eps, apply_silu):
+    out = group_norm(x, scale, bias, num_groups=num_groups, eps=eps)
+    return F.silu(out) if apply_silu else out
+
+
+def group_norm_silu_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                          num_groups: int = 32, eps: float = 1e-5,
+                          apply_silu: bool = True) -> torch.Tensor:
+    """The kernel's function (`_gn_silu_kernel`) in plain torch ops, in fp32
+    (fp64 for fp64 inputs): per-group sums of x and x^2 over the image,
+    mean = s / count, var = max(E[x^2] - mean^2, 0), sc = scale *
+    rsqrt(var + eps), sh = bias - mean * sc, out = x * sc + sh, SiLU, then
+    one cast to x's dtype."""
+    b, c = x.shape[0], x.shape[-1]
+    cdt = torch.promote_types(x.dtype, torch.float32)
+    xf = x.reshape(b, -1, c).to(cdt)
+    cg = c // num_groups
+    inv_count = 1.0 / (xf.shape[1] * cg)
+    s = xf.sum(dim=1).view(b, num_groups, cg).sum(-1)
+    ss = (xf * xf).sum(dim=1).view(b, num_groups, cg).sum(-1)
+    mean = s * inv_count
+    var = torch.clamp_min(ss * inv_count - mean * mean, 0.0)
+    sc = scale.to(cdt)[None] * torch.rsqrt(var + eps).repeat_interleave(cg, dim=1)
+    sh = bias.to(cdt)[None] - mean.repeat_interleave(cg, dim=1) * sc
+    out = xf * sc[:, None] + sh[:, None]
+    if apply_silu:
+        out = out * torch.sigmoid(out)
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def _lib_fn():
+    global _fn
+    if _fn is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        _fn = kernels.load("gn_silu").gn_silu_fwd
+        _fn.argtypes = [p] * 5 + [i] * 5 + [f, i, p]
+        _fn.restype = ctypes.c_int
+    return _fn
+
+
+def _as_bf16_vector(t: torch.Tensor, c: int, name: str, device) -> torch.Tensor:
+    if t.shape != (c,) or t.device != device:
+        raise ValueError(f"{name} must be [{c}] on {device}, got {tuple(t.shape)} "
+                         f"on {t.device}")
+    return t.detach().to(torch.bfloat16).contiguous()
+
+
+def group_norm_silu_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                         num_groups: int = 32, eps: float = 1e-5,
+                         apply_silu: bool = True) -> torch.Tensor:
+    """Launch the Hopper kernel on a bf16 CUDA tensor [B, ..., C]; raises on
+    anything it does not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"x is on {x.device}, not a CUDA device")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA kernel takes bfloat16, x is {x.dtype}")
+    b, c = x.shape[0], x.shape[-1]
+    n = x[0].numel() // c if b else 0
+    if c % num_groups or c % 8 or n == 0:
+        raise ValueError(f"the kernel needs C a multiple of {num_groups} groups and of "
+                         f"8, and a non-empty image; got {tuple(x.shape)}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError(f"x must start 16-byte aligned, got {x.data_ptr():#x}")
+    scale = _as_bf16_vector(scale, c, "scale", x.device)
+    bias = _as_bf16_vector(bias, c, "bias", x.device)
+    rows = rows_per_chunk(c)
+    nchunks = -(-n // rows)
+    partial = torch.empty((b, nchunks, 2, num_groups), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _lib_fn()(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), partial.data_ptr(),
+                        out.data_ptr(), b, n, c, num_groups, rows, eps, int(apply_silu),
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"gn_silu_fwd failed: CUDA error {err} (B, N, C = {b}, {n}, {c})")
+    launches_by_shape[(b, n, c)] = launches_by_shape.get((b, n, c), 0) + 1
+    return out
+
+
+class GroupNormSiLU(torch.autograd.Function):
+    """The kernel (CUDA) or its plain version (CPU) forward; the backward
+    recomputes `_plain` on the saved inputs and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups: int, eps: float, apply_silu: bool):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (num_groups, eps, apply_silu)
+        if x.device.type == "cuda":
+            return group_norm_silu_cuda(x, scale, bias, num_groups, eps, apply_silu)
+        return group_norm_silu_plain(x, scale, bias, num_groups, eps, apply_silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_grads(lambda x, s, b: _plain(x, s, b, *ctx.args), ctx.saved_tensors,
+                               ctx.needs_input_grad[:3], g) + (None, None, None)
+
+
+def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    num_groups: int = 32, eps: float = 1e-5,
+                    apply_silu: bool = True) -> torch.Tensor:
+    """GroupNorm(+SiLU) over the channel (last) axis of an N...C tensor: the
+    fused kernel where the JAX package's gates pass, else `_plain`."""
+    c = x.shape[-1]
+    n = 1
+    for d in x.shape[1:-1]:
+        n *= d
+    if (c % num_groups or n * c > knobs.intval("ADAFACE_GN_MAX_ELEMS", 0) or x.dim() < 3
+            or n % 8):
+        return _plain(x, scale, bias, num_groups, eps, apply_silu)
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no group_norm_silu path for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        return GroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu)
+    if x.device.type == "cuda":
+        return group_norm_silu_cuda(x, scale, bias, num_groups, eps, apply_silu)
+    return group_norm_silu_plain(x, scale, bias, num_groups, eps, apply_silu)

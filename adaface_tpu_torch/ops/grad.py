@@ -4,13 +4,16 @@
   reference's `gen_gradient_scaler`); alpha 1 is a no-op, 0 a detach.
 - `add_noise_to_tensor`: Gaussian noise with a std relative to the tensor's
   own (population, ddof 0) std, which is detached.
+- `recompute_grads`: the backward of a kernel that has no backward kernel,
+  by running its plain version again under autograd (a `jax.vjp` of the
+  plain function in the JAX package's `custom_vjp`s).
 
 `perturb_params` is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,3 +39,14 @@ def add_noise_to_tensor(ts: torch.Tensor, noise_std: float,
     if noise is None:
         noise = torch.randn(ts.shape, generator=generator, device=ts.device, dtype=ts.dtype)
     return ts + noise.to(ts.dtype) * std
+
+
+def recompute_grads(fn: Callable, saved: Sequence[torch.Tensor], needs: Sequence[bool],
+                    grad_out: torch.Tensor) -> Tuple[Optional[torch.Tensor], ...]:
+    """Gradients of fn(*saved) against grad_out for the inputs whose `needs`
+    flag is set, None for the others, by running fn again under autograd."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        grads = iter(torch.autograd.grad(fn(*inputs), [t for t, n in zip(inputs, needs) if n],
+                                         grad_out))
+    return tuple(next(grads) if n else None for n in needs)

@@ -37,11 +37,30 @@ Phases, each of which exits non-zero on failure:
      backward); metrics finite,
      embedders moved, the checkpoint reloads; s per micro-step, peak memory
      and one profiled micro-step.
+The fused configuration (`FUSED_KNOBS`: the JAX package's
+`ADAFACE_GN_MAX_ELEMS` and `ADAFACE_FUSED_FF` knobs, set in-process and
+restored after each use) adds:
+  4b. fused kernels vs plain: the GroupNorm+SiLU kernel (K8) and the
+      LayerNorm + GEGLU feed-forward kernel (K9) against their plain fp32
+      versions at every shape the fused generate and training paths give
+      them (relative L2 and max abs gates; planted faults must fail them;
+      two launches must agree bit for bit); kernel, bound, plain and
+      default-arm times;
+  5b. the reference UNet comparison again under the knobs (31 K8 and 16 K9
+      launches at its small input);
+  6b. generate under the knobs: one warm-up and 2 timed requests, each of
+      which must launch exactly 750 flash forwards, 2,250 K8 and 800 K9;
+      one profiled request;
+  9b. training under the knobs: 4 micro-steps, each with exactly 15/14/14
+      flash launches, 45 K8 and 4 K9 (the transformer blocks of layers 1,
+      2, 4 and 5; the others capture); metrics finite, embedders moved; one
+      profiled micro-step.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -110,6 +129,69 @@ DBIAS_REL_TOL = 1e-4
 # (measured 2.2e-2..2.7e-2).
 TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = 1e-1
+
+
+# The fused configuration and its two kernels.
+FUSED_KNOBS = {"ADAFACE_GN_MAX_ELEMS": "4194304", "ADAFACE_FUSED_FF": "1"}
+GN_SOURCE = "adaface_tpu_torch/csrc/gn_silu.cu"
+FF_SOURCE = "adaface_tpu_torch/csrc/ln_geglu_ff.cu"
+K8 = "adaface_tpu/ops/fused_norm.py:67"  # _gn_silu_kernel
+K9 = "adaface_tpu/ops/fused_ff.py:51"  # _ff_kernel
+# (B, N, C) of the GroupNorm+SiLU sites of one UNet call at a 64x64 latent ->
+# sites: 2 per ResBlock (22) and the output norm; the CFG stem's ResBlock
+# runs at batch 8. Every site passes the gates at the threshold above (the
+# largest slab, up_0_res_0's input, is 4096 x 960). 50 UNet calls a request.
+# At C 320, 960 and 1920 a group (10, 30, 60 channels) is not a whole number
+# of the kernel's 16-byte vectors.
+GN_SHAPES = {(8, 4096, 320): 2, (16, 4096, 320): 6, (16, 4096, 640): 2,
+             (16, 4096, 960): 1, (16, 1024, 320): 1, (16, 1024, 640): 6,
+             (16, 1024, 960): 1, (16, 1024, 1280): 1, (16, 1024, 1920): 1,
+             (16, 256, 640): 1, (16, 256, 1280): 6, (16, 256, 1920): 1,
+             (16, 256, 2560): 2, (16, 64, 1280): 11, (16, 64, 2560): 3}
+# the same sites at batch 3, per recon micro-step (one UNet call)
+GN_TRAIN_SHAPES = {(3, 4096, 320): 8, (3, 4096, 640): 2, (3, 4096, 960): 1,
+                   (3, 1024, 320): 1, (3, 1024, 640): 6, (3, 1024, 960): 1,
+                   (3, 1024, 1280): 1, (3, 1024, 1920): 1, (3, 256, 640): 1,
+                   (3, 256, 1280): 6, (3, 256, 1920): 1, (3, 256, 2560): 2,
+                   (3, 64, 1280): 11, (3, 64, 2560): 3}
+# (B, L, C) of the fused feed-forwards of one UNet call: all 16 transformer
+# blocks in generate; in a recon micro-step only layers 1, 2, 4 and 5, since
+# the blocks of DISTILL_LAYER_INDICES capture
+FF_SHAPES = {(16, 4096, 320): 5, (16, 1024, 640): 5, (16, 256, 1280): 5, (16, 64, 1280): 1}
+FF_TRAIN_SHAPES = {(3, 4096, 320): 2, (3, 1024, 640): 2}
+FUSED_TRAIN_STEPS = 4
+# K8 gate, kernel (bf16 out) vs the plain fp32 function on the same bf16
+# inputs. Measured on an H100 at all 29 shapes: relative L2 1.67e-3..1.69e-3,
+# max abs up to 1.56e-2 (values up to ~8), which is the output's own bf16
+# rounding. The inputs carry per-channel offsets and a ramp of -4..4 over
+# the rows, as activations vary over an image, so that a stats chunk left
+# out moves the statistics: that fault measured 8.4e-3 relative L2 (max abs
+# 4.9e-2..5.7e-2) at its mildest shape, N 4096 x C 960, where the chunk is
+# 1% of the rows.
+GN_REL_TOL = 4e-3
+GN_ABS_TOL = 2.5e-2
+# K9 gate on the feed-forward part, relative L2 of (out - x) against (plain
+# - x), and max abs of out - plain. Measured on an H100 at all 6 shapes:
+# 6.04e-3..6.08e-3 relative and up to 4.6e-2 abs, the bf16 roundings of the
+# reference chain (y, u, h, o, out); an F-chunk of 64 left out gives
+# 0.107-0.221, swapped value and gate halves 0.88.
+FF_REL_TOL = 1.5e-2
+FF_ABS_TOL = 8e-2
+
+
+@contextlib.contextmanager
+def knobs_set(values):
+    """Set environment knobs for the block, then restore the old values."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def fail(msg):
@@ -297,6 +379,17 @@ def bwd_bound(b, l, h, d, exp2_rate, mma_products, out_tensors, with_bias):
                                                else "operations")
 
 
+def lse_bound(b, l, h, d, exp2_rate):
+    """Least time of the row lse on its own (`_row_lse_kernel`'s function):
+    2*B*H*L^2*d tensor-core flops for the scores, B*H*L^2 exp2, or q and k
+    read once and lse written once, whichever is largest."""
+    t_mma = 2 * b * h * l * l * d / PEAK_BF16_FLOPS
+    t_exp = b * h * l * l / exp2_rate
+    t_bytes = (2 * 2 * b * l * h * d + 4 * b * h * l) / PEAK_HBM_BYTES
+    return max(t_mma, t_exp, t_bytes) * 1e3, ("bytes" if t_bytes >= max(t_mma, t_exp)
+                                               else "operations")
+
+
 def _gate_bwd(got, plain, d, what):
     """(max abs, rel L2, passes) of one backward output against fp32."""
     err, rel = kernel_errors(got, plain)
@@ -408,6 +501,7 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
                 o_lib, (qh, kh, vh), g_lib, retain_graph=True))
             del o_lib, qh, kh, vh
             fwd_bound = bound(b, l, l, h, d, exp2_rate, True)
+            lse_b = lse_bound(b, l, h, d, exp2_rate)
             dq_bound = bwd_bound(b, l, h, d, exp2_rate, 3, 1, True)
             dkv_bound = bwd_bound(b, l, h, d, exp2_rate, 4, 2, True)
             rows[("fwd", b, l, h, d)] = dict(
@@ -422,8 +516,9 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
                 plain_ms=bwd_plain_ms, bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
                 library_ms=bwd_lib_ms)
             say(f"[backward] {label}: fwd+lse {fwd_ms:.4f} ms, fwd without lse "
-                f"{fwd_nolse_ms:.4f} ms (lse costs {fwd_ms / fwd_nolse_ms - 1:+.1%}; bound "
-                f"{fwd_bound[0]:.4f}, "
+                f"{fwd_nolse_ms:.4f} ms (lse costs {fwd_ms / fwd_nolse_ms - 1:+.1%}, "
+                f"{fwd_ms - fwd_nolse_ms:+.4f} ms, against the lse's own bound "
+                f"{lse_b[0]:.4f} ms ({lse_b[1]}); fwd bound {fwd_bound[0]:.4f}, "
                 f"sdpa fwd {fwd_lib_ms:.4f}), dq {dq_ms:.4f} ms (bound {dq_bound[0]:.4f} "
                 f"{dq_bound[1]}), dk/dv {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} "
                 f"{dkv_bound[1]}), sdpa backward {bwd_lib_ms:.4f} ms, plain fwd "
@@ -434,13 +529,157 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
     return rows
 
 
+def _fused_ops():
+    from adaface_tpu_torch.ops import fused_ff, fused_norm
+    return fused_norm, fused_ff
+
+
+def gn_bound(b, n, c, exp2_rate):
+    """Least time of K8: x read once and out written once (bf16), or one
+    exp per element at the MUFU rate, whichever is larger."""
+    t_bytes = 2 * 2 * b * n * c / PEAK_HBM_BYTES
+    t_exp = b * n * c / exp2_rate
+    return max(t_bytes, t_exp) * 1e3, "bytes" if t_bytes >= t_exp else "operations"
+
+
+def ff_bound(b, l, c):
+    """Least time of K9: 24 * M * C^2 tensor-core flops, or x, out, w1, w2
+    and the vectors moved once (bf16), whichever is larger."""
+    m, f = b * l, 4 * c
+    t_mma = 24 * m * c * c / PEAK_BF16_FLOPS
+    t_bytes = 2 * (2 * m * c + 3 * f * c + 3 * c + 2 * f) / PEAK_HBM_BYTES
+    return max(t_mma, t_bytes) * 1e3, "bytes" if t_bytes >= t_mma else "operations"
+
+
+def gn_chunk_fault(torch, x, scale, bias, rows):
+    """K8 with the stats of rows [0, rows) (its first chunk) left out of the
+    sums but not of the count, in plain fp32."""
+    xf = x.float()
+    b, n, c = xf.shape
+    cg = c // 32
+    part = xf[:, rows:]
+    mean = part.sum(1).view(b, 32, cg).sum(-1) / (n * cg)
+    msq = (part * part).sum(1).view(b, 32, cg).sum(-1) / (n * cg)
+    rstd = torch.rsqrt(torch.clamp_min(msq - mean * mean, 0.0) + 1e-5)
+    sc = scale.float() * rstd.repeat_interleave(cg, 1)
+    sh = bias.float() - mean.repeat_interleave(cg, 1) * sc
+    out = xf * sc[:, None] + sh[:, None]
+    return out * torch.sigmoid(out)
+
+
+def ff_errors(out, plain, x):
+    """(max abs error of out, relative L2 error of its feed-forward part)."""
+    o, po = out.float() - x.float(), plain - x.float()
+    return (out.float() - plain).abs().max().item(), ((o - po).norm() / po.norm()).item()
+
+
+def _check_fused_gate(label, err, rel, faults, tol_abs, tol_rel, errors):
+    """Fail unless (err, rel) is inside the gate and every planted fault is
+    outside it."""
+    for name, wrong in faults.items():
+        ferr, frel = errors(wrong)
+        say(f"[fused-kernel]   planted fault, {name}: max abs err {ferr:.3e} rel L2 {frel:.3e}")
+        if ferr <= tol_abs and frel <= tol_rel:
+            fail(f"{label}: the gate passes a planted fault ({name})")
+    if not (err <= tol_abs and rel <= tol_rel):
+        fail(f"{label}: kernel disagrees with plain (max abs {err:.3e}, rel L2 {rel:.3e})")
+
+
+def phase_fused_kernels(torch, card, exp2_rate):
+    """K8 and K9 against their plain fp32 versions at every shape of the
+    fused paths, planted faults, repeatability, and times: kernel, bound,
+    plain and the default arm (the unfused torch ops the knob replaces)."""
+    fn, ff = _fused_ops()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    rows = {}
+    for b, n, c in sorted(set(GN_SHAPES) | set(GN_TRAIN_SHAPES), key=lambda k: (-k[0], -k[1], k[2])):
+        x = (randn(b, n, c) * 1.5 + randn(c)
+             + torch.linspace(-4, 4, n, device="cuda")[None, :, None]).bfloat16()
+        scale, bias = (1 + 0.2 * randn(c)).bfloat16(), (0.2 * randn(c)).bfloat16()
+        xf, sf, bf = x.float(), scale.float(), bias.float()
+        fn.launches_by_shape.clear()
+        out = fn.group_norm_silu_cuda(x, scale, bias)
+        again = fn.group_norm_silu_cuda(x, scale, bias)
+        torch.cuda.synchronize()
+        label = f"gn_silu B{b} N{n} C{c}"
+        if fn.launches_by_shape != {(b, n, c): 2}:
+            fail(f"{label}: the wrapper counted {fn.launches_by_shape} for two calls")
+        if not torch.isfinite(out).all() or not torch.equal(out, again):
+            fail(f"{label}: non-finite output, or two launches disagree")
+        plain = fn.group_norm_silu_plain(xf, sf, bf)
+        err, rel = kernel_errors(out, plain)
+        ms = time_ms(torch, lambda: fn.group_norm_silu_cuda(x, scale, bias))
+        plain_ms = time_ms(torch, lambda: fn.group_norm_silu_plain(xf, sf, bf), reps=2, rounds=3)
+        default_ms = time_ms(torch, lambda: fn._plain(x, scale, bias, 32, 1e-5, True))
+        bound_ms, bound_by = gn_bound(b, n, c, exp2_rate)
+        say(f"[fused-kernel] {label:26s}: max abs err {err:.3e} (tol {GN_ABS_TOL}) rel L2 "
+            f"{rel:.3e} (tol {GN_REL_TOL}) kernel {ms:.4f} ms bound {bound_ms:.4f} ms "
+            f"({bound_by}) plain {plain_ms:.4f} ms default arm {default_ms:.4f} ms [{card}]")
+        faults = {"SiLU omitted": fn.group_norm_silu_plain(xf, sf, bf, apply_silu=False),
+                  "row chunk 0 left out of the stats":
+                      gn_chunk_fault(torch, x, scale, bias, fn.rows_per_chunk(c))}
+        _check_fused_gate(label, err, rel, {k: v.bfloat16() for k, v in faults.items()},
+                          GN_ABS_TOL, GN_REL_TOL, lambda w: kernel_errors(w, plain))
+        rows[("gn", b, n, c)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                                     default_arm_ms=default_ms)
+        del x, xf, out, again, plain, faults
+    for b, l, c in list(FF_SHAPES) + list(FF_TRAIN_SHAPES):
+        f = 4 * c
+        x = randn(b, l, c).bfloat16()
+        w1 = (randn(2 * f, c) / c ** 0.5).bfloat16()  # nn.Linear layouts, as in the UNet
+        w2 = (randn(c, f) / f ** 0.5).bfloat16()
+        args = (x, (1 + 0.2 * randn(c)).bfloat16(), (0.2 * randn(c)).bfloat16(), w1.t(),
+                (0.2 * randn(2 * f)).bfloat16(), w2.t(), (0.2 * randn(c)).bfloat16())
+        fargs = [a.float() for a in args]
+        ff.launches_by_shape.clear()
+        out = ff.ln_geglu_ff_cuda(*args)
+        again = ff.ln_geglu_ff_cuda(*args)
+        torch.cuda.synchronize()
+        label = f"ln_geglu_ff B{b} L{l} C{c}"
+        if ff.launches_by_shape != {(b, l, c): 2}:
+            fail(f"{label}: the wrapper counted {ff.launches_by_shape} for two calls")
+        if not torch.isfinite(out).all() or not torch.equal(out, again):
+            fail(f"{label}: non-finite output, or two launches disagree")
+        plain = ff.ln_geglu_ff_plain(*fargs)
+        err, rel = ff_errors(out, plain, x)
+        ms = time_ms(torch, lambda: ff.ln_geglu_ff_cuda(*args))
+        plain_ms = time_ms(torch, lambda: ff.ln_geglu_ff_plain(*fargs), reps=2, rounds=3)
+        default_ms = time_ms(torch, lambda: ff.ln_geglu_ff_unfused(*args))
+        bound_ms, bound_by = ff_bound(b, l, c)
+        say(f"[fused-kernel] {label:26s}: max abs err {err:.3e} (tol {FF_ABS_TOL}) rel L2 "
+            f"{rel:.3e} (tol {FF_REL_TOL}) kernel {ms:.4f} ms bound {bound_ms:.4f} ms "
+            f"({bound_by}) plain {plain_ms:.4f} ms default arm {default_ms:.4f} ms [{card}]")
+        w2_skip = fargs[5].clone()
+        w2_skip[:64] = 0  # the first 64 columns of h contribute nothing
+        swap = lambda t: torch.cat([t[..., f:], t[..., :f]], dim=-1)
+        faults = {"F-chunk 0 skipped": ff.ln_geglu_ff_plain(*fargs[:5], w2_skip, fargs[6]),
+                  "value and gate halves swapped": ff.ln_geglu_ff_plain(
+                      *fargs[:3], swap(fargs[3]), swap(fargs[4]), *fargs[5:])}
+        _check_fused_gate(label, err, rel, {k: v.bfloat16() for k, v in faults.items()},
+                          FF_ABS_TOL, FF_REL_TOL, lambda w: ff_errors(w, plain, x))
+        rows[("ff", b, l, c)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                                     default_arm_ms=default_ms)
+        del x, args, fargs, out, again, plain, faults
+    fn.launches_by_shape.clear()
+    ff.launches_by_shape.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def rel_err(a, b):
     return ((a.float().cpu() - b.float()).norm() / b.float().norm()).item()
 
 
 def phase_reference(torch, pipe):
-    """SD-width models, bf16 on the card vs fp32 on the CPU, same weights."""
+    """SD-width models, bf16 on the card vs fp32 on the CPU, same weights;
+    the UNet twice, with the default knobs and with `FUSED_KNOBS` (kernels
+    on the card, their plain versions on the CPU)."""
     from adaface_tpu_torch.models.unet import precompute_cross_kv
+
+    fn, ff = _fused_ops()
 
     def cpu_copy(m):
         with torch.device("meta"):
@@ -461,24 +700,43 @@ def phase_reference(torch, pipe):
         del clip_cpu
         ctx = ctx_cpu[None]  # [1, 2B, 77, 768]: (cond; uncond) for B = 1
         unet_cpu = cpu_copy(pipe.unet)
-        eps_cpu = unet_cpu(x, t, ctx, cfg_dedup=True, cross_kv=precompute_cross_kv(unet_cpu, ctx))
-        del unet_cpu
-        fa_launches = n_launches(_fa())
+        kv_cpu = precompute_cross_kv(unet_cpu, ctx)
+        eps_cpu = unet_cpu(x, t, ctx, cfg_dedup=True, cross_kv=kv_cpu)
+        with knobs_set(FUSED_KNOBS):
+            eps_cpu_fused = unet_cpu(x, t, ctx, cfg_dedup=True, cross_kv=kv_cpu)
+        del unet_cpu, kv_cpu
         ctx_d = ctx.cuda().to(torch.bfloat16)
-        eps_gpu = pipe.unet(x.cuda(), t.cuda(), ctx_d, cfg_dedup=True,
-                            cross_kv=precompute_cross_kv(pipe.unet, ctx_d))
+        kv_d = precompute_cross_kv(pipe.unet, ctx_d)
+        fa_launches = n_launches(_fa())
+        fn.launches_by_shape.clear()
+        ff.launches_by_shape.clear()
+        eps_gpu = pipe.unet(x.cuda(), t.cuda(), ctx_d, cfg_dedup=True, cross_kv=kv_d)
         if n_launches(_fa()) - fa_launches != 5:
             fail("the small-input UNet call did not take the kernel 5 times")
+        if fn.launches_by_shape or ff.launches_by_shape:
+            fail("the default knobs launched a fused kernel")
+        with knobs_set(FUSED_KNOBS):
+            eps_gpu_fused = pipe.unet(x.cuda(), t.cuda(), ctx_d, cfg_dedup=True, cross_kv=kv_d)
+        # at this 16x16 latent the 14 sites of level 3 (2x2, N = 4) fail the
+        # N % 8 gate and take the plain arm; all 16 feed-forwards fuse
+        n_gn, n_ff = (sum(m.launches_by_shape.values()) for m in (fn, ff))
+        say(f"[reference] fused configuration: {n_gn} GroupNorm+SiLU and {n_ff} "
+            f"feed-forward kernel launches in the small-input UNet call")
+        if (n_gn, n_ff) != (31, 16):
+            fail(f"the fused small-input UNet call launched {n_gn} K8 and {n_ff} K9, "
+                 f"not 31 and 16")
         vae_cpu = cpu_copy(pipe.vae)
         img_cpu = vae_cpu.decode(z)
         del vae_cpu
         img_gpu = pipe.vae.decode(z.cuda())
     for name, a, b in (("clip", ctx_gpu, ctx_cpu), ("unet eps", eps_gpu, eps_cpu),
+                       ("unet eps, fused", eps_gpu_fused, eps_cpu_fused),
                        ("vae decode", img_gpu, img_cpu)):
         e = rel_err(a, b)
+        tol = REFERENCE_TOL[name.split(",")[0]]
         say(f"[reference] {name}: bf16 card vs fp32 cpu relative L2 error {e:.3e} "
-            f"(tol {REFERENCE_TOL[name]})")
-        if not torch.isfinite(a).all() or not e <= REFERENCE_TOL[name]:
+            f"(tol {tol})")
+        if not torch.isfinite(a).all() or not e <= tol:
             fail(f"{name} on the card disagrees with the CPU reference ({e:.3e})")
 
 
@@ -525,10 +783,58 @@ def phase_main_path(torch, pipe, card):
     say(f"[main] batch {BATCH} 512x512 DDIM-{STEPS} CFG 10->4 bf16: median "
         f"{med:.3f} s/request, {BATCH / med:.4f} img/s, best {min(times):.3f} s "
         f"[{card}]")
-    return counts
+    return counts, med
+
+
+def phase_fused_main_path(torch, pipe, card, default_med):
+    """`generate` under FUSED_KNOBS: one warm-up and 2 timed requests, each
+    with exactly 750 flash forwards, 2,250 K8 and 800 K9 launches by shape;
+    then one request under the profiler. Returns the last request's K8 and
+    K9 launches by shape."""
+    fa = _fa()
+    fn, ff = _fused_ops()
+    prompts = [PROMPT] * BATCH
+    kw = dict(num_steps=STEPS, guidance_scale=(10.0, 4.0), height=SIZE, width=SIZE)
+    want_fa = {s: n for s, (_, n) in MAIN_SHAPES.items()}
+    want_gn = {s: STEPS * n for s, n in GN_SHAPES.items()}
+    want_ff = {s: STEPS * n for s, n in FF_SHAPES.items()}
+    times = []
+    with knobs_set(FUSED_KNOBS):
+        t0 = time.time()
+        pipe.generate(prompts, seed=0, **kw)
+        say(f"[fused] warm-up request {time.time() - t0:.3f} s [{card}]")
+        for i in range(2):
+            for m in (fa, fn, ff):
+                m.launches_by_shape.clear()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            imgs = pipe.generate(prompts, seed=i + 1, **kw)
+            times.append(time.time() - t0)
+            got_fa = {(b, lq, h, d): n for (kind, b, lq, lk, h, d), n
+                      in fa.launches_by_shape.items() if kind == "fwd"}
+            got_gn, got_ff = dict(fn.launches_by_shape), dict(ff.launches_by_shape)
+            say(f"[fused] request {i}: {times[-1]:.3f} s, {BATCH / times[-1]:.4f} img/s, "
+                f"launches: flash {sum(got_fa.values())}, gn_silu {sum(got_gn.values())}, "
+                f"ln_geglu_ff {sum(got_ff.values())} [{card}]")
+            if (got_fa, got_gn, got_ff) != (want_fa, want_gn, want_ff):
+                fail(f"fused request {i}: expected the launches {want_fa} {want_gn} "
+                     f"{want_ff}, got {got_fa} {got_gn} {got_ff}")
+            if imgs.shape != (BATCH, SIZE, SIZE, 3) or imgs.std() < 1.0:
+                fail(f"fused request {i}: images {imgs.shape}, std {imgs.std():.3f}")
+        med = statistics.median(times)
+        say(f"[fused] batch {BATCH} 512x512 DDIM-{STEPS} bf16 under {FUSED_KNOBS}: median "
+            f"{med:.3f} s/request, {BATCH / med:.4f} img/s; default knobs {default_med:.3f} "
+            f"s/request, {BATCH / default_med:.4f} img/s [{card}]")
+        profile_breakdown(torch, lambda: pipe.generate(prompts, seed=4, **kw), "fused-profile",
+                          "one request under the fused knobs", card)
+    return got_gn, got_ff
 
 
 def _category(name):
+    if "gn_stats_kernel" in name or "gn_apply_kernel" in name:
+        return "gn_silu (this port's kernel)"
+    if "ln_kernel" in name or "gemm_kernel" in name:
+        return "ln_geglu_ff (this port's kernel)"
     if "flash_fwd_packed" in name:
         return "flash_attn_packed forward (this port's kernel)"
     if "flash_bwd_dq" in name:
@@ -798,7 +1104,83 @@ def phase_train(torch, pipe, fa, trainer_cls, tmp, card):
                       "one recon micro-step", card)
     train_stages(torch, trainer, card)
     trainer.close()
-    return totals
+    return totals, med, peak
+
+
+def phase_fused_train(torch, pipe, trainer_cls, tmp, card, default_med, default_peak):
+    """A fresh recon-only Trainer under FUSED_KNOBS for FUSED_TRAIN_STEPS
+    micro-steps, each with the flash launches of the default run plus 45 K8
+    and 4 K9 (GN_TRAIN_SHAPES, FF_TRAIN_SHAPES); metrics finite, embedders
+    moved by the first update; then one micro-step under the profiler.
+    Returns the K8 and K9 launches of the timed micro-steps by shape."""
+    import numpy as np
+
+    from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
+
+    fa = _fa()
+    fn, ff = _fused_ops()
+    tcfg, pcfg = train_configs(os.path.join(tmp, "fused"))
+    ds_dir = os.path.join(tmp, "fused_subject")
+    os.makedirs(ds_dir)
+    mgr = pipe.embedding_manager
+    leaves = lambda: {(s, n): t.detach().clone() for s, p in mgr.embedders.items()
+                      for n, t in embedder_leaves(p)}
+    want = {"fwd": {s: n for s, (_, n, _) in TRAIN_SHAPES.items()}}
+    want["dq"] = want["dkv"] = {s: n for s, (_, _, n) in TRAIN_SHAPES.items()}
+    want["gn"], want["ff"] = GN_TRAIN_SHAPES, FF_TRAIN_SHAPES
+    counters = {"gn": fn.launches_by_shape, "ff": ff.launches_by_shape}
+    times = []
+    with knobs_set(FUSED_KNOBS):
+        trainer = trainer_cls(pipe, make_dataset(ds_dir), tcfg, pcfg)
+        start = leaves()
+        for m in (fa, fn, ff):
+            m.launches_by_shape.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(FUSED_TRAIN_STEPS):
+            before = {k: dict(c) for k, c in counters.items()}
+            before_fa = dict(fa.launches_by_shape)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            trainer.fit(i + 1)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            got = {}
+            for (kind, b, lq, lk, h, d), n in fa.launches_by_shape.items():
+                n -= before_fa.get((kind, b, lq, lk, h, d), 0)
+                if n:
+                    got.setdefault(kind, {})[(b, lq, h, d)] = n
+            for kind, c in counters.items():
+                got[kind] = {k: n - before[kind].get(k, 0) for k, n in c.items()
+                             if n - before[kind].get(k, 0)}
+            say(f"[fused-train] micro-step {i}: {times[-1]:.3f} s, launches "
+                f"{ {k: sum(v.values()) for k, v in sorted(got.items())} } [{card}]")
+            if got != want:
+                fail(f"fused micro-step {i}: expected the launches {want}, got {got}")
+            if i == 1:  # the first optimizer update
+                moved = max(float((t - start[key]).abs().max()) for key, t in leaves().items())
+                finite = all(bool(torch.isfinite(t).all()) for t in leaves().values())
+                say(f"[fused-train] after the first update: embedders moved by up to "
+                    f"{moved:.3e}, finite {finite}")
+                if not finite or not moved > 0:
+                    fail("fused training: the first update left the embedders unchanged "
+                         "or non-finite")
+        totals = {k: dict(c) for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        recs = [json.loads(l) for l in open(os.path.join(tcfg.logdir, "metrics.jsonl"))]
+        steps = [r for r in recs if "loss" in r]
+        if len(steps) != FUSED_TRAIN_STEPS or not all(
+                np.isfinite(v) for r in steps for v in r.values() if isinstance(v, float)):
+            fail(f"fused metrics: {len(steps)} step records, or a non-finite value")
+        med = statistics.median(times[1:])
+        say(f"[fused-train] recon micro-step, batch 3 512x512, bf16 under {FUSED_KNOBS}: "
+            f"median {med:.3f} s after the first ({times[0]:.3f} s), peak memory {peak:.2f} "
+            f"GiB; default knobs {default_med:.3f} s, {default_peak:.2f} GiB [{card}]")
+        profile_breakdown(torch, lambda: trainer.fit(FUSED_TRAIN_STEPS + 1),
+                          "fused-train-profile", "one recon micro-step under the fused knobs",
+                          card)
+        trainer.close()
+    return totals["gn"], totals["ff"]
 
 
 def train_stages(torch, trainer, card):
@@ -844,6 +1226,7 @@ def main():
     phase_build(kernels)
     rows = phase_kernels(torch, fa, card, exp2_rate)
     bwd_rows = phase_backward_kernels(torch, fa, card, exp2_rate)
+    fused_rows = phase_fused_kernels(torch, card, exp2_rate)
 
     t0 = time.time()
     tok = HashTokenizer()
@@ -857,13 +1240,16 @@ def main():
         f"encoder, bf16) built in {time.time() - t0:.1f} s")
 
     phase_reference(torch, pipe)
-    counts = phase_main_path(torch, pipe, card)
+    counts, med = phase_main_path(torch, pipe, card)
     phase_profile(torch, pipe, card)
+    gn_counts, ff_counts = phase_fused_main_path(torch, pipe, card, med)
 
     add_training_placeholders(torch, pipe)
     with tempfile.TemporaryDirectory() as tmp:
         phase_train_reference(torch, pipe, Trainer, tmp)
-        train_counts = phase_train(torch, pipe, fa, Trainer, tmp, card)
+        train_counts, train_med, train_peak = phase_train(torch, pipe, fa, Trainer, tmp, card)
+        gn_train, ff_train = phase_fused_train(torch, pipe, Trainer, tmp, card, train_med,
+                                               train_peak)
 
     entries = []
     for (b, l, h, d), (replaces, _) in MAIN_SHAPES.items():
@@ -877,6 +1263,19 @@ def main():
         name, source = names[kind]
         entries.append(dict(name=f"{name} B{b} L{l} H{h} d{d} (training)", route="cuda",
                             source=source, launches=train_counts[(kind, b, l, h, d)], **row))
+    # the fused configuration: launches per generate request, and over the
+    # FUSED_TRAIN_STEPS timed micro-steps for the training shapes
+    for kind, name, source, replaces, gen_counts, tr_counts in (
+            ("gn", "gn_silu B{} N{} C{}", GN_SOURCE, K8, gn_counts, gn_train),
+            ("ff", "ln_geglu_ff B{} L{} C{}", FF_SOURCE, K9, ff_counts, ff_train)):
+        for (k, b, n, c), row in fused_rows.items():
+            if k != kind:
+                continue
+            training = (b, n, c) in tr_counts
+            entries.append(dict(
+                name=name.format(b, n, c) + (" (training)" if training else ""),
+                route="cuda", source=source, replaces=replaces,
+                launches=(tr_counts if training else gen_counts)[(b, n, c)], **row))
     say(f"[main] whole script {time.time() - t_start:.1f} s")
     say(json.dumps({"kernels": entries}))
     say(card)
