@@ -1,7 +1,9 @@
 // Packed-layout flash-attention backward for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU backward kernels of the JAX package
-// (adaface_tpu/ops/flash_attention.py:296 _flash_backward):
+// (adaface_tpu/ops/flash_attention.py:296 _flash_backward, the backward of
+// both the packed entry and the [B, H, L, D] entry, which the caller folds
+// into one-head [B*H, L, D] calls):
 //   K3b :252 _bwd_dq_kernel    dq = (p o (dO V^T - delta)) K * scale
 //   K3c :272 _bwd_dkv_kernel   dv = p^T dO, dk = (p o (dp - delta))^T Q * scale,
 //                              dbias_h = sum_q p o (dp - delta)

@@ -1,7 +1,10 @@
 """`ADAFACE_*` environment knobs (counterpart of `adaface_tpu/knobs.py`).
 
 The port gives the JAX package's knobs the same names and meanings, and reads
-them live, at call time, so a process can flip a knob between two calls:
+them live, at call time, so a process can flip a knob between two calls.
+Each is compared exactly as the JAX call site compares it.
+
+Fused UNet configuration:
 
 - `ADAFACE_GN_MAX_ELEMS` (default 0): the largest per-image `N * C` slab that
   `ops.fused_norm.group_norm_silu` hands to the fused GroupNorm+SiLU kernel;
@@ -9,6 +12,43 @@ them live, at call time, so a process can flip a knob between two calls:
 - `ADAFACE_FUSED_FF` ("1" to enable): the UNet's non-capturing transformer
   blocks run `ops.fused_ff.ln_geglu_ff`, the fused LayerNorm + GEGLU
   feed-forward + residual kernel.
+
+Attention routing in the UNet (`models/unet.py`, `UNetCrossAttention`):
+
+- `ADAFACE_FLASH_MIN_LK` (default 0): attentions with fewer keys take the
+  module's einsum path.
+- `ADAFACE_FLASH_PACKED_MIN_L` (default 256) and `ADAFACE_FLASH_PACKED`
+  ("0" to disable): attentions at Lq at least that long take the packed
+  entry `flash_attention_blc`, the others the `[B, H, L, D]` entry
+  `flash_attention`.
+
+Kernel arms of the packed entry (`ops/flash_attention.py`, `forward_arm`):
+
+- `ADAFACE_FLASH_CROSS=1`: Lk < 256 (cross-attention) goes to the kernel,
+  keys padded to a multiple of 128 with a -1e30 bias, instead of the
+  einsum path.
+- `ADAFACE_FLASH_MAXFREE=0` (K5), `ADAFACE_FLASH_PVT=0` (K5),
+  `ADAFACE_FLASH_PVT2` ("1": K2; unset: K2 at Lq <= 256), and
+  `ADAFACE_FLASH_SHORT=0` (no K4 for Lk <= 256) pick the TPU kernel id
+  counted; on the card all run `csrc/flash_attn_packed.cu`.
+- `ADAFACE_FLASH_EXP_BF16=1` and `ADAFACE_FLASH_MXU_SUM=1`, under K1 only:
+  scores rounded to bf16 before exp2, and the denominator summed from bf16
+  probabilities; they change the kernel's arithmetic.
+
+The `[B, H, L, D]` entry (`flash_attention`, `bhld_arm`):
+
+- `ADAFACE_FLASH_MODE=row`: K7 where Lk <= 4096 and Lq % min(256, Lq) ==
+  0, else K6; both one-head calls of the same kernel.
+- `ADAFACE_FLASH_HOST_PAD=1`: in JAX, the head dim zero-padded to a
+  multiple of 128 (a TPU lane layout); the same function, so the port runs
+  the unpadded kernel under it.
+
+Both entries: `ADAFACE_FLASH_BWD=einsum` differentiates the einsum
+reference instead of running the backward kernels.
+
+Winograd conv (`ops/winograd.py`, `winograd_eligible`): `ADAFACE_WINOGRAD`
+("0" default, "1" or "auto"), `ADAFACE_WINOGRAD_MIN_TILES` (default 256) and
+`ADAFACE_WINOGRAD_VMEM` (default 72 MiB).
 
 The port keeps no compiled-program cache, so it needs no `fingerprint()`.
 """

@@ -1,30 +1,42 @@
 """SD v1.5 U-Net, NHWC at the interface (counterpart of
-`adaface_tpu/models/unet.py` with its default arms and the two knobs below).
+`adaface_tpu/models/unet.py`, with its attention arms and the knobs below).
 
 - The context is a native [L, B, T, D] tensor (or [1, B, T, D], broadcast over
   layers); conditioned layer `layer_idx` reads context `CA_LAYER_INDEX[...]`.
   An optional separate K-context has the same shape.
-- Every attention goes through `ops.flash_attention.flash_attention_blc`: the
-  Hopper kernel for self-attention at L >= 256 on the card, the einsum path
-  for the 77-key cross-attention and the 8x8 mid block.
+- Attention routing, as `UNetCrossAttention` in JAX, read at call time:
+  with `UNetConfig.use_flash_attention` (default True), no capture and a key
+  length of at least `ADAFACE_FLASH_MIN_LK` (default 0), self- and
+  cross-attention at Lq >= `ADAFACE_FLASH_PACKED_MIN_L` (default 256) take
+  the packed entry `ops.flash_attention.flash_attention_blc` (or
+  `flash_attention_qkv` on the fused projection), unless
+  `ADAFACE_FLASH_PACKED=0`; every other one the `[B, H, L, D]` entry
+  `flash_attention`. Which kernel those run (or the einsum path, as the
+  77-key cross-attention and the 8x8 mid block do by default) is theirs to
+  decide. Otherwise the module's own einsum path, where a self-attention
+  key mask sets masked scores to -finfo(float32).max.
+- `UNetConfig.fuse_qkv` (default False): self-attention projects q, k and v
+  with one [C, 3*inner] product of the concatenated `to_q`/`to_k`/`to_v`
+  weights (the state dict is unchanged).
 - `cfg_dedup`: x and timesteps arrive at batch B with a [L, 2B, T, D]
   context; the stem (in_conv, the first ResBlock, the first self-attention)
   runs once at B and the stream is tiled to 2B right before the first
   cross-attention.
 - `precompute_cross_kv` hoists the loop-invariant cross-attention K/V
   projections out of the sampling loop.
-- Two knobs of the JAX package, off by default and read at call time:
+- Two more knobs of the JAX package, off by default and read at call time:
   `ADAFACE_GN_MAX_ELEMS` sends the GroupNorm+SiLU of every ResBlock and of
   the output norm whose slab passes its gates to the fused kernel
   (`ops.fused_norm.group_norm_silu`); `ADAFACE_FUSED_FF=1` the feed-forward
-  of every transformer block that does not capture (`ops.fused_ff`).
+  of every transformer block that uses flash attention and does not capture
+  (`ops.fused_ff`).
 - Training: `img_mask` [B, H0, W0, 1] (the augmentation's valid area) is
   nearest-resized to each level (torch index semantics) and masks the keys
-  of every self-attention as a bias `where(mask, 0, -1e30)`; `capture`
-  returns, for the layers in `DISTILL_LAYER_INDICES`, the cross-attention's
-  `q`, `attn`, `attnscore` (the pre-softmax scaled fp32 scores), `k`, `v`
-  and the block output `outfeat` (only `capture_keys` when given), computed
-  on the einsum path.
+  of every self-attention (on the flash entries as a bias `where(mask, 0,
+  -1e30)`); `capture` returns, for the layers in `DISTILL_LAYER_INDICES`,
+  the cross-attention's `q`, `attn`, `attnscore` (the pre-softmax scaled
+  fp32 scores), `k`, `v` and the block output `outfeat` (only
+  `capture_keys` when given), computed on the einsum path.
 
 Submodules carry the flax tree's names (`down_0_res_0.in_conv`,
 `down_0_attn_0.block_0.attn1.to_q`, ...). Subject-token convolutional
@@ -40,9 +52,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from adaface_tpu_torch import knobs
 from adaface_tpu_torch.ops import fused_ff
 from adaface_tpu_torch.ops.basic import conv_nhwc, group_norm, timestep_embedding
-from adaface_tpu_torch.ops.flash_attention import flash_attention_blc
+from adaface_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_blc,
+                                                   flash_attention_qkv)
 from adaface_tpu_torch.ops.fused_norm import group_norm_silu
 from adaface_tpu_torch.ops.subpixel import upsample2x_conv
 
@@ -64,6 +78,8 @@ class UNetConfig:
     attention_levels: tuple = (0, 1, 2)
     num_heads: int = 8
     context_dim: int = 768
+    use_flash_attention: bool = True
+    fuse_qkv: bool = False
 
     @classmethod
     def sd_v1(cls, **kw) -> "UNetConfig":
@@ -115,79 +131,109 @@ class ResBlock(nn.Module):
 class UNetCrossAttention(nn.Module):
     """Multi-head attention on packed [B, L, H*D] projections; self-attention
     when no context is given. `kv` takes hoisted (k, v) projections,
-    `key_bias` [B, Lk] an additive key bias. Returns (out, captured dict or
-    None); `capture` takes the einsum path, whose scores it returns."""
+    `key_mask` [B, Lk] (True = attend) masks the keys of a self-attention.
+    Returns (out, captured dict or None); `capture` takes the einsum path,
+    whose scores it returns."""
 
-    def __init__(self, dim: int, ctx_dim: int, num_heads: int):
+    def __init__(self, dim: int, ctx_dim: int, num_heads: int, use_flash: bool = True,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.use_flash = use_flash
+        self.fuse_qkv = fuse_qkv
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(ctx_dim, dim, bias=False)
         self.to_v = nn.Linear(ctx_dim, dim, bias=False)
         self.to_out = nn.Linear(dim, dim)
 
-    def forward(self, x, ctx_v=None, ctx_k=None, kv=None, key_bias=None,
+    def forward(self, x, ctx_v=None, ctx_k=None, kv=None, key_mask=None,
                 capture: bool = False):
-        q = self.to_q(x)
-        if ctx_v is None:
-            ctx_v = ctx_k = x
-        elif ctx_k is None:
-            ctx_k = ctx_v
-        if kv is not None:
-            k, v = kv
-        else:
-            k, v = self.to_k(ctx_k), self.to_v(ctx_v)
         h = self.num_heads
-        d = q.shape[-1] // h
-        scale = d ** -0.5
-        if not capture:
-            out = flash_attention_blc(q, k, v, h, key_bias=key_bias, scale=scale)
-            return self.to_out(out), None
-        if key_bias is not None:
-            raise ValueError("capture is for the cross-attention, which takes no key bias")
+        inner = self.to_q.weight.shape[0]
+        d = inner // h
+        qkv = None
+        if ctx_v is None and self.fuse_qkv:
+            # one [C, 3*inner] product; the parameters stay three nn.Linear
+            w = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight], dim=0)
+            qkv = F.linear(x, w)
+            q, k, v = qkv.split(inner, dim=-1)
+        else:
+            q = self.to_q(x)
+            if ctx_v is None:
+                ctx_v = ctx_k = x
+            elif ctx_k is None:
+                ctx_k = ctx_v
+            k, v = kv if kv is not None else (self.to_k(ctx_k), self.to_v(ctx_v))
         b, lq, _ = q.shape
+        lk = k.shape[1]
+        scale = d ** -0.5
         split = lambda t: t.reshape(b, t.shape[1], h, d).transpose(1, 2)
+        merge = lambda t: t.transpose(1, 2).reshape(b, lq, inner)
+        if (self.use_flash and not capture
+                and lk >= knobs.intval("ADAFACE_FLASH_MIN_LK", 0)):
+            key_bias = (None if key_mask is None
+                        else torch.where(key_mask, 0.0, -1e30).to(torch.float32))
+            if (lq >= knobs.intval("ADAFACE_FLASH_PACKED_MIN_L", 256)
+                    and knobs.get("ADAFACE_FLASH_PACKED") != "0"):
+                if qkv is not None:
+                    out = flash_attention_qkv(qkv, h, key_bias=key_bias, scale=scale)
+                else:
+                    out = flash_attention_blc(q, k, v, h, key_bias=key_bias, scale=scale)
+            else:
+                out = merge(flash_attention(split(q), split(k), split(v), key_bias=key_bias,
+                                            scale=scale))
+            return self.to_out(out), None
         qh, kh, vh = split(q), split(k), split(v)
         sim = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+        if key_mask is not None:
+            sim = torch.where(key_mask[:, None, None, :], sim,
+                              -torch.finfo(torch.float32).max)
         attn = torch.softmax(sim, dim=-1)
-        out = torch.matmul(attn.to(vh.dtype), vh).transpose(1, 2).reshape(b, lq, h * d)
+        out = self.to_out(merge(torch.matmul(attn.to(vh.dtype), vh)))
+        if not capture:
+            return out, None
         # q scaled by sqrt(scale) so q.q^T products carry the full scale
-        aux = {"q": qh * scale ** 0.5, "attn": attn, "attnscore": sim, "k": kh, "v": vh}
-        return self.to_out(out), aux
+        return out, {"q": qh * scale ** 0.5, "attn": attn, "attnscore": sim, "k": kh,
+                     "v": vh}
 
 
 class TransformerBlock(nn.Module):
-    def __init__(self, dim: int, ctx_dim: int, num_heads: int):
+    def __init__(self, dim: int, ctx_dim: int, num_heads: int, use_flash: bool = True,
+                 fuse_qkv: bool = False):
         super().__init__()
+        self.use_flash = use_flash
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = UNetCrossAttention(dim, dim, num_heads)
+        self.attn1 = UNetCrossAttention(dim, dim, num_heads, use_flash, fuse_qkv)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = UNetCrossAttention(dim, ctx_dim, num_heads)
+        self.attn2 = UNetCrossAttention(dim, ctx_dim, num_heads, use_flash, fuse_qkv)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff_in = nn.Linear(dim, dim * 8)  # GEGLU: 2 x 4*dim
         self.ff_out = nn.Linear(dim * 4, dim)
 
-    def forward(self, x, ctx_v, ctx_k, kv=None, cfg_tile: bool = False, key_bias=None,
+    def forward(self, x, ctx_v, ctx_k, kv=None, cfg_tile: bool = False, key_mask=None,
                 capture: bool = False):
-        x = x + self.attn1(self.norm1(x), key_bias=key_bias)[0]
+        x = x + self.attn1(self.norm1(x), key_mask=key_mask)[0]
         if cfg_tile:
             x = torch.cat([x, x], dim=0)
         a2, aux = self.attn2(self.norm2(x), ctx_v, ctx_k, kv, capture=capture)
         x = x + a2
-        # the fused feed-forward (ADAFACE_FUSED_FF=1) runs unless the block
-        # captures, as in the JAX package; the weights go in transposed views
-        ff = fused_ff.ln_geglu_ff_unfused if capture else fused_ff.ln_geglu_ff
+        # the fused feed-forward (ADAFACE_FUSED_FF=1) runs where the block uses
+        # flash attention and does not capture, as in the JAX package; the
+        # weights go in transposed views
+        fused = self.use_flash and not capture
+        ff = fused_ff.ln_geglu_ff if fused else fused_ff.ln_geglu_ff_unfused
         return ff(x, self.norm3.weight, self.norm3.bias, self.ff_in.weight.t(),
                   self.ff_in.bias, self.ff_out.weight.t(), self.ff_out.bias), aux
 
 
 class SpatialTransformer(nn.Module):
-    def __init__(self, ch: int, ctx_dim: int, num_heads: int):
+    def __init__(self, ch: int, ctx_dim: int, num_heads: int, use_flash: bool = True,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.norm_scale = nn.Parameter(torch.empty(ch))
         self.norm_bias = nn.Parameter(torch.empty(ch))
         self.proj_in = _conv(ch, ch, kernel=1)
-        self.block_0 = TransformerBlock(ch, ctx_dim, num_heads)
+        self.block_0 = TransformerBlock(ch, ctx_dim, num_heads, use_flash, fuse_qkv)
         self.proj_out = _conv(ch, ch, kernel=1)
 
     def forward(self, x, ctx_v, ctx_k, kv=None, cfg_tile: bool = False, img_mask=None,
@@ -195,11 +241,10 @@ class SpatialTransformer(nn.Module):
         b, hh, ww, c = x.shape
         h = group_norm(x, self.norm_scale, self.norm_bias, 32, 1e-6)
         h = conv_nhwc(self.proj_in, h).reshape(b, hh * ww, c)
-        key_bias = None
+        key_mask = None
         if img_mask is not None:
-            keep = _nearest_resize_mask(img_mask, hh, ww).reshape(b, hh * ww) > 0
-            key_bias = torch.where(keep, 0.0, -1e30).to(torch.float32)
-        h, aux = self.block_0(h, ctx_v, ctx_k, kv, cfg_tile, key_bias, capture)
+            key_mask = _nearest_resize_mask(img_mask, hh, ww).reshape(b, hh * ww) > 0
+        h, aux = self.block_0(h, ctx_v, ctx_k, kv, cfg_tile, key_mask, capture)
         if cfg_tile:  # the block returned 2B rows; tile the residual to match
             x = torch.cat([x, x], dim=0)
         h = conv_nhwc(self.proj_out, h.reshape(x.shape[0], hh, ww, c))
@@ -259,7 +304,8 @@ class UNetModel(nn.Module):
             # layers outside CA_LAYER_INDEX (toy configs only) run attn2 as
             # self-attention, so their K/V project from the stream itself
             mapped = by_name[name] in CA_LAYER_INDEX
-            return SpatialTransformer(ch, cfg.context_dim if mapped else ch, cfg.num_heads)
+            return SpatialTransformer(ch, cfg.context_dim if mapped else ch, cfg.num_heads,
+                                      cfg.use_flash_attention, cfg.fuse_qkv)
 
         self.time_embed_0 = nn.Linear(ch0, emb_dim)
         self.time_embed_2 = nn.Linear(emb_dim, emb_dim)

@@ -1,24 +1,51 @@
-"""Attention on packed `[B, L, H*D]` tensors, the UNet's attention entry.
+"""Flash attention, counterpart of `adaface_tpu/ops/flash_attention.py`:
+the packed entry `flash_attention_blc` / `flash_attention_qkv` on
+`[B, L, H*D]` tensors (the UNet's) and the `[B, H, L, D]` entry
+`flash_attention`, with every knob arm of the JAX dispatch, read at call
+time (`knobs.py`).
 
-Counterpart of `adaface_tpu/ops/flash_attention.py:flash_attention_blc` and
-`flash_attention_qkv` with the JAX package's default knobs:
+Packed entry, `forward_arm(lq, lk)` (JAX `flash_attention_blc` and
+`_flash_forward_blc`'s kernel selection):
 
-- Lq < 256 or Lk < 256 (cross-attention with 77 keys, the 8x8 mid block):
-  the plain einsum-softmax path (`_reference_attention` semantics: fp32
-  scores, natural-log softmax, additive bias, no floor), on any device,
-  differentiated by autograd.
-- otherwise the packed flash kernels: on a CUDA tensor the hand-written
-  Hopper kernels, `csrc/flash_attn_packed.cu` forward (which replaces the TPU
-  kernels `_flash_kernel_heads_pvt` and `_flash_kernel_heads_short`, and
-  writes the row log2-sum-exp of `_row_lse_kernel` when a gradient is
-  needed) and `csrc/flash_attn_bwd.cu` (`_bwd_dq_kernel`, `_bwd_dkv_kernel`);
-  on a CPU tensor their plain versions `flash_attention_blc_plain`,
-  `row_lse_plain` and `flash_backward_plain`. The gradient is a
-  `torch.autograd.Function`, `FlashAttentionBLC`, taken only when autograd
-  records (inference launches the forward alone, with no lse).
+- "einsum": Lq < 256, or Lk < 256 unless `ADAFACE_FLASH_CROSS=1` (the
+  77-key cross-attention, the 8x8 mid block): `reference_attention`, fp32
+  scores, natural-log softmax, additive bias, no floor; autograd
+  differentiates it.
+- `ADAFACE_FLASH_CROSS=1` with Lk < 256: k and v are padded with zero rows to
+  a multiple of 128 and the key bias (zeros when none was given, so the -100
+  floor then applies to every score) with -1e30 over the pad, as JAX does;
+  the gradients are sliced back.
+- the TPU kernel JAX would take, all one function: "K4"
+  (`_flash_kernel_heads_short`, Lk <= 256 unless `MAXFREE=0` or `SHORT=0`),
+  "K2" (`_pvt2`, `PVT2=1`, or Lq <= 256 when `PVT2` is unset), "K1" (`_pvt`)
+  or "K5" (`_flash_kernel_heads`, `MAXFREE=0` or `PVT=0`). On a CUDA tensor
+  every one is the hand-written Hopper kernel `csrc/flash_attn_packed.cu`;
+  on a CPU tensor its plain version `flash_attention_blc_plain`. Under K1
+  only, `ADAFACE_FLASH_EXP_BF16=1` (scores rounded to bf16 before exp2, p kept
+  in bf16) and `ADAFACE_FLASH_MXU_SUM=1` (the denominator sums bf16(p))
+  change the function, in the kernel and in the plain version alike.
 
-`launches_by_shape` counts kernel launches per (kind, B, Lq, Lk, H, D), kind
-one of "fwd", "dq" and "dkv"; callers may clear it to count one run.
+`[B, H, L, D]` entry, `bhld_arm(lq, lk)`: "einsum" below 256; "K7"
+(`_flash_row_kernel`) under `ADAFACE_FLASH_MODE=row` when Lk <= 4096 and
+Lq % min(256, Lq) == 0, else "K6" (`_flash_kernel`). Both fold into a
+one-head `[B*H, L, D]` call of the same kernel (a view of a contiguous
+tensor), the bias repeated per head. `ADAFACE_FLASH_HOST_PAD=1` (JAX's
+zero-padding of D to a multiple of 128, a TPU lane layout in HBM) computes
+the same function, so the port reads it and runs the unpadded kernel.
+
+Gradients: `FlashAttentionBLC`, a `torch.autograd.Function` taken only when
+autograd records: the forward also writes the row log2-sum-exp (K3a, the
+default function's under K1's flags too), the backward is
+`csrc/flash_attn_bwd.cu` (K3b dq, K3c dk/dv/dbias; plain
+`flash_backward_plain` on the CPU), dbias summed over heads. Under
+`ADAFACE_FLASH_BWD=einsum` the backward differentiates `reference_attention`
+instead, bias included, as XLA does for that arm.
+
+`launches_by_shape` counts kernel launches per (kind, arm, B, Lq, Lk, H, D):
+kind "fwd" (arm the TPU kernel id, with "+exp_bf16" / "+mxu_sum" under K1's
+flags, or "direct" for a call of the wrapper itself), "dq" (arm "K3b") or
+"dkv" ("K3c"); a fold counts B*H rows of one head. Callers may clear it to
+count one run.
 """
 
 from __future__ import annotations
@@ -27,19 +54,76 @@ import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from adaface_tpu_torch import kernels
+from adaface_tpu_torch import kernels, knobs
 
 LOG2E = 1.4426950408889634
 # Floor on biased log2-domain scores (the TPU kernels' _SCORE_FLOOR): a fully
 # masked key row (bias -1e30 everywhere) comes out uniform instead of 0/0.
 SCORE_FLOOR = -100.0
 MIN_KERNEL_LEN = 256
-KERNEL_HEAD_DIMS = (40, 80, 160)
+KERNEL_HEAD_DIMS = (40, 80, 160)  # the UNet's head dims
+FLAG_EXP_BF16, FLAG_MXU_SUM = 1, 2
+# the row kernel K7 takes Lk up to this, with query blocks of this many rows
+ROW_MAX_LK, ROW_BLOCK_Q = 4096, 256
 
-launches_by_shape: Dict[Tuple[str, int, int, int, int, int], int] = {}
+launches_by_shape: Dict[Tuple[str, str, int, int, int, int, int], int] = {}
 
 _fns: Dict[str, object] = {}
+
+
+# ------------------------------------------------------------------ dispatch
+def cross_pad_len(lk: int) -> int:
+    """Lk padded to a multiple of 128, the CROSS arm's key panel."""
+    return (lk + 127) // 128 * 128
+
+
+def forward_arm(lq: int, lk: int) -> str:
+    """The TPU kernel the JAX packed entry takes for these lengths under the
+    current knobs ("K1", "K2", "K4" or "K5"), or "einsum". `lk` is the
+    caller's, before the CROSS pad."""
+    short_lk = lk < MIN_KERNEL_LEN
+    if lq < MIN_KERNEL_LEN or (short_lk and knobs.get("ADAFACE_FLASH_CROSS") != "1"):
+        return "einsum"
+    if short_lk:
+        lk = cross_pad_len(lk)
+    maxfree = knobs.get("ADAFACE_FLASH_MAXFREE") != "0"
+    use_pvt = maxfree and knobs.get("ADAFACE_FLASH_PVT") != "0"
+    pvt2_env = knobs.get("ADAFACE_FLASH_PVT2")
+    pvt2 = (lq <= 256) if pvt2_env is None else pvt2_env == "1"
+    if maxfree and lk <= 256 and knobs.get("ADAFACE_FLASH_SHORT") != "0":
+        return "K4"
+    if use_pvt:
+        return "K2" if pvt2 else "K1"
+    return "K5"
+
+
+def k1_flags() -> int:
+    """K1's arithmetic arms as a mask: FLAG_EXP_BF16 under
+    `ADAFACE_FLASH_EXP_BF16=1`, FLAG_MXU_SUM under `ADAFACE_FLASH_MXU_SUM=1`."""
+    return ((FLAG_EXP_BF16 if knobs.get("ADAFACE_FLASH_EXP_BF16") == "1" else 0)
+            | (FLAG_MXU_SUM if knobs.get("ADAFACE_FLASH_MXU_SUM") == "1" else 0))
+
+
+def arm_id(arm: str, flags: int = 0) -> str:
+    """The launch counter's arm label: the TPU kernel id, plus K1's flags."""
+    return (arm + ("+exp_bf16" if flags & FLAG_EXP_BF16 else "")
+            + ("+mxu_sum" if flags & FLAG_MXU_SUM else ""))
+
+
+def bhld_arm(lq: int, lk: int) -> str:
+    """The TPU kernel the JAX `[B, H, L, D]` entry takes ("K6" or "K7"), or
+    "einsum"."""
+    if lq < MIN_KERNEL_LEN or lk < MIN_KERNEL_LEN:
+        return "einsum"
+    use_row = (knobs.get("ADAFACE_FLASH_MODE", "online") == "row" and lk <= ROW_MAX_LK
+               and lq % min(ROW_BLOCK_Q, lq) == 0)
+    return "K7" if use_row else "K6"
+
+
+def _use_einsum_bwd() -> bool:
+    return knobs.get("ADAFACE_FLASH_BWD") == "einsum"
 
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -52,19 +136,25 @@ def _merge_heads(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2).reshape(b, l, h * d)
 
 
-def reference_attention(q, k, v, num_heads: int, key_bias=None, scale=None):
-    """Einsum-softmax attention on packed tensors (the JAX package's
-    `_reference_attention`): scores from an fp32 product of the inputs (as
-    JAX's `preferred_element_type=float32`), fp32 softmax, probabilities cast
-    to v's dtype for the value product."""
-    d = q.shape[-1] // num_heads
-    scale = d ** -0.5 if scale is None else scale
-    qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
-    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+def reference_attention_bhld(q, k, v, key_bias=None, scale=None):
+    """The JAX package's `_reference_attention` on [B, H, L, D]: scores from
+    an fp32 product of the inputs (JAX's `preferred_element_type=float32`),
+    plus the additive bias, fp32 softmax, probabilities cast to v's dtype for
+    the value product."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if key_bias is not None:
         s = s + key_bias.float()[:, None, None, :]
     p = torch.softmax(s, dim=-1)
-    return _merge_heads(torch.matmul(p.to(vh.dtype), vh))
+    return torch.matmul(p.to(v.dtype), v)
+
+
+def reference_attention(q, k, v, num_heads: int, key_bias=None, scale=None):
+    """`reference_attention_bhld` on packed [B, L, H*D] tensors."""
+    d = q.shape[-1] // num_heads
+    out = reference_attention_bhld(*(_split_heads(t, num_heads) for t in (q, k, v)),
+                                   key_bias, d ** -0.5 if scale is None else scale)
+    return _merge_heads(out)
 
 
 # ------------------------------------------------------------- plain versions
@@ -89,11 +179,16 @@ def _log2_scores(qh, kh, bias_row, scale):
 
 
 def flash_attention_blc_plain(q, k, v, num_heads: int, key_bias=None,
-                              scale=None) -> torch.Tensor:
+                              scale=None, flags: int = 0) -> torch.Tensor:
     """The forward kernel's function in plain torch ops (fp32, or fp64 for
     fp64 inputs): the log2-domain scores of `_log2_scores`, then a base-2
     softmax over the keys. One batch row at a time, which bounds the
-    [H, Lq, Lk] score slab. Returns [B, Lq, H*D] in the compute dtype."""
+    [H, Lq, Lk] score slab. Returns [B, Lq, H*D] in the compute dtype.
+
+    With K1's `flags` it follows the TPU kernel's max-free formula
+    literally: p = 2^s (2^bf16(s) rounded to bf16 under FLAG_EXP_BF16), the
+    value product takes p cast to q's dtype, and the denominator sums p in
+    fp32, or that cast p under FLAG_MXU_SUM."""
     b, lq, inner = q.shape
     scale = (inner // num_heads) ** -0.5 if scale is None else scale
     cdt = _compute_dtype(q)
@@ -101,8 +196,15 @@ def flash_attention_blc_plain(q, k, v, num_heads: int, key_bias=None,
     for i in range(b):
         s = _log2_scores(_heads(q, i, num_heads, cdt), _heads(k, i, num_heads, cdt),
                          None if key_bias is None else key_bias[i], scale)
-        p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-        o = torch.matmul(p, _heads(v, i, num_heads, cdt)) / p.sum(dim=-1, keepdim=True)
+        vh = _heads(v, i, num_heads, cdt)
+        if flags:
+            p = torch.exp2(s.to(torch.bfloat16)) if flags & FLAG_EXP_BF16 else torch.exp2(s)
+            pv = p.to(q.dtype).to(cdt)
+            l = (pv if flags & FLAG_MXU_SUM else p.to(cdt)).sum(dim=-1, keepdim=True)
+            o = torch.matmul(pv, vh) / l
+        else:
+            p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+            o = torch.matmul(p, vh) / p.sum(dim=-1, keepdim=True)
         out[i] = o.transpose(0, 1).reshape(lq, inner)
     return out
 
@@ -170,10 +272,10 @@ def _fn(name: str):
     """The ctypes entry `name` of its library, with its signature set."""
     fn = _fns.get(name)
     if fn is None:
-        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "flash_attn_packed_fwd":
             fn = kernels.load("flash_attn_packed").flash_attn_packed_fwd
-            fn.argtypes = [p] * 6 + [i] * 5 + [ll] * 8 + [f, p]
+            fn.argtypes = [p] * 6 + [i] * 6 + [p, f, p]
         elif name == "flash_attn_bwd_dq":
             fn = kernels.load("flash_attn_bwd").flash_attn_bwd_dq
             fn.argtypes = [p] * 8 + [i] * 5 + [p, f, f, p]
@@ -211,8 +313,8 @@ def _check_call(q, k, v, num_heads, key_bias):
     return b, lq, lk, d, bias
 
 
-def _count(kind: str, key: tuple):
-    k = (kind,) + key
+def _count(kind: str, arm: str, key: tuple):
+    k = (kind, arm) + key
     launches_by_shape[k] = launches_by_shape.get(k, 0) + 1
 
 
@@ -222,15 +324,18 @@ def _raise_if(err: int, what: str, key: tuple):
 
 
 def flash_attention_blc_cuda(q, k, v, num_heads: int, key_bias=None, scale=None,
-                             return_lse: bool = False):
+                             return_lse: bool = False, arm: str = "direct",
+                             flags: int = 0):
     """Launch the forward Hopper kernel on CUDA tensors; raises on anything
-    it does not take (dtype, head dim, strides, alignment). With
-    `return_lse`, returns (out, lse2 [B, H, Lq] fp32)."""
+    it does not take (dtype, head dim, strides, alignment). `arm` labels the launch in `launches_by_shape`;
+    `flags` are K1's arithmetic arms. With `return_lse`, returns (out, lse2
+    [B, H, Lq] fp32)."""
     b, lq, lk, d, bias = _check_call(q, k, v, num_heads, key_bias)
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, lq, num_heads * d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, num_heads, lq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    st = _strides(q, k, v, out)
     key = (b, lq, lk, num_heads, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -238,12 +343,9 @@ def flash_attention_blc_cuda(q, k, v, num_heads: int, key_bias=None, scale=None,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            b, num_heads, lq, lk, d,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            scale * LOG2E, stream)
+            b, num_heads, lq, lk, d, flags, ctypes.addressof(st), scale * LOG2E, stream)
     _raise_if(err, "flash_attn_packed_fwd", key)
-    _count("fwd", key)
+    _count("fwd", arm_id(arm, flags), key)
     return (out, lse) if return_lse else out
 
 
@@ -285,7 +387,7 @@ def flash_bwd_dq_cuda(q, k, v, key_bias, do, lse, delta, num_heads: int, scale=N
             b, num_heads, lq, lk, d, ctypes.addressof(st), scale * LOG2E, scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if(err, "flash_attn_bwd_dq", key)
-    _count("dq", key)
+    _count("dq", "K3b", key)
     return dq
 
 
@@ -309,7 +411,7 @@ def flash_bwd_dkv_cuda(q, k, v, key_bias, do, lse, delta, num_heads: int, scale=
             b, num_heads, lq, lk, d, ctypes.addressof(st), scale * LOG2E, scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if(err, "flash_attn_bwd_dkv", key)
-    _count("dkv", key)
+    _count("dkv", "K3c", key)
     return dk, dv, dbias
 
 
@@ -326,6 +428,17 @@ def flash_backward_cuda(q, k, v, key_bias, o, do, lse, num_heads: int, scale=Non
 
 
 # ------------------------------------------------------------------ autograd
+def _einsum_vjp(q, k, v, key_bias, do, num_heads: int, scale: float):
+    """Gradients of `reference_attention` (the `ADAFACE_FLASH_BWD=einsum`
+    arm): (dq, dk, dv, dbias or None)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        bias = None if key_bias is None else key_bias.detach().requires_grad_(True)
+        out = reference_attention(*leaves, num_heads, bias, scale)
+        grads = torch.autograd.grad(out, leaves + ([bias] if bias is not None else []), do)
+    return tuple(grads) + ((None,) if bias is None else ())
+
+
 class FlashAttentionBLC(torch.autograd.Function):
     """Packed flash attention with the flash backward: the CUDA kernels on a
     CUDA tensor, their plain versions on a CPU tensor. Saves q, k, v, bias,
@@ -333,12 +446,14 @@ class FlashAttentionBLC(torch.autograd.Function):
     gradient (summed over heads, as `_flash_core_blc3_bwd` does)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_bias, num_heads: int, scale: float):
+    def forward(ctx, q, k, v, key_bias, num_heads: int, scale: float, arm: str,
+                flags: int):
         if q.device.type == "cuda":
             out, lse = flash_attention_blc_cuda(q, k, v, num_heads, key_bias, scale,
-                                                return_lse=True)
+                                                return_lse=True, arm=arm, flags=flags)
         else:
-            out = flash_attention_blc_plain(q, k, v, num_heads, key_bias, scale).to(q.dtype)
+            out = flash_attention_blc_plain(q, k, v, num_heads, key_bias, scale,
+                                            flags).to(q.dtype)
             lse = row_lse_plain(q, k, num_heads, key_bias, scale)
         ctx.save_for_backward(q, k, v, key_bias, out, lse)
         ctx.num_heads, ctx.scale = num_heads, scale
@@ -348,6 +463,9 @@ class FlashAttentionBLC(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, key_bias, out, lse = ctx.saved_tensors
         need_db = key_bias is not None and ctx.needs_input_grad[3]
+        if _use_einsum_bwd():
+            dq, dk, dv, dbias = _einsum_vjp(q, k, v, key_bias, do, ctx.num_heads, ctx.scale)
+            return dq, dk, dv, dbias if need_db else None, None, None, None, None
         if q.device.type == "cuda":
             dq, dk, dv, db = flash_backward_cuda(q, k, v, key_bias, out, do.contiguous(),
                                                  lse, ctx.num_heads, ctx.scale,
@@ -357,7 +475,24 @@ class FlashAttentionBLC(torch.autograd.Function):
                                                   ctx.num_heads, ctx.scale)
             dq, dk, dv = dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
         dbias = db.sum(dim=1).to(key_bias.dtype) if need_db else None
-        return dq, dk, dv, dbias, None, None
+        return dq, dk, dv, dbias, None, None, None, None
+
+
+def _flash(q, k, v, key_bias, num_heads: int, scale: float, arm: str, flags: int):
+    """The packed kernel's function at the given arm: through the autograd
+    Function when autograd records, else the kernel (CUDA) or its plain
+    version (CPU)."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no attention path for device {q.device}")
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, key_bias))
+    if needs_grad:
+        return FlashAttentionBLC.apply(q, k, v, key_bias, num_heads, scale, arm, flags)
+    if q.device.type == "cuda":
+        return flash_attention_blc_cuda(q, k, v, num_heads, key_bias, scale, arm=arm,
+                                        flags=flags)
+    return flash_attention_blc_plain(q, k, v, num_heads, key_bias, scale,
+                                     flags).to(q.dtype)
 
 
 def flash_attention_blc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -365,19 +500,20 @@ def flash_attention_blc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None) -> torch.Tensor:
     """Attention on packed q [B, Lq, H*D], k/v [B, Lk, H*D]; optional
     additive key bias [B, Lk]. Returns [B, Lq, H*D] in q's dtype."""
-    lq, lk = q.shape[1], k.shape[1]
-    if lq < MIN_KERNEL_LEN or lk < MIN_KERNEL_LEN:
+    b, lq, inner = q.shape
+    lk = k.shape[1]
+    arm = forward_arm(lq, lk)
+    if arm == "einsum":
         return reference_attention(q, k, v, num_heads, key_bias, scale)
-    if q.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no attention path for device {q.device}")
-    scale = (q.shape[-1] // num_heads) ** -0.5 if scale is None else scale
-    needs_grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (q, k, v, key_bias))
-    if needs_grad:
-        return FlashAttentionBLC.apply(q, k, v, key_bias, num_heads, scale)
-    if q.device.type == "cuda":
-        return flash_attention_blc_cuda(q, k, v, num_heads, key_bias, scale)
-    return flash_attention_blc_plain(q, k, v, num_heads, key_bias, scale).to(q.dtype)
+    scale = (inner // num_heads) ** -0.5 if scale is None else scale
+    if lk < MIN_KERNEL_LEN:  # ADAFACE_FLASH_CROSS=1: pad the keys as JAX does
+        pad = cross_pad_len(lk) - lk
+        kb = (key_bias.float() if key_bias is not None
+              else torch.zeros((b, lk), dtype=torch.float32, device=q.device))
+        key_bias = F.pad(kb, (0, pad), value=-1e30)
+        k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+    flags = k1_flags() if arm == "K1" else 0
+    return _flash(q, k, v, key_bias, num_heads, scale, arm, flags)
 
 
 def flash_attention_qkv(qkv: torch.Tensor, num_heads: int,
@@ -387,5 +523,27 @@ def flash_attention_qkv(qkv: torch.Tensor, num_heads: int,
     the last axis); the thirds go to the kernel as strided views."""
     inner = qkv.shape[-1] // 3
     return flash_attention_blc(qkv[..., :inner], qkv[..., inner:2 * inner],
-                               qkv[..., 2 * inner:], num_heads,
-                               key_bias=key_bias, scale=scale)
+                               qkv[..., 2 * inner:], num_heads, key_bias=key_bias,
+                               scale=scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key_bias: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention on q [B, H, Lq, D], k/v [B, H, Lk, D] with an optional
+    additive key bias [B, Lk]: the einsum path below MIN_KERNEL_LEN, else
+    K6 or K7 (`bhld_arm`) as a one-head packed call on [B*H, L, D]. Returns
+    [B, H, Lq, D] in q's dtype."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    arm = bhld_arm(lq, lk)
+    if arm == "einsum":
+        return reference_attention_bhld(q, k, v, key_bias, scale)
+    # ADAFACE_FLASH_HOST_PAD=1 zero-pads D to a multiple of 128 in JAX, a TPU
+    # lane layout in HBM that leaves the function unchanged: the unpadded
+    # kernel computes it under either setting.
+    fold = lambda t: t.reshape(b * h, t.shape[2], d)
+    bias = None if key_bias is None else key_bias.float().repeat_interleave(h, dim=0)
+    out = _flash(fold(q), fold(k), fold(v), bias, 1, scale, arm, 0)
+    return out.reshape(b, h, lq, d)

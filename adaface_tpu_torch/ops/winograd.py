@@ -1,0 +1,272 @@
+"""Winograd F(2x2, 3x3) stride-1 SAME 3x3 convolution, NHWC in and out
+(counterpart of `adaface_tpu/ops/winograd.py`).
+
+- `conv3x3_same(x, kernel HWIO, bias, enabled)`: the Winograd op where
+  `enabled` and `winograd_eligible` (the JAX gates verbatim: the
+  `ADAFACE_WINOGRAD` mode "0" (default, never), "1" (wherever the shape and
+  the `ADAFACE_WINOGRAD_VMEM` budget allow) or "auto" (also
+  `ADAFACE_WINOGRAD_MIN_TILES` and 128-wide channels), even H and W) admit
+  the shape; else `direct_conv3x3`. Nothing in the UNet calls it, as in
+  JAX: the op is its own entry point.
+- `winograd_conv3x3`: the op. On a CUDA tensor the hand-written Hopper
+  kernel `csrc/winograd.cu` (which replaces the TPU kernel `_wino_kernel`),
+  on a CPU tensor its plain version `winograd_conv3x3_plain`. The gradient
+  is the direct conv's VJP plus dbias = sum of g in fp32 (`_wino_bwd`), in
+  plain torch ops, as XLA computes it outside Pallas.
+
+The kernel's function, in `_wino_kernel`'s roundings: U = G g G^T in fp32,
+cast to the kernel's dtype; for each of the 16 positions (i, j) the input
+transform t_ij = sum of +-x over the 4x4 tile, accumulated in the input
+dtype and rounded after every add, in the p-then-q loop order; m_ij = t_ij
+U_ij with fp32 accumulation; y = A^T m A summed in fp32; + bias in fp32; one
+cast.
+
+`launches_by_shape` counts kernel calls (a transform and a product launch
+each) per (B, H, W, Cin, Cout); callers may clear it to count one run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from adaface_tpu_torch import kernels, knobs
+
+# F(2x2, 3x3) transform matrices (Lavin & Gray, arXiv:1509.09308):
+#   y = AT [ (G g GT) * (BT d B) ] A  for a 4x4 input tile d, 3x3 filter g
+BT = ((1, 0, -1, 0),
+      (0, 1, 1, 0),
+      (0, -1, 1, 0),
+      (0, 1, 0, -1))
+AT = ((1, 1, 1, 0),
+      (0, 1, -1, -1))
+G = np.array([[1.0, 0.0, 0.0],
+              [0.5, 0.5, 0.5],
+              [0.5, -0.5, 0.5],
+              [0.0, 0.0, 1.0]], np.float32)
+# the product kernel's tiles: Cin is zero-padded to a multiple of K_TILE,
+# Cout to a multiple of N_TILE
+K_TILE, N_TILE = 32, 64
+DEF_MIN_TILES = 256
+DEF_VMEM_BUDGET = 72 * 1024 * 1024
+
+launches_by_shape: Dict[Tuple[int, int, int, int, int], int] = {}
+
+_fn = {}
+
+
+def transform_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """HWIO [3, 3, Cin, Cout] -> U [16, Cin, Cout] (U_ij = (G g G^T)_ij),
+    computed in fp32 and cast to the kernel's dtype."""
+    g = torch.from_numpy(G).to(kernel.device)
+    u = torch.einsum("pa,qb,abio->pqio", g, g, kernel.float())
+    return u.reshape(16, kernel.shape[2], kernel.shape[3]).to(kernel.dtype)
+
+
+def direct_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """stride-1 SAME 3x3 conv (+ bias) of NHWC x with an HWIO kernel cast to
+    x's dtype."""
+    w = kernel.to(x.dtype).permute(3, 2, 0, 1)  # OIHW
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def _input_tiles(x: torch.Tensor):
+    """P(p, q) [B, H/2, W/2, Cin]: element (p, q) of every 4x4 input tile of
+    the SAME-padded x (tile (r, s) starts at padded row 2r, column 2s)."""
+    b, h, w, _ = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return lambda p, q: xp[:, p:p + h:2, q:q + w:2, :]
+
+
+def _input_transform(tile, i: int, j: int) -> torch.Tensor:
+    """t_ij of every tile: the +-sum of the tile elements (p, q) that B^T
+    picks, accumulated in the tiles' dtype and rounded after every add, in
+    `_wino_kernel`'s p-then-q order."""
+    t = None
+    for p in range(4):
+        if BT[i][p] == 0:
+            continue
+        for q in range(4):
+            if BT[j][q] == 0:
+                continue
+            term = tile(p, q) if BT[i][p] * BT[j][q] > 0 else -tile(p, q)
+            t = term if t is None else t + term
+    return t
+
+
+def winograd_conv3x3_plain(x: torch.Tensor, u: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain torch ops, from the transformed weights
+    U [16, Cin, Cout] (x's dtype) and bias [Cout]: t_ij accumulated in x's
+    dtype term by term, fp32 products (fp64 for fp64 inputs), y and the
+    bias in fp32, one cast to x's dtype."""
+    b, h, w, cin = x.shape
+    cout = u.shape[-1]
+    cdt = torch.promote_types(x.dtype, torch.float32)
+    tile = _input_tiles(x)
+    y = [[None, None], [None, None]]
+    for i in range(4):
+        for j in range(4):
+            t = _input_transform(tile, i, j)
+            m = torch.matmul(t.reshape(-1, cin).to(cdt), u[4 * i + j].to(cdt))
+            for a in range(2):
+                for c in range(2):
+                    if AT[a][i] * AT[c][j] == 0:
+                        continue
+                    term = m if AT[a][i] * AT[c][j] > 0 else -m
+                    y[a][c] = term if y[a][c] is None else y[a][c] + term
+    out = torch.stack([torch.stack([y[a][c] for c in range(2)]) for a in range(2)])
+    out = out + bias.to(cdt)
+    # [a, c, B*hh*wh, Cout] -> [B, 2r + a, 2s + c, Cout]
+    out = out.reshape(2, 2, b, h // 2, w // 2, cout).permute(2, 3, 0, 4, 1, 5)
+    return out.reshape(b, h, w, cout).to(x.dtype)
+
+
+# ------------------------------------------------------------- CUDA wrapper
+def _lib_fn():
+    fn = _fn.get("winograd")
+    if fn is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn = kernels.load("winograd").winograd_conv3x3_fwd
+        fn.argtypes = [p] * 5 + [i] * 7 + [p]
+        fn.restype = ctypes.c_int
+        _fn["winograd"] = fn
+    return fn
+
+
+def padded_weights(u: torch.Tensor) -> torch.Tensor:
+    """U [16, Cin, Cout] zero-padded to [16, Cin_p, Cout_p], the product
+    kernel's tile multiples (a copy only where Cin or Cout is not one)."""
+    _, cin, cout = u.shape
+    cin_p = -(-cin // K_TILE) * K_TILE
+    cout_p = -(-cout // N_TILE) * N_TILE
+    if (cin_p, cout_p) == (cin, cout):
+        return u.contiguous()
+    return F.pad(u, (0, cout_p - cout, 0, cin_p - cin)).contiguous()
+
+
+def winograd_conv3x3_cuda(x: torch.Tensor, u: torch.Tensor,
+                          bias: torch.Tensor) -> torch.Tensor:
+    """Launch the Hopper kernel on bf16 CUDA tensors: x NHWC [B, H, W, Cin]
+    (H, W even), U [16, Cin, Cout], bias [Cout]; raises on anything it does
+    not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"x is on {x.device}, not a CUDA device")
+    for t, name in ((x, "x"), (u, "U"), (bias, "bias")):
+        if t.dtype != torch.bfloat16 or t.device != x.device:
+            raise TypeError(f"the CUDA kernel takes bfloat16 on {x.device}; {name} is "
+                            f"{t.dtype} on {t.device}")
+    if x.dim() != 4 or u.dim() != 3 or u.shape[0] != 16 or u.shape[1] != x.shape[3]:
+        raise ValueError(f"want x [B, H, W, Cin] and U [16, Cin, Cout], got "
+                         f"{tuple(x.shape)} and {tuple(u.shape)}")
+    b, h, w, cin = x.shape
+    cout = u.shape[2]
+    if h % 2 or w % 2 or b * h * w == 0 or tuple(bias.shape) != (cout,):
+        raise ValueError(f"the kernel takes even, non-empty H and W and a [{cout}] bias; "
+                         f"got x {tuple(x.shape)}, bias {tuple(bias.shape)}")
+    x = x.contiguous()
+    up = padded_weights(u)
+    cin_p, cout_p = up.shape[1], up.shape[2]
+    m = b * (h // 2) * (w // 2)
+    v = torch.empty((16, m, cin_p), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    bias = bias.contiguous()
+    with torch.cuda.device(x.device):
+        err = _lib_fn()(x.data_ptr(), up.data_ptr(), bias.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), b, h, w, cin, cout, cin_p, cout_p,
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    key = (b, h, w, cin, cout)
+    if err:
+        raise RuntimeError(f"winograd_conv3x3_fwd failed: CUDA error {err} "
+                           f"(B, H, W, Cin, Cout = {key})")
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    return out
+
+
+# ------------------------------------------------------------------ autograd
+class WinogradConv3x3(torch.autograd.Function):
+    """The kernel (CUDA) or its plain version (CPU) forward on the
+    transformed weights; the backward is the direct conv's VJP and the fp32
+    bias sum (`_wino_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias):
+        ctx.save_for_backward(x, kernel)
+        u = transform_weights(kernel)
+        if x.device.type == "cuda":
+            return winograd_conv3x3_cuda(x, u, bias)
+        return winograd_conv3x3_plain(x, u, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            kk = kernel.detach().requires_grad_(True)
+            dx, dk = torch.autograd.grad(direct_conv3x3(xx, kk), (xx, kk), g)
+        dbias = g.float().sum(dim=(0, 1, 2)).to(g.dtype)
+        return dx, dk, dbias
+
+
+def winograd_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """stride-1 SAME 3x3 conv of NHWC x (H, W even) with an HWIO kernel and
+    a [Cout] bias, all of one dtype, by the Winograd kernel."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no Winograd path for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernel, bias)):
+        return WinogradConv3x3.apply(x, kernel, bias)
+    u = transform_weights(kernel)
+    if x.device.type == "cuda":
+        return winograd_conv3x3_cuda(x, u, bias)
+    return winograd_conv3x3_plain(x, u, bias)
+
+
+def vmem_estimate(h: int, w: int, cin: int, cout: int, itemsize: int) -> int:
+    """The JAX package's per-image VMEM estimate of its TPU kernel (its
+    `_vmem_estimate`), which the gates hold against the budget."""
+    hh, wh = h // 2, w // 2
+    tiles = hh * wh
+    grids = 20 * (hh + 1) * (wh + 1) * cin * itemsize  # 4 blocks + 16 P slices
+    weights = 16 * cin * cout * itemsize
+    acc = 5 * tiles * cout * 4  # 4 y accumulators + live m, fp32
+    out = 4 * tiles * cout * itemsize
+    return grids + weights + acc + out
+
+
+def winograd_eligible(x_shape, cout: int, itemsize: int = 2) -> bool:
+    """The JAX dispatch gates, verbatim (read at call time)."""
+    mode = knobs.get("ADAFACE_WINOGRAD", "0")
+    if mode not in ("1", "auto"):
+        return False
+    b, h, w, cin = x_shape
+    if h % 2 or w % 2:
+        return False
+    forced = mode == "1"
+    min_tiles = int(knobs.get("ADAFACE_WINOGRAD_MIN_TILES", str(DEF_MIN_TILES)))
+    if not forced and (h // 2) * (w // 2) < min_tiles:
+        return False
+    if not forced and (cin < 128 or cout < 128):  # lanes too thin
+        return False
+    budget = int(knobs.get("ADAFACE_WINOGRAD_VMEM", str(DEF_VMEM_BUDGET)))
+    return vmem_estimate(h, w, cin, cout, itemsize) <= budget
+
+
+def conv3x3_same(x: torch.Tensor, kernel: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None,
+                 enabled: bool = True) -> torch.Tensor:
+    """stride-1 SAME 3x3 conv; the Winograd op when `enabled` and the shape
+    clears the gates, else `direct_conv3x3`."""
+    if enabled and winograd_eligible(x.shape, kernel.shape[-1], x.element_size()):
+        b = bias if bias is not None else torch.zeros(kernel.shape[-1], dtype=x.dtype,
+                                                      device=x.device)
+        return winograd_conv3x3(x, kernel.to(x.dtype), b.to(x.dtype))
+    return direct_conv3x3(x, kernel, bias)

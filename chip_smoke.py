@@ -55,6 +55,33 @@ restored after each use) adds:
       flash launches, 45 K8 and 4 K9 (the transformer blocks of layers 1,
       2, 4 and 5; the others capture); metrics finite, embedders moved; one
       profiled micro-step.
+The knob arms of the attention dispatch (the JAX package's `ADAFACE_FLASH_*`
+knobs, set in-process and restored) and the Winograd conv add:
+  4c. arm kernels vs plain: the forward kernel through the public entries
+      under the knobs at the arms' new shapes: cross-attention with Lk 77
+      padded to 128 (K4, and K5 under MAXFREE=0; a fully masked row must
+      average all 128 padded keys), K2 and K5 at the generate
+      self-attention shapes, the [B*H, L, d] one-head fold (K6, K7), K1's
+      EXP_BF16 / MXU_SUM arithmetic (and, at 8x scores, the default
+      function must fail the comparison); then the backward kernels at the
+      fold's and the cross-attention's training shapes. Relative L2 and
+      max abs gates, planted faults; kernel, plain, SDPA and default-arm
+      times;
+  4d. K10, the Winograd conv, at every 3x3 stride-1 conv shape of one
+      generate UNet call (recorded by hooks) that the gates admit under
+      ADAFACE_WINOGRAD=1, driven through `conv3x3_same`; against its plain
+      version (planted faults: a position left out, a sign of A^T flipped,
+      the bias dropped, the input transform rounded once or kept in fp32),
+      two launches bit for bit; kernel, bound, plain and
+      F.conv2d times; one backward through the op;
+  6c. generate under each of `ARM_CONFIGS` (K2, K5, K4 cross, K6, K7, K1
+      flags, fuse_qkv): one warm-up and one timed request each, with
+      exactly the expected launches by (TPU kernel id, shape); images bit
+      for bit the default request's where the arm changes no arithmetic,
+      else within ARM_UINT8_MEAN_TOL;
+  9c. training under `PACKED=0` (K6) and `CROSS=1`: 2 micro-steps each with
+      exact forward, dq and dk/dv launches by (arm, shape); metrics finite,
+      embedders moved.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -275,32 +302,42 @@ def n_launches(fa, kind=None):
     return sum(n for key, n in fa.launches_by_shape.items() if kind in (None, key[0]))
 
 
+def launches_by_arm(fa, kind="fwd"):
+    """Launches of one kind since the counter was last cleared, by arm id."""
+    arms = {}
+    for key, n in fa.launches_by_shape.items():
+        if key[0] == kind:
+            arms[key[1]] = arms.get(key[1], 0) + n
+    return arms
+
+
 def kernel_errors(out, plain):
     """(max abs error, relative L2 error) of a kernel output against fp32."""
     diff = out.float() - plain
     return diff.abs().max().item(), (diff.norm() / plain.norm()).item()
 
 
-def gate_passes(out, plain, d):
+def gate_passes(out, plain, d, abs_tol=None):
     err, rel = kernel_errors(out, plain)
-    return err <= KERNEL_ABS_TOL[d] and rel <= KERNEL_REL_TOL
+    return err <= (abs_tol or KERNEL_ABS_TOL[d]) and rel <= KERNEL_REL_TOL
 
 
-def check_gate_rejects_faults(fa, q, k, v, h, d, bias, plain, label):
-    """Planted faults, made with the plain version and rounded to bf16 like a
-    kernel output: one 64-key tile skipped, and the softmax scale of head dim
-    d + 8. The gate must reject both, or it could pass a wrong kernel."""
+def check_gate_rejects_faults(fa, q, k, v, h, d, bias, plain, label, flags=0, abs_tol=None):
+    """Planted faults, made with the plain version (with K1's `flags`) and
+    rounded to bf16 like a kernel output: one 64-key tile skipped, and the
+    softmax scale of head dim d + 8. The gate must reject both, or it could
+    pass a wrong kernel."""
     kb = None if bias is None else bias[:, 64:]
     faults = {
         "key tile 0 skipped": fa.flash_attention_blc_plain(q, k[:, 64:], v[:, 64:], h,
-                                                           key_bias=kb),
+                                                           key_bias=kb, flags=flags),
         f"scale of d{d + 8}": fa.flash_attention_blc_plain(q, k, v, h, key_bias=bias,
-                                                           scale=(d + 8) ** -0.5),
+                                                           scale=(d + 8) ** -0.5, flags=flags),
     }
     for name, wrong in faults.items():
         err, rel = kernel_errors(wrong.bfloat16(), plain)
         say(f"[kernel]   planted fault, {name}: max abs err {err:.3e} rel L2 {rel:.3e}")
-        if gate_passes(wrong.bfloat16(), plain, d):
+        if gate_passes(wrong.bfloat16(), plain, d, abs_tol):
             fail(f"{label}: the gate passes a planted fault ({name})")
 
 
@@ -365,15 +402,16 @@ def phase_kernels(torch, fa, card, exp2_rate):
     return rows
 
 
-def bwd_bound(b, l, h, d, exp2_rate, mma_products, out_tensors, with_bias):
-    """Least time of a backward kernel: mma_products x 2*B*H*L^2*d
-    tensor-core flops (the real head dim), B*H*L^2 exp2, or the bytes of q,
-    k, v, dO, lse, delta (and the bias) read once and `out_tensors`
-    [B, L, H*D] bf16 outputs written once, whichever is largest."""
-    t_mma = 2 * mma_products * b * h * l * l * d / PEAK_BF16_FLOPS
-    t_exp = b * h * l * l / exp2_rate
-    nbytes = (2 * b * l * h * d * (4 + out_tensors) + 2 * 4 * b * h * l
-              + (4 * b * l if with_bias else 0))
+def bwd_bound(b, lq, lk, h, d, exp2_rate, kind, with_bias):
+    """Least time of a backward kernel: 6 (dq) or 8 (dk/dv) x B*H*Lq*Lk*d
+    tensor-core flops (the real head dim), B*H*Lq*Lk exp2, or the bytes of
+    q, k, v, dO, lse, delta (and the bias) read once and the outputs (dq, or
+    dk and dv) written once, whichever is largest."""
+    t_mma = (6 if kind == "dq" else 8) * b * h * lq * lk * d / PEAK_BF16_FLOPS
+    t_exp = b * h * lq * lk / exp2_rate
+    outs = b * lq * h * d if kind == "dq" else 2 * b * lk * h * d
+    nbytes = (2 * b * h * d * (2 * lq + 2 * lk) + 2 * outs + 2 * 4 * b * h * lq
+              + (4 * b * lk if with_bias else 0))
     t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_mma, t_exp, t_bytes) * 1e3, ("bytes" if t_bytes >= max(t_mma, t_exp)
                                                else "operations")
@@ -390,9 +428,15 @@ def lse_bound(b, l, h, d, exp2_rate):
                                                else "operations")
 
 
-def _gate_bwd(got, plain, d, what):
-    """(max abs, rel L2, passes) of one backward output against fp32."""
+def _gate_bwd(got, plain, d, what, scaled=False):
+    """(max abs, rel L2, passes) of one backward output against fp32. With
+    `scaled` (the cross-attention's 128 keys, whose dk and dv sum the
+    probabilities of every query: 50x the self-attention's), dq, dk and dv
+    hold max abs against CROSS_BWD_ABS_TOL of the largest plain value."""
     err, rel = kernel_errors(got, plain)
+    if scaled and what in ("dq", "dk", "dv"):
+        return err, rel, (err <= CROSS_BWD_ABS_TOL * plain.abs().max().item()
+                          and rel <= BWD_REL_TOL)
     if what == "o":
         ok = gate_passes(got, plain, d)
     elif what == "lse":
@@ -502,8 +546,8 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
             del o_lib, qh, kh, vh
             fwd_bound = bound(b, l, l, h, d, exp2_rate, True)
             lse_b = lse_bound(b, l, h, d, exp2_rate)
-            dq_bound = bwd_bound(b, l, h, d, exp2_rate, 3, 1, True)
-            dkv_bound = bwd_bound(b, l, h, d, exp2_rate, 4, 2, True)
+            dq_bound = bwd_bound(b, l, l, h, d, exp2_rate, "dq", True)
+            dkv_bound = bwd_bound(b, l, l, h, d, exp2_rate, "dkv", True)
             rows[("fwd", b, l, h, d)] = dict(
                 replaces=f"{replaces} (+ {K3A} as the lse output)",
                 max_abs_err=errs["o"][0], ms=fwd_ms, plain_ms=fwd_plain_ms,
@@ -762,13 +806,18 @@ def phase_main_path(torch, pipe, card):
         t0 = time.time()
         imgs = pipe.generate(prompts, seed=i + 1, **kw)
         times.append(time.time() - t0)
-        counts = {(b, lq, h, d): n for (kind, b, lq, lk, h, d), n
+        counts = {(b, lq, h, d): n for (kind, arm, b, lq, lk, h, d), n
                   in fa.launches_by_shape.items() if kind == "fwd"}
+        arms = launches_by_arm(fa)
         launches = n_launches(fa)
         say(f"[main] request {i}: {times[-1]:.3f} s, {BATCH / times[-1]:.4f} img/s, "
-            f"kernel launches {launches} {sorted(counts.items())} [{card}]")
-        if launches != 750 or counts != {s: n for s, (_, n) in MAIN_SHAPES.items()}:
-            fail(f"expected 750 launches ({MAIN_SHAPES}), got {launches} {counts}")
+            f"kernel launches {launches} {sorted(counts.items())} by arm {arms} [{card}]")
+        if (launches != 750 or counts != {s: n for s, (_, n) in MAIN_SHAPES.items()}
+                or arms != {"K1": 500, "K4": 250}):
+            fail(f"expected 750 launches ({MAIN_SHAPES}; K1 500, K4 250), got {launches} "
+                 f"{counts} {arms}")
+        if i == 0:
+            first_imgs = imgs
         if imgs.shape != (BATCH, SIZE, SIZE, 3) or str(imgs.dtype) != "uint8":
             fail(f"images {imgs.shape} {imgs.dtype}")
         if imgs.std() < 1.0 or imgs.reshape(BATCH, -1).std(axis=1).min() < 1.0:
@@ -783,7 +832,7 @@ def phase_main_path(torch, pipe, card):
     say(f"[main] batch {BATCH} 512x512 DDIM-{STEPS} CFG 10->4 bf16: median "
         f"{med:.3f} s/request, {BATCH / med:.4f} img/s, best {min(times):.3f} s "
         f"[{card}]")
-    return counts, med
+    return counts, med, first_imgs
 
 
 def phase_fused_main_path(torch, pipe, card, default_med):
@@ -810,7 +859,7 @@ def phase_fused_main_path(torch, pipe, card, default_med):
             t0 = time.time()
             imgs = pipe.generate(prompts, seed=i + 1, **kw)
             times.append(time.time() - t0)
-            got_fa = {(b, lq, h, d): n for (kind, b, lq, lk, h, d), n
+            got_fa = {(b, lq, h, d): n for (kind, arm, b, lq, lk, h, d), n
                       in fa.launches_by_shape.items() if kind == "fwd"}
             got_gn, got_ff = dict(fn.launches_by_shape), dict(ff.launches_by_shape)
             say(f"[fused] request {i}: {times[-1]:.3f} s, {BATCH / times[-1]:.4f} img/s, "
@@ -1065,8 +1114,8 @@ def phase_train(torch, pipe, fa, trainer_cls, tmp, card):
         torch.cuda.synchronize()
         times.append(time.time() - t0)
         step_counts = {}
-        for (kind, b, lq, lk, h, d), n in fa.launches_by_shape.items():
-            n -= before.get((kind, b, lq, lk, h, d), 0)
+        for (kind, arm, b, lq, lk, h, d), n in fa.launches_by_shape.items():
+            n -= before.get((kind, arm, b, lq, lk, h, d), 0)
             if n:
                 step_counts.setdefault(kind, {})[(b, lq, h, d)] = n
         say(f"[train] micro-step {i}: {times[-1]:.3f} s, launches "
@@ -1080,7 +1129,7 @@ def phase_train(torch, pipe, fa, trainer_cls, tmp, card):
                 f"finite {finite}")
             if not finite or not moved > 0:
                 fail("the first optimizer update left the embedders unchanged or non-finite")
-    for (kind, b, lq, lk, h, d), n in fa.launches_by_shape.items():
+    for (kind, arm, b, lq, lk, h, d), n in fa.launches_by_shape.items():
         totals[(kind, b, lq, h, d)] = n
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     recs = [json.loads(l) for l in open(os.path.join(tcfg.logdir, "metrics.jsonl"))]
@@ -1146,8 +1195,8 @@ def phase_fused_train(torch, pipe, trainer_cls, tmp, card, default_med, default_
             torch.cuda.synchronize()
             times.append(time.time() - t0)
             got = {}
-            for (kind, b, lq, lk, h, d), n in fa.launches_by_shape.items():
-                n -= before_fa.get((kind, b, lq, lk, h, d), 0)
+            for (kind, arm, b, lq, lk, h, d), n in fa.launches_by_shape.items():
+                n -= before_fa.get((kind, arm, b, lq, lk, h, d), 0)
                 if n:
                     got.setdefault(kind, {})[(b, lq, h, d)] = n
             for kind, c in counters.items():
@@ -1207,6 +1256,666 @@ def train_stages(torch, trainer, card):
         f"{(t3 - t2) * 1e3:.1f} ms [{card}]")
 
 
+# ------------------------------------------------------------------ slice 4
+# The knob arms of the flash dispatch and the Winograd conv. Every arm of the
+# packed entry (K1, K2, K4, K5) and of the [B, H, L, D] entry (K6, K7) runs
+# csrc/flash_attn_packed.cu; the launch counters key each launch by the TPU
+# kernel it stands for.
+WINO_SOURCE = "adaface_tpu_torch/csrc/winograd.cu"
+K2 = "adaface_tpu/ops/flash_attention.py:639"  # _flash_kernel_heads_pvt2
+K5 = "adaface_tpu/ops/flash_attention.py:467"  # _flash_kernel_heads
+K6 = "adaface_tpu/ops/flash_attention.py:59"  # _flash_kernel
+K7 = "adaface_tpu/ops/flash_attention.py:129"  # _flash_row_kernel
+K10 = "adaface_tpu/ops/winograd.py:81"  # _wino_kernel
+ARM_REPLACES = {"K1": K1, "K2": K2, "K4": K4, "K5": K5, "K6": K6, "K7": K7,
+                "K1+exp_bf16": K1, "K1+mxu_sum": K1, "K1+exp_bf16+mxu_sum": K1}
+CROSS_LK = 77
+# (B, Lq, H, d) of the cross-attentions at Lq >= 256 of a generate UNet call
+# (5 at each shape, 250 per request); of the non-capturing ones of a recon
+# micro-step (layers 1, 2 and 4, 5); of the [B*H, L, d] fold and the flags
+CROSS_SHAPES = [(16, 4096, 8, 40), (16, 1024, 8, 80), (16, 256, 8, 160)]
+CROSS_TRAIN_SHAPES = [(3, 4096, 8, 40), (3, 1024, 8, 80)]
+FOLD_SHAPES = [(16, 4096, 8, 40), (8, 4096, 8, 40), (16, 1024, 8, 80), (16, 256, 8, 160)]
+FLAG_SHAPES = [(16, 4096, 8, 40), (8, 4096, 8, 40), (16, 1024, 8, 80)]
+FLAG_NAMES = {1: "EXP_BF16", 2: "MXU_SUM", 3: "EXP_BF16+MXU_SUM"}
+# generate under each arm configuration: (name, knobs, fuse_qkv, images
+# bit-identical to the default request's on the same seed)
+ARM_CONFIGS = [
+    ("K2", {"ADAFACE_FLASH_PVT2": "1", "ADAFACE_FLASH_SHORT": "0"}, False, True),
+    ("K5", {"ADAFACE_FLASH_MAXFREE": "0", "ADAFACE_FLASH_CROSS": "1"}, False, False),
+    ("K4 cross", {"ADAFACE_FLASH_CROSS": "1"}, False, False),
+    ("K6", {"ADAFACE_FLASH_PACKED": "0"}, False, True),
+    ("K7", {"ADAFACE_FLASH_PACKED": "0", "ADAFACE_FLASH_MODE": "row"}, False, True),
+    ("K1 flags", {"ADAFACE_FLASH_EXP_BF16": "1", "ADAFACE_FLASH_MXU_SUM": "1"}, False, False),
+    ("fuse_qkv", {}, True, False),
+]
+TRAIN_ARM_CONFIGS = [("K6", {"ADAFACE_FLASH_PACKED": "0"}),
+                     ("K4 cross", {"ADAFACE_FLASH_CROSS": "1"})]
+ARM_TRAIN_STEPS = 2
+# Max abs gate of the cross-attention rows: with 77 keys the output is about
+# 4x larger than at L4096 (std ~0.11), and so are the bf16 roundings of p and
+# o (measured 7.4e-3 at d40 on an H100); the relative L2 gate is unchanged.
+CROSS_ABS_TOL = 2e-2
+CROSS_BWD_ABS_TOL = 2.0 ** -6  # two bf16 ulps at the top of the range
+# Images of an arm that changes the arithmetic against the default request on
+# the same seed: mean absolute uint8 difference over all pixels. bf16
+# roundings in other places (the kernel rounds unnormalised p, the einsum
+# path normalised p) grow through 50 guided DDIM steps; measured on an H100:
+# 2.27 levels (max 68) for the cross-attention through the kernel.
+ARM_UINT8_MEAN_TOL = 4.0
+# K10 gate, kernel (bf16) vs its plain version on the same bf16 inputs: the
+# plain version repeats the kernel's roundings, so only fp32 sums in another
+# order and the final bf16 rounding differ (measured on an H100: relative L2
+# 1.7e-7 to 8.6e-5, max abs up to 5.95e-3 of the largest value). Relative L2
+# 5e-4, which the rounding faults (t_ij rounded once, or kept in fp32: a bf16
+# ulp of t in about a third of the elements) must fail; max abs against the
+# output's largest value 2^-7, one bf16 ulp at the top of the range.
+WINO_REL_TOL = 5e-4
+WINO_ABS_TOL = 2.0 ** -7
+
+
+def _winograd():
+    from adaface_tpu_torch.ops import winograd
+    return winograd
+
+
+def expected_generate_launches(name):
+    """(arm, B, Lq, Lk, H, d) -> forward launches of one generate request
+    under arm configuration `name` (or "default")."""
+    want = {}
+
+    def add(key, n):
+        want[key] = want.get(key, 0) + n
+
+    for (b, l, h, d), (replaces, n) in MAIN_SHAPES.items():
+        arm = "K1" if replaces == K1 else "K4"
+        if name in ("K2", "K5"):
+            add((name, b, l, l, h, d), n)
+        elif name in ("K6", "K7"):
+            add((name, b * h, l, l, 1, d), n)
+        elif name == "K1 flags" and arm == "K1":
+            add(("K1+exp_bf16+mxu_sum", b, l, l, h, d), n)
+        else:
+            add((arm, b, l, l, h, d), n)
+    if name in ("K5", "K4 cross"):
+        for b, lq, h, d in CROSS_SHAPES:
+            add(("K5" if name == "K5" else "K4", b, lq, 128, h, d), STEPS * 5)
+    return want
+
+
+def expected_train_launches(name):
+    """kind -> (arm, B, Lq, Lk, H, d) -> launches of one recon micro-step
+    under training arm configuration `name`."""
+    want = {"fwd": {}, "dq": {}, "dkv": {}}
+    for (b, l, h, d), (replaces, n_fwd, n_bwd) in TRAIN_SHAPES.items():
+        arm, key = ("K1" if replaces == K1 else "K4"), (b, l, l, h, d)
+        if name == "K6":
+            arm, key = "K6", (b * h, l, l, 1, d)
+        want["fwd"][(arm,) + key] = n_fwd
+        want["dq"][("K3b",) + key] = n_bwd
+        want["dkv"][("K3c",) + key] = n_bwd
+    if name == "K4 cross":
+        for b, lq, h, d in CROSS_TRAIN_SHAPES:
+            key = (b, lq, 128, h, d)
+            want["fwd"][("K4",) + key] = 2
+            want["dq"][("K3b",) + key] = 2
+            want["dkv"][("K3c",) + key] = 2
+    return want
+
+
+def _by_kind(fa, before=None):
+    """The counter since `before` (a copy of it), as kind -> key -> n."""
+    got = {}
+    for (kind, *key), n in fa.launches_by_shape.items():
+        n -= (before or {}).get((kind, *key), 0)
+        if n:
+            got.setdefault(kind, {})[tuple(key)] = n
+    return got
+
+
+def _fwd_row(torch, fa, label, out, plain, d, timed, plain_call, library, bound_ms_by,
+             card, abs_tol=None, **extra):
+    """Gate a forward output against its plain version, time the kernel,
+    the plain version and the library call; returns the kernels-line row."""
+    if not torch.isfinite(out).all():
+        fail(f"{label}: non-finite kernel output")
+    err, rel = kernel_errors(out, plain)
+    abs_tol = abs_tol or KERNEL_ABS_TOL[d]
+    ms = time_ms(torch, timed)
+    plain_ms = time_ms(torch, plain_call, reps=2, rounds=3)
+    library_ms = time_ms(torch, library) if library is not None else None
+    extra_ms = {k: time_ms(torch, f) for k, f in extra.items()}
+    say(f"[arm-kernel] {label:48s}: max abs err {err:.3e} (tol {abs_tol}) rel L2 "
+        f"{rel:.3e} (tol {KERNEL_REL_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"library {library_ms if library_ms is None else f'{library_ms:.4f}'} ms "
+        + "".join(f"{k} {v:.4f} ms " for k, v in extra_ms.items())
+        + f"bound {bound_ms_by[0]:.4f} ms ({bound_ms_by[1]}) [{card}]")
+    if not gate_passes(out, plain, d, abs_tol):
+        fail(f"{label}: kernel disagrees with plain (max abs {err:.3e}, rel L2 {rel:.3e})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms_by[0],
+                bound_by=bound_ms_by[1], library_ms=library_ms, **extra_ms)
+
+
+def _expect_one_launch(fa, key, label):
+    if fa.launches_by_shape != {key: 1}:
+        fail(f"{label}: expected the one launch {key}, counted {fa.launches_by_shape}")
+
+
+def phase_arm_kernels(torch, fa, card, exp2_rate):
+    """(4c) The forward kernel at the arms' new shapes against its plain
+    version, through the public entries with the knobs set: cross-attention
+    Lk 77 padded to 128 (K4, and K5 under MAXFREE=0), K2 and K5 at the
+    generate self-attention shapes, the [B*H, L, d] fold (K6, K7), K1's
+    EXP_BF16 and MXU_SUM arithmetic; then the backward
+    kernels at the fold's and the cross-attention's training shapes.
+    Returns the rows by (arm, B, Lq, Lk, H, d) and, for the backward, by
+    (kind, arm, B, Lq, Lk, H, d)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    heads4 = lambda t, h: t.unflatten(-1, (h, -1)).transpose(1, 2)
+    rows = {}
+    lkp = fa.cross_pad_len(CROSS_LK)
+    for b, lq, h, d in CROSS_SHAPES:
+        q, k, v = rand(b, lq, h * d), rand(b, CROSS_LK, h * d), rand(b, CROSS_LK, h * d)
+        kp, vp = (F.pad(t, (0, 0, 0, lkp - CROSS_LK)) for t in (k, v))
+        biasp = F.pad(torch.zeros((b, CROSS_LK), device="cuda"), (0, lkp - CROSS_LK),
+                      value=-1e30)
+        plain = fa.flash_attention_blc_plain(q, kp, vp, h, biasp)
+        mask = biasp.to(torch.bfloat16)[:, None, None, :]
+        for arm, knobs in (("K4", {"ADAFACE_FLASH_CROSS": "1"}),
+                           ("K5", {"ADAFACE_FLASH_CROSS": "1", "ADAFACE_FLASH_MAXFREE": "0"})):
+            label = f"{arm} cross B{b} Lq{lq} Lk{CROSS_LK}->{lkp} H{h} d{d}"
+            with knobs_set(knobs):
+                fa.launches_by_shape.clear()
+                out = fa.flash_attention_blc(q, k, v, h)
+                torch.cuda.synchronize()
+                _expect_one_launch(fa, ("fwd", arm, b, lq, lkp, h, d), label)
+                rows[(arm, b, lq, lkp, h, d)] = _fwd_row(
+                    torch, fa, label, out, plain, d,
+                    lambda: fa.flash_attention_blc_cuda(q, kp, vp, h, biasp, arm=arm),
+                    lambda: fa.flash_attention_blc_plain(q, kp, vp, h, biasp),
+                    lambda: F.scaled_dot_product_attention(
+                        heads4(q, h), heads4(kp, h), heads4(vp, h), attn_mask=mask,
+                        scale=d ** -0.5),
+                    bound(b, lq, lkp, h, d, exp2_rate, True), card, abs_tol=CROSS_ABS_TOL,
+                    default_arm_ms=lambda: fa.reference_attention(q, k, v, h))
+            check_gate_rejects_faults(fa, q, kp, vp, h, d, biasp, plain, label,
+                                      abs_tol=CROSS_ABS_TOL)
+        if lq == 1024:  # a fully masked batch row: the average of all 128 padded keys
+            kb = torch.zeros((b, CROSS_LK), device="cuda")
+            kb[0] = -1e30
+            with knobs_set({"ADAFACE_FLASH_CROSS": "1"}):
+                out = fa.flash_attention_blc(q, k, v, h, key_bias=kb)
+            padded_mean = v[0].float().sum(0) / lkp
+            err_p = (out[0].float() - padded_mean).abs().max().item()
+            err_77 = (out[0].float() - v[0].float().mean(0)).abs().max().item()
+            say(f"[arm-kernel] cross, batch row 0 fully masked: max abs err against the "
+                f"average over the {lkp} padded keys {err_p:.3e} (tol {MASKED_ROW_TOL}), "
+                f"against the average over the {CROSS_LK} real keys {err_77:.3e}")
+            if not err_p <= MASKED_ROW_TOL or not err_77 > 10 * MASKED_ROW_TOL:
+                fail("the CROSS pad: a fully masked row must average all padded keys")
+        del q, k, v, kp, vp, plain
+    fa.launches_by_shape.clear()
+
+    # K2 and K5 at the self-attention shapes of a generate call: the same
+    # kernel as K1/K4 in phase 3, launched and timed here under each arm's knobs
+    for b, l, h, d in MAIN_SHAPES:
+        q, k, v = rand(b, l, h * d), rand(b, l, h * d), rand(b, l, h * d)
+        plain = fa.flash_attention_blc_plain(q, k, v, h)
+        for arm, knobs in (("K2", {"ADAFACE_FLASH_PVT2": "1", "ADAFACE_FLASH_SHORT": "0"}),
+                           ("K5", {"ADAFACE_FLASH_MAXFREE": "0"})):
+            label = f"{arm} self B{b} L{l} H{h} d{d}"
+            with knobs_set(knobs):
+                fa.launches_by_shape.clear()
+                out = fa.flash_attention_blc(q, k, v, h)
+                torch.cuda.synchronize()
+                _expect_one_launch(fa, ("fwd", arm, b, l, l, h, d), label)
+                rows[(arm, b, l, l, h, d)] = _fwd_row(
+                    torch, fa, label, out, plain, d,
+                    lambda: fa.flash_attention_blc_cuda(q, k, v, h, arm=arm),
+                    lambda: fa.flash_attention_blc_plain(q, k, v, h),
+                    lambda: F.scaled_dot_product_attention(
+                        heads4(q, h), heads4(k, h), heads4(v, h), scale=d ** -0.5),
+                    bound(b, l, l, h, d, exp2_rate, False), card)
+            check_gate_rejects_faults(fa, q, k, v, h, d, None, plain, label)
+        del q, k, v, plain
+    fa.launches_by_shape.clear()
+
+    for b, l, h, d in FOLD_SHAPES:
+        q, k, v = (rand(b, h, l, d) for _ in range(3))
+        fold = lambda t: t.reshape(b * h, l, d)
+        plain = fa.flash_attention_blc_plain(fold(q), fold(k), fold(v), 1)
+        for arm, knobs in (("K6", {}), ("K7", {"ADAFACE_FLASH_MODE": "row"})):
+            label = f"{arm} fold B{b}xH{h} L{l} d{d}"
+            with knobs_set(knobs):
+                fa.launches_by_shape.clear()
+                out = fa.flash_attention(q, k, v)
+                torch.cuda.synchronize()
+                _expect_one_launch(fa, ("fwd", arm, b * h, l, l, 1, d), label)
+                rows[(arm, b * h, l, l, 1, d)] = _fwd_row(
+                    torch, fa, label, fold(out), plain, d,
+                    lambda: fa.flash_attention_blc_cuda(fold(q), fold(k), fold(v), 1, arm=arm),
+                    lambda: fa.flash_attention_blc_plain(fold(q), fold(k), fold(v), 1),
+                    lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5),
+                    bound(b, l, l, h, d, exp2_rate, False), card)
+            check_gate_rejects_faults(fa, fold(q), fold(k), fold(v), 1, d, None, plain, label)
+        del q, k, v, plain
+    fa.launches_by_shape.clear()
+
+    for b, l, h, d in FLAG_SHAPES:
+        q, k, v = rand(b, l, h * d), rand(b, l, h * d), rand(b, l, h * d)
+        default_out = fa.flash_attention_blc_cuda(q, k, v, h)
+        for flags, name in FLAG_NAMES.items():
+            arm = fa.arm_id("K1", flags)
+            knobs = {f"ADAFACE_FLASH_{n}": "1" for n in name.split("+")}
+            label = f"{arm} B{b} L{l} H{h} d{d}"
+            plain = fa.flash_attention_blc_plain(q, k, v, h, flags=flags)
+            with knobs_set(knobs):
+                fa.launches_by_shape.clear()
+                out = fa.flash_attention_blc(q, k, v, h)
+                torch.cuda.synchronize()
+                _expect_one_launch(fa, ("fwd", arm, b, l, l, h, d), label)
+                rows[(arm, b, l, l, h, d)] = _fwd_row(
+                    torch, fa, label, out, plain, d,
+                    lambda: fa.flash_attention_blc_cuda(q, k, v, h, arm=arm, flags=flags),
+                    lambda: fa.flash_attention_blc_plain(q, k, v, h, flags=flags),
+                    lambda: F.scaled_dot_product_attention(
+                        heads4(q, h), heads4(k, h), heads4(v, h), scale=d ** -0.5),
+                    bound(b, l, l, h, d, exp2_rate, False), card,
+                    default_arm_ms=lambda: fa.flash_attention_blc_cuda(q, k, v, h))
+            check_gate_rejects_faults(fa, q, k, v, h, d, None, plain, label, flags=flags)
+            differ = (out != default_out).sum().item()
+            say(f"[arm-kernel]   {arm}: {differ} of {out.numel()} outputs differ from the "
+                f"default arm's")
+            if differ == 0:
+                fail(f"{label}: the flags did not reach the kernel")
+            if flags & fa.FLAG_EXP_BF16:
+                # large scores, where bf16(s) moves p by up to 9%: the default
+                # function is a planted fault the comparison must see
+                q8 = (q.float() * 8).bfloat16()
+                out8 = fa.flash_attention_blc_cuda(q8, k, v, h, arm=arm, flags=flags)
+                plain8 = fa.flash_attention_blc_plain(q8, k, v, h, flags=flags)
+                rel_k = kernel_errors(out8, plain8)[1]
+                rel_f = kernel_errors(fa.flash_attention_blc_plain(q8, k, v, h).bfloat16(),
+                                      plain8)[1]
+                say(f"[arm-kernel]   {arm} at 8x scores: kernel rel L2 {rel_k:.3e}, planted "
+                    f"fault (the flag ignored) rel L2 {rel_f:.3e}")
+                if not (rel_k < 0.25 * rel_f and rel_f > KERNEL_REL_TOL):
+                    fail(f"{label}: at 8x scores the kernel is not closer to its flag's "
+                         f"function than the default function is")
+        del q, k, v, default_out
+    fa.launches_by_shape.clear()
+
+    bwd_rows = {}
+    gen_mask = torch.Generator(device="cuda").manual_seed(17)
+    cases = []
+    for b, l, h, d in TRAIN_SHAPES:
+        bias = torch.where(torch.rand((b, l), generator=gen_mask, device="cuda") > 0.3, 0.0,
+                           -1e30)
+        bias[0] = -1e30
+        cases.append(("K6", b * h, l, l, 1, d, bias.repeat_interleave(h, dim=0),
+                      f"K6 fold B{b}xH{h} L{l} d{d}"))
+    for b, lq, h, d in CROSS_TRAIN_SHAPES:
+        biasp = F.pad(torch.zeros((b, CROSS_LK), device="cuda"), (0, lkp - CROSS_LK),
+                      value=-1e30)
+        cases.append(("K4", b, lq, lkp, h, d, biasp,
+                      f"K4 cross B{b} Lq{lq} Lk{CROSS_LK}->{lkp} H{h} d{d}"))
+    for arm, b, lq, lk, h, d, bias, label in cases:
+        q, do = rand(b, lq, h * d), rand(b, lq, h * d)
+        k, v = rand(b, lk, h * d), rand(b, lk, h * d)
+        if arm == "K4":  # the pad rows are zeros, as the entry makes them
+            k[:, CROSS_LK:] = 0
+            v[:, CROSS_LK:] = 0
+        fa.launches_by_shape.clear()
+        out, lse = fa.flash_attention_blc_cuda(q, k, v, h, bias, return_lse=True, arm=arm)
+        delta = fa.row_delta(out, do, h)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, h)
+        dk, dv, dbias = fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, h,
+                                              need_dbias=True)
+        torch.cuda.synchronize()
+        counted = {key[:2]: n for key, n in fa.launches_by_shape.items()}
+        if counted != {("fwd", arm): 1, ("dq", "K3b"): 1, ("dkv", "K3c"): 1}:
+            fail(f"{label}: the wrappers counted {fa.launches_by_shape}")
+        plain_lse = fa.row_lse_plain(q, k, h, bias)
+        pdq, pdk, pdv, pdb = fa.flash_backward_plain(q, k, v, bias, out, do, lse, h)
+        errs = {}
+        for what, got, ref in (("lse", lse, plain_lse), ("dq", dq, pdq), ("dk", dk, pdk),
+                               ("dv", dv, pdv), ("dbias", dbias.sum(1), pdb.sum(1))):
+            if not torch.isfinite(got).all():
+                fail(f"{label}: non-finite {what}")
+            err, rel, ok = _gate_bwd(got, ref, d, what, scaled=arm == "K4")
+            errs[what] = err
+            say(f"[arm-backward] {label:40s} {what:5s}: max abs err {err:.3e} rel L2 "
+                f"{rel:.3e}{'' if ok else '  FAILS THE GATE'}")
+            if not ok:
+                fail(f"{label}: {what} disagrees with the plain backward")
+        no_delta = fa.flash_backward_plain(q, k, v, bias, torch.zeros_like(out), do, lse, h)
+        for what, wrong, ref in (("dq", no_delta[0], pdq), ("dk", no_delta[1], pdk)):
+            err, rel, ok = _gate_bwd(wrong.bfloat16(), ref, d, what, scaled=arm == "K4")
+            say(f"[arm-backward]   planted fault, delta omitted ({what}): max abs err "
+                f"{err:.3e} rel L2 {rel:.3e}")
+            if ok:
+                fail(f"{label}: the gate passes a planted fault (delta omitted, {what})")
+        fwd_ms = time_ms(torch, lambda: fa.flash_attention_blc_cuda(q, k, v, h, bias,
+                                                                    return_lse=True, arm=arm))
+        fwd_plain_ms = time_ms(torch, lambda: (fa.flash_attention_blc_plain(q, k, v, h, bias),
+                                               fa.row_lse_plain(q, k, h, bias)), reps=2, rounds=3)
+        plain_out = fa.flash_attention_blc_plain(q, k, v, h, bias)
+        if not gate_passes(out, plain_out, d, CROSS_ABS_TOL if arm == "K4" else None):
+            fail(f"{label}: the forward disagrees with plain")
+        dq_ms = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, h))
+        dkv_ms = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta,
+                                                              h))
+        bwd_plain_ms = time_ms(torch, lambda: fa.flash_backward_plain(
+            q, k, v, bias, out, do, lse, h), reps=2, rounds=3)
+        qh, kh, vh = (heads4(t, h).detach().requires_grad_(True) for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias.to(torch.bfloat16)[:, None, None, :], scale=d ** -0.5)
+        fwd_lib_ms = time_ms(torch, lambda: sdpa().detach())
+        o_lib = sdpa()
+        bwd_lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (qh, kh, vh), heads4(do, h), retain_graph=True))
+        dq_b = bwd_bound(b, lq, lk, h, d, exp2_rate, "dq", True)
+        dkv_b = bwd_bound(b, lq, lk, h, d, exp2_rate, "dkv", True)
+        key = (b, lq, lk, h, d)
+        fwd_b = bound(b, lq, lk, h, d, exp2_rate, True)
+        bwd_rows[("fwd", arm) + key] = dict(
+            max_abs_err=kernel_errors(out, plain_out)[0], ms=fwd_ms, plain_ms=fwd_plain_ms,
+            bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=fwd_lib_ms)
+        bwd_rows[("dq", "K3b") + key] = dict(
+            max_abs_err=errs["dq"], ms=dq_ms, plain_ms=bwd_plain_ms, bound_ms=dq_b[0],
+            bound_by=dq_b[1], library_ms=bwd_lib_ms)
+        bwd_rows[("dkv", "K3c") + key] = dict(
+            max_abs_err=max(errs["dk"], errs["dv"]), ms=dkv_ms, plain_ms=bwd_plain_ms,
+            bound_ms=dkv_b[0], bound_by=dkv_b[1], library_ms=bwd_lib_ms)
+        say(f"[arm-backward] {label}: fwd+lse {fwd_ms:.4f} ms (bound {fwd_b[0]:.4f} "
+            f"{fwd_b[1]}, sdpa {fwd_lib_ms:.4f}), dq {dq_ms:.4f} ms (bound {dq_b[0]:.4f} "
+            f"{dq_b[1]}), dk/dv "
+            f"{dkv_ms:.4f} ms (bound {dkv_b[0]:.4f} {dkv_b[1]}), sdpa backward "
+            f"{bwd_lib_ms:.4f} ms, plain backward {bwd_plain_ms:.3f} ms [{card}]")
+        del q, k, v, do, out, lse, delta, dq, dk, dv, dbias, pdq, pdk, pdv, pdb, o_lib, plain_out
+    fa.launches_by_shape.clear()
+    torch.cuda.empty_cache()
+    return rows, bwd_rows
+
+
+def record_conv_shapes(torch, pipe):
+    """(B, H, W, Cin, Cout) -> count of the 3x3 stride-1 convs of one
+    generate UNet call (B16 at 64x64, the CFG stem at B8), recorded by
+    forward pre-hooks: the Conv2d modules and the nearest-2x upsample
+    convs."""
+    from adaface_tpu_torch.models.unet import Upsample, precompute_cross_kv
+
+    shapes = {}
+
+    def add(key):
+        shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = []
+    for m in pipe.unet.modules():
+        if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (3, 3) and m.stride == (1, 1):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, inp: add((inp[0].shape[0], inp[0].shape[2], inp[0].shape[3],
+                                      inp[0].shape[1], mod.out_channels))))
+        elif isinstance(m, Upsample):  # a 3x3 SAME conv of the upsampled [B, 2H, 2W, C]
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, inp: add((inp[0].shape[0], 2 * inp[0].shape[1],
+                                      2 * inp[0].shape[2], inp[0].shape[3],
+                                      mod.conv.out_channels))))
+    prompts = [PROMPT] * BATCH
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    try:
+        with torch.inference_mode():
+            ctx = pipe.encode_prompts(prompts)
+            ctx = torch.cat([ctx, pipe.encode_negative("", BATCH).expand_as(ctx)], dim=1)
+            x = torch.randn((BATCH, SIZE // 8, SIZE // 8, 4), generator=gen, device="cuda")
+            t = torch.full((BATCH,), 501, dtype=torch.int32, device="cuda")
+            pipe.unet(x, t, ctx, cfg_dedup=True, cross_kv=precompute_cross_kv(pipe.unet, ctx))
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return shapes
+
+
+def wino_bound(b, h, w, cin, cout):
+    """Least time of K10: 8*B*H*W*Cin*Cout tensor-core flops (the 16
+    Winograd products), or x, U and y moved once (bf16), whichever is
+    larger."""
+    t_mma = 8 * b * h * w * cin * cout / PEAK_BF16_FLOPS
+    t_bytes = 2 * (b * h * w * (cin + cout) + 16 * cin * cout) / PEAK_HBM_BYTES
+    return max(t_mma, t_bytes) * 1e3, "bytes" if t_bytes >= t_mma else "operations"
+
+
+def phase_winograd(torch, pipe, card):
+    """(4d) K10 at every 3x3 stride-1 conv shape of one generate UNet call
+    that `winograd_eligible` admits under ADAFACE_WINOGRAD=1: driven through
+    `conv3x3_same` as often as the UNet call has the shape (counts cleared
+    before, read after); against its plain version (relative L2 and max abs
+    gates, planted faults: a position left out, a sign of A^T flipped, the
+    bias dropped, the input transform rounded once or kept in fp32 instead
+    of rounded after every add), two launches bit for bit; kernel, bound,
+    plain and F.conv2d (cuDNN, channels_last bf16) times; one backward
+    through the op.
+    Returns (rows, launches) by shape."""
+    import torch.nn.functional as F
+
+    tw = _winograd()
+    shapes = record_conv_shapes(torch, pipe)
+    with knobs_set({"ADAFACE_WINOGRAD": "1"}):
+        eligible = {s: n for s, n in shapes.items()
+                    if tw.winograd_eligible((s[0], s[1], s[2], s[3]), s[4], 2)}
+    say(f"[winograd] {len(shapes)} distinct 3x3 stride-1 conv shapes in one UNet call, "
+        f"{len(eligible)} admitted under ADAFACE_WINOGRAD=1: "
+        f"{ {s: n for s, n in sorted(eligible.items())} }; not admitted (VMEM budget): "
+        f"{sorted(set(shapes) - set(eligible))}")
+    if not eligible:
+        fail("no conv shape of the UNet call passes the Winograd gates")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    cases = {}
+    for (b, h, w, cin, cout) in sorted(eligible):
+        cases[(b, h, w, cin, cout)] = (randn(b, h, w, cin).bfloat16(),
+                                       (randn(3, 3, cin, cout) / (9 * cin) ** 0.5).bfloat16(),
+                                       (0.2 * randn(cout)).bfloat16())
+    tw.launches_by_shape.clear()
+    with knobs_set({"ADAFACE_WINOGRAD": "1"}):
+        for key, n in eligible.items():
+            for _ in range(n):
+                tw.conv3x3_same(*cases[key])
+    torch.cuda.synchronize()
+    launches = dict(tw.launches_by_shape)
+    say(f"[winograd] conv3x3_same under ADAFACE_WINOGRAD=1: {sum(launches.values())} kernel "
+        f"launches {sorted(launches.items())}")
+    if launches != eligible:
+        fail(f"winograd launches {launches}, expected {eligible}")
+    rows = {}
+    for key, (x, kern, bias) in cases.items():
+        b, h, w, cin, cout = key
+        label = f"winograd B{b} {h}x{w} Cin{cin} Cout{cout}"
+        u = tw.transform_weights(kern)
+        out = tw.winograd_conv3x3_cuda(x, u, bias)
+        again = tw.winograd_conv3x3_cuda(x, u, bias)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all() or not torch.equal(out, again):
+            fail(f"{label}: non-finite output, or two launches disagree")
+        plain = tw.winograd_conv3x3_plain(x, u, bias).float()
+        scale = plain.abs().max().item()
+        errs = lambda y: ((y.float() - plain).abs().max().item() / scale,
+                          ((y.float() - plain).norm() / plain.norm()).item())
+        err, rel = errs(out)
+        u5 = u.clone()
+        u5[5] = 0
+        faults = {"position 5 left out": tw.winograd_conv3x3_plain(x, u5, bias),
+                  "bias dropped": tw.winograd_conv3x3_plain(x, u, torch.zeros_like(bias))}
+        at, transform = tw.AT, tw._input_transform
+        fp32_t = lambda tile, i, j: transform(lambda p, q: tile(p, q).float(), i, j)
+        for name, attr, patch in (
+                ("A^T[1][3] sign flipped", "AT", ((1, 1, 1, 0), (0, 1, -1, 1))),
+                ("t_ij rounded once", "_input_transform",
+                 lambda tile, i, j: fp32_t(tile, i, j).to(x.dtype)),
+                ("t_ij kept in fp32", "_input_transform", fp32_t)):
+            setattr(tw, attr, patch)
+            try:
+                faults[name] = tw.winograd_conv3x3_plain(x, u, bias)
+            finally:
+                tw.AT, tw._input_transform = at, transform
+        for name, wrong in faults.items():
+            ferr, frel = errs(wrong)
+            say(f"[winograd]   planted fault, {name}: max abs err {ferr:.3e} of the output's "
+                f"largest value, rel L2 {frel:.3e}")
+            if ferr <= WINO_ABS_TOL and frel <= WINO_REL_TOL:
+                fail(f"{label}: the gate passes a planted fault ({name})")
+        ms = time_ms(torch, lambda: tw.winograd_conv3x3_cuda(x, u, bias))
+        plain_ms = time_ms(torch, lambda: tw.winograd_conv3x3_plain(x, u, bias), reps=2, rounds=3)
+        xc = x.permute(0, 3, 1, 2)  # NHWC memory is channels_last NCHW
+        wc = kern.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        library_ms = time_ms(torch, lambda: F.conv2d(xc, wc, bias, padding=1))
+        bound_ms, bound_by = wino_bound(b, h, w, cin, cout)
+        say(f"[winograd] {label:40s}: max abs err {err:.3e} of the largest value (tol "
+            f"{WINO_ABS_TOL:.3e}) rel L2 {rel:.3e} (tol {WINO_REL_TOL}) kernel {ms:.4f} ms "
+            f"bound {bound_ms:.4f} ms ({bound_by}) plain {plain_ms:.4f} ms F.conv2d "
+            f"{library_ms:.4f} ms [{card}]")
+        if not (err <= WINO_ABS_TOL and rel <= WINO_REL_TOL):
+            fail(f"{label}: kernel disagrees with plain (max abs {err:.3e}, rel L2 {rel:.3e})")
+        rows[key] = dict(max_abs_err=err * scale, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms)
+        del out, again, plain, faults
+    # one backward through the op: the direct conv's VJP and the fp32 bias sum
+    key = max(cases, key=lambda k: k[0] * k[1] * k[2] * k[3] * k[4])
+    x, kern, bias = (t.detach().clone().requires_grad_(True) for t in cases[key])
+    g = randn(*x.shape[:3], key[4]).bfloat16()
+    with knobs_set({"ADAFACE_WINOGRAD": "1"}):
+        y = tw.conv3x3_same(x, kern, bias)
+    grads = torch.autograd.grad(y, (x, kern, bias), g)
+    xr, kr, br = (t.detach().clone().requires_grad_(True) for t in cases[key])
+    ref = torch.autograd.grad(tw.direct_conv3x3(xr, kr, br), (xr, kr, br), g)
+    for name, a, r in zip(("dx", "dkernel", "dbias"), grads, ref):
+        e = ((a.float() - r.float()).norm() / r.float().norm()).item()
+        say(f"[winograd] backward at {key}: {name} relative L2 against the direct conv's "
+            f"autograd {e:.3e}")
+        if not torch.isfinite(a).all() or not e <= 1e-2:
+            fail(f"winograd backward: {name} off by {e:.3e}")
+    tw.launches_by_shape.clear()
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+@contextlib.contextmanager
+def fuse_qkv_set(torch, unet, on):
+    """Set `fuse_qkv` on every attention module of the UNet for the block."""
+    from adaface_tpu_torch.models.unet import UNetCrossAttention
+
+    mods = [m for m in unet.modules() if isinstance(m, UNetCrossAttention)]
+    old = [m.fuse_qkv for m in mods]
+    for m in mods:
+        m.fuse_qkv = on
+    try:
+        yield
+    finally:
+        for m, o in zip(mods, old):
+            m.fuse_qkv = o
+
+
+def phase_arm_generate(torch, pipe, card, default_imgs, default_med):
+    """(6c) generate under each arm configuration: one warm-up and one timed
+    request (seed 1, the default run's first), each with exactly the
+    expected launches by (arm, shape); images bit for bit the default
+    request's for the arms that change no arithmetic, within
+    ARM_UINT8_MEAN_TOL otherwise. Returns name -> launches by key."""
+    import numpy as np
+
+    fa = _fa()
+    prompts = [PROMPT] * BATCH
+    kw = dict(num_steps=STEPS, guidance_scale=(10.0, 4.0), height=SIZE, width=SIZE)
+    counts = {}
+    for name, knobs, fuse, exact in ARM_CONFIGS:
+        with knobs_set(knobs), fuse_qkv_set(torch, pipe.unet, fuse):
+            pipe.generate(prompts, seed=0, **kw)
+            fa.launches_by_shape.clear()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            imgs = pipe.generate(prompts, seed=1, **kw)
+            dt = time.time() - t0
+        got = _by_kind(fa).get("fwd", {})
+        want = expected_generate_launches(name)
+        diff = np.abs(imgs.astype(np.int16) - default_imgs.astype(np.int16))
+        arms = {}
+        for key, n in got.items():
+            arms[key[0]] = arms.get(key[0], 0) + n
+        say(f"[arms] {name:9s} {knobs or 'fuse_qkv=True'}: {dt:.3f} s ({BATCH / dt:.4f} img/s; "
+            f"default {default_med:.3f} s), launches by arm {arms}; images against the default "
+            f"request: {int((diff > 0).sum())} of {diff.size} uint8 values differ, mean "
+            f"{diff.mean():.4f}, max {int(diff.max())} [{card}]")
+        if got != want:
+            fail(f"arm {name}: expected the launches {want}, got {got}")
+        if imgs.shape != (BATCH, SIZE, SIZE, 3) or imgs.std() < 1.0:
+            fail(f"arm {name}: images {imgs.shape}, std {imgs.std():.3f}")
+        if exact and diff.max() != 0:
+            fail(f"arm {name} changes no arithmetic, but its images differ from the default's")
+        if not diff.mean() <= ARM_UINT8_MEAN_TOL:
+            fail(f"arm {name}: images {diff.mean():.4f} uint8 levels from the default's on "
+                 f"average (tol {ARM_UINT8_MEAN_TOL})")
+        counts[name] = got
+    fa.launches_by_shape.clear()
+    return counts
+
+
+def phase_arm_train(torch, pipe, trainer_cls, tmp, card):
+    """(9c) a fresh recon-only Trainer under each training arm configuration
+    for ARM_TRAIN_STEPS micro-steps, each with exactly the expected forward,
+    dq and dk/dv launches by (arm, shape); metrics finite, embedders moved by
+    the first update. Returns name -> kind -> launches of the last
+    micro-step."""
+    import numpy as np
+
+    from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
+
+    fa = _fa()
+    mgr = pipe.embedding_manager
+    leaves = lambda: {(s, n): t.detach().clone() for s, p in mgr.embedders.items()
+                      for n, t in embedder_leaves(p)}
+    out = {}
+    for name, knobs in TRAIN_ARM_CONFIGS:
+        tag = name.replace(" ", "_")
+        tcfg, pcfg = train_configs(os.path.join(tmp, f"arm_{tag}"))
+        ds_dir = os.path.join(tmp, f"arm_{tag}_subject")
+        os.makedirs(ds_dir)
+        want = expected_train_launches(name)
+        with knobs_set(knobs):
+            trainer = trainer_cls(pipe, make_dataset(ds_dir), tcfg, pcfg)
+            start = leaves()
+            before_all = dict(fa.launches_by_shape)
+            for i in range(ARM_TRAIN_STEPS):
+                before = dict(fa.launches_by_shape)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                trainer.fit(i + 1)
+                torch.cuda.synchronize()
+                got = _by_kind(fa, before)
+                say(f"[arm-train] {name} {knobs}: micro-step {i} {time.time() - t0:.3f} s, "
+                    f"launches { {k: sum(v.values()) for k, v in sorted(got.items())} } "
+                    f"[{card}]")
+                if got != want:
+                    fail(f"arm {name}, micro-step {i}: expected {want}, got {got}")
+            moved = max(float((t - start[key]).abs().max()) for key, t in leaves().items())
+            finite = all(bool(torch.isfinite(t).all()) for t in leaves().values())
+            recs = [json.loads(l) for l in open(os.path.join(tcfg.logdir, "metrics.jsonl"))]
+            steps = [r for r in recs if "loss" in r]
+            ok = len(steps) == ARM_TRAIN_STEPS and all(
+                np.isfinite(v) for r in steps for v in r.values() if isinstance(v, float))
+            say(f"[arm-train] {name}: embedders moved by up to {moved:.3e}, finite {finite}, "
+                f"{len(steps)} finite metric records {ok}")
+            if not finite or not moved > 0 or not ok:
+                fail(f"arm {name}: the update left the embedders unchanged or non-finite, or "
+                     f"a metric is not finite")
+            trainer.close()
+        out[name] = _by_kind(fa, before_all)
+    fa.launches_by_shape.clear()
+    return out
+
+
 def main():
     import torch
 
@@ -1226,6 +1935,7 @@ def main():
     phase_build(kernels)
     rows = phase_kernels(torch, fa, card, exp2_rate)
     bwd_rows = phase_backward_kernels(torch, fa, card, exp2_rate)
+    arm_rows, arm_bwd_rows = phase_arm_kernels(torch, fa, card, exp2_rate)
     fused_rows = phase_fused_kernels(torch, card, exp2_rate)
 
     t0 = time.time()
@@ -1240,7 +1950,11 @@ def main():
         f"encoder, bf16) built in {time.time() - t0:.1f} s")
 
     phase_reference(torch, pipe)
-    counts, med = phase_main_path(torch, pipe, card)
+    counts, med, default_imgs = phase_main_path(torch, pipe, card)
+    wino_rows, wino_launches = phase_winograd(torch, pipe, card)
+    # before any profiler runs, so that the arms' requests are timed as the
+    # default's were
+    arm_counts = phase_arm_generate(torch, pipe, card, default_imgs, med)
     phase_profile(torch, pipe, card)
     gn_counts, ff_counts = phase_fused_main_path(torch, pipe, card, med)
 
@@ -1250,6 +1964,7 @@ def main():
         train_counts, train_med, train_peak = phase_train(torch, pipe, fa, Trainer, tmp, card)
         gn_train, ff_train = phase_fused_train(torch, pipe, Trainer, tmp, card, train_med,
                                                train_peak)
+        arm_train = phase_arm_train(torch, pipe, Trainer, tmp, card)
 
     entries = []
     for (b, l, h, d), (replaces, _) in MAIN_SHAPES.items():
@@ -1263,6 +1978,32 @@ def main():
         name, source = names[kind]
         entries.append(dict(name=f"{name} B{b} L{l} H{h} d{d} (training)", route="cuda",
                             source=source, launches=train_counts[(kind, b, l, h, d)], **row))
+    # the arms: launches per generate request under each arm configuration
+    default = expected_generate_launches("default")
+    for name, got in arm_counts.items():
+        for (arm, b, lq, lk, h, d), n in sorted(got.items()):
+            if (arm, b, lq, lk, h, d) in default:
+                continue  # the default arm's launches, in the rows above
+            row = arm_rows[(arm, b, lq, lk, h, d)]
+            entries.append(dict(
+                name=f"flash_attn_packed {arm} B{b} Lq{lq} Lk{lk} H{h} d{d}", route="cuda",
+                source=SOURCE, replaces=ARM_REPLACES[arm], launches=n, **row))
+    for (b, h, w, cin, cout), row in sorted(wino_rows.items()):
+        entries.append(dict(name=f"winograd_conv3x3 B{b} {h}x{w} Cin{cin} Cout{cout}",
+                            route="cuda", source=WINO_SOURCE, replaces=K10,
+                            launches=wino_launches[(b, h, w, cin, cout)], **row))
+    # the training arms: launches over their ARM_TRAIN_STEPS micro-steps
+    bwd_names = {"fwd": "flash_attn_packed fwd + lse", "dq": "flash_attn_bwd dq",
+                 "dkv": "flash_attn_bwd dk/dv"}
+    for (kind, arm, b, lq, lk, h, d), row in sorted(arm_bwd_rows.items()):
+        config = "K6" if (arm == "K6" or h == 1) else "K4 cross"
+        fwd_arm = "K6" if config == "K6" else "K4"
+        n = arm_train[config].get(kind, {}).get((arm, b, lq, lk, h, d), 0)
+        entries.append(dict(
+            name=f"{bwd_names[kind]} {fwd_arm} B{b} Lq{lq} Lk{lk} H{h} d{d} (training)",
+            route="cuda", source=SOURCE if kind == "fwd" else BWD_SOURCE,
+            replaces=ARM_REPLACES[arm] if kind == "fwd" else (K3B if kind == "dq" else K3C),
+            launches=n, **row))
     # the fused configuration: launches per generate request, and over the
     # FUSED_TRAIN_STEPS timed micro-steps for the training shapes
     for kind, name, source, replaces, gen_counts, tr_counts in (
