@@ -1,7 +1,8 @@
-// Tile helpers shared by the packed flash-attention kernels
-// (flash_attn_packed.cu, forward; flash_attn_bwd.cu, backward): cp.async
-// staging of [64, D] head panels into shared memory, mma.sync m16n8k16 bf16
-// with fp32 accumulators, ldmatrix for transposed B operands.
+// Tile helpers of the packed flash-attention backward (flash_attn_bwd.cu):
+// cp.async staging of [64, D] head panels into shared memory, mma.sync
+// m16n8k16 bf16 with fp32 accumulators, ldmatrix for transposed B operands;
+// and the constants and small helpers the forward (flash_attn_packed.cu,
+// through hopper_common.cuh) shares with it.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 (row g, cols 2t..2t+1), a1 (row g+8, same cols),

@@ -27,10 +27,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump), on PATH or in
+    /usr/local/cuda/bin; raises if neither has it."""
+    path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); "
+        raise RuntimeError(f"{name} not found (PATH or /usr/local/cuda/bin); "
                            "the CUDA kernels cannot be built")
     return path
 
@@ -51,7 +53,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+    proc = subprocess.Popen([cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc
 

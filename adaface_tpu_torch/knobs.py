@@ -4,6 +4,22 @@ The port gives the JAX package's knobs the same names and meanings, and reads
 them live, at call time, so a process can flip a knob between two calls.
 Each is compared exactly as the JAX call site compares it.
 
+GroupNorm (`ops/basic.py`, `group_norm`; the UNet's and the VAE's norms and
+the fused kernel's fallback):
+
+- `ADAFACE_GN_SHIFT` ("1" to enable): one-pass statistics of x minus a
+  per-group probe (the group mean of the first spatial position, no
+  gradient), accurate under a large common-mode offset. The fused
+  GroupNorm+SiLU kernel keeps the raw form, as JAX's Pallas kernel does.
+
+Sampling (`pipeline.generate`), each read per call, "0" to turn off:
+
+- `ADAFACE_CFG_DEDUP`: the CFG stem runs once at batch B and is tiled before
+  the first cross-attention (only where level 0 has attention); off, the
+  UNet runs at batch 2B.
+- `ADAFACE_CROSS_KV`: the loop-invariant cross-attention K/V projections
+  are computed once per request, not once per step.
+
 Fused UNet configuration:
 
 - `ADAFACE_GN_MAX_ELEMS` (default 0): the largest per-image `N * C` slab that
@@ -50,6 +66,15 @@ Winograd conv (`ops/winograd.py`, `winograd_eligible`): `ADAFACE_WINOGRAD`
 ("0" default, "1" or "auto"), `ADAFACE_WINOGRAD_MIN_TILES` (default 256) and
 `ADAFACE_WINOGRAD_VMEM` (default 72 MiB).
 
+JAX knobs that the port reads as the same function and ignores on purpose
+(each changes only how XLA or the TPU schedules the work):
+`ADAFACE_GN_BARRIER` (an optimisation barrier before the GroupNorm stats),
+`ADAFACE_SUBPIXEL_UP` (the nearest upsample and its conv, phase-decomposed
+or not; the port always decomposes), `ADAFACE_PROJ_DENSE` (1x1 projections
+as dense products), `ADAFACE_FLASH_SEMANTICS` (the TPU grid's dimension
+semantics), `ADAFACE_FLASH_PACKED_{BQ,BK,UNROLL}` (the TPU kernel's tiles
+and unroll), and the compiled-program caches (`ADAFACE_AOT_CACHE`,
+`ADAFACE_AOT_CACHE_FORCE`, `ADAFACE_COMPILE_CACHE`).
 The port keeps no compiled-program cache, so it needs no `fingerprint()`.
 """
 

@@ -10,6 +10,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from adaface_tpu_torch import knobs
+
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
                        max_period: float = 10000.0) -> torch.Tensor:
@@ -31,20 +33,32 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     package computes it: per-channel fp32 sums of x and x^2 over the spatial
     axes, grouped, one-pass variance E[x^2] - mean^2 clamped at 0, then one
     per-(batch, channel) affine. eps is 1e-5 in UNet ResBlocks and the UNet
-    output norm, 1e-6 in SpatialTransformer and the VAE."""
+    output norm, 1e-6 in SpatialTransformer and the VAE.
+
+    Under `ADAFACE_GN_SHIFT=1` (read at call time) the sums are taken of x
+    minus a per-group probe, the group mean of the first spatial position
+    (detached, so gradients are those of the unshifted formula), and the
+    probe is added back to the mean: the one-pass variance then survives a
+    large common-mode offset that the raw form loses to fp32 cancellation."""
     b, c = x.shape[0], x.shape[-1]
     g = num_groups
     red = tuple(range(1, x.dim() - 1))
     n = x[0].numel() // c * (c // g)
     xf = x.float()
-    s1 = xf.sum(dim=red).view(b, g, c // g).sum(-1)
-    s2 = (xf * xf).sum(dim=red).view(b, g, c // g).sum(-1)
-    mean = s1 / n
-    var = torch.clamp_min(s2 / n - mean * mean, 0.0)
+    shape = (b,) + (1,) * (x.dim() - 2) + (c,)
+    if knobs.get("ADAFACE_GN_SHIFT") == "1":
+        shift = xf.reshape(b, -1, c)[:, 0].detach().view(b, g, c // g).mean(-1)
+        xsh = xf - shift.repeat_interleave(c // g, dim=1).view(shape)
+    else:
+        shift, xsh = 0.0, xf
+    s1 = xsh.sum(dim=red).view(b, g, c // g).sum(-1)
+    s2 = (xsh * xsh).sum(dim=red).view(b, g, c // g).sum(-1)
+    mean_sh = s1 / n
+    var = torch.clamp_min(s2 / n - mean_sh * mean_sh, 0.0)
+    mean = mean_sh + shift
     rstd = torch.rsqrt(var + eps)
     sc = rstd.repeat_interleave(c // g, dim=1) * scale.float()[None]
     bi = bias.float()[None] - mean.repeat_interleave(c // g, dim=1) * sc
-    shape = (b,) + (1,) * (x.dim() - 2) + (c,)
     return (xf * sc.view(shape) + bi.view(shape)).to(x.dtype)
 
 

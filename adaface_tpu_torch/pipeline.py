@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from adaface_tpu_torch import knobs
 from adaface_tpu_torch.data.tokenizer import TokenizerBase
 from adaface_tpu_torch.device import resolve_device
 from adaface_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
@@ -161,13 +162,17 @@ class StableDiffusionPipeline:
             if tuple(x.shape) != (b, lh, lw, in_ch):
                 raise ValueError(f"x_T has shape {tuple(x.shape)}, "
                                  f"want {(b, lh, lw, in_ch)}")
-        dedup = 0 in self.unet.cfg.attention_levels
+        # CFG stem dedup and the cross-K/V hoist: the same function, each
+        # with an A/B knob read per call ("0" turns it off), as in JAX.
+        dedup = (0 in self.unet.cfg.attention_levels
+                 and knobs.get("ADAFACE_CFG_DEDUP") != "0")
+        kv_fn = (None if knobs.get("ADAFACE_CROSS_KV") == "0"
+                 else lambda ctx: precompute_cross_kv(self.unet, ctx))
 
         def unet_apply(x, t, ctx, cross_kv=None):
             return self.unet(x, t, ctx, cfg_dedup=dedup, cross_kv=cross_kv)
 
-        eps_fn = make_cfg_eps_fn(unet_apply, ctx_c, ctx_u, dedup=dedup,
-                                 kv_fn=lambda ctx: precompute_cross_kv(self.unet, ctx))
+        eps_fn = make_cfg_eps_fn(unet_apply, ctx_c, ctx_u, dedup=dedup, kv_fn=kv_fn)
         sched = make_ddim_schedule(self.base_sched, num_steps, guidance_scale=guidance_scale)
         z = ddim_sample(eps_fn, sched, x)
         imgs = self.vae.decode(z / SD_VAE_SCALE_FACTOR).float()

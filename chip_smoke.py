@@ -8,7 +8,9 @@ Run from the root of a checkout, with no arguments:
 Phases, each of which exits non-zero on failure:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
   2. build: every CUDA kernel source in `adaface_tpu_torch/csrc/`, one nvcc
-     each, started together;
+     each, started together; each instantiation's registers and spills
+     printed (ptxas -v); the flash forward must not spill, and its SASS
+     (cuobjdump) must run its products on wgmma (HGMMA), not mma.sync;
   3. forward kernel vs plain: the packed flash-attention forward against its
      plain fp32 PyTorch version at every generate shape, a fused-qkv input
      and a key bias with a fully masked row, each gated on max abs and
@@ -75,7 +77,8 @@ knobs, set in-process and restored) and the Winograd conv add:
       two launches bit for bit; kernel, bound, plain and
       F.conv2d times; one backward through the op;
   6c. generate under each of `ARM_CONFIGS` (K2, K5, K4 cross, K6, K7, K1
-      flags, fuse_qkv): one warm-up and one timed request each, with
+      flags, fuse_qkv, ADAFACE_CFG_DEDUP=0, ADAFACE_CROSS_KV=0): one
+      warm-up and one timed request each, with
       exactly the expected launches by (TPU kernel id, shape); images bit
       for bit the default request's where the arm changes no arithmetic,
       else within ARM_UINT8_MEAN_TOL;
@@ -117,6 +120,7 @@ REFERENCE_TOL = {"clip": 5e-2, "unet eps": 5e-2, "vae decode": 1e-1}
 STEPS, BATCH, SIZE = 50, 8, 512
 PROMPT = "a photo of a z , , , , , , , , person"
 SOURCE = "adaface_tpu_torch/csrc/flash_attn_packed.cu"
+FWD_LIB = "flash_attn_packed"
 BWD_SOURCE = "adaface_tpu_torch/csrc/flash_attn_bwd.cu"
 K1 = "adaface_tpu/ops/flash_attention.py:578"  # _flash_kernel_heads_pvt
 K4 = "adaface_tpu/ops/flash_attention.py:544"  # _flash_kernel_heads_short
@@ -284,16 +288,38 @@ def phase_card(torch):
 
 
 def phase_build(kernels):
+    """Build every source; print each instantiation's registers and spills
+    (ptxas -v) and any ptxas performance warning. The flash forward must not
+    spill, and its SASS must run its products on wgmma (HGMMA), not
+    mma.sync (HMMA)."""
     t0 = time.time()
     logs = kernels.build_all()
     say(f"[build] {time.time() - t0:.1f} s for {len(logs)} sources in parallel, libraries "
         f"{[p.name for p in kernels.BUILD_DIR.glob('*.so')]}")
+    spills = []
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
             if "Compiling entry" in line:
-                say(f"[build]   {name}: {line.split('_Z')[-1].split('EEEv')[0][-40:]}")
-            elif "registers" in line or "spill" in line or "error" in line:
+                entry = line.split("_Z")[-1].split("EEEv")[0][-40:]
+                say(f"[build]   {name}: {entry}")
+            elif ("registers" in line or "spill" in line or "error" in line
+                  or "Performance Loss" in line):
                 say(f"[build]   {name}:   {line.strip()}")
+                if (name == FWD_LIB and "spill" in line
+                        and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")):
+                    spills.append(f"{entry} ({line.strip()})")
+    if spills:
+        fail(f"{FWD_LIB}: registers spill in {'; '.join(spills)}")
+    lib = kernels.library_path(FWD_LIB)
+    sass = subprocess.run([kernels.cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout.splitlines()
+    count = lambda op: sum(1 for line in sass if op in line)
+    say(f"[build] {lib.name} SASS: {count('HGMMA')} HGMMA (wgmma), {count('HMMA')} HMMA "
+        f"(mma.sync), {count('MUFU.EX2')} MUFU.EX2")
+    if count("HGMMA") == 0 or count("HMMA") != 0:
+        fail(f"{FWD_LIB}: the forward's products are not all wgmma")
 
 
 def n_launches(fa, kind=None):
@@ -1288,6 +1314,10 @@ ARM_CONFIGS = [
     ("K7", {"ADAFACE_FLASH_PACKED": "0", "ADAFACE_FLASH_MODE": "row"}, False, True),
     ("K1 flags", {"ADAFACE_FLASH_EXP_BF16": "1", "ADAFACE_FLASH_MXU_SUM": "1"}, False, False),
     ("fuse_qkv", {}, True, False),
+    # the pipeline's A/B arms: the UNet at batch 2B without the CFG stem
+    # dedup, and the cross-attention K/V projected every step
+    ("no dedup", {"ADAFACE_CFG_DEDUP": "0"}, False, False),
+    ("no kv hoist", {"ADAFACE_CROSS_KV": "0"}, False, False),
 ]
 TRAIN_ARM_CONFIGS = [("K6", {"ADAFACE_FLASH_PACKED": "0"}),
                      ("K4 cross", {"ADAFACE_FLASH_CROSS": "1"})]
@@ -1329,6 +1359,8 @@ def expected_generate_launches(name):
 
     for (b, l, h, d), (replaces, n) in MAIN_SHAPES.items():
         arm = "K1" if replaces == K1 else "K4"
+        if name == "no dedup":
+            b = 2 * BATCH  # the stem's layer runs at batch 2B too
         if name in ("K2", "K5"):
             add((name, b, l, l, h, d), n)
         elif name in ("K6", "K7"):

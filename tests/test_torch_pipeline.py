@@ -81,6 +81,39 @@ def test_generate_matches_jax_within_one_level():
     assert got.std() > 1  # not a constant image
 
 
+@pytest.mark.parametrize("knob", [None, "ADAFACE_CFG_DEDUP", "ADAFACE_CROSS_KV"])
+def test_generate_knob_arms_match_jax(monkeypatch, knob):
+    """`ADAFACE_CFG_DEDUP=0` (the UNet at batch 2B, no stem dedup) and
+    `ADAFACE_CROSS_KV=0` (no cross-K/V hoist), read per `generate` call as
+    JAX reads them: the port under the knob against JAX under the same knob,
+    within 1 uint8 level as above. Spies on the port's UNet and on
+    `precompute_cross_kv` show which arm ran."""
+    import adaface_tpu_torch.pipeline as tpipe
+
+    for name in ("ADAFACE_CFG_DEDUP", "ADAFACE_CROSS_KV"):
+        monkeypatch.delenv(name, raising=False)
+    if knob is not None:
+        monkeypatch.setenv(knob, "0")
+    jp, tp = _pipelines()
+    calls, hoists = [], []
+    tp.unet.register_forward_pre_hook(
+        lambda mod, args, kwargs: calls.append(
+            (args[0].shape[0], kwargs["cfg_dedup"], kwargs["cross_kv"] is not None)),
+        with_kwargs=True)
+    real = tpipe.precompute_cross_kv
+    monkeypatch.setattr(tpipe, "precompute_cross_kv",
+                        lambda *a, **k: hoists.append(1) or real(*a, **k))
+    x_T = np.random.default_rng(0).standard_normal((3, 16, 16, 4)).astype(np.float32)
+    kw = dict(num_steps=2, guidance_scale=(10.0, 4.0), height=32, width=32, x_T=x_T,
+              negative_prompt="ugly, blurry")
+    ref = jp.generate(PROMPTS, **kw)
+    got = tp.generate(PROMPTS, **kw)
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+    dedup, hoist = knob != "ADAFACE_CFG_DEDUP", knob != "ADAFACE_CROSS_KV"
+    assert calls == [(3 if dedup else 6, dedup, hoist)] * 2  # 2 DDIM steps, B = 3
+    assert len(hoists) == (1 if hoist else 0)
+
+
 def test_entry_points_refuse_a_missing_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the refusal needs a machine without one")
