@@ -10,8 +10,10 @@ Linear(C -> 2F)(LayerNorm(x)), weights in the JAX layout (w1 [C, 2F], w2
   (`F.layer_norm`, `F.linear`, GEGLU, `F.linear`, residual).
 - `ADAFACE_FUSED_FF=1`: the kernel's function. On a CUDA tensor the
   hand-written Hopper kernels of `csrc/ln_geglu_ff.cu` (LayerNorm, GEMM1 +
-  GEGLU, GEMM2 + residual: three launches that replace the TPU kernel
-  `_ff_kernel`), on a CPU tensor its plain version `ln_geglu_ff_plain`,
+  GEGLU, GEMM2 + residual, and a split-K sum where the plan splits GEMM2:
+  the launches that replace the TPU kernel `_ff_kernel`; `launch_plan`
+  chooses their tiles, split and grids), on a CPU tensor its plain version
+  `ln_geglu_ff_plain`,
   which is `_reference_ln_geglu_ff` with its roundings.
   The gradient, `LnGegluFF`, saves only the inputs and recomputes through
   the plain chain (`_ff_core_bwd`), for the inputs that need one: the UNet's
@@ -24,7 +26,8 @@ to count one run.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,9 +36,88 @@ from adaface_tpu_torch import kernels, knobs
 from adaface_tpu_torch.ops.basic import geglu
 from adaface_tpu_torch.ops.grad import recompute_grads
 
-# columns per CTA tile of both GEMMs; C and F must be multiples of it
+# C and F must be multiples of the GEMMs' K step (one 128-byte swizzle row)
 KERNEL_COL_TILE = 64
-KERNEL_MAX_C = 2048  # the LayerNorm launch holds a row in one warp's registers
+KERNEL_MAX_C = 2048  # the LayerNorm launch holds a row in at most 32 lanes' registers
+GEMM1_ROWS = 128  # rows per tile: two consumer warpgroups of 64 rows
+GEMM2_ROWS = (256, 128)  # two 64-row slabs a warpgroup, or one
+# A 256-row GEMM2 tile reads its B tile once for twice the rows: per
+# product it measured 6-10% faster than 128-row tiles on an H100 (PERF.md).
+_SLAB_GAIN = 0.9
+MAX_SPLIT = 8
+# What GEMM2's tile and split choice weighs (H100 SXM data sheet): a K step
+# of one tile (rows x bn2 x 64) at the tensor cores' peak per SM, and the
+# fp32 partials written and read again at the memory's peak.
+_PEAK_FLOPS_PER_SM = 989e12 / 132
+_PEAK_BYTES = 3.35e12
+_ITEM_OVERHEAD_STEPS = 4  # an item's ring fill and epilogue, in K steps
+
+
+class LaunchPlan(NamedTuple):
+    """Tiles, GEMM2's split of F and the persistent grids of one call."""
+    bn1: int  # h columns per GEMM1 tile (its B tile holds their value and gate rows)
+    bn2: int  # output columns per GEMM2 tile
+    rows2: int  # rows per GEMM2 tile
+    split: int  # GEMM2's K (F) ranges, summed in order by a reduction launch
+    grid1: int
+    grid2: int
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(m: int, c: int, f: int, sms: int) -> LaunchPlan:
+    """The launch plan for x [m, c] and hidden width f on a card of `sms`
+    SMs. GEMM2 takes 160 columns a tile where C allows (160 divides the
+    UNet's 320, 640 and 1280); its rows a tile and its split of F are those
+    that minimise waves x (K steps per item + an item's overhead) x a K
+    step's time, plus the time of the partials' extra bytes, so that few rows
+    take smaller or split tiles to fill the card."""
+    bn1 = 128 if f % 128 == 0 else 64
+    bn2 = next(n for n in (160, 128, 64) if c % n == 0)
+    items1 = -(-m // GEMM1_ROWS) * (f // bn1)
+    ksteps = f // KERNEL_COL_TILE
+
+    def cost(plan):
+        rows, split = plan
+        items = -(-m // rows) * (c // bn2) * split
+        t_step = rows * bn2 * KERNEL_COL_TILE * 2 / _PEAK_FLOPS_PER_SM
+        t_step *= _SLAB_GAIN if rows == 256 else 1.0
+        extra = 0.0 if split == 1 else 2 * 4 * m * c * split / _PEAK_BYTES
+        return -(-items // sms) * (-(-ksteps // split) + _ITEM_OVERHEAD_STEPS) * t_step + extra
+
+    # splits take 128-row tiles: where 256-row tiles need a split, rows are few
+    rows2, split = min([(256, 1)] + [(128, s) for s in range(1, min(MAX_SPLIT, ksteps) + 1)],
+                       key=cost)
+    items2 = -(-m // rows2) * (c // bn2) * split
+    return LaunchPlan(bn1, bn2, rows2, split, min(items1, sms), min(items2, sms))
+
+
+class WorkItem(NamedTuple):
+    row0: int  # first row of the tile (rows past M are masked)
+    col0: int  # first output column (GEMM1: h column; its gate row is F + col0)
+    k0: int  # contraction range [k0, k1) in elements
+    k1: int
+    split: int  # index of the K range
+
+
+def gemm_items(m: int, n: int, k: int, rows: int, bn: int, split: int,
+               grid: int) -> List[List[WorkItem]]:
+    """The work items of each CTA of a persistent GEMM launch, in the order
+    `gemm_kernel` (csrc/ln_geglu_ff.cu: `decode`) takes them: CTA b walks
+    items b, b + grid, ...; an item's split is fastest, then its column
+    block, then its block of `rows` rows; split s covers K steps
+    [s*K/split, (s+1)*K/split) of 64 columns."""
+    nblk, ksteps = n // bn, k // KERNEL_COL_TILE
+    items = -(-m // rows) * nblk * split
+    out = []
+    for b in range(grid):
+        mine = []
+        for item in range(b, items, grid):
+            s, tile = item % split, item // split
+            nb, mb = tile % nblk, tile // nblk
+            mine.append(WorkItem(mb * rows, nb * bn, s * ksteps // split * KERNEL_COL_TILE,
+                                 (s + 1) * ksteps // split * KERNEL_COL_TILE, s))
+        out.append(mine)
+    return out
 
 launches_by_shape: Dict[Tuple[int, int, int], int] = {}
 
@@ -69,12 +151,17 @@ def ln_geglu_ff_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
     return x + o
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _lib_fn():
     global _fn
     if _fn is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _fn = kernels.load("ln_geglu_ff").ln_geglu_ff_fwd
-        _fn.argtypes = [p] * 10 + [i] * 3 + [ctypes.c_float, p]
+        _fn.argtypes = [p] * 11 + [i] * 3 + [ctypes.c_float] + [i] * 6 + [p]
         _fn.restype = ctypes.c_int
     return _fn
 
@@ -113,17 +200,21 @@ def ln_geglu_ff_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
     vecs = [_operand(t, (n,), name, dev) for t, n, name in
             ((ln_scale, c, "ln_scale"), (ln_bias, c, "ln_bias"), (b1, 2 * f, "b1"),
              (b2, c, "b2"))]
+    m = b * l
+    plan = launch_plan(m, c, f, _sm_count(dev.index))
     y = torch.empty_like(x)
-    h = torch.empty((b * l, f), dtype=torch.bfloat16, device=dev)
+    h = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
+    ws = (torch.empty((plan.split, m, c), dtype=torch.float32, device=dev)
+          if plan.split > 1 else None)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         err = _lib_fn()(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w1t.data_ptr(),
                         vecs[2].data_ptr(), w2t.data_ptr(), vecs[3].data_ptr(), y.data_ptr(),
-                        h.data_ptr(), out.data_ptr(), b * l, c, f, eps,
-                        torch.cuda.current_stream(dev).cuda_stream)
+                        h.data_ptr(), None if ws is None else ws.data_ptr(), out.data_ptr(),
+                        m, c, f, eps, *plan, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ln_geglu_ff_fwd failed: CUDA error {err} (B, L, C, F = "
-                           f"{b}, {l}, {c}, {f})")
+                           f"{b}, {l}, {c}, {f}; {plan})")
     launches_by_shape[(b, l, c)] = launches_by_shape.get((b, l, c), 0) + 1
     return out
 

@@ -9,8 +9,9 @@ Phases, each of which exits non-zero on failure:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
   2. build: every CUDA kernel source in `adaface_tpu_torch/csrc/`, one nvcc
      each, started together; each instantiation's registers and spills
-     printed (ptxas -v); the flash forward must not spill, and its SASS
-     (cuobjdump) must run its products on wgmma (HGMMA), not mma.sync;
+     printed (ptxas -v); the flash forward and the feed-forward (K9) must
+     not spill, and their SASS (cuobjdump) must run their products on wgmma
+     (HGMMA), not mma.sync;
   3. forward kernel vs plain: the packed flash-attention forward against its
      plain fp32 PyTorch version at every generate shape, a fused-qkv input
      and a key bias with a fully masked row, each gated on max abs and
@@ -47,7 +48,11 @@ restored after each use) adds:
       versions at every shape the fused generate and training paths give
       them (relative L2 and max abs gates; planted faults must fail them;
       two launches must agree bit for bit); kernel, bound, plain and
-      default-arm times;
+      default-arm times, and for K9 its launch plan and the two cuBLAS
+      products alone (`F.linear(y, w1)`, `F.linear(h, w2)`) as its library
+      time; K9 also at `FF_EDGE_SHAPES` (one row, ragged row blocks, its
+      64- and 128-column tile instances, the deepest split), agreement
+      only;
   5b. the reference UNet comparison again under the knobs (31 K8 and 16 K9
       launches at its small input);
   6b. generate under the knobs: one warm-up and 2 timed requests, each of
@@ -121,6 +126,7 @@ STEPS, BATCH, SIZE = 50, 8, 512
 PROMPT = "a photo of a z , , , , , , , , person"
 SOURCE = "adaface_tpu_torch/csrc/flash_attn_packed.cu"
 FWD_LIB = "flash_attn_packed"
+WGMMA_LIBS = (FWD_LIB, "ln_geglu_ff")  # no spill, products all wgmma (phase_build)
 BWD_SOURCE = "adaface_tpu_torch/csrc/flash_attn_bwd.cu"
 K1 = "adaface_tpu/ops/flash_attention.py:578"  # _flash_kernel_heads_pvt
 K4 = "adaface_tpu/ops/flash_attention.py:544"  # _flash_kernel_heads_short
@@ -190,6 +196,13 @@ GN_TRAIN_SHAPES = {(3, 4096, 320): 8, (3, 4096, 640): 2, (3, 4096, 960): 1,
 # the blocks of DISTILL_LAYER_INDICES capture
 FF_SHAPES = {(16, 4096, 320): 5, (16, 1024, 640): 5, (16, 256, 1280): 5, (16, 64, 1280): 1}
 FF_TRAIN_SHAPES = {(3, 4096, 320): 2, (3, 1024, 640): 2}
+# (B, L, C, F) that no path gives K9 but its wrapper takes, checked for
+# agreement only: one row, ragged row blocks, F not a multiple of 128 (64-
+# column GEMM1 tiles), C not a multiple of 160 (128- and 64-column GEMM2
+# tiles, of 128 and of 256 rows), the deepest split
+FF_EDGE_SHAPES = [(1, 1, 320, 1280), (1, 129, 640, 2560), (2, 33, 64, 192),
+                  (1, 200, 128, 512), (1, 8, 1280, 5120), (3, 1000, 1280, 5120),
+                  (1, 9000, 192, 768), (1, 5000, 512, 2048)]
 FUSED_TRAIN_STEPS = 4
 # K8 gate, kernel (bf16 out) vs the plain fp32 function on the same bf16
 # inputs. Measured on an H100 at all 29 shapes: relative L2 1.67e-3..1.69e-3,
@@ -289,9 +302,9 @@ def phase_card(torch):
 
 def phase_build(kernels):
     """Build every source; print each instantiation's registers and spills
-    (ptxas -v) and any ptxas performance warning. The flash forward must not
-    spill, and its SASS must run its products on wgmma (HGMMA), not
-    mma.sync (HMMA)."""
+    (ptxas -v) and any ptxas performance warning. The flash forward and K9
+    (`WGMMA_LIBS`) must not spill, and their SASS must run their products on
+    wgmma (HGMMA), not mma.sync (HMMA)."""
     t0 = time.time()
     logs = kernels.build_all()
     say(f"[build] {time.time() - t0:.1f} s for {len(logs)} sources in parallel, libraries "
@@ -306,20 +319,21 @@ def phase_build(kernels):
             elif ("registers" in line or "spill" in line or "error" in line
                   or "Performance Loss" in line):
                 say(f"[build]   {name}:   {line.strip()}")
-                if (name == FWD_LIB and "spill" in line
+                if (name in WGMMA_LIBS and "spill" in line
                         and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")):
-                    spills.append(f"{entry} ({line.strip()})")
+                    spills.append(f"{name} {entry} ({line.strip()})")
     if spills:
-        fail(f"{FWD_LIB}: registers spill in {'; '.join(spills)}")
-    lib = kernels.library_path(FWD_LIB)
-    sass = subprocess.run([kernels.cuda_tool("cuobjdump"), "-sass", str(lib)],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout.splitlines()
-    count = lambda op: sum(1 for line in sass if op in line)
-    say(f"[build] {lib.name} SASS: {count('HGMMA')} HGMMA (wgmma), {count('HMMA')} HMMA "
-        f"(mma.sync), {count('MUFU.EX2')} MUFU.EX2")
-    if count("HGMMA") == 0 or count("HMMA") != 0:
-        fail(f"{FWD_LIB}: the forward's products are not all wgmma")
+        fail(f"registers spill in {'; '.join(spills)}")
+    for name in WGMMA_LIBS:
+        lib = kernels.library_path(name)
+        sass = subprocess.run([kernels.cuda_tool("cuobjdump"), "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout.splitlines()
+        count = lambda op: sum(1 for line in sass if op in line)
+        say(f"[build] {lib.name} SASS: {count('HGMMA')} HGMMA (wgmma), {count('HMMA')} HMMA "
+            f"(mma.sync), {count('MUFU.EX2')} MUFU.EX2")
+        if count("HGMMA") == 0 or count("HMMA") != 0:
+            fail(f"{name}: the products are not all wgmma")
 
 
 def n_launches(fa, kind=None):
@@ -695,6 +709,7 @@ def phase_fused_kernels(torch, card, exp2_rate):
                                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                                      default_arm_ms=default_ms)
         del x, xf, out, again, plain, faults
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, l, c in list(FF_SHAPES) + list(FF_TRAIN_SHAPES):
         f = 4 * c
         x = randn(b, l, c).bfloat16()
@@ -717,22 +732,52 @@ def phase_fused_kernels(torch, card, exp2_rate):
         ms = time_ms(torch, lambda: ff.ln_geglu_ff_cuda(*args))
         plain_ms = time_ms(torch, lambda: ff.ln_geglu_ff_plain(*fargs), reps=2, rounds=3)
         default_ms = time_ms(torch, lambda: ff.ln_geglu_ff_unfused(*args))
+        # the yardstick of K9's GEMMs: cuBLAS's two products alone
+        y = torch.nn.functional.layer_norm(x, (c,), args[1], args[2])
+        h = torch.randn((b, l, f), device="cuda").bfloat16()  # not from gen: inputs as before
+        library_ms = time_ms(torch, lambda: (torch.nn.functional.linear(y, w1),
+                                             torch.nn.functional.linear(h, w2)))
         bound_ms, bound_by = ff_bound(b, l, c)
+        plan = ff.launch_plan(b * l, c, f, sms)
         say(f"[fused-kernel] {label:26s}: max abs err {err:.3e} (tol {FF_ABS_TOL}) rel L2 "
             f"{rel:.3e} (tol {FF_REL_TOL}) kernel {ms:.4f} ms bound {bound_ms:.4f} ms "
-            f"({bound_by}) plain {plain_ms:.4f} ms default arm {default_ms:.4f} ms [{card}]")
+            f"({bound_by}) plain {plain_ms:.4f} ms default arm {default_ms:.4f} ms cuBLAS "
+            f"GEMMs {library_ms:.4f} ms; {plan} [{card}]")
         w2_skip = fargs[5].clone()
         w2_skip[:64] = 0  # the first 64 columns of h contribute nothing
+        # GEMM2's last split-K partial (the whole product when unsplit) left out
+        k0 = (plan.split - 1) * (f // 64) // plan.split * 64
+        w2_part = fargs[5].clone()
+        w2_part[k0:] = 0
+        w1_stage = fargs[3].clone()
+        w1_stage[c - 64:] = 0  # GEMM1's last K stage (64 channels of y) skipped
         swap = lambda t: torch.cat([t[..., f:], t[..., :f]], dim=-1)
         faults = {"F-chunk 0 skipped": ff.ln_geglu_ff_plain(*fargs[:5], w2_skip, fargs[6]),
                   "value and gate halves swapped": ff.ln_geglu_ff_plain(
-                      *fargs[:3], swap(fargs[3]), swap(fargs[4]), *fargs[5:])}
+                      *fargs[:3], swap(fargs[3]), swap(fargs[4]), *fargs[5:]),
+                  f"GEMM2 split {plan.split - 1} of {plan.split} left out":
+                      ff.ln_geglu_ff_plain(*fargs[:5], w2_part, fargs[6]),
+                  "GEMM1's last K stage skipped":
+                      ff.ln_geglu_ff_plain(*fargs[:3], w1_stage, *fargs[4:])}
         _check_fused_gate(label, err, rel, {k: v.bfloat16() for k, v in faults.items()},
                           FF_ABS_TOL, FF_REL_TOL, lambda w: ff_errors(w, plain, x))
         rows[("ff", b, l, c)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                                     default_arm_ms=default_ms)
-        del x, args, fargs, out, again, plain, faults
+                                     bound_ms=bound_ms, bound_by=bound_by,
+                                     library_ms=library_ms, default_arm_ms=default_ms)
+        del x, args, fargs, out, again, plain, faults, y, h, w2_part, w1_stage
+    for b, l, c, f in FF_EDGE_SHAPES:
+        args = (randn(b, l, c).bfloat16(), (1 + 0.2 * randn(c)).bfloat16(),
+                (0.2 * randn(c)).bfloat16(), (randn(2 * f, c) / c ** 0.5).bfloat16().t(),
+                (0.2 * randn(2 * f)).bfloat16(), (randn(c, f) / f ** 0.5).bfloat16().t(),
+                (0.2 * randn(c)).bfloat16())
+        out, again = ff.ln_geglu_ff_cuda(*args), ff.ln_geglu_ff_cuda(*args)
+        torch.cuda.synchronize()
+        err, rel = ff_errors(out, ff.ln_geglu_ff_plain(*[a.float() for a in args]), args[0])
+        label = f"ln_geglu_ff B{b} L{l} C{c} F{f}"
+        say(f"[fused-kernel] {label:26s}: max abs err {err:.3e} rel L2 {rel:.3e}; "
+            f"{ff.launch_plan(b * l, c, f, sms)}")
+        if not torch.equal(out, again) or not (err <= FF_ABS_TOL and rel <= FF_REL_TOL):
+            fail(f"{label}: kernel disagrees with plain, or two launches disagree")
     fn.launches_by_shape.clear()
     ff.launches_by_shape.clear()
     torch.cuda.empty_cache()

@@ -121,3 +121,41 @@ def test_cuda_wrapper_refuses_cpu_tensor(rng):
     args = [torch.from_numpy(a) for a in _inputs(rng, 1, 8, 64)]
     with pytest.raises(ValueError, match="not a CUDA device"):
         tff.ln_geglu_ff_cuda(*args)
+
+
+# (M, C, F) of the CUDA kernel's launch plan: the six shapes of the fused
+# generate and training paths (B16 L4096 C320, B16 L1024 C640, B16 L256
+# C1280, B16 L64 C1280, B3 L4096 C320, B3 L1024 C640), the small-input UNet
+# call's (batch 2 at a 16x16 latent: L 256, 64, 16 and the 2x2 middle), and
+# other multiples of 64 the wrapper takes (one row, ragged row blocks, F not
+# a multiple of 128, C not a multiple of 160, 256-row GEMM2 tiles at other
+# widths).
+PLAN_SHAPES = [(65536, 320, 1280), (16384, 640, 2560), (4096, 1280, 5120), (1024, 1280, 5120),
+               (12288, 320, 1280), (3072, 640, 2560),
+               (512, 320, 1280), (128, 640, 2560), (32, 1280, 5120), (8, 1280, 5120),
+               (1, 64, 256), (129, 640, 2560), (66, 64, 192), (200, 128, 512),
+               (300, 2048, 8192), (3000, 1280, 5120), (9000, 192, 768), (5000, 512, 2048)]
+
+
+@pytest.mark.parametrize("m,c,f", PLAN_SHAPES)
+def test_launch_plan_covers_each_output_and_k_range_once(m, c, f):
+    """Both GEMMs' work items, as the persistent kernel walks them, cover
+    every row below M, every output column and every 64-column K step
+    exactly once; tiles divide their widths, grids hold at most one CTA per
+    SM and none idle, and every split has a K step."""
+    sms = 132
+    plan = tff.launch_plan(m, c, f, sms)
+    assert f % plan.bn1 == 0 and c % plan.bn2 == 0 and (c % 160 or plan.bn2 == 160)
+    assert 1 <= plan.split <= min(tff.MAX_SPLIT, f // 64) and plan.rows2 in tff.GEMM2_ROWS
+    for n, k, rows, bn, split, grid in (
+            (f, c, tff.GEMM1_ROWS, plan.bn1, 1, plan.grid1),
+            (c, f, plan.rows2, plan.bn2, plan.split, plan.grid2)):
+        assert 0 < grid <= sms
+        cover = np.zeros((-(-m // rows), n // bn, k // 64), dtype=int)
+        per_cta = tff.gemm_items(m, n, k, rows, bn, split, grid)
+        assert len(per_cta) == grid and all(per_cta)
+        for items in per_cta:
+            for it in items:
+                assert it.k1 > it.k0 and it.row0 % rows == 0 and it.row0 < m
+                cover[it.row0 // rows, it.col0 // bn, it.k0 // 64:it.k1 // 64] += 1
+        assert (cover == 1).all()
