@@ -123,14 +123,6 @@ __device__ __forceinline__ float exp2_int(float n) {
   return e < -126 ? 0.0f : __int_as_float((e + 127) << 23);
 }
 
-// 2^x on the special-function unit; subnormal results flush to zero, which
-// only drops terms below 2^-126 of the row maximum's.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // S = Q K^T for a warpgroup's 64 rows and a tile's BK keys: DP/16 k16 steps,
 // K K-major in shared memory; Q either in registers as wgmma A fragments (qa,
 // Q_REGS) or K-major in shared memory (q_desc).
@@ -310,13 +302,6 @@ __device__ __forceinline__ bool softmax_tile(float (&s)[BK / 2], const float* bp
   }
   return moved;
 }
-
-// The tile copies of one operand: its tensor map, and whether its batch
-// stride is 0 (a broadcast operand, mapped as one batch).
-struct Panel {
-  CUtensorMap map;
-  int batched;
-};
 
 template <int D, int FLAGS, bool BIAS>
 __global__ void __launch_bounds__(Cfg<D, FLAGS, BIAS>::NTHREADS, 1)

@@ -1,8 +1,8 @@
-// Tile helpers of the packed flash-attention backward (flash_attn_bwd.cu):
-// cp.async staging of [64, D] head panels into shared memory, mma.sync
-// m16n8k16 bf16 with fp32 accumulators, ldmatrix for transposed B operands;
-// and the constants and small helpers the forward (flash_attn_packed.cu,
-// through hopper_common.cuh) shares with it.
+// Small helpers shared by the port's kernels: cp.async copies, mma.sync
+// m16n8k16 bf16 with fp32 accumulators and ldmatrix for transposed B
+// operands (the Winograd conv, winograd.cu); bf16 packing, the flash
+// kernels' constants and the shared-memory opt-in (flash_attn_packed.cu,
+// flash_attn_bwd.cu and ln_geglu_ff.cu, through hopper_common.cuh).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 (row g, cols 2t..2t+1), a1 (row g+8, same cols),
@@ -23,9 +23,6 @@ namespace flash {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TILE = 64;       // rows per tile (queries or keys)
-constexpr int WARPS = 4;       // 16 rows per warp
-constexpr int THREADS = WARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float SCORE_FLOOR = -100.0f;
 
@@ -88,91 +85,6 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int r
   a[1] = ld_u32(p + 8 * LD);
   a[2] = ld_u32(p + 8);
   a[3] = ld_u32(p + 8 * LD + 8);
-}
-
-// acc[n] += A(16 rows x DP) * T[n*8 .. n*8+8, :]^T for the 8 n-tiles of a
-// 64-row shared tile T: a [16, 64] product contracting over the head dim.
-template <int DP, int LD>
-__device__ __forceinline__ void mma_rows_by_tile(float (&acc)[TILE / 8][4],
-                                                 const bf16* A, int arow0,
-                                                 const bf16* T, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t a[4];
-    load_a<LD>(a, A, arow0, kk * 16, g, t);
-#pragma unroll
-    for (int n = 0; n < TILE / 8; ++n) {
-      const bf16* b = T + (n * 8 + g) * LD + kk * 16 + t * 2;
-      mma_16816(acc[n], a, ld_u32(b), ld_u32(b + 8));
-    }
-  }
-}
-
-// acc[nd] += P(16 x 64, as 4 packed A fragments) * T (64 x DP, row-major
-// shared tile): a [16, DP] product contracting over the tile's 64 rows.
-template <int DP, int LD>
-__device__ __forceinline__ void mma_p_by_tile(float (&acc)[DP / 8][4],
-                                              const uint32_t (&pa)[TILE / 16][4],
-                                              const bf16* T, int lane) {
-#pragma unroll
-  for (int j = 0; j < TILE / 16; ++j) {
-#pragma unroll
-    for (int nd = 0; nd < DP / 8; ++nd) {
-      uint32_t b0, b1;
-      ldmatrix_x2_trans(b0, b1, T + (j * 16 + (lane & 15)) * LD + nd * 8);
-      mma_16816(acc[nd], pa[j], b0, b1);
-    }
-  }
-}
-
-// Stage rows [row0, row0 + 64) of one head panel (D columns, row stride
-// `stride` elements) into a shared tile with leading dimension LD. Rows past
-// `nrows` are written as zeros.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int row0, int nrows,
-                                          int tid) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-#pragma unroll 4
-  for (int i = tid; i < TILE * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    const bool valid = row0 + r < nrows;
-    const bf16* g = valid ? src + (long long)(row0 + r) * stride + c : src;
-    cp_async_16(dst + r * LD + c, g, valid);
-  }
-}
-
-// Zero the pad columns [D, DP) of `ntiles` consecutive 64-row tiles;
-// cp.async never writes them.
-template <int D, int DP, int LD>
-__device__ __forceinline__ void zero_pad_columns(bf16* tiles, int ntiles, int tid) {
-  if constexpr (DP > D) {
-    constexpr int PADC = DP - D;
-    for (int i = tid; i < ntiles * TILE * PADC; i += THREADS)
-      tiles[(i / PADC) * LD + D + i % PADC] = __float2bfloat16(0.0f);
-  }
-}
-
-// Store the fp32 [16, DP] accumulator of one warp (rows row0 + g, + 8) times
-// `mul` as bf16 into a packed head panel; only the D real columns, only rows
-// below `nrows`.
-template <int D, int DP>
-__device__ __forceinline__ void store_rows(bf16* dst, long long stride,
-                                           const float (&acc)[DP / 8][4], float mul0,
-                                           float mul1, int row0, int nrows, int t) {
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd) {
-    const int col = nd * 8 + t * 2;
-    if (col < D) {
-      if (row0 < nrows)
-        *reinterpret_cast<uint32_t*>(dst + row0 * stride + col) =
-            pack_bf16x2(acc[nd][0] * mul0, acc[nd][1] * mul0);
-      if (row0 + 8 < nrows)
-        *reinterpret_cast<uint32_t*>(dst + (row0 + 8) * stride + col) =
-            pack_bf16x2(acc[nd][2] * mul1, acc[nd][3] * mul1);
-    }
-  }
 }
 
 // Opt a kernel in to `bytes` of dynamic shared memory once per

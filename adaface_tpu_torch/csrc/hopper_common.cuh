@@ -139,6 +139,25 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// TMA: copy the box at element c0 of a 1-D tensor map into shared memory at
+// dst, completing `bar`'s transaction bytes. Elements past the tensor's end
+// arrive as zeros.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, int c0,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2}], [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 2^x on the special-function unit; subnormal results flush to zero.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // TMA: copy the box at (c0, c1) (column, row) of a 2-D tensor map into
 // shared memory at dst, completing `bar`'s transaction bytes. Rows past the
 // tensor's extent arrive as zeros, and count as bytes all the same.
@@ -191,6 +210,28 @@ inline int make_panel_map(CUtensorMap* map, const void* base, int C, int L, int 
   return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The tile copies of one [B, L, C] operand: its tensor map, and whether its
+// batch stride is 0 (a broadcast operand, mapped as one batch).
+struct Panel {
+  CUtensorMap map;
+  int batched;
+};
+
+// Host: the tensor map of a contiguous fp32 vector of n values (16-byte
+// aligned) whose box is `box` values. Returns 0 or a CUresult.
+inline int make_vec_map(CUtensorMap* map, const void* base, long long n, int box) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // unused at rank 1
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  const cuuint32_t elem_strides[1] = {1};
+  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims,
+                     strides, boxes, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

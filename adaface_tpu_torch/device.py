@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -16,3 +17,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         raise RuntimeError("no CUDA device is present; pass device='cpu' to "
                            "run the port on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (launch plans size
+    their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

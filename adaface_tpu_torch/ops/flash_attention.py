@@ -36,7 +36,8 @@ the same function, so the port reads it and runs the unpadded kernel.
 Gradients: `FlashAttentionBLC`, a `torch.autograd.Function` taken only when
 autograd records: the forward also writes the row log2-sum-exp (K3a, the
 default function's under K1's flags too), the backward is
-`csrc/flash_attn_bwd.cu` (K3b dq, K3c dk/dv/dbias; plain
+`csrc/flash_attn_bwd.cu` (K3b dq, K3c dk/dv/dbias, whose query loop
+`bwd_launch_plan` splits where its key blocks leave SMs idle; plain
 `flash_backward_plain` on the CPU), dbias summed over heads. Under
 `ADAFACE_FLASH_BWD=einsum` the backward differentiates `reference_attention`
 instead, bias included, as XLA does for that arm.
@@ -51,12 +52,14 @@ count one run.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from adaface_tpu_torch import kernels, knobs
+from adaface_tpu_torch.device import sm_count
 
 LOG2E = 1.4426950408889634
 # Floor on biased log2-domain scores (the TPU kernels' _SCORE_FLOOR): a fully
@@ -67,6 +70,19 @@ KERNEL_HEAD_DIMS = (40, 80, 160)  # the UNet's head dims
 FLAG_EXP_BF16, FLAG_MXU_SUM = 1, 2
 # the row kernel K7 takes Lk up to this, with query blocks of this many rows
 ROW_MAX_LK, ROW_BLOCK_Q = 4096, 256
+
+# The backward kernels' tiling (csrc/flash_attn_bwd.cu: Cfg): a dk/dv CTA
+# owns 64 keys per warpgroup (bwd_cta_rows) over streamed tiles of 64 query
+# rows, and may split its query loop over up to BWD_MAX_SPLIT CTAs.
+BWD_TILE = 64
+BWD_MAX_SPLIT = 8
+# What the split choice weighs (H100 SXM data sheet): a CTA's query tile at
+# a third of the tensor cores' peak per SM (what the kernel reaches), the
+# fp32 partials written and read again at the memory's peak, and the partial
+# sums' second launch.
+_TILE_FLOPS_PER_SM = 989e12 / 132 / 3
+_PEAK_BYTES = 3.35e12
+_SUM_LAUNCH_S = 4e-6
 
 launches_by_shape: Dict[Tuple[str, str, int, int, int, int, int], int] = {}
 
@@ -253,6 +269,74 @@ def flash_backward_plain(q, k, v, key_bias, o, do, lse, num_heads: int, scale=No
     return dq, dk, dv, dbias
 
 
+def dkv_slices_plain(q, k, v, key_bias, o, do, lse, num_heads: int, scale=None,
+                     split: int = 1):
+    """`flash_backward_plain`'s (dk, dv, dbias_h) of each query slice of a
+    dk/dv launch split `split` ways (slice s: query tiles [s * T / split,
+    (s + 1) * T / split) of the T tiles of BWD_TILE rows), in slice order:
+    summed in that order they are the split kernel's fp32 result."""
+    lq = q.shape[1]
+    nqt = -(-lq // BWD_TILE)
+    parts = []
+    for s in range(split):
+        r0, r1 = s * nqt // split * BWD_TILE, min((s + 1) * nqt // split * BWD_TILE, lq)
+        rows = slice(r0, r1)
+        parts.append(flash_backward_plain(q[:, rows], k, v, key_bias, o[:, rows], do[:, rows],
+                                          lse[:, :, rows], num_heads, scale)[1:])
+    return parts
+
+
+# ------------------------------------------------------------ backward plan
+def bwd_cta_rows(d: int) -> int:
+    """Keys a dk/dv CTA owns at head dim d: two warpgroups of 64, or at d160
+    one pair of column halves (Cfg::DKV_ROWS)."""
+    return BWD_TILE if d > 80 else 2 * BWD_TILE
+
+
+class BwdPlan(NamedTuple):
+    """The dk/dv grid of one backward call: `key_ctas` CTAs of
+    `bwd_cta_rows(d)` keys (key blocks x heads x batch rows), each key
+    block's query loop split over `split` CTAs."""
+    key_ctas: int
+    split: int
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_launch_plan(b: int, h: int, lq: int, lk: int, d: int, sms: int) -> BwdPlan:
+    """The backward's launch plan on a card of `sms` SMs. dk/dv runs one CTA
+    per (key block, head, batch row) at one CTA an SM; where those leave SMs
+    idle (the cross-attention's 128 keys, L256) the query loop is split: the
+    split minimises waves x query tiles per CTA x a tile's time, plus the
+    partials' extra bytes and their sum's launch."""
+    rows = bwd_cta_rows(d)
+    ctas = -(-lk // rows) * h * b
+    nqt = -(-lq // BWD_TILE)
+    work = 1.5 if d > 80 else 1.0  # d160: both column halves compute S^T and dP^T
+    t_tile = work * 8 * BWD_TILE * rows * d / _TILE_FLOPS_PER_SM
+
+    def cost(split):
+        waves = -(-ctas * split // sms)
+        extra = (0.0 if split == 1 else
+                 2 * 4 * split * b * h * lk * (2 * d + 1) / _PEAK_BYTES + _SUM_LAUNCH_S)
+        return waves * -(-nqt // split) * t_tile + extra
+
+    split = min(range(1, min(nqt, BWD_MAX_SPLIT) + 1), key=cost)
+    return BwdPlan(ctas, split)
+
+
+def dkv_work(b: int, h: int, lq: int, lk: int, d: int,
+             split: int) -> List[Tuple[int, int, int, int, int]]:
+    """(batch row, head, first key, first query tile, end query tile) of
+    each dk/dv CTA, in the order of its grid (`flash_bwd_dkv_kernel`: x =
+    key block * split + slice, y = head, z = batch row); slice s of a key
+    block covers query tiles [s * T / split, (s + 1) * T / split) of the T
+    tiles of 64."""
+    nqt, rows = -(-lq // BWD_TILE), bwd_cta_rows(d)
+    return [(bi, hi, kb * rows, s * nqt // split, (s + 1) * nqt // split)
+            for bi in range(b) for hi in range(h)
+            for kb in range(-(-lk // rows)) for s in range(split)]
+
+
 # ------------------------------------------------------------- CUDA wrappers
 def _check_operand(t: torch.Tensor, name: str, device, b: int, inner: int):
     if t.device != device:
@@ -281,7 +365,7 @@ def _fn(name: str):
             fn.argtypes = [p] * 8 + [i] * 5 + [p, f, f, p]
         else:
             fn = kernels.load("flash_attn_bwd").flash_attn_bwd_dkv
-            fn.argtypes = [p] * 10 + [i] * 5 + [p, f, f, p]
+            fn.argtypes = [p] * 10 + [i] * 5 + [p, f, f, i, p, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -327,7 +411,8 @@ def flash_attention_blc_cuda(q, k, v, num_heads: int, key_bias=None, scale=None,
                              return_lse: bool = False, arm: str = "direct",
                              flags: int = 0):
     """Launch the forward Hopper kernel on CUDA tensors; raises on anything
-    it does not take (dtype, head dim, strides, alignment). `arm` labels the launch in `launches_by_shape`;
+    it does not take (dtype, head dim, strides, alignment). `arm` labels the
+    launch in `launches_by_shape`;
     `flags` are K1's arithmetic arms. With `return_lse`, returns (out, lse2
     [B, H, Lq] fp32)."""
     b, lq, lk, d, bias = _check_call(q, k, v, num_heads, key_bias)
@@ -349,7 +434,20 @@ def flash_attention_blc_cuda(q, k, v, num_heads: int, key_bias=None, scale=None,
     return (out, lse) if return_lse else out
 
 
+def _pitch4(t: torch.Tensor) -> torch.Tensor:
+    """t with its last axis padded to a multiple of 4 values, 16-byte
+    aligned: the backward kernels' layout of lse, delta and the bias (their
+    1-D TMA copies start on 16-byte boundaries). No copy when the length is
+    a multiple of 4 and t is aligned, as on every path of the UNet."""
+    pad = -t.shape[-1] % 4
+    if pad == 0 and t.data_ptr() % 16 == 0:
+        return t
+    return F.pad(t, (0, pad))
+
+
 def _check_backward(q, k, v, key_bias, do, lse, delta, num_heads, scale):
+    """Argument checks of the backward wrappers; returns (b, lq, lk, d, bias,
+    lse, delta, scale) with the bias, lse and delta in the kernels' layout."""
     b, lq, lk, d, bias = _check_call(q, k, v, num_heads, key_bias)
     _check_operand(do, "dO", q.device, b, num_heads * d)
     for t, name in ((lse, "lse"), (delta, "delta")):
@@ -357,7 +455,8 @@ def _check_backward(q, k, v, key_bias, do, lse, delta, num_heads, scale):
                 or not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"{name} must be contiguous fp32 [{b}, {num_heads}, {lq}] "
                              f"on {q.device}")
-    return b, lq, lk, d, bias, (d ** -0.5 if scale is None else scale)
+    return (b, lq, lk, d, None if bias is None else _pitch4(bias), _pitch4(lse),
+            _pitch4(delta), d ** -0.5 if scale is None else scale)
 
 
 def row_delta(o: torch.Tensor, do: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -375,8 +474,8 @@ def _strides(*ts) -> ctypes.Array:
 
 def flash_bwd_dq_cuda(q, k, v, key_bias, do, lse, delta, num_heads: int, scale=None):
     """Launch the dq kernel on CUDA tensors; returns dq bf16 packed."""
-    b, lq, lk, d, bias, scale = _check_backward(q, k, v, key_bias, do, lse, delta,
-                                                num_heads, scale)
+    b, lq, lk, d, bias, lse, delta, scale = _check_backward(q, k, v, key_bias, do, lse, delta,
+                                                            num_heads, scale)
     dq = torch.empty((b, lq, num_heads * d), dtype=q.dtype, device=q.device)
     st = _strides(q, k, v, do, dq)
     key = (b, lq, lk, num_heads, d)
@@ -392,15 +491,23 @@ def flash_bwd_dq_cuda(q, k, v, key_bias, do, lse, delta, num_heads: int, scale=N
 
 
 def flash_bwd_dkv_cuda(q, k, v, key_bias, do, lse, delta, num_heads: int, scale=None,
-                       need_dbias: bool = False):
+                       need_dbias: bool = False, split: Optional[int] = None):
     """Launch the dk/dv kernel on CUDA tensors; returns (dk, dv) bf16 packed
-    and, with `need_dbias`, the per-head dbias [B, H, Lk] fp32 (else None)."""
-    b, lq, lk, d, bias, scale = _check_backward(q, k, v, key_bias, do, lse, delta,
-                                                num_heads, scale)
+    and, with `need_dbias`, the per-head dbias [B, H, Lk] fp32 (else None).
+    The query loop's split comes from `bwd_launch_plan` unless `split` is
+    given (1 .. min(BWD_MAX_SPLIT, query tiles))."""
+    b, lq, lk, d, bias, lse, delta, scale = _check_backward(q, k, v, key_bias, do, lse, delta,
+                                                            num_heads, scale)
+    if split is None:
+        split = bwd_launch_plan(b, num_heads, lq, lk, d, sm_count(q.device.index)).split
+    if not 1 <= split <= min(BWD_MAX_SPLIT, -(-lq // BWD_TILE)):
+        raise ValueError(f"split {split} is outside 1..{BWD_MAX_SPLIT} or the query tiles")
     dk = torch.empty((b, lk, num_heads * d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     dbias = (torch.empty((b, num_heads, lk), dtype=torch.float32, device=q.device)
              if need_dbias else None)
+    ws = (torch.empty(split * b * num_heads * lk * (2 * d + 1), dtype=torch.float32,
+                      device=q.device) if split > 1 else None)
     st = _strides(q, k, v, do, dk, dv)
     key = (b, lq, lk, num_heads, d)
     with torch.cuda.device(q.device):
@@ -408,7 +515,8 @@ def flash_bwd_dkv_cuda(q, k, v, key_bias, do, lse, delta, num_heads: int, scale=
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None if bias is None else bias.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if dbias is None else dbias.data_ptr(),
-            b, num_heads, lq, lk, d, ctypes.addressof(st), scale * LOG2E, scale,
+            b, num_heads, lq, lk, d, ctypes.addressof(st), scale * LOG2E, scale, split,
+            None if ws is None else ws.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if(err, "flash_attn_bwd_dkv", key)
     _count("dkv", "K3c", key)

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from adaface_tpu_torch import kernels, knobs
+from adaface_tpu_torch.device import sm_count
 from adaface_tpu_torch.ops.basic import geglu
 from adaface_tpu_torch.ops.grad import recompute_grads
 
@@ -151,11 +152,6 @@ def ln_geglu_ff_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
     return x + o
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _lib_fn():
     global _fn
     if _fn is None:
@@ -201,7 +197,7 @@ def ln_geglu_ff_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
             ((ln_scale, c, "ln_scale"), (ln_bias, c, "ln_bias"), (b1, 2 * f, "b1"),
              (b2, c, "b2"))]
     m = b * l
-    plan = launch_plan(m, c, f, _sm_count(dev.index))
+    plan = launch_plan(m, c, f, sm_count(dev.index))
     y = torch.empty_like(x)
     h = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
     ws = (torch.empty((plan.split, m, c), dtype=torch.float32, device=dev)

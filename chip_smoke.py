@@ -9,9 +9,9 @@ Phases, each of which exits non-zero on failure:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
   2. build: every CUDA kernel source in `adaface_tpu_torch/csrc/`, one nvcc
      each, started together; each instantiation's registers and spills
-     printed (ptxas -v); the flash forward and the feed-forward (K9) must
-     not spill, and their SASS (cuobjdump) must run their products on wgmma
-     (HGMMA), not mma.sync;
+     printed (ptxas -v); the flash forward, the flash backward and the
+     feed-forward (K9) must not spill, and their SASS (cuobjdump) must run
+     their products on wgmma (HGMMA), not mma.sync;
   3. forward kernel vs plain: the packed flash-attention forward against its
      plain fp32 PyTorch version at every generate shape, a fused-qkv input
      and a key bias with a fully masked row, each gated on max abs and
@@ -21,8 +21,10 @@ Phases, each of which exits non-zero on failure:
      L1024 d80, B3 L256 d160, with a 30% key mask plus a fully masked batch
      row, and without bias), the forward's lse and the dq and dk/dv/dbias
      kernels against the plain backward on the same bf16 inputs; planted
-     faults (a skipped 64-key tile, delta omitted, dk without its scale)
-     must fail the gate; kernel, plain and SDPA-backward times;
+     faults (a skipped 64-key tile, delta omitted, dk without its scale, the
+     last query tile of dk/dv skipped) must fail the gate; two launches
+     must agree bit for bit; kernel, plain and SDPA-backward times, and the
+     lse's plain and memory-efficient-attention times;
   5. reference: the SD-width CLIP, UNet and VAE in bf16 on the card against
      the same weights in fp32 on the CPU, on a small input;
   6. generate: `StableDiffusionPipeline.generate` at SD-v1.5 width, batch
@@ -71,9 +73,14 @@ knobs, set in-process and restored) and the Winograd conv add:
       self-attention shapes, the [B*H, L, d] one-head fold (K6, K7), K1's
       EXP_BF16 / MXU_SUM arithmetic (and, at 8x scores, the default
       function must fail the comparison); then the backward kernels at the
-      fold's and the cross-attention's training shapes. Relative L2 and
-      max abs gates, planted faults; kernel, plain, SDPA and default-arm
-      times;
+      fold's and the cross-attention's training shapes, where dk/dv splits
+      its query loop (a slice left out is a planted fault). Relative L2 and
+      max abs gates, planted faults, repeats; kernel, plain, SDPA and
+      default-arm times;
+  4e. the backward at `BWD_EDGE_SHAPES` (one query row, ragged and unequal
+      lengths, fused-projection thirds, each head dim) and at every split
+      depth, agreement and repeats only; dk/dv timed at each split where
+      the plan splits;
   4d. K10, the Winograd conv, at every 3x3 stride-1 conv shape of one
       generate UNet call (recorded by hooks) that the gates admit under
       ADAFACE_WINOGRAD=1, driven through `conv3x3_same`; against its plain
@@ -126,7 +133,8 @@ STEPS, BATCH, SIZE = 50, 8, 512
 PROMPT = "a photo of a z , , , , , , , , person"
 SOURCE = "adaface_tpu_torch/csrc/flash_attn_packed.cu"
 FWD_LIB = "flash_attn_packed"
-WGMMA_LIBS = (FWD_LIB, "ln_geglu_ff")  # no spill, products all wgmma (phase_build)
+# no spill, products all wgmma (phase_build)
+WGMMA_LIBS = (FWD_LIB, "flash_attn_bwd", "ln_geglu_ff")
 BWD_SOURCE = "adaface_tpu_torch/csrc/flash_attn_bwd.cu"
 K1 = "adaface_tpu/ops/flash_attention.py:578"  # _flash_kernel_heads_pvt
 K4 = "adaface_tpu/ops/flash_attention.py:544"  # _flash_kernel_heads_short
@@ -166,6 +174,19 @@ DBIAS_REL_TOL = 1e-4
 # (measured 2.2e-2..2.7e-2).
 TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = 1e-1
+# (B, Lq, Lk, H, d, key bias, q/k/v as thirds of one fused projection) that
+# no path gives the backward but its wrappers take, checked for agreement
+# only (dq, dk, dv at CROSS_BWD_ABS_TOL of the largest value and BWD_REL_TOL,
+# dbias at DBIAS_REL_TOL): one query row, ragged Lq and Lk, Lq != Lk, strided
+# fused-projection thirds, each head dim; the plan's split where it splits.
+BWD_EDGE_SHAPES = [(1, 1, 64, 2, 40, True, False), (2, 333, 200, 3, 160, True, False),
+                   (1, 1000, 77, 2, 80, False, False), (2, 130, 130, 8, 80, True, True),
+                   (2, 517, 517, 8, 40, False, True), (3, 300, 4100, 1, 40, True, False),
+                   (1, 700, 1100, 2, 160, False, False)]
+# (B, Lq, Lk, H, d) run at every split 1..BWD_MAX_SPLIT (9 query tiles), and
+# (B, Lq, Lk, H, d) of the training path where dk/dv is timed at each split
+BWD_SPLIT_SHAPES = [(1, 520, 190, 2, 40), (1, 520, 190, 2, 80), (1, 520, 190, 2, 160)]
+BWD_SPLIT_TIMED = [(3, 4096, 128, 8, 40), (3, 1024, 128, 8, 80), (3, 256, 256, 8, 160)]
 
 
 # The fused configuration and its two kernels.
@@ -267,6 +288,22 @@ def time_ms(torch, fn, reps=10, rounds=10, warmup=2):
     return statistics.median(times)
 
 
+def device_ms(torch, fn, reps=20):
+    """Device time of the kernels fn() launches, per call, from
+    torch.profiler over `reps` calls (after one warm-up): what a call costs
+    the card where back-to-back calls are paced by the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+    return sum(dev(e) for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3 / reps
+
+
 def bound(b, lq, lk, h, d, exp2_rate, with_bias):
     """Least time of the forward: 4*B*H*Lq*Lk*d tensor-core flops (the real
     head dim, not the kernel's padded tile), B*H*Lq*Lk exp2, or the bytes of
@@ -302,9 +339,9 @@ def phase_card(torch):
 
 def phase_build(kernels):
     """Build every source; print each instantiation's registers and spills
-    (ptxas -v) and any ptxas performance warning. The flash forward and K9
-    (`WGMMA_LIBS`) must not spill, and their SASS must run their products on
-    wgmma (HGMMA), not mma.sync (HMMA)."""
+    (ptxas -v) and any ptxas performance warning. The flash forward, the
+    flash backward and K9 (`WGMMA_LIBS`) must not spill, and their SASS must
+    run their products on wgmma (HGMMA), not mma.sync (HMMA)."""
     t0 = time.time()
     logs = kernels.build_all()
     say(f"[build] {time.time() - t0:.1f} s for {len(logs)} sources in parallel, libraries "
@@ -488,6 +525,16 @@ def _gate_bwd(got, plain, d, what, scaled=False):
     return err, rel, ok
 
 
+def check_bwd_repeats(torch, fa, args, got, label, split=None):
+    """Launch dq and dk/dv again on the same inputs; dq, dk, dv and dbias
+    must agree bit for bit (no atomics; a split sums its slices in order)."""
+    again = (fa.flash_bwd_dq_cuda(*args),) + fa.flash_bwd_dkv_cuda(*args, need_dbias=True,
+                                                                     split=split)[:3]
+    for what, a, b in zip(("dq", "dk", "dv", "dbias"), got, again):
+        if not torch.equal(a, b):
+            fail(f"{label}: two launches disagree on {what}")
+
+
 def phase_backward_kernels(torch, fa, card, exp2_rate):
     """The forward's lse and the dq and dk/dv/dbias kernels at the training
     shapes against the plain backward, planted faults, and times."""
@@ -518,6 +565,8 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
             if counted != [1, 1, 1]:
                 fail(f"{label}: wrappers counted {counted} fwd/dq/dkv launches for one "
                      f"call each")
+            check_bwd_repeats(torch, fa, (q, k, v, bias, do, lse, delta, h),
+                              (dq, dk, dv, dbias), label)
             plain_out = fa.flash_attention_blc_plain(q, k, v, h, bias)
             plain_lse = fa.row_lse_plain(q, k, h, bias)
             pdq, pdk, pdv, pdb = fa.flash_backward_plain(q, k, v, bias, out, do, lse, h)
@@ -543,18 +592,23 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
                                                lse, h)
             skipped_dk = pdk.clone()
             skipped_dk[:, :64] = 0
+            last = (l - 1) // 64 * 64  # dk/dv without the last query tile
+            no_last = fa.flash_backward_plain(q[:, :last], k, v, bias, out[:, :last],
+                                              do[:, :last], lse[:, :, :last], h)
             faults = [("key tile 0 skipped", "dq", tile_dq, pdq),
                       ("key tile 0 skipped", "dk", skipped_dk, pdk),
                       ("delta omitted", "dq", no_delta[0], pdq),
                       ("delta omitted", "dk", no_delta[1], pdk),
-                      ("dk without its scale", "dk", pdk / scale, pdk)]
+                      ("dk without its scale", "dk", pdk / scale, pdk),
+                      ("last query tile skipped", "dk", no_last[1], pdk),
+                      ("last query tile skipped", "dv", no_last[2], pdv)]
             for name, what, wrong, ref in faults:
                 err, rel, ok = _gate_bwd(wrong.bfloat16(), ref, d, what)
                 say(f"[backward]   planted fault, {name} ({what}): max abs err {err:.3e} "
                     f"rel L2 {rel:.3e}")
                 if ok:
                     fail(f"{label}: the gate passes a planted fault ({name}, {what})")
-            del tile_dq, no_delta, skipped_dk
+            del tile_dq, no_delta, skipped_dk, no_last
             if not with_bias:
                 continue
             # times at the training configuration (with the bias); the
@@ -569,8 +623,14 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
                                                                 delta, h))
             dkv_ms = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse,
                                                                   delta, h))
+            dq_dev = device_ms(torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse,
+                                                                   delta, h))
+            dkv_dev = device_ms(torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse,
+                                                                     delta, h))
             fwd_plain_ms = time_ms(torch, lambda: (fa.flash_attention_blc_plain(
                 q, k, v, h, bias), fa.row_lse_plain(q, k, h, bias)), reps=2, rounds=3)
+            lse_plain_ms = time_ms(torch, lambda: fa.row_lse_plain(q, k, h, bias),
+                                   reps=2, rounds=3)
             bwd_plain_ms = time_ms(torch, lambda: fa.flash_backward_plain(
                 q, k, v, bias, out, do, lse, h), reps=2, rounds=3)
             qh, kh, vh = (t.unflatten(-1, (h, d)).transpose(1, 2).detach().requires_grad_(True)
@@ -579,9 +639,17 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
             sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                           scale=scale)
             fwd_lib_ms = time_ms(torch, lambda: sdpa().detach())
+            # K3a's library yardstick: the memory-efficient attention with
+            # its log-sum-exp output
+            efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+            lse_lib_ms = time_ms(torch, lambda: efficient(
+                qh.detach(), kh.detach(), vh.detach(), mask.expand(b, h, l, l), True,
+                scale=scale))
             o_lib = sdpa()
             g_lib = do.unflatten(-1, (h, d)).transpose(1, 2)
             bwd_lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qh, kh, vh), g_lib, retain_graph=True))
+            bwd_lib_dev = device_ms(torch, lambda: torch.autograd.grad(
                 o_lib, (qh, kh, vh), g_lib, retain_graph=True))
             del o_lib, qh, kh, vh
             fwd_bound = bound(b, l, l, h, d, exp2_rate, True)
@@ -594,23 +662,103 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
                 bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=fwd_lib_ms)
             rows[("dq", b, l, h, d)] = dict(
                 replaces=K3B, max_abs_err=errs["dq"][0], ms=dq_ms, plain_ms=bwd_plain_ms,
-                bound_ms=dq_bound[0], bound_by=dq_bound[1], library_ms=bwd_lib_ms)
+                bound_ms=dq_bound[0], bound_by=dq_bound[1], library_ms=bwd_lib_ms,
+                device_ms=dq_dev)
             rows[("dkv", b, l, h, d)] = dict(
                 replaces=K3C, max_abs_err=max(errs["dk"][0], errs["dv"][0]), ms=dkv_ms,
                 plain_ms=bwd_plain_ms, bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
-                library_ms=bwd_lib_ms)
+                library_ms=bwd_lib_ms, device_ms=dkv_dev)
             say(f"[backward] {label}: fwd+lse {fwd_ms:.4f} ms, fwd without lse "
                 f"{fwd_nolse_ms:.4f} ms (lse costs {fwd_ms / fwd_nolse_ms - 1:+.1%}, "
                 f"{fwd_ms - fwd_nolse_ms:+.4f} ms, against the lse's own bound "
                 f"{lse_b[0]:.4f} ms ({lse_b[1]}); fwd bound {fwd_bound[0]:.4f}, "
-                f"sdpa fwd {fwd_lib_ms:.4f}), dq {dq_ms:.4f} ms (bound {dq_bound[0]:.4f} "
-                f"{dq_bound[1]}), dk/dv {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} "
-                f"{dkv_bound[1]}), sdpa backward {bwd_lib_ms:.4f} ms, plain fwd "
-                f"{fwd_plain_ms:.3f} ms, plain backward {bwd_plain_ms:.3f} ms [{card}]")
+                f"sdpa fwd {fwd_lib_ms:.4f}), dq {dq_ms:.4f} ms (device {dq_dev:.4f}; bound "
+                f"{dq_bound[0]:.4f} {dq_bound[1]}), dk/dv {dkv_ms:.4f} ms (device "
+                f"{dkv_dev:.4f}; bound {dkv_bound[0]:.4f} {dkv_bound[1]}), sdpa backward "
+                f"{bwd_lib_ms:.4f} ms (device {bwd_lib_dev:.4f}), plain fwd "
+                f"{fwd_plain_ms:.3f} ms, plain backward {bwd_plain_ms:.3f} ms; lse (K3a) plain "
+                f"{lse_plain_ms:.3f} ms, efficient attention with lse {lse_lib_ms:.4f} ms "
+                f"[{card}]")
             del q, k, v, do, out, lse, delta, dq, dk, dv, dbias, pdq, pdk, pdv, pdb
     fa.launches_by_shape.clear()
     torch.cuda.empty_cache()
     return rows
+
+
+def _bwd_case(torch, fa, gen, b, lq, lk, h, d, with_bias, fused, split=None):
+    """Forward with lse, then dq and dk/dv (at the plan's split, or `split`)
+    on random inputs; repeats bit for bit and agreement with the plain
+    backward. Returns (label, {output: (max abs err, rel L2)})."""
+    inner = h * d
+    rand = lambda l, w: torch.randn((b, l, w), generator=gen, device="cuda").bfloat16()
+    if fused:
+        qkv = rand(lq, 3 * inner)
+        q, k, v = qkv[..., :inner], qkv[..., inner:2 * inner], qkv[..., 2 * inner:]
+    else:
+        q, k, v = rand(lq, inner), rand(lk, inner), rand(lk, inner)
+    do = rand(lq, inner)
+    bias = None
+    if with_bias:
+        bias = torch.where(torch.rand((b, lk), generator=gen, device="cuda") > 0.3, 0.0, -1e30)
+        bias[0] = -1e30
+    label = (f"B{b} Lq{lq} Lk{lk} H{h} d{d}{' bias' if with_bias else ''}"
+             f"{' fused-qkv' if fused else ''} split {split or 'planned'}")
+    out, lse = fa.flash_attention_blc_cuda(q, k, v, h, bias, return_lse=True)
+    delta = fa.row_delta(out, do, h)
+    args = (q, k, v, bias, do, lse, delta, h)
+    got = (fa.flash_bwd_dq_cuda(*args),) + fa.flash_bwd_dkv_cuda(*args, need_dbias=True,
+                                                                   split=split)
+    torch.cuda.synchronize()
+    check_bwd_repeats(torch, fa, args, got, label, split)
+    plain = fa.flash_backward_plain(q, k, v, bias, out, do, lse, h)
+    errs = {}
+    for what, a, ref in zip(("dq", "dk", "dv", "dbias"), got, plain):
+        err, rel, ok = _gate_bwd(a, ref, d, what, scaled=True)
+        errs[what] = (err, rel)
+        if not torch.isfinite(a).all() or not ok:
+            fail(f"{label}: {what} disagrees with the plain backward (max abs {err:.3e}, "
+                 f"rel L2 {rel:.3e})")
+    return label, errs
+
+
+def phase_backward_edges(torch, fa, card):
+    """(4e) The backward at BWD_EDGE_SHAPES and, at BWD_SPLIT_SHAPES, at
+    every split the plan can choose: agreement and repeats only. Then dk/dv's
+    device time (profiler) at each split at BWD_SPLIT_TIMED, beside the
+    plan's choice."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, lq, lk, h, d, with_bias, fused in BWD_EDGE_SHAPES:
+        label, errs = _bwd_case(torch, fa, gen, b, lq, lk, h, d, with_bias, fused)
+        say(f"[backward-edge] {label:48s} " + " ".join(
+            f"{w} {e:.2e}/{r:.2e}" for w, (e, r) in errs.items())
+            + f" (max abs / rel L2); {fa.bwd_launch_plan(b, h, lq, lk, d, sms)}")
+    for b, lq, lk, h, d in BWD_SPLIT_SHAPES:
+        worst = 0.0
+        for split in range(1, fa.BWD_MAX_SPLIT + 1):
+            _, errs = _bwd_case(torch, fa, gen, b, lq, lk, h, d, True, False, split)
+            worst = max([worst] + [r for _, r in errs.values()])
+        say(f"[backward-edge] B{b} Lq{lq} Lk{lk} H{h} d{d} bias: splits 1-{fa.BWD_MAX_SPLIT} "
+            f"agree, worst rel L2 {worst:.2e}")
+    for b, lq, lk, h, d in BWD_SPLIT_TIMED:
+        inner = h * d
+        q, do = (torch.randn((b, lq, inner), generator=gen, device="cuda").bfloat16()
+                 for _ in range(2))
+        k, v = (torch.randn((b, lk, inner), generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        bias = torch.zeros((b, lk), device="cuda")
+        out, lse = fa.flash_attention_blc_cuda(q, k, v, h, bias, return_lse=True)
+        delta = fa.row_delta(out, do, h)
+        plan = fa.bwd_launch_plan(b, h, lq, lk, d, sms)
+        times = [device_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
+            q, k, v, bias, do, lse, delta, h, split=split))
+            for split in range(1, min(fa.BWD_MAX_SPLIT, -(-lq // fa.BWD_TILE)) + 1)]
+        say(f"[backward-split] B{b} Lq{lq} Lk{lk} H{h} d{d} bias: dk/dv device ms at split 1.."
+            f"{len(times)}: " + " ".join(f"{t:.4f}" for t in times)
+            + f"; the plan takes {plan.split} ({plan.key_ctas} key CTAs) [{card}]")
+        del q, do, k, v, out, lse, delta
+    fa.launches_by_shape.clear()
+    torch.cuda.empty_cache()
 
 
 def _fused_ops():
@@ -959,7 +1107,7 @@ def _category(name):
         return "flash_attn_packed forward (this port's kernel)"
     if "flash_bwd_dq" in name:
         return "flash_attn_bwd dq (this port's kernel)"
-    if "flash_bwd_dkv" in name:
+    if "flash_bwd_dkv" in name or "dkv_sum_kernel" in name:
         return "flash_attn_bwd dk/dv (this port's kernel)"
     if "fprop" in name or "conv" in name.lower() or "dgrad" in name:
         return "convolutions (cuDNN)"
@@ -1626,6 +1774,7 @@ def phase_arm_kernels(torch, fa, card, exp2_rate):
     fa.launches_by_shape.clear()
 
     bwd_rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen_mask = torch.Generator(device="cuda").manual_seed(17)
     cases = []
     for b, l, h, d in TRAIN_SHAPES:
@@ -1655,6 +1804,9 @@ def phase_arm_kernels(torch, fa, card, exp2_rate):
         counted = {key[:2]: n for key, n in fa.launches_by_shape.items()}
         if counted != {("fwd", arm): 1, ("dq", "K3b"): 1, ("dkv", "K3c"): 1}:
             fail(f"{label}: the wrappers counted {fa.launches_by_shape}")
+        check_bwd_repeats(torch, fa, (q, k, v, bias, do, lse, delta, h), (dq, dk, dv, dbias),
+                          label)
+        plan = fa.bwd_launch_plan(b, h, lq, lk, d, sms)
         plain_lse = fa.row_lse_plain(q, k, h, bias)
         pdq, pdk, pdv, pdb = fa.flash_backward_plain(q, k, v, bias, out, do, lse, h)
         errs = {}
@@ -1669,12 +1821,22 @@ def phase_arm_kernels(torch, fa, card, exp2_rate):
             if not ok:
                 fail(f"{label}: {what} disagrees with the plain backward")
         no_delta = fa.flash_backward_plain(q, k, v, bias, torch.zeros_like(out), do, lse, h)
-        for what, wrong, ref in (("dq", no_delta[0], pdq), ("dk", no_delta[1], pdk)):
+        faults = [("delta omitted", "dq", no_delta[0], pdq),
+                  ("delta omitted", "dk", no_delta[1], pdk)]
+        if plan.split > 1:  # the split's middle query slice left out of the sums
+            parts = fa.dkv_slices_plain(q, k, v, bias, out, do, lse, h, split=plan.split)
+            gone = plan.split // 2
+            for i, what, ref in ((0, "dk", pdk), (1, "dv", pdv)):
+                wrong = sum(p[i] for j, p in enumerate(parts) if j != gone)
+                faults.append((f"query slice {gone} of {plan.split} left out", what, wrong, ref))
+            del parts
+        for name, what, wrong, ref in faults:
             err, rel, ok = _gate_bwd(wrong.bfloat16(), ref, d, what, scaled=arm == "K4")
-            say(f"[arm-backward]   planted fault, delta omitted ({what}): max abs err "
+            say(f"[arm-backward]   planted fault, {name} ({what}): max abs err "
                 f"{err:.3e} rel L2 {rel:.3e}")
             if ok:
-                fail(f"{label}: the gate passes a planted fault (delta omitted, {what})")
+                fail(f"{label}: the gate passes a planted fault ({name}, {what})")
+        del faults
         fwd_ms = time_ms(torch, lambda: fa.flash_attention_blc_cuda(q, k, v, h, bias,
                                                                     return_lse=True, arm=arm))
         fwd_plain_ms = time_ms(torch, lambda: (fa.flash_attention_blc_plain(q, k, v, h, bias),
@@ -1685,6 +1847,9 @@ def phase_arm_kernels(torch, fa, card, exp2_rate):
         dq_ms = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, h))
         dkv_ms = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta,
                                                               h))
+        dq_dev = device_ms(torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, h))
+        dkv_dev = device_ms(torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta,
+                                                                 h))
         bwd_plain_ms = time_ms(torch, lambda: fa.flash_backward_plain(
             q, k, v, bias, out, do, lse, h), reps=2, rounds=3)
         qh, kh, vh = (heads4(t, h).detach().requires_grad_(True) for t in (q, k, v))
@@ -1693,6 +1858,8 @@ def phase_arm_kernels(torch, fa, card, exp2_rate):
         fwd_lib_ms = time_ms(torch, lambda: sdpa().detach())
         o_lib = sdpa()
         bwd_lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (qh, kh, vh), heads4(do, h), retain_graph=True))
+        bwd_lib_dev = device_ms(torch, lambda: torch.autograd.grad(
             o_lib, (qh, kh, vh), heads4(do, h), retain_graph=True))
         dq_b = bwd_bound(b, lq, lk, h, d, exp2_rate, "dq", True)
         dkv_b = bwd_bound(b, lq, lk, h, d, exp2_rate, "dkv", True)
@@ -1703,15 +1870,18 @@ def phase_arm_kernels(torch, fa, card, exp2_rate):
             bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=fwd_lib_ms)
         bwd_rows[("dq", "K3b") + key] = dict(
             max_abs_err=errs["dq"], ms=dq_ms, plain_ms=bwd_plain_ms, bound_ms=dq_b[0],
-            bound_by=dq_b[1], library_ms=bwd_lib_ms)
+            bound_by=dq_b[1], library_ms=bwd_lib_ms, device_ms=dq_dev)
         bwd_rows[("dkv", "K3c") + key] = dict(
             max_abs_err=max(errs["dk"], errs["dv"]), ms=dkv_ms, plain_ms=bwd_plain_ms,
-            bound_ms=dkv_b[0], bound_by=dkv_b[1], library_ms=bwd_lib_ms)
+            bound_ms=dkv_b[0], bound_by=dkv_b[1], library_ms=bwd_lib_ms, device_ms=dkv_dev,
+            split=plan.split)
         say(f"[arm-backward] {label}: fwd+lse {fwd_ms:.4f} ms (bound {fwd_b[0]:.4f} "
             f"{fwd_b[1]}, sdpa {fwd_lib_ms:.4f}), dq {dq_ms:.4f} ms (bound {dq_b[0]:.4f} "
-            f"{dq_b[1]}), dk/dv "
-            f"{dkv_ms:.4f} ms (bound {dkv_b[0]:.4f} {dkv_b[1]}), sdpa backward "
-            f"{bwd_lib_ms:.4f} ms, plain backward {bwd_plain_ms:.3f} ms [{card}]")
+            f"{dq_b[1]}; device {dq_dev:.4f}), dk/dv {dkv_ms:.4f} ms (device {dkv_dev:.4f}) on "
+            f"{plan.key_ctas} x {plan.split} CTAs (split {plan.split}; bound {dkv_b[0]:.4f} "
+            f"{dkv_b[1]}), sdpa backward "
+            f"{bwd_lib_ms:.4f} ms (device {bwd_lib_dev:.4f}), plain backward "
+            f"{bwd_plain_ms:.3f} ms [{card}]")
         del q, k, v, do, out, lse, delta, dq, dk, dv, dbias, pdq, pdk, pdv, pdb, o_lib, plain_out
     fa.launches_by_shape.clear()
     torch.cuda.empty_cache()
@@ -2013,6 +2183,7 @@ def main():
     rows = phase_kernels(torch, fa, card, exp2_rate)
     bwd_rows = phase_backward_kernels(torch, fa, card, exp2_rate)
     arm_rows, arm_bwd_rows = phase_arm_kernels(torch, fa, card, exp2_rate)
+    phase_backward_edges(torch, fa, card)
     fused_rows = phase_fused_kernels(torch, card, exp2_rate)
 
     t0 = time.time()
