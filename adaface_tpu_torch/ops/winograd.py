@@ -21,14 +21,21 @@ dtype and rounded after every add, in the p-then-q loop order; m_ij = t_ij
 U_ij with fp32 accumulation; y = A^T m A summed in fp32; + bias in fp32; one
 cast.
 
+`launch_plan` splits the kernel's product launch where its grid would leave
+SMs idle, and `plan_items` lists the work items it then runs;
+`winograd_conv3x3_split_plain` is the plain version of a split launch (fp32
+partials summed in slice order).
+
 `launches_by_shape` counts kernel calls (a transform and a product launch
-each) per (B, H, W, Cin, Cout); callers may clear it to count one run.
+each, and a sum launch when split) per (B, H, W, Cin, Cout); callers may
+clear it to count one run.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,9 +55,18 @@ G = np.array([[1.0, 0.0, 0.0],
               [0.5, 0.5, 0.5],
               [0.5, -0.5, 0.5],
               [0.0, 0.0, 1.0]], np.float32)
-# the product kernel's tiles: Cin is zero-padded to a multiple of K_TILE,
-# Cout to a multiple of N_TILE
-K_TILE, N_TILE = 32, 64
+# the product kernel's tiles: M_TILE tile rows x N_TILE output columns a
+# work item, K_TILE channels a step; Cin is zero-padded to a multiple of
+# K_TILE (one 128-byte swizzled row of bf16), Cout to a multiple of N_TILE
+M_TILE, N_TILE, K_TILE = 128, 64, 64
+# launch_plan's cost model (H100 SXM): a step (a [128, 64] V box and a [64,
+# 64] U box, 24 KB) at an SM's share of ~8 TB/s of L2 reads, the rate K9's
+# copies measured (PERF.md section 6), which paces the products more than the
+# tensor cores' 1 M multiply-adds a step; an item's ring fill and epilogue
+# about 4 steps; a split's fp32 partials written and read once at 3.35 TB/s
+_STEP_S = 24576 / (8e12 / 132)
+_ITEM_OVERHEAD_STEPS = 4
+_PEAK_BYTES = 3.35e12
 DEF_MIN_TILES = 256
 DEF_VMEM_BUDGET = 72 * 1024 * 1024
 
@@ -136,52 +152,165 @@ def _lib_fn():
     if fn is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = kernels.load("winograd").winograd_conv3x3_fwd
-        fn.argtypes = [p] * 5 + [i] * 7 + [p]
+        fn.argtypes = [p] * 6 + [i] * 9 + [p]
         fn.restype = ctypes.c_int
         _fn["winograd"] = fn
     return fn
 
 
 def padded_weights(u: torch.Tensor) -> torch.Tensor:
-    """U [16, Cin, Cout] zero-padded to [16, Cin_p, Cout_p], the product
-    kernel's tile multiples (a copy only where Cin or Cout is not one)."""
+    """U [16, Cin, Cout] as the product kernel reads it: transposed to
+    K-major [16, Cout_p, Cin_p] and zero-padded to the tile multiples."""
     _, cin, cout = u.shape
     cin_p = -(-cin // K_TILE) * K_TILE
     cout_p = -(-cout // N_TILE) * N_TILE
-    if (cin_p, cout_p) == (cin, cout):
-        return u.contiguous()
-    return F.pad(u, (0, cout_p - cout, 0, cin_p - cin)).contiguous()
+    return F.pad(u.transpose(1, 2), (0, cin_p - cin, 0, cout_p - cout)).contiguous()
 
 
-def winograd_conv3x3_cuda(x: torch.Tensor, u: torch.Tensor,
-                          bias: torch.Tensor) -> torch.Tensor:
+class LaunchPlan(NamedTuple):
+    split: int  # slices of the 16 * Cin_p / K_TILE product steps
+    m_fastest: bool  # row blocks fastest in the grid (else column blocks)
+    grid: int  # CTAs of the product launch, one work item each
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of ints, asked once a call
+def launch_plan(m: int, cin: int, cout: int, sms: int) -> LaunchPlan:
+    """The product launch's plan for M tiles, Cin -> Cout on a card of `sms`
+    SMs (one 384-thread CTA an SM). The split is the one that minimises
+    waves x (steps an item + an item's overhead) x a step's time, plus the
+    time of the partials' bytes: it splits only where the unsplit grid
+    leaves SMs idle in its last wave. CTAs that run together share the
+    operand that is re-read across the grid: V's rows (column blocks
+    fastest) where U is the smaller, U's columns where V is.
+
+    Tiles of 64 rows x 128 columns move the same bytes per product as 128 x
+    64 (both read (rows + columns) x 64 channels a step), so the plan keeps
+    one tile shape."""
+    cin_p = -(-cin // K_TILE) * K_TILE
+    cout_p = -(-cout // N_TILE) * N_TILE
+    tiles = -(-m // M_TILE) * (cout_p // N_TILE)
+    steps = 16 * (cin_p // K_TILE)
+
+    def cost(split):
+        extra = 0.0 if split == 1 else 2 * 4 * split * 4 * m * cout_p / _PEAK_BYTES
+        waves = -(-tiles * split // sms)
+        return waves * (-(-steps // split) + _ITEM_OVERHEAD_STEPS) * _STEP_S + extra
+
+    split = min(range(1, min(16, steps) + 1), key=cost)
+    return LaunchPlan(split, m < cout_p, tiles * split)
+
+
+class WorkItem(NamedTuple):
+    row0: int  # first tile row (rows past M are masked)
+    col0: int  # first output column
+    k0: int  # product steps [k0, k1): step st is position st // nk, channels
+    k1: int  #   [st % nk * K_TILE, + K_TILE), nk = Cin_p / K_TILE
+    slice: int
+
+
+def plan_items(m: int, cin: int, cout: int, plan: LaunchPlan) -> List[WorkItem]:
+    """The work item of each CTA of the product launch, in block order, as
+    `wino_product_kernel` (csrc/winograd.cu: `decode`) takes them: the
+    slice slowest, then the column block (m_fastest) or the row block."""
+    cout_p = -(-cout // N_TILE) * N_TILE
+    mblk, nblk = -(-m // M_TILE), cout_p // N_TILE
+    steps = 16 * -(-cin // K_TILE)
+    items = []
+    for item in range(plan.grid):
+        s, tile = divmod(item, mblk * nblk)
+        nb, mb = divmod(tile, mblk) if plan.m_fastest else reversed(divmod(tile, nblk))
+        items.append(WorkItem(mb * M_TILE, nb * N_TILE, s * steps // plan.split,
+                              (s + 1) * steps // plan.split, s))
+    return items
+
+
+def split_partials(x: torch.Tensor, u: torch.Tensor, split: int) -> torch.Tensor:
+    """The kernel's fp32 quadrants [split, 2, 2, M, Cout] of each slice of
+    the 16 * Cin_p / K_TILE product steps (x's promoted dtype for fp64),
+    in plain torch ops: t_ij as `winograd_conv3x3_plain` rounds it, each
+    step's product added with its A^T signs."""
+    b, h, w, cin = x.shape
+    cout = u.shape[-1]
+    cdt = torch.promote_types(x.dtype, torch.float32)
+    nk = -(-cin // K_TILE)
+    steps = 16 * nk
+    tile = _input_tiles(x)
+    t = [_input_transform(tile, ij // 4, ij % 4).reshape(-1, cin).to(cdt) for ij in range(16)]
+    parts = torch.zeros((split, 2, 2, t[0].shape[0], cout), dtype=cdt, device=x.device)
+    for s in range(split):
+        for st in range(s * steps // split, (s + 1) * steps // split):
+            ij, kc = divmod(st, nk)
+            ks = slice(kc * K_TILE, (kc + 1) * K_TILE)
+            mm = torch.matmul(t[ij][:, ks], u[ij, ks].to(cdt))
+            for a in range(2):
+                for c in range(2):
+                    coef = AT[a][ij // 4] * AT[c][ij % 4]
+                    if coef:
+                        parts[s, a, c] += coef * mm
+    return parts
+
+
+def winograd_conv3x3_split_plain(x: torch.Tensor, parts: torch.Tensor,
+                                 bias: torch.Tensor) -> torch.Tensor:
+    """The split launch's function in plain torch ops: the slices' partials
+    (`split_partials(x, U, split)`) summed in slice order, + bias in fp32,
+    one cast to x's dtype, NHWC."""
+    b, h, w, _ = x.shape
+    cout = parts.shape[-1]
+    y = parts[0]
+    for p in parts[1:]:
+        y = y + p
+    y = y + bias.to(y.dtype)
+    y = y.reshape(2, 2, b, h // 2, w // 2, cout).permute(2, 3, 0, 4, 1, 5)
+    return y.reshape(b, h, w, cout).to(x.dtype)
+
+
+_sms: Dict[int, int] = {}
+
+
+def winograd_conv3x3_cuda(x: torch.Tensor, ut: torch.Tensor, bias: torch.Tensor,
+                          split: Optional[int] = None) -> torch.Tensor:
     """Launch the Hopper kernel on bf16 CUDA tensors: x NHWC [B, H, W, Cin]
-    (H, W even), U [16, Cin, Cout], bias [Cout]; raises on anything it does
-    not take."""
+    (H, W even), the product launch's weights ut = padded_weights(U)
+    [16, Cout_p, Cin_p], bias [Cout]; `split` forces a split of the product
+    steps (else `launch_plan`'s); raises on anything it does not take."""
     if x.device.type != "cuda":
         raise ValueError(f"x is on {x.device}, not a CUDA device")
-    for t, name in ((x, "x"), (u, "U"), (bias, "bias")):
+    for t, name in ((x, "x"), (ut, "ut"), (bias, "bias")):
         if t.dtype != torch.bfloat16 or t.device != x.device:
             raise TypeError(f"the CUDA kernel takes bfloat16 on {x.device}; {name} is "
                             f"{t.dtype} on {t.device}")
-    if x.dim() != 4 or u.dim() != 3 or u.shape[0] != 16 or u.shape[1] != x.shape[3]:
-        raise ValueError(f"want x [B, H, W, Cin] and U [16, Cin, Cout], got "
-                         f"{tuple(x.shape)} and {tuple(u.shape)}")
+    if x.dim() != 4 or bias.dim() != 1:
+        raise ValueError(f"want x [B, H, W, Cin] and bias [Cout], got {tuple(x.shape)} and "
+                         f"{tuple(bias.shape)}")
     b, h, w, cin = x.shape
-    cout = u.shape[2]
-    if h % 2 or w % 2 or b * h * w == 0 or tuple(bias.shape) != (cout,):
-        raise ValueError(f"the kernel takes even, non-empty H and W and a [{cout}] bias; "
-                         f"got x {tuple(x.shape)}, bias {tuple(bias.shape)}")
+    cout = bias.shape[0]
+    cin_p = -(-cin // K_TILE) * K_TILE
+    cout_p = -(-cout // N_TILE) * N_TILE
+    if tuple(ut.shape) != (16, cout_p, cin_p) or not ut.is_contiguous():
+        raise ValueError(f"want ut = padded_weights(U), contiguous [16, {cout_p}, {cin_p}]; got "
+                         f"{tuple(ut.shape)}")
+    if h % 2 or w % 2 or b * h * w == 0:
+        raise ValueError(f"the kernel takes even, non-empty H and W; got x {tuple(x.shape)}")
     x = x.contiguous()
-    up = padded_weights(u)
-    cin_p, cout_p = up.shape[1], up.shape[2]
     m = b * (h // 2) * (w // 2)
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = launch_plan(m, cin, cout, _sms[dev])
+    if split is not None:
+        if not 1 <= split <= 16 * (cin_p // K_TILE):
+            raise ValueError(f"split {split} outside 1..{16 * (cin_p // K_TILE)}")
+        plan = plan._replace(split=split)
     v = torch.empty((16, m, cin_p), dtype=torch.bfloat16, device=x.device)
+    ws = (torch.empty((plan.split, 4, m, cout_p), dtype=torch.float32, device=x.device)
+          if plan.split > 1 else None)
     out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=x.device)
     bias = bias.contiguous()
     with torch.cuda.device(x.device):
-        err = _lib_fn()(x.data_ptr(), up.data_ptr(), bias.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), b, h, w, cin, cout, cin_p, cout_p,
+        err = _lib_fn()(x.data_ptr(), ut.data_ptr(), bias.data_ptr(), v.data_ptr(),
+                        0 if ws is None else ws.data_ptr(), out.data_ptr(), b, h, w, cin,
+                        cout, cin_p, cout_p, plan.split, int(plan.m_fastest),
                         torch.cuda.current_stream(x.device).cuda_stream)
     key = (b, h, w, cin, cout)
     if err:
@@ -202,7 +331,7 @@ class WinogradConv3x3(torch.autograd.Function):
         ctx.save_for_backward(x, kernel)
         u = transform_weights(kernel)
         if x.device.type == "cuda":
-            return winograd_conv3x3_cuda(x, u, bias)
+            return winograd_conv3x3_cuda(x, padded_weights(u), bias)
         return winograd_conv3x3_plain(x, u, bias)
 
     @staticmethod
@@ -226,7 +355,7 @@ def winograd_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
         return WinogradConv3x3.apply(x, kernel, bias)
     u = transform_weights(kernel)
     if x.device.type == "cuda":
-        return winograd_conv3x3_cuda(x, u, bias)
+        return winograd_conv3x3_cuda(x, padded_weights(u), bias)
     return winograd_conv3x3_plain(x, u, bias)
 
 

@@ -9,9 +9,10 @@ Phases, each of which exits non-zero on failure:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
   2. build: every CUDA kernel source in `adaface_tpu_torch/csrc/`, one nvcc
      each, started together; each instantiation's registers and spills
-     printed (ptxas -v); the flash forward, the flash backward and the
-     feed-forward (K9) must not spill, and their SASS (cuobjdump) must run
-     their products on wgmma (HGMMA), not mma.sync;
+     printed (ptxas -v); the flash forward, the flash backward, the
+     feed-forward (K9) and the Winograd conv (K10) must not spill, and their
+     SASS (cuobjdump) must run their products on wgmma (HGMMA), not
+     mma.sync;
   3. forward kernel vs plain: the packed flash-attention forward against its
      plain fp32 PyTorch version at every generate shape, a fused-qkv input
      and a key bias with a fully masked row, each gated on max abs and
@@ -85,9 +86,10 @@ knobs, set in-process and restored) and the Winograd conv add:
       generate UNet call (recorded by hooks) that the gates admit under
       ADAFACE_WINOGRAD=1, driven through `conv3x3_same`; against its plain
       version (planted faults: a position left out, a sign of A^T flipped,
-      the bias dropped, the input transform rounded once or kept in fp32),
-      two launches bit for bit; kernel, bound, plain and
-      F.conv2d times; one backward through the op;
+      the bias dropped, the input transform rounded once or kept in fp32, a
+      slice's partial dropped from a split's sum), at the launch plan's
+      split and at another (split and unsplit), two launches bit for bit;
+      kernel, bound, plain and F.conv2d times; one backward through the op;
   6c. generate under each of `ARM_CONFIGS` (K2, K5, K4 cross, K6, K7, K1
       flags, fuse_qkv, ADAFACE_CFG_DEDUP=0, ADAFACE_CROSS_KV=0): one
       warm-up and one timed request each, with
@@ -134,7 +136,7 @@ PROMPT = "a photo of a z , , , , , , , , person"
 SOURCE = "adaface_tpu_torch/csrc/flash_attn_packed.cu"
 FWD_LIB = "flash_attn_packed"
 # no spill, products all wgmma (phase_build)
-WGMMA_LIBS = (FWD_LIB, "flash_attn_bwd", "ln_geglu_ff")
+WGMMA_LIBS = (FWD_LIB, "flash_attn_bwd", "ln_geglu_ff", "winograd")
 BWD_SOURCE = "adaface_tpu_torch/csrc/flash_attn_bwd.cu"
 K1 = "adaface_tpu/ops/flash_attention.py:578"  # _flash_kernel_heads_pvt
 K4 = "adaface_tpu/ops/flash_attention.py:544"  # _flash_kernel_heads_short
@@ -340,8 +342,8 @@ def phase_card(torch):
 def phase_build(kernels):
     """Build every source; print each instantiation's registers and spills
     (ptxas -v) and any ptxas performance warning. The flash forward, the
-    flash backward and K9 (`WGMMA_LIBS`) must not spill, and their SASS must
-    run their products on wgmma (HGMMA), not mma.sync (HMMA)."""
+    flash backward, K9 and K10 (`WGMMA_LIBS`) must not spill, and their SASS
+    must run their products on wgmma (HGMMA), not mma.sync (HMMA)."""
     t0 = time.time()
     logs = kernels.build_all()
     say(f"[build] {time.time() - t0:.1f} s for {len(logs)} sources in parallel, libraries "
@@ -1942,9 +1944,11 @@ def phase_winograd(torch, pipe, card):
     before, read after); against its plain version (relative L2 and max abs
     gates, planted faults: a position left out, a sign of A^T flipped, the
     bias dropped, the input transform rounded once or kept in fp32 instead
-    of rounded after every add), two launches bit for bit; kernel, bound,
-    plain and F.conv2d (cuDNN, channels_last bf16) times; one backward
-    through the op.
+    of rounded after every add, one slice's fp32 partial dropped from the
+    sum of a split launch's plain version), at `launch_plan`'s split and at
+    another (1 where the plan splits, else 2), two launches bit for bit;
+    kernel, bound, plain and F.conv2d (cuDNN, channels_last bf16) times;
+    one backward through the op.
     Returns (rows, launches) by shape."""
     import torch.nn.functional as F
 
@@ -1982,8 +1986,13 @@ def phase_winograd(torch, pipe, card):
         b, h, w, cin, cout = key
         label = f"winograd B{b} {h}x{w} Cin{cin} Cout{cout}"
         u = tw.transform_weights(kern)
-        out = tw.winograd_conv3x3_cuda(x, u, bias)
-        again = tw.winograd_conv3x3_cuda(x, u, bias)
+        ut = tw.padded_weights(u)  # the kernel's layout, made outside the timed call
+        out = tw.winograd_conv3x3_cuda(x, ut, bias)
+        again = tw.winograd_conv3x3_cuda(x, ut, bias)
+        plan = tw.launch_plan(b * h * w // 4, cin, cout,
+                              torch.cuda.get_device_properties(0).multi_processor_count)
+        other = 1 if plan.split > 1 else 2
+        resplit = tw.winograd_conv3x3_cuda(x, ut, bias, split=other)
         torch.cuda.synchronize()
         if not torch.isfinite(out).all() or not torch.equal(out, again):
             fail(f"{label}: non-finite output, or two launches disagree")
@@ -1992,10 +2001,16 @@ def phase_winograd(torch, pipe, card):
         errs = lambda y: ((y.float() - plain).abs().max().item() / scale,
                           ((y.float() - plain).norm() / plain.norm()).item())
         err, rel = errs(out)
+        oerr, orel = errs(resplit)
         u5 = u.clone()
         u5[5] = 0
+        nsplit = max(plan.split, 2)
+        parts = tw.split_partials(x, u, nsplit)
         faults = {"position 5 left out": tw.winograd_conv3x3_plain(x, u5, bias),
-                  "bias dropped": tw.winograd_conv3x3_plain(x, u, torch.zeros_like(bias))}
+                  "bias dropped": tw.winograd_conv3x3_plain(x, u, torch.zeros_like(bias)),
+                  f"slice 0 of {nsplit} dropped from the sum": tw.winograd_conv3x3_split_plain(
+                      x, parts[1:], bias)}
+        del parts
         at, transform = tw.AT, tw._input_transform
         fp32_t = lambda tile, i, j: transform(lambda p, q: tile(p, q).float(), i, j)
         for name, attr, patch in (
@@ -2014,21 +2029,24 @@ def phase_winograd(torch, pipe, card):
                 f"largest value, rel L2 {frel:.3e}")
             if ferr <= WINO_ABS_TOL and frel <= WINO_REL_TOL:
                 fail(f"{label}: the gate passes a planted fault ({name})")
-        ms = time_ms(torch, lambda: tw.winograd_conv3x3_cuda(x, u, bias))
+        ms = time_ms(torch, lambda: tw.winograd_conv3x3_cuda(x, ut, bias))
         plain_ms = time_ms(torch, lambda: tw.winograd_conv3x3_plain(x, u, bias), reps=2, rounds=3)
         xc = x.permute(0, 3, 1, 2)  # NHWC memory is channels_last NCHW
         wc = kern.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         library_ms = time_ms(torch, lambda: F.conv2d(xc, wc, bias, padding=1))
         bound_ms, bound_by = wino_bound(b, h, w, cin, cout)
         say(f"[winograd] {label:40s}: max abs err {err:.3e} of the largest value (tol "
-            f"{WINO_ABS_TOL:.3e}) rel L2 {rel:.3e} (tol {WINO_REL_TOL}) kernel {ms:.4f} ms "
-            f"bound {bound_ms:.4f} ms ({bound_by}) plain {plain_ms:.4f} ms F.conv2d "
-            f"{library_ms:.4f} ms [{card}]")
-        if not (err <= WINO_ABS_TOL and rel <= WINO_REL_TOL):
-            fail(f"{label}: kernel disagrees with plain (max abs {err:.3e}, rel L2 {rel:.3e})")
+            f"{WINO_ABS_TOL:.3e}) rel L2 {rel:.3e} (tol {WINO_REL_TOL}) at split {plan.split}"
+            f"{' (rows fastest)' if plan.m_fastest else ''}, {oerr:.3e} / {orel:.3e} at split "
+            f"{other}; kernel {ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) plain "
+            f"{plain_ms:.4f} ms F.conv2d {library_ms:.4f} ms [{card}]")
+        for e, r, n in ((err, rel, plan.split), (oerr, orel, other)):
+            if not (e <= WINO_ABS_TOL and r <= WINO_REL_TOL):
+                fail(f"{label}: kernel at split {n} disagrees with plain (max abs {e:.3e}, "
+                     f"rel L2 {r:.3e})")
         rows[key] = dict(max_abs_err=err * scale, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=library_ms)
-        del out, again, plain, faults
+        del out, again, resplit, plain, faults, ut
     # one backward through the op: the direct conv's VJP and the fp32 bias sum
     key = max(cases, key=lambda k: k[0] * k[1] * k[2] * k[3] * k[4])
     x, kern, bias = (t.detach().clone().requires_grad_(True) for t in cases[key])

@@ -169,7 +169,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 def test_padded_weights_tile_multiples():
     u = torch.randn(16, 4, 36)
-    up = tw.padded_weights(u)
-    assert up.shape == (16, 32, 64)
-    torch.testing.assert_close(up[:, :4, :36], u, rtol=0, atol=0)
-    assert up[:, 4:].abs().sum() == 0 and up[:, :, 36:].abs().sum() == 0
+    up = tw.padded_weights(u)  # K-major [16, Cout_p, Cin_p], both multiples of 64
+    assert up.shape == (16, 64, 64)
+    torch.testing.assert_close(up[:, :36, :4], u.transpose(1, 2), rtol=0, atol=0)
+    assert up[:, 36:].abs().sum() == 0 and up[:, :, 4:].abs().sum() == 0
