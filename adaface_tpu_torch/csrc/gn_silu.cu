@@ -6,45 +6,64 @@
 // s = sum x, ss = sum x^2 over N rows and C/G channels; mean = s / count,
 // var = max(ss / count - mean^2, 0); per channel sc = scale * rsqrt(var +
 // eps), sh = bias - mean * sc; out = x * sc + sh, then SiLU in fp32, then
-// bf16.
+// bf16. SiLU is taken as h + h tanh(h), h = y / 2 (y sigmoid(y) exactly;
+// tanh on the special-function unit, one operation where exp and a
+// reciprocal are two).
 //
 // Bound: bytes. x is read once and out written once, 4 bytes per element
-// (2 x 2 x B*N*C at 3.35 TB/s); the B*N*C sigmoids at the MUFU exp rate
-// take a fifth of that. The UNet's largest slab is one image of 4096 x 960
-// (7.9 MB), far past the 227 KB of shared memory a CTA has, so the slab is
-// not kept on chip as the TPU kernel keeps it in VMEM. Two launches:
+// (2 x 2 x B*N*C at 3.35 TB/s); the B*N*C tanh at the MUFU rate take a
+// fifth of that. The TPU kernel holds an image's slab in VMEM and reads it
+// twice from there. Here one launch (grid (cluster, B)) gives each image a
+// thread-block cluster of `cluster` CTAs (1..16, ops/fused_norm.py
+// launch_plan) and reads x twice, the second time mostly from L2:
 //
-// 1. gn_stats_kernel: CTA (chunk, b) sums a chunk of about 32K elements of
-//    image b (`rows` rows, chosen by the wrapper) with 16-byte loads of 8
-//    channels per thread; the threads of a CTA form cv = C/8 vector columns
-//    by rp row lanes. Groups are C/32 = 10..80 channels, not a whole number
-//    of 16-byte vectors at every C, so sums are kept per channel first,
-//    reduced over the row lanes in shared memory, and only then summed per
-//    group. Each CTA writes its chunk's [2, G] partial sums; no atomics, so
-//    every sum is taken in one fixed order and a run repeats bit for bit.
-// 2. gn_apply_kernel: CTA (chunk, b) reduces image b's partial sums (a warp
-//    per group, in a fixed order), forms sc and sh per channel in shared
-//    memory, and normalises its chunk with 16-byte loads and stores.
+// 1. CTA `rank` owns rows [rank * N / cluster, (rank + 1) * N / cluster).
+//    Each thread owns one 16-byte column of 8 channels and one row lane
+//    (threads = row lanes x C/8, so a block step covers rp whole rows, one
+//    contiguous run of memory) and sums x and x^2 per channel over its
+//    rows, DEPTH 16-byte loads in flight. The row lanes' sums meet in shared
+//    memory, and a warp per group adds them into the CTA's [2, G] partial (a
+//    fixed order: lanes stride over the group's (lane, channel) pairs, then
+//    a shuffle tree).
+// 2. barrier.cluster (arrive.release, wait.acquire). Every CTA then reads
+//    all the cluster's partials (mapa + ld.shared::cluster, all at once)
+//    and adds them in rank order, so every CTA gets the same statistics and
+//    a run repeats bit for bit: no atomic add goes into any sum. A second
+//    cluster barrier, arrived at once the peers are read and waited on
+//    before exit, keeps each CTA's partial alive while peers read it.
+// 3. Each thread forms sc, sh for its 8 channels in registers and
+//    normalises its rows, last read first: the rows it read last are the
+//    likeliest still in L2, so where the resident CTAs' rows fit the 50 MB
+//    L2 (B16 x 4096 x 320 is 42 MB) the second read does not reach HBM.
 //
-// The second read of x is an L2 hit only while the batch's slab fits the
-// 50 MB L2: at B16 x 4096 x 960 (126 MB) it is not, so that shape moves 1.5x
-// its bound's bytes at best.
-//
-// Build (nvcc -Xptxas=-v, sm_90a, CUDA 12.8): 40 registers for each kernel,
-// no spills; dynamic shared memory only, at most 20 KB at C <= 2560.
+// Holding an image's rows in the cluster's shared memory (one read, as the
+// TPU kernel does) measured slower at every shape: at most 7 clusters of 16
+// CTAs with 164 KB each are resident, and filling shared memory took twice
+// the loads' time (PERF.md, section 6, the K8 step table). No scratch memory: the
+// partials live in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
+using hopper::smem_addr;
 
-constexpr int VEC = 8;  // bf16 channels per 16-byte access
-constexpr int APPLY_THREADS = 256;
-constexpr int STATS_ROW_THREADS = 256;  // threads per CTA the stats pass aims at
-constexpr int MAX_DYNAMIC_SMEM = 48 * 1024;
+constexpr int VEC = 8;           // bf16 channels per 16-byte access
+constexpr int DEPTH = 8;         // 16-byte loads a thread keeps in flight
+constexpr int MAX_THREADS = 512;
+constexpr int MAX_CLUSTER = 16;  // non-portable cluster size
+
+// Shared memory: the CTA's partial [2][G], the group statistics [2][G], the
+// cluster's partials [MAX_CLUSTER][2][G], then the row lanes' sums [rp][C]
+// fp32. ops/fused_norm.py:smem_bytes computes the same.
+__host__ __device__ constexpr int smem_bytes(int groups, int threads) {
+  return 4 * (2 + 2 + 2 * MAX_CLUSTER) * groups + 4 * VEC * threads;
+}
 
 __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[VEC]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -64,143 +83,238 @@ __device__ __forceinline__ uint4 pack8(const float (&f)[VEC]) {
   return raw;
 }
 
-// partial: [B, nchunks, 2, G] fp32 (sums of x, then of x^2).
-__global__ void gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ partial,
-                                int n, int c, int groups, int rows) {
-  extern __shared__ float sm[];  // [2][rp][c]: per-lane channel sums of x, x^2
-  const int b = blockIdx.y, chunk = blockIdx.x, nchunks = gridDim.x;
-  const int cv = c / VEC, rp = blockDim.x / cv;
-  const int tid = threadIdx.x, v = tid % cv, lane_row = tid / cv;
-  const int r0 = chunk * rows, r1 = min(n, r0 + rows);
-  float s[VEC] = {}, ss[VEC] = {};
-  const bf16* xb = x + (size_t)b * n * c + v * VEC;
-  for (int r = r0 + lane_row; r < r1; r += rp) {
-    float f[VEC];
-    unpack8(*reinterpret_cast<const uint4*>(xb + (size_t)r * c), f);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      s[i] += f[i];
-      ss[i] = fmaf(f[i], f[i], ss[i]);
-    }
-  }
-  float* sq = sm + rp * c;
+__device__ __forceinline__ uint4 ldg16(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ void add8(const uint4& raw, float (&s)[VEC], float (&q)[VEC]) {
+  float f[VEC];
+  unpack8(raw, f);
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    sm[lane_row * c + v * VEC + i] = s[i];
-    sq[lane_row * c + v * VEC + i] = ss[i];
-  }
-  __syncthreads();
-  // per channel, over the row lanes in lane order; row lane 0 keeps the sum
-  for (int ch = tid; ch < c; ch += blockDim.x) {
-    float a = 0.f, q = 0.f;
-    for (int l = 0; l < rp; ++l) {
-      a += sm[l * c + ch];
-      q += sq[l * c + ch];
-    }
-    sm[ch] = a;
-    sq[ch] = q;
-  }
-  __syncthreads();
-  const int cg = c / groups;
-  float* p = partial + (size_t)(b * nchunks + chunk) * 2 * groups;
-  for (int g = tid; g < groups; g += blockDim.x) {
-    float a = 0.f, q = 0.f;
-    for (int k = 0; k < cg; ++k) {
-      a += sm[g * cg + k];
-      q += sq[g * cg + k];
-    }
-    p[g] = a;
-    p[groups + g] = q;
+    s[i] += f[i];
+    q[i] = fmaf(f[i], f[i], q[i]);
   }
 }
 
-__global__ void __launch_bounds__(APPLY_THREADS)
-gn_apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
-                const bf16* __restrict__ bias, const float* __restrict__ partial,
-                bf16* __restrict__ out, int n, int c, int groups, int rows,
-                float inv_count, float eps, int apply_silu) {
-  extern __shared__ float sm[];  // sc[c], sh[c], mean[G], rstd[G]
-  float* sc = sm;
-  float* sh = sm + c;
-  float* gmean = sh + c;
-  float* grstd = gmean + groups;
-  const int b = blockIdx.y, chunk = blockIdx.x, nchunks = gridDim.x, tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const float* p = partial + (size_t)b * nchunks * 2 * groups;
-  // one warp per group: lanes sum the chunks lane, lane + 32, ... and a
-  // shuffle tree combines them, the same order in every CTA and every run
-  for (int g = warp; g < groups; g += APPLY_THREADS / 32) {
-    float a = 0.f, q = 0.f;
-    for (int k = lane; k < nchunks; k += 32) {
-      a += p[2 * k * groups + g];
-      q += p[(2 * k + 1) * groups + g];
-    }
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint4 norm8(const uint4& raw, const float (&sc)[VEC],
+                                       const float (&sh)[VEC], int apply_silu) {
+  float f[VEC];
+  unpack8(raw, f);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, o);
-      q += __shfl_xor_sync(0xffffffffu, q, o);
+  for (int j = 0; j < VEC; ++j) {
+    float y = f[j] * sc[j] + sh[j];
+    if (apply_silu) {
+      const float h = 0.5f * y;
+      y = fmaf(h, tanh_approx(h), h);
     }
-    if (lane == 0) {
-      const float mean = a * inv_count;
-      const float var = fmaxf(q * inv_count - mean * mean, 0.f);
-      gmean[g] = mean;
-      grstd[g] = rsqrtf(var + eps);
-    }
+    f[j] = y;
+  }
+  return pack8(f);
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The float at `p` (this CTA's shared memory) in CTA `rank` of the cluster.
+__device__ __forceinline__ float ld_peer(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// The row lanes' channel sums acc (this thread's column v, lane lr) into
+// red [rp][c], then a warp per group adds them into dst[g]: lanes stride
+// over the group's rp x cg (lane, channel) pairs, then a shuffle tree.
+__device__ __forceinline__ void group_sums(const float (&acc)[VEC], float* red, float* dst,
+                                           int c, int groups, int rp, int v, int lr) {
+  float4* r4 = reinterpret_cast<float4*>(red + lr * c + v * VEC);
+  r4[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  r4[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  __syncthreads();
+  const int cg = c / groups, lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nwarps = blockDim.x / 32;  // whole warps: rp x C/8 threads may end in a partial one
+  for (int g = warp; g < groups && warp < nwarps; g += nwarps) {
+    float a = 0.f;
+    for (int k = lane; k < rp * cg; k += 32) a += red[(k / cg) * c + g * cg + k % cg];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+    if (lane == 0) dst[g] = a;
   }
   __syncthreads();
-  const int cg = c / groups;
-  for (int ch = tid; ch < c; ch += blockDim.x) {
-    const int g = ch / cg;
-    const float s = __bfloat162float(scale[ch]) * grstd[g];
-    sc[ch] = s;
-    sh[ch] = __bfloat162float(bias[ch]) - gmean[g] * s;
+}
+
+__global__ void __launch_bounds__(MAX_THREADS, 2)
+gn_silu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
+               const bf16* __restrict__ bias, bf16* __restrict__ out, int n, int c, int groups,
+               float inv_count, float eps, int apply_silu) {
+  extern __shared__ __align__(16) float smem[];
+  float* part = smem;                             // [2][G]: sums of x, x^2
+  float* gstat = part + 2 * groups;               // [2][G]: mean, rstd
+  float* peers = gstat + 2 * groups;              // [cluster][2][G]
+  float* red = peers + 2 * MAX_CLUSTER * groups;  // [rp][c]
+
+  const int cs = (int)cluster_size(), rank = (int)cluster_rank();
+  const int tid = threadIdx.x, cv = c / VEC, rp = blockDim.x / cv;
+  const int v = tid % cv, lr = tid / cv;
+  const int r0 = (int)((long long)rank * n / cs);
+  const int nr = (int)((long long)(rank + 1) * n / cs) - r0;
+  // this thread's rows are r0 + lr + k * rp, k = 0 .. nk - 1
+  const int nk = nr > lr ? (nr - 1 - lr) / rp + 1 : 0;
+  const size_t col = ((size_t)blockIdx.y * n + r0 + lr) * c + (size_t)v * VEC;
+  const size_t step = (size_t)rp * c;
+  const bf16* xs = x + col;
+
+  float s[VEC] = {}, q[VEC] = {};
+  int k = 0;
+  for (; k + DEPTH <= nk; k += DEPTH) {
+    uint4 raw[DEPTH];
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) raw[u] = ldg16(xs + (k + u) * step);
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) add8(raw[u], s, q);
+  }
+  for (; k < nk; ++k) add8(ldg16(xs + k * step), s, q);
+  group_sums(s, red, part, c, groups, rp, v, lr);
+  group_sums(q, red, part + groups, c, groups, rp, v, lr);
+
+  // the cluster's partials, added in rank order in every CTA
+  cluster_arrive();
+  cluster_wait();
+  for (int i = tid; i < cs * 2 * groups; i += blockDim.x)
+    peers[i] = ld_peer(part + i % (2 * groups), (uint32_t)(i / (2 * groups)));
+  cluster_arrive();  // done with the peers' shared memory; waited on before exit
+  __syncthreads();
+  for (int g = tid; g < groups; g += blockDim.x) {
+    float a = 0.f, qq = 0.f;
+    for (int r = 0; r < cs; ++r) {
+      a += peers[r * 2 * groups + g];
+      qq += peers[r * 2 * groups + groups + g];
+    }
+    const float mean = a * inv_count;
+    gstat[g] = mean;
+    gstat[groups + g] = rsqrtf(fmaxf(qq * inv_count - mean * mean, 0.f) + eps);
   }
   __syncthreads();
-  const int cv = c / VEC;
-  const int r0 = chunk * rows, r1 = min(n, r0 + rows);
-  const size_t base = ((size_t)b * n + r0) * c;
-  const int nvec = (r1 - r0) * cv;
-  for (int i = tid; i < nvec; i += blockDim.x) {
-    const size_t e = base + (size_t)i * VEC;
-    const int ch0 = (i % cv) * VEC;
-    float f[VEC];
-    unpack8(*reinterpret_cast<const uint4*>(x + e), f);
+
+  float sc[VEC], sh[VEC];
+  {
+    float fs[VEC], fb[VEC];
+    unpack8(ldg16(scale + v * VEC), fs);
+    unpack8(ldg16(bias + v * VEC), fb);
+    const int cg = c / groups;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      float y = f[j] * sc[ch0 + j] + sh[ch0 + j];
-      if (apply_silu) y = y / (1.f + __expf(-y));
-      f[j] = y;
+    for (int i = 0; i < VEC; ++i) {
+      const int g = (v * VEC + i) / cg;
+      sc[i] = fs[i] * gstat[groups + g];
+      sh[i] = fb[i] - gstat[g] * sc[i];
     }
-    *reinterpret_cast<uint4*>(out + e) = pack8(f);
   }
+  // the rows again, last read first
+  bf16* os = out + col;
+  k = nk - 1;
+  for (; k + 1 >= DEPTH; k -= DEPTH) {
+    uint4 raw[DEPTH];
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) raw[u] = ldg16(xs + (k - u) * step);
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u)
+      *reinterpret_cast<uint4*>(os + (k - u) * step) = norm8(raw[u], sc, sh, apply_silu);
+  }
+  for (; k >= 0; --k)
+    *reinterpret_cast<uint4*>(os + k * step) = norm8(ldg16(xs + k * step), sc, sh, apply_silu);
+  cluster_wait();
+}
+
+// Opt the kernel in to clusters of 16, once.
+cudaError_t kernel_attributes() {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(gn_silu_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return attr;
+}
+
+// The launch configuration of one image a cluster: grid (cluster, b).
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* at, int cluster, int b, int threads,
+                                  int smem, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, b);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  at->id = cudaLaunchAttributeClusterDimension;
+  at->val.clusterDim.x = cluster;
+  at->val.clusterDim.y = 1;
+  at->val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
-// x, out: [b, n, c] bf16, contiguous, 16-byte aligned; scale, bias: [c] bf16;
-// partial: [b, ceil(n / rows), 2, groups] fp32 scratch. c must be a multiple
-// of 8 and of groups. Returns a cudaError_t (0 on success); launches only.
-extern "C" int gn_silu_fwd(const void* x, const void* scale, const void* bias,
-                           void* partial, void* out, int b, int n, int c, int groups,
-                           int rows, float eps, int apply_silu, void* stream) {
-  if (c % VEC || c % groups || n <= 0 || rows <= 0 || b <= 0 || b > 65535)
+// x, out: [b, n, c] bf16, contiguous; scale, bias: [c] bf16; all four
+// 16-byte aligned. c a multiple of 8 and of groups. The launch plan
+// (ops/fused_norm.py launch_plan): `cluster` CTAs an image (1..16) of
+// `threads` threads (a multiple of c / 8, 32..512). Returns a cudaError_t
+// (0 on success); launches only.
+extern "C" int gn_silu_fwd(const void* x, const void* scale, const void* bias, void* out,
+                           int b, int n, int c, int groups, int cluster, int threads, float eps,
+                           int apply_silu, void* stream) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
+                          reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(bias);
+  if (c <= 0 || groups <= 0 || c % VEC || c % groups || n <= 0 || b <= 0 || b > 65535 ||
+      cluster < 1 || cluster > MAX_CLUSTER || threads < 32 || threads > MAX_THREADS ||
+      threads % (c / VEC) || (align & 15) || smem_bytes(groups, threads) > 48 * 1024)
     return (int)cudaErrorInvalidValue;
-  const int cv = c / VEC;
-  const int rp = cv >= STATS_ROW_THREADS ? 1 : STATS_ROW_THREADS / cv;
-  const size_t stats_smem = 2 * (size_t)rp * c * sizeof(float);
-  const size_t apply_smem = (2 * (size_t)c + 2 * groups) * sizeof(float);
-  if (rp * cv > 1024 || stats_smem > MAX_DYNAMIC_SMEM || apply_smem > MAX_DYNAMIC_SMEM)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + rows - 1) / rows, b);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gn_stats_kernel<<<grid, rp * cv, stats_smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<float*>(partial), n, c, groups, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const cudaError_t attr = kernel_attributes();
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchAttribute at;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(&at, cluster, b, threads, smem_bytes(groups, threads), stream);
   const float inv_count = (float)(1.0 / ((double)n * (c / groups)));
-  gn_apply_kernel<<<grid, APPLY_THREADS, apply_smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
-      static_cast<const bf16*>(bias), static_cast<const float*>(partial),
-      static_cast<bf16*>(out), n, c, groups, rows, inv_count, eps, apply_silu);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gn_silu_kernel, static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
+      static_cast<const bf16*>(bias), static_cast<bf16*>(out), n, c, groups, inv_count, eps,
+      apply_silu);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The most clusters of `cluster` CTAs of `threads` threads that the card
+// holds at once (cudaOccupancyMaxActiveClusters, at 32 groups), or minus a
+// cudaError_t.
+extern "C" int gn_silu_max_clusters(int cluster, int threads) {
+  const cudaError_t attr = kernel_attributes();
+  if (attr != cudaSuccess) return -(int)attr;
+  cudaLaunchAttribute at;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(&at, cluster, 1, threads, smem_bytes(32, threads), nullptr);
+  int count = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&count, gn_silu_kernel, &cfg);
+  return err != cudaSuccess ? -(int)err : count;
 }

@@ -17,35 +17,79 @@ so on bf16 inputs it differs from `_plain` by one rounding. Its gradient,
 `GroupNormSiLU`, recomputes through `_plain` and differentiates it, as the
 JAX package's `_fused_bwd` does; there is no backward kernel.
 
-`launches_by_shape` counts kernel calls (a stats and a normalise launch
-each) per (B, N, C); callers may clear it to count one run.
+The kernel gives each image one thread-block cluster (`launch_plan`): its
+CTAs sum their rows, add the cluster's per-group partial sums in rank order
+(`cluster_partials` and `group_norm_silu_from_partials` are that summation
+tree in plain ops), then read their rows again to normalise them.
+
+`launches_by_shape` counts kernel calls (one launch each) per (B, N, C);
+callers may clear it to count one run.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from adaface_tpu_torch import kernels, knobs
+from adaface_tpu_torch.device import sm_count
 from adaface_tpu_torch.ops.basic import group_norm
 from adaface_tpu_torch.ops.grad import recompute_grads
 
-# Elements of x per stats chunk: each image's rows are split into chunks of
-# about this many elements, one CTA each, so that a batch fills the card.
-_CHUNK_ELEMS = 32768
+# The kernel's limits and shared-memory layout (csrc/gn_silu.cu).
+MAX_CLUSTER = 16  # CTAs an image (a non-portable cluster size above 8)
+MAX_THREADS = 512
+SMEM_LIMIT = 48 * 1024  # dynamic shared memory a CTA, without an opt-in
+# launch_plan: the grid fills the card when it has a CTA for this share of
+# the SMs; where it does, a CTA streams at most this much of its image.
+FILL = 0.85
+CTA_BYTES = 192 * 1024
 
 launches_by_shape: Dict[Tuple[int, int, int], int] = {}
 
 _fn = None
 
 
-def rows_per_chunk(c: int) -> int:
-    """Rows of one image that one CTA of the stats pass sums: about
-    `_CHUNK_ELEMS` elements, a multiple of 8 rows."""
-    return (-(-_CHUNK_ELEMS // c) + 7) // 8 * 8
+class LaunchPlan(NamedTuple):
+    cluster: int  # CTAs an image, one thread-block cluster; grid (cluster, B)
+    rows: int  # the most rows a CTA owns (`cta_rows`)
+    threads: int  # a CTA: row lanes x C/8 columns of 8 channels
+
+
+def smem_bytes(groups: int, threads: int) -> int:
+    """Shared memory of one CTA (csrc/gn_silu.cu: `smem_bytes`): the CTA's
+    partial and the statistics, [2, G] fp32 each; the cluster's partials
+    [MAX_CLUSTER, 2, G]; the row lanes' channel sums, 8 fp32 a thread."""
+    return 4 * (4 + 2 * MAX_CLUSTER) * groups + 32 * threads
+
+
+def cta_rows(n: int, cluster: int, rank: int) -> Tuple[int, int]:
+    """Rows [r0, r1) of an image of N rows that CTA `rank` of its cluster
+    owns."""
+    return rank * n // cluster, (rank + 1) * n // cluster
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of ints, asked once a call
+def launch_plan(b: int, n: int, c: int, sms: int) -> LaunchPlan:
+    """K8's launch for B images of N rows x C channels on a card of `sms`
+    SMs. The cluster is a power of two, at most MAX_CLUSTER and at most N:
+    the smallest whose grid (cluster x B CTAs) fills the card (FILL) while
+    each CTA streams at most CTA_BYTES of its image, else the largest, so
+    that the most CTAs stream at once. Threads: C/8 columns x the row lanes
+    that come nearest 256 where the grid fills the card, else 512 (the
+    batch-3 training shapes: 48 CTAs), at most MAX_THREADS."""
+    sizes = [s for s in (1, 2, 4, 8, MAX_CLUSTER) if s <= max(1, n)]
+    fills = lambda s: b * s >= FILL * sms
+    fits = [s for s in sizes if fills(s) and 2 * c * -(-n // s) <= CTA_BYTES]
+    cluster = fits[0] if fits else sizes[-1]
+    target = 256 if fills(cluster) else MAX_THREADS
+    cv = c // 8
+    lanes = max(1, min(round(target / cv), MAX_THREADS // cv))
+    return LaunchPlan(cluster, -(-n // cluster), lanes * cv)
 
 
 def _plain(x, scale, bias, num_groups, eps, apply_silu):
@@ -78,52 +122,100 @@ def group_norm_silu_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
     return out.to(x.dtype).reshape(x.shape)
 
 
+def cluster_partials(x: torch.Tensor, cluster: int, num_groups: int = 32) -> torch.Tensor:
+    """Each CTA's partial sums [B, cluster, 2, G] of x and x^2 per group over
+    its rows (`cta_rows`), in fp32 (fp64 for fp64 inputs): the kernel's
+    first level of sums, in plain torch ops."""
+    b, c = x.shape[0], x.shape[-1]
+    cdt = torch.promote_types(x.dtype, torch.float32)
+    xf = x.reshape(b, -1, c).to(cdt)
+    n = xf.shape[1]
+    parts = []
+    for rank in range(cluster):
+        r0, r1 = cta_rows(n, cluster, rank)
+        part = xf[:, r0:r1]
+        parts.append(torch.stack([part.sum(1), (part * part).sum(1)], 1)
+                     .view(b, 2, num_groups, c // num_groups).sum(-1))
+    return torch.stack(parts, 1)
+
+
+def group_norm_silu_from_partials(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                                  parts: torch.Tensor, eps: float = 1e-5,
+                                  apply_silu: bool = True) -> torch.Tensor:
+    """The kernel's function from its CTAs' partials (`cluster_partials`),
+    added in rank order as every CTA of the cluster adds them, in plain
+    torch ops; then as `group_norm_silu_plain`."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.reshape(b, -1, c).to(parts.dtype)
+    groups = parts.shape[-1]
+    cg = c // groups
+    tot = parts[:, 0]
+    for k in range(1, parts.shape[1]):
+        tot = tot + parts[:, k]
+    inv_count = 1.0 / (xf.shape[1] * cg)
+    mean = tot[:, 0] * inv_count
+    var = torch.clamp_min(tot[:, 1] * inv_count - mean * mean, 0.0)
+    sc = scale.to(xf.dtype)[None] * torch.rsqrt(var + eps).repeat_interleave(cg, dim=1)
+    sh = bias.to(xf.dtype)[None] - mean.repeat_interleave(cg, dim=1) * sc
+    out = xf * sc[:, None] + sh[:, None]
+    if apply_silu:
+        out = out * torch.sigmoid(out)
+    return out.to(x.dtype).reshape(x.shape)
+
+
 def _lib_fn():
     global _fn
     if _fn is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         _fn = kernels.load("gn_silu").gn_silu_fwd
-        _fn.argtypes = [p] * 5 + [i] * 5 + [f, i, p]
+        _fn.argtypes = [p] * 4 + [i] * 6 + [f, i, p]
         _fn.restype = ctypes.c_int
     return _fn
 
 
 def _as_bf16_vector(t: torch.Tensor, c: int, name: str, device) -> torch.Tensor:
+    """t as the kernel reads it: bf16, contiguous, 16-byte aligned; t itself
+    (no copy) when it is already."""
     if t.shape != (c,) or t.device != device:
         raise ValueError(f"{name} must be [{c}] on {device}, got {tuple(t.shape)} "
                          f"on {t.device}")
-    return t.detach().to(torch.bfloat16).contiguous()
+    if t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return torch.empty(c, dtype=torch.bfloat16, device=device).copy_(t.detach())
 
 
 def group_norm_silu_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                          num_groups: int = 32, eps: float = 1e-5,
                          apply_silu: bool = True) -> torch.Tensor:
-    """Launch the Hopper kernel on a bf16 CUDA tensor [B, ..., C]; raises on
-    anything it does not take."""
+    """Launch the Hopper kernel on a bf16 CUDA tensor [B, ..., C] with
+    `launch_plan`'s launch; raises on anything it does not take."""
     if x.device.type != "cuda":
         raise ValueError(f"x is on {x.device}, not a CUDA device")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel takes bfloat16, x is {x.dtype}")
     b, c = x.shape[0], x.shape[-1]
-    n = x[0].numel() // c if b else 0
-    if c % num_groups or c % 8 or n == 0:
+    n = x.numel() // (b * c) if b and c else 0
+    if c % num_groups or c % 8 or n == 0 or c > 8 * MAX_THREADS:
         raise ValueError(f"the kernel needs C a multiple of {num_groups} groups and of "
-                         f"8, and a non-empty image; got {tuple(x.shape)}")
+                         f"8, at most {8 * MAX_THREADS}, and a non-empty image; got "
+                         f"{tuple(x.shape)}")
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError(f"x must start 16-byte aligned, got {x.data_ptr():#x}")
     scale = _as_bf16_vector(scale, c, "scale", x.device)
     bias = _as_bf16_vector(bias, c, "bias", x.device)
-    rows = rows_per_chunk(c)
-    nchunks = -(-n // rows)
-    partial = torch.empty((b, nchunks, 2, num_groups), dtype=torch.float32, device=x.device)
+    plan = launch_plan(b, n, c, sm_count(x.device.index))
+    if smem_bytes(num_groups, plan.threads) > SMEM_LIMIT:
+        raise ValueError(f"{num_groups} groups need more than {SMEM_LIMIT} bytes of shared "
+                         f"memory")
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = _lib_fn()(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), partial.data_ptr(),
-                        out.data_ptr(), b, n, c, num_groups, rows, eps, int(apply_silu),
+        err = _lib_fn()(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, n,
+                        c, num_groups, plan.cluster, plan.threads, eps, int(apply_silu),
                         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"gn_silu_fwd failed: CUDA error {err} (B, N, C = {b}, {n}, {c})")
+        raise RuntimeError(f"gn_silu_fwd failed: CUDA error {err} (B, N, C = {b}, {n}, {c}; "
+                           f"{plan})")
     launches_by_shape[(b, n, c)] = launches_by_shape.get((b, n, c), 0) + 1
     return out
 

@@ -10,9 +10,9 @@ Phases, each of which exits non-zero on failure:
   2. build: every CUDA kernel source in `adaface_tpu_torch/csrc/`, one nvcc
      each, started together; each instantiation's registers and spills
      printed (ptxas -v); the flash forward, the flash backward, the
-     feed-forward (K9) and the Winograd conv (K10) must not spill, and their
-     SASS (cuobjdump) must run their products on wgmma (HGMMA), not
-     mma.sync;
+     feed-forward (K9), the Winograd conv (K10) and the GroupNorm+SiLU (K8)
+     must not spill, and the SASS (cuobjdump) of all but K8, which has no
+     products, must run their products on wgmma (HGMMA), not mma.sync;
   3. forward kernel vs plain: the packed flash-attention forward against its
      plain fp32 PyTorch version at every generate shape, a fused-qkv input
      and a key bias with a fully masked row, each gated on max abs and
@@ -51,11 +51,14 @@ restored after each use) adds:
       versions at every shape the fused generate and training paths give
       them (relative L2 and max abs gates; planted faults must fail them;
       two launches must agree bit for bit); kernel, bound, plain and
-      default-arm times, and for K9 its launch plan and the two cuBLAS
+      default-arm times, for K8 also its launch plan and device time (the
+      profiler's), and for K9 its launch plan and the two cuBLAS
       products alone (`F.linear(y, w1)`, `F.linear(h, w2)`) as its library
-      time; K9 also at `FF_EDGE_SHAPES` (one row, ragged row blocks, its
-      64- and 128-column tile instances, the deepest split), agreement
-      only;
+      time; K8 also at `GN_EDGE_SHAPES` (one image, 8 rows, one channel a
+      group, the widest C, ragged rows, every cluster size, a partial
+      warp) and K9 at `FF_EDGE_SHAPES` (one row,
+      ragged row blocks, its 64- and 128-column tile instances, the deepest
+      split), agreement and repeats only;
   5b. the reference UNet comparison again under the knobs (31 K8 and 16 K9
       launches at its small input);
   6b. generate under the knobs: one warm-up and 2 timed requests, each of
@@ -135,8 +138,10 @@ STEPS, BATCH, SIZE = 50, 8, 512
 PROMPT = "a photo of a z , , , , , , , , person"
 SOURCE = "adaface_tpu_torch/csrc/flash_attn_packed.cu"
 FWD_LIB = "flash_attn_packed"
-# no spill, products all wgmma (phase_build)
+# products all wgmma (phase_build); none of these may spill, nor K8, which
+# has no products
 WGMMA_LIBS = (FWD_LIB, "flash_attn_bwd", "ln_geglu_ff", "winograd")
+NOSPILL_LIBS = WGMMA_LIBS + ("gn_silu",)
 BWD_SOURCE = "adaface_tpu_torch/csrc/flash_attn_bwd.cu"
 K1 = "adaface_tpu/ops/flash_attention.py:578"  # _flash_kernel_heads_pvt
 K4 = "adaface_tpu/ops/flash_attention.py:544"  # _flash_kernel_heads_short
@@ -237,6 +242,20 @@ FUSED_TRAIN_STEPS = 4
 # 1% of the rows.
 GN_REL_TOL = 4e-3
 GN_ABS_TOL = 2.5e-2
+# The planted fault "row chunk 0 left out of the stats" leaves out the rows
+# of the first stats chunk of the earlier two-launch kernel (about this many
+# elements, a multiple of 8 rows), or CTA 0's rows where the launch plan
+# gives a CTA more.
+GN_FAULT_CHUNK_ELEMS = 32768
+# (B, N, C) that no path gives K8 but its wrapper takes, checked for
+# agreement and a bit-for-bit repeat only: one image; 8 rows (a cluster of
+# 8, one row a CTA); one channel a group (C 32); the widest C at N 1024;
+# ragged rows against the plan's rows per CTA (N 1000, 4100 and 203 over 16);
+# clusters of 1, 2 and 4 (N 1, 3, 5); C 800, whose 500 threads end in a
+# partial warp
+GN_EDGE_SHAPES = [(1, 4096, 320), (2, 8, 640), (4, 512, 32), (1, 1024, 2560),
+                  (3, 1000, 960), (2, 4100, 640), (16, 203, 320), (160, 1, 64),
+                  (64, 3, 128), (32, 5, 256), (2, 300, 800)]
 # K9 gate on the feed-forward part, relative L2 of (out - x) against (plain
 # - x), and max abs of out - plain. Measured on an H100 at all 6 shapes:
 # 6.04e-3..6.08e-3 relative and up to 4.6e-2 abs, the bf16 roundings of the
@@ -342,8 +361,9 @@ def phase_card(torch):
 def phase_build(kernels):
     """Build every source; print each instantiation's registers and spills
     (ptxas -v) and any ptxas performance warning. The flash forward, the
-    flash backward, K9 and K10 (`WGMMA_LIBS`) must not spill, and their SASS
-    must run their products on wgmma (HGMMA), not mma.sync (HMMA)."""
+    flash backward, K9, K10 and K8 (`NOSPILL_LIBS`) must not spill, and the
+    SASS of all but K8 (`WGMMA_LIBS`) must run their products on wgmma
+    (HGMMA), not mma.sync (HMMA)."""
     t0 = time.time()
     logs = kernels.build_all()
     say(f"[build] {time.time() - t0:.1f} s for {len(logs)} sources in parallel, libraries "
@@ -358,7 +378,7 @@ def phase_build(kernels):
             elif ("registers" in line or "spill" in line or "error" in line
                   or "Performance Loss" in line):
                 say(f"[build]   {name}:   {line.strip()}")
-                if (name in WGMMA_LIBS and "spill" in line
+                if (name in NOSPILL_LIBS and "spill" in line
                         and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")):
                     spills.append(f"{name} {entry} ({line.strip()})")
     if spills:
@@ -785,6 +805,14 @@ def ff_bound(b, l, c):
     return max(t_mma, t_bytes) * 1e3, "bytes" if t_bytes >= t_mma else "operations"
 
 
+def gn_fault_rows(fn, b, n, c, sms):
+    """Rows of the planted fault "row chunk 0 left out": the earlier
+    kernel's first stats chunk (GN_FAULT_CHUNK_ELEMS), or CTA 0's rows where
+    the plan gives a CTA more."""
+    chunk = (-(-GN_FAULT_CHUNK_ELEMS // c) + 7) // 8 * 8
+    return max(chunk, fn.cta_rows(n, fn.launch_plan(b, n, c, sms).cluster, 0)[1])
+
+
 def gn_chunk_fault(torch, x, scale, bias, rows):
     """K8 with the stats of rows [0, rows) (its first chunk) left out of the
     sums but not of the count, in plain fp32."""
@@ -819,18 +847,26 @@ def _check_fused_gate(label, err, rel, faults, tol_abs, tol_rel, errors):
         fail(f"{label}: kernel disagrees with plain (max abs {err:.3e}, rel L2 {rel:.3e})")
 
 
+def gn_inputs(torch, randn, b, n, c):
+    """K8's inputs: x with per-channel offsets and a ramp of -4..4 over the
+    rows (see GN_REL_TOL), scale and bias, bf16."""
+    x = (randn(b, n, c) * 1.5 + randn(c)
+         + torch.linspace(-4, 4, n, device="cuda")[None, :, None]).bfloat16()
+    return x, (1 + 0.2 * randn(c)).bfloat16(), (0.2 * randn(c)).bfloat16()
+
+
 def phase_fused_kernels(torch, card, exp2_rate):
     """K8 and K9 against their plain fp32 versions at every shape of the
     fused paths, planted faults, repeatability, and times: kernel, bound,
-    plain and the default arm (the unfused torch ops the knob replaces)."""
+    plain and the default arm (the unfused torch ops the knob replaces);
+    then both at their edge shapes, agreement and repeats only."""
     fn, ff = _fused_ops()
     gen = torch.Generator(device="cuda").manual_seed(9)
     randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
     for b, n, c in sorted(set(GN_SHAPES) | set(GN_TRAIN_SHAPES), key=lambda k: (-k[0], -k[1], k[2])):
-        x = (randn(b, n, c) * 1.5 + randn(c)
-             + torch.linspace(-4, 4, n, device="cuda")[None, :, None]).bfloat16()
-        scale, bias = (1 + 0.2 * randn(c)).bfloat16(), (0.2 * randn(c)).bfloat16()
+        x, scale, bias = gn_inputs(torch, randn, b, n, c)
         xf, sf, bf = x.float(), scale.float(), bias.float()
         fn.launches_by_shape.clear()
         out = fn.group_norm_silu_cuda(x, scale, bias)
@@ -843,23 +879,44 @@ def phase_fused_kernels(torch, card, exp2_rate):
             fail(f"{label}: non-finite output, or two launches disagree")
         plain = fn.group_norm_silu_plain(xf, sf, bf)
         err, rel = kernel_errors(out, plain)
-        ms = time_ms(torch, lambda: fn.group_norm_silu_cuda(x, scale, bias))
+        call = lambda: fn.group_norm_silu_cuda(x, scale, bias)
+        ms = time_ms(torch, call)
+        dev_ms = device_ms(torch, call)
         plain_ms = time_ms(torch, lambda: fn.group_norm_silu_plain(xf, sf, bf), reps=2, rounds=3)
         default_ms = time_ms(torch, lambda: fn._plain(x, scale, bias, 32, 1e-5, True))
         bound_ms, bound_by = gn_bound(b, n, c, exp2_rate)
+        plan = fn.launch_plan(b, n, c, sms)
         say(f"[fused-kernel] {label:26s}: max abs err {err:.3e} (tol {GN_ABS_TOL}) rel L2 "
-            f"{rel:.3e} (tol {GN_REL_TOL}) kernel {ms:.4f} ms bound {bound_ms:.4f} ms "
-            f"({bound_by}) plain {plain_ms:.4f} ms default arm {default_ms:.4f} ms [{card}]")
+            f"{rel:.3e} (tol {GN_REL_TOL}) kernel {ms:.4f} ms device {dev_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by}) plain {plain_ms:.4f} ms default arm "
+            f"{default_ms:.4f} ms; {plan} [{card}]")
+        # the last CTA's partial (the cluster's ragged end) left out of the
+        # combine, the count kept
+        parts = fn.cluster_partials(xf, plan.cluster)
+        parts[:, -1] = 0
         faults = {"SiLU omitted": fn.group_norm_silu_plain(xf, sf, bf, apply_silu=False),
                   "row chunk 0 left out of the stats":
-                      gn_chunk_fault(torch, x, scale, bias, fn.rows_per_chunk(c))}
+                      gn_chunk_fault(torch, x, scale, bias, gn_fault_rows(fn, b, n, c, sms)),
+                  f"cluster peer {plan.cluster - 1} of {plan.cluster} left out of the combine":
+                      fn.group_norm_silu_from_partials(xf, sf, bf, parts)}
         _check_fused_gate(label, err, rel, {k: v.bfloat16() for k, v in faults.items()},
                           GN_ABS_TOL, GN_REL_TOL, lambda w: kernel_errors(w, plain))
         rows[("gn", b, n, c)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                                     default_arm_ms=default_ms)
-        del x, xf, out, again, plain, faults
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+                                     default_arm_ms=default_ms, device_ms=dev_ms)
+        del x, xf, out, again, plain, faults, parts
+    for b, n, c in GN_EDGE_SHAPES:
+        x, scale, bias = gn_inputs(torch, randn, b, n, c)
+        out, again = fn.group_norm_silu_cuda(x, scale, bias), fn.group_norm_silu_cuda(x, scale, bias)
+        torch.cuda.synchronize()
+        err, rel = kernel_errors(out, fn.group_norm_silu_plain(x.float(), scale.float(),
+                                                               bias.float()))
+        label = f"gn_silu B{b} N{n} C{c}"
+        say(f"[fused-kernel] {label:26s}: max abs err {err:.3e} rel L2 {rel:.3e}; "
+            f"{fn.launch_plan(b, n, c, sms)}")
+        if not torch.equal(out, again) or not (err <= GN_ABS_TOL and rel <= GN_REL_TOL):
+            fail(f"{label}: kernel disagrees with plain, or two launches disagree")
+        del x, out, again
     for b, l, c in list(FF_SHAPES) + list(FF_TRAIN_SHAPES):
         f = 4 * c
         x = randn(b, l, c).bfloat16()
@@ -1101,7 +1158,7 @@ def phase_fused_main_path(torch, pipe, card, default_med):
 
 
 def _category(name):
-    if "gn_stats_kernel" in name or "gn_apply_kernel" in name:
+    if "gn_silu_kernel" in name:
         return "gn_silu (this port's kernel)"
     if "ln_kernel" in name or "gemm_kernel" in name:
         return "ln_geglu_ff (this port's kernel)"

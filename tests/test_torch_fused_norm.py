@@ -177,10 +177,17 @@ def test_bf16_silu_before_cast(monkeypatch, rng):
 
 
 def test_rows_per_chunk():
-    """The stats pass's chunks: about 32K elements, a multiple of 8 rows."""
+    """The kernel's row split (`launch_plan`, `cta_rows`): an image's rows
+    go to the CTAs of one cluster in order, in shares that differ by at
+    most one row, and each CTA holds at most `rows` of them."""
     for c in (320, 640, 960, 1280, 1920, 2560):
-        r = tfn.rows_per_chunk(c)
-        assert r % 8 == 0 and 32768 <= r * c < 32768 + 8 * c
+        for b, n in ((16, 64), (16, 256), (3, 1024), (16, 4096), (2, 1001)):
+            plan = tfn.launch_plan(b, n, c, 132)
+            bounds = [tfn.cta_rows(n, plan.cluster, k) for k in range(plan.cluster)]
+            assert bounds[0][0] == 0 and bounds[-1][1] == n
+            assert all(a[1] == nxt[0] for a, nxt in zip(bounds, bounds[1:]))
+            sizes = {r1 - r0 for r0, r1 in bounds}
+            assert max(sizes) == plan.rows and max(sizes) - min(sizes) <= 1
 
 
 def test_cuda_wrapper_refuses_cpu_tensor(rng):
