@@ -6,25 +6,28 @@
 // s = sum x, ss = sum x^2 over N rows and C/G channels; mean = s / count,
 // var = max(ss / count - mean^2, 0); per channel sc = scale * rsqrt(var +
 // eps), sh = bias - mean * sc; out = x * sc + sh, then SiLU in fp32, then
-// bf16. SiLU is taken as h + h tanh(h), h = y / 2 (y sigmoid(y) exactly;
-// tanh on the special-function unit, one operation where exp and a
-// reciprocal are two).
+// bf16. SiLU is y / (1 + e^-y) with the fast exp and division (__expf,
+// __fdividef): a few fp32 ulps at every y, so the tail y << 0, where SiLU
+// is a small difference, keeps its relative accuracy (h + h tanh(h) with
+// tanh.approx, one MUFU operation fewer, is 1.5e-2 off there after the
+// bf16 cast, where this form is within its 3.9e-3 rounding).
 //
 // Bound: bytes. x is read once and out written once, 4 bytes per element
-// (2 x 2 x B*N*C at 3.35 TB/s); the B*N*C tanh at the MUFU rate take a
-// fifth of that. The TPU kernel holds an image's slab in VMEM and reads it
-// twice from there. Here one launch (grid (cluster, B)) gives each image a
+// (2 x 2 x B*N*C at 3.35 TB/s); the B*N*C exp and reciprocals at the MUFU
+// rate take two fifths of that. The TPU kernel holds an image's slab in
+// VMEM and reads it twice from there. Here one launch (grid (cluster, B)) gives each image a
 // thread-block cluster of `cluster` CTAs (1..16, ops/fused_norm.py
 // launch_plan) and reads x twice, the second time mostly from L2:
 //
 // 1. CTA `rank` owns rows [rank * N / cluster, (rank + 1) * N / cluster).
 //    Each thread owns one 16-byte column of 8 channels and one row lane
 //    (threads = row lanes x C/8, so a block step covers rp whole rows, one
-//    contiguous run of memory) and sums x and x^2 per channel over its
-//    rows, DEPTH 16-byte loads in flight. The row lanes' sums meet in shared
-//    memory, and a warp per group adds them into the CTA's [2, G] partial (a
-//    fixed order: lanes stride over the group's (lane, channel) pairs, then
-//    a shuffle tree).
+//    contiguous run of memory; C up to 4096 takes the 512-thread launch,
+//    C up to 8192 one row lane of C/8 threads, at most 64 registers both)
+//    and sums x and x^2 per channel over its rows, DEPTH 16-byte loads in
+//    flight. The row lanes' sums meet in shared memory, and a warp per
+//    group adds them into the CTA's [2, G] partial (a fixed order: lanes
+//    stride over the group's (lane, channel) pairs, then a shuffle tree).
 // 2. barrier.cluster (arrive.release, wait.acquire). Every CTA then reads
 //    all the cluster's partials (mapa + ld.shared::cluster, all at once)
 //    and adds them in rank order, so every CTA gets the same statistics and
@@ -32,9 +35,10 @@
 //    cluster barrier, arrived at once the peers are read and waited on
 //    before exit, keeps each CTA's partial alive while peers read it.
 // 3. Each thread forms sc, sh for its 8 channels in registers and
-//    normalises its rows, last read first: the rows it read last are the
-//    likeliest still in L2, so where the resident CTAs' rows fit the 50 MB
-//    L2 (B16 x 4096 x 320 is 42 MB) the second read does not reach HBM.
+//    normalises its rows, NORM_DEPTH loads in flight, last read first: the
+//    rows it read last are the likeliest still in L2, so where the
+//    resident CTAs' rows fit the 50 MB L2 (B16 x 4096 x 320 is 42 MB) the
+//    second read does not reach HBM.
 //
 // Holding an image's rows in the cluster's shared memory (one read, as the
 // TPU kernel does) measured slower at every shape: at most 7 clusters of 16
@@ -54,13 +58,15 @@ typedef __nv_bfloat16 bf16;
 using hopper::smem_addr;
 
 constexpr int VEC = 8;           // bf16 channels per 16-byte access
-constexpr int DEPTH = 8;         // 16-byte loads a thread keeps in flight
-constexpr int MAX_THREADS = 512;
-constexpr int MAX_CLUSTER = 16;  // non-portable cluster size
+constexpr int DEPTH = 8;         // 16-byte loads a thread keeps in flight as it sums
+constexpr int NORM_DEPTH = 4;    // as it normalises (8 spill, at 64 registers)
+constexpr int MAX_THREADS = 512;    // C <= 4096: rp row lanes of C/8 threads
+constexpr int WIDE_THREADS = 1024;  // C <= 8192: one row lane
+constexpr int MAX_CLUSTER = 16;     // non-portable cluster size
 
 // Shared memory: the CTA's partial [2][G], the group statistics [2][G], the
 // cluster's partials [MAX_CLUSTER][2][G], then the row lanes' sums [rp][C]
-// fp32. ops/fused_norm.py:smem_bytes computes the same.
+// fp32.
 __host__ __device__ constexpr int smem_bytes(int groups, int threads) {
   return 4 * (2 + 2 + 2 * MAX_CLUSTER) * groups + 4 * VEC * threads;
 }
@@ -97,24 +103,14 @@ __device__ __forceinline__ void add8(const uint4& raw, float (&s)[VEC], float (&
   }
 }
 
-__device__ __forceinline__ float tanh_approx(float x) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint4 norm8(const uint4& raw, const float (&sc)[VEC],
                                        const float (&sh)[VEC], int apply_silu) {
   float f[VEC];
   unpack8(raw, f);
 #pragma unroll
   for (int j = 0; j < VEC; ++j) {
-    float y = f[j] * sc[j] + sh[j];
-    if (apply_silu) {
-      const float h = 0.5f * y;
-      y = fmaf(h, tanh_approx(h), h);
-    }
-    f[j] = y;
+    const float y = f[j] * sc[j] + sh[j];
+    f[j] = apply_silu ? __fdividef(y, 1.f + __expf(-y)) : y;
   }
   return pack8(f);
 }
@@ -169,7 +165,9 @@ __device__ __forceinline__ void group_sums(const float (&acc)[VEC], float* red, 
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(MAX_THREADS, 2)
+// THREADS: MAX_THREADS (two CTAs an SM) or WIDE_THREADS (one); 64 registers.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, WIDE_THREADS / THREADS)
 gn_silu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
                const bf16* __restrict__ bias, bf16* __restrict__ out, int n, int c, int groups,
                float inv_count, float eps, int apply_silu) {
@@ -238,12 +236,12 @@ gn_silu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
   // the rows again, last read first
   bf16* os = out + col;
   k = nk - 1;
-  for (; k + 1 >= DEPTH; k -= DEPTH) {
-    uint4 raw[DEPTH];
+  for (; k + 1 >= NORM_DEPTH; k -= NORM_DEPTH) {
+    uint4 raw[NORM_DEPTH];
 #pragma unroll
-    for (int u = 0; u < DEPTH; ++u) raw[u] = ldg16(xs + (k - u) * step);
+    for (int u = 0; u < NORM_DEPTH; ++u) raw[u] = ldg16(xs + (k - u) * step);
 #pragma unroll
-    for (int u = 0; u < DEPTH; ++u)
+    for (int u = 0; u < NORM_DEPTH; ++u)
       *reinterpret_cast<uint4*>(os + (k - u) * step) = norm8(raw[u], sc, sh, apply_silu);
   }
   for (; k >= 0; --k)
@@ -251,10 +249,16 @@ gn_silu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
   cluster_wait();
 }
 
-// Opt the kernel in to clusters of 16, once.
+// Opt both launches in to clusters of 16, once.
 cudaError_t kernel_attributes() {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(gn_silu_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  static const cudaError_t attr = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gn_silu_kernel<MAX_THREADS>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e != cudaSuccess ? e
+                            : cudaFuncSetAttribute(gn_silu_kernel<WIDE_THREADS>,
+                                                   cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                                   1);
+  }();
   return attr;
 }
 
@@ -280,16 +284,17 @@ cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* at, int cluster, int b, i
 // x, out: [b, n, c] bf16, contiguous; scale, bias: [c] bf16; all four
 // 16-byte aligned. c a multiple of 8 and of groups. The launch plan
 // (ops/fused_norm.py launch_plan): `cluster` CTAs an image (1..16) of
-// `threads` threads (a multiple of c / 8, 32..512). Returns a cudaError_t
-// (0 on success); launches only.
+// `threads` threads (a multiple of c / 8, 32..512; or c / 8 itself, up to
+// 1024). Returns a cudaError_t (0 on success); launches only.
 extern "C" int gn_silu_fwd(const void* x, const void* scale, const void* bias, void* out,
                            int b, int n, int c, int groups, int cluster, int threads, float eps,
                            int apply_silu, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
                           reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(bias);
   if (c <= 0 || groups <= 0 || c % VEC || c % groups || n <= 0 || b <= 0 || b > 65535 ||
-      cluster < 1 || cluster > MAX_CLUSTER || threads < 32 || threads > MAX_THREADS ||
-      threads % (c / VEC) || (align & 15) || smem_bytes(groups, threads) > 48 * 1024)
+      cluster < 1 || cluster > MAX_CLUSTER || threads < 32 || threads % (c / VEC) ||
+      (threads > MAX_THREADS && (threads != c / VEC || threads > WIDE_THREADS)) ||
+      (align & 15) || smem_bytes(groups, threads) > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   const cudaError_t attr = kernel_attributes();
   if (attr != cudaSuccess) return (int)attr;
@@ -298,23 +303,10 @@ extern "C" int gn_silu_fwd(const void* x, const void* scale, const void* bias, v
       cluster_config(&at, cluster, b, threads, smem_bytes(groups, threads), stream);
   const float inv_count = (float)(1.0 / ((double)n * (c / groups)));
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, gn_silu_kernel, static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
+      &cfg, threads <= MAX_THREADS ? gn_silu_kernel<MAX_THREADS> : gn_silu_kernel<WIDE_THREADS>,
+      static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
       static_cast<const bf16*>(bias), static_cast<bf16*>(out), n, c, groups, inv_count, eps,
       apply_silu);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-// The most clusters of `cluster` CTAs of `threads` threads that the card
-// holds at once (cudaOccupancyMaxActiveClusters, at 32 groups), or minus a
-// cudaError_t.
-extern "C" int gn_silu_max_clusters(int cluster, int threads) {
-  const cudaError_t attr = kernel_attributes();
-  if (attr != cudaSuccess) return -(int)attr;
-  cudaLaunchAttribute at;
-  const cudaLaunchConfig_t cfg =
-      cluster_config(&at, cluster, 1, threads, smem_bytes(32, threads), nullptr);
-  int count = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(&count, gn_silu_kernel, &cfg);
-  return err != cudaSuccess ? -(int)err : count;
 }

@@ -40,10 +40,10 @@ from adaface_tpu_torch.device import sm_count
 from adaface_tpu_torch.ops.basic import group_norm
 from adaface_tpu_torch.ops.grad import recompute_grads
 
-# The kernel's limits and shared-memory layout (csrc/gn_silu.cu).
+# The kernel's limits (csrc/gn_silu.cu).
 MAX_CLUSTER = 16  # CTAs an image (a non-portable cluster size above 8)
-MAX_THREADS = 512
-SMEM_LIMIT = 48 * 1024  # dynamic shared memory a CTA, without an opt-in
+MAX_THREADS = 512  # a CTA of row lanes, C <= 4096
+WIDE_THREADS = 1024  # a CTA of one row lane, C <= 8192
 # launch_plan: the grid fills the card when it has a CTA for this share of
 # the SMs; where it does, a CTA streams at most this much of its image.
 FILL = 0.85
@@ -56,15 +56,7 @@ _fn = None
 
 class LaunchPlan(NamedTuple):
     cluster: int  # CTAs an image, one thread-block cluster; grid (cluster, B)
-    rows: int  # the most rows a CTA owns (`cta_rows`)
     threads: int  # a CTA: row lanes x C/8 columns of 8 channels
-
-
-def smem_bytes(groups: int, threads: int) -> int:
-    """Shared memory of one CTA (csrc/gn_silu.cu: `smem_bytes`): the CTA's
-    partial and the statistics, [2, G] fp32 each; the cluster's partials
-    [MAX_CLUSTER, 2, G]; the row lanes' channel sums, 8 fp32 a thread."""
-    return 4 * (4 + 2 * MAX_CLUSTER) * groups + 32 * threads
 
 
 def cta_rows(n: int, cluster: int, rank: int) -> Tuple[int, int]:
@@ -81,7 +73,8 @@ def launch_plan(b: int, n: int, c: int, sms: int) -> LaunchPlan:
     each CTA streams at most CTA_BYTES of its image, else the largest, so
     that the most CTAs stream at once. Threads: C/8 columns x the row lanes
     that come nearest 256 where the grid fills the card, else 512 (the
-    batch-3 training shapes: 48 CTAs), at most MAX_THREADS."""
+    batch-3 training shapes: 48 CTAs), at most MAX_THREADS; one row lane
+    where C/8 is wider than that."""
     sizes = [s for s in (1, 2, 4, 8, MAX_CLUSTER) if s <= max(1, n)]
     fills = lambda s: b * s >= FILL * sms
     fits = [s for s in sizes if fills(s) and 2 * c * -(-n // s) <= CTA_BYTES]
@@ -89,7 +82,7 @@ def launch_plan(b: int, n: int, c: int, sms: int) -> LaunchPlan:
     target = 256 if fills(cluster) else MAX_THREADS
     cv = c // 8
     lanes = max(1, min(round(target / cv), MAX_THREADS // cv))
-    return LaunchPlan(cluster, -(-n // cluster), lanes * cv)
+    return LaunchPlan(cluster, lanes * cv)
 
 
 def _plain(x, scale, bias, num_groups, eps, apply_silu):
@@ -195,9 +188,9 @@ def group_norm_silu_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
         raise TypeError(f"the CUDA kernel takes bfloat16, x is {x.dtype}")
     b, c = x.shape[0], x.shape[-1]
     n = x.numel() // (b * c) if b and c else 0
-    if c % num_groups or c % 8 or n == 0 or c > 8 * MAX_THREADS:
+    if c % num_groups or c % 8 or n == 0 or c > 8 * WIDE_THREADS:
         raise ValueError(f"the kernel needs C a multiple of {num_groups} groups and of "
-                         f"8, at most {8 * MAX_THREADS}, and a non-empty image; got "
+                         f"8, at most {8 * WIDE_THREADS}, and a non-empty image; got "
                          f"{tuple(x.shape)}")
     x = x.contiguous()
     if x.data_ptr() % 16:
@@ -205,9 +198,6 @@ def group_norm_silu_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     scale = _as_bf16_vector(scale, c, "scale", x.device)
     bias = _as_bf16_vector(bias, c, "bias", x.device)
     plan = launch_plan(b, n, c, sm_count(x.device.index))
-    if smem_bytes(num_groups, plan.threads) > SMEM_LIMIT:
-        raise ValueError(f"{num_groups} groups need more than {SMEM_LIMIT} bytes of shared "
-                         f"memory")
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _lib_fn()(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, n,

@@ -55,8 +55,12 @@ restored after each use) adds:
       profiler's), and for K9 its launch plan and the two cuBLAS
       products alone (`F.linear(y, w1)`, `F.linear(h, w2)`) as its library
       time; K8 also at `GN_EDGE_SHAPES` (one image, 8 rows, one channel a
-      group, the widest C, ragged rows, every cluster size, a partial
-      warp) and K9 at `FF_EDGE_SHAPES` (one row,
+      group, the widest C at N 1024, ragged rows, every cluster size, a
+      partial warp, C 6144 on the one-row-lane launch), and at
+      `GN_TAIL_SHAPES` with pre-activations in [-12, -3], where each
+      output element must be within GN_TAIL_REL_TOL of the plain version
+      and a kernel built with the tanh.approx SiLU (`GN_TANH_PATCHES`) must
+      not; K9 at `FF_EDGE_SHAPES` (one row,
       ragged row blocks, its 64- and 128-column tile instances, the deepest
       split), agreement and repeats only;
   5b. the reference UNet comparison again under the knobs (31 K8 and 16 K9
@@ -252,10 +256,26 @@ GN_FAULT_CHUNK_ELEMS = 32768
 # 8, one row a CTA); one channel a group (C 32); the widest C at N 1024;
 # ragged rows against the plan's rows per CTA (N 1000, 4100 and 203 over 16);
 # clusters of 1, 2 and 4 (N 1, 3, 5); C 800, whose 500 threads end in a
-# partial warp
+# partial warp; C 6144, past the row-lane launch's 4096 (one row lane of
+# 768 threads)
 GN_EDGE_SHAPES = [(1, 4096, 320), (2, 8, 640), (4, 512, 32), (1, 1024, 2560),
                   (3, 1000, 960), (2, 4100, 640), (16, 203, 320), (160, 1, 64),
-                  (64, 3, 128), (32, 5, 256), (2, 300, 800)]
+                  (64, 3, 128), (32, 5, 256), (2, 300, 800), (2, 64, 6144)]
+# K8's SiLU tail: at these shapes every pre-activation lies in [-12, -3]
+# (`gn_tail_inputs`), where SiLU is a small difference, and each output
+# element must be within GN_TAIL_REL_TOL (one bf16 ulp; its own rounding is
+# at most half of one) of the plain fp32 version. The planted fault is the
+# kernel built with SiLU as h + h tanh.approx(h), h = y / 2 (tanh.approx is
+# good to ~2^-11 absolute, and 1 + tanh(h) falls to 1e-5 at y = -12).
+GN_TAIL_SHAPES = [(16, 1024, 640), (3, 4096, 320)]
+GN_TAIL_REL_TOL = 2.0 ** -7
+GN_SILU_LINE = "    f[j] = apply_silu ? __fdividef(y, 1.f + __expf(-y)) : y;"
+GN_TANH_PATCHES = [
+    ("__device__ __forceinline__ uint4 norm8(",
+     "__device__ __forceinline__ float tanh_approx(float x) {\n  float y;\n"
+     "  asm(\"tanh.approx.f32 %0, %1;\" : \"=f\"(y) : \"f\"(x));\n  return y;\n}\n\n"
+     "__device__ __forceinline__ uint4 norm8("),
+    (GN_SILU_LINE, "    f[j] = apply_silu ? fmaf(0.5f * y, tanh_approx(0.5f * y), 0.5f * y) : y;")]
 # K9 gate on the feed-forward part, relative L2 of (out - x) against (plain
 # - x), and max abs of out - plain. Measured on an H100 at all 6 shapes:
 # 6.04e-3..6.08e-3 relative and up to 4.6e-2 abs, the bf16 roundings of the
@@ -855,6 +875,52 @@ def gn_inputs(torch, randn, b, n, c):
     return x, (1 + 0.2 * randn(c)).bfloat16(), (0.2 * randn(c)).bfloat16()
 
 
+def gn_tail_inputs(torch, gen, b, n, c):
+    """K8's inputs with every pre-activation in about [-12, -3]: x uniform
+    in [-1, 1] (normalised, within +-sqrt(3)), scale 4.5 / sqrt(3), bias
+    -7.5; bf16."""
+    x = (torch.rand((b, n, c), generator=gen, device="cuda") * 2 - 1).bfloat16()
+    full = lambda v: torch.full((c,), v, device="cuda").bfloat16()
+    return x, full(4.5 / 3 ** 0.5), full(-7.5)
+
+
+def gn_tail_error(out, plain):
+    """The largest relative error of one output element."""
+    return ((out.float() - plain).abs() / plain.abs()).max().item()
+
+
+def gn_tanh_fault(torch, fn, lib, x, scale, bias):
+    """K8 built with the tanh.approx SiLU (`GN_TANH_PATCHES`), launched
+    through its C entry with the wrapper's plan."""
+    b, n, c = x.shape
+    plan = fn.launch_plan(b, n, c, torch.cuda.get_device_properties(0).multi_processor_count)
+    out = torch.empty_like(x)
+    err = lib.gn_silu_fwd(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, n,
+                          c, 32, plan.cluster, plan.threads, 1e-5, 1,
+                          torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err:
+        fail(f"the tanh SiLU fault's kernel failed: CUDA error {err}")
+    return out
+
+
+def build_gn_tanh_fault():
+    """The planted fault's kernel: `csrc/gn_silu.cu` with GN_TANH_PATCHES,
+    built into `_variants/fault_gn_tanh/`."""
+    import ctypes
+
+    import kernel_variants as kv
+    try:
+        lib, _ = kv.build({"gn_tanh": (kv.CSRC, "gn_silu.cu", GN_TANH_PATCHES)},
+                          prefix="fault_")["gn_tanh"]
+    except (ValueError, RuntimeError) as e:
+        fail(f"the tanh SiLU fault did not build: {e}")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gn_silu_fwd.argtypes = [p] * 4 + [i] * 6 + [ctypes.c_float, i, p]
+    lib.gn_silu_fwd.restype = i
+    return lib
+
+
 def phase_fused_kernels(torch, card, exp2_rate):
     """K8 and K9 against their plain fp32 versions at every shape of the
     fused paths, planted faults, repeatability, and times: kernel, bound,
@@ -917,6 +983,21 @@ def phase_fused_kernels(torch, card, exp2_rate):
         if not torch.equal(out, again) or not (err <= GN_ABS_TOL and rel <= GN_REL_TOL):
             fail(f"{label}: kernel disagrees with plain, or two launches disagree")
         del x, out, again
+    tanh_lib = build_gn_tanh_fault()
+    for b, n, c in GN_TAIL_SHAPES:
+        x, scale, bias = gn_tail_inputs(torch, gen, b, n, c)
+        plain = fn.group_norm_silu_plain(x.float(), scale.float(), bias.float())
+        tail = gn_tail_error(fn.group_norm_silu_cuda(x, scale, bias), plain)
+        fault = gn_tail_error(gn_tanh_fault(torch, fn, tanh_lib, x, scale, bias), plain)
+        label = f"gn_silu B{b} N{n} C{c}"
+        say(f"[fused-kernel] {label:26s}: SiLU tail (pre-activations in [-12, -3]): largest "
+            f"element relative error {tail:.3e} (tol {GN_TAIL_REL_TOL:.3e}); planted fault, "
+            f"tanh.approx SiLU: {fault:.3e}")
+        if fault <= GN_TAIL_REL_TOL:
+            fail(f"{label}: the SiLU tail gate passes a planted fault (tanh.approx SiLU)")
+        if not tail <= GN_TAIL_REL_TOL:
+            fail(f"{label}: the kernel's SiLU tail disagrees with plain ({tail:.3e})")
+        del x, plain
     for b, l, c in list(FF_SHAPES) + list(FF_TRAIN_SHAPES):
         f = 4 * c
         x = randn(b, l, c).bfloat16()

@@ -9,8 +9,8 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
 
 Each variant is `adaface_tpu_torch/csrc/ln_geglu_ff.cu` with a few exact
 text substitutions and, optionally, a change to the launch plan of
-`ops/fused_ff.launch_plan` (both listed in VARIANTS), built by nvcc into
-`_variants/ff_<name>/` (git-ignored) beside copies of the shared headers and
+`ops/fused_ff.launch_plan` (both listed in VARIANTS), built by
+`kernel_variants.build` into `_variants/ff_<name>/` (git-ignored) and
 called through the same C interface as the port's wrapper. At the six shapes
 of the fused generate and training paths it prints, for two interleaved
 rounds of all variants, each one's time (CUDA events, median of
@@ -22,16 +22,11 @@ cost, and their error is expected.
 """
 
 import ctypes
-import os
-import shutil
-import subprocess
 import sys
 
 import chip_smoke as cs
-from adaface_tpu_torch import kernels
+import kernel_variants as kv
 
-CSRC = "adaface_tpu_torch/csrc"
-OUT = "_variants"
 SHAPES = list(cs.FF_SHAPES) + list(cs.FF_TRAIN_SHAPES)
 GELU = "  return __fdividef(v, 1.f + __expf(-u2));"
 VARIANTS = {
@@ -47,7 +42,7 @@ VARIANTS = {
     "unroll4": ([("#pragma unroll 2\n      for (int r = e / CHV", "#pragma unroll 4\n      for (int r = e / CHV")], {}),
     # the products left out (consumers wait for each stage and release it):
     # what the copies alone take (wrong output)
-    "nomma": ([("wgmma_ss<N>(acc, da + 2 * kk, db + 2 * kk, (ks > w.k0 || kk > 0) ? 1 : 0);",
+    "nomma": ([("wgmma_ss<N>(acc[j], da + 2 * kk, db + 2 * kk, (ks > w.k0 || kk > 0) ? 1 : 0);",
                 "(void)da, (void)db;")], {}),
     # the copies left out (the stages' barriers complete without bytes): what
     # the products alone take (wrong output)
@@ -75,35 +70,19 @@ def launch_name(key):
     return key[:40]
 
 
+def variant_specs(names):
+    """name -> (source directory, source, patches) for `kernel_variants`."""
+    return {name: (kv.CSRC, "ln_geglu_ff.cu", VARIANTS[name][0]) for name in names}
+
+
 def build(names):
-    """Start one nvcc per variant, wait for all; returns name -> C entry."""
-    procs = {}
-    source = open(f"{CSRC}/ln_geglu_ff.cu").read()
-    for name in names:
-        d = f"{OUT}/ff_{name}"
-        os.makedirs(d, exist_ok=True)
-        for h in os.listdir(CSRC):
-            if h.endswith(".cuh"):
-                shutil.copy(f"{CSRC}/{h}", d)
-        text = source
-        for old, new in VARIANTS[name][0]:
-            if old not in text:
-                cs.fail(f"variant {name}: its patch does not apply ({old!r})")
-            text = text.replace(old, new)
-        open(f"{d}/kernel.cu", "w").write(text)
-        procs[name] = subprocess.Popen(
-            [kernels.cuda_tool("nvcc"), *kernels.NVCC_FLAGS, "-o", f"{d}/lib.so",
-             f"{d}/kernel.cu"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    """Build the variants side by side; returns name -> C entry."""
     fns = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            cs.fail(f"variant {name}: nvcc exited {proc.returncode}\n{log[-3000:]}")
-        spills = [line.strip() for line in log.splitlines()
-                  if "spill" in line and not line.strip().startswith("0 bytes stack")]
+    for name, (lib, log) in kv.build(variant_specs(names), prefix="ff_").items():
+        spills = [line for line in kv.ptxas_lines(log) if "spill" in line]
         if spills:
             cs.say(f"[variants] {name} spills: {spills}")
-        fn = ctypes.CDLL(os.path.abspath(f"{OUT}/ff_{name}/lib.so")).ln_geglu_ff_fwd
+        fn = lib.ln_geglu_ff_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 11 + [i] * 3 + [ctypes.c_float] + [i] * 6 + [p]
         fn.restype = ctypes.c_int

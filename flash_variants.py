@@ -29,15 +29,11 @@ their error is expected.
 """
 
 import ctypes
-import os
-import subprocess
 import sys
 
 import chip_smoke as cs
-from adaface_tpu_torch import kernels
+import kernel_variants as kv
 
-CSRC = "adaface_tpu_torch/csrc"
-OUT = "_variants"
 SHAPES = [(16, 4096, 8, 40), (16, 1024, 8, 80), (16, 256, 8, 160)]
 NWG = "  static constexpr int NWG = D <= 80 && FLAGS == 0 && !BIAS ? 4 : 2;"
 Q_REGS = "  static constexpr bool Q_REGS = D <= 40 && FLAGS == 0 && !BIAS;"
@@ -81,42 +77,21 @@ BWD_VARIANTS = {
 }
 
 
+def variant_specs(names, source, variants):
+    """name -> (source directory, source, patches) for `kernel_variants`;
+    a variant of None is the source of the tree in `_checkout/`."""
+    return {name: (kv.OLD_CSRC, source, []) if variants[name] is None
+            else (kv.CSRC, source, variants[name]) for name in names}
+
+
 def build(names, source, variants):
-    """Start one nvcc per variant, wait for all; returns name -> library."""
-    procs = {}
-    for name in names:
-        d = f"{OUT}/{name}"
-        os.makedirs(d, exist_ok=True)
-        src_dir = f"_checkout/{CSRC}" if variants[name] is None else CSRC
-        if not os.path.exists(f"{src_dir}/{source}"):
-            cs.fail(f"variant {name}: no {src_dir}/{source}")
-        files = {f: open(f"{src_dir}/{f}").read() for f in os.listdir(src_dir)
-                 if f.endswith(".cuh")}
-        files["kernel.cu"] = open(f"{src_dir}/{source}").read()
-        for old, new in variants[name] or []:
-            where = [f for f, text in files.items() if old in text]
-            if not where:
-                cs.fail(f"variant {name}: its patch does not apply ({old!r})")
-            files[where[0]] = files[where[0]].replace(old, new)
-        for f, text in files.items():
-            open(f"{d}/{f}", "w").write(text)
-        procs[name] = subprocess.Popen(
-            [kernels.cuda_tool("nvcc"), *kernels.NVCC_FLAGS, "-o", f"{d}/lib.so",
-             f"{d}/kernel.cu"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    """Build the variants side by side; returns name -> library."""
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            cs.fail(f"variant {name}: nvcc exited {proc.returncode}\n{log[-3000:]}")
-        entry, spills = "", []
-        for line in log.splitlines():
-            if "Compiling entry" in line:
-                entry = line.split("_Z")[-1].split("EEEv")[0][-24:]
-            elif "spill" in line and not line.strip().startswith("0 bytes stack frame"):
-                spills.append(f"{entry}: {line.strip()}")
+    for name, (lib, log) in kv.build(variant_specs(names, source, variants)).items():
+        spills = [line for line in kv.ptxas_lines(log) if "spill" in line]
         if spills:
             cs.say(f"[variants] {name} spills: {spills}")
-        libs[name] = ctypes.CDLL(os.path.abspath(f"{OUT}/{name}/lib.so"))
+        libs[name] = lib
     return libs
 
 

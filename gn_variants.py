@@ -4,13 +4,13 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc:
 
     python3 gn_variants.py                 # every variant
-    python3 gn_variants.py old base u8     # some of them
+    python3 gn_variants.py old base tanh   # some of them
 
 Each variant is `adaface_tpu_torch/csrc/gn_silu.cu` with a few exact text
 substitutions and, optionally, a change to the launch plan of
-`ops/fused_norm.launch_plan` (both listed in VARIANTS), built by nvcc into
-`_variants/gn_<name>/` (git-ignored) beside copies of the shared headers and
-called through the same C interface as the port's wrapper. `old` is an older
+`ops/fused_norm.launch_plan` (both listed in VARIANTS), built by
+`kernel_variants.build` into `_variants/gn_<name>/` (git-ignored) and called
+through the same C interface as the port's wrapper. `old` is an older
 kernel with its own C interface (two launches and a scratch of partial
 sums): the `csrc/gn_silu.cu` of a tree unpacked into `_checkout/`
 (git-ignored; e.g. `git archive <commit> | tar -x -C _checkout`).
@@ -20,29 +20,24 @@ At the 29 shapes of the fused generate and training paths
 rounds of all variants, each one's time (CUDA events, median of
 back-to-back calls through the C entry), its device time (torch.profiler,
 `chip_smoke.device_ms`), its return code and its relative L2 error against
-the plain fp32 version, with its launch plan and how many of its clusters
-the card holds at once (cudaOccupancyMaxActiveClusters); then the default
-arm (the torch ops the knob replaces), the bound (`chip_smoke.gn_bound`)
-and the base plan, with the card's name and power limit. A variant that
-changes the function (nonorm) exists to measure a cost, and its error is
-expected.
+the plain fp32 version (in the first round also the largest relative
+error of an element where every pre-activation lies in [-12, -3],
+`chip_smoke.gn_tail_inputs`, whose gate is GN_TAIL_REL_TOL), with its
+launch plan and how many of its clusters the card holds at once
+(cudaOccupancyMaxActiveClusters); then the default arm (the torch ops
+the knob replaces), the bound (`chip_smoke.gn_bound`) and the base plan,
+with the card's name and power limit. A variant that changes the function
+(nonorm) exists to measure a cost, and its error is expected; so is the
+tanh variant's tail error.
 """
 
 import ctypes
-import os
-import shutil
-import subprocess
 import sys
 
 import chip_smoke as cs
-from adaface_tpu_torch import kernels
+import kernel_variants as kv
 
-CSRC = "adaface_tpu_torch/csrc"
-OLD_CSRC = "_checkout/adaface_tpu_torch/csrc"
-OUT = "_variants"
-SILU = "      y = fmaf(h, tanh_approx(h), h);"
 DEPTH = "constexpr int DEPTH = 8;"
-LDG = "  return __ldg(reinterpret_cast<const uint4*>(p));"
 STORE = "      *reinterpret_cast<uint4*>(os + (k - u) * step) = norm8(raw[u], sc, sh, apply_silu);"
 # the first pass's loads ask L2 to keep x (evict_last), for the second
 LD_LAST = [(DEPTH, DEPTH + "\n__device__ __forceinline__ uint4 ldg16_last(const __nv_bfloat16* p) {\n"
@@ -54,13 +49,35 @@ LD_LAST = [(DEPTH, DEPTH + "\n__device__ __forceinline__ uint4 ldg16_last(const 
 # the output stored with the evict-first (streaming) hint, so that it does
 # not push x out of L2 before its second read
 ST_CS = [(STORE, "      __stcs(reinterpret_cast<uint4*>(os + (k - u) * step), norm8(raw[u], sc, sh, apply_silu));")]
+# every variant but `old` also exports how many of its clusters the card
+# holds at once
+RESIDENT = [('extern "C" int gn_silu_fwd(',
+             """// The most clusters of `cluster` CTAs of `threads` threads that the card
+// holds at once (cudaOccupancyMaxActiveClusters, at 32 groups), or minus a
+// cudaError_t.
+extern "C" int gn_silu_max_clusters(int cluster, int threads) {
+  const cudaError_t attr = kernel_attributes();
+  if (attr != cudaSuccess) return -(int)attr;
+  cudaLaunchAttribute at;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(&at, cluster, 1, threads, smem_bytes(32, threads), nullptr);
+  int count = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &count, threads <= MAX_THREADS ? gn_silu_kernel<MAX_THREADS> : gn_silu_kernel<WIDE_THREADS>,
+      &cfg);
+  return err != cudaSuccess ? -(int)err : count;
+}
+
+extern "C" int gn_silu_fwd(""")]
 VARIANTS = {
     "old": ([], {}),
     "base": ([], {}),
-    # SiLU with exp and a fast reciprocal (two MUFU operations)
-    "fastdiv": ([(SILU, "      y = __fdividef(y, 1.f + __expf(-y));")], {}),
-    # 4 loads in flight a thread
+    # SiLU as h + h tanh.approx(h): one MUFU operation fewer, but off in the
+    # tail y << 0 (chip_smoke's planted fault)
+    "tanh": (cs.GN_TANH_PATCHES, {}),
+    # 4 loads in flight a thread as it sums too; 8 as it normalises (spills)
     "u4": ([(DEPTH, "constexpr int DEPTH = 4;")], {}),
+    "n8": ([("constexpr int NORM_DEPTH = 4;", "constexpr int NORM_DEPTH = 8;")], {}),
     "ldlast": (LD_LAST, {}),
     "stcs": (ST_CS, {}),
     "l2hints": (LD_LAST + ST_CS, {}),
@@ -77,41 +94,22 @@ def plan_for(fn, b, n, c, sms, cluster=None, threads=None):
     cluster = min(cluster or base.cluster, n)
     cv = c // 8
     threads = max(1, threads // cv) * cv if threads else base.threads
-    return fn.LaunchPlan(cluster, -(-n // cluster), threads)
+    return fn.LaunchPlan(cluster, threads)
+
+
+def variant_specs(names):
+    """name -> (source directory, source, patches) for `kernel_variants`."""
+    return {name: (kv.OLD_CSRC, "gn_silu.cu", []) if name == "old"
+            else (kv.CSRC, "gn_silu.cu", VARIANTS[name][0] + RESIDENT) for name in names}
 
 
 def build(names):
-    """Start one nvcc per variant, wait for all; returns name -> library."""
-    procs = {}
-    for name in names:
-        src = OLD_CSRC if name == "old" else CSRC
-        if not os.path.exists(f"{src}/gn_silu.cu"):
-            cs.fail(f"variant {name}: no {src}/gn_silu.cu (unpack the older tree into "
-                    f"_checkout/)")
-        d = f"{OUT}/gn_{name}"
-        os.makedirs(d, exist_ok=True)
-        for h in os.listdir(src):
-            if h.endswith(".cuh"):
-                shutil.copy(f"{src}/{h}", d)
-        text = open(f"{src}/gn_silu.cu").read()
-        for old, new in VARIANTS[name][0]:
-            if old not in text:
-                cs.fail(f"variant {name}: its patch does not apply ({old!r})")
-            text = text.replace(old, new)
-        open(f"{d}/kernel.cu", "w").write(text)
-        procs[name] = subprocess.Popen(
-            [kernels.cuda_tool("nvcc"), *kernels.NVCC_FLAGS, "-o", f"{d}/lib.so",
-             f"{d}/kernel.cu"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
+    """Build the variants side by side; returns name -> library."""
+    built = kv.build(variant_specs(names), prefix="gn_")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            cs.fail(f"variant {name}: nvcc exited {proc.returncode}\n{log[-3000:]}")
-        regs = [line.split(":", 1)[-1].strip() for line in log.splitlines()
-                if "registers" in line or ("spill" in line and "0 bytes spill" not in line)]
-        cs.say(f"[gn-variants] {name} ptxas: {regs}")
-        lib = ctypes.CDLL(os.path.abspath(f"{OUT}/gn_{name}/lib.so"))
+    libs = {}
+    for name, (lib, log) in built.items():
+        cs.say(f"[gn-variants] {name} ptxas: {kv.ptxas_lines(log)}")
         lib.gn_silu_fwd.argtypes = ([p] * 5 + [i] * 5 + [f, i, p]) if name == "old" else (
             [p] * 4 + [i] * 6 + [f, i, p])
         lib.gn_silu_fwd.restype = ctypes.c_int
@@ -144,23 +142,25 @@ def main():
     for b, n, c in shapes:
         label = f"B{b} N{n} C{c}"
         x, scale, bias = cs.gn_inputs(torch, randn, b, n, c)
+        tail_in = cs.gn_tail_inputs(torch, gen, b, n, c)
         plain = fn.group_norm_silu_plain(x.float(), scale.float(), bias.float())
+        tail_plain = fn.group_norm_silu_plain(*(t.float() for t in tail_in))
         out = torch.empty_like(x)
         old_rows = (-(-32768 // c) + 7) // 8 * 8
         partial = torch.empty((b, -(-n // old_rows), 2, 32), dtype=torch.float32, device="cuda")
         calls = {}
         for name, lib in libs.items():
             if name == "old":
-                def call(lib=lib):
-                    return lib.gn_silu_fwd(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                def call(xs=x, sc=scale, bi=bias, lib=lib):
+                    return lib.gn_silu_fwd(xs.data_ptr(), sc.data_ptr(), bi.data_ptr(),
                                            partial.data_ptr(), out.data_ptr(), b, n, c, 32,
                                            old_rows, 1e-5, 1, stream)
                 calls[name] = (call, "rows %d" % old_rows)
                 continue
             plan = plan_for(fn, b, n, c, sms, **VARIANTS[name][1])
 
-            def call(lib=lib, plan=plan):
-                return lib.gn_silu_fwd(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            def call(xs=x, sc=scale, bi=bias, lib=lib, plan=plan):
+                return lib.gn_silu_fwd(xs.data_ptr(), sc.data_ptr(), bi.data_ptr(),
                                        out.data_ptr(), b, n, c, 32, plan.cluster, plan.threads,
                                        1e-5, 1, stream)
             resident = lib.gn_silu_max_clusters(plan.cluster, plan.threads)
@@ -169,6 +169,11 @@ def main():
         res = []
         for rnd in range(2):
             for name, (call, desc) in calls.items():
+                tail = ""
+                if rnd == 0:
+                    call(*tail_in)
+                    torch.cuda.synchronize()
+                    tail = f", tail {cs.gn_tail_error(out, tail_plain):.2e}"
                 out.fill_(float("nan"))
                 err = call()
                 torch.cuda.synchronize()
@@ -177,13 +182,13 @@ def main():
                 ms = cs.time_ms(torch, call)
                 dev = cs.device_ms(torch, call) if rnd == 0 else None
                 res.append(f"{name} {ms:.4f} ms" + (f" device {dev:.4f}" if dev else "")
-                           + f" (rc {err}, rel L2 {rel:.2e}, max abs {err_abs:.2e}, {desc})")
+                           + f" (rc {err}, rel L2 {rel:.2e}, max abs {err_abs:.2e}{tail}, {desc})")
         default_ms = cs.time_ms(torch, lambda: fn._plain(x, scale, bias, 32, 1e-5, True))
         bound_ms, bound_by = cs.gn_bound(b, n, c, exp2_rate)
         cs.say(f"[gn-variants] {label}: " + "; ".join(res) + f"; default arm "
                f"{default_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
                f"{fn.launch_plan(b, n, c, sms)} [{card}]")
-        del x, plain, out, partial
+        del x, plain, out, partial, tail_in, tail_plain
 
 
 if __name__ == "__main__":

@@ -179,7 +179,7 @@ def test_bf16_silu_before_cast(monkeypatch, rng):
 def test_rows_per_chunk():
     """The kernel's row split (`launch_plan`, `cta_rows`): an image's rows
     go to the CTAs of one cluster in order, in shares that differ by at
-    most one row, and each CTA holds at most `rows` of them."""
+    most one row, and each CTA holds at most ceil(N / cluster) of them."""
     for c in (320, 640, 960, 1280, 1920, 2560):
         for b, n in ((16, 64), (16, 256), (3, 1024), (16, 4096), (2, 1001)):
             plan = tfn.launch_plan(b, n, c, 132)
@@ -187,7 +187,7 @@ def test_rows_per_chunk():
             assert bounds[0][0] == 0 and bounds[-1][1] == n
             assert all(a[1] == nxt[0] for a, nxt in zip(bounds, bounds[1:]))
             sizes = {r1 - r0 for r0, r1 in bounds}
-            assert max(sizes) == plan.rows and max(sizes) - min(sizes) <= 1
+            assert max(sizes) == -(-n // plan.cluster) and max(sizes) - min(sizes) <= 1
 
 
 def test_cuda_wrapper_refuses_cpu_tensor(rng):

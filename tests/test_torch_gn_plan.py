@@ -6,8 +6,8 @@ The CUDA kernel runs only on the card (`chip_smoke.py` holds it against the
 plain version there). Here the plan is checked at every shape the fused
 paths give K8 and at the edge shapes `chip_smoke.py` adds: every row of an
 image belongs to exactly one CTA of its cluster, the cluster is a power of
-two of at most 16 CTAs (and at most N), the threads are whole row lanes
-within the kernel's limits, and each CTA's shared memory fits. The kernel's
+two of at most 16 CTAs (and at most N), and the threads are whole row
+lanes within the kernel's limits (one row lane past C 4096). The kernel's
 summation tree in plain ops (per-CTA partials, then added in rank order)
 is held against `group_norm_silu_plain` and against JAX's `_gn_silu_kernel`
 (Pallas in interpret mode). Tolerance: fp32, 2e-5 absolute on outputs of
@@ -42,14 +42,14 @@ def _check_plan(b, n, c):
     owner = np.full(n, -1)
     for rank in range(plan.cluster):
         r0, r1 = tfn.cta_rows(n, plan.cluster, rank)
-        assert 0 < r1 - r0 <= plan.rows
+        assert 0 < r1 - r0 <= -(-n // plan.cluster)
         assert (owner[r0:r1] == -1).all()
         owner[r0:r1] = rank
     assert (owner >= 0).all() and np.all(np.diff(owner) >= 0)
-    assert plan.rows == -(-n // plan.cluster)
-    # threads: whole row lanes of C/8 columns, within the kernel's bounds
-    assert plan.threads % (c // 8) == 0 and 32 <= plan.threads <= tfn.MAX_THREADS
-    assert tfn.smem_bytes(32, plan.threads) <= tfn.SMEM_LIMIT
+    # threads: whole row lanes of C/8 columns within the row-lane launch's
+    # bound, or one row lane on the wide launch
+    assert plan.threads % (c // 8) == 0 and plan.threads >= 32
+    assert plan.threads <= tfn.MAX_THREADS or plan.threads == c // 8 <= tfn.WIDE_THREADS
     return plan
 
 
@@ -90,18 +90,27 @@ def test_plan_threads_by_grid():
 def test_edge_shapes_take_every_cluster_size():
     plans = [tfn.launch_plan(*s, SMS) for s in EDGE]
     assert {p.cluster for p in plans} == {1, 2, 4, 8, 16}
+    assert any(p.threads > tfn.MAX_THREADS for p in plans)  # the wide launch
     assert any(p.threads % 32 for p in plans)  # a partial warp
     assert any(n % p.cluster for (_, n, _), p in zip(EDGE, plans))  # ragged rows
 
 
 def test_layout_matches_the_kernel_source():
-    """The plan's limits and shared-memory layout are the kernel's."""
+    """The plan's limits are the kernel's (its C entry refuses the rest)."""
     src = CU.read_text()
-    for name in ("MAX_CLUSTER", "MAX_THREADS"):
+    for name in ("MAX_CLUSTER", "MAX_THREADS", "WIDE_THREADS"):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == getattr(tfn, name), name
-    assert "return 4 * (2 + 2 + 2 * MAX_CLUSTER) * groups + 4 * VEC * threads;" in src
-    assert "smem_bytes(groups, threads) > 48 * 1024" in src
+
+
+@pytest.mark.parametrize("c", [4096, 4352, 5120, 6144, 8192])
+def test_wide_channels_take_one_row_lane(c):
+    """C/8 threads a CTA from C 4096 (512 threads) to C 8192 (1024); the
+    wrapper takes C up to 8 x WIDE_THREADS."""
+    for b, n in ((16, 64), (2, 4096), (1, 8)):
+        plan = _check_plan(b, n, c)
+        assert plan.threads == c // 8
+    assert 8 * tfn.WIDE_THREADS == 8192
 
 
 def _inputs(rng, b, n, c):

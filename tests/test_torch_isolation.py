@@ -45,7 +45,7 @@ def test_import_loads_no_jax():
 def test_sources_import_no_jax():
     files = sorted((REPO / "adaface_tpu_torch").rglob("*.py")) + [
         REPO / name for name in ("chip_smoke.py", "flash_variants.py", "ff_variants.py",
-                                 "wino_variants.py", "gn_variants.py")]
+                                 "wino_variants.py", "gn_variants.py", "kernel_variants.py")]
     assert len(files) > 10
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in IMPORT_RE.finditer(f.read_text())]

@@ -9,9 +9,9 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
 
 Each variant is `adaface_tpu_torch/csrc/winograd.cu` with a few exact text
 substitutions and, optionally, a change to the launch plan of
-`ops/winograd.launch_plan` (both listed in VARIANTS), built by nvcc into
-`_variants/wino_<name>/` (git-ignored) beside copies of the shared headers
-and called through the same C interface as the port's wrapper. `old` is an
+`ops/winograd.launch_plan` (both listed in VARIANTS), built by
+`kernel_variants.build` into `_variants/wino_<name>/` (git-ignored) and
+called through the same C interface as the port's wrapper. `old` is an
 older kernel with its own C interface (U [16, Cin_p, Cout_p], Cin_p a
 multiple of 32): the `csrc/winograd.cu` of a tree unpacked into `_checkout/`
 (git-ignored; e.g. `git archive <commit> | tar -x -C _checkout`).
@@ -28,17 +28,11 @@ nomma) exist to measure a cost, and their error is expected.
 """
 
 import ctypes
-import os
-import shutil
-import subprocess
 import sys
 
 import chip_smoke as cs
-from adaface_tpu_torch import kernels
+import kernel_variants as kv
 
-CSRC = "adaface_tpu_torch/csrc"
-OLD_CSRC = "_checkout/adaface_tpu_torch/csrc"
-OUT = "_variants"
 SHAPES = [(8, 64, 64, 4, 320), (8, 64, 64, 320, 320), (16, 8, 8, 1280, 1280),
           (16, 16, 16, 640, 1280), (16, 16, 16, 1280, 1280), (16, 32, 32, 320, 640),
           (16, 32, 32, 640, 640), (16, 32, 32, 960, 640), (16, 32, 32, 1280, 640),
@@ -88,38 +82,19 @@ def launch_name(key):
     return key[:40]
 
 
+def variant_specs(names):
+    """name -> (source directory, source, patches) for `kernel_variants`."""
+    return {name: (kv.OLD_CSRC if name == "old" else kv.CSRC, "winograd.cu", VARIANTS[name][0])
+            for name in names}
+
+
 def build(names):
-    """Start one nvcc per variant, wait for all; returns name -> C entry."""
-    procs = {}
-    for name in names:
-        src = OLD_CSRC if name == "old" else CSRC
-        if not os.path.exists(f"{src}/winograd.cu"):
-            cs.fail(f"variant {name}: no {src}/winograd.cu (unpack the older tree into "
-                    f"_checkout/)")
-        d = f"{OUT}/wino_{name}"
-        os.makedirs(d, exist_ok=True)
-        for h in os.listdir(src):
-            if h.endswith(".cuh"):
-                shutil.copy(f"{src}/{h}", d)
-        text = open(f"{src}/winograd.cu").read()
-        for old, new in VARIANTS[name][0]:
-            if old not in text:
-                cs.fail(f"variant {name}: its patch does not apply ({old!r})")
-            text = text.replace(old, new)
-        open(f"{d}/kernel.cu", "w").write(text)
-        procs[name] = subprocess.Popen(
-            [kernels.cuda_tool("nvcc"), *kernels.NVCC_FLAGS, "-o", f"{d}/lib.so",
-             f"{d}/kernel.cu"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    """Build the variants side by side; returns name -> C entry."""
     fns = {}
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            cs.fail(f"variant {name}: nvcc exited {proc.returncode}\n{log[-3000:]}")
-        regs = [line.split(":", 1)[-1].strip() for line in log.splitlines()
-                if "registers" in line or ("spill" in line and "0 bytes spill" not in line)]
-        cs.say(f"[wino-variants] {name} ptxas: {regs}")
-        fn = ctypes.CDLL(os.path.abspath(f"{OUT}/wino_{name}/lib.so")).winograd_conv3x3_fwd
+    for name, (lib, log) in kv.build(variant_specs(names), prefix="wino_").items():
+        cs.say(f"[wino-variants] {name} ptxas: {kv.ptxas_lines(log)}")
+        fn = lib.winograd_conv3x3_fwd
         fn.argtypes = ([p] * 5 + [i] * 7 + [p]) if name == "old" else ([p] * 6 + [i] * 9 + [p])
         fn.restype = ctypes.c_int
         fns[name] = fn
