@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Time the port's generate request and recon micro-step of one tree, so that
+two trees can be compared on one card.
+
+    python3 ab_paths.py [ROOT]
+
+imports `adaface_tpu_torch` from ROOT (default: this checkout; another tree
+is unpacked with `git archive <commit> | tar -x -C _checkout`), builds its
+kernels, and at SD-v1.5 width in bf16 with random weights times:
+
+- `generate`: one warm-up and GENERATE_REQUESTS requests of batch 8,
+  512x512, DDIM-50, CFG 10->4 (chip_smoke.py's phase 6);
+- `Trainer.fit`, recon-only (`composition_regs_iter_gap` 0, so that both
+  trees run the same path): TRAIN_STEPS micro-steps at batch 3, 512x512
+  (chip_smoke.py's phase 9 otherwise), the first left out of the median.
+
+The seeded dataset, the placeholders and the trainer's values are this
+checkout's `chip_smoke.py` helpers. Prints the card and one JSON line with
+the medians. Run trees in turns in one call (parent, change, change,
+parent): two calls may land on two cards.
+"""
+
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+GENERATE_REQUESTS = 3
+TRAIN_STEPS = 6
+
+
+def main():
+    root = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).parent).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("ab_paths: no CUDA device is visible to torch")
+    spec = importlib.util.spec_from_file_location(
+        "smoke_helpers", Path(__file__).resolve().with_name("chip_smoke.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    from adaface_tpu_torch import kernels
+    from adaface_tpu_torch.data.tokenizer import HashTokenizer
+    from adaface_tpu_torch.pipeline import StableDiffusionPipeline
+    from adaface_tpu_torch.training.trainer import Trainer
+
+    if not kernels.__file__.startswith(str(root)):
+        sys.exit(f"ab_paths: imported {kernels.__file__}, not the package under {root}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.splitlines()[0].strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    kernels.build_all()
+    build_s = time.time() - t0
+
+    tok = HashTokenizer()
+    pipe = StableDiffusionPipeline.from_random(0, tok, dtype=torch.bfloat16, device="cuda")
+    tid = tok.add_placeholder("z")
+    pipe.embedding_manager.add_placeholder(
+        "z", token_id=tid, num_vectors=9, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(7))
+    prompts = [helpers.PROMPT] * helpers.BATCH
+    kw = dict(num_steps=helpers.STEPS, guidance_scale=(10.0, 4.0), height=helpers.SIZE,
+              width=helpers.SIZE)
+    pipe.generate(prompts, seed=0, **kw)
+    gen_s = []
+    for i in range(GENERATE_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pipe.generate(prompts, seed=1 + i, **kw)
+        torch.cuda.synchronize()
+        gen_s.append(time.time() - t0)
+
+    helpers.add_training_placeholders(torch, pipe)
+    train_s = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ds_dir = os.path.join(tmp, "subject")
+        os.makedirs(ds_dir)
+        tcfg, pcfg = helpers.train_configs(os.path.join(tmp, "run"), gap=0)
+        trainer = Trainer(pipe, helpers.make_dataset(ds_dir), tcfg, pcfg)
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            trainer.fit(i + 1)
+            torch.cuda.synchronize()
+            train_s.append(time.time() - t0)
+        trainer.close()
+    print(f"[ab] {root}: build {build_s:.1f} s; generate {gen_s}; recon micro-steps {train_s} "
+          f"[{card}]", flush=True)
+    print(json.dumps({"root": str(root), "card": card,
+                      "generate_median_s": statistics.median(gen_s),
+                      "recon_micro_step_median_s": statistics.median(train_s[1:])}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

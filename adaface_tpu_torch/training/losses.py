@@ -1,19 +1,28 @@
-"""Training losses of the recon iteration (counterpart of the first part of
-`adaface_tpu/training/losses.py`): masked reconstruction, the static
-prompt-delta regularizer, the embedding-norm regularizer, and the
-complementary / suppression / cross-layer attention losses on the captured
-cross-attention scores, with their shared helpers (ortho subtract, weighted
-cosine, masked means, normalized sums; `grad_scale` is `ops.grad.scale_grad`).
-Dense-mask forms throughout; the per-layer weight tables are the JAX
-package's. The options of the JAX helpers that only the compositional and
-webdataset losses use (margins, squared means, sqrt-normalized scores,
-reweighted sums) and those losses themselves are not ported yet.
+"""Training losses (counterpart of `adaface_tpu/training/losses.py`): masked
+reconstruction, the static prompt-delta regularizer, the embedding-norm
+regularizer, the complementary / suppression / cross-layer attention losses
+of the recon iteration, and the compositional-distillation battery (delta
+alignment, the prompt-mix feature/attention losses, elastic matching and
+the comp fg/bg preservation, and the two regularizers that ship disabled:
+padding alignment and the subject/comp K-V orthogonality), with their shared
+helpers (ortho subtract, weighted cosine, masked means, normalized sums,
+dynamic scales; `grad_scale` is `ops.grad.scale_grad`). Dense-mask forms
+throughout; the per-layer weight tables are the JAX package's.
+
+Resizes: the recon battery's and the cross-layer map's are 2-tap bilinear
+(torch `F.interpolate` semantics, no antialias), as the JAX package writes
+them; the compositional losses' follow `jax.image.resize(..., "bilinear")`,
+which antialiases when it shrinks (a triangle kernel widened by the scale,
+weights renormalized): `_resize_aa` builds those weight matrices on the host.
+Options of the JAX helpers that only the webdataset losses use (squared
+means, sqrt-normalized scores, reweighted sums) are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from adaface_tpu_torch.ops.grad import scale_grad as grad_scale
@@ -45,6 +54,18 @@ def ortho_subtract(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6) -> torch
     return a - dot / (norm + eps) * b
 
 
+def cosine_loss(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """1 - mean cosine similarity along the last dim."""
+    an = a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True) + eps)
+    bn = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True) + eps)
+    return 1.0 - torch.mean(torch.sum(an * bn, dim=-1))
+
+
+def calc_align_coeffs(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Optimal projection coefficient of a onto b along the last dim."""
+    return torch.sum(a * b, dim=-1) / (torch.sum(b * b, dim=-1) + eps)
+
+
 def _demean(x: torch.Tensor) -> torch.Tensor:
     return x - x.mean(dim=-1, keepdim=True)
 
@@ -57,12 +78,14 @@ def _sum(x: torch.Tensor, axis, keepdims: bool = False) -> torch.Tensor:
 
 def ref_cosine_loss(delta, ref_delta, emb_weights=None, exponent: float = 2.0,
                     do_demean_first: bool = True, ref_grad_scale: float = 0.05,
-                    aim_to_align: bool = True,
+                    aim_to_align: bool = True, margin: float = 0.0,
                     instance_axis: Optional[int] = None) -> torch.Tensor:
     """Weighted cosine alignment of `delta` to `ref_delta`: demean both over
     the last dim, gradient-scale and signed-pow the reference side
     (x |x|^(e-1)), per-token cosine loss, weight-averaged (per instance
-    along `instance_axis` when given, each instance counting equally)."""
+    along `instance_axis` when given, each instance counting equally). A
+    `margin` > 0 hinges the mean (per instance with `instance_axis`): no
+    gradient until it exceeds the margin."""
     if do_demean_first:
         delta = _demean(delta)
         ref_delta = _demean(ref_delta)
@@ -75,11 +98,18 @@ def ref_cosine_loss(delta, ref_delta, emb_weights=None, exponent: float = 2.0,
     if emb_weights is not None and instance_axis is not None:
         w = emb_weights.expand(losses.shape)
         axes = tuple(i for i in range(losses.dim()) if i != instance_axis)
-        return (torch.sum(losses * w, dim=axes) / (torch.sum(w, dim=axes) + 1e-8)).mean()
+        per = torch.sum(losses * w, dim=axes) / (torch.sum(w, dim=axes) + 1e-8)
+        if margin > 0:
+            per = torch.clamp_min(per - margin, 0.0)
+        return per.mean()
     if emb_weights is not None:
         w = emb_weights.expand(losses.shape)
-        return torch.sum(losses * w) / (torch.sum(w) + 1e-8)
-    return losses.mean()
+        loss = torch.sum(losses * w) / (torch.sum(w) + 1e-8)
+    else:
+        loss = losses.mean()
+    if margin > 0:
+        loss = torch.clamp_min(loss - margin, 0.0)
+    return loss
 
 
 def prompt_delta_loss(subj_single: torch.Tensor, subj_comp: torch.Tensor,
@@ -116,6 +146,19 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=None, keepdims: bool =
 def normalized_sum(losses: List[torch.Tensor]) -> torch.Tensor:
     """Sum of per-layer losses (0 for none), the JAX helper at norm_pow 0."""
     return sum(losses) if losses else torch.tensor(0.0)
+
+
+def calc_dyn_loss_scale(loss_value: float, loss_base: float, loss_scale_base: float,
+                        min_scale_base_ratio: float = 1.0,
+                        max_scale_base_ratio: float = 2.0) -> float:
+    """Host-side dynamic loss scale from a concrete float: value x base scale
+    / base loss, clamped to [min, max] x the base scale (0 when the base
+    loss is 0)."""
+    if loss_base == 0:
+        return 0.0
+    scale = float(loss_value) * loss_scale_base / loss_base
+    return max(min(loss_scale_base * max_scale_base_ratio, scale),
+               loss_scale_base * min_scale_base_ratio)
 
 
 # Per-cross-attention-layer alignment weights (normalized below).
@@ -288,3 +331,340 @@ def embedding_norm_loss(emb: torch.Tensor, target_norm: float = 1.0) -> torch.Te
     sqrt keeps the gradient finite at zero embeddings)."""
     norms = torch.sqrt(torch.sum(torch.square(emb.float()), dim=-1) + 1e-12)
     return torch.mean(torch.square(norms - target_norm))
+
+
+def delta_alignment_loss(feat_base, feat_ex, ref_feat_base, ref_feat_ex,
+                         ref_grad_scale: float = 0.1, feat_base_grad_scale: float = 0.05,
+                         cosine_exponent: float = 2.0,
+                         delta_types=("feat_to_ref", "ex_to_base")) -> dict:
+    """Delta alignment of (base -> extended) feature pairs to their reference
+    pair, per delta type; channels last, leading dims are the batch."""
+    if feat_base_grad_scale == -1:
+        feat_base_grad_scale = min(ref_grad_scale / 2, 1.0)
+    ref_base = grad_scale(ref_feat_base, ref_grad_scale)
+    ref_ex = grad_scale(ref_feat_ex, ref_grad_scale)
+    base = grad_scale(feat_base, feat_base_grad_scale)
+    out = {}
+    for t in delta_types:
+        if t == "feat_to_ref":
+            src, tgt = ortho_subtract(base, ref_base), ortho_subtract(feat_ex, ref_ex)
+        elif t == "ex_to_base":
+            src, tgt = ortho_subtract(ref_ex, ref_base), ortho_subtract(feat_ex, base)
+        else:
+            raise ValueError(t)
+        out[t] = ref_cosine_loss(tgt, src, exponent=cosine_exponent, do_demean_first=False,
+                                 ref_grad_scale=1.0)
+    return out
+
+
+def ortho_l2loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """MSE of the ortho residual of a against b."""
+    r = ortho_subtract(a, b)
+    return torch.mean(r * r)
+
+
+def dyn_loss_scale(loss: torch.Tensor, loss_base: float, loss_scale_base: float,
+                   min_scale_base_ratio: float = 1.0,
+                   max_scale_base_ratio: float = 2.0) -> torch.Tensor:
+    """`calc_dyn_loss_scale` on a tensor: the loss is read detached."""
+    if loss_base == 0:
+        return torch.zeros((), device=loss.device)
+    s = loss.detach() * loss_scale_base / loss_base
+    return torch.clamp(s, loss_scale_base * min_scale_base_ratio,
+                       loss_scale_base * max_scale_base_ratio)
+
+
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] fp32 weights of `jax.image.resize`'s bilinear
+    (triangle) kernel with antialias: sample position (i + 0.5) * in/out -
+    0.5, kernel widened by in/out when shrinking, each column renormalized
+    to sum 1, columns sampled outside the input zeroed."""
+    inv_scale = np.float32(n_in / n_out)
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0).astype(np.float32)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+def _resize_aa(x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """[..., H, W] -> [..., oh, ow] as `jax.image.resize(..., "bilinear")`
+    on those two axes (antialiased when shrinking), in fp32."""
+    h, w = x.shape[-2:]
+    x = x.float()
+    if (h, w) == (oh, ow):
+        return x
+    wh = torch.from_numpy(_resize_weights(h, oh)).to(x.device)
+    ww = torch.from_numpy(_resize_weights(w, ow)).to(x.device)
+    return torch.einsum("...hw,hy,wx->...yx", x, wh, ww)
+
+
+def convert_attn_to_spatial_weight(flat_attn: torch.Tensor, out_hw,
+                                   reverse: bool = True) -> torch.Tensor:
+    """[B, h, Q] summed subject attention (detached) -> [B, H, W, 1] spatial
+    weight: head mean on its own square grid, resized to `out_hw`,
+    normalized by the per-instance mean and std (ddof 1, floored at mean/2),
+    exp(-x) when `reverse`, clamped at 1, renormalized to a unit mean."""
+    a = flat_attn.detach().float()
+    B = a.shape[0]
+    s = int(round(a.shape[-1] ** 0.5))
+    if s * s != a.shape[-1]:
+        raise ValueError(f"non-square attention grid: Q={a.shape[-1]}")
+    attn = _resize_aa(a.mean(dim=1).reshape(B, s, s), out_hw[0], out_hw[1])[..., None]
+    mean = attn.mean(dim=(1, 2), keepdim=True)
+    std = attn.std(dim=(1, 2), keepdim=True, correction=1)
+    denom = torch.maximum(std + 0.001, mean / 2)
+    sign = -1.0 if reverse else 1.0
+    w = torch.clamp_max(torch.exp(sign * (attn - mean) / denom), 1.0)
+    return w / w.mean(dim=(1, 2), keepdim=True)
+
+
+# 8/16 px feature maps pool 4-stride-2; 32/64 px pool 8-stride-4
+FEAT_SIZE2POOLER_SPEC = {8: (4, 2), 16: (4, 2), 32: (8, 4), 64: (8, 4)}
+
+
+def _avg_pool_nc(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """[B, C, H, W] average pool, no padding."""
+    return torch.nn.functional.avg_pool2d(x, k, s)
+
+
+def prompt_mix_layer_losses(outfeat: torch.Tensor, subj_attn: torch.Tensor):
+    """One layer of the prompt-mix distillation over the 4-type batch
+    (order subj_single, subj_comp, mix_single, mix_comp). outfeat
+    [4B, H, W, C], subj_attn [4B, h, Q] (scores summed over the subject's
+    slots). Returns (feat_delta_align, subj_attn_delta_align,
+    subj_attn_norm): per-head ortho attention deltas (mix side 0.05
+    gradient-scaled) cosine-aligned at exponent 3; L1 of the spatial-mean
+    attention, subject vs mix rows; the outfeat reweighted by the reversed
+    attention weights of mix_comp and subj_comp, pooled by
+    `FEAT_SIZE2POOLER_SPEC` (a strict lookup), ortho deltas with 0.1
+    gradient-scaled mix halves, MSE of the comp delta's residual against
+    the single delta."""
+    B = outfeat.shape[0] // 4
+    ss_a, sc_a, ms_a, mc_a = subj_attn.reshape(4, B, *subj_attn.shape[1:]).unbind(0)
+    mix_attn_gs = 0.05
+    src = ortho_subtract(ss_a, grad_scale(ms_a, mix_attn_gs))
+    tgt = ortho_subtract(sc_a, grad_scale(mc_a, mix_attn_gs))
+    attn_delta = ref_cosine_loss(tgt, src, exponent=3.0, do_demean_first=False,
+                                 ref_grad_scale=1.0)
+    attn_norm = (torch.abs(sc_a.mean(-1) - grad_scale(mc_a, mix_attn_gs).mean(-1)).mean()
+                 + torch.abs(ss_a.mean(-1) - grad_scale(ms_a, mix_attn_gs).mean(-1)).mean())
+    H, W, C = outfeat.shape[1:]
+    sw = 0.5 * (convert_attn_to_spatial_weight(mc_a, (H, W))
+                + convert_attn_to_spatial_weight(sc_a, (H, W)))  # [B, H, W, 1]
+    f4 = outfeat.reshape(4, B, H, W, C) * sw[None]
+    k, s = FEAT_SIZE2POOLER_SPEC[W]
+    pooled = _avg_pool_nc(f4.reshape(4 * B, H, W, C).permute(0, 3, 1, 2), k, s)
+    f2d = pooled.reshape(4, B, -1)
+    comp_delta = ortho_subtract(f2d[1], grad_scale(f2d[3], 0.1))
+    single_delta = ortho_subtract(f2d[0], grad_scale(f2d[2], 0.1))
+    return ortho_l2loss(comp_delta, single_delta), attn_delta, attn_norm
+
+
+def elastic_matching_loss(ca_q: torch.Tensor, ca_outfeat: torch.Tensor, fg_mask: torch.Tensor,
+                          fg_bg_cutoff_prob: float = 0.25, single_q_grad_scale: float = 0.1,
+                          single_feat_grad_scale: float = 0.01,
+                          mix_feat_grad_scale: float = 0.05):
+    """Cross-instance elastic feature matching of one block. ca_q, ca_outfeat
+    [4, C, N] (order ss, sc, ms, mc); fg_mask [1, N] (the subj_single
+    instance's fg at this resolution). The subj_comp tokens
+    transport-reconstruct the subj_single fg features through a q-similarity
+    softmax over the comp tokens; the sc->ss and mc->ms maps align on fg
+    pairs; comp and mix features match on the soft background (comp tokens
+    whose total fg-mapping probability is under the cutoff). Dense masks in
+    place of gathered fg columns. Returns (map_align, sc_ss_fg_match,
+    sc_mc_bg_match, (sc_bg_prob, mc_bg_prob))."""
+    fg = fg_mask.float().reshape(1, -1)
+    ss_q, sc_q, ms_q, mc_q = ca_q.split(1)
+    sc_map_ss = torch.softmax(torch.einsum("bcn,bcm->bnm", sc_q,
+                                           grad_scale(ss_q, single_q_grad_scale)), dim=1)
+    mc_map_ms = torch.softmax(torch.einsum("bcn,bcm->bnm", mc_q,
+                                           grad_scale(ms_q, single_q_grad_scale)), dim=1)
+    ss_feat, sc_feat, ms_feat, mc_feat = ca_outfeat.split(1)
+    sc_recon_ss = torch.einsum("bcn,bnm->bmc", sc_feat, sc_map_ss)  # [1, N, C]
+    ss_feat_gs = grad_scale(ss_feat.transpose(1, 2), single_feat_grad_scale)
+    fg_hw = fg[:, :, None] * fg[:, None, :]
+    loss_map_align = masked_mean(torch.abs(sc_map_ss - mc_map_ms), fg_hw)
+    loss_sc_ss_fg_match = ref_cosine_loss(sc_recon_ss, ss_feat_gs, emb_weights=fg,
+                                          exponent=2.0, do_demean_first=False,
+                                          ref_grad_scale=1.0)
+    sc_fg_prob = torch.einsum("bnm,bm->bn", sc_map_ss, fg)
+    mc_fg_prob = torch.einsum("bnm,bm->bn", mc_map_ms, fg)
+    sc_bg_prob = torch.clamp_min(fg_bg_cutoff_prob - sc_fg_prob, 0.0)
+    mc_bg_prob = torch.clamp_min(fg_bg_cutoff_prob - mc_fg_prob, 0.0)
+    loss_sc_mc_bg_match = ref_cosine_loss(
+        sc_feat.transpose(1, 2), mc_feat.transpose(1, 2), emb_weights=mc_bg_prob,
+        exponent=2.0, do_demean_first=False, ref_grad_scale=mix_feat_grad_scale)
+    return loss_map_align, loss_sc_ss_fg_match, loss_sc_mc_bg_match, (sc_bg_prob, mc_bg_prob)
+
+
+def _channel_layer_norm(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] normalized over channels by the population std (ddof 0,
+    jnp's default; torch.std's is ddof 1), plus 1e-5."""
+    mu = x.mean(dim=1, keepdim=True)
+    return (x - mu) / (x.std(dim=1, keepdim=True, correction=0) + 1e-5)
+
+
+def comp_fg_bg_preserve_loss(ca_outfeats: dict, ca_qs: dict, ca_attnscores: dict,
+                             fg_mask: torch.Tensor, subj_token_mask: torch.Tensor,
+                             pool_kernel: int = 4, pool_stride: int = 2,
+                             mix_attn_grad_scale: float = 0.02):
+    """The elastic-matching battery of each distillation layer over the
+    4-type batch: outfeat [4B, H, W, C], q [4B, heads, N, d], attnscore
+    [4B, heads, N, T]; fg_mask [B, H, W, 1] carries each block's own mask.
+    The outfeat, LayerNormed over channels (population std), and the
+    channel-folded q are avg-pooled above 8x8; each block matches against
+    its own mask and the blocks average. The summed subject attention,
+    resized to the pooled grid as `jax.image.resize` does (antialiased),
+    is suppressed on the soft-background comp tokens (the mix rows 0.02
+    gradient-scaled). Returns (map_align, sc_ss_fg_match, sc_mc_bg_match,
+    subj_bg_attn_suppress, mix_bg_attn_suppress)."""
+    weights = _normalize_weights(ATTN_ALIGN_LAYER_WEIGHTS)
+    l_map, l_fg, l_bg, l_subj_sup, l_mix_sup = [], [], [], [], []
+    for idx, outfeat in ca_outfeats.items():
+        if idx not in weights or idx not in ca_qs:
+            continue
+        w = weights[idx]
+        B4, H, W, C = outfeat.shape
+        B = B4 // 4
+        q = ca_qs[idx].float()
+        qh = int(round(q.shape[2] ** 0.5))
+        q_img = q.transpose(2, 3).reshape(B4, -1, qh, qh)
+        feat_img = _resize_aa(outfeat.float().permute(0, 3, 1, 2), qh, qh)
+        feat_img = _channel_layer_norm(feat_img)
+        if qh > 8:
+            q_img = _avg_pool_nc(q_img, pool_kernel, pool_stride)
+            feat_img = _avg_pool_nc(feat_img, pool_kernel, pool_stride)
+        Np = q_img.shape[-2] * q_img.shape[-1]
+        q_grp = q_img.reshape(4, B, q_img.shape[1], Np)
+        feat_grp = feat_img.reshape(4, B, C, Np)
+        fg_small = _resize_fg_mask_to_q(fg_mask, Np)  # [B, Np]
+        per = [elastic_matching_loss(q_grp[:, b], feat_grp[:, b], fg_small[b:b + 1])
+               for b in range(B)]
+        l_map.append(w * torch.stack([p[0] for p in per]).mean())
+        l_fg.append(w * torch.stack([p[1] for p in per]).mean())
+        l_bg.append(w * torch.stack([p[2] for p in per]).mean())
+        if idx in ca_attnscores:
+            subj_attn = torch.einsum("bhnt,bt->bhn", ca_attnscores[idx].float(),
+                                     subj_token_mask.float())
+            n = subj_attn.shape[-1]
+            if n != Np:
+                s, ph2 = int(round(n ** 0.5)), int(round(Np ** 0.5))
+                subj_attn = _resize_aa(subj_attn.reshape(B4, -1, s, s), ph2, ph2)
+                subj_attn = subj_attn.reshape(B4, -1, ph2 * ph2)
+            a4 = subj_attn.reshape(4, B, *subj_attn.shape[1:])  # [4, B, h, Np]
+            subj_pos = torch.clamp_min(a4[1], 0.0)
+            mix_pos = torch.clamp_min(grad_scale(a4[3], mix_attn_grad_scale), 0.0)
+            sc_bg = torch.stack([p[3][0] for p in per])  # [B, 1, Np]
+            mc_bg = torch.stack([p[3][1] for p in per])
+            l_subj_sup.append(w * masked_mean(subj_pos, sc_bg.expand(subj_pos.shape)))
+            l_mix_sup.append(w * masked_mean(mix_pos, mc_bg.expand(mix_pos.shape)))
+    return (normalized_sum(l_map), normalized_sum(l_fg), normalized_sum(l_bg),
+            normalized_sum(l_subj_sup), normalized_sum(l_mix_sup))
+
+
+def padding_embs_align_loss(prompt_embs: torch.Tensor, prompt_emb_mask: torch.Tensor,
+                            subj_token_mask: torch.Tensor,
+                            bg_token_mask: Optional[torch.Tensor] = None,
+                            subj_contrast_paddings_grad_scale: float = 0.02,
+                            subj_contrast_bg_grad_scale: float = 0.3):
+    """Padding (and background) embeddings of [L, B, T, D] prompt embeddings
+    pushed orthogonal to the summed subject embedding, each instance's
+    weighted mean counting equally (off by default). Returns
+    (padding_align, bg_subj_align)."""
+    embs_f = prompt_embs.float()
+    subj_sum = torch.einsum("lbtd,bt->bld", embs_f, subj_token_mask.float())
+    pad_mask = 1.0 - prompt_emb_mask.float()
+    pad_mask[:, 0] = 0.0
+    embs = embs_f.permute(1, 2, 0, 3)  # [B, T, L, D]
+
+    def contrast(token_mask, subj_grad_scale):
+        subj = grad_scale(subj_sum, subj_grad_scale)
+        return ref_cosine_loss(embs, subj[:, None], emb_weights=token_mask[:, :, None],
+                               exponent=2.0, do_demean_first=True, ref_grad_scale=1.0,
+                               aim_to_align=False, instance_axis=0)
+
+    loss_pad = contrast(pad_mask, subj_contrast_paddings_grad_scale)
+    loss_bg = (contrast(bg_token_mask.float(), subj_contrast_bg_grad_scale)
+               if bg_token_mask is not None else torch.zeros((), device=prompt_embs.device))
+    return loss_pad, loss_bg
+
+
+# Per-layer weights of the subject/comp K/V orthogonality loss.
+K_ORTHO_LAYER_WEIGHTS = {7: 0.5, 8: 0.5, 12: 1.0, 16: 1.0, 17: 1.0, 18: 1.0,
+                         19: 1.0, 20: 1.0, 21: 1.0, 22: 1.0, 23: 1.0, 24: 1.0}
+V_ORTHO_LAYER_WEIGHTS = {7: 0.5, 8: 0.5, 12: 1.0, 16: 1.0, 17: 1.0, 18: 0.5,
+                         19: 0.5, 20: 0.5, 21: 0.25, 22: 0.25, 23: 0.25, 24: 0.25}
+
+
+def normalized_ortho_subtract(a: torch.Tensor, b: torch.Tensor,
+                              eps: float = 1e-6) -> torch.Tensor:
+    """Both sides scaled to their mean norm before the ortho subtract; eps
+    inside the sqrt keeps the gradient finite at a zero vector."""
+    an = torch.sqrt(torch.sum(torch.square(a), dim=-1, keepdim=True) + eps * eps)
+    bn = torch.sqrt(torch.sum(torch.square(b), dim=-1, keepdim=True) + eps * eps)
+    mean2 = (an + bn) / 2.0
+    return ortho_subtract(a * mean2 / an, b * mean2 / bn)
+
+
+def _weighted_token_mean(seq: torch.Tensor, token_mask: torch.Tensor,
+                         token_weights: torch.Tensor) -> torch.Tensor:
+    """[H, T, D], [T], [T] -> [H, D]: the weight-scaled selected tokens
+    summed, over the COUNT of selected tokens."""
+    m = token_mask.float()
+    return torch.einsum("t,htd->hd", m * token_weights, seq.float()) / (torch.sum(m) + 1e-8)
+
+
+def comp_extra_token_mask(prompt_emb_mask: torch.Tensor, subj_token_mask: torch.Tensor,
+                          bg_token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Real tokens that are neither subject nor background slots."""
+    m = prompt_emb_mask.float() * (1.0 - subj_token_mask.float())
+    if bg_token_mask is not None:
+        m = m * (1.0 - bg_token_mask.float())
+    return m
+
+
+def subj_comp_ortho_loss(ca_ks: dict, ca_vs: dict, ca_attnscores: dict,
+                         subj_comp_subj_mask: torch.Tensor,
+                         subj_comp_extra_mask: torch.Tensor,
+                         cls_comp_subj_mask: torch.Tensor,
+                         cls_comp_extra_mask: torch.Tensor,
+                         subj_block: int = 1, cls_block: int = 3,
+                         cls_grad_scale: float = 0.05) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Subject/comp K and V orthogonality alignment (off by default) over
+    [4, H, T, Dh] keys and values of the 4-type batch: the attention-weighted
+    mean K (V) of the subject tokens and of the comp-extra tokens,
+    normalized-ortho-subtracted, for subj_comp and for cls_comp; the two
+    differences cosine-aligned (margins 0.6 K, 0.7 V; the class side
+    gradient-scaled; no gradient through the scores). Returns (loss_k,
+    loss_v)."""
+    kw = _normalize_weights({k: v for k, v in K_ORTHO_LAYER_WEIGHTS.items() if k in ca_ks})
+    vw = _normalize_weights({k: v for k, v in V_ORTHO_LAYER_WEIGHTS.items() if k in ca_ks})
+    dev = subj_comp_subj_mask.device
+    loss_k = torch.zeros((), device=dev)
+    loss_v = torch.zeros((), device=dev)
+
+    def one(seq, scores, margin):
+        w_subj = torch.clamp_min(scores[subj_block].mean(dim=(0, 1)), 0.0)
+        w_cls = torch.clamp_min(scores[cls_block].mean(dim=(0, 1)), 0.0)
+        subj_diff = normalized_ortho_subtract(
+            _weighted_token_mean(seq[subj_block], subj_comp_subj_mask, w_subj),
+            _weighted_token_mean(seq[subj_block], subj_comp_extra_mask, w_subj))
+        cls_diff = normalized_ortho_subtract(
+            _weighted_token_mean(seq[cls_block], cls_comp_subj_mask, w_cls),
+            _weighted_token_mean(seq[cls_block], cls_comp_extra_mask, w_cls))
+        return ref_cosine_loss(subj_diff, cls_diff, exponent=2.0, do_demean_first=False,
+                               ref_grad_scale=cls_grad_scale, aim_to_align=True,
+                               margin=margin)
+
+    for layer in ca_ks:
+        if layer not in kw:
+            continue
+        scores = ca_attnscores[layer].float().detach()
+        loss_k = loss_k + kw[layer] * one(ca_ks[layer], scores, margin=0.6)
+        loss_v = loss_v + vw[layer] * one(ca_vs[layer], scores, margin=0.7)
+    return loss_k, loss_v

@@ -1,5 +1,5 @@
-"""The recon training step (counterpart of the recon part of
-`adaface_tpu/training/train_step.py`).
+"""The recon and compositional-distillation training steps (counterpart of
+those parts of `adaface_tpu/training/train_step.py`).
 
 Only the personalization parameters train: the static embedders' leaves
 (all five, `pre_vecs` included, as JAX differentiates the whole pytree)
@@ -8,8 +8,15 @@ prompt batch with the subject embeddings patched in, noise the latents at
 the host-sampled timesteps, predict eps (with the cross-attention scores of
 the distillation layers captured when the complementary battery is on),
 sum the recon battery, backpropagate, and hand the gradients to the
-optimizer chain (`training/prodigy.py`). The compositional and Arc2Face
-distillation steps are not ported yet.
+optimizer chain (`training/prodigy.py`).
+
+The compositional step encodes the 4-type prompt block (subj_single,
+subj_comp, cls_single, cls_comp), spreads the class word over the subject's
+pad slots in the class rows, mixes the class rows into V/K teacher contexts
+(`training/mixing.py`, optionally compel-weighted, `ops/compel.py`), runs
+one UNet call over (subj_single, subj_comp, mix_single, mix_comp) with the
+distillation layers' outfeat, scores and q captured, and sums the
+distillation battery. The Arc2Face distillation step is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,17 +27,29 @@ import numpy as np
 import torch
 
 from adaface_tpu_torch.data.tokenizer import CLIP_VOCAB_SIZE
+from adaface_tpu_torch.models.unet import DISTILL_LAYER_INDICES
+from adaface_tpu_torch.ops.compel import apply_compel_cfg
 from adaface_tpu_torch.ops.grad import add_noise_to_tensor
 from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
 from adaface_tpu_torch.personalization.static_embedding import compute_static_embedding
 from adaface_tpu_torch.training.losses import (
+    ATTN_ALIGN_LAYER_WEIGHTS,
+    _normalize_weights,
+    comp_extra_token_mask,
+    comp_fg_bg_preserve_loss,
+    dyn_loss_scale,
     embedding_norm_loss,
     fg_bg_complementary_loss,
     fg_bg_xlayer_consist_loss,
     fg_mb_suppress_loss,
     masked_recon_loss,
+    normalized_sum,
+    padding_embs_align_loss,
     prompt_delta_loss,
+    prompt_mix_layer_losses,
+    subj_comp_ortho_loss,
 )
+from adaface_tpu_torch.training.mixing import mix_static_vk_embeddings
 
 BOS_ID, EOS_ID = CLIP_VOCAB_SIZE - 2, CLIP_VOCAB_SIZE - 1
 
@@ -71,6 +90,18 @@ class ReconBatch(NamedTuple):
 
 def _ids(ids, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(ids), dtype=torch.long, device=device)
+
+
+def _subject_embeddings(embedders, batch, device) -> Dict[str, torch.Tensor]:
+    """The embedders' [L, K, D] subject embeddings, with the batch's
+    annealed noise when it carries one: one draw per placeholder in sorted
+    order from a torch.Generator seeded with `emb_noise_seed`."""
+    subj = {s: compute_static_embedding(p) for s, p in embedders.items()}
+    if batch.emb_noise_std and batch.emb_noise_seed is not None:
+        gen = torch.Generator(device=device).manual_seed(int(batch.emb_noise_seed))
+        subj = {s: add_noise_to_tensor(e, batch.emb_noise_std, generator=gen)
+                for s, e in sorted(subj.items())}
+    return subj
 
 
 def _recon_prompt_delta(clip, batch: ReconBatch, subj: Dict[str, torch.Tensor],
@@ -165,11 +196,7 @@ def make_recon_train_step(clip, unet, sched, optimizer=None, skip_weights=(0.5, 
     def loss_fn(embedders, batch: ReconBatch):
         dev = clip.token_embedding.weight.device
         embedded = clip.embed_tokens(_ids(batch.token_ids, dev))
-        subj = {s: compute_static_embedding(p) for s, p in embedders.items()}
-        if batch.emb_noise_std and batch.emb_noise_seed is not None:
-            gen = torch.Generator(device=dev).manual_seed(int(batch.emb_noise_seed))
-            subj = {s: add_noise_to_tensor(e, batch.emb_noise_std, generator=gen)
-                    for s, e in sorted(subj.items())}
+        subj = _subject_embeddings(embedders, batch, dev)
         patched = EmbeddingManager.patch_prompt_embeddings(embedded, batch.slot_maps, subj)
         L, B, T, D = patched.shape
         ctx = clip(input_embeds=patched.reshape(L * B, T, D),
@@ -201,7 +228,14 @@ def make_recon_train_step(clip, unet, sched, optimizer=None, skip_weights=(0.5, 
         metrics["loss"] = loss
         return loss, metrics
 
-    def step(embedders, batch: ReconBatch):
+    return _with_optimizer(loss_fn, optimizer)
+
+
+def _with_optimizer(loss_fn, optimizer):
+    """`step(embedders, batch) -> metrics`: loss, backward, optimizer step;
+    `step.loss_fn` is the loss alone."""
+
+    def step(embedders, batch):
         loss, metrics = loss_fn(embedders, batch)
         loss.backward()
         optimizer.step()
@@ -209,3 +243,222 @@ def make_recon_train_step(clip, unet, sched, optimizer=None, skip_weights=(0.5, 
 
     step.loss_fn = loss_fn
     return step
+
+
+class ComposBatch(NamedTuple):
+    """One compositional-distillation iteration: the 4-type prompt batch
+    with B blocks per type, order [subj_single, subj_comp, cls_single,
+    cls_comp], prepared on the host."""
+
+    token_ids: np.ndarray  # [4B, T]
+    slot_maps: Dict[str, np.ndarray]  # placeholder -> [4B, T] (-1 on class rows)
+    subj_slot_map: np.ndarray  # [4B, T] the foreground subject's slot map, by name
+    latents: torch.Tensor  # [B, h, w, 4] x_start (fg-initialized, reused or noise)
+    fg_mask: Optional[torch.Tensor]  # [B, h, w, 1]
+    timesteps: torch.Tensor  # [B]
+    noise: torch.Tensor  # [B, h, w, 4]
+    t_frac: torch.Tensor  # [B] timesteps / num_timesteps
+    training_percent: float
+    # compel weighting of the mixed contexts; level 0 leaves them as they are
+    compel_level: float = 0.0
+    compel_batch_mask: Optional[torch.Tensor] = None  # [4B] 1 = apply
+    # annealed embedding noise, as in ReconBatch
+    emb_noise_std: Optional[float] = None
+    emb_noise_seed: Optional[int] = None
+    # (k_lb, k_ub, v_lb, v_ub) class-mix scale ranges; None keeps the
+    # mixing defaults
+    cls_mix_ranges: Optional[tuple] = None
+    skip_weights: Optional[torch.Tensor] = None  # [2] per-iteration clip skip
+    # scale of the elastic-matching preserve battery: 0 unless x_start was
+    # fg-initialized, 0.5 fresh, 0.25 on a reuse-init iteration; None = 0.5
+    preserve_loss_scale: Optional[float] = None
+
+
+def make_compos_distill_step(clip, unet, sched, optimizer=None, skip_weights=(0.5, 0.5),
+                             prompt_delta_weight: float = 2e-4,
+                             mix_prompt_distill_weight: float = 1e-4,
+                             fg_bg_weight: float = 1.0,
+                             comp_fg_bg_preserve_weight: float = 1e-3,
+                             xlayer_weight: float = 5e-5, do_zero_shot: bool = True,
+                             bg_placeholders: frozenset = frozenset(),
+                             padding_embs_align_weight: float = 0.0,
+                             subj_comp_ortho_weight: float = 0.0,
+                             empty_ctx: Optional[torch.Tensor] = None):
+    """Returns `step(embedders, batch) -> metrics` of a compositional
+    iteration, closing over the frozen CLIP and UNet and the optimizer
+    chain; `step.loss_fn(embedders, batch) -> (loss, metrics)` is the loss
+    alone. `empty_ctx` (the empty prompt's first-layer context) turns on
+    the compel weighting of the V and K contexts. The padding-alignment and
+    subject/comp orthogonality regularizers run when their weights are > 0
+    (the latter captures the keys and values too)."""
+    core = _make_compos_loss_core(
+        clip, unet, sched, skip_weights, prompt_delta_weight, mix_prompt_distill_weight,
+        fg_bg_weight, comp_fg_bg_preserve_weight, xlayer_weight, do_zero_shot,
+        bg_placeholders, padding_embs_align_weight, subj_comp_ortho_weight, empty_ctx)
+
+    def loss_fn(embedders, batch: ComposBatch):
+        dev = clip.token_embedding.weight.device
+        embedded = clip.embed_tokens(_ids(batch.token_ids, dev))
+        subj = _subject_embeddings(embedders, batch, dev)
+        return core(EmbeddingManager.patch_prompt_embeddings(embedded, batch.slot_maps, subj),
+                    batch)
+
+    return _with_optimizer(loss_fn, optimizer)
+
+
+def _make_compos_loss_core(clip, unet, sched, skip_weights, prompt_delta_weight,
+                           mix_prompt_distill_weight, fg_bg_weight,
+                           comp_fg_bg_preserve_weight, xlayer_weight, do_zero_shot,
+                           bg_placeholders, padding_embs_align_weight,
+                           subj_comp_ortho_weight, empty_ctx):
+    """The distillation battery over an already-patched [L, 4B, T, D]
+    prompt-embedding batch."""
+
+    def core(patched, batch: ComposBatch):
+        L, B4, T, D = patched.shape
+        dev = patched.device
+        zero = torch.zeros((), device=dev)
+        ctx = clip(input_embeds=patched.reshape(L * B4, T, D),
+                   skip_weights=_iter_skip_weights(batch, skip_weights)).reshape(L, B4, T, D)
+        B = B4 // 4
+        subj_single, subj_comp = ctx[:, :B], ctx[:, B:2 * B]
+        cls_single, cls_comp = ctx[:, 2 * B:3 * B], ctx[:, 3 * B:]
+        # the class word over the subject's pad slots in the class rows, by
+        # the subj_single block's slot maps (the 4 prompt types are
+        # prefix-aligned)
+        for s in sorted(batch.slot_maps):
+            sm1b = np.asarray(batch.slot_maps[s])[:B]
+            cls_single = EmbeddingManager.distribute_cls_embeddings(cls_single, sm1b)
+            cls_comp = EmbeddingManager.distribute_cls_embeddings(cls_comp, sm1b)
+
+        ids = _ids(batch.token_ids, dev)
+        single_mask = _prompt_emb_mask(ids[:B])
+        comp_mask = _prompt_emb_mask(ids[B:2 * B])
+        loss_delta = prompt_delta_loss(subj_single, subj_comp, cls_single, cls_comp,
+                                       single_mask, comp_mask)
+
+        first = torch.as_tensor(np.asarray(batch.subj_slot_map), device=dev)
+        subj_tok_single = (first[:B] >= 0).float()
+        subj_tok_comp = (first[B:2 * B] >= 0).float()
+        mix_kw = {}
+        if batch.cls_mix_ranges is not None:
+            r = batch.cls_mix_ranges
+            mix_kw = dict(k_cls_scale_range=(r[0], r[1]), v_cls_scale_range=(r[2], r[3]))
+        s_vk_single, m_vk_single = mix_static_vk_embeddings(
+            subj_single, cls_single, subj_tok_single, batch.training_percent, batch.t_frac,
+            **mix_kw)
+        s_vk_comp, m_vk_comp = mix_static_vk_embeddings(
+            subj_comp, cls_comp, subj_tok_comp, batch.training_percent, batch.t_frac,
+            **mix_kw)
+        ctx_vk = torch.cat([s_vk_single, s_vk_comp, m_vk_single, m_vk_comp], dim=1)
+        ctx_v, ctx_k = ctx_vk[:, :, :T], ctx_vk[:, :, T:]
+        if empty_ctx is not None:
+            # V and K weighted separately around the empty prompt's context
+            empty = empty_ctx.to(ctx_v.dtype)
+            ctx_v = apply_compel_cfg(ctx_v, empty, batch.compel_level,
+                                     batch_mask=batch.compel_batch_mask)
+            ctx_k = apply_compel_cfg(ctx_k, empty, batch.compel_level,
+                                     batch_mask=batch.compel_batch_mask)
+        t4 = batch.timesteps.repeat(4)
+        x_noisy = sched.q_sample(batch.latents.repeat(4, 1, 1, 1), t4,
+                                 batch.noise.repeat(4, 1, 1, 1))
+        cap_keys = ("outfeat", "attnscore", "q")
+        if subj_comp_ortho_weight > 0:
+            cap_keys = cap_keys + ("k", "v")
+        _, aux = unet(x_noisy, t4, ctx_v, context_k=ctx_k, capture=True,
+                      capture_keys=cap_keys)
+
+        # prompt-mix feature / attention delta alignment and attention norm
+        # distillation; the mix rows carry the (mixed) subject embeddings at
+        # the subject rows' slot positions
+        layer_w = _normalize_weights(ATTN_ALIGN_LAYER_WEIGHTS)
+        subj_mask4 = torch.cat([subj_tok_single, subj_tok_comp, subj_tok_single,
+                                subj_tok_comp], dim=0)
+        l_feat, l_attn, l_attn_norm = [], [], []
+        for idx in DISTILL_LAYER_INDICES:
+            if idx not in aux or idx not in layer_w:
+                continue
+            subj_attn = torch.einsum("bhqt,bt->bhq", aux[idx]["attnscore"].float(), subj_mask4)
+            fd, ad, an = prompt_mix_layer_losses(aux[idx]["outfeat"], subj_attn)
+            l_feat.append(layer_w[idx] * fd)
+            l_attn.append(layer_w[idx] * ad)
+            l_attn_norm.append(layer_w[idx] * an)
+        loss_feat = normalized_sum(l_feat)
+        loss_attn = normalized_sum(l_attn)
+        loss_attn_norm = normalized_sum(l_attn_norm)
+
+        bg_keys = sorted(k for k in batch.slot_maps if k in bg_placeholders)
+        bg_mask2 = _slot_union_mask({k: np.asarray(batch.slot_maps[k])[:2 * B] for k in bg_keys},
+                                    bg_keys, dev)
+        subj_mask2 = torch.cat([subj_tok_single, subj_tok_comp], dim=0)
+        # cross-layer attention consistency over the subject rows
+        loss_xlayer = zero
+        if xlayer_weight > 0:
+            subj_scores = {i: aux[i]["attnscore"][:2 * B] for i in aux if "attnscore" in aux[i]}
+            fg_x, bg_x = fg_bg_xlayer_consist_loss(subj_scores, subj_mask2, bg_mask2)
+            fg_scale = 0.2 if do_zero_shot else 1.0
+            bg_scale = 0.06 if do_zero_shot else 0.3
+            if bg_mask2 is not None:
+                # no bg token in this iteration's prompts: an empty mask
+                bg_x = bg_x * torch.clamp(torch.sum(bg_mask2), 0.0, 1.0)
+            loss_xlayer = fg_x * fg_scale + bg_x * bg_scale
+
+        loss_fg_bg = zero
+        loss_preserve = zero
+        if batch.fg_mask is not None:
+            scores_first = {i: aux[i]["attnscore"][:B] for i in aux if "attnscore" in aux[i]}
+            loss_fg_bg = fg_mb_suppress_loss(scores_first, subj_tok_single, batch.fg_mask)
+            p_map, p_fg, p_bg, p_subj_sup, p_mix_sup = comp_fg_bg_preserve_loss(
+                {i: aux[i]["outfeat"] for i in aux}, {i: aux[i]["q"] for i in aux},
+                {i: aux[i]["attnscore"] for i in aux}, batch.fg_mask, subj_mask4)
+            loss_preserve = (p_map + p_fg + p_bg * dyn_loss_scale(p_bg, 0.2, 2.0, 1.0, 3.0)
+                             + (p_subj_sup + p_mix_sup) * 0.02)
+
+        loss_pad_align = zero
+        if padding_embs_align_weight > 0:
+            lp, lb = padding_embs_align_loss(ctx[:, :2 * B],
+                                             torch.cat([single_mask, comp_mask], dim=0),
+                                             subj_mask2, bg_mask2)
+            loss_pad_align = lp + lb
+        loss_ortho_k = loss_ortho_v = zero
+        if subj_comp_ortho_weight > 0:
+            # block 0 of each prompt type; the class rows carry the class
+            # embedding at the subject's slot positions
+            sel = [0, B, 2 * B, 3 * B]
+            loss_ortho_k, loss_ortho_v = subj_comp_ortho_loss(
+                {i: aux[i]["k"][sel] for i in aux}, {i: aux[i]["v"][sel] for i in aux},
+                {i: aux[i]["attnscore"][sel] for i in aux},
+                subj_comp_subj_mask=subj_tok_comp[0],
+                subj_comp_extra_mask=comp_extra_token_mask(comp_mask[0], subj_tok_comp[0]),
+                cls_comp_subj_mask=subj_tok_comp[0],
+                cls_comp_extra_mask=comp_extra_token_mask(
+                    _prompt_emb_mask(ids[3 * B:3 * B + 1])[0], subj_tok_comp[0]))
+
+        attn_norm_scale = 1.0 if do_zero_shot else dyn_loss_scale(loss_attn_norm, 5.0, 0.2)
+        loss_mix_distill = (loss_attn * 0.1 + loss_attn_norm * attn_norm_scale
+                            + loss_feat * (0.5 if do_zero_shot else 2.0))
+        preserve_scale = (0.5 if batch.preserve_loss_scale is None
+                          else float(batch.preserve_loss_scale))
+        # the preserve battery, when it contributes, halves the mix distillation
+        mix_scale = 1.0
+        if batch.fg_mask is not None:
+            mix_scale = torch.where((preserve_scale * loss_preserve).detach() > 0, 0.5, 1.0)
+        loss = (prompt_delta_weight * loss_delta
+                + mix_prompt_distill_weight * mix_scale * loss_mix_distill
+                + fg_bg_weight * loss_fg_bg
+                + comp_fg_bg_preserve_weight * preserve_scale * loss_preserve
+                + xlayer_weight * loss_xlayer
+                + padding_embs_align_weight * loss_pad_align
+                + subj_comp_ortho_weight * (loss_ortho_k + loss_ortho_v))
+        metrics = {"loss": loss, "prompt_delta": loss_delta, "feat_align": loss_feat,
+                   "attn_align": loss_attn, "attn_norm_distill": loss_attn_norm,
+                   "mix_prompt_distill": loss_mix_distill, "fg_bg": loss_fg_bg,
+                   "comp_fg_bg_preserve": loss_preserve, "xlayer_consist": loss_xlayer}
+        if padding_embs_align_weight > 0:
+            metrics["padding_embs_align"] = loss_pad_align
+        if subj_comp_ortho_weight > 0:
+            metrics["subj_comp_ortho_k"] = loss_ortho_k
+            metrics["subj_comp_ortho_v"] = loss_ortho_v
+        return loss, metrics
+
+    return core

@@ -1,25 +1,31 @@
-"""Recon-only training loop (counterpart of the single-device recon path of
+"""Training loop (counterpart of the single-device path of
 `adaface_tpu/training/trainer.py`).
 
-Per step, `plan_iteration` rolls the iteration on the host; a recon plan
+Per step, `plan_iteration` rolls the iteration on the host. A recon plan
 draws examples from `PersonalizedDataset` (one subject per instance),
 VAE-encodes the images (the posterior mean times the scale factor, no
 gradient), builds the `ReconBatch` (timesteps, noise, latent-resolution fg
 and augmentation masks, the delta-prompt battery, embedding-noise seed) and
-runs the recon step; gradient accumulation and global-norm clipping live in
-the optimizer chain (`training/prodigy.py`). The host numpy RNG is consumed
-in the JAX trainer's order, so one seed builds the same batches in both.
-Checkpoints are the embedding manager's native `.npz` every
-`ckpt_every_steps` and `last`; metrics stream to stdout and `metrics.jsonl`.
+runs the recon step. A compositional-distillation plan (every
+`composition_regs_iter_gap`-th step) draws one example, builds its 4-type
+prompt block, its x_start (the training image's foreground scaled onto
+noise, pure noise, or a cached reconstruction on a reuse-init iteration),
+timesteps in the top 20% (mid-range on reuse), compel draws and the class-mix
+ranges, and runs the compositional step; one block (4 UNet rows) on one
+card, whatever `batch_size` says. Gradient accumulation and global-norm
+clipping live in the optimizer chain (`training/prodigy.py`). The host numpy
+RNG is consumed in the JAX trainer's order, so one seed builds the same
+batches in both. Checkpoints are the embedding manager's native `.npz`
+every `ckpt_every_steps` and `last`; metrics stream to stdout and
+`metrics.jsonl`.
 
 The optimizer is always Prodigy (learning rate 1, `d_coef`) behind the
-clip and accumulation chain. A compositional-distillation plan raises
-NotImplementedError (the next slice of the port, ROADMAP.md queue 1);
-Arc2Face plans run as recon, as the JAX trainer runs them when it is given
-no teacher (the port has none yet). AdamW, the data-parallel mesh, the
-webdataset compositor, validation, EMA, the image logger, the teacher
-filter, `save_state`/`load_state` and the signal handlers are not ported
-yet.
+clip and accumulation chain. Arc2Face plans run as recon, as the JAX
+trainer runs them when it is given no teacher (the port has none yet).
+`cached_inits` stays None until the teacher filter, which fills it, is
+ported. AdamW, the data-parallel mesh, the webdataset compositor,
+validation, EMA, the image logger, the teacher filter,
+`save_state`/`load_state` and the signal handlers are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from adaface_tpu_torch.data.personalized import (
     collate_examples,
 )
 from adaface_tpu_torch.models.vae import SD_VAE_SCALE_FACTOR
+from adaface_tpu_torch.ops.compel import sample_compel_cfg
 from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
 from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
 from adaface_tpu_torch.training.iter_plan import (
@@ -51,7 +58,13 @@ from adaface_tpu_torch.training.iter_plan import (
     sample_timesteps,
 )
 from adaface_tpu_torch.training.prodigy import AccumulatedClipped, Prodigy
-from adaface_tpu_torch.training.train_step import ReconBatch, make_recon_train_step
+from adaface_tpu_torch.training.train_step import (
+    ComposBatch,
+    ReconBatch,
+    make_compos_distill_step,
+    make_recon_train_step,
+)
+from adaface_tpu_torch.training.x_init import init_x_with_fg_from_training_image
 
 
 @dataclasses.dataclass
@@ -67,6 +80,10 @@ class TrainerConfig:
     # recon-iteration complementary battery weights
     fg_bg_complementary_loss_weight: float = 2e-4
     fg_bg_xlayer_consist_loss_weight: float = 5e-5
+    # compel weighting of the compos iterations' V/K contexts: probability
+    # and the range the level is drawn from
+    apply_compel_cfg_prob: float = 0.0
+    compel_cfg_weight_level_range: tuple = (2.0, 2.0)
     # per-iteration Dirichlet resampling of the clip-skip blend weights
     randomize_clip_skip_weights: bool = False
     clip_skip_weights_alpha: tuple = (1.0, 1.0)
@@ -111,6 +128,13 @@ class Trainer:
         self._delta_w = self.plan_cfg.prompt_emb_delta_reg_weight * delta_scale
         self._emb_reg_w = 0.0 if self.plan_cfg.do_zero_shot else 2e-4 * 0.5
         self._recon_steps: Dict[tuple, object] = {}
+        self._compos_step = None
+        # the empty prompt's first-layer context, frozen, for compel
+        self._empty_ctx = None
+        if cfg.apply_compel_cfg_prob > 0:
+            self._empty_ctx = pipeline.encode_negative("", 1)[0, 0].clone()
+        # reuse-init cache, filled by the teacher filter (not ported yet)
+        self.cached_inits = None
 
     # ------------------------------------------------------------- plumbing
     def _log(self, metrics: Dict, plan: IterPlan):
@@ -231,6 +255,184 @@ class Trainer:
         step = self._get_recon_step(plan.use_background_token)
         return step(self.mgr.embedders, batch)
 
+    # ------------------------------------------------------- compositional
+    def _get_compos_step(self):
+        if self._compos_step is None:
+            p = self.pipe
+            self._compos_step = make_compos_distill_step(
+                p.clip, p.unet, p.base_sched, self.optimizer, skip_weights=p.skip_weights,
+                prompt_delta_weight=self._delta_w,
+                mix_prompt_distill_weight=self.plan_cfg.mix_prompt_distill_weight,
+                do_zero_shot=self.plan_cfg.do_zero_shot,
+                bg_placeholders=self._bg_placeholders, empty_ctx=self._empty_ctx)
+        return self._compos_step
+
+    def _compos_x_start(self, plan: IterPlan, ex: list, latents: torch.Tensor,
+                        fg_latent: np.ndarray, prompts: list):
+        """x_start of a compos iteration over the CB blocks `ex`. Reuse-init
+        when every block's subject has a cached entry whose iteration flags
+        agree: the cached x_start, t, fg mask, prompt battery and flags are
+        restored (the reconstruction was denoised under those prompts), and
+        each subject's entry is popped once. Otherwise fresh: the training
+        image's fg scaled onto noise when the plan asks for it and a mask
+        has fg, else pure noise. Returns (latents, fg_latent, prompts,
+        prev_t or None)."""
+        prev_t, entries = None, None
+        flag_keys = ("use_background_token", "comp_init_fg_from_training_image",
+                     "use_wds_comp")
+        if self.cached_inits is not None:
+            cand = [self.cached_inits.peek(e["subject_name"]) for e in ex]
+            if all(c is not None for c in cand) and all(
+                    all(bool(c.get(k, False)) == bool(cand[0].get(k, False))
+                        for k in flag_keys) for c in cand):
+                popped = {e["subject_name"]: None for e in ex}
+                for name in popped:
+                    popped[name] = self.cached_inits.pop(name)
+                entries = [popped[e["subject_name"]] for e in ex]
+        if entries is not None:
+            latents = self._tensor(np.concatenate([c["x_start"][:1] for c in entries]))
+            prev_t = np.concatenate([np.asarray(c["t"][:1]) for c in entries])
+            if all(c.get("fg_mask") is not None for c in entries):
+                fg_latent = np.concatenate([np.asarray(c["fg_mask"])[:1] for c in entries])
+            if all(c.get("prompts") is not None for c in entries):
+                per = [list(c["prompts"]) for c in entries]
+                prompts = [p[k] for k in range(4) for p in per]
+            e0 = entries[0]
+            plan.reuse_init_conds = True
+            plan.do_teacher_filter = False
+            plan.use_background_token = bool(
+                e0.get("use_background_token", plan.use_background_token))
+            plan.comp_init_fg_from_training_image = bool(
+                e0.get("comp_init_fg_from_training_image", False))
+            plan.use_wds_comp = bool(e0.get("use_wds_comp", False))
+        elif plan.use_wds_comp:
+            pass  # the bg-only webdataset image's latents stay as they are
+        elif plan.comp_init_fg_from_training_image and float(fg_latent.sum()) > 0:
+            x_np, fg_latent = init_x_with_fg_from_training_image(
+                self.rng, latents.float().cpu().numpy(), fg_latent, plan.training_percent)
+            latents = self._tensor(x_np)
+        else:
+            plan.comp_init_fg_from_training_image = False
+            latents = self._tensor(self.rng.standard_normal(tuple(latents.shape)))
+        return latents, fg_latent, prompts, prev_t
+
+    def _cache_teacher_recon(self, e: dict, x_recon, t, fg_latent, plan: IterPlan, prompts):
+        """Cache a reconstruction for a later reuse-init iteration of this
+        subject, with the conditioning it was denoised under (this block's
+        4 prompts and the plan's flags)."""
+        if self.cached_inits is None:
+            return
+        host = lambda a: a.detach().float().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+        self.cached_inits.put(
+            e["subject_name"], host(x_recon), host(t), fg_mask=host(fg_latent),
+            prompts=list(prompts), use_background_token=bool(plan.use_background_token),
+            comp_init_fg_from_training_image=bool(plan.comp_init_fg_from_training_image),
+            use_wds_comp=bool(plan.use_wds_comp))
+
+    def _wds_compos_swap(self, plan: IterPlan, ex: list) -> None:
+        """The webdataset composite of a compos iteration (a fifth of them
+        start from the bg-only image) needs the compositor, which is not
+        ported yet. Without one the JAX trainer returns before drawing from
+        its RNG; so does this, and the plan and examples stay as they are."""
+
+    def _wds_comp_prompts(self, plan: IterPlan, e: dict, prompts: list) -> list:
+        """On a webdataset iteration, the comp prompts' extras replaced by
+        the webdataset background's."""
+        if not plan.use_wds_comp or not e.get("wds_comp_extra"):
+            return prompts
+        extra = e["wds_comp_extra"]
+        return [prompts[0], prompts[0] + extra, prompts[2], prompts[2] + extra]
+
+    def _compos_prompt_battery(self, plan: IterPlan, ex: list) -> list:
+        """The type-major 4-type prompts over the CB blocks ([ss_0.., sc_0..,
+        cs_0.., cc_0..]) with the richest suffix (_fp_bg, _fp, _bg, none)
+        whose whole battery every block has."""
+        bg, fp = plan.use_background_token, plan.use_fp_trick
+
+        def keys_for(suffix):
+            return [f"subj_prompt_single{suffix}", f"subj_prompt_comp{suffix}",
+                    f"cls_prompt_single{suffix}", f"cls_prompt_comp{suffix}"]
+
+        suffix = ""
+        for cand in ((["_fp_bg"] if (fp and bg) else []) + (["_fp"] if fp else [])
+                     + (["_bg"] if bg else []) + [""]):
+            if all(k in e for e in ex for k in keys_for(cand)):
+                suffix = cand
+                break
+        per_block = [self._wds_comp_prompts(plan, e, [e[k].split("|")[0]
+                                                      for k in keys_for(suffix)])
+                     for e in ex]
+        return [p[k] for k in range(4) for p in per_block]
+
+    def build_compos_batch(self, plan: IterPlan) -> ComposBatch:
+        """Draw and prepare one compos block (host RNG in the JAX order)."""
+        CB = 1  # one block on one card
+        ex = self._draw_examples(CB)
+        self._wds_compos_swap(plan, ex)
+        prompts = self._compos_prompt_battery(plan, ex)
+        latents = self._latents(np.stack([e["image"] for e in ex]))
+        lh, lw = latents.shape[1:3]
+        fg_latent = self._mask_to_latent(np.stack([e["fg_mask"] for e in ex]), lh, lw)
+        for b, e in enumerate(ex):
+            if not e.get("has_fg_mask", True):
+                # a maskless instance must not preserve its all-1 default
+                # mask; zeroing it also turns fg-init off
+                fg_latent[b] = 0.0
+        latents, fg_latent, prompts, prev_t = self._compos_x_start(
+            plan, ex, latents, fg_latent, prompts)
+        # tokenized after the cache check: a reuse-init iteration restores
+        # the cached prompts
+        ids = self.pipe.tokenizer(prompts)
+        slots = self.mgr.build_slot_maps(ids)
+        subj_string = next(s for s, info in self.mgr.placeholders.items()
+                           if not info.is_background)
+        t = sample_timesteps(self.rng, plan, CB, self.plan_cfg, prev_t=prev_t)
+        noise = self._tensor(self.rng.standard_normal(tuple(latents.shape)))
+        compel_level, compel_mask = 0.0, None
+        if self.cfg.apply_compel_cfg_prob > 0:
+            compel_level, compel_mask = sample_compel_cfg(
+                self.rng, self.cfg.apply_compel_cfg_prob,
+                self.cfg.compel_cfg_weight_level_range, n_instances=4 * CB)
+        kw = {}
+        if plan.emb_noise_std > 0:
+            kw = dict(emb_noise_std=float(plan.emb_noise_std),
+                      emb_noise_seed=int(self.rng.integers(2 ** 31)))
+        return ComposBatch(
+            token_ids=ids, slot_maps=slots, subj_slot_map=slots[subj_string],
+            latents=latents, fg_mask=self._tensor(fg_latent),
+            timesteps=self._tensor(t, torch.int32), noise=noise,
+            t_frac=self._tensor(t / self.plan_cfg.num_timesteps),
+            training_percent=plan.training_percent,
+            compel_level=compel_level,
+            compel_batch_mask=None if compel_mask is None else self._tensor(compel_mask),
+            cls_mix_ranges=self._cls_mix_ranges(plan),
+            preserve_loss_scale=self._preserve_scale(plan),
+            **self._skip_weights_kw(), **kw)
+
+    def _run_compos(self, plan: IterPlan):
+        batch = self.build_compos_batch(plan)
+        return self._get_compos_step()(self.mgr.embedders, batch)
+
+    def _preserve_scale(self, plan: IterPlan) -> float:
+        """The elastic-matching preserve battery's scale: on only when x_start
+        was fg-initialized, halved again on a reuse-init iteration."""
+        if not plan.comp_init_fg_from_training_image:
+            return 0.0
+        return 0.25 if plan.reuse_init_conds else 0.5
+
+    def _cls_mix_ranges(self, plan: IterPlan) -> tuple:
+        """[k_lb, k_ub, v_lb, v_ub] class-mix scale ranges of the V/K teacher
+        contexts: zero-shot mixes more subject into V; fg-initialized
+        iterations slightly less."""
+        fg_init = plan.comp_init_fg_from_training_image
+        if self.plan_cfg.do_zero_shot:
+            k = (1.0, 0.8)
+            v = (1.0, 0.7) if fg_init else (1.0, 0.6)
+        else:
+            k = (1.0, 1.0)
+            v = (1.0, 0.85) if fg_init else (1.0, 0.7)
+        return (*k, *v)
+
     # ------------------------------------------------------------------ run
     def fit(self, num_steps: Optional[int] = None):
         """Run the training loop for `num_steps` micro-steps (default
@@ -243,10 +445,9 @@ class Trainer:
                 if plan.iter_type == ARC2FACE_DISTILL:
                     plan.iter_type = RECON  # no teacher
                 if plan.iter_type == COMPOS_DISTILL:
-                    raise NotImplementedError(
-                        "compositional distillation is not ported yet (ROADMAP.md, queue 1); "
-                        "set composition_regs_iter_gap=0 for recon-only training")
-                metrics = self._run_recon(plan)
+                    metrics = self._run_compos(plan)
+                else:
+                    metrics = self._run_recon(plan)
                 self._log(metrics, plan)
                 self.global_step += 1
                 if self.global_step % self.cfg.ckpt_every_steps == 0:

@@ -36,13 +36,19 @@ Phases, each of which exits non-zero on failure:
      the device's idle share for one whole request;
   8. training reference: one recon loss and its embedder gradients at SD
      widths on a 32x32 latent, bf16 on the card against fp32 on the CPU;
-  9. training: the recon-only `Trainer.fit` (batch 3, 512x512, 2-step
-     accumulation, Prodigy, clip 0.5) for 8 micro-steps, each of which must
-     launch exactly 15 forward, 14 dq and 14 dk/dv kernels (the UNet's
-     first self-attention precedes everything trained, so it has no
-     backward); metrics finite,
-     embedders moved, the checkpoint reloads; s per micro-step, peak memory
-     and one profiled micro-step.
+  8b. compos reference: one compositional loss and its embedder gradients
+     at SD widths on a 64x64 latent (512x512 images, one block: 4 UNet
+     rows), bf16 against an fp32 copy on the card (einsum attention, the
+     fused knobs off, TF32 off), at the same gates;
+  9. training: `Trainer.fit` on `configs/finetune-static-layerwise.yaml`'s
+     values (batch 3, 512x512, 2-step accumulation, Prodigy, clip 0.5,
+     `composition_regs_iter_gap` 3) for 8 micro-steps: each recon
+     micro-step must launch exactly 15 forward, 14 dq and 14 dk/dv kernels
+     at batch 3 (the UNet's first self-attention precedes everything
+     trained, so it has no backward), each compos micro-step (0, 3, 6) as
+     many at batch 4 without key bias (`COMPOS_SHAPES`); metrics finite,
+     embedders moved, the checkpoint reloads; median s per recon and per
+     compos micro-step, peak memory, one profiled micro-step of each kind.
 The fused configuration (`FUSED_KNOBS`: the JAX package's
 `ADAFACE_GN_MAX_ELEMS` and `ADAFACE_FUSED_FF` knobs, set in-process and
 restored after each use) adds:
@@ -68,10 +74,11 @@ restored after each use) adds:
   6b. generate under the knobs: one warm-up and 2 timed requests, each of
       which must launch exactly 750 flash forwards, 2,250 K8 and 800 K9;
       one profiled request;
-  9b. training under the knobs: 4 micro-steps, each with exactly 15/14/14
-      flash launches, 45 K8 and 4 K9 (the transformer blocks of layers 1,
-      2, 4 and 5; the others capture); metrics finite, embedders moved; one
-      profiled micro-step.
+  9b. training under the knobs: 4 micro-steps (compos 0 and 3), each with
+      exactly 15/14/14 flash launches, 45 K8 and 4 K9 (the transformer
+      blocks of layers 1, 2, 4 and 5; the others capture), at batch 3 on a
+      recon micro-step and 4 on a compos one; metrics finite, embedders
+      moved; one profiled micro-step.
 The knob arms of the attention dispatch (the JAX package's `ADAFACE_FLASH_*`
 knobs, set in-process and restored) and the Winograd conv add:
   4c. arm kernels vs plain: the forward kernel through the public entries
@@ -103,9 +110,15 @@ knobs, set in-process and restored) and the Winograd conv add:
       exactly the expected launches by (TPU kernel id, shape); images bit
       for bit the default request's where the arm changes no arithmetic,
       else within ARM_UINT8_MEAN_TOL;
-  9c. training under `PACKED=0` (K6) and `CROSS=1`: 2 micro-steps each with
-      exact forward, dq and dk/dv launches by (arm, shape); metrics finite,
-      embedders moved.
+  9c. training under `PACKED=0` (K6) and `CROSS=1`: 2 recon-only
+      micro-steps each with exact forward, dq and dk/dv launches by (arm,
+      shape); metrics finite, embedders moved.
+The compositional path adds:
+  4f. the flash forward with its lse, dq and dk/dv at the compos shapes (B4
+      L4096 d40, B4 L1024 d80, B4 L256 d160, no key bias, and with one),
+      and K8 / K9 at the compos step's batch-4 shapes (in 4b's loops),
+      against their plain versions with 4's and 4b's gates, planted faults
+      and repeats; kernel, plain, bound and library times.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -169,7 +182,17 @@ MAIN_SHAPES = {
 # forward without lse and no backward, as XLA drops its backward in JAX.
 TRAIN_SHAPES = {(3, 4096, 8, 40): (K1, 5, 4), (3, 1024, 8, 80): (K1, 5, 5),
                 (3, 256, 8, 160): (K4, 5, 5)}
-TRAIN_STEPS = 8  # micro-steps, 4 optimizer updates
+# A compositional micro-step runs one UNet call over one block of 4 rows
+# (subj_single, subj_comp, mix_single, mix_comp) with no key mask: the same
+# self-attentions at batch 4, without bias. The distillation layers capture
+# their cross-attention on the einsum path; their self-attention stays on the
+# flash path. Again the first self-attention has no backward.
+COMPOS_SHAPES = {(4, 4096, 8, 40): (K1, 5, 4), (4, 1024, 8, 80): (K1, 5, 5),
+                 (4, 256, 8, 160): (K4, 5, 5)}
+# the shipped configs' `composition_regs_iter_gap`: micro-steps 0, 3, 6, ...
+# are compositional
+COMPOS_GAP = 3
+TRAIN_STEPS = 8  # micro-steps (compos 0, 3, 6), 4 optimizer updates
 # Backward gate, kernel vs the plain fp32 backward on the same bf16 inputs.
 # Measured on an H100 at these shapes: dq/dk/dv relative L2 2.2e-3..2.4e-3
 # (bf16 rounding of ds, p and the outputs), max abs 1.0e-3..7.1e-3 growing
@@ -185,6 +208,7 @@ DBIAS_REL_TOL = 1e-4
 # (measured 2.2e-2..2.7e-2).
 TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = 1e-1
+# (8b) the compos reference holds its loss and gradients to the same gates
 # (B, Lq, Lk, H, d, key bias, q/k/v as thirds of one fused projection) that
 # no path gives the backward but its wrappers take, checked for agreement
 # only (dq, dk, dv at CROSS_BWD_ABS_TOL of the largest value and BWD_REL_TOL,
@@ -228,6 +252,10 @@ GN_TRAIN_SHAPES = {(3, 4096, 320): 8, (3, 4096, 640): 2, (3, 4096, 960): 1,
 # the blocks of DISTILL_LAYER_INDICES capture
 FF_SHAPES = {(16, 4096, 320): 5, (16, 1024, 640): 5, (16, 256, 1280): 5, (16, 64, 1280): 1}
 FF_TRAIN_SHAPES = {(3, 4096, 320): 2, (3, 1024, 640): 2}
+# the same sites in a compos micro-step: batch 4, and K9 again only in the
+# uncaptured layers 1, 2, 4 and 5
+GN_COMPOS_SHAPES = {(4, n, c): k for (_, n, c), k in GN_TRAIN_SHAPES.items()}
+FF_COMPOS_SHAPES = {(4, 4096, 320): 2, (4, 1024, 640): 2}
 # (B, L, C, F) that no path gives K9 but its wrapper takes, checked for
 # agreement only: one row, ragged row blocks, F not a multiple of 128 (64-
 # column GEMM1 tiles), C not a multiple of 160 (128- and 64-column GEMM2
@@ -235,7 +263,7 @@ FF_TRAIN_SHAPES = {(3, 4096, 320): 2, (3, 1024, 640): 2}
 FF_EDGE_SHAPES = [(1, 1, 320, 1280), (1, 129, 640, 2560), (2, 33, 64, 192),
                   (1, 200, 128, 512), (1, 8, 1280, 5120), (3, 1000, 1280, 5120),
                   (1, 9000, 192, 768), (1, 5000, 512, 2048)]
-FUSED_TRAIN_STEPS = 4
+FUSED_TRAIN_STEPS = 4  # compos 0 and 3
 # K8 gate, kernel (bf16 out) vs the plain fp32 function on the same bf16
 # inputs. Measured on an H100 at all 29 shapes: relative L2 1.67e-3..1.69e-3,
 # max abs up to 1.56e-2 (values up to ~8), which is the output's own bf16
@@ -577,15 +605,19 @@ def check_bwd_repeats(torch, fa, args, got, label, split=None):
             fail(f"{label}: two launches disagree on {what}")
 
 
-def phase_backward_kernels(torch, fa, card, exp2_rate):
-    """The forward's lse and the dq and dk/dv/dbias kernels at the training
-    shapes against the plain backward, planted faults, and times."""
+def phase_backward_kernels(torch, fa, card, exp2_rate, shapes=TRAIN_SHAPES,
+                           biases=(True, False)):
+    """The forward's lse and the dq and dk/dv/dbias kernels at `shapes`
+    (the recon training shapes; phase 4f passes the compos ones) against
+    the plain backward, with and without a key bias as `biases` lists,
+    planted faults, and times in the first configuration of `biases` (the
+    path's own: the recon step masks its keys, the compos step does not)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = {}
-    for (b, l, h, d), (replaces, _, _) in TRAIN_SHAPES.items():
-        for with_bias in (True, False):
+    for (b, l, h, d), (replaces, _, _) in shapes.items():
+        for with_bias in biases:
             inner = h * d
             rand = lambda: torch.randn((b, l, inner), generator=gen, device="cuda").bfloat16()
             q, k, v, do = rand(), rand(), rand(), rand()
@@ -609,6 +641,9 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
                      f"call each")
             check_bwd_repeats(torch, fa, (q, k, v, bias, do, lse, delta, h),
                               (dq, dk, dv, dbias), label)
+            again = fa.flash_attention_blc_cuda(q, k, v, h, bias, return_lse=True)
+            if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+                fail(f"{label}: two forward launches disagree on o or lse")
             plain_out = fa.flash_attention_blc_plain(q, k, v, h, bias)
             plain_lse = fa.row_lse_plain(q, k, h, bias)
             pdq, pdk, pdv, pdb = fa.flash_backward_plain(q, k, v, bias, out, do, lse, h)
@@ -650,10 +685,18 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
                     f"rel L2 {rel:.3e}")
                 if ok:
                     fail(f"{label}: the gate passes a planted fault ({name}, {what})")
-            del tile_dq, no_delta, skipped_dk, no_last
-            if not with_bias:
+            # the forward's own planted faults, and the lse without the
+            # first key tile
+            check_gate_rejects_faults(fa, q, k, v, h, d, bias, plain_out, label)
+            tile_lse = fa.row_lse_plain(q, k[:, 64:], h, None if bias is None else bias[:, 64:])
+            err, rel, ok = _gate_bwd(tile_lse, plain_lse, d, "lse")
+            say(f"[backward]   planted fault, key tile 0 skipped (lse): max abs err {err:.3e}")
+            if ok:
+                fail(f"{label}: the gate passes a planted fault (key tile 0 skipped, lse)")
+            del tile_dq, no_delta, skipped_dk, no_last, tile_lse
+            if with_bias != biases[0]:
                 continue
-            # times at the training configuration (with the bias); the
+            # times at the path's configuration (the first of `biases`); the
             # forward with and without its lse output, alternated
             fwd_times = {False: [], True: []}
             for want_lse in (False, True, True, False):
@@ -677,7 +720,7 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
                 q, k, v, bias, out, do, lse, h), reps=2, rounds=3)
             qh, kh, vh = (t.unflatten(-1, (h, d)).transpose(1, 2).detach().requires_grad_(True)
                           for t in (q, k, v))
-            mask = bias.to(torch.bfloat16)[:, None, None, :]
+            mask = None if bias is None else bias.to(torch.bfloat16)[:, None, None, :]
             sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                           scale=scale)
             fwd_lib_ms = time_ms(torch, lambda: sdpa().detach())
@@ -685,8 +728,8 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
             # its log-sum-exp output
             efficient = torch.ops.aten._scaled_dot_product_efficient_attention
             lse_lib_ms = time_ms(torch, lambda: efficient(
-                qh.detach(), kh.detach(), vh.detach(), mask.expand(b, h, l, l), True,
-                scale=scale))
+                qh.detach(), kh.detach(), vh.detach(),
+                None if mask is None else mask.expand(b, h, l, l), True, scale=scale))
             o_lib = sdpa()
             g_lib = do.unflatten(-1, (h, d)).transpose(1, 2)
             bwd_lib_ms = time_ms(torch, lambda: torch.autograd.grad(
@@ -694,10 +737,10 @@ def phase_backward_kernels(torch, fa, card, exp2_rate):
             bwd_lib_dev = device_ms(torch, lambda: torch.autograd.grad(
                 o_lib, (qh, kh, vh), g_lib, retain_graph=True))
             del o_lib, qh, kh, vh
-            fwd_bound = bound(b, l, l, h, d, exp2_rate, True)
+            fwd_bound = bound(b, l, l, h, d, exp2_rate, with_bias)
             lse_b = lse_bound(b, l, h, d, exp2_rate)
-            dq_bound = bwd_bound(b, l, l, h, d, exp2_rate, "dq", True)
-            dkv_bound = bwd_bound(b, l, l, h, d, exp2_rate, "dkv", True)
+            dq_bound = bwd_bound(b, l, l, h, d, exp2_rate, "dq", with_bias)
+            dkv_bound = bwd_bound(b, l, l, h, d, exp2_rate, "dkv", with_bias)
             rows[("fwd", b, l, h, d)] = dict(
                 replaces=f"{replaces} (+ {K3A} as the lse output)",
                 max_abs_err=errs["o"][0], ms=fwd_ms, plain_ms=fwd_plain_ms,
@@ -923,15 +966,17 @@ def build_gn_tanh_fault():
 
 def phase_fused_kernels(torch, card, exp2_rate):
     """K8 and K9 against their plain fp32 versions at every shape of the
-    fused paths, planted faults, repeatability, and times: kernel, bound,
-    plain and the default arm (the unfused torch ops the knob replaces);
-    then both at their edge shapes, agreement and repeats only."""
+    fused paths (generate, recon and compos training), planted faults,
+    repeatability, and times: kernel, bound, plain and the default arm (the
+    unfused torch ops the knob replaces); then both at their edge shapes,
+    agreement and repeats only."""
     fn, ff = _fused_ops()
     gen = torch.Generator(device="cuda").manual_seed(9)
     randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
-    for b, n, c in sorted(set(GN_SHAPES) | set(GN_TRAIN_SHAPES), key=lambda k: (-k[0], -k[1], k[2])):
+    for b, n, c in sorted(set(GN_SHAPES) | set(GN_TRAIN_SHAPES) | set(GN_COMPOS_SHAPES),
+                          key=lambda k: (-k[0], -k[1], k[2])):
         x, scale, bias = gn_inputs(torch, randn, b, n, c)
         xf, sf, bf = x.float(), scale.float(), bias.float()
         fn.launches_by_shape.clear()
@@ -998,7 +1043,7 @@ def phase_fused_kernels(torch, card, exp2_rate):
         if not tail <= GN_TAIL_REL_TOL:
             fail(f"{label}: the kernel's SiLU tail disagrees with plain ({tail:.3e})")
         del x, plain
-    for b, l, c in list(FF_SHAPES) + list(FF_TRAIN_SHAPES):
+    for b, l, c in list(FF_SHAPES) + list(FF_TRAIN_SHAPES) + list(FF_COMPOS_SHAPES):
         f = 4 * c
         x = randn(b, l, c).bfloat16()
         w1 = (randn(2 * f, c) / c ** 0.5).bfloat16()  # nn.Linear layouts, as in the UNet
@@ -1073,7 +1118,8 @@ def phase_fused_kernels(torch, card, exp2_rate):
 
 
 def rel_err(a, b):
-    return ((a.float().cpu() - b.float()).norm() / b.float().norm()).item()
+    b = b.float().cpu()
+    return ((a.float().cpu() - b).norm() / b.norm()).item()
 
 
 def phase_reference(torch, pipe):
@@ -1354,14 +1400,17 @@ def make_dataset(folder, size=SIZE):
     return SeededImages([SubjectSpec("subject", folder)], size=size, seed=0)
 
 
-def train_configs(logdir):
+def train_configs(logdir, gap=COMPOS_GAP):
+    """`configs/finetune-static-layerwise.yaml`'s trainer and iter_plan
+    values, written in (the card's machine has no pyyaml); `gap` 0 makes a
+    recon-only run."""
     from adaface_tpu_torch.training.iter_plan import IterPlanConfig
     from adaface_tpu_torch.training.trainer import TrainerConfig
 
     return (TrainerConfig(batch_size=3, accumulate_grad_batches=2, grad_clip=0.5,
                           d_coef=10.0, max_steps=TRAIN_STEPS,
                           log_every_steps=10 ** 6, ckpt_every_steps=10 ** 6, logdir=logdir),
-            IterPlanConfig(composition_regs_iter_gap=0, do_zero_shot=False,
+            IterPlanConfig(composition_regs_iter_gap=gap, do_zero_shot=False,
                            prompt_emb_delta_reg_weight=2e-4, mix_prompt_distill_weight=2e-4,
                            arc2face_distill_iter_prob=0.0))
 
@@ -1441,10 +1490,109 @@ def phase_train_reference(torch, pipe, trainer_cls, tmp):
         f"relative L2 error {worst:.3e} (tol {TRAIN_GRAD_TOL})")
 
 
+def phase_compos_reference(torch, pipe, trainer_cls, tmp):
+    """(8b) One compos loss and its embedder gradients at SD widths on a
+    64x64 latent (512x512 images, one block: 4 UNet rows), through the
+    trainer's own batch preparation (bg token, fg-initialized x_start) and
+    step: bf16 against an fp32 copy of CLIP and the UNet on the card, built
+    with `use_flash_attention=False` (einsum attention) while the fused
+    knobs are off and TF32 is off (an fp32 UNet on the CPU is too slow at
+    this size). Gates TRAIN_LOSS_TOL and TRAIN_GRAD_TOL."""
+    import dataclasses
+
+    from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
+    from adaface_tpu_torch.training.iter_plan import COMPOS_DISTILL, IterPlan
+    from adaface_tpu_torch.training.train_step import make_compos_distill_step
+
+    tcfg, pcfg = train_configs(os.path.join(tmp, "compos_ref"))
+    ds_dir = os.path.join(tmp, "compos_ref_subject")
+    os.makedirs(ds_dir)
+    trainer = trainer_cls(pipe, make_dataset(ds_dir), tcfg, pcfg)
+    plan = IterPlan(iter_type=COMPOS_DISTILL, use_background_token=True,
+                    comp_init_fg_from_training_image=True, training_percent=0.3)
+    batch = trainer.build_compos_batch(plan)
+    if tuple(batch.latents.shape) != (1, SIZE // 8, SIZE // 8, 4) or not batch.preserve_loss_scale:
+        fail(f"compos reference: latents {tuple(batch.latents.shape)}, preserve scale "
+             f"{batch.preserve_loss_scale}: not the fg-initialized 64x64 block")
+    step = trainer._get_compos_step()
+
+    def copy_embedders(mgr):
+        return {s: dataclasses.replace(p, **{n: t.detach().float().clone().requires_grad_(True)
+                                             for n, t in embedder_leaves(p)})
+                for s, p in mgr.embedders.items()}
+
+    def fp32_copy(m, **cfg_kw):
+        with torch.device("meta"):
+            c = type(m)(dataclasses.replace(m.cfg, **cfg_kw))
+        c = c.to_empty(device=pipe.device)
+        c.load_state_dict({k: v.float() for k, v in m.state_dict().items()})
+        return c.eval().requires_grad_(False)
+
+    emb_bf16 = copy_embedders(pipe.embedding_manager)
+    loss_bf16, m_bf16 = step.loss_fn(emb_bf16, batch)
+    loss_bf16.backward()
+    ref_step = make_compos_distill_step(
+        fp32_copy(pipe.clip), fp32_copy(pipe.unet, use_flash_attention=False), pipe.base_sched,
+        None, skip_weights=pipe.skip_weights, prompt_delta_weight=trainer._delta_w,
+        mix_prompt_distill_weight=pcfg.mix_prompt_distill_weight, do_zero_shot=False,
+        bg_placeholders=trainer._bg_placeholders)
+    emb_ref = copy_embedders(pipe.embedding_manager)
+    t0 = time.time()
+    loss_ref, m_ref = ref_step.loss_fn(emb_ref, batch)
+    loss_ref.backward()
+    torch.cuda.synchronize()
+    say(f"[compos-ref] fp32 loss and gradients on the card in {time.time() - t0:.1f} s")
+    trainer.close()
+    for k in sorted(m_ref):
+        a, b = m_bf16[k].item(), m_ref[k].item()
+        say(f"[compos-ref] {k:22s} bf16 {a:.6e} fp32 {b:.6e} relative error "
+            f"{abs(a - b) / max(abs(b), 1e-12):.3e}")
+        if not torch.isfinite(m_bf16[k]):
+            fail(f"compos reference: non-finite {k} in bf16")
+        if b == 0:
+            fail(f"compos reference: the fp32 {k} is zero (a term is not wired)")
+    loss_err = abs(loss_bf16.item() - loss_ref.item()) / abs(loss_ref.item())
+    if not loss_err <= TRAIN_LOSS_TOL:
+        fail(f"compos reference: loss off by {loss_err:.3e} (tol {TRAIN_LOSS_TOL})")
+    worst = 0.0
+    for s in sorted(emb_ref):
+        for (n, g), (_, c) in zip(embedder_leaves(emb_bf16[s]), embedder_leaves(emb_ref[s])):
+            e = rel_err(g.grad, c.grad)
+            worst = max(worst, e)
+            say(f"[compos-ref] grad {s}.{n:18s} relative L2 error {e:.3e} (|g| {c.grad.norm():.3e})")
+            if not torch.isfinite(g.grad).all() or not e <= TRAIN_GRAD_TOL:
+                fail(f"compos reference: gradient {s}.{n} off by {e:.3e} (tol {TRAIN_GRAD_TOL})")
+    say(f"[compos-ref] loss relative error {loss_err:.3e} (tol {TRAIN_LOSS_TOL}); worst gradient "
+        f"relative L2 error {worst:.3e} (tol {TRAIN_GRAD_TOL})")
+    del ref_step, emb_ref, emb_bf16, loss_ref, loss_bf16
+    torch.cuda.empty_cache()
+
+
+def flash_want(shapes):
+    """kind -> (B, L, H, d) -> flash launches of one micro-step."""
+    want = {"fwd": {s: n for s, (_, n, _) in shapes.items()}}
+    want["dq"] = want["dkv"] = {s: n for s, (_, _, n) in shapes.items()}
+    return want
+
+
+def is_compos_step(i):
+    return i % COMPOS_GAP == 0
+
+
+def kind_medians(times):
+    """(recon, compos) median seconds a micro-step, each kind's first
+    micro-step (its warm-up) left out."""
+    recon = [t for i, t in enumerate(times) if not is_compos_step(i)]
+    compos = [t for i, t in enumerate(times) if is_compos_step(i)]
+    return statistics.median(recon[1:]), statistics.median(compos[1:])
+
+
 def phase_train(torch, pipe, fa, trainer_cls, tmp, card):
-    """The recon-only Trainer.fit at SD width: TRAIN_STEPS micro-steps, each
-    timed and each checked for its launches (TRAIN_SHAPES: 15 forward, 14 dq
-    and 14 dk/dv); then one more micro-step under the profiler."""
+    """`Trainer.fit` at SD width on the shipped config (gap 3): TRAIN_STEPS
+    micro-steps, each timed and each checked for its launches (a recon one
+    TRAIN_SHAPES', a compos one COMPOS_SHAPES': 15 forward, 14 dq and 14
+    dk/dv); then one more micro-step of each kind under the profiler.
+    Returns (launch totals, recon median s, compos median s, peak GiB)."""
     import numpy as np
 
     from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
@@ -1458,8 +1606,7 @@ def phase_train(torch, pipe, fa, trainer_cls, tmp, card):
     leaves = lambda: {(s, n): t.detach().clone() for s, p in mgr.embedders.items()
                       for n, t in embedder_leaves(p)}
     start = leaves()
-    want = {"fwd": {s: n for s, (_, n, _) in TRAIN_SHAPES.items()}}
-    want["dq"] = want["dkv"] = {s: n for s, (_, _, n) in TRAIN_SHAPES.items()}
+    wants = {False: flash_want(TRAIN_SHAPES), True: flash_want(COMPOS_SHAPES)}
     totals = {}
     times = []
     torch.cuda.synchronize()
@@ -1477,10 +1624,12 @@ def phase_train(torch, pipe, fa, trainer_cls, tmp, card):
             n -= before.get((kind, arm, b, lq, lk, h, d), 0)
             if n:
                 step_counts.setdefault(kind, {})[(b, lq, h, d)] = n
-        say(f"[train] micro-step {i}: {times[-1]:.3f} s, launches "
-            f"{ {k: sorted(v.values()) for k, v in sorted(step_counts.items())} } [{card}]")
-        if step_counts != want:
-            fail(f"micro-step {i}: expected the launches {want}, got {step_counts}")
+        what = "compos" if is_compos_step(i) else "recon"
+        say(f"[train] micro-step {i} ({what}): {times[-1]:.3f} s, launches "
+            f"{ {k: sorted(v.items()) for k, v in sorted(step_counts.items())} } [{card}]")
+        if step_counts != wants[is_compos_step(i)]:
+            fail(f"micro-step {i} ({what}): expected the launches "
+                 f"{wants[is_compos_step(i)]}, got {step_counts}")
         if i == 1:  # the first optimizer update
             moved = max(float((t - start[key]).abs().max()) for key, t in leaves().items())
             finite = all(bool(torch.isfinite(t).all()) for t in leaves().values())
@@ -1493,34 +1642,45 @@ def phase_train(torch, pipe, fa, trainer_cls, tmp, card):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     recs = [json.loads(l) for l in open(os.path.join(tcfg.logdir, "metrics.jsonl"))]
     steps = [r for r in recs if "loss" in r]
+    kinds = [r["iter_type"] for r in steps]
+    if kinds != ["compos_distill" if is_compos_step(i) else "recon" for i in range(TRAIN_STEPS)]:
+        fail(f"the micro-steps ran as {kinds}, not compos every {COMPOS_GAP}")
     if len(steps) != TRAIN_STEPS or not all(
             np.isfinite(v) for r in steps for v in r.values() if isinstance(v, float)):
         fail(f"metrics: {len(steps)} step records, or a non-finite value")
-    say(f"[train] metrics of the last micro-step: "
-        f"{ {k: round(v, 6) for k, v in steps[-1].items() if isinstance(v, float)} }")
+    for kind in ("recon", "compos_distill"):
+        last = [r for r in steps if r["iter_type"] == kind][-1]
+        say(f"[train] metrics of the last {kind} micro-step: "
+            f"{ {k: round(v, 6) for k, v in last.items() if isinstance(v, float)} }")
     reloaded = EmbeddingManager.load_native(os.path.join(tcfg.logdir, "embeddings_last.npz"))
     for s, p in mgr.embedders.items():
         for n, t in embedder_leaves(p):
             if not np.array_equal(getattr(reloaded.embedders[s], n).numpy(),
                                   t.detach().cpu().numpy()):
                 fail(f"checkpoint reload: {s}.{n} differs")
-    med = statistics.median(times[1:])
+    med, compos_med = kind_medians(times)
     say(f"[train] recon micro-step, batch 3 512x512, bf16: median {med:.3f} s after the "
-        f"first ({times[0]:.3f} s), {3 / med:.3f} images/s, {2 * med:.3f} s per optimizer "
-        f"update; peak memory {peak:.2f} GiB; checkpoint reloads [{card}]")
+        f"first recon one ({times[1]:.3f} s), {3 / med:.3f} images/s; compos micro-step, "
+        f"one block (4 UNet rows) 512x512: median {compos_med:.3f} s after the first "
+        f"({times[0]:.3f} s); peak memory {peak:.2f} GiB; checkpoint reloads [{card}]")
     profile_breakdown(torch, lambda: trainer.fit(TRAIN_STEPS + 1), "train-profile",
                       "one recon micro-step", card)
+    profile_breakdown(torch, lambda: trainer.fit(TRAIN_STEPS + 2), "compos-profile",
+                      "one compos micro-step", card)
     train_stages(torch, trainer, card)
     trainer.close()
-    return totals, med, peak
+    return totals, med, compos_med, peak
 
 
-def phase_fused_train(torch, pipe, trainer_cls, tmp, card, default_med, default_peak):
-    """A fresh recon-only Trainer under FUSED_KNOBS for FUSED_TRAIN_STEPS
+def phase_fused_train(torch, pipe, trainer_cls, tmp, card, default_med, default_compos_med,
+                      default_peak):
+    """A fresh Trainer (gap 3) under FUSED_KNOBS for FUSED_TRAIN_STEPS
     micro-steps, each with the flash launches of the default run plus 45 K8
-    and 4 K9 (GN_TRAIN_SHAPES, FF_TRAIN_SHAPES); metrics finite, embedders
-    moved by the first update; then one micro-step under the profiler.
-    Returns the K8 and K9 launches of the timed micro-steps by shape."""
+    and 4 K9 (GN_TRAIN_SHAPES and FF_TRAIN_SHAPES on a recon micro-step,
+    GN_COMPOS_SHAPES and FF_COMPOS_SHAPES on a compos one); metrics finite,
+    embedders moved by the first update; then one micro-step under the
+    profiler. Returns the K8 and K9 launches of the timed micro-steps by
+    shape."""
     import numpy as np
 
     from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
@@ -1533,9 +1693,11 @@ def phase_fused_train(torch, pipe, trainer_cls, tmp, card, default_med, default_
     mgr = pipe.embedding_manager
     leaves = lambda: {(s, n): t.detach().clone() for s, p in mgr.embedders.items()
                       for n, t in embedder_leaves(p)}
-    want = {"fwd": {s: n for s, (_, n, _) in TRAIN_SHAPES.items()}}
-    want["dq"] = want["dkv"] = {s: n for s, (_, _, n) in TRAIN_SHAPES.items()}
-    want["gn"], want["ff"] = GN_TRAIN_SHAPES, FF_TRAIN_SHAPES
+    wants = {}
+    for compos, shapes, gn, ff_shapes in ((False, TRAIN_SHAPES, GN_TRAIN_SHAPES, FF_TRAIN_SHAPES),
+                                          (True, COMPOS_SHAPES, GN_COMPOS_SHAPES,
+                                           FF_COMPOS_SHAPES)):
+        wants[compos] = dict(flash_want(shapes), gn=gn, ff=ff_shapes)
     counters = {"gn": fn.launches_by_shape, "ff": ff.launches_by_shape}
     times = []
     with knobs_set(FUSED_KNOBS):
@@ -1561,10 +1723,12 @@ def phase_fused_train(torch, pipe, trainer_cls, tmp, card, default_med, default_
             for kind, c in counters.items():
                 got[kind] = {k: n - before[kind].get(k, 0) for k, n in c.items()
                              if n - before[kind].get(k, 0)}
-            say(f"[fused-train] micro-step {i}: {times[-1]:.3f} s, launches "
+            what = "compos" if is_compos_step(i) else "recon"
+            say(f"[fused-train] micro-step {i} ({what}): {times[-1]:.3f} s, launches "
                 f"{ {k: sum(v.values()) for k, v in sorted(got.items())} } [{card}]")
-            if got != want:
-                fail(f"fused micro-step {i}: expected the launches {want}, got {got}")
+            if got != wants[is_compos_step(i)]:
+                fail(f"fused micro-step {i} ({what}): expected the launches "
+                     f"{wants[is_compos_step(i)]}, got {got}")
             if i == 1:  # the first optimizer update
                 moved = max(float((t - start[key]).abs().max()) for key, t in leaves().items())
                 finite = all(bool(torch.isfinite(t).all()) for t in leaves().values())
@@ -1580,10 +1744,13 @@ def phase_fused_train(torch, pipe, trainer_cls, tmp, card, default_med, default_
         if len(steps) != FUSED_TRAIN_STEPS or not all(
                 np.isfinite(v) for r in steps for v in r.values() if isinstance(v, float)):
             fail(f"fused metrics: {len(steps)} step records, or a non-finite value")
-        med = statistics.median(times[1:])
-        say(f"[fused-train] recon micro-step, batch 3 512x512, bf16 under {FUSED_KNOBS}: "
-            f"median {med:.3f} s after the first ({times[0]:.3f} s), peak memory {peak:.2f} "
-            f"GiB; default knobs {default_med:.3f} s, {default_peak:.2f} GiB [{card}]")
+        recon = [t for i, t in enumerate(times) if not is_compos_step(i)]
+        compos = [t for i, t in enumerate(times) if is_compos_step(i)]
+        say(f"[fused-train] under {FUSED_KNOBS}, bf16 512x512: recon micro-step (batch 3) "
+            f"median {statistics.median(recon[1:]):.3f} s after the first ({recon[0]:.3f} s), "
+            f"compos micro-step (4 rows) {compos[1]:.3f} s after the first ({compos[0]:.3f} "
+            f"s), peak memory {peak:.2f} GiB; default knobs {default_med:.3f} s recon, "
+            f"{default_compos_med:.3f} s compos, {default_peak:.2f} GiB [{card}]")
         profile_breakdown(torch, lambda: trainer.fit(FUSED_TRAIN_STEPS + 1),
                           "fused-train-profile", "one recon micro-step under the fused knobs",
                           card)
@@ -1592,27 +1759,37 @@ def phase_fused_train(torch, pipe, trainer_cls, tmp, card, default_med, default_
 
 
 def train_stages(torch, trainer, card):
-    """Where a micro-step's wall time goes, one more micro-step taken apart:
-    drawing and augmenting the examples (host numpy), the whole batch
-    preparation (that, tokenizing, the VAE encode and the host RNG draws),
-    and the recon step (loss, backward, optimizer), each ended by a
-    synchronize."""
-    from adaface_tpu_torch.training.iter_plan import plan_iteration
+    """Where a micro-step's wall time goes, one more micro-step of each kind
+    taken apart: drawing and augmenting the examples (host numpy), the whole
+    batch preparation (that, tokenizing, the VAE encode and the host RNG
+    draws; for a compos one the x_start too), and the step (loss, backward,
+    optimizer), each ended by a synchronize."""
+    from adaface_tpu_torch.training.iter_plan import COMPOS_DISTILL, RECON, plan_iteration
 
-    plan = plan_iteration(trainer.rng, trainer.global_step, trainer.plan_cfg)
-    t0 = time.time()
-    trainer._draw_examples(trainer.cfg.batch_size)
-    t1 = time.time()
-    batch = trainer.build_recon_batch(plan)
-    torch.cuda.synchronize()
-    t2 = time.time()
-    trainer._get_recon_step(plan.use_background_token)(trainer.mgr.embedders, batch)
-    torch.cuda.synchronize()
-    t3 = time.time()
-    say(f"[train] stages of one micro-step: examples drawn and augmented on the host "
-        f"{(t1 - t0) * 1e3:.1f} ms, whole batch preparation with the VAE encode "
-        f"{(t2 - t1) * 1e3:.1f} ms, recon step (loss, backward, optimizer) "
-        f"{(t3 - t2) * 1e3:.1f} ms [{card}]")
+    for kind, step in ((RECON, trainer.global_step + 1), (COMPOS_DISTILL, 0)):
+        # a plan of this kind, as `fit` would roll it at that step
+        plan = plan_iteration(trainer.rng, step, trainer.plan_cfg)
+        if plan.iter_type != kind:
+            fail(f"train stages: step {step} rolled {plan.iter_type}, not {kind}")
+        compos = kind == COMPOS_DISTILL
+        t0 = time.time()
+        trainer._draw_examples(1 if compos else trainer.cfg.batch_size)
+        t1 = time.time()
+        if compos:
+            batch = trainer.build_compos_batch(plan)
+            run = trainer._get_compos_step()
+        else:
+            batch = trainer.build_recon_batch(plan)
+            run = trainer._get_recon_step(plan.use_background_token)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        run(trainer.mgr.embedders, batch)
+        torch.cuda.synchronize()
+        t3 = time.time()
+        say(f"[train] stages of one {kind} micro-step: examples drawn and augmented on the "
+            f"host {(t1 - t0) * 1e3:.1f} ms, whole batch preparation with the VAE encode "
+            f"{(t2 - t1) * 1e3:.1f} ms, step (loss, backward, optimizer) "
+            f"{(t3 - t2) * 1e3:.1f} ms [{card}]")
 
 
 # ------------------------------------------------------------------ slice 4
@@ -2282,7 +2459,7 @@ def phase_arm_train(torch, pipe, trainer_cls, tmp, card):
     out = {}
     for name, knobs in TRAIN_ARM_CONFIGS:
         tag = name.replace(" ", "_")
-        tcfg, pcfg = train_configs(os.path.join(tmp, f"arm_{tag}"))
+        tcfg, pcfg = train_configs(os.path.join(tmp, f"arm_{tag}"), gap=0)
         ds_dir = os.path.join(tmp, f"arm_{tag}_subject")
         os.makedirs(ds_dir)
         want = expected_train_launches(name)
@@ -2338,6 +2515,9 @@ def main():
     phase_build(kernels)
     rows = phase_kernels(torch, fa, card, exp2_rate)
     bwd_rows = phase_backward_kernels(torch, fa, card, exp2_rate)
+    # 4f: the compos step's shapes, without its (absent) key bias first
+    compos_bwd_rows = phase_backward_kernels(torch, fa, card, exp2_rate, COMPOS_SHAPES,
+                                             biases=(False, True))
     arm_rows, arm_bwd_rows = phase_arm_kernels(torch, fa, card, exp2_rate)
     phase_backward_edges(torch, fa, card)
     fused_rows = phase_fused_kernels(torch, card, exp2_rate)
@@ -2365,9 +2545,11 @@ def main():
     add_training_placeholders(torch, pipe)
     with tempfile.TemporaryDirectory() as tmp:
         phase_train_reference(torch, pipe, Trainer, tmp)
-        train_counts, train_med, train_peak = phase_train(torch, pipe, fa, Trainer, tmp, card)
+        phase_compos_reference(torch, pipe, Trainer, tmp)
+        train_counts, train_med, compos_med, train_peak = phase_train(torch, pipe, fa, Trainer,
+                                                                      tmp, card)
         gn_train, ff_train = phase_fused_train(torch, pipe, Trainer, tmp, card, train_med,
-                                               train_peak)
+                                               compos_med, train_peak)
         arm_train = phase_arm_train(torch, pipe, Trainer, tmp, card)
 
     entries = []
@@ -2378,10 +2560,14 @@ def main():
     names = {"fwd": ("flash_attn_packed fwd (lse when recorded)", SOURCE),
              "dq": ("flash_attn_bwd dq", BWD_SOURCE),
              "dkv": ("flash_attn_bwd dk/dv", BWD_SOURCE)}
-    for (kind, b, l, h, d), row in bwd_rows.items():
-        name, source = names[kind]
-        entries.append(dict(name=f"{name} B{b} L{l} H{h} d{d} (training)", route="cuda",
-                            source=source, launches=train_counts[(kind, b, l, h, d)], **row))
+    # launches over phase 9's micro-steps: B3 on the recon ones, B4 on the
+    # compos ones
+    for rows_, what in ((bwd_rows, "training"), (compos_bwd_rows, "compos training")):
+        for (kind, b, l, h, d), row in rows_.items():
+            name, source = names[kind]
+            entries.append(dict(name=f"{name} B{b} L{l} H{h} d{d} ({what})", route="cuda",
+                                source=source, launches=train_counts[(kind, b, l, h, d)],
+                                **row))
     # the arms: launches per generate request under each arm configuration
     default = expected_generate_launches("default")
     for name, got in arm_counts.items():
@@ -2417,8 +2603,9 @@ def main():
             if k != kind:
                 continue
             training = (b, n, c) in tr_counts
+            what = " (compos training)" if b == 4 else " (training)"
             entries.append(dict(
-                name=name.format(b, n, c) + (" (training)" if training else ""),
+                name=name.format(b, n, c) + (what if training else ""),
                 route="cuda", source=source, replaces=replaces,
                 launches=(tr_counts if training else gen_counts)[(b, n, c)], **row))
     say(f"[main] whole script {time.time() - t_start:.1f} s")

@@ -314,3 +314,45 @@ def test_port_fit_writes_a_checkpoint_jax_reads(pipes, subject_dir, tmp_path):
         for s, p in tp.embedding_manager.embedders.items():
             for n, t in embedder_leaves(p):
                 t.copy_(before[s][n])
+
+
+def test_port_fit_on_the_shipped_gap_writes_a_checkpoint_jax_reads(pipes, subject_dir, tmp_path):
+    """`fit(4)` at the shipped `composition_regs_iter_gap: 3`: steps 0 and 3
+    are compositional (one block, 4 UNet rows), 1 and 2 recon; both kinds
+    log finite metrics, the embedders move, and JAX's loader reads the
+    checkpoint."""
+    import json
+
+    _, tp = pipes
+    before = {s: {n: t.detach().clone() for n, t in embedder_leaves(p)}
+              for s, p in tp.embedding_manager.embedders.items()}
+    tr = Trainer(tp, PersonalizedDataset([SubjectSpec("s", subject_dir)], size=32, seed=0),
+                 TrainerConfig(batch_size=2, max_steps=4, seed=1, log_every_steps=1000,
+                               logdir=str(tmp_path)),
+                 IterPlanConfig(**dict(PLAN_KW, composition_regs_iter_gap=3)))
+    try:
+        tr.fit()
+    finally:
+        tr.close()
+        for s, p in tp.embedding_manager.embedders.items():
+            for n, t in embedder_leaves(p):
+                t.requires_grad_(False)
+    assert tr.global_step == 4 and tr.optimizer.inner.step_count == 2
+    recs = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    kinds = [r["iter_type"] for r in recs if "loss" in r]
+    assert kinds == ["compos_distill", "recon", "recon", "compos_distill"], kinds
+    assert all(np.isfinite(v) for r in recs for v in r.values() if isinstance(v, float))
+    assert all(r["feat_align"] > 0 and r["prompt_delta"] > 0 for r in recs
+               if r.get("iter_type") == "compos_distill")
+    mgr = JEM.load_native(str(tmp_path / "embeddings_last.npz"))
+    moved = 0.0
+    for s, p in tp.embedding_manager.embedders.items():
+        for n, t in embedder_leaves(p):
+            np.testing.assert_array_equal(np.asarray(getattr(mgr.embedders[s], n)),
+                                          t.detach().numpy())
+            moved = max(moved, float((t.detach() - before[s][n]).abs().max()))
+    assert moved > 0
+    with torch.no_grad():  # restore the shared embedders
+        for s, p in tp.embedding_manager.embedders.items():
+            for n, t in embedder_leaves(p):
+                t.copy_(before[s][n])
