@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's generate request and recon micro-step of one tree, so that
-two trees can be compared on one card.
+"""Time the port's generate request and its recon and compos micro-steps of
+one tree, so that two trees can be compared on one card.
 
     python3 ab_paths.py [ROOT]
 
@@ -10,14 +10,19 @@ kernels, and at SD-v1.5 width in bf16 with random weights times:
 
 - `generate`: one warm-up and GENERATE_REQUESTS requests of batch 8,
   512x512, DDIM-50, CFG 10->4 (chip_smoke.py's phase 6);
-- `Trainer.fit`, recon-only (`composition_regs_iter_gap` 0, so that both
-  trees run the same path): TRAIN_STEPS micro-steps at batch 3, 512x512
-  (chip_smoke.py's phase 9 otherwise), the first left out of the median.
+- `Trainer.fit`, recon-only (`composition_regs_iter_gap` 0): TRAIN_STEPS
+  micro-steps at batch 3, 512x512 (chip_smoke.py's phase 9 otherwise), the
+  first left out of the median;
+- `Trainer.fit` at the shipped gap 3 (trees from slice 12 on):
+  COMPOS_TRAIN_STEPS micro-steps, the median of the compos ones (3 and 6)
+  after the first.
 
-The seeded dataset, the placeholders and the trainer's values are this
-checkout's `chip_smoke.py` helpers. Prints the card and one JSON line with
-the medians. Run trees in turns in one call (parent, change, change,
-parent): two calls may land on two cards.
+The seeded dataset and the placeholders are this checkout's
+`chip_smoke.py` helpers; the trainer's values are
+`configs/finetune-static-layerwise.yaml`'s, written in (an older tree has
+no YAML reader). Prints the card and one JSON line with the medians. Run
+trees in turns in one call (parent, change, change, parent): two calls may
+land on two cards.
 """
 
 import importlib.util
@@ -32,6 +37,22 @@ from pathlib import Path
 
 GENERATE_REQUESTS = 3
 TRAIN_STEPS = 6
+COMPOS_TRAIN_STEPS = 7  # compos at 0, 3, 6
+
+
+def train_configs(logdir, steps, gap):
+    """`configs/finetune-static-layerwise.yaml`'s trainer and iter_plan
+    values (as chip_smoke.py's `train_configs` reads them), in the tree's
+    own config classes."""
+    from adaface_tpu_torch.training.iter_plan import IterPlanConfig
+    from adaface_tpu_torch.training.trainer import TrainerConfig
+
+    return (TrainerConfig(batch_size=3, accumulate_grad_batches=2, grad_clip=0.5, d_coef=10.0,
+                          max_steps=steps, log_every_steps=10 ** 6, ckpt_every_steps=10 ** 6,
+                          logdir=logdir),
+            IterPlanConfig(composition_regs_iter_gap=gap, do_zero_shot=False,
+                           prompt_emb_delta_reg_weight=2e-4, mix_prompt_distill_weight=2e-4,
+                           arc2face_distill_iter_prob=0.0))
 
 
 def main():
@@ -80,24 +101,30 @@ def main():
         gen_s.append(time.time() - t0)
 
     helpers.add_training_placeholders(torch, pipe)
-    train_s = []
+    times = {}
     with tempfile.TemporaryDirectory() as tmp:
-        ds_dir = os.path.join(tmp, "subject")
-        os.makedirs(ds_dir)
-        tcfg, pcfg = helpers.train_configs(os.path.join(tmp, "run"), gap=0)
-        trainer = Trainer(pipe, helpers.make_dataset(ds_dir), tcfg, pcfg)
-        for i in range(TRAIN_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            trainer.fit(i + 1)
-            torch.cuda.synchronize()
-            train_s.append(time.time() - t0)
-        trainer.close()
-    print(f"[ab] {root}: build {build_s:.1f} s; generate {gen_s}; recon micro-steps {train_s} "
-          f"[{card}]", flush=True)
+        for name, steps, gap in (("recon", TRAIN_STEPS, 0), ("gap3", COMPOS_TRAIN_STEPS, 3)):
+            ds_dir = os.path.join(tmp, f"subject_{name}")
+            os.makedirs(ds_dir)
+            tcfg, pcfg = train_configs(os.path.join(tmp, name), steps, gap)
+            trainer = Trainer(pipe, helpers.make_dataset(ds_dir), tcfg, pcfg)
+            times[name] = []
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                trainer.fit(i + 1)
+                torch.cuda.synchronize()
+                times[name].append(time.time() - t0)
+            trainer.close()
+    train_s, gap3_s = times["recon"], times["gap3"]
+    compos_s = [t for i, t in enumerate(gap3_s) if i % 3 == 0]
+    print(f"[ab] {root}: build {build_s:.1f} s; generate {gen_s}; recon micro-steps {train_s}; "
+          f"gap-3 micro-steps {gap3_s} [{card}]", flush=True)
     print(json.dumps({"root": str(root), "card": card,
                       "generate_median_s": statistics.median(gen_s),
-                      "recon_micro_step_median_s": statistics.median(train_s[1:])}), flush=True)
+                      "recon_micro_step_median_s": statistics.median(train_s[1:]),
+                      "compos_micro_step_median_s": statistics.median(compos_s[1:])}),
+          flush=True)
 
 
 if __name__ == "__main__":

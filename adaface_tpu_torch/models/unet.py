@@ -38,9 +38,14 @@
   fp32 scores), `k`, `v` and the block output `outfeat` (only
   `capture_keys` when given), computed on the einsum path.
 
+- `UNetConfig.use_remat`: every SpatialTransformer that does not capture is
+  recomputed in the backward (`torch.utils.checkpoint`, non-reentrant), as
+  JAX's `nn.remat`; its flash forwards (and, under the fused knobs, its K9
+  feed-forward) launch again there.
+
 Submodules carry the flax tree's names (`down_0_res_0.in_conv`,
 `down_0_attn_0.block_0.attn1.to_q`, ...). Subject-token convolutional
-attention and rematerialization are not ported yet.
+attention is not ported yet.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from adaface_tpu_torch import knobs
 from adaface_tpu_torch.ops import fused_ff
@@ -80,6 +86,10 @@ class UNetConfig:
     context_dim: int = 768
     use_flash_attention: bool = True
     fuse_qkv: bool = False
+    # recompute each SpatialTransformer that does not capture in the backward
+    # (torch.utils.checkpoint; JAX's nn.remat); capture layers keep their
+    # activations, which are the distillation losses' inputs
+    use_remat: bool = False
 
     @classmethod
     def sd_v1(cls, **kw) -> "UNetConfig":
@@ -373,8 +383,14 @@ class UNetModel(nn.Module):
                 if cross_kv is not None:
                     kv = cross_kv[i]
             do_cap = capture and layer_idx in DISTILL_LAYER_INDICES
-            h, aux = getattr(self, name)(h, cv, ck, kv, cfg_tile=cfg_dedup and layer_idx == 1,
-                                         img_mask=img_mask, capture=do_cap)
+            block = getattr(self, name)
+            if c.use_remat and not do_cap and torch.is_grad_enabled():
+                h, aux = torch.utils.checkpoint.checkpoint(
+                    block, h, cv, ck, kv, cfg_dedup and layer_idx == 1, img_mask, False,
+                    use_reentrant=False)
+            else:
+                h, aux = block(h, cv, ck, kv, cfg_tile=cfg_dedup and layer_idx == 1,
+                               img_mask=img_mask, capture=do_cap)
             if do_cap:
                 aux["outfeat"] = h
                 if capture_keys is not None:

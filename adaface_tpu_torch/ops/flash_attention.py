@@ -18,8 +18,10 @@ Packed entry, `forward_arm(lq, lk)` (JAX `flash_attention_blc` and
 - the TPU kernel JAX would take, all one function: "K4"
   (`_flash_kernel_heads_short`, Lk <= 256 unless `MAXFREE=0` or `SHORT=0`),
   "K2" (`_pvt2`, `PVT2=1`, or Lq <= 256 when `PVT2` is unset), "K1" (`_pvt`)
-  or "K5" (`_flash_kernel_heads`, `MAXFREE=0` or `PVT=0`). On a CUDA tensor
-  every one is the hand-written Hopper kernel `csrc/flash_attn_packed.cu`;
+  or "K5" (`_flash_kernel_heads`, `MAXFREE=0` or `PVT=0`). On a bf16 CUDA
+  tensor every one is the hand-written Hopper kernel
+  `csrc/flash_attn_packed.cu`, on an fp32 CUDA tensor (an fp32 pipeline) the
+  hand-written fp32 kernel `csrc/flash_attn_fp32.cu` (FFMA, no tensor core);
   on a CPU tensor its plain version `flash_attention_blc_plain`. Under K1
   only, `ADAFACE_FLASH_EXP_BF16=1` (scores rounded to bf16 before exp2, p kept
   in bf16) and `ADAFACE_FLASH_MXU_SUM=1` (the denominator sums bf16(p))
@@ -37,7 +39,8 @@ Gradients: `FlashAttentionBLC`, a `torch.autograd.Function` taken only when
 autograd records: the forward also writes the row log2-sum-exp (K3a, the
 default function's under K1's flags too), the backward is
 `csrc/flash_attn_bwd.cu` (K3b dq, K3c dk/dv/dbias, whose query loop
-`bwd_launch_plan` splits where its key blocks leave SMs idle; plain
+`bwd_launch_plan` splits where its key blocks leave SMs idle) in bf16,
+`csrc/flash_attn_fp32.cu`'s dq and dk/dv/dbias in fp32 (plain
 `flash_backward_plain` on the CPU), dbias summed over heads. Under
 `ADAFACE_FLASH_BWD=einsum` the backward differentiates `reference_attention`
 instead, bias included, as XLA does for that arm.
@@ -45,8 +48,9 @@ instead, bias included, as XLA does for that arm.
 `launches_by_shape` counts kernel launches per (kind, arm, B, Lq, Lk, H, D):
 kind "fwd" (arm the TPU kernel id, with "+exp_bf16" / "+mxu_sum" under K1's
 flags, or "direct" for a call of the wrapper itself), "dq" (arm "K3b") or
-"dkv" ("K3c"); a fold counts B*H rows of one head. Callers may clear it to
-count one run.
+"dkv" ("K3c"); a fold counts B*H rows of one head. Launches of the fp32
+kernels count under "fwd_fp32", "dq_fp32" and "dkv_fp32". Callers may clear
+it to count one run.
 """
 
 from __future__ import annotations
@@ -67,6 +71,9 @@ LOG2E = 1.4426950408889634
 SCORE_FLOOR = -100.0
 MIN_KERNEL_LEN = 256
 KERNEL_HEAD_DIMS = (40, 80, 160)  # the UNet's head dims
+# bf16 runs csrc/flash_attn_packed.cu and flash_attn_bwd.cu; fp32 (an fp32
+# pipeline) csrc/flash_attn_fp32.cu
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 FLAG_EXP_BF16, FLAG_MXU_SUM = 1, 2
 # the row kernel K7 takes Lk up to this, with query blocks of this many rows
 ROW_MAX_LK, ROW_BLOCK_Q = 4096, 256
@@ -338,34 +345,40 @@ def dkv_work(b: int, h: int, lq: int, lk: int, d: int,
 
 
 # ------------------------------------------------------------- CUDA wrappers
-def _check_operand(t: torch.Tensor, name: str, device, b: int, inner: int):
+def _check_operand(t: torch.Tensor, name: str, device, b: int, inner: int,
+                   dtype: torch.dtype = torch.bfloat16):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bfloat16, {name} is {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"the CUDA kernels take {dtype} here (q's dtype), {name} is {t.dtype}")
     if t.dim() != 3 or t.shape[0] != b or t.shape[2] != inner:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, want [{b}, L, {inner}]")
-    if (t.stride(2) != 1 or t.stride(0) % 8 or t.stride(1) % 8
-            or t.data_ptr() % 16):
-        raise ValueError(f"{name} needs unit column stride, batch and row strides "
-                         f"that are multiples of 8 and a 16-byte aligned start; got "
-                         f"strides {t.stride()} at {t.data_ptr():#x}")
+    if t.stride(2) != 1 or (dtype == torch.bfloat16 and (
+            t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16)):
+        raise ValueError(f"{name} needs unit column stride and, in bf16, batch and row "
+                         f"strides that are multiples of 8 and a 16-byte aligned start; "
+                         f"got strides {t.stride()} at {t.data_ptr():#x}")
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry -> (library, argument types), as declared in csrc/<library>.cu
+C_ENTRIES = {
+    "flash_attn_packed_fwd": ("flash_attn_packed", [_P] * 6 + [_I] * 6 + [_P, _F, _P]),
+    "flash_attn_bwd_dq": ("flash_attn_bwd", [_P] * 8 + [_I] * 5 + [_P, _F, _F, _P]),
+    "flash_attn_bwd_dkv": ("flash_attn_bwd", [_P] * 10 + [_I] * 5 + [_P, _F, _F, _I, _P, _P]),
+    "flash_attn_fp32_fwd": ("flash_attn_fp32", [_P] * 6 + [_I] * 6 + [_P, _F, _P]),
+    "flash_attn_fp32_bwd_dq": ("flash_attn_fp32", [_P] * 8 + [_I] * 5 + [_P, _F, _F, _P]),
+    "flash_attn_fp32_bwd_dkv": ("flash_attn_fp32", [_P] * 10 + [_I] * 5 + [_P, _F, _F, _P]),
+}
 
 
 def _fn(name: str):
     """The ctypes entry `name` of its library, with its signature set."""
     fn = _fns.get(name)
     if fn is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "flash_attn_packed_fwd":
-            fn = kernels.load("flash_attn_packed").flash_attn_packed_fwd
-            fn.argtypes = [p] * 6 + [i] * 6 + [p, f, p]
-        elif name == "flash_attn_bwd_dq":
-            fn = kernels.load("flash_attn_bwd").flash_attn_bwd_dq
-            fn.argtypes = [p] * 8 + [i] * 5 + [p, f, f, p]
-        else:
-            fn = kernels.load("flash_attn_bwd").flash_attn_bwd_dkv
-            fn.argtypes = [p] * 10 + [i] * 5 + [p, f, f, i, p, p]
+        lib, argtypes = C_ENTRIES[name]
+        fn = getattr(kernels.load(lib), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -384,8 +397,10 @@ def _check_call(q, k, v, num_heads, key_bias):
                          f"{KERNEL_HEAD_DIMS}, not {d}")
     if q.device.type != "cuda":
         raise ValueError(f"q is on {q.device}, not a CUDA device")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the CUDA kernels take bfloat16 or float32, q is {q.dtype}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check_operand(t, name, q.device, b, inner)
+        _check_operand(t, name, q.device, b, inner, q.dtype)
     if v.shape[1] != lk:
         raise ValueError(f"k has {lk} keys, v {v.shape[1]}")
     bias = None
@@ -397,8 +412,10 @@ def _check_call(q, k, v, num_heads, key_bias):
     return b, lq, lk, d, bias
 
 
-def _count(kind: str, arm: str, key: tuple):
-    k = (kind, arm) + key
+def _count(kind: str, arm: str, key: tuple, dtype: torch.dtype = torch.bfloat16):
+    """One launch of `kind` at `arm` and `key`; an fp32 launch (the kernels of
+    `csrc/flash_attn_fp32.cu`) counts under kind + "_fp32"."""
+    k = (kind + ("_fp32" if dtype == torch.float32 else ""), arm) + key
     launches_by_shape[k] = launches_by_shape.get(k, 0) + 1
 
 
@@ -410,11 +427,11 @@ def _raise_if(err: int, what: str, key: tuple):
 def flash_attention_blc_cuda(q, k, v, num_heads: int, key_bias=None, scale=None,
                              return_lse: bool = False, arm: str = "direct",
                              flags: int = 0):
-    """Launch the forward Hopper kernel on CUDA tensors; raises on anything
-    it does not take (dtype, head dim, strides, alignment). `arm` labels the
-    launch in `launches_by_shape`;
-    `flags` are K1's arithmetic arms. With `return_lse`, returns (out, lse2
-    [B, H, Lq] fp32)."""
+    """Launch the forward Hopper kernel on CUDA tensors: bf16 operands go to
+    `csrc/flash_attn_packed.cu`, fp32 ones to `csrc/flash_attn_fp32.cu`; raises
+    on anything it does not take (dtype, head dim, strides, alignment). `arm`
+    labels the launch in `launches_by_shape`; `flags` are K1's arithmetic
+    arms. With `return_lse`, returns (out, lse2 [B, H, Lq] fp32)."""
     b, lq, lk, d, bias = _check_call(q, k, v, num_heads, key_bias)
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, lq, num_heads * d), dtype=q.dtype, device=q.device)
@@ -424,13 +441,14 @@ def flash_attention_blc_cuda(q, k, v, num_heads: int, key_bias=None, scale=None,
     key = (b, lq, lk, num_heads, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fn("flash_attn_packed_fwd")(
+        name = "flash_attn_fp32_fwd" if q.dtype == torch.float32 else "flash_attn_packed_fwd"
+        err = _fn(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             b, num_heads, lq, lk, d, flags, ctypes.addressof(st), scale * LOG2E, stream)
-    _raise_if(err, "flash_attn_packed_fwd", key)
-    _count("fwd", arm_id(arm, flags), key)
+    _raise_if(err, name, key)
+    _count("fwd", arm_id(arm, flags), key, q.dtype)
     return (out, lse) if return_lse else out
 
 
@@ -449,14 +467,17 @@ def _check_backward(q, k, v, key_bias, do, lse, delta, num_heads, scale):
     """Argument checks of the backward wrappers; returns (b, lq, lk, d, bias,
     lse, delta, scale) with the bias, lse and delta in the kernels' layout."""
     b, lq, lk, d, bias = _check_call(q, k, v, num_heads, key_bias)
-    _check_operand(do, "dO", q.device, b, num_heads * d)
+    _check_operand(do, "dO", q.device, b, num_heads * d, q.dtype)
     for t, name in ((lse, "lse"), (delta, "delta")):
         if (tuple(t.shape) != (b, num_heads, lq) or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"{name} must be contiguous fp32 [{b}, {num_heads}, {lq}] "
                              f"on {q.device}")
+    scale = d ** -0.5 if scale is None else scale
+    if q.dtype == torch.float32:  # the fp32 kernels read lse, delta and bias by element
+        return b, lq, lk, d, bias, lse, delta, scale
     return (b, lq, lk, d, None if bias is None else _pitch4(bias), _pitch4(lse),
-            _pitch4(delta), d ** -0.5 if scale is None else scale)
+            _pitch4(delta), scale)
 
 
 def row_delta(o: torch.Tensor, do: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -473,31 +494,39 @@ def _strides(*ts) -> ctypes.Array:
 
 
 def flash_bwd_dq_cuda(q, k, v, key_bias, do, lse, delta, num_heads: int, scale=None):
-    """Launch the dq kernel on CUDA tensors; returns dq bf16 packed."""
+    """Launch the dq kernel on CUDA tensors (bf16: `csrc/flash_attn_bwd.cu`,
+    fp32: `csrc/flash_attn_fp32.cu`); returns dq packed in q's dtype."""
     b, lq, lk, d, bias, lse, delta, scale = _check_backward(q, k, v, key_bias, do, lse, delta,
                                                             num_heads, scale)
     dq = torch.empty((b, lq, num_heads * d), dtype=q.dtype, device=q.device)
     st = _strides(q, k, v, do, dq)
     key = (b, lq, lk, num_heads, d)
+    name = "flash_attn_fp32_bwd_dq" if q.dtype == torch.float32 else "flash_attn_bwd_dq"
     with torch.cuda.device(q.device):
-        err = _fn("flash_attn_bwd_dq")(
+        err = _fn(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None if bias is None else bias.data_ptr(), dq.data_ptr(),
             b, num_heads, lq, lk, d, ctypes.addressof(st), scale * LOG2E, scale,
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_if(err, "flash_attn_bwd_dq", key)
-    _count("dq", "K3b", key)
+    _raise_if(err, name, key)
+    _count("dq", "K3b", key, q.dtype)
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, key_bias, do, lse, delta, num_heads: int, scale=None,
                        need_dbias: bool = False, split: Optional[int] = None):
-    """Launch the dk/dv kernel on CUDA tensors; returns (dk, dv) bf16 packed
-    and, with `need_dbias`, the per-head dbias [B, H, Lk] fp32 (else None).
-    The query loop's split comes from `bwd_launch_plan` unless `split` is
-    given (1 .. min(BWD_MAX_SPLIT, query tiles))."""
+    """Launch the dk/dv kernel on CUDA tensors; returns (dk, dv) packed in
+    q's dtype and, with `need_dbias`, the per-head dbias [B, H, Lk] fp32
+    (else None). bf16: `csrc/flash_attn_bwd.cu`, whose query loop's split
+    comes from `bwd_launch_plan` unless `split` is given (1 .. min(
+    BWD_MAX_SPLIT, query tiles)); fp32: `csrc/flash_attn_fp32.cu`, unsplit."""
     b, lq, lk, d, bias, lse, delta, scale = _check_backward(q, k, v, key_bias, do, lse, delta,
                                                             num_heads, scale)
+    if q.dtype == torch.float32:
+        if split not in (None, 1):
+            raise ValueError(f"the fp32 dk/dv kernel has no split, got {split}")
+        return _dkv_fp32(q, k, v, do, lse, delta, bias, b, lq, lk, d, num_heads, scale,
+                         need_dbias)
     if split is None:
         split = bwd_launch_plan(b, num_heads, lq, lk, d, sm_count(q.device.index)).split
     if not 1 <= split <= min(BWD_MAX_SPLIT, -(-lq // BWD_TILE)):
@@ -523,11 +552,30 @@ def flash_bwd_dkv_cuda(q, k, v, key_bias, do, lse, delta, num_heads: int, scale=
     return dk, dv, dbias
 
 
+def _dkv_fp32(q, k, v, do, lse, delta, bias, b, lq, lk, d, num_heads, scale, need_dbias):
+    dk = torch.empty((b, lk, num_heads * d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    dbias = (torch.empty((b, num_heads, lk), dtype=torch.float32, device=q.device)
+             if need_dbias else None)
+    st = _strides(q, k, v, do, dk, dv)
+    key = (b, lq, lk, num_heads, d)
+    with torch.cuda.device(q.device):
+        err = _fn("flash_attn_fp32_bwd_dkv")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), None if bias is None else bias.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), None if dbias is None else dbias.data_ptr(),
+            b, num_heads, lq, lk, d, ctypes.addressof(st), scale * LOG2E, scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_if(err, "flash_attn_fp32_bwd_dkv", key)
+    _count("dkv", "K3c", key, q.dtype)
+    return dk, dv, dbias
+
+
 def flash_backward_cuda(q, k, v, key_bias, o, do, lse, num_heads: int, scale=None,
                         need_dbias: bool = False):
-    """delta from the saved bf16 o, then the dq and dk/dv kernels. Returns
-    (dq, dk, dv, dbias per head or None)."""
-    _check_operand(o, "o", q.device, q.shape[0], q.shape[2])
+    """delta from the saved o, then the dq and dk/dv kernels of q's dtype.
+    Returns (dq, dk, dv, dbias per head or None)."""
+    _check_operand(o, "o", q.device, q.shape[0], q.shape[2], q.dtype)
     delta = row_delta(o, do, num_heads)
     dq = flash_bwd_dq_cuda(q, k, v, key_bias, do, lse, delta, num_heads, scale)
     dk, dv, dbias = flash_bwd_dkv_cuda(q, k, v, key_bias, do, lse, delta, num_heads, scale,
@@ -548,8 +596,9 @@ def _einsum_vjp(q, k, v, key_bias, do, num_heads: int, scale: float):
 
 
 class FlashAttentionBLC(torch.autograd.Function):
-    """Packed flash attention with the flash backward: the CUDA kernels on a
-    CUDA tensor, their plain versions on a CPU tensor. Saves q, k, v, bias,
+    """Packed flash attention with the flash backward: the CUDA kernels of
+    the operands' dtype (bf16 or fp32) on a CUDA tensor, their plain versions
+    on a CPU tensor. Saves q, k, v, bias,
     o and the row lse; dbias is returned only when the bias needs a
     gradient (summed over heads, as `_flash_core_blc3_bwd` does)."""
 

@@ -7,8 +7,8 @@
 - `recompute_grads`: the backward of a kernel that has no backward kernel,
   by running its plain version again under autograd (a `jax.vjp` of the
   plain function in the JAX package's `custom_vjp`s).
-
-`perturb_params` is not ported yet.
+- `perturb_params`: each embedder leaf scaled by U(1 - r, 1 + r) noise (the
+  reference's `perturb_model_parameters`, applied after a resume).
 """
 
 from __future__ import annotations
@@ -50,3 +50,20 @@ def recompute_grads(fn: Callable, saved: Sequence[torch.Tensor], needs: Sequence
         grads = iter(torch.autograd.grad(fn(*inputs), [t for t, n in zip(inputs, needs) if n],
                                          grad_out))
     return tuple(next(grads) if n else None for n in needs)
+
+
+@torch.no_grad()
+def perturb_params(generator: torch.Generator, embedders: dict, perturb_ratio: float = 0.2
+                   ) -> dict:
+    """Scale every leaf of every embedder by elementwise U(1 - r, 1 + r) noise,
+    drawn from `generator` (on the leaves' device) in sorted placeholder order
+    and field order. In place, so an optimizer holding the leaves keeps them;
+    returns `embedders`. The numbers differ from the JAX package's
+    (`jax.random` there), the distribution does not."""
+    from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
+
+    for s in sorted(embedders):
+        for _, t in embedder_leaves(embedders[s]):
+            u = torch.rand(t.shape, generator=generator, device=t.device, dtype=torch.float32)
+            t.mul_((1.0 - perturb_ratio + 2.0 * perturb_ratio * u).to(t.dtype))
+    return embedders

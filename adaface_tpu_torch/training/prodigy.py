@@ -13,7 +13,9 @@ builds, `MultiSteps(chain(clip_by_global_norm(clip), prodigy), every_k)`):
   micro-steps change nothing.
 
 Both work on a list of tensors updated in place (the trainer's embedder
-leaves); the inner optimizer reads `.grad`.
+leaves); the inner optimizer (Prodigy, or `adamw.AdamW`) reads `.grad`.
+`state_dict` / `load_state_dict` give and restore the whole state as plain
+tensors, for the trainer's resumable state.
 """
 
 from __future__ import annotations
@@ -73,6 +75,25 @@ class Prodigy:
         self.d = d_new
         self.step_count += 1
 
+    _TENSORS = ("d", "d_max", "d_numerator")
+    _LISTS = ("exp_avg", "exp_avg_sq", "s", "p0")
+
+    def state_dict(self) -> dict:
+        """The whole state as plain CPU tensors and ints (for `torch.save`)."""
+        out = {"step_count": self.step_count}
+        out.update({n: getattr(self, n).detach().cpu().clone() for n in self._TENSORS})
+        out.update({n: [t.detach().cpu().clone() for t in getattr(self, n)] for n in self._LISTS})
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        self.step_count = int(state["step_count"])
+        for n in self._TENSORS:
+            getattr(self, n).copy_(state[n])
+        for n in self._LISTS:
+            for dst, src in zip(getattr(self, n), state[n]):
+                dst.copy_(src)
+
 
 class AccumulatedClipped:
     """optax.MultiSteps(chain(clip_by_global_norm(max_norm), inner), every_k)
@@ -107,3 +128,17 @@ class AccumulatedClipped:
             p.grad = None
         self.mini_step = 0
         return True
+
+    def state_dict(self) -> dict:
+        """The accumulation state (micro-step count and running mean) and the
+        inner optimizer's, as plain CPU tensors and ints."""
+        return {"mini_step": self.mini_step,
+                "acc": [a.detach().cpu().clone() for a in self.acc],
+                "inner": self.inner.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        self.mini_step = int(state["mini_step"])
+        for dst, src in zip(self.acc, state["acc"]):
+            dst.copy_(src)
+        self.inner.load_state_dict(state["inner"])

@@ -19,13 +19,21 @@ batches in both. Checkpoints are the embedding manager's native `.npz`
 every `ckpt_every_steps` and `last`; metrics stream to stdout and
 `metrics.jsonl`.
 
-The optimizer is always Prodigy (learning rate 1, `d_coef`) behind the
-clip and accumulation chain. Arc2Face plans run as recon, as the JAX
-trainer runs them when it is given no teacher (the port has none yet).
-`cached_inits` stays None until the teacher filter, which fills it, is
-ported. AdamW, the data-parallel mesh, the webdataset compositor,
-validation, EMA, the image logger, the teacher filter,
-`save_state`/`load_state` and the signal handlers are not ported yet.
+The optimizer is Prodigy (learning rate 1, `d_coef`) or, with
+`use_prodigy` off, AdamW at `learning_rate` (times accumulation x devices x
+batch under `scale_lr`), behind the clip and accumulation chain; the
+prompt-delta and embedding regularizers are damped by 0.5 under Prodigy
+only. `use_ema` keeps an EMA shadow of the embedders, which the
+checkpoints save. `save_state` / `load_state` hold everything a resumed run
+needs to continue as an uninterrupted one would (step, embedders, the whole
+optimizer chain, the host, dataset and subject-sampler RNG states, the EMA
+state) in the port's own `torch.save` file. SIGUSR1 asks for a checkpoint
+at the next step's end, SIGUSR2 enters pdb. Arc2Face plans run as recon, as
+the JAX trainer runs them when it is given no teacher (the port has none
+yet). `cached_inits` stays None until the teacher filter, which fills it,
+is ported. The data-parallel mesh (`num_devices` > 1), the webdataset
+compositor (`wds_shards`), validation (`val_every_steps`), the image logger
+and the teacher filter are not ported yet: the first three raise.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import signal
 import time
 from typing import Dict, Optional
 
@@ -57,6 +66,8 @@ from adaface_tpu_torch.training.iter_plan import (
     plan_iteration,
     sample_timesteps,
 )
+from adaface_tpu_torch.training.adamw import AdamW
+from adaface_tpu_torch.training.ema import EmaState, ema_init, ema_update
 from adaface_tpu_torch.training.prodigy import AccumulatedClipped, Prodigy
 from adaface_tpu_torch.training.train_step import (
     ComposBatch,
@@ -73,6 +84,13 @@ class TrainerConfig:
     batch_size: int = 3
     accumulate_grad_batches: int = 2
     grad_clip: float = 0.5
+    # AdamW's rate (use_prodigy off), times accumulation x devices x batch
+    # under scale_lr
+    learning_rate: float = 7e-4
+    scale_lr: bool = True
+    # one card; more raise (the data-parallel mesh is ROADMAP queue 1 item 13)
+    num_devices: int = 1
+    use_prodigy: bool = True
     d_coef: float = 10.0
     ckpt_every_steps: int = 500
     log_every_steps: int = 10
@@ -80,6 +98,15 @@ class TrainerConfig:
     # recon-iteration complementary battery weights
     fg_bg_complementary_loss_weight: float = 2e-4
     fg_bg_xlayer_consist_loss_weight: float = 5e-5
+    # the webdataset compositor's settings (the `data` section of
+    # finetune-ada.yaml); a non-empty wds_shards raises until the compositor
+    # is ported (ROADMAP queue 1 item 10)
+    fg_wds_complementary_loss_weight: float = 0.0
+    wds_shards: tuple = ()
+    p_wds_comp_recon: float = 0.05
+    p_wds_comp_compos: float = 0.2
+    wds_bg_recon_weight: float = 0.05
+    wds_background_string: str = "w"
     # compel weighting of the compos iterations' V/K contexts: probability
     # and the range the level is drawn from
     apply_compel_cfg_prob: float = 0.0
@@ -87,6 +114,13 @@ class TrainerConfig:
     # per-iteration Dirichlet resampling of the clip-skip blend weights
     randomize_clip_skip_weights: bool = False
     clip_skip_weights_alpha: tuple = (1.0, 1.0)
+    # EMA shadow of the embedders (LitEma; the checkpoints save the shadow)
+    use_ema: bool = False
+    ema_decay: float = 0.9999
+    # validation every N steps; > 0 raises until validation is ported
+    # (ROADMAP queue 1 item 10)
+    val_every_steps: int = 0
+    val_batches: int = 2
     seed: int = 0
     logdir: str = "logs/run"
 
@@ -95,6 +129,16 @@ class Trainer:
     def __init__(self, pipeline, dataset: PersonalizedDataset,
                  cfg: TrainerConfig = TrainerConfig(),
                  plan_cfg: IterPlanConfig = IterPlanConfig()):
+        if cfg.num_devices != 1:
+            raise NotImplementedError(
+                f"num_devices={cfg.num_devices}: the port trains on one card; the "
+                "data-parallel mesh is ROADMAP queue 1 item 13")
+        if cfg.wds_shards:
+            raise NotImplementedError("wds_shards: the webdataset compositor is not ported "
+                                      "yet (ROADMAP queue 1 item 10)")
+        if cfg.val_every_steps > 0:
+            raise NotImplementedError("val_every_steps > 0: validation is not ported yet "
+                                      "(ROADMAP queue 1 item 10)")
         self.pipe = pipeline
         self.dataset = dataset
         self.cfg = cfg
@@ -107,6 +151,7 @@ class Trainer:
         self.mgr: EmbeddingManager = pipeline.embedding_manager
         self.device = pipeline.device
         self.global_step = 0
+        self._sig_ckpt_requested = False
 
         os.makedirs(cfg.logdir, exist_ok=True)
         self._log_f = open(os.path.join(cfg.logdir, "metrics.jsonl"), "a")
@@ -118,15 +163,23 @@ class Trainer:
         for s in sorted(self.mgr.embedders):
             for _, t in embedder_leaves(self.mgr.embedders[s]):
                 params.append(t.requires_grad_(True))
-        self.optimizer = AccumulatedClipped(Prodigy(params, lr=1.0, d_coef=cfg.d_coef),
-                                            cfg.grad_clip, cfg.accumulate_grad_batches)
+        if cfg.use_prodigy:
+            inner = Prodigy(params, lr=1.0, d_coef=cfg.d_coef)
+        else:
+            lr = cfg.learning_rate
+            if cfg.scale_lr:
+                lr *= cfg.accumulate_grad_batches * cfg.num_devices * cfg.batch_size
+            inner = AdamW(params, lr)
+        self.optimizer = AccumulatedClipped(inner, cfg.grad_clip, cfg.accumulate_grad_batches)
 
         self._bg_placeholders = frozenset(
             s for s, info in self.mgr.placeholders.items() if info.is_background)
-        # Prodigy's damping (0.5) and zero-shot disabling of the always-on regs
-        delta_scale = 0.5 / 5 if self.plan_cfg.do_zero_shot else 0.5
+        # Prodigy's damping (0.5; 1 under AdamW) and zero-shot disabling of
+        # the always-on regs (the delta reg /5, the embedding reg off)
+        damping = 0.5 if cfg.use_prodigy else 1.0
+        delta_scale = damping / 5 if self.plan_cfg.do_zero_shot else damping
         self._delta_w = self.plan_cfg.prompt_emb_delta_reg_weight * delta_scale
-        self._emb_reg_w = 0.0 if self.plan_cfg.do_zero_shot else 2e-4 * 0.5
+        self._emb_reg_w = 0.0 if self.plan_cfg.do_zero_shot else 2e-4 * damping
         self._recon_steps: Dict[tuple, object] = {}
         self._compos_step = None
         # the empty prompt's first-layer context, frozen, for compel
@@ -135,8 +188,21 @@ class Trainer:
             self._empty_ctx = pipeline.encode_negative("", 1)[0, 0].clone()
         # reuse-init cache, filled by the teacher filter (not ported yet)
         self.cached_inits = None
+        self.ema_state: Optional[EmaState] = (ema_init(self.mgr.embedders) if cfg.use_ema
+                                              else None)
+        signal.signal(signal.SIGUSR1, self._on_sigusr1)
+        signal.signal(signal.SIGUSR2, self._on_sigusr2)
 
     # ------------------------------------------------------------- plumbing
+    def _on_sigusr1(self, *_):
+        """Ask for a checkpoint at the end of the current step."""
+        self._sig_ckpt_requested = True
+
+    def _on_sigusr2(self, *_):
+        import pdb
+
+        pdb.set_trace()
+
     def _log(self, metrics: Dict, plan: IterPlan):
         rec = {"step": self.global_step, "iter_type": plan.iter_type,
                "emb_noise_std": float(plan.emb_noise_std),
@@ -155,11 +221,88 @@ class Trainer:
                   flush=True)
 
     def save_checkpoint(self, tag: Optional[str] = None) -> str:
+        """The embeddings' `.npz` (`embeddings_<tag>.npz`, default
+        `gs-<step>`): the EMA shadow when EMA is on, else the live
+        embedders."""
         tag = tag or f"gs-{self.global_step}"
         path = os.path.join(self.cfg.logdir, f"embeddings_{tag}.npz")
-        self.mgr.save_native(path)
+        if self.ema_state is not None:
+            live = self.mgr.embedders
+            self.mgr.embedders = self.ema_state.shadow
+            try:
+                self.mgr.save_native(path)
+            finally:
+                self.mgr.embedders = live
+        else:
+            self.mgr.save_native(path)
         print(f"saved {path}", flush=True)
         return path
+
+    # ------------------------------------------------------ full train state
+    @staticmethod
+    def _leaves_cpu(embedders: Dict) -> Dict:
+        return {s: {n: t.detach().cpu().clone() for n, t in embedder_leaves(e)}
+                for s, e in embedders.items()}
+
+    @staticmethod
+    @torch.no_grad()
+    def _load_leaves(embedders: Dict, saved: Dict, what: str):
+        """Copy saved leaves into the live tensors in place (the optimizer
+        holds them)."""
+        if set(saved) != set(embedders):
+            raise ValueError(f"{what}: saved placeholders {sorted(saved)}, this run has "
+                             f"{sorted(embedders)}")
+        for s, e in embedders.items():
+            leaves = dict(embedder_leaves(e))
+            if set(saved[s]) != set(leaves):
+                raise ValueError(f"{what}: {s} has leaves {sorted(saved[s])} saved, "
+                                 f"{sorted(leaves)} here")
+            for n, t in leaves.items():
+                t.copy_(saved[s][n])
+
+    def save_state(self, path: Optional[str] = None) -> str:
+        """The whole resumable state (`train_state.pt` in the log dir): step,
+        embedders, the optimizer chain (the accumulation's micro-step count
+        and running mean included), the host, dataset and subject-sampler
+        RNG states, and the EMA state, as plain tensors, ints and dicts
+        (`torch.save`; the JAX package's pickle holds optax classes)."""
+        path = path or os.path.join(self.cfg.logdir, "train_state.pt")
+        state = {
+            "global_step": self.global_step,
+            "use_prodigy": self.cfg.use_prodigy,
+            "embedders": self._leaves_cpu(self.mgr.embedders),
+            "optimizer": self.optimizer.state_dict(),
+            "rng_state": self.rng.bit_generator.state,
+            "dataset_rng_state": self.dataset.rng.bit_generator.state,
+            "sampler_rng_state": self.sampler.rng.bit_generator.state,
+            "ema_state": (None if self.ema_state is None else
+                          {"shadow": self._leaves_cpu(self.ema_state.shadow),
+                           "num_updates": self.ema_state.num_updates}),
+        }
+        torch.save(state, path)
+        print(f"saved train state {path} (step {self.global_step})", flush=True)
+        return path
+
+    def load_state(self, path: str) -> "Trainer":
+        """Restore `save_state`'s file into this trainer, in place."""
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        if bool(state["use_prodigy"]) != bool(self.cfg.use_prodigy):
+            raise ValueError(f"{path} was saved with use_prodigy={state['use_prodigy']}, "
+                             f"this run has {self.cfg.use_prodigy}")
+        self.global_step = int(state["global_step"])
+        self._load_leaves(self.mgr.embedders, state["embedders"], path)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.rng.bit_generator.state = state["rng_state"]
+        self.dataset.rng.bit_generator.state = state["dataset_rng_state"]
+        self.sampler.rng.bit_generator.state = state["sampler_rng_state"]
+        if state["ema_state"] is not None:
+            if self.ema_state is None:
+                self.ema_state = ema_init(self.mgr.embedders)
+            self._load_leaves(self.ema_state.shadow, state["ema_state"]["shadow"], path)
+            self.ema_state = EmaState(self.ema_state.shadow,
+                                      int(state["ema_state"]["num_updates"]))
+        print(f"resumed from {path} at step {self.global_step}", flush=True)
+        return self
 
     def close(self):
         self._log_f.close()
@@ -435,8 +578,11 @@ class Trainer:
 
     # ------------------------------------------------------------------ run
     def fit(self, num_steps: Optional[int] = None):
-        """Run the training loop for `num_steps` micro-steps (default
-        max_steps)."""
+        """Run the training loop until `num_steps` micro-steps (default
+        max_steps) are done, in the JAX loop's order: step, log, EMA update,
+        step count, a checkpoint SIGUSR1 asked for, then every
+        `ckpt_every_steps` a checkpoint and the resumable state. On an
+        exception the checkpoint and state are saved as `exception`."""
         n = num_steps or self.cfg.max_steps
         t0 = time.time()
         try:
@@ -449,15 +595,23 @@ class Trainer:
                 else:
                     metrics = self._run_recon(plan)
                 self._log(metrics, plan)
+                if self.ema_state is not None:
+                    self.ema_state = ema_update(self.ema_state, self.mgr.embedders,
+                                                self.cfg.ema_decay)
                 self.global_step += 1
+                if self._sig_ckpt_requested:
+                    self.save_checkpoint()
+                    self._sig_ckpt_requested = False
                 if self.global_step % self.cfg.ckpt_every_steps == 0:
                     self.save_checkpoint()
+                    self.save_state()
                     self._log_run_summary(t0)
         except KeyboardInterrupt:
             self.save_checkpoint("interrupted")
             raise
         except Exception:
             self.save_checkpoint("exception")
+            self.save_state(os.path.join(self.cfg.logdir, "train_state_exception.pt"))
             raise
         self.save_checkpoint("last")
         dt = time.time() - t0

@@ -119,6 +119,25 @@ The compositional path adds:
       and K8 / K9 at the compos step's batch-4 shapes (in 4b's loops),
       against their plain versions with 4's and 4b's gates, planted faults
       and repeats; kernel, plain, bound and library times.
+The fp32 path (slice 13) adds:
+  4g. the fp32 flash kernel (`csrc/flash_attn_fp32.cu`, FFMA only: the
+      build gate holds it to no spill, no HGMMA and no HMMA) through the
+      wrappers on fp32 tensors: forward with lse, dq and dk/dv/dbias at the
+      B3 and B4 training shapes with and without key bias, the forward at
+      B16 L4096 d40, against the plain fp32 versions (relative L2 and max
+      abs gates of 1e-5; planted faults must fail them; two launches agree
+      bit for bit); kernel, plain, SDPA (fp32) times and the bound;
+  9d. the port's training entry point, `adaface_tpu_torch.train.main`,
+      in-process on the seeded dataset at full SD width:
+      `finetune-static-layerwise.yaml` in fp32 (4 micro-steps with exact
+      fp32-kernel launches; the checkpoint reloads), `finetune-ti.yaml
+      --bf16` (AdamW, K=1, no background token; 6 micro-steps), a run
+      resumed from its step-3 state to step 6 (metrics within
+      TRAIN_LOSS_TOL of the uninterrupted run's), `finetune-ada.yaml`
+      with `model_options.use_remat=true` (exact launches, the recompute's
+      forwards included), without (peak memory), and with it under the
+      fused knobs (K9 twice in each non-capturing block, K8 once); median
+      seconds per recon and compos micro-step and peak memory of each run.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -158,7 +177,10 @@ FWD_LIB = "flash_attn_packed"
 # products all wgmma (phase_build); none of these may spill, nor K8, which
 # has no products
 WGMMA_LIBS = (FWD_LIB, "flash_attn_bwd", "ln_geglu_ff", "winograd")
-NOSPILL_LIBS = WGMMA_LIBS + ("gn_silu",)
+# the fp32 flash kernel: FFMA only, no tensor-core product (no HGMMA, no
+# HMMA: JAX asks for fp32 products, which TF32 would not give)
+FP32_LIB = "flash_attn_fp32"
+NOSPILL_LIBS = WGMMA_LIBS + ("gn_silu", FP32_LIB)
 BWD_SOURCE = "adaface_tpu_torch/csrc/flash_attn_bwd.cu"
 K1 = "adaface_tpu/ops/flash_attention.py:578"  # _flash_kernel_heads_pvt
 K4 = "adaface_tpu/ops/flash_attention.py:544"  # _flash_kernel_heads_short
@@ -192,6 +214,8 @@ COMPOS_SHAPES = {(4, 4096, 8, 40): (K1, 5, 4), (4, 1024, 8, 80): (K1, 5, 5),
 # the shipped configs' `composition_regs_iter_gap`: micro-steps 0, 3, 6, ...
 # are compositional
 COMPOS_GAP = 3
+# the shipped configs, read by the port's own YAML reader
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 TRAIN_STEPS = 8  # micro-steps (compos 0, 3, 6), 4 optimizer updates
 # Backward gate, kernel vs the plain fp32 backward on the same bf16 inputs.
 # Measured on an H100 at these shapes: dq/dk/dv relative L2 2.2e-3..2.4e-3
@@ -441,6 +465,14 @@ def phase_build(kernels):
             f"(mma.sync), {count('MUFU.EX2')} MUFU.EX2")
         if count("HGMMA") == 0 or count("HMMA") != 0:
             fail(f"{name}: the products are not all wgmma")
+    sass = subprocess.run([kernels.cuda_tool("cuobjdump"), "-sass",
+                           str(kernels.library_path(FP32_LIB))], capture_output=True, text=True,
+                          timeout=300, check=True).stdout.splitlines()
+    count = lambda op: sum(1 for line in sass if op in line)
+    say(f"[build] {FP32_LIB} SASS: {count('FFMA')} FFMA, {count('HGMMA')} HGMMA, "
+        f"{count('HMMA')} HMMA")
+    if count("FFMA") == 0 or count("HGMMA") or count("HMMA"):
+        fail(f"{FP32_LIB}: the products are not all fp32 FFMA")
 
 
 def n_launches(fa, kind=None):
@@ -1402,17 +1434,23 @@ def make_dataset(folder, size=SIZE):
 
 def train_configs(logdir, gap=COMPOS_GAP):
     """`configs/finetune-static-layerwise.yaml`'s trainer and iter_plan
-    values, written in (the card's machine has no pyyaml); `gap` 0 makes a
-    recon-only run."""
+    values, read by the port's own YAML reader (the card's machine has no
+    pyyaml), for TRAIN_STEPS micro-steps without checkpoints or logging on
+    the way, and without zero-shot; `gap` 0 makes a recon-only run."""
+    import dataclasses
+
+    from adaface_tpu_torch.config import load_config
     from adaface_tpu_torch.training.iter_plan import IterPlanConfig
     from adaface_tpu_torch.training.trainer import TrainerConfig
 
-    return (TrainerConfig(batch_size=3, accumulate_grad_batches=2, grad_clip=0.5,
-                          d_coef=10.0, max_steps=TRAIN_STEPS,
-                          log_every_steps=10 ** 6, ckpt_every_steps=10 ** 6, logdir=logdir),
-            IterPlanConfig(composition_regs_iter_gap=gap, do_zero_shot=False,
-                           prompt_emb_delta_reg_weight=2e-4, mix_prompt_distill_weight=2e-4,
-                           arc2face_distill_iter_prob=0.0))
+    cfg = load_config(os.path.join(CONFIG_DIR, "finetune-static-layerwise.yaml"))
+    fields = lambda cls, section: {k: v for k, v in cfg[section].items()
+                                   if k in {f.name for f in dataclasses.fields(cls)}}
+    return (TrainerConfig(**dict(fields(TrainerConfig, "trainer"), max_steps=TRAIN_STEPS,
+                                 log_every_steps=10 ** 6, ckpt_every_steps=10 ** 6,
+                                 logdir=logdir)),
+            IterPlanConfig(**dict(fields(IterPlanConfig, "iter_plan"),
+                                  composition_regs_iter_gap=gap, do_zero_shot=False)))
 
 
 def phase_train_reference(torch, pipe, trainer_cls, tmp):
@@ -1790,6 +1828,437 @@ def train_stages(torch, trainer, card):
             f"host {(t1 - t0) * 1e3:.1f} ms, whole batch preparation with the VAE encode "
             f"{(t2 - t1) * 1e3:.1f} ms, step (loss, backward, optimizer) "
             f"{(t3 - t2) * 1e3:.1f} ms [{card}]")
+
+
+# ----------------------------------------------------------------- slice 13
+# fp32 pipelines: the hand-written fp32 flash kernel (4g), and the port's
+# training entry point on the shipped per-subject configs (9d).
+FP32_SOURCE = "adaface_tpu_torch/csrc/flash_attn_fp32.cu"
+# H100 SXM data sheet: float32 outside the tensor cores
+PEAK_FP32_FLOPS = 67e12
+# (B, L, H, d) of 4g: the recon (B3) and compos (B4) training shapes with
+# and without key bias, and one generate shape (forward only)
+FP32_TRAIN_SHAPES = {**TRAIN_SHAPES, **COMPOS_SHAPES}
+FP32_GENERATE_SHAPE = (16, 4096, 8, 40)
+# fp32 kernel vs its plain fp32 version on the same fp32 inputs: both sum
+# fp32 products in other orders, so they agree to fp32 rounding (measured
+# on an H100: relative L2 1e-8..7e-7 for o, dq, dk, dv and dbias, lse within
+# 2e-6 of values up to ~12). Gates: relative L2 and max abs relative to the
+# largest plain value (1 for lse), each 1e-5; planted faults (a key tile
+# skipped, a wrong scale, delta omitted, ...) must fail them.
+FP32_REL_TOL = 1e-5
+FP32_ABS_TOL = 1e-5
+FP32_KINDS = {"fwd": "fwd_fp32", "dq": "dq_fp32", "dkv": "dkv_fp32"}
+# 9d: micro-steps of each entry-point run (gap 3: compos at 0 and 3), and of
+# the uninterrupted run that the resumed one continues from its step 3
+CLI_STEPS = 4
+CLI_RESUME_STEPS, CLI_RESUME_AT = 6, 3
+
+
+def fp32_bound(b, lq, lk, h, d, exp2_rate, kind, with_bias):
+    """Least time of an fp32 flash kernel: its products as FFMA flops at the
+    fp32 non-tensor peak (4 x B*H*Lq*Lk*d for the forward, 6 for dq, 8 for
+    dk/dv, as the bf16 bounds count them), B*H*Lq*Lk exp2, or its fp32
+    inputs read once and outputs written once, whichever is largest."""
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * b * h * lq * lk * d
+    t_ops = max(flops / PEAK_FP32_FLOPS, b * h * lq * lk / exp2_rate)
+    if kind == "fwd":
+        nbytes = 4 * (b * h * d * (2 * lq + 2 * lk) + b * h * lq)
+    else:
+        outs = b * lq * h * d if kind == "dq" else 2 * b * lk * h * d
+        nbytes = 4 * (b * h * d * (2 * lq + 2 * lk) + outs + 2 * b * h * lq)
+    nbytes += 4 * b * lk if with_bias else 0
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _gate_fp32(got, ref, what):
+    """(max abs, rel L2, passes) of one fp32 kernel output against its plain
+    version: FP32_REL_TOL, and FP32_ABS_TOL of the largest plain value (of 1
+    for the lse)."""
+    err, rel = kernel_errors(got, ref)
+    scale = 1.0 if what == "lse" else max(ref.abs().max().item(), 1e-30)
+    return err, rel, err <= FP32_ABS_TOL * scale and rel <= FP32_REL_TOL
+
+
+def phase_fp32_kernels(torch, fa, card, exp2_rate):
+    """(4g) The fp32 flash kernel (`csrc/flash_attn_fp32.cu`) through the
+    wrappers on fp32 tensors: the forward with its lse, dq and dk/dv/dbias
+    at the training shapes (B3 and B4; with and without key bias), the
+    forward at B16 L4096 d40, against the plain versions; planted faults
+    must fail the gates; the backward and the forward repeat bit for bit;
+    kernel, plain and SDPA times (SDPA on the same fp32 inputs, TF32 off),
+    and the bound. Returns the rows of the path's configurations (bias on
+    B3, none on B4)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = {}
+    cases = [(shape, wb) for shape in FP32_TRAIN_SHAPES for wb in (True, False)]
+    cases.append((FP32_GENERATE_SHAPE, None))  # forward only
+    for (b, l, h, d), with_bias in cases:
+        inner = h * d
+        rand = lambda: torch.randn((b, l, inner), generator=gen, device="cuda")
+        q, k, v, do = rand(), rand(), rand(), rand()
+        bias = None
+        if with_bias:
+            bias = torch.where(torch.rand((b, l), generator=gen, device="cuda") > 0.3,
+                               0.0, -1e30)
+            bias[0] = -1e30  # a fully masked batch row
+        label = (f"fp32 B{b} L{l} H{h} d{d} "
+                 f"{'generate' if with_bias is None else ('bias' if with_bias else 'no bias')}")
+        fa.launches_by_shape.clear()
+        out, lse = fa.flash_attention_blc_cuda(q, k, v, h, bias, return_lse=True)
+        torch.cuda.synchronize()
+        plain_out = fa.flash_attention_blc_plain(q, k, v, h, bias)
+        plain_lse = fa.row_lse_plain(q, k, h, bias)
+        checks = [("o", out, plain_out), ("lse", lse, plain_lse)]
+        again = fa.flash_attention_blc_cuda(q, k, v, h, bias, return_lse=True)
+        if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+            fail(f"{label}: two forward launches disagree on o or lse")
+        faults = [("key tile 0 skipped", "o", fa.flash_attention_blc_plain(
+                      q, k[:, 64:], v[:, 64:], h, None if bias is None else bias[:, 64:]),
+                   plain_out),
+                  (f"scale of d{d + 8}", "o", fa.flash_attention_blc_plain(
+                      q, k, v, h, bias, scale=(d + 8) ** -0.5), plain_out),
+                  ("key tile 0 skipped", "lse", fa.row_lse_plain(
+                      q, k[:, 64:], h, None if bias is None else bias[:, 64:]), plain_lse)]
+        if with_bias is not None:
+            delta = fa.row_delta(out, do, h)
+            dq = fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, h)
+            dk, dv, dbias = fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, h,
+                                                  need_dbias=True)
+            torch.cuda.synchronize()
+            check_bwd_repeats(torch, fa, (q, k, v, bias, do, lse, delta, h),
+                              (dq, dk, dv, dbias), label)
+            pdq, pdk, pdv, pdb = fa.flash_backward_plain(q, k, v, bias, out, do, lse, h)
+            checks += [("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)]
+            if bias is not None:
+                checks.append(("dbias", dbias, pdb))
+            last = (l - 1) // 64 * 64
+            no_delta = fa.flash_backward_plain(q, k, v, bias, torch.zeros_like(out), do, lse, h)
+            no_last = fa.flash_backward_plain(q[:, :last], k, v, bias, out[:, :last],
+                                              do[:, :last], lse[:, :, :last], h)
+            faults += [("key tile 0 skipped", "dq", fa.flash_backward_plain(
+                            q, k[:, 64:], v[:, 64:], None if bias is None else bias[:, 64:],
+                            out, do, lse, h)[0], pdq),
+                       ("delta omitted", "dq", no_delta[0], pdq),
+                       ("delta omitted", "dk", no_delta[1], pdk),
+                       ("dk without its scale", "dk", pdk / d ** -0.5, pdk),
+                       ("last query tile skipped", "dk", no_last[1], pdk),
+                       ("last query tile skipped", "dv", no_last[2], pdv)]
+        counted = {kind: n_launches(fa, kind) for kind in FP32_KINDS.values()}
+        want = {"fwd_fp32": 2, "dq_fp32": 0 if with_bias is None else 2,
+                "dkv_fp32": 0 if with_bias is None else 2}
+        if counted != want or n_launches(fa) != sum(want.values()):
+            fail(f"{label}: the wrappers counted {dict(fa.launches_by_shape)}, want {want} "
+                 "fp32 launches")
+        errs = {}
+        for what, got, ref in checks:
+            if got.dtype != torch.float32 or not torch.isfinite(got).all():
+                fail(f"{label}: {what} is {got.dtype} or non-finite")
+            err, rel, ok = _gate_fp32(got, ref, what)
+            errs[what] = err
+            say(f"[fp32-kernel] {label:30s} {what:5s}: max abs err {err:.3e} rel L2 {rel:.3e}"
+                f"{'' if ok else '  FAILS THE GATE'}")
+            if not ok:
+                fail(f"{label}: fp32 {what} disagrees with its plain version")
+        for name, what, wrong, ref in faults:
+            err, rel, ok = _gate_fp32(wrong, ref, what)
+            say(f"[fp32-kernel]   planted fault, {name} ({what}): max abs err {err:.3e} rel "
+                f"L2 {rel:.3e}")
+            if ok:
+                fail(f"{label}: the fp32 gate passes a planted fault ({name}, {what})")
+        if with_bias is False and (b, l, h, d) in TRAIN_SHAPES:
+            continue  # B3 trains with its key mask: times at the path's configuration
+        if with_bias is True and (b, l, h, d) in COMPOS_SHAPES:
+            continue  # B4 trains without one
+        # times: the kernels, the plain versions, SDPA (fp32, TF32 off)
+        fwd_ms = time_ms(torch, lambda: fa.flash_attention_blc_cuda(q, k, v, h, bias,
+                                                                   return_lse=True))
+        fwd_plain_ms = time_ms(torch, lambda: (fa.flash_attention_blc_plain(q, k, v, h, bias),
+                                               fa.row_lse_plain(q, k, h, bias)),
+                               reps=1, rounds=3, warmup=1)
+        qh, kh, vh = (t.unflatten(-1, (h, d)).transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        mask = None if bias is None else bias[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                      scale=d ** -0.5)
+        fwd_lib_ms = time_ms(torch, lambda: sdpa().detach())
+        fb = fp32_bound(b, l, l, h, d, exp2_rate, "fwd", bias is not None)
+        rows[("fwd", b, l, h, d)] = dict(
+            replaces=f"{K4 if d == 160 else K1} (+ {K3A} as the lse output)",
+            max_abs_err=max(errs["o"], errs["lse"]), ms=fwd_ms, plain_ms=fwd_plain_ms,
+            bound_ms=fb[0], bound_by=fb[1], library_ms=fwd_lib_ms)
+        msg = (f"[fp32-kernel] {label}: fwd+lse {fwd_ms:.4f} ms (bound {fb[0]:.4f} {fb[1]}, "
+               f"sdpa fp32 {fwd_lib_ms:.4f}, plain {fwd_plain_ms:.3f})")
+        if with_bias is not None:
+            dq_ms = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse,
+                                                                delta, h))
+            dkv_ms = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse,
+                                                                  delta, h))
+            bwd_plain_ms = time_ms(torch, lambda: fa.flash_backward_plain(
+                q, k, v, bias, out, do, lse, h), reps=1, rounds=3, warmup=1)
+            o_lib = sdpa()
+            g_lib = do.unflatten(-1, (h, d)).transpose(1, 2)
+            bwd_lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qh, kh, vh), g_lib, retain_graph=True))
+            del o_lib
+            for kind, ms, err, rep in (("dq", dq_ms, errs["dq"], K3B),
+                                       ("dkv", dkv_ms, max(errs["dk"], errs["dv"]), K3C)):
+                bb = fp32_bound(b, l, l, h, d, exp2_rate, kind, bias is not None)
+                rows[(kind, b, l, h, d)] = dict(
+                    replaces=rep, max_abs_err=err, ms=ms, plain_ms=bwd_plain_ms,
+                    bound_ms=bb[0], bound_by=bb[1], library_ms=bwd_lib_ms)
+                msg += f", {kind} {ms:.4f} ms (bound {bb[0]:.4f} {bb[1]})"
+            msg += f", sdpa fp32 backward {bwd_lib_ms:.4f} ms, plain backward {bwd_plain_ms:.3f}"
+        say(msg + f" [{card}]")
+        del q, k, v, do, out, lse, qh, kh, vh
+    fa.launches_by_shape.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _fp32_want(shapes):
+    return {FP32_KINDS[kind]: want for kind, want in flash_want(shapes).items()}
+
+
+def _remat_want(shapes):
+    """A micro-step's flash launches with `use_remat`: the recompute runs
+    the forward of every non-capturing SpatialTransformer's self-attention a
+    second time (layers 1, 2 at L4096 and 4, 5 at L1024; the L256 ones, 7
+    and 8, capture); the backward launches are unchanged."""
+    want = flash_want(shapes)
+    want["fwd"] = {s: n + (2 if s[1] in (4096, 1024) else 0) for s, n in want["fwd"].items()}
+    return want
+
+
+def _cli_run(torch, fa, trainer_cls, tmp, name, argv, wants, card, counters=None):
+    """`adaface_tpu_torch.train.main(argv)` in-process on a seeded dataset at
+    full SD width on the card, the launch counters cleared just before it.
+    Each micro-step (`Trainer._run_recon` / `_run_compos`, batch preparation
+    included) is timed and its flash launches by kind and shape (and those
+    of `counters`, name -> a `launches_by_shape` keyed by shape) must equal
+    wants[is compos]. Returns a record: times, kinds, per-step launches,
+    the trainer, peak GiB, logdir."""
+    counters = counters or {}
+    import gc
+
+    import numpy as np
+
+    from adaface_tpu_torch import train
+
+    logdir = os.path.join(tmp, f"cli_{name}")
+    ds_dir = os.path.join(tmp, f"cli_{name}_subject")
+    os.makedirs(ds_dir)
+    rec = dict(times=[], kinds=[], launches=[], trainer=None, logdir=logdir)
+    real = {k: getattr(trainer_cls, k) for k in ("_run_recon", "_run_compos")}
+
+    def timed(kind, run):
+        def wrapper(self, plan):
+            rec["trainer"] = self
+            before = dict(fa.launches_by_shape)
+            before_extra = {k: dict(c) for k, c in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.time()
+            metrics = run(self, plan)
+            torch.cuda.synchronize()
+            rec["times"].append(time.time() - t0)
+            rec["kinds"].append(kind)
+            got = {}
+            for (k, arm, b, lq, lk, h, d), n in fa.launches_by_shape.items():
+                n -= before.get((k, arm, b, lq, lk, h, d), 0)
+                if n:
+                    got.setdefault(k, {})[(b, lq, h, d)] = n
+            for k, c in counters.items():
+                delta = {shape: n - before_extra[k].get(shape, 0) for shape, n in c.items()
+                         if n - before_extra[k].get(shape, 0)}
+                if delta:
+                    got[k] = delta
+            rec["launches"].append(got)
+            return metrics
+        return wrapper
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in [fa.launches_by_shape, *counters.values()]:
+        c.clear()
+    trainer_cls._run_recon = timed("recon", real["_run_recon"])
+    trainer_cls._run_compos = timed("compos", real["_run_compos"])
+    try:
+        rc = train.main(argv + ["--logdir", logdir], dataset=make_dataset(ds_dir),
+                        device="cuda")
+    finally:
+        for k, f in real.items():
+            setattr(trainer_cls, k, f)
+    rec["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if rc != 0:
+        fail(f"[cli {name}] main returned {rc}")
+    for i, (kind, got) in enumerate(zip(rec["kinds"], rec["launches"])):
+        want = wants[kind == "compos"]
+        say(f"[cli] {name} micro-step {i} ({kind}): {rec['times'][i]:.3f} s, launches "
+            f"{ {k: sorted(v.items()) for k, v in sorted(got.items())} } [{card}]")
+        if got != want:
+            fail(f"[cli {name}] micro-step {i} ({kind}): expected the launches {want}, "
+                 f"got {got}")
+    recs = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    rec["metrics"] = [r for r in recs if "loss" in r]
+    if len(rec["metrics"]) != len(rec["times"]) or not all(
+            np.isfinite(v) for r in rec["metrics"] for v in r.values()
+            if isinstance(v, float)):
+        fail(f"[cli {name}] {len(rec['metrics'])} step records for {len(rec['times'])} "
+             "micro-steps, or a non-finite metric")
+    recon = [t for t, k in zip(rec["times"], rec["kinds"]) if k == "recon"]
+    compos = [t for t, k in zip(rec["times"], rec["kinds"]) if k == "compos"]
+    rec["recon_med"] = statistics.median(recon[1:] or recon)
+    rec["compos_med"] = statistics.median(compos[1:] or compos)
+    say(f"[cli] {name}: {len(rec['times'])} micro-steps {rec['kinds']}; median recon "
+        f"{rec['recon_med']:.3f} s (first {recon[0]:.3f}), median compos "
+        f"{rec['compos_med']:.3f} s (first {compos[0]:.3f}); peak memory {rec['peak']:.2f} GiB "
+        f"[{card}]")
+    return rec
+
+
+def phase_entry_point(torch, fa, trainer_cls, tmp, card):
+    """(9d) `adaface_tpu_torch.train.main` in-process at full SD width with
+    random weights on the seeded dataset, on the shipped per-subject configs:
+    `finetune-static-layerwise.yaml` in fp32 (exact fp32-kernel launches; the
+    checkpoint reloads), `finetune-ti.yaml --bf16` (AdamW, K=1, no
+    background token; 6 micro-steps keeping the state of step 3), a run
+    resumed from that state to step 6 (metrics within TRAIN_LOSS_TOL of the
+    uninterrupted run's), and `finetune-ada.yaml` (bf16 from the file,
+    compel 0.5) with `model_options.use_remat=true` (exact launches, the
+    recompute's forwards included) and without it (peak memory beside it),
+    and with it under FUSED_KNOBS (K9 launched again by the recompute, K8
+    not). Returns the fp32 run's launches by (kind, B, L, H, d)."""
+    import shutil
+
+    import numpy as np
+
+    from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
+    from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
+
+    t_phase = time.time()
+    base = lambda cfg: ["--base", os.path.join(CONFIG_DIR, f"{cfg}.yaml"),
+                        "--data_root", "seeded", "--seed", "0"]
+    runs = {}
+    # fp32: the config has no model.params.dtype, so no --bf16 means fp32
+    runs["static fp32"] = _cli_run(
+        torch, fa, trainer_cls, tmp, "static_fp32",
+        base("finetune-static-layerwise") + ["--max_steps", str(CLI_STEPS)],
+        {False: _fp32_want(TRAIN_SHAPES), True: _fp32_want(COMPOS_SHAPES)}, card)
+    tr = runs["static fp32"]["trainer"]
+    if tr.pipe.unet.in_conv.weight.dtype != torch.float32:
+        fail("[cli static fp32] the pipeline is not fp32")
+    reloaded = EmbeddingManager.load_native(os.path.join(runs["static fp32"]["logdir"],
+                                                         "embeddings_last.npz"))
+    for s, p in tr.mgr.embedders.items():
+        for n, t in embedder_leaves(p):
+            if not np.array_equal(getattr(reloaded.embedders[s], n).numpy(),
+                                  t.detach().cpu().numpy()):
+                fail(f"[cli static fp32] checkpoint reload: {s}.{n} differs")
+    say("[cli] static fp32: the checkpoint reloads equal to the live embedders")
+    del tr
+    runs["static fp32"]["trainer"] = None
+
+    # ti, bf16: AdamW; the state of step 3 kept for the resume run
+    real_save = trainer_cls.save_state
+
+    def keep_each_state(self, path=None):
+        path = real_save(self, path)
+        shutil.copy(path, os.path.join(self.cfg.logdir, f"state_{self.global_step}.pt"))
+        return path
+
+    bf16_wants = {False: flash_want(TRAIN_SHAPES), True: flash_want(COMPOS_SHAPES)}
+    trainer_cls.save_state = keep_each_state
+    try:
+        runs["ti bf16"] = _cli_run(
+            torch, fa, trainer_cls, tmp, "ti_bf16",
+            base("finetune-ti") + ["--bf16", "--max_steps", str(CLI_RESUME_STEPS),
+                                   "--ckpt_every_steps", str(CLI_RESUME_AT)], bf16_wants, card)
+    finally:
+        trainer_cls.save_state = real_save
+    tr = runs["ti bf16"]["trainer"]
+    inner = tr.optimizer.inner
+    if (type(inner).__name__ != "AdamW" or abs(inner.lr - 4e-3 * 2 * 3) > 1e-12
+            or sorted(tr.mgr.placeholders) != ["z"] or tr.mgr.placeholders["z"].num_vectors != 1):
+        fail(f"[cli ti bf16] not AdamW at 2.4e-2 with one 1-vector placeholder: "
+             f"{type(inner).__name__} {getattr(inner, 'lr', None)} {tr.mgr.placeholders}")
+    del tr, inner
+    runs["ti bf16"]["trainer"] = None
+    state = os.path.join(runs["ti bf16"]["logdir"], f"state_{CLI_RESUME_AT}.pt")
+    runs["ti resumed"] = _cli_run(
+        torch, fa, trainer_cls, tmp, "ti_resumed",
+        base("finetune-ti") + ["--bf16", "--max_steps", str(CLI_RESUME_STEPS),
+                               "--ckpt_every_steps", str(CLI_RESUME_AT), "--resume", state],
+        bf16_wants, card)
+    whole = runs["ti bf16"]["metrics"][CLI_RESUME_AT:]
+    resumed = runs["ti resumed"]["metrics"]
+    if [r["step"] for r in resumed] != [r["step"] for r in whole]:
+        fail(f"[cli resume] resumed steps {[r['step'] for r in resumed]}, uninterrupted "
+             f"{[r['step'] for r in whole]}")
+    worst, exact = 0.0, True
+    for a, b in zip(resumed, whole):
+        for k, v in b.items():
+            if isinstance(v, float):
+                exact &= a[k] == v
+                worst = max(worst, abs(a[k] - v) / max(abs(v), 1e-12))
+    say(f"[cli] resume at step {CLI_RESUME_AT} to {CLI_RESUME_STEPS}: metrics of steps "
+        f"{[r['step'] for r in resumed]} within {worst:.3e} relative of the uninterrupted "
+        f"run's (tol {TRAIN_LOSS_TOL}; {'bit for bit' if exact else 'not bit for bit'}; "
+        f"cuDNN benchmark {torch.backends.cudnn.benchmark}, deterministic "
+        f"{torch.backends.cudnn.deterministic}, TF32 off) [{card}]")
+    if not worst <= TRAIN_LOSS_TOL:
+        fail(f"[cli resume] metrics off by {worst:.3e} (tol {TRAIN_LOSS_TOL})")
+    for name in ("ti bf16", "ti resumed"):
+        runs[name].pop("trainer", None)
+
+    # ada: bf16 from the file, compel 0.5; with and without remat
+    for name, remat in (("ada remat", True), ("ada", False)):
+        wants = ({False: _remat_want(TRAIN_SHAPES), True: _remat_want(COMPOS_SHAPES)}
+                 if remat else bf16_wants)
+        runs[name] = _cli_run(
+            torch, fa, trainer_cls, tmp, name.replace(" ", "_"),
+            base("finetune-ada") + ["--max_steps", str(CLI_STEPS),
+                                    f"model_options.use_remat={str(remat).lower()}"],
+            wants, card)
+        tr = runs[name]["trainer"]
+        if (tr.pipe.unet.in_conv.weight.dtype != torch.bfloat16
+                or tr.pipe.unet.cfg.use_remat != remat or tr.cfg.apply_compel_cfg_prob != 0.5):
+            fail(f"[cli {name}] not bf16 / use_remat={remat} / compel 0.5")
+        runs[name]["trainer"] = None
+        del tr
+    # the fused knobs with remat: the recompute runs K9 again in each
+    # non-capturing block (FF_*_SHAPES twice); K8 sits in the ResBlocks,
+    # which are not rematerialized, and runs as often as without remat
+    fn, ff = _fused_ops()
+    fused_wants = {compos: dict(_remat_want(shapes), gn=dict(gn),
+                                ff={k: 2 * n for k, n in ff_shapes.items()})
+                   for compos, shapes, gn, ff_shapes in (
+                       (False, TRAIN_SHAPES, GN_TRAIN_SHAPES, FF_TRAIN_SHAPES),
+                       (True, COMPOS_SHAPES, GN_COMPOS_SHAPES, FF_COMPOS_SHAPES))}
+    with knobs_set(FUSED_KNOBS):
+        runs["ada remat fused"] = _cli_run(
+            torch, fa, trainer_cls, tmp, "ada_remat_fused",
+            base("finetune-ada") + ["--max_steps", str(CLI_STEPS),
+                                    "model_options.use_remat=true"],
+            fused_wants, card, counters={"gn": fn.launches_by_shape,
+                                         "ff": ff.launches_by_shape})
+    runs["ada remat fused"]["trainer"] = None
+    say(f"[cli] ada peak memory with remat {runs['ada remat']['peak']:.2f} GiB, without "
+        f"{runs['ada']['peak']:.2f} GiB; median recon {runs['ada remat']['recon_med']:.3f} / "
+        f"{runs['ada']['recon_med']:.3f} s, compos {runs['ada remat']['compos_med']:.3f} / "
+        f"{runs['ada']['compos_med']:.3f} s [{card}]")
+    say(f"[cli] phase 9d {time.time() - t_phase:.1f} s")
+    totals = {}
+    for got in runs["static fp32"]["launches"]:
+        for kind, by_shape in got.items():
+            for (b, l, h, d), n in by_shape.items():
+                key = (kind, b, l, h, d)
+                totals[key] = totals.get(key, 0) + n
+    return totals
 
 
 # ------------------------------------------------------------------ slice 4
@@ -2520,6 +2989,7 @@ def main():
                                              biases=(False, True))
     arm_rows, arm_bwd_rows = phase_arm_kernels(torch, fa, card, exp2_rate)
     phase_backward_edges(torch, fa, card)
+    fp32_rows = phase_fp32_kernels(torch, fa, card, exp2_rate)
     fused_rows = phase_fused_kernels(torch, card, exp2_rate)
 
     t0 = time.time()
@@ -2551,6 +3021,7 @@ def main():
         gn_train, ff_train = phase_fused_train(torch, pipe, Trainer, tmp, card, train_med,
                                                compos_med, train_peak)
         arm_train = phase_arm_train(torch, pipe, Trainer, tmp, card)
+        fp32_counts = phase_entry_point(torch, fa, Trainer, tmp, card)
 
     entries = []
     for (b, l, h, d), (replaces, _) in MAIN_SHAPES.items():
@@ -2608,6 +3079,16 @@ def main():
                 name=name.format(b, n, c) + (what if training else ""),
                 route="cuda", source=source, replaces=replaces,
                 launches=(tr_counts if training else gen_counts)[(b, n, c)], **row))
+    # the fp32 kernel: launches over phase 9d's fp32 run (B3 recon, B4 compos)
+    fp32_names = {"fwd": "flash_attn_fp32 fwd (lse when recorded)", "dq": "flash_attn_fp32 dq",
+                  "dkv": "flash_attn_fp32 dk/dv"}
+    for (kind, b, l, h, d), row in sorted(fp32_rows.items()):
+        if (b, l, h, d) not in FP32_TRAIN_SHAPES:
+            continue  # the generate shape: no fp32 request runs here (its time is printed)
+        what = "fp32 compos training" if (b, l, h, d) in COMPOS_SHAPES else "fp32 training"
+        entries.append(dict(name=f"{fp32_names[kind]} B{b} L{l} H{h} d{d} ({what})",
+                            route="cuda", source=FP32_SOURCE,
+                            launches=fp32_counts.get((FP32_KINDS[kind], b, l, h, d), 0), **row))
     say(f"[main] whole script {time.time() - t_start:.1f} s")
     say(json.dumps({"kernels": entries}))
     say(card)

@@ -2,10 +2,12 @@
 losses (values and gradients), `scale_grad`, `add_noise_to_tensor`,
 `distribute_cls_embeddings`, the static-embedder init, the optimizer chain
 (Prodigy + global-norm clip + 2-step accumulation against the JAX trainer's
-optax chain) and the native `.npz` checkpoint read by the other package.
-Inputs come from numpy with a seed. Tolerances: 1e-5 absolute on losses of
-order 0.01..1 and their gradients (fp32 sums in other orders); the
-optimizer 1e-5 relative over 6 micro-steps."""
+optax chain), AdamW behind the same chain against `optax.adamw`, the EMA
+against `adaface_tpu.training.ema`, `perturb_params`, and the native `.npz`
+checkpoint read by the other package. Inputs come from numpy with a seed.
+Tolerances: 1e-5 absolute on losses of order 0.01..1 and their gradients
+(fp32 sums in other orders); Prodigy 1e-5 relative over 6 micro-steps,
+AdamW 1e-6 relative over 8, the EMA 1e-6 relative over 20 updates."""
 
 import dataclasses
 
@@ -22,6 +24,7 @@ from adaface_tpu.personalization.embedding_manager import EmbeddingManager as JE
 from adaface_tpu.personalization.static_embedding import (
     StaticEmbedderParams as JParams, init_static_embedder as j_init)
 from adaface_tpu.training import losses as jl
+from adaface_tpu.training import ema as jema
 from adaface_tpu.training.prodigy import prodigy as j_prodigy
 
 from adaface_tpu_torch.ops import grad as tgrad
@@ -29,6 +32,8 @@ from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
 from adaface_tpu_torch.personalization.static_embedding import (
     embedder_leaves, init_static_embedder)
 from adaface_tpu_torch.training import losses as tl
+from adaface_tpu_torch.training import ema as tema
+from adaface_tpu_torch.training.adamw import AdamW
 from adaface_tpu_torch.training.prodigy import AccumulatedClipped, Prodigy
 
 torch.set_num_threads(2)
@@ -294,3 +299,103 @@ def test_prodigy_clip_accumulate_matches_optax_chain(rng):
                                        atol=1e-7)
     assert moved == [False, True] * 3
     assert not np.allclose(tparams[0].numpy(), params["a"])
+
+
+def test_adamw_clip_accumulate_matches_optax_chain(rng):
+    """MultiSteps(chain(clip_by_global_norm(0.5), adamw(lr)), 2), the JAX
+    trainer's chain with `use_prodigy` off, against AccumulatedClipped(AdamW)
+    over 8 micro-steps fed the same gradients, the rate scaled as `scale_lr`
+    scales it (accumulation 2 x 1 device x batch 3 x 4e-3, finetune-ti.yaml's
+    rate): the parameters after every micro-step and the moments."""
+    lr = 4.0e-3 * 2 * 1 * 3
+    shapes = {"a": (3, 4), "b": (5,), "c": (2, 2, 3)}
+    params = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (rng.standard_normal(s) * (0.1 if i % 3 == 0 else 0.6)).astype(np.float32)
+              for k, s in shapes.items()} for i in range(8)]
+    opt = optax.MultiSteps(optax.chain(optax.clip_by_global_norm(0.5), optax.adamw(lr)),
+                           every_k_schedule=2)
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    state = opt.init(jparams)
+    keys = sorted(shapes)
+    tparams = [_t(params[k]) for k in keys]
+    topt = AccumulatedClipped(AdamW(tparams, lr), 0.5, every_k=2)
+    moved = []
+    for g in grads:
+        upd, state = opt.update({k: jnp.asarray(v) for k, v in g.items()}, state, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        for p, k in zip(tparams, keys):
+            p.grad = _t(g[k])
+        moved.append(topt.step())
+        for p, k in zip(tparams, keys):
+            np.testing.assert_allclose(p.numpy(), np.asarray(jparams[k]), rtol=1e-6, atol=0)
+    assert moved == [False, True] * 4 and topt.inner.step_count == 4
+    adam = state.inner_opt_state[1][0]
+    for m, v, k in zip(topt.inner.exp_avg, topt.inner.exp_avg_sq, keys):
+        # moments cancel to near 0 in places: 1e-6 of each leaf's largest entry
+        for got, ref in ((m, adam.mu[k]), (v, adam.nu[k])):
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+    # optax's weight decay, not torch.optim.AdamW's 1e-2, is in the update
+    assert topt.inner.weight_decay == 1e-4
+
+
+def _embedder_pair(rng, k=3, r=4, d=8):
+    arrays = dict(basis_rand_weights=rng.standard_normal((16, k, r)),
+                  basis_comm_weights=rng.standard_normal((1, k, r)),
+                  basis_vecs=rng.standard_normal((k, r - 1, d)),
+                  pre_vecs=rng.standard_normal((k, 1, d)), bias=rng.standard_normal((16, k, d)))
+    arrays = {n: a.astype(np.float32) for n, a in arrays.items()}
+    from adaface_tpu_torch.personalization.static_embedding import StaticEmbedderParams
+
+    return (JParams(**{n: jnp.asarray(a) for n, a in arrays.items()}),
+            StaticEmbedderParams(**{n: _t(a) for n, a in arrays.items()}))
+
+
+def test_ema_matches_jax(rng):
+    """20 updates with the live embedders redrawn each time, decay 0.6 so
+    that the warm-up min(decay, (1+n)/(10+n)) gives way to the decay after
+    12 updates: the shadow after each update, and the update count."""
+    j, t = {}, {}
+    for s in ("z", "y"):
+        j[s], t[s] = _embedder_pair(rng)
+    js, ts = jema.ema_init(j), tema.ema_init(t)
+    for _ in range(20):
+        for s in ("z", "y"):
+            j[s], t[s] = _embedder_pair(rng)
+        js, ts = jema.ema_update(js, j, 0.6), tema.ema_update(ts, t, 0.6)
+        for s in ("z", "y"):
+            for n, v in embedder_leaves(ts.shadow[s]):
+                np.testing.assert_allclose(v.numpy(), np.asarray(getattr(js.shadow[s], n)),
+                                           rtol=1e-6, atol=1e-7)
+    assert ts.num_updates == int(js.num_updates) == 20
+    holder = type("Holder", (), {})()
+    holder.embedders = t
+    with tema.ema_scope(holder, "embedders", ts):
+        assert holder.embedders is ts.shadow
+    assert holder.embedders is t
+
+
+def test_perturb_params(rng):
+    """Each leaf scaled elementwise by U(1 - r, 1 + r), in place (the
+    optimizer's tensors stay the same objects); one seed gives one result,
+    another seed another."""
+    def fresh():
+        r = np.random.default_rng(3)
+        return {s: _embedder_pair(r)[1] for s in ("z", "y")}
+
+    ratio = 0.2
+    a, b, c, orig = fresh(), fresh(), fresh(), fresh()
+    ids = {(s, n): id(v) for s in a for n, v in embedder_leaves(a[s])}
+    out = tgrad.perturb_params(torch.Generator().manual_seed(9), a, ratio)
+    assert out is a and ids == {(s, n): id(v) for s in a for n, v in embedder_leaves(a[s])}
+    tgrad.perturb_params(torch.Generator().manual_seed(9), b, ratio)
+    tgrad.perturb_params(torch.Generator().manual_seed(10), c, ratio)
+    for s in orig:
+        for (n, o), (_, x), (_, y), (_, z) in zip(embedder_leaves(orig[s]), embedder_leaves(a[s]),
+                                                   embedder_leaves(b[s]), embedder_leaves(c[s])):
+            assert x.shape == o.shape
+            f = (x / o).numpy()
+            assert f.min() >= 1 - ratio - 1e-6 and f.max() <= 1 + ratio + 1e-6, (s, n)
+            assert f.std() > ratio / 4  # spread over the range, not a constant
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+            assert not torch.equal(x, z)
