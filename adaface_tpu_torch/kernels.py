@@ -25,6 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# C entry name -> its ctypes function, signature set (`entry`)
+entries: Dict[str, object] = {}
 
 
 def cuda_tool(name: str) -> str:
@@ -98,3 +100,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _libs[name] = lib
     return lib
+
+
+def entry(name: str, lib: str, argtypes: list):
+    """The C entry `name` of `csrc/<lib>.cu` (built first if missing) with
+    its argument types set and an int (cudaError_t) result; loaded once,
+    then taken from `entries`."""
+    fn = entries.get(name)
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        entries[name] = fn
+    return fn

@@ -93,7 +93,6 @@ _SUM_LAUNCH_S = 4e-6
 
 launches_by_shape: Dict[Tuple[str, str, int, int, int, int, int], int] = {}
 
-_fns: Dict[str, object] = {}
 
 
 # ------------------------------------------------------------------ dispatch
@@ -374,14 +373,7 @@ C_ENTRIES = {
 
 def _fn(name: str):
     """The ctypes entry `name` of its library, with its signature set."""
-    fn = _fns.get(name)
-    if fn is None:
-        lib, argtypes = C_ENTRIES[name]
-        fn = getattr(kernels.load(lib), name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+    return kernels.entry(name, *C_ENTRIES[name])
 
 
 def _check_call(q, k, v, num_heads, key_bias):

@@ -8,19 +8,20 @@ Linear(C -> 2F)(LayerNorm(x)), weights in the JAX layout (w1 [C, 2F], w2
 - `ADAFACE_FUSED_FF` other than "1" (the default): `ln_geglu_ff_unfused`,
   the chain of torch ops the UNet ran before the knob existed
   (`F.layer_norm`, `F.linear`, GEGLU, `F.linear`, residual).
-- `ADAFACE_FUSED_FF=1`: the kernel's function. On a CUDA tensor the
+- `ADAFACE_FUSED_FF=1`: the kernel's function. On a bf16 CUDA tensor the
   hand-written Hopper kernels of `csrc/ln_geglu_ff.cu` (LayerNorm, GEMM1 +
   GEGLU, GEMM2 + residual, and a split-K sum where the plan splits GEMM2:
   the launches that replace the TPU kernel `_ff_kernel`; `launch_plan`
-  chooses their tiles, split and grids), on a CPU tensor its plain version
-  `ln_geglu_ff_plain`,
-  which is `_reference_ln_geglu_ff` with its roundings.
+  chooses their tiles, split and grids), on an fp32 one (an fp32 pipeline)
+  those of `csrc/ln_geglu_ff_fp32.cu` (the same three steps on fp32 FFMA),
+  on a CPU tensor its plain version `ln_geglu_ff_plain`, which is
+  `_reference_ln_geglu_ff` with its roundings.
   The gradient, `LnGegluFF`, saves only the inputs and recomputes through
   the plain chain (`_ff_core_bwd`), for the inputs that need one: the UNet's
   frozen weights get none.
 
-`launches_by_shape` counts kernel calls per (B, L, C); callers may clear it
-to count one run.
+`launches_by_shape` counts kernel calls per (dtype, B, L, C), dtype "bf16"
+or "fp32"; callers may clear it to count one run.
 """
 
 from __future__ import annotations
@@ -120,9 +121,14 @@ def gemm_items(m: int, n: int, k: int, rows: int, bn: int, split: int,
         out.append(mine)
     return out
 
-launches_by_shape: Dict[Tuple[int, int, int], int] = {}
+launches_by_shape: Dict[Tuple[str, int, int, int], int] = {}
 
-_fn = None
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry -> (library, argument types), as declared in csrc/<library>.cu
+C_ENTRIES = {
+    "ln_geglu_ff_fwd": ("ln_geglu_ff", [_P] * 11 + [_I] * 3 + [_F] + [_I] * 6 + [_P]),
+    "ln_geglu_ff_fp32_fwd": ("ln_geglu_ff_fp32", [_P] * 10 + [_I] * 3 + [_F, _P]),
+}
 
 
 def ln_geglu_ff_unfused(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
@@ -152,36 +158,33 @@ def ln_geglu_ff_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
     return x + o
 
 
-def _lib_fn():
-    global _fn
-    if _fn is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        _fn = kernels.load("ln_geglu_ff").ln_geglu_ff_fwd
-        _fn.argtypes = [p] * 11 + [i] * 3 + [ctypes.c_float] + [i] * 6 + [p]
-        _fn.restype = ctypes.c_int
-    return _fn
+def _fn(name: str):
+    """The ctypes entry `name` of its library, with its signature set."""
+    return kernels.entry(name, *C_ENTRIES[name])
 
 
-def _operand(t: torch.Tensor, shape: tuple, name: str, device) -> torch.Tensor:
-    """`t` as a contiguous bf16 tensor on `device`; a weight that arrives as
-    the transpose of a contiguous tensor (nn.Linear's, as the UNet passes it)
-    becomes that tensor again without a copy."""
+def _operand(t: torch.Tensor, shape: tuple, name: str, device, dtype) -> torch.Tensor:
+    """`t` as a contiguous `dtype` tensor on `device`; a weight that arrives
+    as the transpose of a contiguous tensor (nn.Linear's, as the UNet passes
+    it) becomes that tensor again without a copy."""
     if tuple(t.shape) != shape or t.device != device:
         raise ValueError(f"{name} must be {list(shape)} on {device}, got "
                          f"{list(t.shape)} on {t.device}")
-    t = t.detach().to(torch.bfloat16).contiguous()
+    t = t.detach().to(dtype).contiguous()
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start 16-byte aligned, got {t.data_ptr():#x}")
     return t
 
 
 def ln_geglu_ff_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
-    """Launch the Hopper kernels on a bf16 CUDA x [B, L, C]; raises on
-    anything they do not take."""
+    """Launch the Hopper kernels on a CUDA x [B, L, C]: bf16 x on
+    `csrc/ln_geglu_ff.cu` (operands cast to bf16), fp32 x on
+    `csrc/ln_geglu_ff_fp32.cu` (operands cast to fp32); raises on anything
+    they do not take."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA kernels take bfloat16 or float32, x is {x.dtype}")
     if x.device.type != "cuda":
         raise ValueError(f"x is on {x.device}, not a CUDA device")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bfloat16, x is {x.dtype}")
     if x.dim() != 3:
         raise ValueError(f"x must be [B, L, C], got {tuple(x.shape)}")
     b, l, c = x.shape
@@ -189,29 +192,40 @@ def ln_geglu_ff_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
     if c % KERNEL_COL_TILE or f % KERNEL_COL_TILE or c > KERNEL_MAX_C or b * l == 0:
         raise ValueError(f"the kernel needs C and F multiples of {KERNEL_COL_TILE}, C <= "
                          f"{KERNEL_MAX_C} and rows; got x {tuple(x.shape)}, F {f}")
-    dev = x.device
-    x = _operand(x, (b, l, c), "x", dev)
-    w1t = _operand(w1.t(), (2 * f, c), "w1^T", dev)
-    w2t = _operand(w2.t(), (c, f), "w2^T", dev)
-    vecs = [_operand(t, (n,), name, dev) for t, n, name in
+    dev, dt = x.device, x.dtype
+    x = _operand(x, (b, l, c), "x", dev, dt)
+    w1t = _operand(w1.t(), (2 * f, c), "w1^T", dev, dt)
+    w2t = _operand(w2.t(), (c, f), "w2^T", dev, dt)
+    vecs = [_operand(t, (n,), name, dev, dt) for t, n, name in
             ((ln_scale, c, "ln_scale"), (ln_bias, c, "ln_bias"), (b1, 2 * f, "b1"),
              (b2, c, "b2"))]
     m = b * l
-    plan = launch_plan(m, c, f, sm_count(dev.index))
     y = torch.empty_like(x)
-    h = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
-    ws = (torch.empty((plan.split, m, c), dtype=torch.float32, device=dev)
-          if plan.split > 1 else None)
+    h = torch.empty((m, f), dtype=dt, device=dev)
     out = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        err = _lib_fn()(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w1t.data_ptr(),
-                        vecs[2].data_ptr(), w2t.data_ptr(), vecs[3].data_ptr(), y.data_ptr(),
-                        h.data_ptr(), None if ws is None else ws.data_ptr(), out.data_ptr(),
-                        m, c, f, eps, *plan, torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dt == torch.float32:
+        name, plan = "ln_geglu_ff_fp32_fwd", None
+        with torch.cuda.device(dev):
+            err = _fn(name)(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+                            w1t.data_ptr(), vecs[2].data_ptr(), w2t.data_ptr(),
+                            vecs[3].data_ptr(), y.data_ptr(), h.data_ptr(), out.data_ptr(), m,
+                            c, f, eps, stream)
+    else:
+        name, plan = "ln_geglu_ff_fwd", launch_plan(m, c, f, sm_count(dev.index))
+        ws = (torch.empty((plan.split, m, c), dtype=torch.float32, device=dev)
+              if plan.split > 1 else None)
+        with torch.cuda.device(dev):
+            err = _fn(name)(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+                            w1t.data_ptr(), vecs[2].data_ptr(), w2t.data_ptr(),
+                            vecs[3].data_ptr(), y.data_ptr(), h.data_ptr(),
+                            None if ws is None else ws.data_ptr(), out.data_ptr(), m, c, f, eps,
+                            *plan, stream)
     if err:
-        raise RuntimeError(f"ln_geglu_ff_fwd failed: CUDA error {err} (B, L, C, F = "
+        raise RuntimeError(f"{name} failed: CUDA error {err} (B, L, C, F = "
                            f"{b}, {l}, {c}, {f}; {plan})")
-    launches_by_shape[(b, l, c)] = launches_by_shape.get((b, l, c), 0) + 1
+    key = ("fp32" if dt == torch.float32 else "bf16", b, l, c)
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
     return out
 
 

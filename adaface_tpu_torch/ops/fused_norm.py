@@ -11,8 +11,9 @@ its default 0 sends every site to `_plain`.
 
 A slab that passes the gates goes to the kernel's function: on a CUDA tensor
 the hand-written Hopper kernel `csrc/gn_silu.cu` (which replaces the TPU
-kernel `_gn_silu_kernel`), on a CPU tensor its plain version
-`group_norm_silu_plain`. That function applies SiLU in fp32 before the cast,
+kernel `_gn_silu_kernel`; its bf16 instance for bf16 x, its fp32 instance,
+with fp32 scale and bias, for an fp32 pipeline), on a CPU tensor its plain
+version `group_norm_silu_plain`. That function applies SiLU in fp32 before the cast,
 so on bf16 inputs it differs from `_plain` by one rounding. Its gradient,
 `GroupNormSiLU`, recomputes through `_plain` and differentiates it, as the
 JAX package's `_fused_bwd` does; there is no backward kernel.
@@ -22,8 +23,8 @@ CTAs sum their rows, add the cluster's per-group partial sums in rank order
 (`cluster_partials` and `group_norm_silu_from_partials` are that summation
 tree in plain ops), then read their rows again to normalise them.
 
-`launches_by_shape` counts kernel calls (one launch each) per (B, N, C);
-callers may clear it to count one run.
+`launches_by_shape` counts kernel calls (one launch each) per (dtype, B, N,
+C), dtype "bf16" or "fp32"; callers may clear it to count one run.
 """
 
 from __future__ import annotations
@@ -49,9 +50,15 @@ WIDE_THREADS = 1024  # a CTA of one row lane, C <= 8192
 FILL = 0.85
 CTA_BYTES = 192 * 1024
 
-launches_by_shape: Dict[Tuple[int, int, int], int] = {}
+launches_by_shape: Dict[Tuple[str, int, int, int], int] = {}
 
-_fn = None
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry -> (library, argument types), as declared in csrc/<library>.cu
+C_ENTRIES = {name: ("gn_silu", [_P] * 4 + [_I] * 6 + [_F, _I, _P])
+             for name in ("gn_silu_fwd", "gn_silu_fwd_fp32")}
+# x's dtype -> (the kernel instance's C entry, its label in launches_by_shape)
+KERNEL_DTYPES = {torch.bfloat16: ("gn_silu_fwd", "bf16"),
+                 torch.float32: ("gn_silu_fwd_fp32", "fp32")}
 
 
 class LaunchPlan(NamedTuple):
@@ -66,18 +73,19 @@ def cta_rows(n: int, cluster: int, rank: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)  # a pure function of ints, asked once a call
-def launch_plan(b: int, n: int, c: int, sms: int) -> LaunchPlan:
-    """K8's launch for B images of N rows x C channels on a card of `sms`
-    SMs. The cluster is a power of two, at most MAX_CLUSTER and at most N:
-    the smallest whose grid (cluster x B CTAs) fills the card (FILL) while
-    each CTA streams at most CTA_BYTES of its image, else the largest, so
+def launch_plan(b: int, n: int, c: int, sms: int, itemsize: int = 2) -> LaunchPlan:
+    """K8's launch for B images of N rows x C channels of `itemsize` bytes
+    (2 bf16, 4 fp32) on a card of `sms` SMs. The cluster is a power of two,
+    at most MAX_CLUSTER and at most N: the smallest whose grid (cluster x B
+    CTAs) fills the card (FILL) while each CTA streams at most CTA_BYTES of
+    its image, else the largest, so
     that the most CTAs stream at once. Threads: C/8 columns x the row lanes
     that come nearest 256 where the grid fills the card, else 512 (the
     batch-3 training shapes: 48 CTAs), at most MAX_THREADS; one row lane
     where C/8 is wider than that."""
     sizes = [s for s in (1, 2, 4, 8, MAX_CLUSTER) if s <= max(1, n)]
     fills = lambda s: b * s >= FILL * sms
-    fits = [s for s in sizes if fills(s) and 2 * c * -(-n // s) <= CTA_BYTES]
+    fits = [s for s in sizes if fills(s) and itemsize * c * -(-n // s) <= CTA_BYTES]
     cluster = fits[0] if fits else sizes[-1]
     target = 256 if fills(cluster) else MAX_THREADS
     cv = c // 8
@@ -156,36 +164,34 @@ def group_norm_silu_from_partials(x: torch.Tensor, scale: torch.Tensor, bias: to
     return out.to(x.dtype).reshape(x.shape)
 
 
-def _lib_fn():
-    global _fn
-    if _fn is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        _fn = kernels.load("gn_silu").gn_silu_fwd
-        _fn.argtypes = [p] * 4 + [i] * 6 + [f, i, p]
-        _fn.restype = ctypes.c_int
-    return _fn
+def _fn(name: str):
+    """The ctypes entry `name` of its library, with its signature set."""
+    return kernels.entry(name, *C_ENTRIES[name])
 
 
-def _as_bf16_vector(t: torch.Tensor, c: int, name: str, device) -> torch.Tensor:
-    """t as the kernel reads it: bf16, contiguous, 16-byte aligned; t itself
-    (no copy) when it is already."""
+def _as_vector(t: torch.Tensor, c: int, name: str, device, dtype) -> torch.Tensor:
+    """t as the kernel reads it: `dtype` (x's), contiguous, 16-byte aligned;
+    t itself (no copy) when it is already."""
     if t.shape != (c,) or t.device != device:
         raise ValueError(f"{name} must be [{c}] on {device}, got {tuple(t.shape)} "
                          f"on {t.device}")
-    if t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0:
+    if t.dtype == dtype and t.is_contiguous() and t.data_ptr() % 16 == 0:
         return t
-    return torch.empty(c, dtype=torch.bfloat16, device=device).copy_(t.detach())
+    return torch.empty(c, dtype=dtype, device=device).copy_(t.detach())
 
 
 def group_norm_silu_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                          num_groups: int = 32, eps: float = 1e-5,
                          apply_silu: bool = True) -> torch.Tensor:
-    """Launch the Hopper kernel on a bf16 CUDA tensor [B, ..., C] with
-    `launch_plan`'s launch; raises on anything it does not take."""
+    """Launch the Hopper kernel on a CUDA tensor [B, ..., C], its bf16
+    instance for bf16 x and its fp32 instance (scale and bias in fp32) for
+    fp32 x, with `launch_plan`'s launch; raises on anything it does not
+    take."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the CUDA kernel takes bfloat16 or float32, x is {x.dtype}")
     if x.device.type != "cuda":
         raise ValueError(f"x is on {x.device}, not a CUDA device")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bfloat16, x is {x.dtype}")
+    entry, tag = KERNEL_DTYPES[x.dtype]
     b, c = x.shape[0], x.shape[-1]
     n = x.numel() // (b * c) if b and c else 0
     if c % num_groups or c % 8 or n == 0 or c > 8 * WIDE_THREADS:
@@ -195,18 +201,19 @@ def group_norm_silu_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError(f"x must start 16-byte aligned, got {x.data_ptr():#x}")
-    scale = _as_bf16_vector(scale, c, "scale", x.device)
-    bias = _as_bf16_vector(bias, c, "bias", x.device)
-    plan = launch_plan(b, n, c, sm_count(x.device.index))
+    scale = _as_vector(scale, c, "scale", x.device, x.dtype)
+    bias = _as_vector(bias, c, "bias", x.device, x.dtype)
+    plan = launch_plan(b, n, c, sm_count(x.device.index), x.element_size())
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = _lib_fn()(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, n,
-                        c, num_groups, plan.cluster, plan.threads, eps, int(apply_silu),
-                        torch.cuda.current_stream(x.device).cuda_stream)
+        err = _fn(entry)(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, n,
+                         c, num_groups, plan.cluster, plan.threads, eps, int(apply_silu),
+                         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"gn_silu_fwd failed: CUDA error {err} (B, N, C = {b}, {n}, {c}; "
+        raise RuntimeError(f"{entry} failed: CUDA error {err} (B, N, C = {b}, {n}, {c}; "
                            f"{plan})")
-    launches_by_shape[(b, n, c)] = launches_by_shape.get((b, n, c), 0) + 1
+    key = (tag, b, n, c)
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
     return out
 
 

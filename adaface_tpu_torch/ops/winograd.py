@@ -9,8 +9,9 @@
   the shape; else `direct_conv3x3`. Nothing in the UNet calls it, as in
   JAX: the op is its own entry point.
 - `winograd_conv3x3`: the op. On a CUDA tensor the hand-written Hopper
-  kernel `csrc/winograd.cu` (which replaces the TPU kernel `_wino_kernel`),
-  on a CPU tensor its plain version `winograd_conv3x3_plain`. The gradient
+  kernel that replaces the TPU kernel `_wino_kernel`, `csrc/winograd.cu` in
+  bf16 and `csrc/winograd_fp32.cu` in fp32 (FFMA products), on a CPU
+  tensor its plain version `winograd_conv3x3_plain`. The gradient
   is the direct conv's VJP plus dbias = sum of g in fp32 (`_wino_bwd`), in
   plain torch ops, as XLA computes it outside Pallas.
 
@@ -21,14 +22,14 @@ dtype and rounded after every add, in the p-then-q loop order; m_ij = t_ij
 U_ij with fp32 accumulation; y = A^T m A summed in fp32; + bias in fp32; one
 cast.
 
-`launch_plan` splits the kernel's product launch where its grid would leave
-SMs idle, and `plan_items` lists the work items it then runs;
+`launch_plan` splits the bf16 kernel's product launch where its grid would
+leave SMs idle (the fp32 kernel does not split), and `plan_items` lists the work items it then runs;
 `winograd_conv3x3_split_plain` is the plain version of a split launch (fp32
 partials summed in slice order).
 
 `launches_by_shape` counts kernel calls (a transform and a product launch
-each, and a sum launch when split) per (B, H, W, Cin, Cout); callers may
-clear it to count one run.
+each, and a sum launch when split) per (dtype, B, H, W, Cin, Cout), dtype
+"bf16" or "fp32"; callers may clear it to count one run.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from adaface_tpu_torch import kernels, knobs
+from adaface_tpu_torch.device import sm_count
 
 # F(2x2, 3x3) transform matrices (Lavin & Gray, arXiv:1509.09308):
 #   y = AT [ (G g GT) * (BT d B) ] A  for a 4x4 input tile d, 3x3 filter g
@@ -70,9 +72,14 @@ _PEAK_BYTES = 3.35e12
 DEF_MIN_TILES = 256
 DEF_VMEM_BUDGET = 72 * 1024 * 1024
 
-launches_by_shape: Dict[Tuple[int, int, int, int, int], int] = {}
+launches_by_shape: Dict[Tuple[str, int, int, int, int, int], int] = {}
 
-_fn = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry -> (library, argument types), as declared in csrc/<library>.cu
+C_ENTRIES = {
+    "winograd_conv3x3_fwd": ("winograd", [_P] * 6 + [_I] * 9 + [_P]),
+    "winograd_conv3x3_fp32_fwd": ("winograd_fp32", [_P] * 5 + [_I] * 7 + [_P]),
+}
 
 
 def transform_weights(kernel: torch.Tensor) -> torch.Tensor:
@@ -147,20 +154,15 @@ def winograd_conv3x3_plain(x: torch.Tensor, u: torch.Tensor,
 
 
 # ------------------------------------------------------------- CUDA wrapper
-def _lib_fn():
-    fn = _fn.get("winograd")
-    if fn is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn = kernels.load("winograd").winograd_conv3x3_fwd
-        fn.argtypes = [p] * 6 + [i] * 9 + [p]
-        fn.restype = ctypes.c_int
-        _fn["winograd"] = fn
-    return fn
+def _fn(name: str):
+    """The ctypes entry `name` of its library, with its signature set."""
+    return kernels.entry(name, *C_ENTRIES[name])
 
 
 def padded_weights(u: torch.Tensor) -> torch.Tensor:
-    """U [16, Cin, Cout] as the product kernel reads it: transposed to
-    K-major [16, Cout_p, Cin_p] and zero-padded to the tile multiples."""
+    """U [16, Cin, Cout] as the product kernels (bf16 and fp32) read it:
+    transposed to K-major [16, Cout_p, Cin_p] and zero-padded to the tile
+    multiples."""
     _, cin, cout = u.shape
     cin_p = -(-cin // K_TILE) * K_TILE
     cout_p = -(-cout // N_TILE) * N_TILE
@@ -265,21 +267,22 @@ def winograd_conv3x3_split_plain(x: torch.Tensor, parts: torch.Tensor,
     return y.reshape(b, h, w, cout).to(x.dtype)
 
 
-_sms: Dict[int, int] = {}
-
-
 def winograd_conv3x3_cuda(x: torch.Tensor, ut: torch.Tensor, bias: torch.Tensor,
                           split: Optional[int] = None) -> torch.Tensor:
-    """Launch the Hopper kernel on bf16 CUDA tensors: x NHWC [B, H, W, Cin]
-    (H, W even), the product launch's weights ut = padded_weights(U)
-    [16, Cout_p, Cin_p], bias [Cout]; `split` forces a split of the product
-    steps (else `launch_plan`'s); raises on anything it does not take."""
+    """Launch the Hopper kernel on CUDA tensors of one dtype, bf16
+    (`csrc/winograd.cu`) or fp32 (`csrc/winograd_fp32.cu`): x NHWC [B, H, W,
+    Cin] (H, W even), the product launch's weights ut = padded_weights(U)
+    [16, Cout_p, Cin_p], bias [Cout]; `split` forces a split of the bf16
+    kernel's product steps (else `launch_plan`'s; the fp32 kernel takes none
+    but 1); raises on anything it does not take."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA kernels take bfloat16 or float32, x is {x.dtype}")
+    for t, name in ((ut, "ut"), (bias, "bias")):
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError(f"the CUDA kernel takes {x.dtype} on {x.device}; {name} is "
+                            f"{t.dtype} on {t.device}")
     if x.device.type != "cuda":
         raise ValueError(f"x is on {x.device}, not a CUDA device")
-    for t, name in ((x, "x"), (ut, "ut"), (bias, "bias")):
-        if t.dtype != torch.bfloat16 or t.device != x.device:
-            raise TypeError(f"the CUDA kernel takes bfloat16 on {x.device}; {name} is "
-                            f"{t.dtype} on {t.device}")
     if x.dim() != 4 or bias.dim() != 1:
         raise ValueError(f"want x [B, H, W, Cin] and bias [Cout], got {tuple(x.shape)} and "
                          f"{tuple(bias.shape)}")
@@ -293,30 +296,35 @@ def winograd_conv3x3_cuda(x: torch.Tensor, ut: torch.Tensor, bias: torch.Tensor,
     if h % 2 or w % 2 or b * h * w == 0:
         raise ValueError(f"the kernel takes even, non-empty H and W; got x {tuple(x.shape)}")
     x = x.contiguous()
-    m = b * (h // 2) * (w // 2)
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    if dev not in _sms:
-        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = launch_plan(m, cin, cout, _sms[dev])
-    if split is not None:
-        if not 1 <= split <= 16 * (cin_p // K_TILE):
-            raise ValueError(f"split {split} outside 1..{16 * (cin_p // K_TILE)}")
-        plan = plan._replace(split=split)
-    v = torch.empty((16, m, cin_p), dtype=torch.bfloat16, device=x.device)
-    ws = (torch.empty((plan.split, 4, m, cout_p), dtype=torch.float32, device=x.device)
-          if plan.split > 1 else None)
-    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=x.device)
     bias = bias.contiguous()
-    with torch.cuda.device(x.device):
-        err = _lib_fn()(x.data_ptr(), ut.data_ptr(), bias.data_ptr(), v.data_ptr(),
-                        0 if ws is None else ws.data_ptr(), out.data_ptr(), b, h, w, cin,
-                        cout, cin_p, cout_p, plan.split, int(plan.m_fastest),
-                        torch.cuda.current_stream(x.device).cuda_stream)
+    m = b * (h // 2) * (w // 2)
+    v = torch.empty((16, m, cin_p), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     key = (b, h, w, cin, cout)
+    if x.dtype == torch.float32:
+        if split not in (None, 1):
+            raise ValueError(f"the fp32 kernel has no split, got {split}")
+        name, tag = "winograd_conv3x3_fp32_fwd", "fp32"
+        with torch.cuda.device(x.device):
+            err = _fn(name)(x.data_ptr(), ut.data_ptr(), bias.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), b, h, w, cin, cout, cin_p, cout_p, stream)
+    else:
+        plan = launch_plan(m, cin, cout, sm_count(x.device.index))
+        if split is not None:
+            if not 1 <= split <= 16 * (cin_p // K_TILE):
+                raise ValueError(f"split {split} outside 1..{16 * (cin_p // K_TILE)}")
+            plan = plan._replace(split=split)
+        ws = (torch.empty((plan.split, 4, m, cout_p), dtype=torch.float32, device=x.device)
+              if plan.split > 1 else None)
+        name, tag = "winograd_conv3x3_fwd", "bf16"
+        with torch.cuda.device(x.device):
+            err = _fn(name)(x.data_ptr(), ut.data_ptr(), bias.data_ptr(), v.data_ptr(),
+                            0 if ws is None else ws.data_ptr(), out.data_ptr(), b, h, w, cin,
+                            cout, cin_p, cout_p, plan.split, int(plan.m_fastest), stream)
     if err:
-        raise RuntimeError(f"winograd_conv3x3_fwd failed: CUDA error {err} "
-                           f"(B, H, W, Cin, Cout = {key})")
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+        raise RuntimeError(f"{name} failed: CUDA error {err} (B, H, W, Cin, Cout = {key})")
+    launches_by_shape[(tag,) + key] = launches_by_shape.get((tag,) + key, 0) + 1
     return out
 
 
@@ -348,7 +356,8 @@ class WinogradConv3x3(torch.autograd.Function):
 def winograd_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """stride-1 SAME 3x3 conv of NHWC x (H, W even) with an HWIO kernel and
-    a [Cout] bias, all of one dtype, by the Winograd kernel."""
+    a [Cout] bias, all of one dtype (bf16 or fp32 on the card), by the
+    Winograd kernel."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no Winograd path for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernel, bias)):

@@ -9,10 +9,11 @@ Phases, each of which exits non-zero on failure:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
   2. build: every CUDA kernel source in `adaface_tpu_torch/csrc/`, one nvcc
      each, started together; each instantiation's registers and spills
-     printed (ptxas -v); the flash forward, the flash backward, the
-     feed-forward (K9), the Winograd conv (K10) and the GroupNorm+SiLU (K8)
-     must not spill, and the SASS (cuobjdump) of all but K8, which has no
-     products, must run their products on wgmma (HGMMA), not mma.sync;
+     printed (ptxas -v); no library may spill; the SASS (cuobjdump) of the
+     bf16 flash forward and backward, the feed-forward (K9) and the
+     Winograd conv (K10) must run their products on wgmma (HGMMA), not
+     mma.sync, and that of the fp32 kernels (flash, K9, K10) and of the
+     GroupNorm+SiLU (K8, both instances) on FFMA alone;
   3. forward kernel vs plain: the packed flash-attention forward against its
      plain fp32 PyTorch version at every generate shape, a fused-qkv input
      and a key bias with a fully masked row, each gated on max abs and
@@ -138,6 +139,28 @@ The fp32 path (slice 13) adds:
       forwards included), without (peak memory), and with it under the
       fused knobs (K9 twice in each non-capturing block, K8 once); median
       seconds per recon and compos micro-step and peak memory of each run.
+The fp32 instances of K8, K9 and K10 (slice 14) add:
+  4h. K8's fp32 instance (`csrc/gn_silu.cu`), K9 in fp32
+      (`csrc/ln_geglu_ff_fp32.cu`) and K10 in fp32 (`csrc/winograd_fp32.cu`),
+      FFMA only, through their wrappers on fp32 tensors against their plain
+      fp32 versions at every shape of the fused paths and the 15 Winograd
+      conv shapes (relative L2 and max abs of the largest value, 1e-5 each;
+      K9 on out - x); each kernel's planted fault (`FP32_FAULTS`: a cluster
+      peer's partial, an F chunk of GEMM2, a Winograd position left out),
+      built as a text patch, must fail the gate; two launches agree bit for
+      bit; K8 and K9 at their edge shapes; kernel, plain, library
+      (F.group_norm + F.silu, cuBLAS SGEMMs and the unfused fp32 chain,
+      F.conv2d; TF32 off) and bound times; `conv3x3_same` in fp32, whose
+      gate sends some shapes to the direct conv as in JAX;
+  [fp32-main]. an fp32 pipeline serves one request under the default knobs
+      and one under the fused knobs (batch 8, 512x512, CFG, DDIM cut to
+      FP32_REQUEST_STEPS): exact fp32 launches (flash; GN_SHAPES and
+      FF_SHAPES of K8 and K9 per UNet call under the knobs, no bf16 one),
+      images within ARM_UINT8_MEAN_TOL of each other;
+  9e. the fp32 run of 9d (`finetune-static-layerwise.yaml`, no --bf16)
+      again under the fused knobs: exact fp32 flash, K8 and K9 launches per
+      micro-step and no bf16 K8 or K9 one, each loss within TRAIN_LOSS_TOL
+      of 9d's fp32 run; s per micro-step and peak memory beside 9d's.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -177,10 +200,12 @@ FWD_LIB = "flash_attn_packed"
 # products all wgmma (phase_build); none of these may spill, nor K8, which
 # has no products
 WGMMA_LIBS = (FWD_LIB, "flash_attn_bwd", "ln_geglu_ff", "winograd")
-# the fp32 flash kernel: FFMA only, no tensor-core product (no HGMMA, no
-# HMMA: JAX asks for fp32 products, which TF32 would not give)
+# the fp32 kernels (flash, K9, K10; K8's fp32 instance shares gn_silu with
+# its bf16 one, which has no products): FFMA only, no tensor-core product
+# (no HGMMA, no HMMA: JAX asks for fp32 products, which TF32 would not give)
 FP32_LIB = "flash_attn_fp32"
-NOSPILL_LIBS = WGMMA_LIBS + ("gn_silu", FP32_LIB)
+FFMA_LIBS = (FP32_LIB, "gn_silu", "ln_geglu_ff_fp32", "winograd_fp32")
+NOSPILL_LIBS = WGMMA_LIBS + FFMA_LIBS
 BWD_SOURCE = "adaface_tpu_torch/csrc/flash_attn_bwd.cu"
 K1 = "adaface_tpu/ops/flash_attention.py:578"  # _flash_kernel_heads_pvt
 K4 = "adaface_tpu/ops/flash_attention.py:544"  # _flash_kernel_heads_short
@@ -322,11 +347,12 @@ GN_EDGE_SHAPES = [(1, 4096, 320), (2, 8, 640), (4, 512, 32), (1, 1024, 2560),
 GN_TAIL_SHAPES = [(16, 1024, 640), (3, 4096, 320)]
 GN_TAIL_REL_TOL = 2.0 ** -7
 GN_SILU_LINE = "    f[j] = apply_silu ? __fdividef(y, 1.f + __expf(-y)) : y;"
+GN_NORM8 = "template <typename T>\n__device__ __forceinline__ Raw8<T> norm8("
 GN_TANH_PATCHES = [
-    ("__device__ __forceinline__ uint4 norm8(",
+    (GN_NORM8,
      "__device__ __forceinline__ float tanh_approx(float x) {\n  float y;\n"
      "  asm(\"tanh.approx.f32 %0, %1;\" : \"=f\"(y) : \"f\"(x));\n  return y;\n}\n\n"
-     "__device__ __forceinline__ uint4 norm8("),
+     + GN_NORM8),
     (GN_SILU_LINE, "    f[j] = apply_silu ? fmaf(0.5f * y, tanh_approx(0.5f * y), 0.5f * y) : y;")]
 # K9 gate on the feed-forward part, relative L2 of (out - x) against (plain
 # - x), and max abs of out - plain. Measured on an H100 at all 6 shapes:
@@ -350,6 +376,12 @@ def knobs_set(values):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def _typed(shapes, dtype="bf16"):
+    """Launch counts by shape as the K8, K9 and K10 counters key them, by
+    (dtype, *shape)."""
+    return {(dtype,) + tuple(k): n for k, n in shapes.items()}
 
 
 def fail(msg):
@@ -432,10 +464,11 @@ def phase_card(torch):
 
 def phase_build(kernels):
     """Build every source; print each instantiation's registers and spills
-    (ptxas -v) and any ptxas performance warning. The flash forward, the
-    flash backward, K9, K10 and K8 (`NOSPILL_LIBS`) must not spill, and the
-    SASS of all but K8 (`WGMMA_LIBS`) must run their products on wgmma
-    (HGMMA), not mma.sync (HMMA)."""
+    (ptxas -v) and any ptxas performance warning. No library
+    (`NOSPILL_LIBS`) may spill; the SASS of the bf16 flash forward and
+    backward, K9 and K10 (`WGMMA_LIBS`) must run their products on wgmma
+    (HGMMA), not mma.sync (HMMA), and that of the fp32 kernels and K8
+    (`FFMA_LIBS`) on FFMA alone."""
     t0 = time.time()
     logs = kernels.build_all()
     say(f"[build] {time.time() - t0:.1f} s for {len(logs)} sources in parallel, libraries "
@@ -465,14 +498,15 @@ def phase_build(kernels):
             f"(mma.sync), {count('MUFU.EX2')} MUFU.EX2")
         if count("HGMMA") == 0 or count("HMMA") != 0:
             fail(f"{name}: the products are not all wgmma")
-    sass = subprocess.run([kernels.cuda_tool("cuobjdump"), "-sass",
-                           str(kernels.library_path(FP32_LIB))], capture_output=True, text=True,
-                          timeout=300, check=True).stdout.splitlines()
-    count = lambda op: sum(1 for line in sass if op in line)
-    say(f"[build] {FP32_LIB} SASS: {count('FFMA')} FFMA, {count('HGMMA')} HGMMA, "
-        f"{count('HMMA')} HMMA")
-    if count("FFMA") == 0 or count("HGMMA") or count("HMMA"):
-        fail(f"{FP32_LIB}: the products are not all fp32 FFMA")
+    for name in FFMA_LIBS:
+        sass = subprocess.run([kernels.cuda_tool("cuobjdump"), "-sass",
+                               str(kernels.library_path(name))], capture_output=True, text=True,
+                              timeout=300, check=True).stdout.splitlines()
+        count = lambda op: sum(1 for line in sass if op in line)
+        say(f"[build] {name} SASS: {count('FFMA')} FFMA, {count('HGMMA')} HGMMA, "
+            f"{count('HMMA')} HMMA")
+        if count("FFMA") == 0 or count("HGMMA") or count("HMMA"):
+            fail(f"{name}: the products are not all fp32 FFMA")
 
 
 def n_launches(fa, kind=None):
@@ -883,20 +917,22 @@ def _fused_ops():
     return fused_norm, fused_ff
 
 
-def gn_bound(b, n, c, exp2_rate):
-    """Least time of K8: x read once and out written once (bf16), or one
-    exp per element at the MUFU rate, whichever is larger."""
-    t_bytes = 2 * 2 * b * n * c / PEAK_HBM_BYTES
+def gn_bound(b, n, c, exp2_rate, itemsize=2):
+    """Least time of K8: x read once and out written once (`itemsize`
+    bytes an element each), or one exp per element at the MUFU rate,
+    whichever is larger."""
+    t_bytes = 2 * itemsize * b * n * c / PEAK_HBM_BYTES
     t_exp = b * n * c / exp2_rate
     return max(t_bytes, t_exp) * 1e3, "bytes" if t_bytes >= t_exp else "operations"
 
 
-def ff_bound(b, l, c):
-    """Least time of K9: 24 * M * C^2 tensor-core flops, or x, out, w1, w2
-    and the vectors moved once (bf16), whichever is larger."""
+def ff_bound(b, l, c, itemsize=2, peak=None):
+    """Least time of K9: 24 * M * C^2 flops at `peak` (the tensor cores'
+    bf16 rate by default), or x, out, w1, w2 and the vectors moved once
+    (`itemsize` bytes an element), whichever is larger."""
     m, f = b * l, 4 * c
-    t_mma = 24 * m * c * c / PEAK_BF16_FLOPS
-    t_bytes = 2 * (2 * m * c + 3 * f * c + 3 * c + 2 * f) / PEAK_HBM_BYTES
+    t_mma = 24 * m * c * c / (peak or PEAK_BF16_FLOPS)
+    t_bytes = itemsize * (2 * m * c + 3 * f * c + 3 * c + 2 * f) / PEAK_HBM_BYTES
     return max(t_mma, t_bytes) * 1e3, "bytes" if t_bytes >= t_mma else "operations"
 
 
@@ -942,12 +978,13 @@ def _check_fused_gate(label, err, rel, faults, tol_abs, tol_rel, errors):
         fail(f"{label}: kernel disagrees with plain (max abs {err:.3e}, rel L2 {rel:.3e})")
 
 
-def gn_inputs(torch, randn, b, n, c):
+def gn_inputs(torch, randn, b, n, c, dtype=None):
     """K8's inputs: x with per-channel offsets and a ramp of -4..4 over the
-    rows (see GN_REL_TOL), scale and bias, bf16."""
+    rows (see GN_REL_TOL), scale and bias, in `dtype` (bf16 by default)."""
+    dtype = dtype or torch.bfloat16
     x = (randn(b, n, c) * 1.5 + randn(c)
-         + torch.linspace(-4, 4, n, device="cuda")[None, :, None]).bfloat16()
-    return x, (1 + 0.2 * randn(c)).bfloat16(), (0.2 * randn(c)).bfloat16()
+         + torch.linspace(-4, 4, n, device="cuda")[None, :, None]).to(dtype)
+    return x, (1 + 0.2 * randn(c)).to(dtype), (0.2 * randn(c)).to(dtype)
 
 
 def gn_tail_inputs(torch, gen, b, n, c):
@@ -1016,7 +1053,7 @@ def phase_fused_kernels(torch, card, exp2_rate):
         again = fn.group_norm_silu_cuda(x, scale, bias)
         torch.cuda.synchronize()
         label = f"gn_silu B{b} N{n} C{c}"
-        if fn.launches_by_shape != {(b, n, c): 2}:
+        if fn.launches_by_shape != {("bf16", b, n, c): 2}:
             fail(f"{label}: the wrapper counted {fn.launches_by_shape} for two calls")
         if not torch.isfinite(out).all() or not torch.equal(out, again):
             fail(f"{label}: non-finite output, or two launches disagree")
@@ -1088,7 +1125,7 @@ def phase_fused_kernels(torch, card, exp2_rate):
         again = ff.ln_geglu_ff_cuda(*args)
         torch.cuda.synchronize()
         label = f"ln_geglu_ff B{b} L{l} C{c}"
-        if ff.launches_by_shape != {(b, l, c): 2}:
+        if ff.launches_by_shape != {("bf16", b, l, c): 2}:
             fail(f"{label}: the wrapper counted {ff.launches_by_shape} for two calls")
         if not torch.isfinite(out).all() or not torch.equal(out, again):
             fail(f"{label}: non-finite output, or two launches disagree")
@@ -1282,8 +1319,8 @@ def phase_fused_main_path(torch, pipe, card, default_med):
     prompts = [PROMPT] * BATCH
     kw = dict(num_steps=STEPS, guidance_scale=(10.0, 4.0), height=SIZE, width=SIZE)
     want_fa = {s: n for s, (_, n) in MAIN_SHAPES.items()}
-    want_gn = {s: STEPS * n for s, n in GN_SHAPES.items()}
-    want_ff = {s: STEPS * n for s, n in FF_SHAPES.items()}
+    want_gn = _typed({s: STEPS * n for s, n in GN_SHAPES.items()})
+    want_ff = _typed({s: STEPS * n for s, n in FF_SHAPES.items()})
     times = []
     with knobs_set(FUSED_KNOBS):
         t0 = time.time()
@@ -1735,7 +1772,7 @@ def phase_fused_train(torch, pipe, trainer_cls, tmp, card, default_med, default_
     for compos, shapes, gn, ff_shapes in ((False, TRAIN_SHAPES, GN_TRAIN_SHAPES, FF_TRAIN_SHAPES),
                                           (True, COMPOS_SHAPES, GN_COMPOS_SHAPES,
                                            FF_COMPOS_SHAPES)):
-        wants[compos] = dict(flash_want(shapes), gn=gn, ff=ff_shapes)
+        wants[compos] = dict(flash_want(shapes), gn=_typed(gn), ff=_typed(ff_shapes))
     counters = {"gn": fn.launches_by_shape, "ff": ff.launches_by_shape}
     times = []
     with knobs_set(FUSED_KNOBS):
@@ -2132,7 +2169,10 @@ def phase_entry_point(torch, fa, trainer_cls, tmp, card):
     compel 0.5) with `model_options.use_remat=true` (exact launches, the
     recompute's forwards included) and without it (peak memory beside it),
     and with it under FUSED_KNOBS (K9 launched again by the recompute, K8
-    not). Returns the fp32 run's launches by (kind, B, L, H, d)."""
+    not). (9e) The fp32 run again under FUSED_KNOBS: exact fp32 flash, K8
+    and K9 launches and no bf16 K8 or K9 one, each micro-step's loss within
+    TRAIN_LOSS_TOL of the fp32 run's. Returns the fp32 run's flash launches
+    by (kind, B, L, H, d) and 9e's K8 and K9 launches by (dtype, shape)."""
     import shutil
 
     import numpy as np
@@ -2162,6 +2202,36 @@ def phase_entry_point(torch, fa, trainer_cls, tmp, card):
     say("[cli] static fp32: the checkpoint reloads equal to the live embedders")
     del tr
     runs["static fp32"]["trainer"] = None
+
+    # 9e: the same fp32 run under the fused knobs: the fp32 instances of K8
+    # and K9 beside the same fp32 flash launches, no bf16 K8 or K9 launch;
+    # each micro-step's loss within TRAIN_LOSS_TOL of 9d's on the same draws
+    fn, ff = _fused_ops()
+    fp32_fused_wants = {compos: dict(_fp32_want(shapes), gn=_typed(gn, "fp32"),
+                                     ff=_typed(ff_shapes, "fp32"))
+                        for compos, shapes, gn, ff_shapes in (
+                            (False, TRAIN_SHAPES, GN_TRAIN_SHAPES, FF_TRAIN_SHAPES),
+                            (True, COMPOS_SHAPES, GN_COMPOS_SHAPES, FF_COMPOS_SHAPES))}
+    with knobs_set(FUSED_KNOBS):
+        runs["static fp32 fused"] = _cli_run(
+            torch, fa, trainer_cls, tmp, "static_fp32_fused",
+            base("finetune-static-layerwise") + ["--max_steps", str(CLI_STEPS)],
+            fp32_fused_wants, card, counters={"gn": fn.launches_by_shape,
+                                              "ff": ff.launches_by_shape})
+    fused, plain = runs["static fp32 fused"], runs["static fp32"]
+    if fused["trainer"].pipe.unet.in_conv.weight.dtype != torch.float32:
+        fail("[cli static fp32 fused] the pipeline is not fp32")
+    fused["trainer"] = None
+    worst = max(abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1e-12)
+                for a, b in zip(fused["metrics"], plain["metrics"]))
+    say(f"[cli] 9e, fp32 under {FUSED_KNOBS}: losses of micro-steps "
+        f"{[round(r['loss'], 6) for r in fused['metrics']]} within {worst:.3e} relative of 9d's "
+        f"fp32 run without the knobs (tol {TRAIN_LOSS_TOL}); median recon "
+        f"{fused['recon_med']:.3f} s / {plain['recon_med']:.3f} s without, compos "
+        f"{fused['compos_med']:.3f} s / {plain['compos_med']:.3f} s, peak memory "
+        f"{fused['peak']:.2f} GiB / {plain['peak']:.2f} GiB [{card}]")
+    if len(fused["metrics"]) != len(plain["metrics"]) or not worst <= TRAIN_LOSS_TOL:
+        fail(f"[cli static fp32 fused] losses off by {worst:.3e} (tol {TRAIN_LOSS_TOL})")
 
     # ti, bf16: AdamW; the state of step 3 kept for the resume run
     real_save = trainer_cls.save_state
@@ -2234,8 +2304,8 @@ def phase_entry_point(torch, fa, trainer_cls, tmp, card):
     # non-capturing block (FF_*_SHAPES twice); K8 sits in the ResBlocks,
     # which are not rematerialized, and runs as often as without remat
     fn, ff = _fused_ops()
-    fused_wants = {compos: dict(_remat_want(shapes), gn=dict(gn),
-                                ff={k: 2 * n for k, n in ff_shapes.items()})
+    fused_wants = {compos: dict(_remat_want(shapes), gn=_typed(gn),
+                                ff=_typed({k: 2 * n for k, n in ff_shapes.items()}))
                    for compos, shapes, gn, ff_shapes in (
                        (False, TRAIN_SHAPES, GN_TRAIN_SHAPES, FF_TRAIN_SHAPES),
                        (True, COMPOS_SHAPES, GN_COMPOS_SHAPES, FF_COMPOS_SHAPES))}
@@ -2258,7 +2328,350 @@ def phase_entry_point(torch, fa, trainer_cls, tmp, card):
             for (b, l, h, d), n in by_shape.items():
                 key = (kind, b, l, h, d)
                 totals[key] = totals.get(key, 0) + n
-    return totals
+    fused_totals = {"gn": {}, "ff": {}}
+    for got in runs["static fp32 fused"]["launches"]:
+        for kind in fused_totals:
+            for key, n in got[kind].items():
+                fused_totals[kind][key] = fused_totals[kind].get(key, 0) + n
+    return totals, fused_totals
+
+
+# ----------------------------------------------------------------- slice 14
+# fp32 instances of K8, K9 and K10 (4h), fp32 training through the entry
+# point under the fused knobs (9e), and fp32 requests under the default and
+# the fused knobs ([fp32-main]).
+FF_FP32_SOURCE = "adaface_tpu_torch/csrc/ln_geglu_ff_fp32.cu"
+WINO_FP32_SOURCE = "adaface_tpu_torch/csrc/winograd_fp32.cu"
+# 4h's planted faults: text patches of each fp32 kernel's source, built by
+# kernel_variants.build and launched through the wrapper in place of the
+# kernel at every shape of the path; each must fail the gate (FP32_REL_TOL,
+# FP32_ABS_TOL of the largest plain value). key -> (source, C entry, fault,
+# patches)
+FP32_FAULTS = {
+    "gn": ("gn_silu.cu", "gn_silu_fwd_fp32",
+           "the last cluster peer's partial left out of the combine",
+           [("    for (int r = 0; r < cs; ++r) {", "    for (int r = 0; r + 1 < cs; ++r) {")]),
+    "ff": ("ln_geglu_ff_fp32.cu", "ln_geglu_ff_fp32_fwd",
+           "F chunk 1 (h columns 64-127) skipped in GEMM2",
+           [("    fma_tile<MI, NJ>(acc, sa[kt & 1], sb[kt & 1], ty, tx);",
+             "    if (EPI == EPI_GEGLU || kt * BK / 64 != 1)\n"
+             "      fma_tile<MI, NJ>(acc, sa[kt & 1], sb[kt & 1], ty, tx);")]),
+    "wino": ("winograd_fp32.cu", "winograd_conv3x3_fp32_fwd", "position 5 left out",
+             [("    if (kc == nkc - 1) add_position(y, mm, ij);",
+               "    if (kc == nkc - 1 && ij != 5) add_position(y, mm, ij);")]),
+}
+# [fp32-main]: DDIM steps of each fp32 request (the generate path's STEPS
+# cut so that the script keeps its time; the only cut)
+FP32_REQUEST_STEPS = 10
+
+
+def build_fp32_faults():
+    """The planted faults' libraries, built side by side into
+    `_variants/fault_fp32_<key>/`: key -> library."""
+    import kernel_variants as kv
+    try:
+        built = kv.build({k: (kv.CSRC, src, patches)
+                          for k, (src, _, _, patches) in FP32_FAULTS.items()},
+                         prefix="fault_fp32_")
+    except (ValueError, RuntimeError) as e:
+        fail(f"a planted fp32 fault did not build: {e}")
+    return {k: lib for k, (lib, _) in built.items()}
+
+
+@contextlib.contextmanager
+def entry_replaced(module, name, lib):
+    """The wrapper module's C entry `name` taken from `lib` (a planted
+    fault's build) for the block, so that the fault runs through the
+    wrapper with its plan, scratch and checks."""
+    import ctypes
+
+    from adaface_tpu_torch import kernels
+
+    fn = getattr(lib, name)
+    fn.argtypes = module.C_ENTRIES[name][1]
+    fn.restype = ctypes.c_int
+    old = kernels.entries.get(name)
+    kernels.entries[name] = fn
+    try:
+        yield
+    finally:
+        if old is None:
+            kernels.entries.pop(name, None)
+        else:
+            kernels.entries[name] = old
+
+
+def fused_fp32_errors(out, plain, x=None):
+    """(max abs error over the largest plain value, relative L2 error) of an
+    fp32 kernel output against its plain version; for K9 (x given) both of
+    the feed-forward part out - x."""
+    if x is not None:
+        out, plain = out - x, plain - x
+    diff = out - plain
+    return (diff.abs().max().item() / max(plain.abs().max().item(), 1e-30),
+            (diff.norm() / plain.norm()).item())
+
+
+def _gate_fused_fp32(torch, label, out, again, plain, wrong=None, x=None):
+    """Fail unless `out` is finite fp32, equals `again` bit for bit and is
+    within FP32_ABS_TOL (of the largest plain value) and FP32_REL_TOL of
+    `plain`, and the planted fault's output `wrong` is not. Returns (max
+    abs error, relative L2)."""
+    if out.dtype != torch.float32 or not torch.isfinite(out).all():
+        fail(f"{label}: output {out.dtype}, or non-finite")
+    if not torch.equal(out, again):
+        fail(f"{label}: two launches disagree")
+    err, rel = fused_fp32_errors(out, plain, x)
+    if wrong is not None:
+        ferr, frel = fused_fp32_errors(wrong, plain, x)
+        say(f"[fp32-fused]   planted fault: max abs err {ferr:.3e} of the largest value, rel L2 "
+            f"{frel:.3e}")
+        if ferr <= FP32_ABS_TOL and frel <= FP32_REL_TOL:
+            fail(f"{label}: the fp32 gate passes its planted fault")
+    if not (err <= FP32_ABS_TOL and rel <= FP32_REL_TOL):
+        fail(f"{label}: kernel disagrees with plain (max abs {err:.3e} of the largest value, "
+             f"rel L2 {rel:.3e})")
+    return err, rel
+
+
+def phase_fused_fp32_kernels(torch, card, exp2_rate, wino_shapes):
+    """(4h) K8, K9 and K10 in fp32 (`csrc/gn_silu.cu`'s fp32 instance,
+    `csrc/ln_geglu_ff_fp32.cu`, `csrc/winograd_fp32.cu`) through their
+    wrappers on fp32 tensors, against their plain fp32 versions on the same
+    inputs, at every shape of the fused paths (K8, K9: generate B16/B8,
+    recon B3, compos B4) and of the UNet's Winograd convs (`wino_shapes`,
+    shape -> count a UNet call): relative L2 and max abs (of the largest
+    value) gates of FP32_REL_TOL / FP32_ABS_TOL, K9 on its feed-forward part;
+    each kernel's planted fault (FP32_FAULTS) must fail them; two launches
+    agree bit for bit; kernel, plain, library (TF32 off) and bound times.
+    K8 and K9 also at their edge shapes (agreement and repeats). Then
+    `conv3x3_same` in fp32 under ADAFACE_WINOGRAD=1 as often as a UNet call
+    has each shape: the fp32 gate (itemsize 4) sends some shapes to the
+    direct conv, as in JAX. Returns (rows, K10 fp32 launches by (dtype,
+    shape))."""
+    import torch.nn.functional as F
+
+    fn, ff = _fused_ops()
+    tw = _winograd()
+    faults = build_fp32_faults()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    t_phase = time.time()
+    for b, n, c in sorted(set(GN_SHAPES) | set(GN_TRAIN_SHAPES) | set(GN_COMPOS_SHAPES),
+                          key=lambda k: (-k[0], -k[1], k[2])):
+        x, scale, bias = gn_inputs(torch, randn, b, n, c, torch.float32)
+        label = f"gn_silu fp32 B{b} N{n} C{c}"
+        fn.launches_by_shape.clear()
+        call = lambda: fn.group_norm_silu_cuda(x, scale, bias)
+        out, again = call(), call()
+        torch.cuda.synchronize()
+        if fn.launches_by_shape != {("fp32", b, n, c): 2}:
+            fail(f"{label}: the wrapper counted {fn.launches_by_shape} for two calls")
+        with entry_replaced(fn, FP32_FAULTS["gn"][1], faults["gn"]):
+            wrong = call()
+        plain = fn.group_norm_silu_plain(x, scale, bias)
+        err, rel = _gate_fused_fp32(torch, label, out, again, plain, wrong)
+        ms, dev_ms = time_ms(torch, call), device_ms(torch, call)
+        plain_ms = time_ms(torch, lambda: fn.group_norm_silu_plain(x, scale, bias), reps=2,
+                           rounds=3)
+        xt = x.transpose(1, 2).contiguous()  # [B, C, N] for F.group_norm
+        library_ms = time_ms(torch, lambda: F.silu(F.group_norm(xt, 32, scale, bias, 1e-5)))
+        bound_ms, bound_by = gn_bound(b, n, c, exp2_rate, itemsize=4)
+        say(f"[fp32-fused] {label:30s}: max abs err {err:.3e} of the largest value, rel L2 "
+            f"{rel:.3e} (tols {FP32_ABS_TOL}, {FP32_REL_TOL}); kernel {ms:.4f} ms device "
+            f"{dev_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) plain {plain_ms:.4f} ms "
+            f"F.group_norm+F.silu {library_ms:.4f} ms; {fn.launch_plan(b, n, c, sms, 4)} "
+            f"[{card}]")
+        rows[("gn", b, n, c)] = dict(max_abs_err=err * plain.abs().max().item(), ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                     library_ms=library_ms, device_ms=dev_ms)
+        del x, xt, out, again, wrong, plain
+    for b, n, c in GN_EDGE_SHAPES:
+        x, scale, bias = gn_inputs(torch, randn, b, n, c, torch.float32)
+        label = f"gn_silu fp32 B{b} N{n} C{c}"
+        out = fn.group_norm_silu_cuda(x, scale, bias)
+        again = fn.group_norm_silu_cuda(x, scale, bias)
+        err, rel = _gate_fused_fp32(torch, label, out, again,
+                                    fn.group_norm_silu_plain(x, scale, bias))
+        say(f"[fp32-fused] {label:30s}: max abs err {err:.3e} rel L2 {rel:.3e}; "
+            f"{fn.launch_plan(b, n, c, sms, 4)}")
+        del x, out, again
+    ff_cases = [(b, l, c, 4 * c, True) for b, l, c in
+                list(FF_SHAPES) + list(FF_TRAIN_SHAPES) + list(FF_COMPOS_SHAPES)]
+    ff_cases += [(b, l, c, f, False) for b, l, c, f in FF_EDGE_SHAPES]
+    for b, l, c, f, on_path in ff_cases:
+        x = randn(b, l, c)
+        w1 = randn(2 * f, c) / c ** 0.5  # nn.Linear layouts, as in the UNet
+        w2 = randn(c, f) / f ** 0.5
+        args = (x, 1 + 0.2 * randn(c), 0.2 * randn(c), w1.t(), 0.2 * randn(2 * f), w2.t(),
+                0.2 * randn(c))
+        label = f"ln_geglu_ff fp32 B{b} L{l} C{c}" + ("" if on_path else f" F{f}")
+        ff.launches_by_shape.clear()
+        call = lambda: ff.ln_geglu_ff_cuda(*args)
+        out, again = call(), call()
+        torch.cuda.synchronize()
+        if ff.launches_by_shape != {("fp32", b, l, c): 2}:
+            fail(f"{label}: the wrapper counted {ff.launches_by_shape} for two calls")
+        plain = ff.ln_geglu_ff_plain(*args)
+        if not on_path:
+            err, rel = _gate_fused_fp32(torch, label, out, again, plain, x=x)
+            say(f"[fp32-fused] {label:30s}: max abs err {err:.3e} rel L2 {rel:.3e}")
+            continue
+        with entry_replaced(ff, FP32_FAULTS["ff"][1], faults["ff"]):
+            wrong = call()
+        err, rel = _gate_fused_fp32(torch, label, out, again, plain, wrong, x=x)
+        ms, dev_ms = time_ms(torch, call), device_ms(torch, call)
+        plain_ms = time_ms(torch, lambda: ff.ln_geglu_ff_plain(*args), reps=2, rounds=3)
+        default_ms = time_ms(torch, lambda: ff.ln_geglu_ff_unfused(*args))
+        # the yardstick of K9's GEMMs: cuBLAS's two fp32 products alone
+        y = F.layer_norm(x, (c,), args[1], args[2])
+        h = randn(b, l, f)
+        library_ms = time_ms(torch, lambda: (F.linear(y, w1), F.linear(h, w2)))
+        bound_ms, bound_by = ff_bound(b, l, c, itemsize=4, peak=PEAK_FP32_FLOPS)
+        say(f"[fp32-fused] {label:30s}: max abs err {err:.3e} of the largest value, rel L2 "
+            f"{rel:.3e} of out - x (tols {FP32_ABS_TOL}, {FP32_REL_TOL}); kernel {ms:.4f} ms "
+            f"device {dev_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) plain "
+            f"{plain_ms:.4f} ms unfused fp32 chain "
+            f"{default_ms:.4f} ms cuBLAS SGEMMs {library_ms:.4f} ms [{card}]")
+        rows[("ff", b, l, c)] = dict(max_abs_err=err * (plain - x).abs().max().item(), ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                     library_ms=library_ms, default_arm_ms=default_ms,
+                                     device_ms=dev_ms)
+        del x, args, w1, w2, out, again, wrong, plain, y, h
+    cases = {}
+    for key in sorted(wino_shapes):
+        b, h, w, cin, cout = key
+        x = randn(b, h, w, cin)
+        kern = randn(3, 3, cin, cout) / (9 * cin) ** 0.5
+        bias = 0.2 * randn(cout)
+        cases[key] = (x, kern, bias)
+        label = f"winograd fp32 B{b} {h}x{w} Cin{cin} Cout{cout}"
+        u = tw.transform_weights(kern)
+        ut = tw.padded_weights(u)  # the kernel's layout, made outside the timed call
+        call = lambda: tw.winograd_conv3x3_cuda(x, ut, bias)
+        tw.launches_by_shape.clear()
+        out, again = call(), call()
+        torch.cuda.synchronize()
+        if tw.launches_by_shape != {("fp32",) + key: 2}:
+            fail(f"{label}: the wrapper counted {tw.launches_by_shape} for two calls")
+        with entry_replaced(tw, FP32_FAULTS["wino"][1], faults["wino"]):
+            wrong = call()
+        plain = tw.winograd_conv3x3_plain(x, u, bias)
+        err, rel = _gate_fused_fp32(torch, label, out, again, plain, wrong)
+        ms, dev_ms = time_ms(torch, call), device_ms(torch, call)
+        plain_ms = time_ms(torch, lambda: tw.winograd_conv3x3_plain(x, u, bias), reps=2,
+                           rounds=3)
+        xc = x.permute(0, 3, 1, 2)  # NHWC memory is channels_last NCHW
+        wc = kern.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        library_ms = time_ms(torch, lambda: F.conv2d(xc, wc, bias, padding=1))
+        bound_ms, bound_by = wino_bound(b, h, w, cin, cout, itemsize=4, peak=PEAK_FP32_FLOPS)
+        say(f"[fp32-fused] {label:40s}: max abs err {err:.3e} of the largest value, rel L2 "
+            f"{rel:.3e}; kernel {ms:.4f} ms device {dev_ms:.4f} ms bound {bound_ms:.4f} ms "
+            f"({bound_by}) plain {plain_ms:.4f} ms F.conv2d fp32 {library_ms:.4f} ms [{card}]")
+        rows[("wino",) + key] = dict(max_abs_err=err * plain.abs().max().item(), ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                     library_ms=library_ms, device_ms=dev_ms)
+        del out, again, wrong, plain, ut, u
+    # conv3x3_same in fp32: the gates at itemsize 4 decide, as in JAX
+    tw.launches_by_shape.clear()
+    with knobs_set({"ADAFACE_WINOGRAD": "1"}):
+        want = _typed({s: n for s, n in wino_shapes.items()
+                       if tw.winograd_eligible(s[:4], s[4], 4)}, "fp32")
+        for key, n in wino_shapes.items():
+            for _ in range(n):
+                tw.conv3x3_same(*cases[key])
+    torch.cuda.synchronize()
+    launches = dict(tw.launches_by_shape)
+    say(f"[fp32-fused] conv3x3_same fp32 under ADAFACE_WINOGRAD=1: {sum(launches.values())} "
+        f"kernel launches {sorted(launches.items())}; the direct conv at "
+        f"{sorted(set(wino_shapes) - {k[1:] for k in want})} (VMEM budget at 4 bytes)")
+    if launches != want:
+        fail(f"fp32 winograd launches {launches}, expected {want}")
+    del cases
+    for m in (fn, ff, tw):
+        m.launches_by_shape.clear()
+    torch.cuda.empty_cache()
+    say(f"[fp32-fused] phase 4h {time.time() - t_phase:.1f} s")
+    return rows, launches
+
+
+def phase_fp32_main_path(torch, card):
+    """([fp32-main]) An fp32 pipeline at SD-v1.5 width (random weights,
+    seed 0, one 9-vector placeholder z) serves `generate` once under the
+    default knobs and once under FUSED_KNOBS after a warm-up: PROMPT x
+    BATCH, 512x512, CFG 10->4, DDIM cut to FP32_REQUEST_STEPS (printed).
+    Each request makes exactly the fp32 flash forwards of the bf16 request's
+    UNet calls (MAIN_SHAPES per call); the fused one also GN_SHAPES and
+    FF_SHAPES fp32 launches per call, and no bf16 K8 or K9 launch. The two
+    requests' images (same seed) must agree within ARM_UINT8_MEAN_TOL.
+    Returns the fused request's K8 and K9 launches by (dtype, shape)."""
+    import gc
+
+    import numpy as np
+
+    from adaface_tpu_torch.data.tokenizer import HashTokenizer
+    from adaface_tpu_torch.pipeline import StableDiffusionPipeline
+
+    fa = _fa()
+    fn, ff = _fused_ops()
+    tok = HashTokenizer()
+    pipe = StableDiffusionPipeline.from_random(0, tok, dtype=torch.float32, device="cuda")
+    tid = tok.add_placeholder("z")
+    pipe.embedding_manager.add_placeholder(
+        "z", token_id=tid, num_vectors=9, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(7))
+    prompts = [PROMPT] * BATCH
+    kw = dict(num_steps=FP32_REQUEST_STEPS, guidance_scale=(10.0, 4.0), height=SIZE, width=SIZE)
+    calls = FP32_REQUEST_STEPS  # UNet calls a request
+    want_fa = {s: n * calls // STEPS for s, (_, n) in MAIN_SHAPES.items()}
+    say(f"[fp32-main] fp32 pipeline, batch {BATCH} 512x512 CFG 10->4: DDIM cut from {STEPS} "
+        f"to {FP32_REQUEST_STEPS} steps (the only cut)")
+    t0 = time.time()
+    pipe.generate(prompts, seed=0, **kw)
+    say(f"[fp32-main] warm-up request {time.time() - t0:.3f} s [{card}]")
+    imgs, secs = {}, {}
+    for name, values in (("default", {}), ("fused", FUSED_KNOBS)):
+        with knobs_set(values):
+            for m in (fa, fn, ff):
+                m.launches_by_shape.clear()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            imgs[name] = pipe.generate(prompts, seed=1, **kw)
+            secs[name] = time.time() - t0
+        got_fa = {}
+        for (kind, arm, b, lq, lk, h, d), n in fa.launches_by_shape.items():
+            if kind != "fwd_fp32":
+                fail(f"[fp32-main] {name}: a {kind} flash launch in an fp32 request")
+            got_fa[(b, lq, h, d)] = got_fa.get((b, lq, h, d), 0) + n
+        got_gn, got_ff = dict(fn.launches_by_shape), dict(ff.launches_by_shape)
+        fused = name == "fused"
+        want_gn = _typed({s: calls * n for s, n in GN_SHAPES.items()}, "fp32") if fused else {}
+        want_ff = _typed({s: calls * n for s, n in FF_SHAPES.items()}, "fp32") if fused else {}
+        say(f"[fp32-main] {name} knobs request: {secs[name]:.3f} s, {BATCH / secs[name]:.4f} "
+            f"img/s, launches: flash fp32 {sum(got_fa.values())}, gn_silu fp32 "
+            f"{sum(got_gn.values())}, ln_geglu_ff fp32 {sum(got_ff.values())} [{card}]")
+        if (got_fa, got_gn, got_ff) != (want_fa, want_gn, want_ff):
+            fail(f"[fp32-main] {name}: expected the launches {want_fa} {want_gn} {want_ff}, "
+                 f"got {got_fa} {got_gn} {got_ff}")
+        a = imgs[name]
+        if a.shape != (BATCH, SIZE, SIZE, 3) or str(a.dtype) != "uint8" or a.std() < 1.0:
+            fail(f"[fp32-main] {name}: images {a.shape} {a.dtype}, std {a.std():.3f}")
+        if fused:
+            gn_launches, ff_launches = got_gn, got_ff
+    diff = np.abs(imgs["fused"].astype(np.int32) - imgs["default"].astype(np.int32))
+    say(f"[fp32-main] fused vs default images (same seed): mean {diff.mean():.4f} uint8 levels "
+        f"(tol {ARM_UINT8_MEAN_TOL}), max {diff.max()}; fp32 request {secs['default']:.3f} s "
+        f"default, {secs['fused']:.3f} s fused, DDIM-{FP32_REQUEST_STEPS} [{card}]")
+    if not diff.mean() <= ARM_UINT8_MEAN_TOL:
+        fail(f"[fp32-main] the fused request's images differ by {diff.mean():.3f} levels")
+    for m in (fa, fn, ff):
+        m.launches_by_shape.clear()
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gn_launches, ff_launches
 
 
 # ------------------------------------------------------------------ slice 4
@@ -2712,12 +3125,12 @@ def record_conv_shapes(torch, pipe):
     return shapes
 
 
-def wino_bound(b, h, w, cin, cout):
-    """Least time of K10: 8*B*H*W*Cin*Cout tensor-core flops (the 16
-    Winograd products), or x, U and y moved once (bf16), whichever is
-    larger."""
-    t_mma = 8 * b * h * w * cin * cout / PEAK_BF16_FLOPS
-    t_bytes = 2 * (b * h * w * (cin + cout) + 16 * cin * cout) / PEAK_HBM_BYTES
+def wino_bound(b, h, w, cin, cout, itemsize=2, peak=None):
+    """Least time of K10: 8*B*H*W*Cin*Cout flops (the 16 Winograd
+    products) at `peak` (the tensor cores' bf16 rate by default), or x, U
+    and y moved once (`itemsize` bytes an element), whichever is larger."""
+    t_mma = 8 * b * h * w * cin * cout / (peak or PEAK_BF16_FLOPS)
+    t_bytes = itemsize * (b * h * w * (cin + cout) + 16 * cin * cout) / PEAK_HBM_BYTES
     return max(t_mma, t_bytes) * 1e3, "bytes" if t_bytes >= t_mma else "operations"
 
 
@@ -2763,8 +3176,8 @@ def phase_winograd(torch, pipe, card):
     launches = dict(tw.launches_by_shape)
     say(f"[winograd] conv3x3_same under ADAFACE_WINOGRAD=1: {sum(launches.values())} kernel "
         f"launches {sorted(launches.items())}")
-    if launches != eligible:
-        fail(f"winograd launches {launches}, expected {eligible}")
+    if launches != _typed(eligible):
+        fail(f"winograd launches {launches}, expected {_typed(eligible)}")
     rows = {}
     for key, (x, kern, bias) in cases.items():
         b, h, w, cin, cout = key
@@ -3006,11 +3419,14 @@ def main():
     phase_reference(torch, pipe)
     counts, med, default_imgs = phase_main_path(torch, pipe, card)
     wino_rows, wino_launches = phase_winograd(torch, pipe, card)
+    fp32_fused_rows, wino_fp32_launches = phase_fused_fp32_kernels(
+        torch, card, exp2_rate, {k[1:]: n for k, n in wino_launches.items()})
     # before any profiler runs, so that the arms' requests are timed as the
     # default's were
     arm_counts = phase_arm_generate(torch, pipe, card, default_imgs, med)
     phase_profile(torch, pipe, card)
     gn_counts, ff_counts = phase_fused_main_path(torch, pipe, card, med)
+    gn_fp32_gen, ff_fp32_gen = phase_fp32_main_path(torch, card)
 
     add_training_placeholders(torch, pipe)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3021,7 +3437,7 @@ def main():
         gn_train, ff_train = phase_fused_train(torch, pipe, Trainer, tmp, card, train_med,
                                                compos_med, train_peak)
         arm_train = phase_arm_train(torch, pipe, Trainer, tmp, card)
-        fp32_counts = phase_entry_point(torch, fa, Trainer, tmp, card)
+        fp32_counts, fp32_fused_train = phase_entry_point(torch, fa, Trainer, tmp, card)
 
     entries = []
     for (b, l, h, d), (replaces, _) in MAIN_SHAPES.items():
@@ -3052,7 +3468,7 @@ def main():
     for (b, h, w, cin, cout), row in sorted(wino_rows.items()):
         entries.append(dict(name=f"winograd_conv3x3 B{b} {h}x{w} Cin{cin} Cout{cout}",
                             route="cuda", source=WINO_SOURCE, replaces=K10,
-                            launches=wino_launches[(b, h, w, cin, cout)], **row))
+                            launches=wino_launches[("bf16", b, h, w, cin, cout)], **row))
     # the training arms: launches over their ARM_TRAIN_STEPS micro-steps
     bwd_names = {"fwd": "flash_attn_packed fwd + lse", "dq": "flash_attn_bwd dq",
                  "dkv": "flash_attn_bwd dk/dv"}
@@ -3073,12 +3489,12 @@ def main():
         for (k, b, n, c), row in fused_rows.items():
             if k != kind:
                 continue
-            training = (b, n, c) in tr_counts
+            training = ("bf16", b, n, c) in tr_counts
             what = " (compos training)" if b == 4 else " (training)"
             entries.append(dict(
                 name=name.format(b, n, c) + (what if training else ""),
                 route="cuda", source=source, replaces=replaces,
-                launches=(tr_counts if training else gen_counts)[(b, n, c)], **row))
+                launches=(tr_counts if training else gen_counts)[("bf16", b, n, c)], **row))
     # the fp32 kernel: launches over phase 9d's fp32 run (B3 recon, B4 compos)
     fp32_names = {"fwd": "flash_attn_fp32 fwd (lse when recorded)", "dq": "flash_attn_fp32 dq",
                   "dkv": "flash_attn_fp32 dk/dv"}
@@ -3089,6 +3505,33 @@ def main():
         entries.append(dict(name=f"{fp32_names[kind]} B{b} L{l} H{h} d{d} ({what})",
                             route="cuda", source=FP32_SOURCE,
                             launches=fp32_counts.get((FP32_KINDS[kind], b, l, h, d), 0), **row))
+    # the fp32 instances of K8 and K9: launches over phase 9e's micro-steps
+    # for the training shapes (B3 recon, B4 compos), over the fused fp32
+    # request for the generate ones; K10 over 4h's conv3x3_same drive
+    for kind, name, source, replaces, gen_counts, tr_counts in (
+            ("gn", "gn_silu fp32 B{} N{} C{}", GN_SOURCE, K8, gn_fp32_gen,
+             fp32_fused_train["gn"]),
+            ("ff", "ln_geglu_ff_fp32 B{} L{} C{}", FF_FP32_SOURCE, K9, ff_fp32_gen,
+             fp32_fused_train["ff"])):
+        for key, row in fp32_fused_rows.items():
+            if key[0] != kind:
+                continue
+            _, b, n, c = key
+            training = ("fp32", b, n, c) in tr_counts
+            what = " (fp32 compos training)" if b == 4 else " (fp32 training)"
+            entries.append(dict(
+                name=name.format(b, n, c) + (what if training else " (fp32 request)"),
+                route="cuda", source=source, replaces=replaces,
+                launches=(tr_counts if training else gen_counts)[("fp32", b, n, c)], **row))
+    # (the shapes that the fp32 gate sends to the direct conv launch no
+    # kernel there; their 4h times are printed above)
+    for (k, *key), row in sorted(fp32_fused_rows.items()):
+        if k == "wino" and ("fp32", *key) in wino_fp32_launches:
+            b, h, w, cin, cout = key
+            entries.append(dict(
+                name=f"winograd_conv3x3_fp32 B{b} {h}x{w} Cin{cin} Cout{cout}", route="cuda",
+                source=WINO_FP32_SOURCE, replaces=K10,
+                launches=wino_fp32_launches[("fp32", *key)], **row))
     say(f"[main] whole script {time.time() - t_start:.1f} s")
     say(json.dumps({"kernels": entries}))
     say(card)

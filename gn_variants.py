@@ -38,17 +38,24 @@ import chip_smoke as cs
 import kernel_variants as kv
 
 DEPTH = "constexpr int DEPTH = 8;"
-STORE = "      *reinterpret_cast<uint4*>(os + (k - u) * step) = norm8(raw[u], sc, sh, apply_silu);"
+STORE = "      st8(os + (k - u) * step, norm8(raw[u], sc, sh, apply_silu));"
+ST8 = "template <typename T>\n__device__ __forceinline__ void st8("
+ADD8 = "template <typename T>\n__device__ __forceinline__ void add8("
 # the first pass's loads ask L2 to keep x (evict_last), for the second
-LD_LAST = [(DEPTH, DEPTH + "\n__device__ __forceinline__ uint4 ldg16_last(const __nv_bfloat16* p) {\n"
-            "  uint4 r;\n  asm volatile(\"{\\n.reg .b64 pol;\\ncreatepolicy.fractional.L2::evict_last.b64 "
+LD_LAST = [(ST8, "template <typename T>\n__device__ __forceinline__ Raw8<T> ld8_last(const T* p) {\n"
+            "  Raw8<T> r;\n#pragma unroll\n  for (int i = 0; i < Raw8<T>::WORDS; ++i)\n"
+            "    asm volatile(\"{\\n.reg .b64 pol;\\ncreatepolicy.fractional.L2::evict_last.b64 "
             "pol, 1.0;\\nld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], pol;\\n}\\n\" : "
-            "\"=r\"(r.x), \"=r\"(r.y), \"=r\"(r.z), \"=r\"(r.w) : \"l\"(p));\n  return r;\n}"),
-           ("    for (int u = 0; u < DEPTH; ++u) raw[u] = ldg16(xs + (k + u) * step);",
-            "    for (int u = 0; u < DEPTH; ++u) raw[u] = ldg16_last(xs + (k + u) * step);")]
+            "\"=r\"(r.w[i].x), \"=r\"(r.w[i].y), \"=r\"(r.w[i].z), \"=r\"(r.w[i].w) : "
+            "\"l\"(reinterpret_cast<const uint4*>(p) + i));\n  return r;\n}\n\n" + ST8),
+           ("    for (int u = 0; u < SUM_ROWS; ++u) raw[u] = ld8(xs + (k + u) * step);",
+            "    for (int u = 0; u < SUM_ROWS; ++u) raw[u] = ld8_last(xs + (k + u) * step);")]
 # the output stored with the evict-first (streaming) hint, so that it does
 # not push x out of L2 before its second read
-ST_CS = [(STORE, "      __stcs(reinterpret_cast<uint4*>(os + (k - u) * step), norm8(raw[u], sc, sh, apply_silu));")]
+ST_CS = [(ADD8, "template <typename T>\n__device__ __forceinline__ void st8_cs(T* p, const Raw8<T>& r) {\n"
+          "#pragma unroll\n  for (int i = 0; i < Raw8<T>::WORDS; ++i) "
+          "__stcs(reinterpret_cast<uint4*>(p) + i, r.w[i]);\n}\n\n" + ADD8),
+         (STORE, "      st8_cs(os + (k - u) * step, norm8(raw[u], sc, sh, apply_silu));")]
 # every variant but `old` also exports how many of its clusters the card
 # holds at once
 RESIDENT = [('extern "C" int gn_silu_fwd(',
@@ -63,7 +70,8 @@ extern "C" int gn_silu_max_clusters(int cluster, int threads) {
       cluster_config(&at, cluster, 1, threads, smem_bytes(32, threads), nullptr);
   int count = 0;
   const cudaError_t err = cudaOccupancyMaxActiveClusters(
-      &count, threads <= MAX_THREADS ? gn_silu_kernel<MAX_THREADS> : gn_silu_kernel<WIDE_THREADS>,
+      &count,
+      threads <= MAX_THREADS ? gn_silu_kernel<bf16, MAX_THREADS> : gn_silu_kernel<bf16, WIDE_THREADS>,
       &cfg);
   return err != cudaSuccess ? -(int)err : count;
 }

@@ -1,6 +1,9 @@
 """The text patches of the kernel-variant scripts (`kernel_variants.py`,
 `gn_variants.py`, `ff_variants.py`, `wino_variants.py`, `flash_variants.py`)
-and of `chip_smoke.py`'s planted tanh-SiLU fault.
+and of `chip_smoke.py`'s planted faults: the tanh-SiLU of K8, and one fault
+for each fp32 kernel (`FP32_FAULTS`: a cluster peer's partial left out of
+K8's combine, an F chunk skipped in K9's GEMM2, a Winograd position left
+out of K10's sum).
 
 nvcc runs only on the card's machine; here each variant's sources are
 patched as `kernel_variants.build` patches them before it starts nvcc, so a
@@ -64,3 +67,17 @@ def test_patch_that_does_not_apply_raises():
         kv.patched_sources(kv.CSRC, "gn_silu.cu", [("no such text", "x")])
     with pytest.raises(ValueError, match="no "):
         kv.patched_sources(kv.OLD_CSRC + "_missing", "gn_silu.cu", [])
+
+
+@pytest.mark.parametrize("key", sorted(chip_smoke.FP32_FAULTS))
+def test_fp32_fault_patches_change_one_place(key):
+    """Each fp32 kernel's planted fault replaces exactly one line of its
+    source, and its C entry is declared there, so 4h launches the patched
+    kernel through the wrapper."""
+    source, entry, _, patches = chip_smoke.FP32_FAULTS[key]
+    src = open(f"{kv.CSRC}/{source}").read()
+    assert f'extern "C" int {entry}(' in src
+    text = kv.patched_sources(kv.CSRC, source, patches)["kernel.cu"]
+    assert text != src
+    for old, new in patches:
+        assert src.count(old) == 1 and new in text and new not in src
