@@ -343,6 +343,80 @@ def dkv_work(b: int, h: int, lq: int, lk: int, d: int,
             for kb in range(-(-lk // rows)) for s in range(split)]
 
 
+# ---------------------------------------------------- fp32 forward plan
+# The fp32 forward's tiling (csrc/flash_attn_fp32.cu: FwdCfg): a row group
+# of FWD_FP32_WARP_ROWS[d] query rows is taken by one warp, or by two that
+# split each key tile (the key split); a CTA has 1, 2 or 4 warps. Keys
+# stream in tiles of 64 through a ring of FWD_FP32_STAGES stages of 40 head
+# columns (80 at d160 under the key split).
+FWD_FP32_WARP_ROWS = {40: 32, 80: 32, 160: 16}
+FWD_FP32_WARPS = (4, 2, 1)
+FWD_FP32_STAGES = 3
+_FWD_FP32_LDP = 72  # floats between rows of a warp's p tile
+# Fewer row groups than this many an SM leave SMs with few warps to hide
+# latency (the B3 / B4 L256 d160 grids): their keys are split.
+_FWD_FP32_SPLIT_BELOW = 4
+# What a CTA costs beyond its rows, in rows: its share of the K/V copies
+# and its start (a guess that flash_variants.py's forced plans measure)
+_FWD_FP32_CTA_ROWS = 16
+
+
+class Fp32FwdPlan(NamedTuple):
+    """One fp32 forward launch: `rows` query rows a CTA, `threads` threads
+    a CTA (each row group of FWD_FP32_WARP_ROWS[d] rows taken by
+    `key_split` warps), `ctas` CTAs (query blocks x heads x batch rows),
+    `smem` bytes of shared memory a CTA."""
+    rows: int
+    threads: int
+    key_split: int
+    ctas: int
+    smem: int
+
+
+def fwd_fp32_smem(d: int, rows: int, warps: int, key_split: int = 1) -> int:
+    """Shared memory of an fp32 forward CTA of `rows` rows and `warps` warps
+    at head dim d: its Q tile, the ring (a stage: one chunk of K or V for 64
+    keys, then the tile's bias) and the warps' p tiles (FwdCfg::smem)."""
+    cw = 80 if d == 160 and key_split == 2 else 40
+    return 4 * (rows * (d + 4) + FWD_FP32_STAGES * (64 * (cw + 4) + 64)
+                + warps * FWD_FP32_WARP_ROWS[d] * _FWD_FP32_LDP)
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_fp32_launch_plan(b: int, h: int, lq: int, lk: int, d: int, sms: int,
+                         key_split: Optional[int] = None) -> Fp32FwdPlan:
+    """The fp32 forward's launch plan on a card of `sms` SMs. The key split
+    is 2 where the row groups number fewer than _FWD_FP32_SPLIT_BELOW a SM
+    (or `key_split` when given). Of the CTAs of 1, 2 or 4 warps, those whose
+    grid puts a CTA on every SM if any do; of those, the one with the fewest
+    rows (plus a CTA's cost) on the busiest SM, the larger CTA on a tie
+    (fewer K/V bytes a row). Raises ValueError for a head dim the kernel is
+    not built for."""
+    if d not in FWD_FP32_WARP_ROWS:
+        raise ValueError(f"the fp32 forward is built for head dims "
+                         f"{tuple(FWD_FP32_WARP_ROWS)}, not {d}")
+    wr = FWD_FP32_WARP_ROWS[d]
+    if key_split is None:
+        key_split = 2 if -(-lq // wr) * h * b < _FWD_FP32_SPLIT_BELOW * sms else 1
+    plans = []
+    for w in FWD_FP32_WARPS:
+        if w % key_split == 0:
+            rows = w // key_split * wr
+            plans.append(Fp32FwdPlan(rows, 32 * w, key_split, -(-lq // rows) * h * b,
+                                     fwd_fp32_smem(d, rows, w, key_split)))
+    filled = [p for p in plans if p.ctas >= sms] or plans
+    return min(filled, key=lambda p: (-(-p.ctas // sms) * (p.rows + _FWD_FP32_CTA_ROWS),
+                                      -p.rows))
+
+
+def fwd_fp32_blocks(b: int, h: int, lq: int, rows: int) -> List[Tuple[int, int, int, int]]:
+    """(batch row, head, first query row, end query row) of each fp32
+    forward CTA, in the order of its grid (x = query block, y = head, z =
+    batch row); the last block of a head stops at Lq."""
+    return [(bi, hi, r0, min(r0 + rows, lq)) for bi in range(b) for hi in range(h)
+            for r0 in range(0, lq, rows)]
+
+
 # ------------------------------------------------------------- CUDA wrappers
 def _check_operand(t: torch.Tensor, name: str, device, b: int, inner: int,
                    dtype: torch.dtype = torch.bfloat16):
@@ -365,7 +439,7 @@ C_ENTRIES = {
     "flash_attn_packed_fwd": ("flash_attn_packed", [_P] * 6 + [_I] * 6 + [_P, _F, _P]),
     "flash_attn_bwd_dq": ("flash_attn_bwd", [_P] * 8 + [_I] * 5 + [_P, _F, _F, _P]),
     "flash_attn_bwd_dkv": ("flash_attn_bwd", [_P] * 10 + [_I] * 5 + [_P, _F, _F, _I, _P, _P]),
-    "flash_attn_fp32_fwd": ("flash_attn_fp32", [_P] * 6 + [_I] * 6 + [_P, _F, _P]),
+    "flash_attn_fp32_fwd": ("flash_attn_fp32", [_P] * 6 + [_I] * 8 + [_P, _F, _P]),
     "flash_attn_fp32_bwd_dq": ("flash_attn_fp32", [_P] * 8 + [_I] * 5 + [_P, _F, _F, _P]),
     "flash_attn_fp32_bwd_dkv": ("flash_attn_fp32", [_P] * 10 + [_I] * 5 + [_P, _F, _F, _P]),
 }
@@ -420,7 +494,8 @@ def flash_attention_blc_cuda(q, k, v, num_heads: int, key_bias=None, scale=None,
                              return_lse: bool = False, arm: str = "direct",
                              flags: int = 0):
     """Launch the forward Hopper kernel on CUDA tensors: bf16 operands go to
-    `csrc/flash_attn_packed.cu`, fp32 ones to `csrc/flash_attn_fp32.cu`; raises
+    `csrc/flash_attn_packed.cu`, fp32 ones to `csrc/flash_attn_fp32.cu` (with
+    the rows and threads a CTA of `fwd_fp32_launch_plan`); raises
     on anything it does not take (dtype, head dim, strides, alignment). `arm`
     labels the launch in `launches_by_shape`; `flags` are K1's arithmetic
     arms. With `return_lse`, returns (out, lse2 [B, H, Lq] fp32)."""
@@ -433,12 +508,15 @@ def flash_attention_blc_cuda(q, k, v, num_heads: int, key_bias=None, scale=None,
     key = (b, lq, lk, num_heads, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        name = "flash_attn_fp32_fwd" if q.dtype == torch.float32 else "flash_attn_packed_fwd"
+        fp32 = q.dtype == torch.float32
+        name = "flash_attn_fp32_fwd" if fp32 else "flash_attn_packed_fwd"
+        plan = (fwd_fp32_launch_plan(b, num_heads, lq, lk, d, sm_count(q.device.index))[:2]
+                if fp32 else ())
         err = _fn(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            b, num_heads, lq, lk, d, flags, ctypes.addressof(st), scale * LOG2E, stream)
+            b, num_heads, lq, lk, d, flags, *plan, ctypes.addressof(st), scale * LOG2E, stream)
     _raise_if(err, name, key)
     _count("fwd", arm_id(arm, flags), key, q.dtype)
     return (out, lse) if return_lse else out

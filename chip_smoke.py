@@ -58,8 +58,8 @@ restored after each use) adds:
       versions at every shape the fused generate and training paths give
       them (relative L2 and max abs gates; planted faults must fail them;
       two launches must agree bit for bit); kernel, bound, plain and
-      default-arm times, for K8 also its launch plan and device time (the
-      profiler's), and for K9 its launch plan and the two cuBLAS
+      default-arm times, for K8 also its launch plan, device time (the
+      profiler's) and F.group_norm + F.silu's time, and for K9 its launch plan and the two cuBLAS
       products alone (`F.linear(y, w1)`, `F.linear(h, w2)`) as its library
       time; K8 also at `GN_EDGE_SHAPES` (one image, 8 rows, one channel a
       group, the widest C at N 1024, ragged rows, every cluster size, a
@@ -125,9 +125,14 @@ The fp32 path (slice 13) adds:
       build gate holds it to no spill, no HGMMA and no HMMA) through the
       wrappers on fp32 tensors: forward with lse, dq and dk/dv/dbias at the
       B3 and B4 training shapes with and without key bias, the forward at
-      B16 L4096 d40, against the plain fp32 versions (relative L2 and max
-      abs gates of 1e-5; planted faults must fail them; two launches agree
-      bit for bit); kernel, plain, SDPA (fp32) times and the bound;
+      the four generate shapes of MAIN_SHAPES, against the plain fp32
+      versions (relative L2 and max abs gates of 1e-5; planted faults must
+      fail them, the forward's also as a patched kernel source,
+      FP32_FAULTS["flash_fwd"]; two launches agree bit for bit); kernel,
+      plain, SDPA (fp32) times and the bound; the forward's edge cases
+      (FP32_FWD_EDGES: ragged Lq and Lk, a one-head fold, a fully masked
+      row, a split key range with no key, unaligned rows, both K1 flag
+      arms) against the plain version at the same gates;
   9d. the port's training entry point, `adaface_tpu_torch.train.main`,
       in-process on the seeded dataset at full SD width:
       `finetune-static-layerwise.yaml` in fp32 (4 micro-steps with exact
@@ -1036,9 +1041,11 @@ def build_gn_tanh_fault():
 def phase_fused_kernels(torch, card, exp2_rate):
     """K8 and K9 against their plain fp32 versions at every shape of the
     fused paths (generate, recon and compos training), planted faults,
-    repeatability, and times: kernel, bound, plain and the default arm (the
-    unfused torch ops the knob replaces); then both at their edge shapes,
-    agreement and repeats only."""
+    repeatability, and times: kernel, bound, plain, the default arm (the
+    unfused torch ops the knob replaces) and, for K8, F.group_norm + F.silu;
+    then both at their edge shapes, agreement and repeats only."""
+    import torch.nn.functional as F
+
     fn, ff = _fused_ops()
     gen = torch.Generator(device="cuda").manual_seed(9)
     randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
@@ -1064,12 +1071,14 @@ def phase_fused_kernels(torch, card, exp2_rate):
         dev_ms = device_ms(torch, call)
         plain_ms = time_ms(torch, lambda: fn.group_norm_silu_plain(xf, sf, bf), reps=2, rounds=3)
         default_ms = time_ms(torch, lambda: fn._plain(x, scale, bias, 32, 1e-5, True))
+        xt = x.transpose(1, 2).contiguous()  # [B, C, N] for F.group_norm
+        library_ms = time_ms(torch, lambda: F.silu(F.group_norm(xt, 32, scale, bias, 1e-5)))
         bound_ms, bound_by = gn_bound(b, n, c, exp2_rate)
         plan = fn.launch_plan(b, n, c, sms)
         say(f"[fused-kernel] {label:26s}: max abs err {err:.3e} (tol {GN_ABS_TOL}) rel L2 "
             f"{rel:.3e} (tol {GN_REL_TOL}) kernel {ms:.4f} ms device {dev_ms:.4f} ms bound "
             f"{bound_ms:.4f} ms ({bound_by}) plain {plain_ms:.4f} ms default arm "
-            f"{default_ms:.4f} ms; {plan} [{card}]")
+            f"{default_ms:.4f} ms F.group_norm+F.silu {library_ms:.4f} ms; {plan} [{card}]")
         # the last CTA's partial (the cluster's ragged end) left out of the
         # combine, the count kept
         parts = fn.cluster_partials(xf, plan.cluster)
@@ -1082,9 +1091,10 @@ def phase_fused_kernels(torch, card, exp2_rate):
         _check_fused_gate(label, err, rel, {k: v.bfloat16() for k, v in faults.items()},
                           GN_ABS_TOL, GN_REL_TOL, lambda w: kernel_errors(w, plain))
         rows[("gn", b, n, c)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                                     default_arm_ms=default_ms, device_ms=dev_ms)
-        del x, xf, out, again, plain, faults, parts
+                                     bound_ms=bound_ms, bound_by=bound_by,
+                                     library_ms=library_ms, default_arm_ms=default_ms,
+                                     device_ms=dev_ms)
+        del x, xt, xf, out, again, plain, faults, parts
     for b, n, c in GN_EDGE_SHAPES:
         x, scale, bias = gn_inputs(torch, randn, b, n, c)
         out, again = fn.group_norm_silu_cuda(x, scale, bias), fn.group_norm_silu_cuda(x, scale, bias)
@@ -1874,9 +1884,21 @@ FP32_SOURCE = "adaface_tpu_torch/csrc/flash_attn_fp32.cu"
 # H100 SXM data sheet: float32 outside the tensor cores
 PEAK_FP32_FLOPS = 67e12
 # (B, L, H, d) of 4g: the recon (B3) and compos (B4) training shapes with
-# and without key bias, and one generate shape (forward only)
+# and without key bias, and the generate shapes (forward only; an fp32
+# request runs them, [fp32-main])
 FP32_TRAIN_SHAPES = {**TRAIN_SHAPES, **COMPOS_SHAPES}
-FP32_GENERATE_SHAPE = (16, 4096, 8, 40)
+FP32_GENERATE_SHAPES = tuple(MAIN_SHAPES)
+# the fp32 forward's edge cases in 4g: (B, Lq, Lk, H, d, key bias, K1 flags,
+# offset of each row's start in floats: 1 leaves rows unaligned, the 4-byte
+# copies); with a key bias and B > 1, batch row 0 is fully masked. Lk 20
+# gives the split plan a key range with no key.
+FP32_FWD_EDGES = [(2, 200, 77, 3, 40, True, 0, 0), (2, 200, 77, 3, 80, False, 0, 0),
+                  (2, 200, 77, 3, 160, True, 0, 0), (1, 4095, 4095, 2, 160, False, 0, 0),
+                  (1, 4095, 333, 2, 40, True, 0, 0), (24, 1024, 1024, 1, 40, True, 0, 0),
+                  (1, 64, 20, 2, 80, True, 0, 0), (1, 64, 33, 2, 160, True, 0, 0),
+                  (2, 300, 300, 2, 40, True, 0, 1), (2, 300, 300, 2, 160, False, 0, 1),
+                  (2, 1024, 1024, 8, 40, True, 1, 0), (2, 1024, 1024, 8, 80, True, 2, 0),
+                  (2, 1024, 1024, 8, 160, True, 3, 0), (3, 256, 256, 8, 160, False, 1, 0)]
 # fp32 kernel vs its plain fp32 version on the same fp32 inputs: both sum
 # fp32 products in other orders, so they agree to fp32 rounding (measured
 # on an H100: relative L2 1e-8..7e-7 for o, dq, dk, dv and dbias, lse within
@@ -1922,17 +1944,21 @@ def phase_fp32_kernels(torch, fa, card, exp2_rate):
     """(4g) The fp32 flash kernel (`csrc/flash_attn_fp32.cu`) through the
     wrappers on fp32 tensors: the forward with its lse, dq and dk/dv/dbias
     at the training shapes (B3 and B4; with and without key bias), the
-    forward at B16 L4096 d40, against the plain versions; planted faults
-    must fail the gates; the backward and the forward repeat bit for bit;
-    kernel, plain and SDPA times (SDPA on the same fp32 inputs, TF32 off),
-    and the bound. Returns the rows of the path's configurations (bias on
-    B3, none on B4)."""
+    forward at the generate shapes, against the plain versions; planted
+    faults must fail the gates (the forward's also as its patched source,
+    FP32_FAULTS["flash_fwd"]); the backward and the forward repeat bit for
+    bit; kernel, plain and SDPA times (SDPA on the same fp32 inputs, TF32
+    off), and the bound; then the forward at FP32_FWD_EDGES. Returns the
+    rows of the path's configurations (bias on B3, none on B4; the generate
+    shapes without bias, as a request runs them)."""
     import torch.nn.functional as F
 
+    t_phase = time.time()
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = {}
     cases = [(shape, wb) for shape in FP32_TRAIN_SHAPES for wb in (True, False)]
-    cases.append((FP32_GENERATE_SHAPE, None))  # forward only
+    cases += [(shape, None) for shape in FP32_GENERATE_SHAPES]  # forward only
+    fwd_fault = build_fp32_faults()["flash_fwd"]
     for (b, l, h, d), with_bias in cases:
         inner = h * d
         rand = lambda: torch.randn((b, l, inner), generator=gen, device="cuda")
@@ -1990,6 +2016,10 @@ def phase_fp32_kernels(torch, fa, card, exp2_rate):
         if counted != want or n_launches(fa) != sum(want.values()):
             fail(f"{label}: the wrappers counted {dict(fa.launches_by_shape)}, want {want} "
                  "fp32 launches")
+        # the forward's planted fault: its patched source through the wrapper
+        with entry_replaced(fa, FP32_FAULTS["flash_fwd"][1], fwd_fault):
+            faults.insert(0, (FP32_FAULTS["flash_fwd"][2], "o",
+                              fa.flash_attention_blc_cuda(q, k, v, h, bias), plain_out))
         errs = {}
         for what, got, ref in checks:
             if got.dtype != torch.float32 or not torch.isfinite(got).all():
@@ -2022,13 +2052,16 @@ def phase_fp32_kernels(torch, fa, card, exp2_rate):
         sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                       scale=d ** -0.5)
         fwd_lib_ms = time_ms(torch, lambda: sdpa().detach())
+        fwd_dev_ms = device_ms(torch, lambda: fa.flash_attention_blc_cuda(
+            q, k, v, h, bias, return_lse=True))
         fb = fp32_bound(b, l, l, h, d, exp2_rate, "fwd", bias is not None)
-        rows[("fwd", b, l, h, d)] = dict(
-            replaces=f"{K4 if d == 160 else K1} (+ {K3A} as the lse output)",
+        rows[("fwd", b, l, h, d)] = dict(  # a request's forward records no lse
+            replaces=(MAIN_SHAPES[(b, l, h, d)][0] if with_bias is None
+                      else f"{K4 if d == 160 else K1} (+ {K3A} as the lse output)"),
             max_abs_err=max(errs["o"], errs["lse"]), ms=fwd_ms, plain_ms=fwd_plain_ms,
-            bound_ms=fb[0], bound_by=fb[1], library_ms=fwd_lib_ms)
-        msg = (f"[fp32-kernel] {label}: fwd+lse {fwd_ms:.4f} ms (bound {fb[0]:.4f} {fb[1]}, "
-               f"sdpa fp32 {fwd_lib_ms:.4f}, plain {fwd_plain_ms:.3f})")
+            bound_ms=fb[0], bound_by=fb[1], library_ms=fwd_lib_ms, device_ms=fwd_dev_ms)
+        msg = (f"[fp32-kernel] {label}: fwd+lse {fwd_ms:.4f} ms, device {fwd_dev_ms:.4f} (bound "
+               f"{fb[0]:.4f} {fb[1]}, sdpa fp32 {fwd_lib_ms:.4f}, plain {fwd_plain_ms:.3f})")
         if with_bias is not None:
             dq_ms = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse,
                                                                 delta, h))
@@ -2051,9 +2084,62 @@ def phase_fp32_kernels(torch, fa, card, exp2_rate):
             msg += f", sdpa fp32 backward {bwd_lib_ms:.4f} ms, plain backward {bwd_plain_ms:.3f}"
         say(msg + f" [{card}]")
         del q, k, v, do, out, lse, qh, kh, vh
+    for case in FP32_FWD_EDGES:
+        fp32_fwd_edge(torch, fa, gen, fwd_fault, *case)
+    say(f"[fp32-kernel] phase 4g {time.time() - t_phase:.1f} s")
     fa.launches_by_shape.clear()
     torch.cuda.empty_cache()
     return rows
+
+
+def fp32_fwd_edge(torch, fa, gen, fwd_fault, b, lq, lk, h, d, with_bias, flags, offset):
+    """One of 4g's edge cases of the fp32 forward (FP32_FWD_EDGES): o against
+    the plain version with the same K1 flags, the lse against the unflagged
+    row lse (the kernel's lse is the unflagged function's under every flag),
+    both at the fp32 gates; two launches agree bit for bit; the planted
+    fault fails the gate where the row maximum can grow after the first
+    tile."""
+    inner = h * d
+
+    def rand(l):
+        base = torch.randn((b, l, inner + offset), generator=gen, device="cuda")
+        return base[:, :, offset:]
+
+    q, k, v = rand(lq), rand(lk), rand(lk)
+    bias = None
+    if with_bias:
+        bias = torch.where(torch.rand((b, lk), generator=gen, device="cuda") > 0.3, 0.0, -1e30)
+        if b > 1:
+            bias[0] = -1e30  # a fully masked batch row
+    plan = fa.fwd_fp32_launch_plan(b, h, lq, lk, d, torch.cuda.get_device_properties(0)
+                                   .multi_processor_count)
+    label = (f"fp32 edge B{b} Lq{lq} Lk{lk} H{h} d{d} {'bias' if with_bias else 'no bias'} "
+             f"flags {flags}{' unaligned' if offset else ''} (rows {plan.rows}, threads "
+             f"{plan.threads}, key split {plan.key_split})")
+    call = lambda: fa.flash_attention_blc_cuda(q, k, v, h, bias, return_lse=True, flags=flags)
+    out, lse = call()
+    again = call()
+    torch.cuda.synchronize()
+    if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+        fail(f"{label}: two forward launches disagree on o or lse")
+    plain_out = fa.flash_attention_blc_plain(q, k, v, h, bias, flags=flags)
+    plain_lse = fa.row_lse_plain(q, k, h, bias)
+    for what, got, ref in (("o", out, plain_out), ("lse", lse, plain_lse)):
+        if not torch.isfinite(got).all():
+            fail(f"{label}: {what} is not finite")
+        err, rel, ok = _gate_fp32(got, ref, what)
+        say(f"[fp32-edge] {label}: {what} max abs err {err:.3e} rel L2 {rel:.3e}"
+            f"{'' if ok else '  FAILS THE GATE'}")
+        if not ok:
+            fail(f"{label}: fp32 {what} disagrees with its plain version")
+    if lk > 64:
+        with entry_replaced(fa, FP32_FAULTS["flash_fwd"][1], fwd_fault):
+            wrong = fa.flash_attention_blc_cuda(q, k, v, h, bias, flags=flags)
+        err, rel, ok = _gate_fp32(wrong, plain_out, "o")
+        say(f"[fp32-edge]   planted fault, {FP32_FAULTS['flash_fwd'][2]}: max abs err "
+            f"{err:.3e} rel L2 {rel:.3e}")
+        if ok:
+            fail(f"{label}: the fp32 gate passes the forward's planted fault")
 
 
 def _fp32_want(shapes):
@@ -2342,12 +2428,16 @@ def phase_entry_point(torch, fa, trainer_cls, tmp, card):
 # the fused knobs ([fp32-main]).
 FF_FP32_SOURCE = "adaface_tpu_torch/csrc/ln_geglu_ff_fp32.cu"
 WINO_FP32_SOURCE = "adaface_tpu_torch/csrc/winograd_fp32.cu"
-# 4h's planted faults: text patches of each fp32 kernel's source, built by
-# kernel_variants.build and launched through the wrapper in place of the
-# kernel at every shape of the path; each must fail the gate (FP32_REL_TOL,
-# FP32_ABS_TOL of the largest plain value). key -> (source, C entry, fault,
-# patches)
+# 4g's and 4h's planted faults: text patches of each fp32 kernel's source,
+# built by kernel_variants.build and launched through the wrapper in place of
+# the kernel at every shape of the path; each must fail the gate
+# (FP32_REL_TOL, FP32_ABS_TOL of the largest plain value). key -> (source, C
+# entry, fault, patches)
 FP32_FAULTS = {
+    "flash_fwd": ("flash_attn_fp32.cu", "flash_attn_fp32_fwd",
+                  "the rescale by alpha skipped",
+                  [("        for (int e = 0; e < NO; ++e) o[c][i][e] *= alpha;",
+                    "        for (int e = 0; e < NO; ++e) (void)alpha;")]),
     "gn": ("gn_silu.cu", "gn_silu_fwd_fp32",
            "the last cluster peer's partial left out of the combine",
            [("    for (int r = 0; r < cs; ++r) {", "    for (int r = 0; r + 1 < cs; ++r) {")]),
@@ -2365,17 +2455,22 @@ FP32_FAULTS = {
 FP32_REQUEST_STEPS = 10
 
 
+_fp32_fault_libs = {}
+
+
 def build_fp32_faults():
     """The planted faults' libraries, built side by side into
-    `_variants/fault_fp32_<key>/`: key -> library."""
+    `_variants/fault_fp32_<key>/` at the first call (4g): key -> library."""
     import kernel_variants as kv
-    try:
-        built = kv.build({k: (kv.CSRC, src, patches)
-                          for k, (src, _, _, patches) in FP32_FAULTS.items()},
-                         prefix="fault_fp32_")
-    except (ValueError, RuntimeError) as e:
-        fail(f"a planted fp32 fault did not build: {e}")
-    return {k: lib for k, (lib, _) in built.items()}
+    if not _fp32_fault_libs:
+        try:
+            built = kv.build({k: (kv.CSRC, src, patches)
+                              for k, (src, _, _, patches) in FP32_FAULTS.items()},
+                             prefix="fault_fp32_")
+        except (ValueError, RuntimeError) as e:
+            fail(f"a planted fp32 fault did not build: {e}")
+        _fp32_fault_libs.update({k: lib for k, (lib, _) in built.items()})
+    return _fp32_fault_libs
 
 
 @contextlib.contextmanager
@@ -2606,7 +2701,8 @@ def phase_fp32_main_path(torch, card):
     UNet calls (MAIN_SHAPES per call); the fused one also GN_SHAPES and
     FF_SHAPES fp32 launches per call, and no bf16 K8 or K9 launch. The two
     requests' images (same seed) must agree within ARM_UINT8_MEAN_TOL.
-    Returns the fused request's K8 and K9 launches by (dtype, shape)."""
+    Returns the default request's fp32 flash launches by (B, L, H, d) and
+    the fused request's K8 and K9 launches by (dtype, shape)."""
     import gc
 
     import numpy as np
@@ -2660,6 +2756,8 @@ def phase_fp32_main_path(torch, card):
             fail(f"[fp32-main] {name}: images {a.shape} {a.dtype}, std {a.std():.3f}")
         if fused:
             gn_launches, ff_launches = got_gn, got_ff
+        else:
+            fa_launches = got_fa
     diff = np.abs(imgs["fused"].astype(np.int32) - imgs["default"].astype(np.int32))
     say(f"[fp32-main] fused vs default images (same seed): mean {diff.mean():.4f} uint8 levels "
         f"(tol {ARM_UINT8_MEAN_TOL}), max {diff.max()}; fp32 request {secs['default']:.3f} s "
@@ -2671,7 +2769,7 @@ def phase_fp32_main_path(torch, card):
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    return gn_launches, ff_launches
+    return fa_launches, gn_launches, ff_launches
 
 
 # ------------------------------------------------------------------ slice 4
@@ -3426,7 +3524,7 @@ def main():
     arm_counts = phase_arm_generate(torch, pipe, card, default_imgs, med)
     phase_profile(torch, pipe, card)
     gn_counts, ff_counts = phase_fused_main_path(torch, pipe, card, med)
-    gn_fp32_gen, ff_fp32_gen = phase_fp32_main_path(torch, card)
+    fa_fp32_gen, gn_fp32_gen, ff_fp32_gen = phase_fp32_main_path(torch, card)
 
     add_training_placeholders(torch, pipe)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3495,16 +3593,19 @@ def main():
                 name=name.format(b, n, c) + (what if training else ""),
                 route="cuda", source=source, replaces=replaces,
                 launches=(tr_counts if training else gen_counts)[("bf16", b, n, c)], **row))
-    # the fp32 kernel: launches over phase 9d's fp32 run (B3 recon, B4 compos)
+    # the fp32 kernel: launches over phase 9d's fp32 run (B3 recon, B4
+    # compos) for the training shapes, over [fp32-main]'s default request for
+    # the generate ones
     fp32_names = {"fwd": "flash_attn_fp32 fwd (lse when recorded)", "dq": "flash_attn_fp32 dq",
                   "dkv": "flash_attn_fp32 dk/dv"}
     for (kind, b, l, h, d), row in sorted(fp32_rows.items()):
-        if (b, l, h, d) not in FP32_TRAIN_SHAPES:
-            continue  # the generate shape: no fp32 request runs here (its time is printed)
-        what = "fp32 compos training" if (b, l, h, d) in COMPOS_SHAPES else "fp32 training"
+        if (b, l, h, d) in FP32_TRAIN_SHAPES:
+            what = "fp32 compos training" if (b, l, h, d) in COMPOS_SHAPES else "fp32 training"
+            n = fp32_counts.get((FP32_KINDS[kind], b, l, h, d), 0)
+        else:
+            what, n = "fp32 request", fa_fp32_gen.get((b, l, h, d), 0)
         entries.append(dict(name=f"{fp32_names[kind]} B{b} L{l} H{h} d{d} ({what})",
-                            route="cuda", source=FP32_SOURCE,
-                            launches=fp32_counts.get((FP32_KINDS[kind], b, l, h, d), 0), **row))
+                            route="cuda", source=FP32_SOURCE, launches=n, **row))
     # the fp32 instances of K8 and K9: launches over phase 9e's micro-steps
     # for the training shapes (B3 recon, B4 compos), over the fused fp32
     # request for the generate ones; K10 over 4h's conv3x3_same drive

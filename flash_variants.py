@@ -7,15 +7,20 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
     python3 flash_variants.py base fakeex2       # some of them
     python3 flash_variants.py --bwd              # every backward variant
     python3 flash_variants.py --bwd old base     # the backward against an older tree's
+    python3 flash_variants.py --fp32             # every variant of the fp32 forward
+    python3 flash_variants.py --fp32 old base    # the fp32 forward against an older tree's
 
 Each variant is the kernel source (`adaface_tpu_torch/csrc/flash_attn_packed.cu`,
-or with `--bwd` `flash_attn_bwd.cu`) with a few exact text substitutions
-(listed in FWD_VARIANTS / BWD_VARIANTS; a substitution applies to the source
-or to the shared header that holds its text), built by nvcc into
+with `--bwd` `flash_attn_bwd.cu`, with `--fp32` `flash_attn_fp32.cu`) with a
+few exact text substitutions (listed in FWD_VARIANTS / BWD_VARIANTS /
+FP32_VARIANTS; a substitution applies to the source or to the shared header
+that holds its text), built by nvcc into
 `_variants/<name>/` (git-ignored) beside copies of the headers, and called
 through the same C interface as the port's wrapper. The backward variant
 `old` is the tree unpacked under `_checkout/` (`git archive <commit> | tar -x
--C _checkout`), called through its interface from before the dk/dv split.
+-C _checkout`), called through its interface from before the dk/dv split;
+the fp32 variant `old` likewise, through its interface from before the
+fp32 forward took a launch plan.
 
 Forward: at the generate self-attention shapes, for two interleaved rounds of
 all variants (base, ..., base, ...), each one's time (CUDA events, median of
@@ -23,7 +28,13 @@ back-to-back launches), its CUDA return code and its relative L2 error against
 the plain fp32 version. Backward: at the training shapes with the key bias
 and the cross-attention's 128 keys, each variant's dq and dk/dv times and
 relative L2 errors (dq, dk, dv) against the plain backward, and the SDPA
-backward's time. Every line carries the card's name and power limit.
+backward's time. fp32 (`--fp32`): the fp32 forward with its lse at the
+training shapes (B3 with the key bias and a fully masked batch row, B4
+without, as the micro-steps run them) and the generate shapes, each
+variant's time, return code and relative L2 error against the plain fp32
+version, beside SDPA fp32 (TF32 off) and the FFMA bound; a variant may
+force the plan's key split or warps a CTA (`ks1`, `ks2`, `w2`, `w4`). Every line carries the
+card's name and power limit.
 Variants that change the function (fakeex2) exist to measure a cost, and
 their error is expected.
 """
@@ -75,6 +86,50 @@ BWD_VARIANTS = {
     # a shallower ring
     "stages3": [(BWD_STAGES, "  static constexpr int STAGES = 3;")],
 }
+
+# (B, L, H, d, key bias) of the fp32 forward: the recon (B3, bias) and
+# compos (B4) micro-steps' self-attentions, then the fp32 request's
+FP32_SHAPES = [(3, 4096, 8, 40, True), (4, 4096, 8, 40, False), (3, 1024, 8, 80, True),
+               (4, 1024, 8, 80, False), (3, 256, 8, 160, True), (4, 256, 8, 160, False),
+               (16, 4096, 8, 40, False), (8, 4096, 8, 40, False), (16, 1024, 8, 80, False),
+               (16, 256, 8, 160, False)]
+FP32_STAGES = "constexpr int STAGES = 3;"
+FP32_TM = "  static constexpr int TM = D > 80 ? 4 : 8;  // rows a lane"
+FP32_VARIANTS = {
+    "old": None,  # the fp32 forward of the tree in _checkout/
+    "base": [],
+    # the ring two or four stages deep
+    "stages2": [(FP32_STAGES, FP32_STAGES.replace("3;", "2;"))],
+    "stages4": [(FP32_STAGES, FP32_STAGES.replace("3;", "4;"))],
+    # 4 rows a lane (16 a warp) at every head dim: fewer registers, more
+    # shared-memory reads per FFMA
+    "tm4": [(FP32_TM, "  static constexpr int TM = 4;  // rows a lane")],
+    # exp2 replaced by a subtraction (wrong output): what exp2 costs
+    "fakeex2": [("        float p = exp2f((EXPBF16 ? bf16_round(s[j]) : s[j]) - m_use);",
+                 "        float p = s[j] - m_use;")],
+    # stages of 40 head columns at d160 under the key split too: twice the
+    # stages and barriers a tile, half the ring's bytes
+    "cw40": [("  static constexpr int CW = D == 160 && KS == 2 ? 80 : 40;",
+              "  static constexpr int CW = 40;")],
+    # stages of 80 head columns at d80 and d160 (KS 1 too)
+    "cw80": [("  static constexpr int CW = D == 160 && KS == 2 ? 80 : 40;",
+              "  static constexpr int CW = D == 40 ? 40 : 80;")],
+    # the chunk products' loops not unrolled: a smaller kernel (instruction
+    # cache) for more loop overhead
+    "unroll1": [("#pragma unroll 2\n  for (int k4 = 0;", "#pragma unroll 1\n  for (int k4 = 0;"),
+                ("#pragma unroll 2\n  for (int j4 = 0;", "#pragma unroll 1\n  for (int j4 = 0;")],
+    # the p V product left out (wrong output): what the score product, the
+    # softmax and the copies take alone
+    "nopv": [("      pv_chunk<TM, KW, C::NF4, C::NR, LDC>(o[c], pr, vt + kh * KW * LDC, cg);",
+              "      (void)vt;")],
+    # the plan's key split or warps a CTA forced (base source)
+    "ks1": [], "ks2": [], "w2": [], "w4": [],
+}
+# variant -> warp rows (for a TM patch)
+FP32_WARP_ROWS = {"tm4": {40: 16, 80: 16, 160: 16}}
+# variant -> the plan's key split or warps a CTA forced
+FP32_PLANS = {"ks1": {"key_split": 1}, "ks2": {"key_split": 2}, "w2": {"warps": 2},
+              "w4": {"warps": 4}}
 
 
 def variant_specs(names, source, variants):
@@ -186,6 +241,90 @@ def run_backward(torch, fa, names, card):
         del q, k, v, do, out, lse, delta, pdq, pdk, pdv, dq, dk, dv, ws, o_lib
 
 
+def fp32_plan(fa, name, b, l, h, d, sms):
+    """(rows, threads) a CTA of variant `name` at one shape, or None where a
+    forced plan does not exist: the plan, with the variant's warp rows, key
+    split or warps a CTA where it says so."""
+    force = FP32_PLANS.get(name, {})
+    plan = fa.fwd_fp32_launch_plan(b, h, l, l, d, sms, key_split=force.get("key_split"))
+    wr = FP32_WARP_ROWS.get(name, fa.FWD_FP32_WARP_ROWS)[d]
+    warps = force.get("warps", plan.threads // 32)
+    if warps % plan.key_split:
+        return None
+    return warps // plan.key_split * wr, 32 * warps
+
+
+def clock_under_load(torch, call, launches=60):
+    """The SM clock and power draw nvidia-smi reads while `launches`
+    back-to-back calls of `call` (queued, not yet run) keep the card busy:
+    an FFMA kernel at full occupancy may hold the card at its power limit
+    below its top clock, which a short profiled run does not show."""
+    import subprocess
+
+    for _ in range(launches):
+        call()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    torch.cuda.synchronize()
+    return f"under load {smi.stdout.strip()}"
+
+
+def run_fp32(torch, fa, names, card, exp2_rate):
+    import torch.nn.functional as F
+
+    srcs = {n: FP32_VARIANTS[n] for n in names if n not in FP32_PLANS}
+    if any(n in FP32_PLANS for n in names):
+        srcs.setdefault("base", [])
+    libs = build(list(srcs), "flash_attn_fp32.cu", FP32_VARIANTS)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name, lib in libs.items():
+        old = FP32_VARIANTS[name] is None
+        lib.flash_attn_fp32_fwd.argtypes = [p] * 6 + [i] * (6 if old else 8) + [p, f, p]
+        lib.flash_attn_fp32_fwd.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, l, h, d, with_bias in FP32_SHAPES:
+        q, k, v = (torch.randn((b, l, h * d), generator=gen, device="cuda") for _ in range(3))
+        bias = None
+        if with_bias:
+            bias = torch.where(torch.rand((b, l), generator=gen, device="cuda") > 0.3, 0.0, -1e30)
+            bias[0] = -1e30  # a fully masked batch row
+        plain = fa.flash_attention_blc_plain(q, k, v, h, bias)
+        out = torch.empty_like(q)
+        lse = torch.empty((b, h, l), device="cuda")
+        st = fa._strides(q, k, v, out)
+        stream = torch.cuda.current_stream().cuda_stream
+        sc = d ** -0.5 * fa.LOG2E
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), b, h, l, l, d, 0)
+        res, calls = [], {}
+        for _ in range(2):
+            for name in names:
+                fn = libs["base" if name in FP32_PLANS else name].flash_attn_fp32_fwd
+                plan = () if FP32_VARIANTS[name] is None else fp32_plan(fa, name, b, l, h, d, sms)
+                if plan is None:
+                    continue
+                call = lambda fn=fn, plan=plan: fn(*head, *plan, ctypes.addressof(st), sc, stream)
+                calls[name] = call
+                out.zero_()
+                err = call()
+                torch.cuda.synchronize()
+                _, rel = cs.kernel_errors(out, plain)
+                rows = f" rows {plan[0]} threads {plan[1]}" if plan else ""
+                res.append(f"{name}{rows} {cs.time_ms(torch, call):.4f} ms "
+                           f"(rc {err}, rel L2 {rel:.2e})")
+        qh, kh, vh = (t.unflatten(-1, (h, d)).transpose(1, 2) for t in (q, k, v))
+        mask = None if bias is None else bias[:, None, None, :]
+        sdpa_ms = cs.time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, scale=d ** -0.5))
+        fb = cs.fp32_bound(b, l, l, h, d, exp2_rate, "fwd", with_bias)
+        load = clock_under_load(torch, calls.get("base") or next(iter(calls.values())))
+        cs.say(f"[variants] fp32 fwd+lse B{b} L{l} H{h} d{d} {'bias' if with_bias else 'no bias'}: "
+               + "; ".join(res) + f"; sdpa fp32 {sdpa_ms:.4f} ms; bound {fb[0]:.4f} ms ({fb[1]}); "
+               f"{load} [{card}]")
+        del q, k, v, out, lse, plain, qh, kh, vh
+
+
 def main():
     import torch
 
@@ -194,15 +333,18 @@ def main():
     from adaface_tpu_torch.ops import flash_attention as fa
 
     args = sys.argv[1:]
-    bwd = "--bwd" in args
-    args = [a for a in args if a != "--bwd"]
-    variants = BWD_VARIANTS if bwd else FWD_VARIANTS
+    bwd, fp32 = "--bwd" in args, "--fp32" in args
+    args = [a for a in args if a not in ("--bwd", "--fp32")]
+    variants = FP32_VARIANTS if fp32 else BWD_VARIANTS if bwd else FWD_VARIANTS
     names = args or list(variants)
     for name in names:
         if name not in variants:
             cs.fail(f"unknown variant {name}; known: {list(variants)}")
-    card, _ = cs.phase_card(torch)
-    (run_backward if bwd else run_forward)(torch, fa, names, card)
+    card, exp2_rate = cs.phase_card(torch)
+    if fp32:
+        run_fp32(torch, fa, names, card, exp2_rate)
+    else:
+        (run_backward if bwd else run_forward)(torch, fa, names, card)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The text patches of the kernel-variant scripts (`kernel_variants.py`,
 `gn_variants.py`, `ff_variants.py`, `wino_variants.py`, `flash_variants.py`)
 and of `chip_smoke.py`'s planted faults: the tanh-SiLU of K8, and one fault
-for each fp32 kernel (`FP32_FAULTS`: a cluster peer's partial left out of
+for each fp32 kernel (`FP32_FAULTS`: the online softmax's rescale by alpha
+skipped in the fp32 flash forward, a cluster peer's partial left out of
 K8's combine, an F chunk skipped in K9's GEMM2, a Winograd position left
 out of K10's sum).
 
@@ -23,13 +24,16 @@ import wino_variants
 
 def _specs():
     fwd, bwd = flash_variants.FWD_VARIANTS, flash_variants.BWD_VARIANTS
+    fp32 = flash_variants.FP32_VARIANTS
     sets = [("gn", gn_variants.variant_specs([n for n in gn_variants.VARIANTS if n != "old"])),
             ("ff", ff_variants.variant_specs(list(ff_variants.VARIANTS))),
             ("wino", wino_variants.variant_specs([n for n in wino_variants.VARIANTS
                                                   if n != "old"])),
             ("flash", flash_variants.variant_specs(list(fwd), "flash_attn_packed.cu", fwd)),
             ("flash_bwd", flash_variants.variant_specs(
-                [n for n in bwd if bwd[n] is not None], "flash_attn_bwd.cu", bwd))]
+                [n for n in bwd if bwd[n] is not None], "flash_attn_bwd.cu", bwd)),
+            ("flash_fp32", flash_variants.variant_specs(
+                [n for n in fp32 if fp32[n] is not None], "flash_attn_fp32.cu", fp32))]
     return [(f"{tool}:{name}", spec) for tool, specs in sets for name, spec in specs.items()]
 
 
@@ -72,8 +76,8 @@ def test_patch_that_does_not_apply_raises():
 @pytest.mark.parametrize("key", sorted(chip_smoke.FP32_FAULTS))
 def test_fp32_fault_patches_change_one_place(key):
     """Each fp32 kernel's planted fault replaces exactly one line of its
-    source, and its C entry is declared there, so 4h launches the patched
-    kernel through the wrapper."""
+    source, and its C entry is declared there, so 4g and 4h launch the
+    patched kernel through the wrapper."""
     source, entry, _, patches = chip_smoke.FP32_FAULTS[key]
     src = open(f"{kv.CSRC}/{source}").read()
     assert f'extern "C" int {entry}(' in src
