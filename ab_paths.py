@@ -2,14 +2,17 @@
 """Time the port's generate request and its recon and compos micro-steps of
 one tree, so that two trees can be compared on one card.
 
-    python3 ab_paths.py [ROOT]
+    python3 ab_paths.py [--fp32] [ROOT]
 
 imports `adaface_tpu_torch` from ROOT (default: this checkout; another tree
 is unpacked with `git archive <commit> | tar -x -C _checkout`), builds its
-kernels, and at SD-v1.5 width in bf16 with random weights times:
+kernels, and at SD-v1.5 width in bf16 (fp32 with `--fp32`: the fp32 flash,
+whose backward runs on every fp32 micro-step) with random weights times:
 
 - `generate`: one warm-up and GENERATE_REQUESTS requests of batch 8,
-  512x512, DDIM-50, CFG 10->4 (chip_smoke.py's phase 6);
+  512x512, DDIM-50, CFG 10->4 (chip_smoke.py's phase 6); with `--fp32`,
+  FP32_GENERATE_REQUESTS requests of DDIM-10 (chip_smoke.py's
+  FP32_REQUEST_STEPS, as `[fp32-main]` runs them);
 - `Trainer.fit`, recon-only (`composition_regs_iter_gap` 0): TRAIN_STEPS
   micro-steps at batch 3, 512x512 (chip_smoke.py's phase 9 otherwise), the
   first left out of the median;
@@ -36,6 +39,7 @@ import time
 from pathlib import Path
 
 GENERATE_REQUESTS = 3
+FP32_GENERATE_REQUESTS = 2
 TRAIN_STEPS = 6
 COMPOS_TRAIN_STEPS = 7  # compos at 0, 3, 6
 
@@ -56,7 +60,9 @@ def train_configs(logdir, steps, gap):
 
 
 def main():
-    root = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).parent).resolve()
+    args = [a for a in sys.argv[1:] if a != "--fp32"]
+    fp32 = len(args) < len(sys.argv) - 1
+    root = Path(args[0] if args else Path(__file__).parent).resolve()
     sys.path.insert(0, str(root))
     import torch
 
@@ -83,17 +89,18 @@ def main():
     build_s = time.time() - t0
 
     tok = HashTokenizer()
-    pipe = StableDiffusionPipeline.from_random(0, tok, dtype=torch.bfloat16, device="cuda")
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    pipe = StableDiffusionPipeline.from_random(0, tok, dtype=dtype, device="cuda")
     tid = tok.add_placeholder("z")
     pipe.embedding_manager.add_placeholder(
         "z", token_id=tid, num_vectors=9, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(7))
     prompts = [helpers.PROMPT] * helpers.BATCH
-    kw = dict(num_steps=helpers.STEPS, guidance_scale=(10.0, 4.0), height=helpers.SIZE,
-              width=helpers.SIZE)
+    kw = dict(num_steps=helpers.FP32_REQUEST_STEPS if fp32 else helpers.STEPS,
+              guidance_scale=(10.0, 4.0), height=helpers.SIZE, width=helpers.SIZE)
     pipe.generate(prompts, seed=0, **kw)
     gen_s = []
-    for i in range(GENERATE_REQUESTS):
+    for i in range(FP32_GENERATE_REQUESTS if fp32 else GENERATE_REQUESTS):
         torch.cuda.synchronize()
         t0 = time.time()
         pipe.generate(prompts, seed=1 + i, **kw)
@@ -118,9 +125,10 @@ def main():
             trainer.close()
     train_s, gap3_s = times["recon"], times["gap3"]
     compos_s = [t for i, t in enumerate(gap3_s) if i % 3 == 0]
-    print(f"[ab] {root}: build {build_s:.1f} s; generate {gen_s}; recon micro-steps {train_s}; "
-          f"gap-3 micro-steps {gap3_s} [{card}]", flush=True)
-    print(json.dumps({"root": str(root), "card": card,
+    print(f"[ab] {root} {'fp32' if fp32 else 'bf16'}: build {build_s:.1f} s; generate "
+          f"{gen_s}; recon micro-steps {train_s}; gap-3 micro-steps {gap3_s} [{card}]",
+          flush=True)
+    print(json.dumps({"root": str(root), "card": card, "dtype": "fp32" if fp32 else "bf16",
                       "generate_median_s": statistics.median(gen_s),
                       "recon_micro_step_median_s": statistics.median(train_s[1:]),
                       "compos_micro_step_median_s": statistics.median(compos_s[1:])}),

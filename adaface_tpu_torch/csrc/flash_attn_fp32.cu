@@ -27,28 +27,19 @@
 // are fp32 [B, H, Lq]; dbias is fp32 [B, H, Lk] per head. Lengths need not be
 // multiples of the tiles.
 //
-// What bounds it: the products, 4 B*H*Lq*Lk*d flops for the forward, at
-// the card's fp32 FFMA rate (67 TFLOP/s on an H100 SXM); K and V of a head
-// are re-read by each of its query blocks, mostly from L2.
+// What bounds it: the products, 4 B*H*Lq*Lk*d flops for the forward, 6 for
+// dq and 8 for dk/dv, at the card's fp32 FFMA rate (67 TFLOP/s on an H100
+// SXM); the streamed side of a head is re-read by each of its CTAs, mostly
+// from L2.
 //
-// The forward (redesigned for Hopper; its design note is at its code
-// below): both products register-blocked FFMA (8 or 4 rows by 8 keys, and
-// 8 or 4 rows by 5 head columns a lane), K and V streamed by 16-byte
-// cp.async through a 3-stage ring of 40-column chunks, row statistics in
-// the lanes that own the row, and a launch plan (rows a CTA) chosen by the
-// wrapper from the head dim and the grid.
-//
-// The backward (simple, a CTA of 256 threads per 64-row block of one head):
-//   - the two operands of a score product sit transposed in shared memory
-//     ([D][68]: 16-byte aligned float4 rows, the 64 rows/keys along the
-//     fast axis), and each thread computes a 4x4 block of the 64x64 score
-//     tile from float4 reads (16 FFMA per 8 values read);
-//   - row statistics reduce over the 16 lanes of a half-warp that share a
-//     row block (xor shuffles);
-//   - the second product (ds K, p^T dO, ds^T Q) gives each thread one
-//     row and every fourth of the D columns, accumulated in registers;
-//   - launch bounds of one CTA an SM leave ptxas the registers it wants
-//     (with the default bound it held the d40 dq to 64 and spilled).
+// Both directions are built alike (design notes at their code below):
+// register-blocked FFMA in every product (8 or 4 resident rows by 8
+// streamed rows a lane in the score products; float4 reads of a
+// warp-private p / ds tile and of the streamed rows in the second
+// products), the streamed side by 16-byte cp.async through a ring of
+// 40-column chunks (80 at d160 under the forward's key split), row
+// statistics in the lanes that own the row, and a launch plan (rows a CTA,
+// threads) chosen by the wrapper from the head dim and the grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,51 +48,13 @@
 
 namespace {
 
-constexpr int BQ = 64;   // query rows (dq) or keys (dk/dv) a backward CTA owns
-constexpr int BK = 64;   // rows of the streamed tile (keys of a forward tile)
-constexpr int LD = 68;   // leading dimension of a transposed tile (floats)
-constexpr int NT = 256;  // threads a CTA
+constexpr int BK = 64;  // rows of a streamed tile (keys, or query rows for dk/dv)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float SCORE_FLOOR = -100.0f;
 constexpr int FLAG_EXP_BF16 = 1, FLAG_MXU_SUM = 2;
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// rows [r0, r0 + 64) of one head of a packed tensor into t[D][LD]
-// (transposed); rows at or past `len` are zeros.
-template <int D>
-__device__ __forceinline__ void load_t(float* t, const float* __restrict__ src,
-                                       long long sl, int r0, int len) {
-  for (int i = threadIdx.x; i < BQ * D; i += NT) {
-    const int r = i / D, c = i - r * D;
-    t[c * LD + r] = (r0 + r < len) ? src[(long long)(r0 + r) * sl + c] : 0.f;
-  }
-}
-
-// acc[i][j] += sum_c a[c][ty*4+i] * b[c][tx*4+j] over the D rows of two
-// transposed tiles.
-template <int D>
-__device__ __forceinline__ void block_4x4(float (&acc)[4][4], const float* a,
-                                          const float* b, int ty, int tx) {
-#pragma unroll 4
-  for (int c = 0; c < D; ++c) {
-    const float4 x = *reinterpret_cast<const float4*>(a + c * LD + ty * 4);
-    const float4 y = *reinterpret_cast<const float4*>(b + c * LD + tx * 4);
-    const float xa[4] = {x.x, x.y, x.z, x.w}, ya[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], ya[j], acc[i][j]);
-  }
-}
-
-// sums over the 16 lanes (one row block) of a half-warp
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // ------------------------------------------------------------------ forward
@@ -527,178 +480,431 @@ __global__ void __launch_bounds__(32 * FWD_MAX_WARPS, 2)
 }
 
 // ----------------------------------------------------------------- backward
-template <int D>
-struct Dq {
-  static constexpr int QT = 0, DOT = QT + D * LD, KT = DOT + D * LD, VT = KT + D * LD,
-                       DS = VT + D * LD, BIAS = DS + BQ * LD, LSE = BIAS + BK,
-                       DELTA = LSE + BQ, FLOATS = DELTA + BQ;
-  static constexpr size_t SMEM = FLOATS * sizeof(float);
+// The redesigned backward: dq, and dk/dv/dbias, each a launch of CTAs of 1,
+// 2 or 4 warps (the plan, ops/flash_attention.py bwd_fp32_launch_plan) that
+// hold a block of rows resident and stream the other side in tiles of BK =
+// 64 rows through a ring of BWD_STAGES shared-memory stages of 40 head
+// columns, by 16-byte cp.async (4-byte copies where rows are not 16-byte
+// aligned), the next stage's copies in flight while this one computes and
+// one __syncthreads a stage. Where the grid would run its last wave with
+// few CTAs (L1024 d80) or leave SMs idle (L256 d160), the plan splits the
+// streamed tiles into slices, one CTA each; the slices' partials go to a
+// workspace and a second launch sums them in slice order, so two launches
+// agree bit for bit.
+//
+//   dq: a CTA holds WR query rows a warp of Q and dO and streams K and V. A
+//   key tile is NC = D / 40 stages of K (s = Q K^T), NC of V (dp = dO V^T)
+//   and NC of K again (dq += ds K): 3 NC stages. K's last chunk brings the
+//   tile's key bias. lse and delta of the CTA's rows sit in shared memory
+//   (in registers they pushed 8 rows a lane at d80 over 255).
+//   dk/dv: a CTA holds WR keys a warp of K and V and streams Q and dO. A
+//   query tile is NC stages of Q (s^T = K Q^T; the last brings the tile's
+//   lse), NC of dO (dp^T = V dO^T and dv += p^T dO, since p is known after
+//   the first pass; the last brings delta) and NC of Q again (dk += ds^T Q).
+//   The key bias of the lane's keys sits in registers; dbias is each lane's
+//   sum of ds over its queries, reduced over the 8 lanes of a row at the end.
+//
+// Lane (rg, cg) = (lane / 8, lane % 8) owns rows rg + 4 i (i < TR) of its
+// warp's WR = 4 TR resident rows, and columns cg + 8 j (j < 8) of the 64 of
+// the score tile (keys for dq, query rows for dk/dv): both score products
+// read TR float4 of the resident tile and 8 float4 of the stage per 4
+// depths for 32 TR FFMA (the forward's score_chunk). p, then ds, go to the
+// warp's own tile in shared memory, [resident row][streamed row] (row-major
+// p for dq, p^T for dk/dv), rows LDP = 72 apart so that the 32 stores of a
+// warp fall on distinct banks; the second products read it as float4 along
+// the streamed rows and each stage row as float4 + one float (the lane's
+// CW / 8 columns of the chunk, as the forward's p V: pv_chunk), 4 TR FFMA
+// per 4 + 5 / 4 floats read a streamed row. No transposes and no atomics:
+// every output element is one lane's sum in a fixed order (under a split,
+// the slices' sums added in slice order).
+//
+// Rows a lane: dq 8 at d40, 4 at d80 and d160 (8 at d80 took shared memory
+// for one 4-warp CTA an SM and ran 12-14% slower); dk/dv 8 at d40, 4 at d80 and
+// 2 at d160, since a lane holds both dk's and dv's accumulators (2 TR D / 8
+// floats; 4 rows spilled at d160). Roundings follow the plain version
+// (scores x * sc_log2, + bias * log2 e, then the floor; p = exp2(s - lse);
+// ds = p (dp - delta)).
+
+constexpr int BWD_STAGES = 2;  // ring depth of the backward
+constexpr int BWD_MAX_WARPS = 4;
+
+template <int D, bool DKV>
+struct BwdCfg {
+  static constexpr int CW = 40;                // head columns a stage holds
+  static constexpr int LDC = CW + 4;           // floats between a stage's rows
+  static constexpr int STAGE = BK * LDC + BK;  // floats a stage: 64 rows, the tile's vector
+  static constexpr int NC = D / CW;            // chunks of the head dim
+  static constexpr int NO = CW / 8;            // columns of each chunk a lane accumulates
+  // resident rows a lane
+  static constexpr int TR = DKV ? (D == 40 ? 8 : D == 80 ? 4 : 2) : (D > 40 ? 4 : 8);
+  static constexpr int WR = 4 * TR;  // resident rows a warp
+  // resident rows a lane reads into registers at a time in the score products
+  static constexpr int RG = DKV && D == 40 ? 4 : TR;
+  static constexpr int LDR = D + 4;  // floats between rows of a resident tile
+  // the two resident tiles, the ring, the warps' p / ds tiles; dq also the
+  // resident rows' lse and delta
+  static constexpr size_t smem(int warps) {
+    return (size_t)(2 * warps * WR * LDR + BWD_STAGES * STAGE + warps * WR * LDP +
+                    (DKV ? 0 : 2 * warps * WR)) *
+           sizeof(float);
+  }
 };
 
-template <int D, bool BIAS>
-__global__ void __launch_bounds__(NT, 1) flash_fp32_dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const float* __restrict__ bias, float* __restrict__ dq,
-    int H, int Lq, int Lk, long long sbq, long long slq, long long sbk, long long slk,
-    long long sbv, long long slv, long long sbd, long long sld, long long sbg, long long slg,
-    float sc_log2, float scale) {
-  using S = Dq<D>;
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  float *qT = sm + S::QT, *doT = sm + S::DOT, *kT = sm + S::KT, *vT = sm + S::VT,
-        *dss = sm + S::DS, *bs = sm + S::BIAS, *ls = sm + S::LSE, *dls = sm + S::DELTA;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int orow = tid >> 2, oc = tid & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const long long row0 = ((long long)b * H + h) * Lq;
-  load_t<D>(qT, q + b * sbq + h * D, slq, q0, Lq);
-  load_t<D>(doT, dout + b * sbd + h * D, sld, q0, Lq);
-  if (tid < BQ) {
-    ls[tid] = (q0 + tid < Lq) ? lse[row0 + q0 + tid] : 0.f;
-    dls[tid] = (q0 + tid < Lq) ? delta[row0 + q0 + tid] : 0.f;
-  }
-  float acc_q[D / 4];
-#pragma unroll
-  for (int jj = 0; jj < D / 4; ++jj) acc_q[jj] = 0.f;
-  const float* kb = k + b * sbk + h * D;
-  const float* vb = v + b * sbv + h * D;
+struct BwdArgs {
+  const float *q, *k, *v, *dout, *lse, *delta, *bias;
+  float *g0, *g1, *dbias;  // dq; or dk, dv, dbias
+  int H, Lq, Lk;
+  long long sbq, slq, sbk, slk, sbv, slv, sbd, sld, sbg0, slg0, sbg1, slg1;
+  float sc_log2, scale;
+  int vec;    // every row start of the packed operands and outputs 16-byte aligned
+  int split;  // slices of the streamed tiles; above 1, each slice's partial goes to ws
+  float* ws;  // [split][the outputs, each packed and contiguous; 16-byte aligned slices]
+};
 
-  for (int k0 = 0; k0 < Lk; k0 += BK) {
-    __syncthreads();
-    load_t<D>(kT, kb, slk, k0, Lk);
-    load_t<D>(vT, vb, slv, k0, Lk);
-    if (BIAS && tid < BK)
-      bs[tid] = (k0 + tid < Lk) ? bias[(long long)b * Lk + k0 + tid] * LOG2E : 0.f;
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    block_4x4<D>(s, qT, kT, ty, tx);
-    block_4x4<D>(dp, doT, vT, ty, tx);
+// The streamed tiles [t0, t0 + n) of CTA x's slice (x % split of the
+// split's slices, slice s taking tiles [s T / split, (s + 1) T / split) of
+// the T tiles of `len` rows), and x's resident block x / split.
+struct Slice {
+  int block, index, t0, n;
+};
+__device__ __forceinline__ Slice slice_of(int len, int split) {
+  const int tiles = (len + BK - 1) / BK, index = blockIdx.x % split;
+  const int t0 = index * tiles / split;
+  return {(int)blockIdx.x / split, index, t0, (index + 1) * tiles / split - t0};
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_n() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage s of a backward CTA's sequence: tile t = t0 + s / (3 NC), pass p =
+// (s % 3 NC) / NC, chunk c. Passes 0 and 2 copy chunk c of A (K for dq, Q
+// for dk/dv), pass 1 of B (V; dO), rows [64 t, 64 t + 64) (zeros at or past
+// len); the last chunk of pass 0 brings the tile's 64 values of v0 (the key
+// bias; the lse), that of pass 1 those of v1 (none; delta), where given.
+template <int D, bool DKV>
+__device__ __forceinline__ void bwd_stage(float* ring, int s, int t0, const float* A,
+                                          long long sla,
+                                          const float* B, long long slb, const float* v0,
+                                          const float* v1, int len, bool vec) {
+  using C = BwdCfg<D, DKV>;
+  float* buf = ring + (s % BWD_STAGES) * C::STAGE;
+  const int t = s / (3 * C::NC), w = s - t * 3 * C::NC, pass = w / C::NC;
+  const int c = w - pass * C::NC, r0 = (t0 + t) * BK;
+  copy_rows<C::CW / 4>(buf, C::LDC, (pass == 1 ? B : A) + c * C::CW, pass == 1 ? slb : sla, r0,
+                       BK, len, vec);
+  const float* vv = pass == 0 ? v0 : pass == 1 ? v1 : nullptr;
+  if (vv != nullptr && c == C::NC - 1)
+    for (int i = threadIdx.x; i < BK; i += blockDim.x)
+      cp_async4(buf + BK * C::LDC + i, vv + (r0 + i < len ? r0 + i : 0), r0 + i < len);
+}
+
+// Rows r0 + 4 i (i < TR) of one head of a packed output (row r at dst + r
+// sl): lane cg's columns of each chunk (as pv_chunk holds them) times `mul`;
+// rows at or past len are skipped.
+template <int NC, int TR, int CW>
+__device__ __forceinline__ void store_rows(float* dst, long long sl, int r0, int len,
+                                           const float (&g)[NC][TR][CW / 8], float mul, int cg,
+                                           bool vec) {
+  constexpr int NF4 = CW / 32, NR = CW % 32 / 8;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+  for (int i = 0; i < TR; ++i) {
+    const int r = r0 + 4 * i;
+    if (r >= len) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx * 4 + j;
-        float x = s[i][j] * sc_log2;
-        if (BIAS) x = fmaxf(x + bs[c], SCORE_FLOOR);
-        const float p = (k0 + c < Lk) ? exp2f(x - ls[r]) : 0.f;
-        dss[r * LD + c] = p * (dp[i][j] - dls[r]);
+    for (int c = 0; c < NC; ++c) {
+      float* oc = dst + (long long)r * sl + c * CW;
+#pragma unroll
+      for (int f = 0; f < NF4; ++f) {
+        const float4 y = make_float4(g[c][i][4 * f] * mul, g[c][i][4 * f + 1] * mul,
+                                     g[c][i][4 * f + 2] * mul, g[c][i][4 * f + 3] * mul);
+        float* of = oc + 32 * f + 4 * cg;
+        if (vec) {
+          *reinterpret_cast<float4*>(of) = y;
+        } else {
+          of[0] = y.x;
+          of[1] = y.y;
+          of[2] = y.z;
+          of[3] = y.w;
+        }
       }
-    }
-    __syncthreads();
-    const float* drow = dss + orow * LD;
-#pragma unroll 2
-    for (int j = 0; j < BK; ++j) {
-      const float ds = drow[j];
 #pragma unroll
-      for (int jj = 0; jj < D / 4; ++jj)
-        acc_q[jj] = fmaf(ds, kT[(oc + 4 * jj) * LD + j], acc_q[jj]);
+      for (int e = 0; e < NR; ++e) oc[32 * NF4 + NR * cg + e] = g[c][i][4 * NF4 + e] * mul;
     }
-  }
-  const int r = q0 + orow;
-  if (r < Lq) {
-    float* gb = dq + b * sbg + (long long)r * slg + h * D + oc;
-#pragma unroll
-    for (int jj = 0; jj < D / 4; ++jj) gb[4 * jj] = acc_q[jj] * scale;
   }
 }
 
-template <int D>
-struct Dkv {
-  static constexpr int KT = 0, VT = KT + D * LD, QT = VT + D * LD, DOT = QT + D * LD,
-                       PT = DOT + D * LD, DST = PT + BK * LD, BIAS = DST + BK * LD,
-                       LSE = BIAS + BK, DELTA = LSE + BQ, FLOATS = DELTA + BQ;
-  static constexpr size_t SMEM = FLOATS * sizeof(float);
-};
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(32 * BWD_MAX_WARPS, 2)
+    flash_fp32_dq_kernel(const BwdArgs a) {
+  using C = BwdCfg<D, false>;
+  constexpr int NC = C::NC, TR = C::TR, WR = C::WR, LDR = C::LDR, CW = C::CW, LDC = C::LDC;
+  constexpr int TN = BK / 8;  // keys a lane of a tile
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, rg = lane >> 3, cg = lane & 7;
+  const int rows = (blockDim.x >> 5) * WR;
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* dos = qs + rows * LDR;
+  float* ring = dos + rows * LDR;
+  float* pr = ring + BWD_STAGES * C::STAGE + (warp * WR + rg) * LDP;  // this lane's row rg
+  float* ls = ring + BWD_STAGES * C::STAGE + rows * LDP;  // the rows' lse, then delta
+  const Slice sl = slice_of(a.Lk, a.split);  // this CTA's key tiles
+  const int q0 = sl.block * rows, h = blockIdx.y, b = blockIdx.z;
+  const bool vec = a.vec != 0;
+  const float* kb = a.k + b * a.sbk + h * D;
+  const float* vb = a.v + b * a.sbv + h * D;
+  const float* bb = BIAS ? a.bias + (long long)b * a.Lk : nullptr;
+  const int ntiles = sl.n, nstages = ntiles * 3 * NC;
+
+  copy_rows_any<D / 4>(qs, LDR, a.q + b * a.sbq + h * D, a.slq, q0, rows, a.Lq, vec);
+  copy_rows_any<D / 4>(dos, LDR, a.dout + b * a.sbd + h * D, a.sld, q0, rows, a.Lq, vec);
+#pragma unroll
+  for (int s = 0; s < BWD_STAGES - 1; ++s) {
+    if (s < nstages)
+      bwd_stage<D, false>(ring, s, sl.t0, kb, a.slk, vb, a.slv, bb, nullptr, a.Lk, vec);
+    cp_async_commit();
+  }
+  // stage s has landed for every thread, and every thread is done with the
+  // stage before it, whose buffer takes stage s + BWD_STAGES - 1
+  auto next_stage = [&](int s) -> const float* {
+    cp_async_wait_n<BWD_STAGES - 2>();
+    __syncthreads();
+    if (s + BWD_STAGES - 1 < nstages)
+      bwd_stage<D, false>(ring, s + BWD_STAGES - 1, sl.t0, kb, a.slk, vb, a.slv, bb, nullptr,
+                          a.Lk, vec);
+    cp_async_commit();
+    return ring + (s % BWD_STAGES) * C::STAGE;
+  };
+
+  const long long row0 = ((long long)b * a.H + h) * a.Lq;
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {  // read after the first barrier
+    const bool in = q0 + i < a.Lq;
+    ls[i] = in ? a.lse[row0 + q0 + i] : 0.f;
+    ls[rows + i] = in ? a.delta[row0 + q0 + i] : 0.f;
+  }
+  const int r0 = q0 + warp * WR + rg;  // this lane's first row
+  const float* lr = ls + warp * WR + rg;  // its lse at lr[4 i], delta at lr[rows + 4 i]
+  float g[NC][TR][CW / 8];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < CW / 8; ++e) g[c][i][e] = 0.f;
+  }
+  const float* qr = qs + (warp * WR + rg) * LDR;
+  const float* dr = dos + (warp * WR + rg) * LDR;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = (sl.t0 + t) * BK, s0 = t * 3 * NC;
+    float acc[TR][TN];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    const float* kl = nullptr;  // K's last chunk, with the tile's bias
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float* kt = next_stage(s0 + c);
+      score_chunk<TR, TN, C::RG, LDR, CW, LDC>(acc, qr + c * CW, kt + cg * LDC);
+      kl = kt;
+    }
+    // p as the plain version rounds it, into the warp's tile
+    float bl[TN];
+    if (BIAS)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bl[j] = __fmul_rn(kl[BK * LDC + cg + 8 * j], LOG2E);
+    const bool ragged = k0 + BK > a.Lk;
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        float x = __fmul_rn(acc[i][j], a.sc_log2);
+        if (BIAS) x = fmaxf(__fadd_rn(x, bl[j]), SCORE_FLOOR);
+        float p = exp2f(x - lr[4 * i]);
+        if (ragged && k0 + cg + 8 * j >= a.Lk) p = 0.f;
+        pr[4 * i * LDP + cg + 8 * j] = p;
+        acc[i][j] = 0.f;
+      }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float* vt = next_stage(s0 + NC + c);
+      score_chunk<TR, TN, C::RG, LDR, CW, LDC>(acc, dr + c * CW, vt + cg * LDC);
+    }
+    // ds = p (dp - delta) over this lane's own p
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        float* pp = pr + 4 * i * LDP + cg + 8 * j;
+        *pp = *pp * (acc[i][j] - lr[rows + 4 * i]);
+      }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float* kt = next_stage(s0 + 2 * NC + c);
+      pv_chunk<TR, BK, CW / 32, CW % 32 / 8, LDC>(g[c], pr, kt, cg);
+    }
+  }
+  if (a.split == 1) {
+    store_rows<NC, TR, CW>(a.g0 + b * a.sbg0 + h * D, a.slg0, r0, a.Lq, g, a.scale, cg, vec);
+  } else {  // this slice's dq, packed [B, Lq, H D]
+    const long long ld = (long long)a.H * D;
+    store_rows<NC, TR, CW>(a.ws + ((sl.index * gridDim.z + b) * (long long)a.Lq) * ld + h * D,
+                           ld, r0, a.Lq, g, a.scale, cg, true);
+  }
+}
 
 template <int D, bool BIAS>
-__global__ void __launch_bounds__(NT, 1) flash_fp32_dkv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const float* __restrict__ bias, float* __restrict__ dk,
-    float* __restrict__ dv, float* __restrict__ dbias, int H, int Lq, int Lk, long long sbq,
-    long long slq, long long sbk, long long slk, long long sbv, long long slv, long long sbd,
-    long long sld, long long sbgk, long long slgk, long long sbgv, long long slgv,
-    float sc_log2, float scale) {
-  using S = Dkv<D>;
+__global__ void __launch_bounds__(32 * BWD_MAX_WARPS, 2)
+    flash_fp32_dkv_kernel(const BwdArgs a) {
+  using C = BwdCfg<D, true>;
+  constexpr int NC = C::NC, TR = C::TR, WR = C::WR, LDR = C::LDR, CW = C::CW, LDC = C::LDC;
+  constexpr int TN = BK / 8;  // query rows a lane of a tile
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  float *kT = sm + S::KT, *vT = sm + S::VT, *qT = sm + S::QT, *doT = sm + S::DOT,
-        *pts = sm + S::PT, *dsts = sm + S::DST, *bs = sm + S::BIAS, *ls = sm + S::LSE,
-        *dls = sm + S::DELTA;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int orow = tid >> 2, oc = tid & 3;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const long long row0 = ((long long)b * H + h) * Lq;
-  load_t<D>(kT, k + b * sbk + h * D, slk, k0, Lk);
-  load_t<D>(vT, v + b * sbv + h * D, slv, k0, Lk);
-  if (BIAS && tid < BK)
-    bs[tid] = (k0 + tid < Lk) ? bias[(long long)b * Lk + k0 + tid] * LOG2E : 0.f;
-  float acc_k[D / 4], acc_v[D / 4], db[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int jj = 0; jj < D / 4; ++jj) acc_k[jj] = acc_v[jj] = 0.f;
-  const float* qb = q + b * sbq + h * D;
-  const float* db_ = dout + b * sbd + h * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, rg = lane >> 3, cg = lane & 7;
+  const int keys = (blockDim.x >> 5) * WR;
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + keys * LDR;
+  float* ring = vs + keys * LDR;
+  float* pr = ring + BWD_STAGES * C::STAGE + (warp * WR + rg) * LDP;  // this lane's key rg
+  const Slice sl = slice_of(a.Lq, a.split);  // this CTA's query tiles
+  const int k0 = sl.block * keys, h = blockIdx.y, b = blockIdx.z;
+  const bool vec = a.vec != 0;
+  const float* qb = a.q + b * a.sbq + h * D;
+  const float* db = a.dout + b * a.sbd + h * D;
+  const long long row0 = ((long long)b * a.H + h) * a.Lq;
+  const float* lb = a.lse + row0;
+  const float* eb = a.delta + row0;
+  const int ntiles = sl.n, nstages = ntiles * 3 * NC;
 
-  for (int q0 = 0; q0 < Lq; q0 += BQ) {
+  copy_rows_any<D / 4>(ks, LDR, a.k + b * a.sbk + h * D, a.slk, k0, keys, a.Lk, vec);
+  copy_rows_any<D / 4>(vs, LDR, a.v + b * a.sbv + h * D, a.slv, k0, keys, a.Lk, vec);
+#pragma unroll
+  for (int s = 0; s < BWD_STAGES - 1; ++s) {
+    if (s < nstages) bwd_stage<D, true>(ring, s, sl.t0, qb, a.slq, db, a.sld, lb, eb, a.Lq, vec);
+    cp_async_commit();
+  }
+  auto next_stage = [&](int s) -> const float* {
+    cp_async_wait_n<BWD_STAGES - 2>();
     __syncthreads();
-    load_t<D>(qT, qb, slq, q0, Lq);
-    load_t<D>(doT, db_, sld, q0, Lq);
-    if (tid < BQ) {
-      ls[tid] = (q0 + tid < Lq) ? lse[row0 + q0 + tid] : 0.f;
-      dls[tid] = (q0 + tid < Lq) ? delta[row0 + q0 + tid] : 0.f;
+    if (s + BWD_STAGES - 1 < nstages)
+      bwd_stage<D, true>(ring, s + BWD_STAGES - 1, sl.t0, qb, a.slq, db, a.sld, lb, eb, a.Lq,
+                         vec);
+    cp_async_commit();
+    return ring + (s % BWD_STAGES) * C::STAGE;
+  };
+
+  const int key0 = k0 + warp * WR + rg;  // this lane's first key
+  float bl[TR], dsum[TR], gk[NC][TR][CW / 8], gv[NC][TR][CW / 8];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    bl[i] = BIAS && key0 + 4 * i < a.Lk
+                ? __fmul_rn(a.bias[(long long)b * a.Lk + key0 + 4 * i], LOG2E)
+                : 0.f;
+    dsum[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < CW / 8; ++e) gk[c][i][e] = gv[c][i][e] = 0.f;
+  }
+  const float* kr = ks + (warp * WR + rg) * LDR;
+  const float* vr = vs + (warp * WR + rg) * LDR;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int q0 = (sl.t0 + t) * BK, s0 = t * 3 * NC;
+    float acc[TR][TN];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    const float* ql = nullptr;  // Q's last chunk, with the tile's lse
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float* qt = next_stage(s0 + c);
+      score_chunk<TR, TN, C::RG, LDR, CW, LDC>(acc, kr + c * CW, qt + cg * LDC);
+      ql = qt;
     }
-    __syncthreads();
-    // transposed tiles: rows are this CTA's keys, columns the tile's queries
-    float s[4][4] = {}, dp[4][4] = {};
-    block_4x4<D>(s, kT, qT, ty, tx);
-    block_4x4<D>(dp, vT, doT, ty, tx);
+    // p^T as the plain version rounds it, into the warp's tile
+    float lq[TN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kr = ty * 4 + i;
+    for (int j = 0; j < TN; ++j) lq[j] = ql[BK * LDC + cg + 8 * j];
+    const bool ragged = q0 + BK > a.Lq;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx * 4 + j;
-        float x = s[i][j] * sc_log2;
-        if (BIAS) x = fmaxf(x + bs[kr], SCORE_FLOOR);
-        const float p = (q0 + c < Lq) ? exp2f(x - ls[c]) : 0.f;
-        const float ds = p * (dp[i][j] - dls[c]);
-        pts[kr * LD + c] = p;
-        dsts[kr * LD + c] = ds;
-        db[i] += ds;
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        float x = __fmul_rn(acc[i][j], a.sc_log2);
+        if (BIAS) x = fmaxf(__fadd_rn(x, bl[i]), SCORE_FLOOR);
+        float p = exp2f(x - lq[j]);
+        if (ragged && q0 + cg + 8 * j >= a.Lq) p = 0.f;
+        pr[4 * i * LDP + cg + 8 * j] = p;
+        acc[i][j] = 0.f;
       }
+    // dp^T, and dv += p^T dO chunk by chunk
+    const float* dlast = nullptr;  // dO's last chunk, with the tile's delta
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float* dt = next_stage(s0 + NC + c);
+      score_chunk<TR, TN, C::RG, LDR, CW, LDC>(acc, vr + c * CW, dt + cg * LDC);
+      pv_chunk<TR, BK, CW / 32, CW % 32 / 8, LDC>(gv[c], pr, dt, cg);
+      dlast = dt;
     }
-    __syncthreads();
-    const float* prow = pts + orow * LD;
-    const float* drow = dsts + orow * LD;
-#pragma unroll 2
-    for (int r = 0; r < BQ; ++r) {
-      const float p = prow[r], ds = drow[r];
+    float dj[TN];
 #pragma unroll
-      for (int jj = 0; jj < D / 4; ++jj) {
-        acc_v[jj] = fmaf(p, doT[(oc + 4 * jj) * LD + r], acc_v[jj]);
-        acc_k[jj] = fmaf(ds, qT[(oc + 4 * jj) * LD + r], acc_k[jj]);
+    for (int j = 0; j < TN; ++j) dj[j] = dlast[BK * LDC + cg + 8 * j];
+    __syncwarp();  // every lane of the warp is done reading p
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        float* pp = pr + 4 * i * LDP + cg + 8 * j;
+        const float ds = *pp * (acc[i][j] - dj[j]);
+        *pp = ds;
+        dsum[i] += ds;
       }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float* qt = next_stage(s0 + 2 * NC + c);
+      pv_chunk<TR, BK, CW / 32, CW % 32 / 8, LDC>(gk[c], pr, qt, cg);
     }
   }
-  const int kr = k0 + orow;
-  if (kr < Lk) {
-    float* gk = dk + b * sbgk + (long long)kr * slgk + h * D + oc;
-    float* gv = dv + b * sbgv + (long long)kr * slgv + h * D + oc;
-#pragma unroll
-    for (int jj = 0; jj < D / 4; ++jj) {
-      gk[4 * jj] = acc_k[jj] * scale;
-      gv[4 * jj] = acc_v[jj];
-    }
+  // the outputs, or this slice's partials: dk, dv packed [B, Lk, H D], then
+  // dbias [B, H, Lk] (its length rounded up to 4 floats)
+  const long long ld = (long long)a.H * D, n = (long long)gridDim.z * a.Lk * ld;
+  float* part = a.ws + sl.index * (2 * n + (a.dbias != nullptr ? (n / D + 3) / 4 * 4 : 0));
+  if (a.split == 1) {
+    store_rows<NC, TR, CW>(a.g0 + b * a.sbg0 + h * D, a.slg0, key0, a.Lk, gk, a.scale, cg, vec);
+    store_rows<NC, TR, CW>(a.g1 + b * a.sbg1 + h * D, a.slg1, key0, a.Lk, gv, 1.f, cg, vec);
+  } else {
+    store_rows<NC, TR, CW>(part + b * a.Lk * ld + h * D, ld, key0, a.Lk, gk, a.scale, cg, true);
+    store_rows<NC, TR, CW>(part + n + b * a.Lk * ld + h * D, ld, key0, a.Lk, gv, 1.f, cg, true);
   }
-  if (dbias != nullptr) {
+  float* dbias = a.split == 1 ? a.dbias : part + 2 * n;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float t = half_sum(db[i]);
-      const int key = k0 + ty * 4 + i;
-      if (tx == 0 && key < Lk) dbias[((long long)b * H + h) * Lk + key] = t;
-    }
+  for (int i = 0; i < TR; ++i) {
+    const float t = row_sum(dsum[i]);
+    if (a.dbias != nullptr && cg == 0 && key0 + 4 * i < a.Lk)
+      dbias[((long long)b * a.H + h) * a.Lk + key0 + 4 * i] = t;
+  }
+}
+
+// A split's outputs: element i of the n = n0 + n1 + n2 of each slice's
+// partials (slice s at ws + s stride), summed in slice order, to o0[i],
+// o1[i - n0] or o2[i - n0 - n1].
+__global__ void flash_fp32_bwd_sum_kernel(const float* __restrict__ ws, int split,
+                                          long long stride, long long n, float* o0,
+                                          long long n0, float* o1, long long n1, float* o2) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float acc = ws[i];
+    for (int s = 1; s < split; ++s) acc += ws[s * stride + i];
+    if (i < n0)
+      o0[i] = acc;
+    else if (i < n0 + n1)
+      o1[i - n0] = acc;
+    else
+      o2[i - n0 - n1] = acc;
   }
 }
 
@@ -742,40 +948,68 @@ int fwd_plan(int flags, const FwdArgs& a, int B, int rows, int threads, cudaStre
   return (int)cudaErrorInvalidValue;
 }
 
-template <int D, bool BIAS>
-int dq_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, const void* bias, void* dq, int B, int H, int Lq, int Lk,
-              const long long* st, float sc_log2, float scale, cudaStream_t s) {
-  constexpr size_t smem = Dq<D>::SMEM;
-  static const cudaError_t attr = allow_smem(flash_fp32_dq_kernel<D, BIAS>, smem);
+template <int D, bool DKV, bool BIAS>
+int bwd_launch(const BwdArgs& a, int B, int warps, cudaStream_t s) {
+  using C = BwdCfg<D, DKV>;
+  void (*kernel)(const BwdArgs) =
+      DKV ? flash_fp32_dkv_kernel<D, BIAS> : flash_fp32_dq_kernel<D, BIAS>;
+  static const cudaError_t attr = allow_smem(kernel, C::smem(BWD_MAX_WARPS));
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  flash_fp32_dq_kernel<D, BIAS><<<grid, NT, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(bias), static_cast<float*>(dq), H, Lq, Lk, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], sc_log2, scale);
+  const int per = warps * C::WR;
+  const dim3 grid(((DKV ? a.Lk : a.Lq) + per - 1) / per * a.split, a.H, B);
+  kernel<<<grid, 32 * warps, C::smem(warps), s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.split == 1) return (int)err;
+  // the slices' partials summed in slice order
+  const long long n0 = (long long)B * (DKV ? a.Lk : a.Lq) * a.H * D, n1 = DKV ? n0 : 0;
+  const long long n2 = DKV && a.dbias != nullptr ? n0 / D : 0, n = n0 + n1 + n2;
+  const long long blocks = (n + 255) / 256;
+  flash_fp32_bwd_sum_kernel<<<(int)(blocks < 1056 ? blocks : 1056), 256, 0, s>>>(
+      a.ws, a.split, n0 + n1 + (n2 + 3) / 4 * 4, n, a.g0, n0, a.g1, n1, a.dbias);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool BIAS>
-int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const void* bias, void* dk, void* dv,
-               void* dbias, int B, int H, int Lq, int Lk, const long long* st, float sc_log2,
-               float scale, cudaStream_t s) {
-  constexpr size_t smem = Dkv<D>::SMEM;
-  static const cudaError_t attr = allow_smem(flash_fp32_dkv_kernel<D, BIAS>, smem);
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((Lk + BK - 1) / BK, H, B);
-  flash_fp32_dkv_kernel<D, BIAS><<<grid, NT, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(bias), static_cast<float*>(dk), static_cast<float*>(dv),
-      static_cast<float*>(dbias), H, Lq, Lk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], sc_log2, scale);
-  return (int)cudaGetLastError();
+// The plans this build has: 1, 2 or 4 warps a CTA, WR resident rows each;
+// a split of 1 up to the streamed tiles, above 1 with a workspace and
+// packed, contiguous outputs.
+template <int D, bool DKV>
+int bwd_plan(const BwdArgs& a, int B, int rows, int threads, cudaStream_t s) {
+  const int warps = threads / 32, len = DKV ? a.Lq : a.Lk;
+  const long long ld = (long long)a.H * D;
+  const bool packed = a.sbg0 == (DKV ? a.Lk : a.Lq) * ld && a.slg0 == ld &&
+                      (!DKV || (a.sbg1 == a.Lk * ld && a.slg1 == ld));
+  if (threads != 32 * warps || (warps != 1 && warps != 2 && warps != BWD_MAX_WARPS) ||
+      rows != warps * BwdCfg<D, DKV>::WR || a.split < 1 || a.split > (len + BK - 1) / BK ||
+      (a.split > 1 &&
+       (a.ws == nullptr || reinterpret_cast<uintptr_t>(a.ws) % 16 != 0 || !packed)))
+    return (int)cudaErrorInvalidValue;
+  return a.bias != nullptr ? bwd_launch<D, DKV, true>(a, B, warps, s)
+                           : bwd_launch<D, DKV, false>(a, B, warps, s);
+}
+
+template <bool DKV>
+int bwd_dims(const BwdArgs& a, int B, int D, int rows, int threads, void* stream) {
+  if (a.Lq < 1 || a.Lk < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 40:
+      return bwd_plan<40, DKV>(a, B, rows, threads, s);
+    case 80:
+      return bwd_plan<80, DKV>(a, B, rows, threads, s);
+    case 160:
+      return bwd_plan<160, DKV>(a, B, rows, threads, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// 16-byte copies and stores: every pointer 16-byte aligned, every stride a
+// multiple of 4 floats.
+bool all_vec(const void* const* ptrs, int np, const long long* st, int ns) {
+  bool vec = true;
+  for (int i = 0; i < np; ++i) vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
+  for (int i = 0; i < ns; ++i) vec = vec && st[i] % 4 == 0;
+  return vec;
 }
 
 }  // namespace
@@ -815,56 +1049,55 @@ extern "C" int flash_attn_fp32_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// `strides` holds the batch and row strides of q, k, v, dO and dq (10
-// values). `bias` may be null.
+// `rows`, `threads` and `split` are the plan's query rows and threads a
+// CTA and slices of the key tiles (ops/flash_attention.py
+// bwd_fp32_launch_plan): 1, 2 or 4 warps of 32 rows (16 at d160), a split
+// of 1 to the key tiles; any other plan is refused. A split above 1 takes
+// `ws`, fp32 [split, B, Lq, H D], 16-byte aligned, and a packed, contiguous
+// dq. `strides`
+// holds the batch and row strides of q, k, v, dO and dq (10 values). `bias`
+// may be null.
 extern "C" int flash_attn_fp32_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       const void* bias, void* dq, int B, int H, int Lq,
-                                      int Lk, int D, const long long* strides, float sc_log2,
-                                      float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DQ(d)                                                                          \
-  return bias != nullptr ? dq_launch<d, true>(q, k, v, dout, lse, delta, bias, dq, B, H, \
-                                              Lq, Lk, strides, sc_log2, scale, s)       \
-                         : dq_launch<d, false>(q, k, v, dout, lse, delta, bias, dq, B, H, \
-                                               Lq, Lk, strides, sc_log2, scale, s)
-  switch (D) {
-    case 40:
-      DQ(40);
-    case 80:
-      DQ(80);
-    case 160:
-      DQ(160);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef DQ
+                                      int Lk, int D, int rows, int threads, int split,
+                                      const long long* strides, float sc_log2, float scale,
+                                      void* ws, void* stream) {
+  const long long* st = strides;
+  const void* ptrs[] = {q, k, v, dout, dq};
+  const BwdArgs a{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const float*>(dout),
+                  static_cast<const float*>(lse), static_cast<const float*>(delta),
+                  static_cast<const float*>(bias), static_cast<float*>(dq), nullptr, nullptr,
+                  H, Lq, Lk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+                  st[9], 0, 0, sc_log2, scale, all_vec(ptrs, 5, st, 10) ? 1 : 0, split,
+                  static_cast<float*>(ws)};
+  return bwd_dims<false>(a, B, D, rows, threads, stream);
 }
 
-// `strides` holds the batch and row strides of q, k, v, dO, dk and dv (12
-// values). `bias` and `dbias` may be null.
+// `keys`, `threads` and `split` are the plan's keys and threads a CTA and
+// slices of the query tiles (bwd_fp32_launch_plan): 1, 2 or 4 warps of 32
+// keys (16 at d80, 8 at d160), a split of 1 to the query tiles; any other
+// plan is refused. A split above 1 takes `ws`, fp32 [split, 2 B Lk H D (+ B
+// H Lk rounded up to a multiple of 4, with dbias)], 16-byte aligned, and
+// packed, contiguous dk and dv. `strides` holds the
+// batch and row strides of q, k, v, dO, dk and dv (12 values). `bias` and
+// `dbias` may be null.
 extern "C" int flash_attn_fp32_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        const void* bias, void* dk, void* dv, void* dbias,
-                                       int B, int H, int Lq, int Lk, int D,
-                                       const long long* strides, float sc_log2, float scale,
-                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DKV(d)                                                                             \
-  return bias != nullptr                                                                   \
-             ? dkv_launch<d, true>(q, k, v, dout, lse, delta, bias, dk, dv, dbias, B, H, Lq, \
-                                   Lk, strides, sc_log2, scale, s)                          \
-             : dkv_launch<d, false>(q, k, v, dout, lse, delta, bias, dk, dv, dbias, B, H,   \
-                                    Lq, Lk, strides, sc_log2, scale, s)
-  switch (D) {
-    case 40:
-      DKV(40);
-    case 80:
-      DKV(80);
-    case 160:
-      DKV(160);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef DKV
+                                       int B, int H, int Lq, int Lk, int D, int keys,
+                                       int threads, int split, const long long* strides,
+                                       float sc_log2, float scale, void* ws, void* stream) {
+  const long long* st = strides;
+  const void* ptrs[] = {q, k, v, dout, dk, dv};
+  const BwdArgs a{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const float*>(dout),
+                  static_cast<const float*>(lse), static_cast<const float*>(delta),
+                  static_cast<const float*>(bias), static_cast<float*>(dk),
+                  static_cast<float*>(dv), static_cast<float*>(dbias), H, Lq, Lk, st[0], st[1],
+                  st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+                  sc_log2, scale, all_vec(ptrs, 6, st, 12) ? 1 : 0, split,
+                  static_cast<float*>(ws)};
+  return bwd_dims<true>(a, B, D, keys, threads, stream);
 }

@@ -62,6 +62,12 @@ The `[B, H, L, D]` entry (`flash_attention`, `bhld_arm`):
 Both entries: `ADAFACE_FLASH_BWD=einsum` differentiates the einsum
 reference instead of running the backward kernels.
 
+Upsample (`ops/subpixel.py`, `upsample_conv`; the UNet's and the VAE's):
+`ADAFACE_SUBPIXEL_UP` ("0": nearest 2x upsample, then the 3x3 conv; unset
+or anything else: JAX's phase fold, taps that hit one source pixel summed
+in the compute dtype first, which in bf16 rounds them and so differs from
+the naive function).
+
 Winograd conv (`ops/winograd.py`, `winograd_eligible`): `ADAFACE_WINOGRAD`
 ("0" default, "1" or "auto"), `ADAFACE_WINOGRAD_MIN_TILES` (default 256) and
 `ADAFACE_WINOGRAD_VMEM` (default 72 MiB).
@@ -69,8 +75,7 @@ Winograd conv (`ops/winograd.py`, `winograd_eligible`): `ADAFACE_WINOGRAD`
 JAX knobs that the port reads as the same function and ignores on purpose
 (each changes only how XLA or the TPU schedules the work):
 `ADAFACE_GN_BARRIER` (an optimisation barrier before the GroupNorm stats),
-`ADAFACE_SUBPIXEL_UP` (the nearest upsample and its conv, phase-decomposed
-or not; the port always decomposes), `ADAFACE_PROJ_DENSE` (1x1 projections
+`ADAFACE_PROJ_DENSE` (1x1 projections
 as dense products), `ADAFACE_FLASH_SEMANTICS` (the TPU grid's dimension
 semantics), `ADAFACE_FLASH_PACKED_{BQ,BK,UNROLL}` (the TPU kernel's tiles
 and unroll), and the compiled-program caches (`ADAFACE_AOT_CACHE`,

@@ -64,7 +64,7 @@ from adaface_tpu_torch.ops.basic import conv_nhwc, group_norm, timestep_embeddin
 from adaface_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_blc,
                                                    flash_attention_qkv)
 from adaface_tpu_torch.ops.fused_norm import group_norm_silu
-from adaface_tpu_torch.ops.subpixel import upsample2x_conv
+from adaface_tpu_torch.ops.subpixel import upsample_conv
 
 # layer_idx -> cross-attention (context) index, as in the JAX package
 CA_LAYER_INDEX = {1: 0, 2: 1, 4: 2, 5: 3, 7: 4, 8: 5, 12: 6, 16: 7,
@@ -276,7 +276,7 @@ class Upsample(nn.Module):
         self.conv = _conv(ch, ch)
 
     def forward(self, x):
-        return upsample2x_conv(x, self.conv.weight, self.conv.bias)
+        return upsample_conv(x, self.conv.weight, self.conv.bias)
 
 
 def ca_layer_module_names(cfg: UNetConfig) -> Dict[int, str]:

@@ -15,7 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from adaface_tpu_torch.ops.basic import conv_nhwc, group_norm
-from adaface_tpu_torch.ops.subpixel import upsample2x_conv
+from adaface_tpu_torch.ops.subpixel import upsample_conv
 
 SD_VAE_SCALE_FACTOR = 0.18215
 
@@ -107,7 +107,7 @@ class Upsample(nn.Module):
         self.conv = _conv(ch, ch)
 
     def forward(self, x):
-        return upsample2x_conv(x, self.conv.weight, self.conv.bias)
+        return upsample_conv(x, self.conv.weight, self.conv.bias)
 
 
 class Downsample(nn.Module):

@@ -275,17 +275,22 @@ def flash_backward_plain(q, k, v, key_bias, o, do, lse, num_heads: int, scale=No
     return dq, dk, dv, dbias
 
 
+def tile_slices(n: int, split: int) -> List[Tuple[int, int]]:
+    """The rows [r0, r1) of each slice of a split of `n` streamed rows, as
+    the split backward kernels take them: slice s has tiles [s T / split,
+    (s + 1) T / split) of the T tiles of BWD_TILE rows."""
+    tiles = -(-n // BWD_TILE)
+    return [(s * tiles // split * BWD_TILE, min((s + 1) * tiles // split * BWD_TILE, n))
+            for s in range(split)]
+
+
 def dkv_slices_plain(q, k, v, key_bias, o, do, lse, num_heads: int, scale=None,
                      split: int = 1):
     """`flash_backward_plain`'s (dk, dv, dbias_h) of each query slice of a
-    dk/dv launch split `split` ways (slice s: query tiles [s * T / split,
-    (s + 1) * T / split) of the T tiles of BWD_TILE rows), in slice order:
-    summed in that order they are the split kernel's fp32 result."""
-    lq = q.shape[1]
-    nqt = -(-lq // BWD_TILE)
+    dk/dv launch split `split` ways (`tile_slices`), in slice order: summed
+    in that order they are the split kernel's fp32 result."""
     parts = []
-    for s in range(split):
-        r0, r1 = s * nqt // split * BWD_TILE, min((s + 1) * nqt // split * BWD_TILE, lq)
+    for r0, r1 in tile_slices(q.shape[1], split):
         rows = slice(r0, r1)
         parts.append(flash_backward_plain(q[:, rows], k, v, key_bias, o[:, rows], do[:, rows],
                                           lse[:, :, rows], num_heads, scale)[1:])
@@ -417,6 +422,110 @@ def fwd_fp32_blocks(b: int, h: int, lq: int, rows: int) -> List[Tuple[int, int, 
             for r0 in range(0, lq, rows)]
 
 
+# --------------------------------------------------- fp32 backward plan
+# The fp32 backward's tiling (csrc/flash_attn_fp32.cu: BwdCfg): a CTA of 1, 2
+# or 4 warps holds BWD_FP32_WARP_ROWS[kind][d] resident rows a warp (query
+# rows of Q and dO for "dq", keys of K and V for "dkv") and streams the other
+# side in tiles of 64 rows through a ring of BWD_FP32_STAGES stages of 40
+# head columns, over all the tiles or over a slice of them (a split of up
+# to BWD_FP32_MAX_SPLIT slices, whose partials a second launch sums in slice
+# order).
+BWD_FP32_WARP_ROWS = {"dq": {40: 32, 80: 16, 160: 16}, "dkv": {40: 32, 80: 16, 160: 8}}
+BWD_FP32_WARPS = (4, 2, 1)
+BWD_FP32_STAGES = 2
+BWD_FP32_MAX_SPLIT = 4
+# What the plan weighs (H100 SXM): an SM's shared memory (each CTA reserves
+# 1 KiB more) and the warps its registers hold at 255 a thread; an SM with
+# all of them reaching half its FFMA peak (the fp32 forward: 54-56%), fewer
+# warps proportionally less; a CTA's start (its resident tiles, the ring's
+# fill) as this many streamed tiles (a guess that flash_variants.py's forced
+# plans measure); a split's partials written and read at the memory's peak
+# and the sum's launch.
+_SM_SMEM = 228 * 1024
+_SM_WARPS = 8
+_BWD_FP32_SM_FLOPS = 67e12 / 132 * 0.5
+_BWD_FP32_START_TILES = 1.0
+
+
+class Fp32BwdLaunch(NamedTuple):
+    """One fp32 backward launch: `rows` resident rows a CTA (query rows for
+    dq, keys for dk/dv), `threads` threads a CTA, `split` slices of the
+    streamed tiles, `ctas` CTAs (blocks x slices x heads x batch rows),
+    `smem` bytes of shared memory a CTA."""
+    rows: int
+    threads: int
+    split: int
+    ctas: int
+    smem: int
+
+
+class Fp32BwdPlan(NamedTuple):
+    """The launches of one fp32 backward call: dq's and dk/dv's."""
+    dq: Fp32BwdLaunch
+    dkv: Fp32BwdLaunch
+
+
+def bwd_fp32_smem(kind: str, d: int, warps: int) -> int:
+    """Shared memory of an fp32 backward CTA of `warps` warps at head dim d
+    (BwdCfg::smem): its two resident tiles, the ring (a stage: one 40-column
+    chunk of 64 streamed rows, then the tile's 64 values of bias, lse or
+    delta), the warps' p / ds tiles and, for dq, its rows' lse and delta."""
+    wr = BWD_FP32_WARP_ROWS[kind][d] * warps
+    return 4 * (2 * wr * (d + 4) + BWD_FP32_STAGES * (64 * 44 + 64) + wr * _FWD_FP32_LDP
+                + (2 * wr if kind == "dq" else 0))
+
+
+def _bwd_fp32_seconds(kind, b, h, n_res, n_str, d, sms, warps, split):
+    """The plan's estimate of one launch's time: the busiest SM runs its
+    CTAs in rounds of as many as it holds at once, each at the share of the
+    SM's rate that its warps reach; plus a split's partials and sum."""
+    rows = warps * BWD_FP32_WARP_ROWS[kind][d]
+    tasks = -(-n_res // rows) * h * b * split
+    resident = min(_SM_WARPS // warps,
+                   _SM_SMEM // (bwd_fp32_smem(kind, d, warps) + 1024))
+    n_tiles = -(-n_str // BWD_TILE)
+    longest = -(-n_tiles // split)  # tiles of the longest slice
+    work = rows * (longest + _BWD_FP32_START_TILES) * BWD_TILE * d * (6 if kind == "dq" else 8)
+    full, rem = divmod(-(-tasks // sms), resident)
+    t = sum(n * work / (_BWD_FP32_SM_FLOPS * min(n * warps, _SM_WARPS) / _SM_WARPS)
+            for n in [resident] * full + ([rem] if rem else []))
+    if split > 1:
+        outs = b * h * n_res * (d if kind == "dq" else 2 * d + 1)
+        t += 2 * 4 * split * outs / _PEAK_BYTES + _SUM_LAUNCH_S
+    return t
+
+
+def _bwd_fp32_launch(kind, b, h, n_res, n_str, d, sms) -> Fp32BwdLaunch:
+    tiles = -(-n_str // BWD_TILE)
+    plans = []
+    for w in BWD_FP32_WARPS:
+        for s in range(1, min(BWD_FP32_MAX_SPLIT, tiles) + 1):
+            rows = w * BWD_FP32_WARP_ROWS[kind][d]
+            launch = Fp32BwdLaunch(rows, 32 * w, s, -(-n_res // rows) * h * b * s,
+                                   bwd_fp32_smem(kind, d, w))
+            plans.append((_bwd_fp32_seconds(kind, b, h, n_res, n_str, d, sms, w, s), -rows,
+                          s, launch))
+    filled = [p for p in plans if p[3].ctas >= sms] or plans
+    return min(filled)[3]
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_fp32_launch_plan(b: int, h: int, lq: int, lk: int, d: int, sms: int) -> Fp32BwdPlan:
+    """The fp32 backward's launch plan on a card of `sms` SMs: for dq (query
+    blocks, the key tiles split) and for dk/dv (key blocks, the query tiles
+    split), of the CTAs of 1, 2 or 4 warps and the splits of 1 to
+    BWD_FP32_MAX_SPLIT, those whose grid
+    puts a CTA on every SM if any do; of those, the one that
+    `_bwd_fp32_seconds` puts first, the larger CTA, then the smaller split,
+    on a tie. Raises ValueError for a head dim the kernels are not built
+    for."""
+    if d not in BWD_FP32_WARP_ROWS["dq"]:
+        raise ValueError(f"the fp32 backward is built for head dims "
+                         f"{tuple(BWD_FP32_WARP_ROWS['dq'])}, not {d}")
+    return Fp32BwdPlan(_bwd_fp32_launch("dq", b, h, lq, lk, d, sms),
+                       _bwd_fp32_launch("dkv", b, h, lk, lq, d, sms))
+
+
 # ------------------------------------------------------------- CUDA wrappers
 def _check_operand(t: torch.Tensor, name: str, device, b: int, inner: int,
                    dtype: torch.dtype = torch.bfloat16):
@@ -440,8 +549,9 @@ C_ENTRIES = {
     "flash_attn_bwd_dq": ("flash_attn_bwd", [_P] * 8 + [_I] * 5 + [_P, _F, _F, _P]),
     "flash_attn_bwd_dkv": ("flash_attn_bwd", [_P] * 10 + [_I] * 5 + [_P, _F, _F, _I, _P, _P]),
     "flash_attn_fp32_fwd": ("flash_attn_fp32", [_P] * 6 + [_I] * 8 + [_P, _F, _P]),
-    "flash_attn_fp32_bwd_dq": ("flash_attn_fp32", [_P] * 8 + [_I] * 5 + [_P, _F, _F, _P]),
-    "flash_attn_fp32_bwd_dkv": ("flash_attn_fp32", [_P] * 10 + [_I] * 5 + [_P, _F, _F, _P]),
+    "flash_attn_fp32_bwd_dq": ("flash_attn_fp32", [_P] * 8 + [_I] * 8 + [_P, _F, _F, _P, _P]),
+    "flash_attn_fp32_bwd_dkv": ("flash_attn_fp32",
+                                [_P] * 10 + [_I] * 8 + [_P, _F, _F, _P, _P]),
 }
 
 
@@ -564,20 +674,29 @@ def _strides(*ts) -> ctypes.Array:
 
 
 def flash_bwd_dq_cuda(q, k, v, key_bias, do, lse, delta, num_heads: int, scale=None):
-    """Launch the dq kernel on CUDA tensors (bf16: `csrc/flash_attn_bwd.cu`,
-    fp32: `csrc/flash_attn_fp32.cu`); returns dq packed in q's dtype."""
+    """Launch the dq kernel on CUDA tensors (bf16: `csrc/flash_attn_bwd.cu`;
+    fp32: `csrc/flash_attn_fp32.cu` with the rows and threads a CTA and the
+    key tiles' split of `bwd_fp32_launch_plan`); returns dq packed in q's
+    dtype."""
     b, lq, lk, d, bias, lse, delta, scale = _check_backward(q, k, v, key_bias, do, lse, delta,
                                                             num_heads, scale)
     dq = torch.empty((b, lq, num_heads * d), dtype=q.dtype, device=q.device)
     st = _strides(q, k, v, do, dq)
     key = (b, lq, lk, num_heads, d)
-    name = "flash_attn_fp32_bwd_dq" if q.dtype == torch.float32 else "flash_attn_bwd_dq"
+    fp32 = q.dtype == torch.float32
+    name = "flash_attn_fp32_bwd_dq" if fp32 else "flash_attn_bwd_dq"
     with torch.cuda.device(q.device):
+        plan, tail = (), ()
+        if fp32:
+            launch = bwd_fp32_launch_plan(b, num_heads, lq, lk, d, sm_count(q.device.index)).dq
+            ws = (torch.empty(launch.split * dq.numel(), dtype=torch.float32, device=q.device)
+                  if launch.split > 1 else None)
+            plan, tail = launch[:3], (None if ws is None else ws.data_ptr(),)
         err = _fn(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None if bias is None else bias.data_ptr(), dq.data_ptr(),
-            b, num_heads, lq, lk, d, ctypes.addressof(st), scale * LOG2E, scale,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            b, num_heads, lq, lk, d, *plan, ctypes.addressof(st), scale * LOG2E, scale,
+            *tail, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if(err, name, key)
     _count("dq", "K3b", key, q.dtype)
     return dq
@@ -589,12 +708,14 @@ def flash_bwd_dkv_cuda(q, k, v, key_bias, do, lse, delta, num_heads: int, scale=
     q's dtype and, with `need_dbias`, the per-head dbias [B, H, Lk] fp32
     (else None). bf16: `csrc/flash_attn_bwd.cu`, whose query loop's split
     comes from `bwd_launch_plan` unless `split` is given (1 .. min(
-    BWD_MAX_SPLIT, query tiles)); fp32: `csrc/flash_attn_fp32.cu`, unsplit."""
+    BWD_MAX_SPLIT, query tiles)); fp32: `csrc/flash_attn_fp32.cu` with the
+    keys and threads a CTA and the query tiles' split of
+    `bwd_fp32_launch_plan`."""
     b, lq, lk, d, bias, lse, delta, scale = _check_backward(q, k, v, key_bias, do, lse, delta,
                                                             num_heads, scale)
     if q.dtype == torch.float32:
-        if split not in (None, 1):
-            raise ValueError(f"the fp32 dk/dv kernel has no split, got {split}")
+        if split is not None:
+            raise ValueError(f"the fp32 dk/dv kernel takes its plan's split, got {split}")
         return _dkv_fp32(q, k, v, do, lse, delta, bias, b, lq, lk, d, num_heads, scale,
                          need_dbias)
     if split is None:
@@ -630,11 +751,17 @@ def _dkv_fp32(q, k, v, do, lse, delta, bias, b, lq, lk, d, num_heads, scale, nee
     st = _strides(q, k, v, do, dk, dv)
     key = (b, lq, lk, num_heads, d)
     with torch.cuda.device(q.device):
+        plan = bwd_fp32_launch_plan(b, num_heads, lq, lk, d, sm_count(q.device.index)).dkv
+        # each slice: dk, dv, then dbias rounded up to 4 floats (16-byte slices)
+        per = 2 * dk.numel() + (0 if dbias is None else -(-dbias.numel() // 4) * 4)
+        ws = (torch.empty(plan.split * per, dtype=torch.float32, device=q.device)
+              if plan.split > 1 else None)
         err = _fn("flash_attn_fp32_bwd_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None if bias is None else bias.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if dbias is None else dbias.data_ptr(),
-            b, num_heads, lq, lk, d, ctypes.addressof(st), scale * LOG2E, scale,
+            b, num_heads, lq, lk, d, plan.rows, plan.threads, plan.split,
+            ctypes.addressof(st), scale * LOG2E, scale, None if ws is None else ws.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if(err, "flash_attn_fp32_bwd_dkv", key)
     _count("dkv", "K3c", key, q.dtype)

@@ -166,12 +166,35 @@ The fp32 instances of K8, K9 and K10 (slice 14) add:
       again under the fused knobs: exact fp32 flash, K8 and K9 launches per
       micro-step and no bf16 K8 or K9 one, each loss within TRAIN_LOSS_TOL
       of 9d's fp32 run; s per micro-step and peak memory beside 9d's.
+Slice 16 (the fp32 backward redesigned, the Upsample fold) adds:
+  4g. the backward's patched-source faults (FP32_FAULTS "flash_dq": the
+      last key tile left out of dq's ds K product; "flash_dkv": delta left
+      out of ds) at every training shape, dq's and dk/dv's device time
+      beside the CUDA events, and the backward's edge cases
+      (FP32_BWD_EDGES: Lq != Lk, ragged lengths, unaligned rows, a fully
+      masked batch row, the one-head fold, Lk 20 and Lq 20) at the fp32
+      gates, with repeats bit for bit;
+  [upsample]. the UNet's and the VAE's `Upsample` at the default request's
+      six shapes (recorded by hooks): the default module gives the phase
+      fold (one conv of zero-framed phase kernels) bit for bit, and the
+      fold, the fold as JAX's four 2x2 convs and the naive upsample-then-conv
+      (ADAFACE_SUBPIXEL_UP=0) timed side by side in bf16, each with its
+      relative L2 error against the naive function in fp32;
+  8, 8b. under the default Upsample, whose fold sums its taps in bf16 as
+      JAX's default does, the fp32 reference folds the same taps in bf16
+      and runs the rest in fp32; the loss within FOLD_LOSS_TOL (set from
+      recorded readings: the loss error is one draw of the bf16 UNet's eps
+      noise), the UNet's eps within TRAIN_EPS_TOL; both phases run again
+      under ADAFACE_SUBPIXEL_UP=0 at TRAIN_LOSS_TOL and TRAIN_EPS_TOL, and
+      the fold's eps error may exceed the naive path's by FOLD_EPS_RATIO
+      at most.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
 """
 
 import contextlib
+import ctypes
 import json
 import os
 import statistics
@@ -262,6 +285,18 @@ DBIAS_REL_TOL = 1e-4
 # (measured 2.2e-2..2.7e-2).
 TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = 1e-1
+# (8, 8b) the relative L2 error of the bf16 UNet's eps against the fp32
+# reference's (measured 1.731e-2 recon and 1.736e-2 compos under either
+# Upsample path on an H100), and how far the fold's may exceed the naive
+# path's. The loss's relative error is one draw of what that eps noise does
+# to the loss, and the two paths draw differently: recon 2.232e-3 under the
+# fold (6.613e-4 naive), compos 9.565e-4 (9.421e-4). `upsample_probe.py`
+# shows that the Upsample's own rounding does not move it (the whole
+# Upsample computed in bf16 inside the fp32 reference leaves it near
+# 2.3e-3). FOLD_LOSS_TOL is set from those readings.
+TRAIN_EPS_TOL = 2.5e-2
+FOLD_EPS_RATIO = 1.2
+FOLD_LOSS_TOL = 3e-3
 # (8b) the compos reference holds its loss and gradients to the same gates
 # (B, Lq, Lk, H, d, key bias, q/k/v as thirds of one fused projection) that
 # no path gives the backward but its wrappers take, checked for agreement
@@ -1500,19 +1535,68 @@ def train_configs(logdir, gap=COMPOS_GAP):
                                   composition_regs_iter_gap=gap, do_zero_shot=False)))
 
 
+def upsample_path():
+    """The Upsample path that ADAFACE_SUBPIXEL_UP selects, for the logs."""
+    return "naive" if os.environ.get("ADAFACE_SUBPIXEL_UP") == "0" else "phase fold"
+
+
+@contextlib.contextmanager
+def bf16_upsample_reference(torch):
+    """Within the block the UNet's Upsample computes, in an fp32 model, the
+    function of the bf16 model's: under the default knobs (JAX's phase
+    fold, which sums the taps in the weight's dtype) the taps are folded in
+    bf16 and the rest runs in fp32; under ADAFACE_SUBPIXEL_UP=0 the naive
+    path is left as it is (its weights are the bf16 ones either way)."""
+    from adaface_tpu_torch.models import unet as unet_mod
+    from adaface_tpu_torch.ops import subpixel
+
+    plain = unet_mod.upsample_conv
+    if upsample_path() == "phase fold":
+        unet_mod.upsample_conv = lambda x, w, b=None: subpixel.upsample2x_conv(
+            x, w.to(torch.bfloat16), b)
+    try:
+        yield
+    finally:
+        unet_mod.upsample_conv = plain
+
+
+@contextlib.contextmanager
+def first_output(module, store):
+    """Within the block, store[0] is the first output of `module` (for a
+    UNet its eps), in fp32 on the CPU."""
+    def hook(mod, inp, out):
+        if not store:
+            store.append((out[0] if isinstance(out, tuple) else out).detach().float().cpu())
+
+    handle = module.register_forward_hook(hook)
+    try:
+        yield store
+    finally:
+        handle.remove()
+
+
+def loss_tol():
+    """The loss gate of 8 and 8b on the Upsample path the knob selects."""
+    return FOLD_LOSS_TOL if upsample_path() == "phase fold" else TRAIN_LOSS_TOL
+
+
 def phase_train_reference(torch, pipe, trainer_cls, tmp):
     """One recon loss and its embedder gradients at SD widths on a 32x32
     latent (batch 1): bf16 on the card vs the same weights in fp32 on the
-    CPU, through the trainer's own batch preparation and step."""
+    CPU, the reference's Upsample as `bf16_upsample_reference` sets it,
+    through the trainer's own batch preparation and step. Gates the loss
+    (`loss_tol`), the gradients and the UNet's eps; returns eps's relative
+    L2 error."""
     import dataclasses
 
     from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
     from adaface_tpu_torch.training.iter_plan import IterPlan
     from adaface_tpu_torch.training.train_step import make_recon_train_step
 
-    tcfg, pcfg = train_configs(os.path.join(tmp, "ref"))
+    tag = "ref_" + upsample_path().replace(" ", "_")
+    tcfg, pcfg = train_configs(os.path.join(tmp, tag))
     tcfg = dataclasses.replace(tcfg, batch_size=1)
-    ds_dir = os.path.join(tmp, "ref_subject")
+    ds_dir = os.path.join(tmp, f"{tag}_subject")
     os.makedirs(ds_dir)
     trainer = trainer_cls(pipe, make_dataset(ds_dir, size=256), tcfg, pcfg)
     plan = IterPlan(use_background_token=True)
@@ -1533,10 +1617,13 @@ def phase_train_reference(torch, pipe, trainer_cls, tmp):
         return c.eval().requires_grad_(False)
 
     emb_gpu = copy_embedders(pipe.embedding_manager, pipe.device)
-    loss_gpu, m_gpu = step.loss_fn(emb_gpu, batch)
+    eps_gpu, eps_cpu = [], []
+    with first_output(pipe.unet, eps_gpu):
+        loss_gpu, m_gpu = step.loss_fn(emb_gpu, batch)
     loss_gpu.backward()
+    unet_cpu = cpu_copy(pipe.unet)
     cpu_step = make_recon_train_step(
-        cpu_copy(pipe.clip), cpu_copy(pipe.unet), pipe.base_sched, None,
+        cpu_copy(pipe.clip), unet_cpu, pipe.base_sched, None,
         skip_weights=pipe.skip_weights,
         bg_weight=tcfg.bg_recon_weight, emb_reg_weight=trainer._emb_reg_w,
         prompt_delta_weight=trainer._delta_w,
@@ -1549,8 +1636,9 @@ def phase_train_reference(torch, pipe, trainer_cls, tmp):
                                timesteps=batch.timesteps.cpu())
     emb_cpu = copy_embedders(pipe.embedding_manager, "cpu")
     t0 = time.time()
-    loss_cpu, m_cpu = cpu_step.loss_fn(emb_cpu, batch_cpu)
-    loss_cpu.backward()
+    with bf16_upsample_reference(torch), first_output(unet_cpu, eps_cpu):
+        loss_cpu, m_cpu = cpu_step.loss_fn(emb_cpu, batch_cpu)
+        loss_cpu.backward()
     say(f"[train-ref] fp32 CPU loss and gradients in {time.time() - t0:.1f} s")
     trainer.close()
     worst = 0.0
@@ -1561,8 +1649,10 @@ def phase_train_reference(torch, pipe, trainer_cls, tmp):
         if not torch.isfinite(m_gpu[k]):
             fail(f"training reference: non-finite {k} on the card")
     loss_err = abs(loss_gpu.item() - loss_cpu.item()) / abs(loss_cpu.item())
-    if not loss_err <= TRAIN_LOSS_TOL:
-        fail(f"training reference: loss off by {loss_err:.3e} (tol {TRAIN_LOSS_TOL})")
+    eps_err = rel_err(eps_gpu[0], eps_cpu[0])
+    if not loss_err <= loss_tol() or not eps_err <= TRAIN_EPS_TOL:
+        fail(f"training reference: loss off by {loss_err:.3e} (tol {loss_tol()}), eps by "
+             f"{eps_err:.3e} (tol {TRAIN_EPS_TOL})")
     for s in sorted(emb_cpu):
         for (n, g), (_, c) in zip(embedder_leaves(emb_gpu[s]), embedder_leaves(emb_cpu[s])):
             e = rel_err(g.grad, c.grad)
@@ -1571,8 +1661,10 @@ def phase_train_reference(torch, pipe, trainer_cls, tmp):
             if not torch.isfinite(g.grad).all() or not e <= TRAIN_GRAD_TOL:
                 fail(f"training reference: gradient {s}.{n} off by {e:.3e} "
                      f"(tol {TRAIN_GRAD_TOL})")
-    say(f"[train-ref] loss relative error {loss_err:.3e} (tol {TRAIN_LOSS_TOL}); worst gradient "
-        f"relative L2 error {worst:.3e} (tol {TRAIN_GRAD_TOL})")
+    say(f"[train-ref] loss relative error {loss_err:.3e} (tol {loss_tol()}); eps relative L2 "
+        f"error {eps_err:.3e} (tol {TRAIN_EPS_TOL}); worst gradient relative L2 error "
+        f"{worst:.3e} (tol {TRAIN_GRAD_TOL}) [Upsample: {upsample_path()}]")
+    return eps_err
 
 
 def phase_compos_reference(torch, pipe, trainer_cls, tmp):
@@ -1582,15 +1674,18 @@ def phase_compos_reference(torch, pipe, trainer_cls, tmp):
     step: bf16 against an fp32 copy of CLIP and the UNet on the card, built
     with `use_flash_attention=False` (einsum attention) while the fused
     knobs are off and TF32 is off (an fp32 UNet on the CPU is too slow at
-    this size). Gates TRAIN_LOSS_TOL and TRAIN_GRAD_TOL."""
+    this size), its Upsample as `bf16_upsample_reference` sets it. Gates
+    the loss (`loss_tol`), the gradients and the UNet's eps; returns eps's
+    relative L2 error."""
     import dataclasses
 
     from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
     from adaface_tpu_torch.training.iter_plan import COMPOS_DISTILL, IterPlan
     from adaface_tpu_torch.training.train_step import make_compos_distill_step
 
-    tcfg, pcfg = train_configs(os.path.join(tmp, "compos_ref"))
-    ds_dir = os.path.join(tmp, "compos_ref_subject")
+    tag = "compos_ref_" + upsample_path().replace(" ", "_")
+    tcfg, pcfg = train_configs(os.path.join(tmp, tag))
+    ds_dir = os.path.join(tmp, f"{tag}_subject")
     os.makedirs(ds_dir)
     trainer = trainer_cls(pipe, make_dataset(ds_dir), tcfg, pcfg)
     plan = IterPlan(iter_type=COMPOS_DISTILL, use_background_token=True,
@@ -1614,17 +1709,21 @@ def phase_compos_reference(torch, pipe, trainer_cls, tmp):
         return c.eval().requires_grad_(False)
 
     emb_bf16 = copy_embedders(pipe.embedding_manager)
-    loss_bf16, m_bf16 = step.loss_fn(emb_bf16, batch)
+    eps_bf16, eps_ref = [], []
+    with first_output(pipe.unet, eps_bf16):
+        loss_bf16, m_bf16 = step.loss_fn(emb_bf16, batch)
     loss_bf16.backward()
+    unet_ref = fp32_copy(pipe.unet, use_flash_attention=False)
     ref_step = make_compos_distill_step(
-        fp32_copy(pipe.clip), fp32_copy(pipe.unet, use_flash_attention=False), pipe.base_sched,
+        fp32_copy(pipe.clip), unet_ref, pipe.base_sched,
         None, skip_weights=pipe.skip_weights, prompt_delta_weight=trainer._delta_w,
         mix_prompt_distill_weight=pcfg.mix_prompt_distill_weight, do_zero_shot=False,
         bg_placeholders=trainer._bg_placeholders)
     emb_ref = copy_embedders(pipe.embedding_manager)
     t0 = time.time()
-    loss_ref, m_ref = ref_step.loss_fn(emb_ref, batch)
-    loss_ref.backward()
+    with bf16_upsample_reference(torch), first_output(unet_ref, eps_ref):
+        loss_ref, m_ref = ref_step.loss_fn(emb_ref, batch)
+        loss_ref.backward()
     torch.cuda.synchronize()
     say(f"[compos-ref] fp32 loss and gradients on the card in {time.time() - t0:.1f} s")
     trainer.close()
@@ -1637,8 +1736,10 @@ def phase_compos_reference(torch, pipe, trainer_cls, tmp):
         if b == 0:
             fail(f"compos reference: the fp32 {k} is zero (a term is not wired)")
     loss_err = abs(loss_bf16.item() - loss_ref.item()) / abs(loss_ref.item())
-    if not loss_err <= TRAIN_LOSS_TOL:
-        fail(f"compos reference: loss off by {loss_err:.3e} (tol {TRAIN_LOSS_TOL})")
+    eps_err = rel_err(eps_bf16[0], eps_ref[0])
+    if not loss_err <= loss_tol() or not eps_err <= TRAIN_EPS_TOL:
+        fail(f"compos reference: loss off by {loss_err:.3e} (tol {loss_tol()}), eps by "
+             f"{eps_err:.3e} (tol {TRAIN_EPS_TOL})")
     worst = 0.0
     for s in sorted(emb_ref):
         for (n, g), (_, c) in zip(embedder_leaves(emb_bf16[s]), embedder_leaves(emb_ref[s])):
@@ -1647,10 +1748,12 @@ def phase_compos_reference(torch, pipe, trainer_cls, tmp):
             say(f"[compos-ref] grad {s}.{n:18s} relative L2 error {e:.3e} (|g| {c.grad.norm():.3e})")
             if not torch.isfinite(g.grad).all() or not e <= TRAIN_GRAD_TOL:
                 fail(f"compos reference: gradient {s}.{n} off by {e:.3e} (tol {TRAIN_GRAD_TOL})")
-    say(f"[compos-ref] loss relative error {loss_err:.3e} (tol {TRAIN_LOSS_TOL}); worst gradient "
-        f"relative L2 error {worst:.3e} (tol {TRAIN_GRAD_TOL})")
-    del ref_step, emb_ref, emb_bf16, loss_ref, loss_bf16
+    say(f"[compos-ref] loss relative error {loss_err:.3e} (tol {loss_tol()}); eps relative L2 "
+        f"error {eps_err:.3e} (tol {TRAIN_EPS_TOL}); worst gradient relative L2 error "
+        f"{worst:.3e} (tol {TRAIN_GRAD_TOL}) [Upsample: {upsample_path()}]")
+    del ref_step, unet_ref, emb_ref, emb_bf16, loss_ref, loss_bf16
     torch.cuda.empty_cache()
+    return eps_err
 
 
 def flash_want(shapes):
@@ -1670,6 +1773,23 @@ def kind_medians(times):
     recon = [t for i, t in enumerate(times) if not is_compos_step(i)]
     compos = [t for i, t in enumerate(times) if is_compos_step(i)]
     return statistics.median(recon[1:]), statistics.median(compos[1:])
+
+
+def phase_fold_eps_ratio(torch, pipe, trainer_cls, tmp):
+    """(8, 8b) under the default Upsample fold, then under
+    ADAFACE_SUBPIXEL_UP=0; each phase's eps error under the fold within
+    FOLD_EPS_RATIO of its eps error under the naive path."""
+    errs = {}
+    for values in ({}, SUBPIXEL_NAIVE):
+        with knobs_set(values):
+            errs[upsample_path()] = (phase_train_reference(torch, pipe, trainer_cls, tmp),
+                                     phase_compos_reference(torch, pipe, trainer_cls, tmp))
+    for what, fold, naive in zip(("recon", "compos"), errs["phase fold"], errs["naive"]):
+        say(f"[train-ref] {what} eps relative L2 error under the fold {fold:.3e}, naive "
+            f"{naive:.3e} ({fold / naive:.3f}x; limit {FOLD_EPS_RATIO}x)")
+        if not fold <= FOLD_EPS_RATIO * naive:
+            fail(f"{what} reference: the fold's eps error {fold:.3e} exceeds "
+                 f"{FOLD_EPS_RATIO} x the naive path's {naive:.3e}")
 
 
 def phase_train(torch, pipe, fa, trainer_cls, tmp, card):
@@ -1899,6 +2019,17 @@ FP32_FWD_EDGES = [(2, 200, 77, 3, 40, True, 0, 0), (2, 200, 77, 3, 80, False, 0,
                   (2, 300, 300, 2, 40, True, 0, 1), (2, 300, 300, 2, 160, False, 0, 1),
                   (2, 1024, 1024, 8, 40, True, 1, 0), (2, 1024, 1024, 8, 80, True, 2, 0),
                   (2, 1024, 1024, 8, 160, True, 3, 0), (3, 256, 256, 8, 160, False, 1, 0)]
+# the fp32 backward's edge cases in 4g: (B, Lq, Lk, H, d, key bias, offset
+# of each row's start in floats: 1 leaves rows unaligned, the 4-byte copies
+# and stores); with a key bias and B > 1, batch row 0 is fully masked. Lq !=
+# Lk, lengths that are not multiples of the tiles or of a CTA's rows, the K6
+# one-head fold (B24 H1), Lk 20 and Lq 20 (a tile, and CTAs of the plan,
+# with rows or keys past the end).
+FP32_BWD_EDGES = [(1, 4095, 333, 2, 40, True, 0), (1, 333, 4095, 2, 80, False, 0),
+                  (2, 200, 77, 3, 160, True, 0), (2, 300, 300, 2, 40, True, 1),
+                  (2, 300, 300, 2, 160, False, 1), (1, 130, 200, 2, 80, True, 1),
+                  (24, 1024, 1024, 1, 40, True, 0), (1, 64, 20, 2, 80, True, 0),
+                  (1, 20, 64, 2, 160, True, 0), (2, 4095, 4095, 1, 160, True, 0)]
 # fp32 kernel vs its plain fp32 version on the same fp32 inputs: both sum
 # fp32 products in other orders, so they agree to fp32 rounding (measured
 # on an H100: relative L2 1e-8..7e-7 for o, dq, dk, dv and dbias, lse within
@@ -1946,9 +2077,11 @@ def phase_fp32_kernels(torch, fa, card, exp2_rate):
     at the training shapes (B3 and B4; with and without key bias), the
     forward at the generate shapes, against the plain versions; planted
     faults must fail the gates (the forward's also as its patched source,
-    FP32_FAULTS["flash_fwd"]); the backward and the forward repeat bit for
-    bit; kernel, plain and SDPA times (SDPA on the same fp32 inputs, TF32
-    off), and the bound; then the forward at FP32_FWD_EDGES. Returns the
+    FP32_FAULTS["flash_fwd"], and dq's and dk/dv's, FP32_FAULTS["flash_dq"],
+    ["flash_dkv"]); the backward and the forward repeat bit for bit; kernel
+    (CUDA events, and the profiler's device time), plain and SDPA times
+    (SDPA on the same fp32 inputs, TF32 off), and the bound; then the forward
+    at FP32_FWD_EDGES and the backward at FP32_BWD_EDGES. Returns the
     rows of the path's configurations (bias on B3, none on B4; the generate
     shapes without bias, as a request runs them)."""
     import torch.nn.functional as F
@@ -1958,7 +2091,8 @@ def phase_fp32_kernels(torch, fa, card, exp2_rate):
     rows = {}
     cases = [(shape, wb) for shape in FP32_TRAIN_SHAPES for wb in (True, False)]
     cases += [(shape, None) for shape in FP32_GENERATE_SHAPES]  # forward only
-    fwd_fault = build_fp32_faults()["flash_fwd"]
+    planted = build_fp32_faults()
+    fwd_fault = planted["flash_fwd"]
     for (b, l, h, d), with_bias in cases:
         inner = h * d
         rand = lambda: torch.randn((b, l, inner), generator=gen, device="cuda")
@@ -2016,10 +2150,13 @@ def phase_fp32_kernels(torch, fa, card, exp2_rate):
         if counted != want or n_launches(fa) != sum(want.values()):
             fail(f"{label}: the wrappers counted {dict(fa.launches_by_shape)}, want {want} "
                  "fp32 launches")
-        # the forward's planted fault: its patched source through the wrapper
+        # the planted faults: patched sources through the wrappers
         with entry_replaced(fa, FP32_FAULTS["flash_fwd"][1], fwd_fault):
             faults.insert(0, (FP32_FAULTS["flash_fwd"][2], "o",
                               fa.flash_attention_blc_cuda(q, k, v, h, bias), plain_out))
+        if with_bias is not None:
+            faults[1:1] = fp32_bwd_faults(fa, planted, (q, k, v, bias, do, lse, delta, h),
+                                          pdq, pdk)
         errs = {}
         for what, got, ref in checks:
             if got.dtype != torch.float32 or not torch.isfinite(got).all():
@@ -2067,6 +2204,10 @@ def phase_fp32_kernels(torch, fa, card, exp2_rate):
                                                                 delta, h))
             dkv_ms = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse,
                                                                   delta, h))
+            dq_dev = device_ms(torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse,
+                                                                   delta, h))
+            dkv_dev = device_ms(torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse,
+                                                                     delta, h))
             bwd_plain_ms = time_ms(torch, lambda: fa.flash_backward_plain(
                 q, k, v, bias, out, do, lse, h), reps=1, rounds=3, warmup=1)
             o_lib = sdpa()
@@ -2074,18 +2215,24 @@ def phase_fp32_kernels(torch, fa, card, exp2_rate):
             bwd_lib_ms = time_ms(torch, lambda: torch.autograd.grad(
                 o_lib, (qh, kh, vh), g_lib, retain_graph=True))
             del o_lib
-            for kind, ms, err, rep in (("dq", dq_ms, errs["dq"], K3B),
-                                       ("dkv", dkv_ms, max(errs["dk"], errs["dv"]), K3C)):
+            plan = fa.bwd_fp32_launch_plan(b, h, l, l, d, torch.cuda.get_device_properties(0)
+                                           .multi_processor_count)
+            for kind, ms, dev, err, rep, launch in (
+                    ("dq", dq_ms, dq_dev, errs["dq"], K3B, plan.dq),
+                    ("dkv", dkv_ms, dkv_dev, max(errs["dk"], errs["dv"]), K3C, plan.dkv)):
                 bb = fp32_bound(b, l, l, h, d, exp2_rate, kind, bias is not None)
                 rows[(kind, b, l, h, d)] = dict(
                     replaces=rep, max_abs_err=err, ms=ms, plain_ms=bwd_plain_ms,
-                    bound_ms=bb[0], bound_by=bb[1], library_ms=bwd_lib_ms)
-                msg += f", {kind} {ms:.4f} ms (bound {bb[0]:.4f} {bb[1]})"
+                    bound_ms=bb[0], bound_by=bb[1], library_ms=bwd_lib_ms, device_ms=dev)
+                msg += (f", {kind} {ms:.4f} ms, device {dev:.4f} (bound {bb[0]:.4f} {bb[1]}, "
+                        f"{bb[0] / ms:.1%} of it; rows {launch.rows}, threads {launch.threads})")
             msg += f", sdpa fp32 backward {bwd_lib_ms:.4f} ms, plain backward {bwd_plain_ms:.3f}"
         say(msg + f" [{card}]")
         del q, k, v, do, out, lse, qh, kh, vh
     for case in FP32_FWD_EDGES:
         fp32_fwd_edge(torch, fa, gen, fwd_fault, *case)
+    for case in FP32_BWD_EDGES:
+        fp32_bwd_edge(torch, fa, gen, planted, *case)
     say(f"[fp32-kernel] phase 4g {time.time() - t_phase:.1f} s")
     fa.launches_by_shape.clear()
     torch.cuda.empty_cache()
@@ -2140,6 +2287,120 @@ def fp32_fwd_edge(torch, fa, gen, fwd_fault, b, lq, lk, h, d, with_bias, flags, 
             f"{err:.3e} rel L2 {rel:.3e}")
         if ok:
             fail(f"{label}: the fp32 gate passes the forward's planted fault")
+
+
+def fp32_bwd_faults(fa, planted, args, pdq, pdk):
+    """dq and dk under the backward's planted faults (FP32_FAULTS
+    "flash_dq", "flash_dkv"), their patched sources launched through the
+    wrappers on `args` (q, k, v, bias, dO, lse, delta, heads): (fault, what,
+    wrong, plain) rows for the gate."""
+    with entry_replaced(fa, FP32_FAULTS["flash_dq"][1], planted["flash_dq"]):
+        dq = fa.flash_bwd_dq_cuda(*args)
+    with entry_replaced(fa, FP32_FAULTS["flash_dkv"][1], planted["flash_dkv"]):
+        dk = fa.flash_bwd_dkv_cuda(*args)[0]
+    return [(FP32_FAULTS["flash_dq"][2], "dq", dq, pdq),
+            (FP32_FAULTS["flash_dkv"][2], "dk", dk, pdk)]
+
+
+def forced_fp32_bwd(fa, kind, d, launch, warps=None, split=None):
+    """(rows, threads, split) of an fp32 backward launch as its C entry takes
+    them: the plan's `launch` ("dq" or "dkv" at head dim d) with its warps a
+    CTA or its split of the streamed tiles replaced where given."""
+    w = warps or launch.threads // 32
+    return w * fa.BWD_FP32_WARP_ROWS[kind][d], 32 * w, split or launch.split
+
+
+def fp32_backward_split(torch, fa, args, splits):
+    """dq, dk, dv and dbias of the fp32 backward on `args` (q, k, v, bias,
+    dO, lse, delta, heads) through its C entries, launched as the wrappers
+    launch them but with the streamed tiles split splits[0] (dq) and
+    splits[1] (dk/dv) ways."""
+    q, k, v, key_bias, do, lse, delta, h = args
+    b, lq, lk, d, bias, lse, delta, scale = fa._check_backward(q, k, v, key_bias, do, lse,
+                                                               delta, h, None)
+    plan = fa.bwd_fp32_launch_plan(b, h, lq, lk, d, torch.cuda.get_device_properties(0)
+                                   .multi_processor_count)
+    dq = torch.empty((b, lq, h * d), device="cuda")
+    dk, dv = torch.empty((b, lk, h * d), device="cuda"), torch.empty((b, lk, h * d), device="cuda")
+    dbias = torch.empty((b, h, lk), device="cuda")
+    # dq's slices, or dk/dv's with dbias rounded up to 4 floats a slice
+    ws = torch.empty(max(splits) * (2 * dk.numel() + dq.numel() + dbias.numel() + 4),
+                     device="cuda")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), None if bias is None else bias.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    st = fa._strides(q, k, v, do, dq)
+    err = fa._fn("flash_attn_fp32_bwd_dq")(
+        *ptrs, dq.data_ptr(), b, h, lq, lk, d, *forced_fp32_bwd(fa, "dq", d, plan.dq,
+                                                                 split=splits[0]),
+        ctypes.addressof(st), scale * fa.LOG2E, scale, ws.data_ptr(), stream)
+    torch.cuda.synchronize()
+    st = fa._strides(q, k, v, do, dk, dv)
+    err = err or fa._fn("flash_attn_fp32_bwd_dkv")(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), b, h, lq, lk, d,
+        *forced_fp32_bwd(fa, "dkv", d, plan.dkv, split=splits[1]), ctypes.addressof(st),
+        scale * fa.LOG2E, scale, ws.data_ptr(), stream)
+    torch.cuda.synchronize()
+    if err:
+        fail(f"fp32 backward split {splits} at B{b} Lq{lq} Lk{lk} H{h} d{d}: CUDA error {err}")
+    return dq, dk, dv, dbias
+
+
+def fp32_bwd_edge(torch, fa, gen, planted, b, lq, lk, h, d, with_bias, offset):
+    """One of 4g's edge cases of the fp32 backward (FP32_BWD_EDGES): dq, dk,
+    dv and dbias against `flash_backward_plain` at the fp32 gates, from the
+    kernel's forward (o, lse), with the plan's split and with a split of 3
+    (fewer where a side has fewer tiles); two launches agree bit for bit;
+    dq's and dk/dv's planted faults fail the gate."""
+    inner = h * d
+
+    def rand(l):
+        base = torch.randn((b, l, inner + offset), generator=gen, device="cuda")
+        return base[:, :, offset:]
+
+    q, k, v, do = rand(lq), rand(lk), rand(lk), rand(lq)
+    bias = None
+    if with_bias:
+        bias = torch.where(torch.rand((b, lk), generator=gen, device="cuda") > 0.3, 0.0, -1e30)
+        if b > 1:
+            bias[0] = -1e30  # a fully masked batch row
+    plan = fa.bwd_fp32_launch_plan(b, h, lq, lk, d, torch.cuda.get_device_properties(0)
+                                   .multi_processor_count)
+    label = (f"fp32 bwd edge B{b} Lq{lq} Lk{lk} H{h} d{d} {'bias' if with_bias else 'no bias'}"
+             f"{' unaligned' if offset else ''} (dq rows {plan.dq.rows} threads "
+             f"{plan.dq.threads} split {plan.dq.split}, dk/dv keys {plan.dkv.rows} threads "
+             f"{plan.dkv.threads} split {plan.dkv.split})")
+    out, lse = fa.flash_attention_blc_cuda(q, k, v, h, bias, return_lse=True)
+    delta = fa.row_delta(out, do, h)
+    args = (q, k, v, bias, do, lse, delta, h)
+    plain = fa.flash_backward_plain(q, k, v, bias, out, do, lse, h)
+    forced = min(3, -(-lk // 64)), min(3, -(-lq // 64))
+    for splits in ((None, None), forced):
+        if splits[0] is None:
+            got = ((fa.flash_bwd_dq_cuda(*args),)
+                   + fa.flash_bwd_dkv_cuda(*args, need_dbias=True))
+        else:
+            got = fp32_backward_split(torch, fa, args, splits)
+        torch.cuda.synchronize()
+        if splits[0] is None:
+            check_bwd_repeats(torch, fa, args, got, label)
+        for what, g, ref in zip(("dq", "dk", "dv", "dbias"), got, plain):
+            if what == "dbias" and bias is None:
+                continue
+            if not torch.isfinite(g).all():
+                fail(f"{label}: {what} is not finite")
+            err, rel, ok = _gate_fp32(g, ref, what)
+            say(f"[fp32-edge] {label}{'' if splits[0] is None else f' split {splits}'}: "
+                f"{what} max abs err {err:.3e} rel L2 {rel:.3e}"
+                f"{'' if ok else '  FAILS THE GATE'}")
+            if not ok:
+                fail(f"{label}: fp32 {what} disagrees with its plain version")
+    for name, what, wrong, ref in fp32_bwd_faults(fa, planted, args, plain[0], plain[1]):
+        err, rel, ok = _gate_fp32(wrong, ref, what)
+        say(f"[fp32-edge]   planted fault, {name} ({what}): max abs err {err:.3e} rel L2 "
+            f"{rel:.3e}")
+        if ok:
+            fail(f"{label}: the fp32 gate passes a planted fault ({name}, {what})")
 
 
 def _fp32_want(shapes):
@@ -2438,6 +2699,14 @@ FP32_FAULTS = {
                   "the rescale by alpha skipped",
                   [("        for (int e = 0; e < NO; ++e) o[c][i][e] *= alpha;",
                     "        for (int e = 0; e < NO; ++e) (void)alpha;")]),
+    "flash_dq": ("flash_attn_fp32.cu", "flash_attn_fp32_bwd_dq",
+                 "the last key tile left out of dq's ds K product",
+                 [("      pv_chunk<TR, BK, CW / 32, CW % 32 / 8, LDC>(g[c], pr, kt, cg);",
+                   "      if (t + 1 < ntiles) pv_chunk<TR, BK, CW / 32, CW % 32 / 8, LDC>"
+                   "(g[c], pr, kt, cg);")]),
+    "flash_dkv": ("flash_attn_fp32.cu", "flash_attn_fp32_bwd_dkv", "delta left out of ds",
+                  [("        const float ds = *pp * (acc[i][j] - dj[j]);",
+                    "        const float ds = *pp * acc[i][j];")]),
     "gn": ("gn_silu.cu", "gn_silu_fwd_fp32",
            "the last cluster peer's partial left out of the combine",
            [("    for (int r = 0; r < cs; ++r) {", "    for (int r = 0; r + 1 < cs; ++r) {")]),
@@ -3476,6 +3745,88 @@ def phase_arm_train(torch, pipe, trainer_cls, tmp, card):
     return out
 
 
+# ----------------------------------------------------------------- slice 16
+# the Upsample's naive path (JAX's ADAFACE_SUBPIXEL_UP=0), under which 8 and
+# 8b run a second time
+SUBPIXEL_NAIVE = {"ADAFACE_SUBPIXEL_UP": "0"}
+
+
+def four_phase_convs(torch, x, weight, bias):
+    """The phase fold in JAX's form (`adaface_tpu/ops/subpixel.py`): four
+    2x2 convs of NHWC x with asymmetric pads, the phases interleaved, then
+    the bias; [upsample] times it beside the port's one-conv form."""
+    import torch.nn.functional as F
+
+    from adaface_tpu_torch.ops.subpixel import _phase_taps
+
+    b, h, w, _ = x.shape
+    xc = x.permute(0, 3, 1, 2)
+    outs = []
+    for di in (0, 1):
+        wr = _phase_taps(weight, di, 2)
+        for dj in (0, 1):
+            xp = F.pad(xc, (1 - dj, dj, 1 - di, di))
+            outs.append(F.conv2d(xp, _phase_taps(wr, dj, 3)).permute(0, 2, 3, 1))
+    y = torch.stack(outs).reshape(2, 2, b, h, w, -1)
+    return y.permute(2, 3, 0, 4, 1, 5).reshape(b, 2 * h, 2 * w, -1) + bias
+
+
+def phase_upsample(torch, pipe, card):
+    """([upsample]) The UNet's and the VAE's `Upsample` at the shapes of one
+    default request (forward pre-hooks during a request of 2 DDIM steps):
+    the module under the default knobs gives `upsample2x_conv` (JAX's
+    phase fold in one conv) bit for bit; that fold, the fold as JAX's four
+    2x2 convs (`four_phase_convs`) and `nearest_upsample2x_conv_reference`
+    (the ADAFACE_SUBPIXEL_UP=0 path) timed in bf16 on the module's weights,
+    each with its relative L2 error against the naive function in fp32."""
+    from adaface_tpu_torch.models import unet as unet_mod
+    from adaface_tpu_torch.models import vae as vae_mod
+    from adaface_tpu_torch.ops import subpixel
+
+    seen = {}
+
+    def record(name):
+        def hook(mod, inp):
+            seen[(name, tuple(inp[0].shape))] = mod
+        return hook
+
+    hooks = [m.register_forward_pre_hook(record(name))
+             for name, model, cls in (("unet", pipe.unet, unet_mod.Upsample),
+                                      ("vae", pipe.vae, vae_mod.Upsample))
+             for m in model.modules() if isinstance(m, cls)]
+    try:
+        pipe.generate([PROMPT] * BATCH, seed=0, num_steps=2, guidance_scale=(10.0, 4.0),
+                      height=SIZE, width=SIZE)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    if len(seen) != 6:
+        fail(f"[upsample] expected the UNet's and the VAE's three Upsample shapes, got "
+             f"{sorted(seen)}")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    forms = {"fold": subpixel.upsample2x_conv,
+             "four convs": lambda x, w, b: four_phase_convs(torch, x, w, b),
+             "naive": subpixel.nearest_upsample2x_conv_reference}
+    total = dict.fromkeys(forms, 0.0)
+    for (model, shape), mod in sorted(seen.items()):
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        w, b = (t.detach().to(torch.bfloat16) for t in (mod.conv.weight, mod.conv.bias))
+        with torch.inference_mode():
+            if not torch.equal(mod(x), subpixel.upsample2x_conv(x, w, b)):
+                fail(f"[upsample] {model} {shape}: the default module is not the phase fold")
+            ref = subpixel.nearest_upsample2x_conv_reference(x.float(), w.float(), b.float())
+            res = []
+            for name, f in forms.items():
+                ms = time_ms(torch, lambda: f(x, w, b))
+                total[name] += ms
+                res.append(f"{name} {ms:.4f} ms (rel L2 {rel_err(f(x, w, b).float(), ref):.3e})")
+        say(f"[upsample] {model} {shape} bf16: " + ", ".join(res)
+            + f"; rel L2 against the naive function in fp32 [{card}]")
+        del x, ref
+    say(f"[upsample] sum over the six shapes (one call each): "
+        + ", ".join(f"{name} {t:.4f} ms" for name, t in total.items()) + f" [{card}]")
+
+
 def main():
     import torch
 
@@ -3516,6 +3867,7 @@ def main():
 
     phase_reference(torch, pipe)
     counts, med, default_imgs = phase_main_path(torch, pipe, card)
+    phase_upsample(torch, pipe, card)
     wino_rows, wino_launches = phase_winograd(torch, pipe, card)
     fp32_fused_rows, wino_fp32_launches = phase_fused_fp32_kernels(
         torch, card, exp2_rate, {k[1:]: n for k, n in wino_launches.items()})
@@ -3528,8 +3880,11 @@ def main():
 
     add_training_placeholders(torch, pipe)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_train_reference(torch, pipe, Trainer, tmp)
-        phase_compos_reference(torch, pipe, Trainer, tmp)
+        # 8 and 8b gate the bf16 training arithmetic against fp32 on the
+        # same weights, under the default Upsample and again under the
+        # naive one; the fold's eps error may not exceed the naive path's
+        # by more than FOLD_EPS_RATIO
+        phase_fold_eps_ratio(torch, pipe, Trainer, tmp)
         train_counts, train_med, compos_med, train_peak = phase_train(torch, pipe, fa, Trainer,
                                                                       tmp, card)
         gn_train, ff_train = phase_fused_train(torch, pipe, Trainer, tmp, card, train_med,

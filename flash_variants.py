@@ -9,18 +9,22 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
     python3 flash_variants.py --bwd old base     # the backward against an older tree's
     python3 flash_variants.py --fp32             # every variant of the fp32 forward
     python3 flash_variants.py --fp32 old base    # the fp32 forward against an older tree's
+    python3 flash_variants.py --fp32-bwd old base  # the fp32 backward against an older tree's
+    python3 flash_variants.py --fp32-bwd-model   # the fp32 backward plan's estimates (no card)
 
 Each variant is the kernel source (`adaface_tpu_torch/csrc/flash_attn_packed.cu`,
-with `--bwd` `flash_attn_bwd.cu`, with `--fp32` `flash_attn_fp32.cu`) with a
-few exact text substitutions (listed in FWD_VARIANTS / BWD_VARIANTS /
-FP32_VARIANTS; a substitution applies to the source or to the shared header
+with `--bwd` `flash_attn_bwd.cu`, with `--fp32` and `--fp32-bwd`
+`flash_attn_fp32.cu`) with a few exact text substitutions (listed in
+FWD_VARIANTS / BWD_VARIANTS / FP32_VARIANTS / FP32_BWD_VARIANTS; a
+substitution applies to the source or to the shared header
 that holds its text), built by nvcc into
 `_variants/<name>/` (git-ignored) beside copies of the headers, and called
 through the same C interface as the port's wrapper. The backward variant
 `old` is the tree unpacked under `_checkout/` (`git archive <commit> | tar -x
 -C _checkout`), called through its interface from before the dk/dv split;
 the fp32 variant `old` likewise, through its interface from before the
-fp32 forward took a launch plan.
+fp32 forward took a launch plan (with `--fp32-bwd`, before the fp32
+backward took one).
 
 Forward: at the generate self-attention shapes, for two interleaved rounds of
 all variants (base, ..., base, ...), each one's time (CUDA events, median of
@@ -33,8 +37,17 @@ training shapes (B3 with the key bias and a fully masked batch row, B4
 without, as the micro-steps run them) and the generate shapes, each
 variant's time, return code and relative L2 error against the plain fp32
 version, beside SDPA fp32 (TF32 off) and the FFMA bound; a variant may
-force the plan's key split or warps a CTA (`ks1`, `ks2`, `w2`, `w4`). Every line carries the
-card's name and power limit.
+force the plan's key split or warps a CTA (`ks1`, `ks2`, `w2`, `w4`). fp32
+backward (`--fp32-bwd`): dq and dk/dv through their C entries at the six
+training shapes (B3 with the key bias and a fully masked batch row, B4
+without), each variant's times, return codes and relative L2 errors (dq,
+dk, dv) against the plain backward, in two interleaved rounds, beside
+SDPA's fp32 backward (TF32 off) and the FFMA bounds; a variant may force the
+plan's warps a CTA (`w1`, `w2`, `w4`, with the plan's split) or split (`s1`,
+`s2`, `s4`, with the plan's warps). Every line carries the card's name and
+power limit. `--fp32-bwd-model` needs no card: at the same six shapes on
+132 SMs it prints the estimate (ms) of `bwd_fp32_launch_plan`'s time model
+for each kernel, warps a CTA and split, and the plan's choice.
 Variants that change the function (fakeex2) exist to measure a cost, and
 their error is expected.
 """
@@ -130,6 +143,37 @@ FP32_WARP_ROWS = {"tm4": {40: 16, 80: 16, 160: 16}}
 # variant -> the plan's key split or warps a CTA forced
 FP32_PLANS = {"ks1": {"key_split": 1}, "ks2": {"key_split": 2}, "w2": {"warps": 2},
               "w4": {"warps": 4}}
+
+
+# (B, L, H, d, key bias) of the fp32 backward: the recon (B3, bias) and
+# compos (B4) micro-steps' self-attentions
+FP32_BWD_SHAPES = [(3, 4096, 8, 40, True), (3, 1024, 8, 80, True), (3, 256, 8, 160, True),
+                   (4, 4096, 8, 40, False), (4, 1024, 8, 80, False), (4, 256, 8, 160, False)]
+BWD_TR = "  static constexpr int TR = DKV ? (D == 40 ? 8 : D == 80 ? 4 : 2) : (D > 40 ? 4 : 8);"
+FP32_BWD_VARIANTS = {
+    "old": None,  # the fp32 backward of the tree in _checkout/
+    "base": [],
+    # the ring three stages deep
+    "stages3": [("constexpr int BWD_STAGES = 2;", "constexpr int BWD_STAGES = 3;")],
+    # dq with 8 rows a lane at d80 (32 a warp): more FFMA a read, 4 warps an SM
+    "dq80tm8": [(BWD_TR, BWD_TR.replace("(D > 40 ? 4 : 8)", "(D > 80 ? 4 : 8)"))],
+    # the second products (ds K; p^T dO, ds^T Q) left out (wrong output):
+    # what the score products, the elementwise work and the copies take alone
+    "nosecond": [("      pv_chunk<TR, BK, CW / 32, CW % 32 / 8, LDC>(g[c], pr, kt, cg);",
+                  "      (void)kt;"),
+                 ("      pv_chunk<TR, BK, CW / 32, CW % 32 / 8, LDC>(gv[c], pr, dt, cg);", ""),
+                 ("      pv_chunk<TR, BK, CW / 32, CW % 32 / 8, LDC>(gk[c], pr, qt, cg);",
+                  "      (void)qt;")],
+    # exp2 replaced by a subtraction (wrong output): what exp2 costs
+    "fakeex2": [("        float p = exp2f(x - lr[4 * i]);", "        float p = x - lr[4 * i];"),
+                ("        float p = exp2f(x - lq[j]);", "        float p = x - lq[j];")],
+    # the plan's warps a CTA or split forced (base source)
+    "w1": [], "w2": [], "w4": [], "s1": [], "s2": [], "s4": [],
+}
+# variant -> warp rows by kernel and head dim, where a TR patch changes them
+FP32_BWD_WARP_ROWS = {"dq80tm8": {"dq": {80: 32}}}
+FP32_BWD_PLANS = {"w1": {"warps": 1}, "w2": {"warps": 2}, "w4": {"warps": 4},
+                  "s1": {"split": 1}, "s2": {"split": 2}, "s4": {"split": 4}}
 
 
 def variant_specs(names, source, variants):
@@ -325,23 +369,133 @@ def run_fp32(torch, fa, names, card, exp2_rate):
         del q, k, v, out, lse, plain, qh, kh, vh
 
 
+def fp32_bwd_plan(fa, name, b, l, h, d, sms):
+    """((dq rows, threads, split), (dk/dv keys, threads, split)) of variant
+    `name` at one shape: the plan, with the variant's warp rows, or its
+    forced warps a CTA or split (capped at the tiles)."""
+    force = dict(FP32_BWD_PLANS.get(name, {}))
+    if "split" in force:
+        force["split"] = min(force["split"], -(-l // 64))
+    plan = fa.bwd_fp32_launch_plan(b, h, l, l, d, sms)
+    out = []
+    for kind, launch in (("dq", plan.dq), ("dkv", plan.dkv)):
+        wr = FP32_BWD_WARP_ROWS.get(name, {}).get(kind, {}).get(d)
+        rows, threads, split = cs.forced_fp32_bwd(fa, kind, d, launch, **force)
+        out.append((threads // 32 * wr if wr else rows, threads, split))
+    return out
+
+
+def fp32_bwd_model(fa, sms=132):
+    """The fp32 backward plan's time model at the six training shapes: for
+    each kernel and warps a CTA, its estimate at splits 1..4 and the plan's
+    choice (printed; needs no card)."""
+    for b, l, h, d, _ in FP32_BWD_SHAPES:
+        plan = fa.bwd_fp32_launch_plan(b, h, l, l, d, sms)
+        for kind, launch in (("dq", plan.dq), ("dkv", plan.dkv)):
+            for w in fa.BWD_FP32_WARPS:
+                est = [fa._bwd_fp32_seconds(kind, b, h, l, l, d, sms, w, sp) * 1e3
+                       for sp in range(1, min(fa.BWD_FP32_MAX_SPLIT, -(-l // 64)) + 1)]
+                cs.say(f"[model] fp32 bwd B{b} L{l} H{h} d{d} {kind} {w} warps: splits 1.."
+                       f"{len(est)} " + " ".join(f"{e:.4f}" for e in est) + " ms"
+                       + (f"  <- plan (split {launch.split})"
+                          if launch.threads == 32 * w else "") + f" [{sms} SMs]")
+
+
+def run_fp32_bwd(torch, fa, names, card, exp2_rate):
+    import torch.nn.functional as F
+
+    srcs = {n: FP32_BWD_VARIANTS[n] for n in names if n not in FP32_BWD_PLANS}
+    if any(n in FP32_BWD_PLANS for n in names):
+        srcs.setdefault("base", [])
+    libs = build(list(srcs), "flash_attn_fp32.cu", FP32_BWD_VARIANTS)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name, lib in libs.items():
+        old = FP32_BWD_VARIANTS[name] is None  # no plan, no split
+        tail = [p, f, f, p] if old else [p, f, f, p, p]
+        lib.flash_attn_fp32_bwd_dq.argtypes = [p] * 8 + [i] * (5 if old else 8) + tail
+        lib.flash_attn_fp32_bwd_dkv.argtypes = [p] * 10 + [i] * (5 if old else 8) + tail
+        lib.flash_attn_fp32_bwd_dq.restype = lib.flash_attn_fp32_bwd_dkv.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, l, h, d, with_bias in FP32_BWD_SHAPES:
+        q, k, v, do = (torch.randn((b, l, h * d), generator=gen, device="cuda")
+                       for _ in range(4))
+        bias = None
+        if with_bias:
+            bias = torch.where(torch.rand((b, l), generator=gen, device="cuda") > 0.3, 0.0, -1e30)
+            bias[0] = -1e30  # a fully masked batch row
+        out, lse = fa.flash_attention_blc_cuda(q, k, v, h, bias, return_lse=True)
+        delta = fa.row_delta(out, do, h)
+        pdq, pdk, pdv, _ = fa.flash_backward_plain(q, k, v, bias, out, do, lse, h)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        stream = torch.cuda.current_stream().cuda_stream
+        sc = d ** -0.5
+        st_dq, st_dkv = fa._strides(q, k, v, do, dq), fa._strides(q, k, v, do, dk, dv)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), None if bias is None else bias.data_ptr())
+        ws = torch.empty(fa.BWD_FP32_MAX_SPLIT * 2 * k.numel(), device="cuda")
+        res = []
+        for _ in range(2):
+            for name in names:
+                lib = libs["base" if name in FP32_BWD_PLANS else name]
+                old = FP32_BWD_VARIANTS[name] is None
+                (dq_plan, dkv_plan) = ((), ()) if old else fp32_bwd_plan(fa, name, b, l, h, d,
+                                                                         sms)
+                wsp = () if old else (ws.data_ptr(),)
+                call_dq = lambda lib=lib, pl=dq_plan, wsp=wsp: lib.flash_attn_fp32_bwd_dq(
+                    *ptrs, dq.data_ptr(), b, h, l, l, d, *pl, ctypes.addressof(st_dq),
+                    sc * fa.LOG2E, sc, *wsp, stream)
+                call_dkv = lambda lib=lib, pl=dkv_plan, wsp=wsp: lib.flash_attn_fp32_bwd_dkv(
+                    *ptrs, dk.data_ptr(), dv.data_ptr(), None, b, h, l, l, d, *pl,
+                    ctypes.addressof(st_dkv), sc * fa.LOG2E, sc, *wsp, stream)
+                for t in (dq, dk, dv):
+                    t.zero_()
+                rc = (call_dq(), call_dkv())
+                torch.cuda.synchronize()
+                rels = [cs.kernel_errors(got, ref)[1]
+                        for got, ref in ((dq, pdq), (dk, pdk), (dv, pdv))]
+                plan = "" if old else f" dq {dq_plan} dkv {dkv_plan}"
+                res.append(f"{name}{plan} dq {cs.time_ms(torch, call_dq):.4f} dk/dv "
+                           f"{cs.time_ms(torch, call_dkv):.4f} ms (rc {rc}, rel L2 "
+                           + "/".join(f"{r:.1e}" for r in rels) + ")")
+        qh, kh, vh = (t.unflatten(-1, (h, d)).transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        mask = None if bias is None else bias[:, None, None, :]
+        o_lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=sc)
+        sdpa_ms = cs.time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (qh, kh, vh), do.unflatten(-1, (h, d)).transpose(1, 2), retain_graph=True))
+        bounds = [cs.fp32_bound(b, l, l, h, d, exp2_rate, kind, with_bias)
+                  for kind in ("dq", "dkv")]
+        cs.say(f"[variants] fp32 bwd B{b} L{l} H{h} d{d} {'bias' if with_bias else 'no bias'}: "
+               + "; ".join(res) + f"; sdpa fp32 backward {sdpa_ms:.4f} ms; bound dq "
+               f"{bounds[0][0]:.4f} dk/dv {bounds[1][0]:.4f} ms ({bounds[0][1]}) [{card}]")
+        del q, k, v, do, out, lse, delta, pdq, pdk, pdv, dq, dk, dv, ws, qh, kh, vh, o_lib
+
+
 def main():
     import torch
 
+    if "--fp32-bwd-model" in sys.argv[1:]:
+        from adaface_tpu_torch.ops import flash_attention as fa
+
+        return fp32_bwd_model(fa)
     if not torch.cuda.is_available():
         cs.fail("no CUDA device is visible to torch")
     from adaface_tpu_torch.ops import flash_attention as fa
 
     args = sys.argv[1:]
-    bwd, fp32 = "--bwd" in args, "--fp32" in args
-    args = [a for a in args if a not in ("--bwd", "--fp32")]
-    variants = FP32_VARIANTS if fp32 else BWD_VARIANTS if bwd else FWD_VARIANTS
+    bwd, fp32, fp32_bwd = "--bwd" in args, "--fp32" in args, "--fp32-bwd" in args
+    args = [a for a in args if a not in ("--bwd", "--fp32", "--fp32-bwd")]
+    variants = (FP32_BWD_VARIANTS if fp32_bwd else FP32_VARIANTS if fp32 else
+                BWD_VARIANTS if bwd else FWD_VARIANTS)
     names = args or list(variants)
     for name in names:
         if name not in variants:
             cs.fail(f"unknown variant {name}; known: {list(variants)}")
     card, exp2_rate = cs.phase_card(torch)
-    if fp32:
+    if fp32_bwd:
+        run_fp32_bwd(torch, fa, names, card, exp2_rate)
+    elif fp32:
         run_fp32(torch, fa, names, card, exp2_rate)
     else:
         (run_backward if bwd else run_forward)(torch, fa, names, card)

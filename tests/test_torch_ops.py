@@ -13,7 +13,7 @@ from adaface_tpu.ops import schedule as jsched
 from adaface_tpu.ops.subpixel import nearest_upsample2x_conv_reference
 from adaface_tpu_torch.ops import basic as tbasic
 from adaface_tpu_torch.ops import schedule as tsched
-from adaface_tpu_torch.ops.subpixel import upsample2x_conv
+from adaface_tpu_torch.ops import subpixel as tsub
 
 torch.set_num_threads(2)
 ATOL = 1e-5
@@ -96,6 +96,7 @@ def test_upsample2x_conv_matches_reference(rng):
     k = (0.2 * rng.standard_normal((3, 3, 8, 12))).astype(np.float32)  # HWIO
     b = rng.standard_normal(12).astype(np.float32)
     ref = nearest_upsample2x_conv_reference(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))
-    got = upsample2x_conv(_t(x), _t(k.transpose(3, 2, 0, 1)), _t(b))
+    # the port's ADAFACE_SUBPIXEL_UP=0 path (tests/test_torch_subpixel.py holds the fold)
+    got = tsub.nearest_upsample2x_conv_reference(_t(x), _t(k.transpose(3, 2, 0, 1)), _t(b))
     assert got.shape == (2, 10, 12, 12)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)

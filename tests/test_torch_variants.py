@@ -24,7 +24,7 @@ import wino_variants
 
 def _specs():
     fwd, bwd = flash_variants.FWD_VARIANTS, flash_variants.BWD_VARIANTS
-    fp32 = flash_variants.FP32_VARIANTS
+    fp32, fp32_bwd = flash_variants.FP32_VARIANTS, flash_variants.FP32_BWD_VARIANTS
     sets = [("gn", gn_variants.variant_specs([n for n in gn_variants.VARIANTS if n != "old"])),
             ("ff", ff_variants.variant_specs(list(ff_variants.VARIANTS))),
             ("wino", wino_variants.variant_specs([n for n in wino_variants.VARIANTS
@@ -33,7 +33,10 @@ def _specs():
             ("flash_bwd", flash_variants.variant_specs(
                 [n for n in bwd if bwd[n] is not None], "flash_attn_bwd.cu", bwd)),
             ("flash_fp32", flash_variants.variant_specs(
-                [n for n in fp32 if fp32[n] is not None], "flash_attn_fp32.cu", fp32))]
+                [n for n in fp32 if fp32[n] is not None], "flash_attn_fp32.cu", fp32)),
+            ("flash_fp32_bwd", flash_variants.variant_specs(
+                [n for n in fp32_bwd if fp32_bwd[n] is not None], "flash_attn_fp32.cu",
+                fp32_bwd))]
     return [(f"{tool}:{name}", spec) for tool, specs in sets for name, spec in specs.items()]
 
 
