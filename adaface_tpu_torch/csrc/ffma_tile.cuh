@@ -1,11 +1,12 @@
-// Register-blocked fp32 FFMA tiles for the fp32 GEMMs of K9 and K10
-// (ln_geglu_ff_fp32.cu, winograd_fp32.cu), the tiling of
-// flash_attn_fp32.cu: every product an fp32 FFMA with fp32 accumulation, no
-// tensor core and no TF32 (the JAX package asks for fp32 products).
+// Register-blocked fp32 FFMA tiles for the fp32 GEMM of K10
+// (winograd_fp32.cu), the tiling of flash_attn_fp32.cu: every product an
+// fp32 FFMA with fp32 accumulation, no tensor core and no TF32 (the JAX
+// package asks for fp32 products). The fp32 K9 (ln_geglu_ff_fp32.cu) takes
+// only its cp.async primitives.
 //
-// Both operands are K-major ([rows][K], K contiguous), as the GEMMs read
-// them: A the activations, B the weights as nn.Linear (or the Winograd
-// U^T) keeps them. A stage is BK = 16 columns of K; a CTA of 256 threads
+// Both operands are K-major ([rows][K], K contiguous), as the GEMM reads
+// them: A the activations, B the Winograd U^T. A stage is BK = 16 columns
+// of K; a CTA of 256 threads
 // copies its A and B rows of the stage into shared memory with 16-byte
 // cp.async (double-buffered by the caller: the next stage's copies are in
 // flight while this one's products run), rows LDK = 20 floats apart. Thread

@@ -13,9 +13,10 @@ Linear(C -> 2F)(LayerNorm(x)), weights in the JAX layout (w1 [C, 2F], w2
   GEGLU, GEMM2 + residual, and a split-K sum where the plan splits GEMM2:
   the launches that replace the TPU kernel `_ff_kernel`; `launch_plan`
   chooses their tiles, split and grids), on an fp32 one (an fp32 pipeline)
-  those of `csrc/ln_geglu_ff_fp32.cu` (the same three steps on fp32 FFMA),
+  those of `csrc/ln_geglu_ff_fp32.cu` (the same steps on fp32 FFMA),
   on a CPU tensor its plain version `ln_geglu_ff_plain`, which is
-  `_reference_ln_geglu_ff` with its roundings.
+  `_reference_ln_geglu_ff` with its roundings. `fp32_launch_plan` chooses
+  the fp32 kernel's GEMM2 tile width and split of F.
   The gradient, `LnGegluFF`, saves only the inputs and recomputes through
   the plain chain (`_ff_core_bwd`), for the inputs that need one: the UNet's
   frozen weights get none.
@@ -121,13 +122,80 @@ def gemm_items(m: int, n: int, k: int, rows: int, bn: int, split: int,
         out.append(mine)
     return out
 
+
+# The fp32 kernel (csrc/ln_geglu_ff_fp32.cu): 128-row FFMA tiles, stages of
+# 16 K columns; GEMM1 tiles of 64 h columns (their value and gate rows).
+FP32_ROWS = 128
+FP32_BK = 16
+FP32_H_COLS = 64
+FP32_BN2 = (160, 128, 64)  # GEMM2's tile widths
+FP32_MAX_SPLIT = 8
+# GEMM2's CTAs an SM and FFMA rate an SM (relative to 160 columns, one CTA
+# an SM) by tile width and whether it writes partials: 64 columns and
+# unsplit 128 hold two CTAs an SM (<= 128 registers), 128 columns writing
+# partials one (151 registers). Fitted to `ff_variants.py --fp32`'s grid of
+# widths and splits on an H100 (PERF.md §6, the fp32 K9 steps), where the plan
+# then picks the fastest of the 12 at all eight shapes of the fp32 paths.
+_FP32_GEMM2_SLOTS = {(64, False): (2, 0.85), (64, True): (2, 0.85), (128, False): (2, 1.3),
+                     (128, True): (1, 0.9), (160, False): (1, 1.0), (160, True): (1, 1.0)}
+_FP32_TILE_OVERHEAD = 3  # a tile's ring fill and epilogue, in stages
+_PEAK_FP32_FLOPS_PER_SM = 67e12 / 132
+
+
+class FP32Plan(NamedTuple):
+    """GEMM2's tile width and split of F."""
+    bn2: int  # output columns a GEMM2 tile
+    split: int  # GEMM2's K (F) ranges, summed in order by a second launch
+
+
+def fp32_gemm2_seconds(m: int, c: int, f: int, sms: int, bn2: int, split: int) -> float:
+    """The plan's time model of GEMM2 on `sms` SMs: waves of tiles, each as
+    long as its SM's CTAs take for their stages (plus a tile's overhead) at
+    the tile shape's rate, plus the partials' bytes (written, then read by
+    the sum) at the memory's peak."""
+    ctas, rate = _FP32_GEMM2_SLOTS[(bn2, split > 1)]
+    tiles = -(-m // FP32_ROWS) * (c // bn2) * split
+    waves = -(-tiles // (sms * ctas))
+    stage = 2 * FP32_ROWS * bn2 * FP32_BK / (_PEAK_FP32_FLOPS_PER_SM * rate)
+    extra = 0.0 if split == 1 else 8 * m * c * split / _PEAK_BYTES
+    return waves * ctas * (f / split / FP32_BK + _FP32_TILE_OVERHEAD) * stage + extra
+
+
+@functools.lru_cache(maxsize=256)
+def fp32_launch_plan(m: int, c: int, f: int, sms: int) -> FP32Plan:
+    """The fp32 kernel's plan for x [m, c] and hidden width f on a card of
+    `sms` SMs: GEMM2's tile width (160, 128 or 64 columns, dividing c) and
+    split of F that minimise `fp32_gemm2_seconds` (ties to fewer slices,
+    then wider tiles)."""
+    choices = [(bn, s) for bn in FP32_BN2 if c % bn == 0
+               for s in range(1, min(FP32_MAX_SPLIT, f // FP32_BK) + 1)]
+    return FP32Plan(*min(choices, key=lambda p: (fp32_gemm2_seconds(m, c, f, sms, *p), p[1],
+                                                  -p[0])))
+
+
+def fp32_gemm_tiles(m: int, n: int, k: int, bn: int, split: int,
+                    geglu: bool = False) -> List[WorkItem]:
+    """The work items of an fp32 GEMM launch in grid order, as
+    `ff32_gemm_kernel` (csrc/ln_geglu_ff_fp32.cu) takes them: tile t's K
+    range t % split, then column blocks fastest, then row blocks; split s
+    covers K stages [s*S/split, (s+1)*S/split) of FP32_BK columns. GEMM1
+    (`geglu`): n is F and a tile's columns are 64 h columns."""
+    nrow, width = -(-m // FP32_ROWS), FP32_H_COLS if geglu else bn
+    ncol, stages = n // width, k // FP32_BK
+    items = []
+    for t in range(nrow * ncol * split):
+        s, nb, mb = t % split, t // split % ncol, t // split // ncol
+        items.append(WorkItem(mb * FP32_ROWS, nb * width, s * stages // split * FP32_BK,
+                              (s + 1) * stages // split * FP32_BK, s))
+    return items
+
 launches_by_shape: Dict[Tuple[str, int, int, int], int] = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> (library, argument types), as declared in csrc/<library>.cu
 C_ENTRIES = {
     "ln_geglu_ff_fwd": ("ln_geglu_ff", [_P] * 11 + [_I] * 3 + [_F] + [_I] * 6 + [_P]),
-    "ln_geglu_ff_fp32_fwd": ("ln_geglu_ff_fp32", [_P] * 10 + [_I] * 3 + [_F, _P]),
+    "ln_geglu_ff_fp32_fwd": ("ln_geglu_ff_fp32", [_P] * 11 + [_I] * 3 + [_F] + [_I] * 2 + [_P]),
 }
 
 
@@ -205,22 +273,16 @@ def ln_geglu_ff_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5):
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if dt == torch.float32:
-        name, plan = "ln_geglu_ff_fp32_fwd", None
-        with torch.cuda.device(dev):
-            err = _fn(name)(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
-                            w1t.data_ptr(), vecs[2].data_ptr(), w2t.data_ptr(),
-                            vecs[3].data_ptr(), y.data_ptr(), h.data_ptr(), out.data_ptr(), m,
-                            c, f, eps, stream)
+        name, plan = "ln_geglu_ff_fp32_fwd", fp32_launch_plan(m, c, f, sm_count(dev.index))
     else:
         name, plan = "ln_geglu_ff_fwd", launch_plan(m, c, f, sm_count(dev.index))
-        ws = (torch.empty((plan.split, m, c), dtype=torch.float32, device=dev)
-              if plan.split > 1 else None)
-        with torch.cuda.device(dev):
-            err = _fn(name)(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
-                            w1t.data_ptr(), vecs[2].data_ptr(), w2t.data_ptr(),
-                            vecs[3].data_ptr(), y.data_ptr(), h.data_ptr(),
-                            None if ws is None else ws.data_ptr(), out.data_ptr(), m, c, f, eps,
-                            *plan, stream)
+    ws = (torch.empty((plan.split, m, c), dtype=torch.float32, device=dev)
+          if plan.split > 1 else None)
+    with torch.cuda.device(dev):  # both C entries: pointers, sizes, eps, the plan, stream
+        err = _fn(name)(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w1t.data_ptr(),
+                        vecs[2].data_ptr(), w2t.data_ptr(), vecs[3].data_ptr(), y.data_ptr(),
+                        h.data_ptr(), None if ws is None else ws.data_ptr(), out.data_ptr(), m,
+                        c, f, eps, *plan, stream)
     if err:
         raise RuntimeError(f"{name} failed: CUDA error {err} (B, L, C, F = "
                            f"{b}, {l}, {c}, {f}; {plan})")

@@ -188,6 +188,15 @@ Slice 16 (the fp32 backward redesigned, the Upsample fold) adds:
       under ADAFACE_SUBPIXEL_UP=0 at TRAIN_LOSS_TOL and TRAIN_EPS_TOL, and
       the fold's eps error may exceed the naive path's by FOLD_EPS_RATIO
       at most.
+Slice 17 (the fp32 K9 redesigned, with a launch plan) adds:
+  4h. K9 fp32's rows print the plan and each GEMM's cuBLAS SGEMM time; at
+      FF_FP32_FORCED it runs through its C entry under every GEMM2 width
+      that divides C and every split of F (the fp32 gate, repeats bit for
+      bit);
+  [fp32-profile]. after [fp32-main], one fp32 request under the default
+      knobs and one under the fused knobs through the profiler: device time
+      by category (the fp32 kernels by name, fp32 K9 apart from bf16 K9)
+      and the idle share.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -1399,10 +1408,21 @@ def phase_fused_main_path(torch, pipe, card, default_med):
 
 
 def _category(name):
-    if "gn_silu_kernel" in name:
-        return "gn_silu (this port's kernel)"
-    if "ln_kernel" in name or "gemm_kernel" in name:
+    if "gn_silu_kernel" in name:  # the fp32 instance: T = float
+        fp32 = "gn_silu_kernel<float" in name or "gn_silu_kernelIf" in name
+        return f"gn_silu{' fp32' if fp32 else ''} (this port's kernel)"
+    if "ff32_" in name:  # ff32_ln_kernel, ff32_gemm_kernel, ff32_split_sum_kernel
+        return "ln_geglu_ff fp32 (this port's kernel)"
+    if "ln_kernel" in name or "gemm_kernel" in name or "splitk_reduce" in name:
         return "ln_geglu_ff (this port's kernel)"
+    if "flash_fp32_fwd" in name:
+        return "flash_attn_fp32 forward (this port's kernel)"
+    if "flash_fp32_dq" in name:
+        return "flash_attn_fp32 dq (this port's kernel)"
+    if "flash_fp32_dkv" in name or "flash_fp32_bwd_sum" in name:
+        return "flash_attn_fp32 dk/dv, split sums (this port's kernel)"
+    if "wino_" in name:
+        return f"winograd{' fp32' if 'fp32' in name else ''} (this port's kernel)"
     if "flash_fwd_packed" in name:
         return "flash_attn_packed forward (this port's kernel)"
     if "flash_bwd_dq" in name:
@@ -2712,9 +2732,10 @@ FP32_FAULTS = {
            [("    for (int r = 0; r < cs; ++r) {", "    for (int r = 0; r + 1 < cs; ++r) {")]),
     "ff": ("ln_geglu_ff_fp32.cu", "ln_geglu_ff_fp32_fwd",
            "F chunk 1 (h columns 64-127) skipped in GEMM2",
-           [("    fma_tile<MI, NJ>(acc, sa[kt & 1], sb[kt & 1], ty, tx);",
-             "    if (EPI == EPI_GEGLU || kt * BK / 64 != 1)\n"
-             "      fma_tile<MI, NJ>(acc, sa[kt & 1], sb[kt & 1], ty, tx);")]),
+           [("        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(fa[i], fb[j], acc[i][j]);",
+             "        for (int j = 0; j < NJ; ++j)\n"
+             "          if (EPI == EPI_GEGLU || kt * BK / 64 != 1)\n"
+             "            acc[i][j] = fmaf(fa[i], fb[j], acc[i][j]);")]),
     "wino": ("winograd_fp32.cu", "winograd_conv3x3_fp32_fwd", "position 5 left out",
              [("    if (kc == nkc - 1) add_position(y, mm, ij);",
                "    if (kc == nkc - 1 && ij != 5) add_position(y, mm, ij);")]),
@@ -2796,6 +2817,44 @@ def _gate_fused_fp32(torch, label, out, again, plain, wrong=None, x=None):
         fail(f"{label}: kernel disagrees with plain (max abs {err:.3e} of the largest value, "
              f"rel L2 {rel:.3e})")
     return err, rel
+
+
+# K9 fp32 shapes (on-path (B, L, C), edge (B, L, C, F)) that 4h also runs
+# through the C entry under every GEMM2 width that divides C and every split
+FF_FP32_FORCED = {(16, 64, 1280), (3, 1024, 640), (1, 129, 640, 2560), (2, 33, 64, 192)}
+
+
+def ff_fp32_forced_plans(torch, ff, label, args, plain):
+    """K9 fp32 through its C entry under every GEMM2 width that divides C,
+    every split of F (1..FP32_MAX_SPLIT): each within the fp32 gate of
+    `plain`, and each split's repeat bit for bit."""
+    x, ln_g, ln_b, w1, b1, w2, b2 = args
+    b, l, c = x.shape
+    m, f = b * l, w2.shape[0]
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    y, h, out = torch.empty_like(x), x.new_empty((m, f)), torch.empty_like(x)
+    ws = x.new_empty((ff.FP32_MAX_SPLIT, m, c))
+    fn = ff._fn("ln_geglu_ff_fp32_fwd")
+    stream = torch.cuda.current_stream().cuda_stream
+    worst = (0.0, 0.0)
+    plans = [ff.FP32Plan(bn, s) for bn in ff.FP32_BN2 if c % bn == 0
+             for s in range(1, min(ff.FP32_MAX_SPLIT, f // ff.FP32_BK) + 1)]
+    for plan in plans:
+        got = []
+        for _ in range(2):
+            out.fill_(float("nan"))
+            rc = fn(x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
+                    w2t.data_ptr(), b2.data_ptr(), y.data_ptr(), h.data_ptr(), ws.data_ptr(),
+                    out.data_ptr(), m, c, f, 1e-5, *plan, stream)
+            torch.cuda.synchronize()
+            if rc:
+                fail(f"{label} under {plan}: CUDA error {rc}")
+            got.append(out.clone())
+        err, rel = _gate_fused_fp32(torch, f"{label} under {plan}", got[0], got[1], plain, x=x)
+        worst = (max(worst[0], err), max(worst[1], rel))
+    say(f"[fp32-fused] {label:30s}: {len(plans)} forced plans (widths, splits 1.."
+        f"{ff.FP32_MAX_SPLIT}) through the C entry: worst max abs err {worst[0]:.3e}, "
+        f"rel L2 {worst[1]:.3e}; repeats bit for bit")
 
 
 def phase_fused_fp32_kernels(torch, card, exp2_rate, wino_shapes):
@@ -2881,7 +2940,10 @@ def phase_fused_fp32_kernels(torch, card, exp2_rate, wino_shapes):
         plain = ff.ln_geglu_ff_plain(*args)
         if not on_path:
             err, rel = _gate_fused_fp32(torch, label, out, again, plain, x=x)
-            say(f"[fp32-fused] {label:30s}: max abs err {err:.3e} rel L2 {rel:.3e}")
+            say(f"[fp32-fused] {label:30s}: max abs err {err:.3e} rel L2 {rel:.3e}; "
+                f"{ff.fp32_launch_plan(b * l, c, f, sms)}")
+            if (b, l, c, f) in FF_FP32_FORCED:
+                ff_fp32_forced_plans(torch, ff, label, args, plain)
             continue
         with entry_replaced(ff, FP32_FAULTS["ff"][1], faults["ff"]):
             wrong = call()
@@ -2893,12 +2955,17 @@ def phase_fused_fp32_kernels(torch, card, exp2_rate, wino_shapes):
         y = F.layer_norm(x, (c,), args[1], args[2])
         h = randn(b, l, f)
         library_ms = time_ms(torch, lambda: (F.linear(y, w1), F.linear(h, w2)))
+        sgemm_ms = [time_ms(torch, lambda: F.linear(y, w1)),
+                    time_ms(torch, lambda: F.linear(h, w2))]
         bound_ms, bound_by = ff_bound(b, l, c, itemsize=4, peak=PEAK_FP32_FLOPS)
         say(f"[fp32-fused] {label:30s}: max abs err {err:.3e} of the largest value, rel L2 "
             f"{rel:.3e} of out - x (tols {FP32_ABS_TOL}, {FP32_REL_TOL}); kernel {ms:.4f} ms "
             f"device {dev_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) plain "
             f"{plain_ms:.4f} ms unfused fp32 chain "
-            f"{default_ms:.4f} ms cuBLAS SGEMMs {library_ms:.4f} ms [{card}]")
+            f"{default_ms:.4f} ms cuBLAS SGEMMs {library_ms:.4f} ms (GEMM1 {sgemm_ms[0]:.4f}, "
+            f"GEMM2 {sgemm_ms[1]:.4f}); {ff.fp32_launch_plan(b * l, c, f, sms)} [{card}]")
+        if (b, l, c) in FF_FP32_FORCED:
+            ff_fp32_forced_plans(torch, ff, label, args, plain)
         rows[("ff", b, l, c)] = dict(max_abs_err=err * (plain - x).abs().max().item(), ms=ms,
                                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                      library_ms=library_ms, default_arm_ms=default_ms,
@@ -3033,6 +3100,12 @@ def phase_fp32_main_path(torch, card):
         f"default, {secs['fused']:.3f} s fused, DDIM-{FP32_REQUEST_STEPS} [{card}]")
     if not diff.mean() <= ARM_UINT8_MEAN_TOL:
         fail(f"[fp32-main] the fused request's images differ by {diff.mean():.3f} levels")
+    # [fp32-profile]: where each request's device time goes
+    for name, values in (("default", {}), ("fused", FUSED_KNOBS)):
+        with knobs_set(values):
+            profile_breakdown(torch, lambda: pipe.generate(prompts, seed=1, **kw), "fp32-profile",
+                              f"one fp32 DDIM-{FP32_REQUEST_STEPS} request under the {name} knobs",
+                              card)
     for m in (fa, fn, ff):
         m.launches_by_shape.clear()
     del pipe

@@ -1,5 +1,6 @@
-// A CPU emulation of the CUDA features that csrc/flash_attn_fp32.cu uses,
-// for tests/test_torch_flash_fp32_emulated.py: the kernel source is
+// A CPU emulation of the CUDA features that csrc/flash_attn_fp32.cu and
+// csrc/ln_geglu_ff_fp32.cu use, for tests/test_torch_flash_fp32_emulated.py
+// and tests/test_torch_ff_fp32_emulated.py: the kernel source is
 // compiled by a host C++ compiler against this header (its inline asm
 // replaced by the emu_* calls below) and launched with LAUNCH. Each CTA
 // runs alone, one std::thread per CUDA thread; __syncthreads and
@@ -17,6 +18,7 @@
 #include <vector>
 #include <mutex>
 #include <atomic>
+#include <chrono>
 #include <condition_variable>
 #define __global__
 #define __device__
@@ -35,14 +37,21 @@ inline dim3 blockDim, gridDim;
 alignas(16) inline float4 smem4[232448 / 16];  // an H100 CTA's largest shared memory
 inline int emu_land_at_issue = 0;
 
+// A barrier whose waiters yield their core a few times, then nap, until the
+// last thread arrives (a CTA's 256 threads outnumber the cores: sleeping on
+// a condition variable cost milliseconds a round, and spinning alone takes
+// the cores from other processes).
 struct Barrier {
-  std::mutex m; std::condition_variable cv; int n = 0, count = 0, gen = 0;
+  std::atomic<int> count{0}, gen{0};
+  int n = 0;
   void init(int k) { n = k; count = 0; gen = 0; }
   void wait() {
-    std::unique_lock<std::mutex> l(m);
-    int g = gen;
-    if (++count == n) { count = 0; ++gen; cv.notify_all(); }
-    else cv.wait(l, [&] { return gen != g; });
+    const int g = gen.load();
+    if (count.fetch_add(1) + 1 == n) { count = 0; gen.fetch_add(1); return; }
+    for (int i = 0; gen.load() == g; ++i) {
+      if (i < 64) std::this_thread::yield();
+      else std::this_thread::sleep_for(std::chrono::microseconds(50));
+    }
   }
 };
 inline Barrier emu_cta_bar, emu_warp_bar[32];
@@ -57,6 +66,7 @@ inline float __shfl_xor_sync(unsigned, float x, int o) {
 }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
+inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 typedef int cudaError_t; typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 2 };
 template <class K> cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }

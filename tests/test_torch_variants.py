@@ -1,7 +1,7 @@
 """The text patches of the kernel-variant scripts (`kernel_variants.py`,
-`gn_variants.py`, `ff_variants.py`, `wino_variants.py`, `flash_variants.py`)
-and of `chip_smoke.py`'s planted faults: the tanh-SiLU of K8, and one fault
-for each fp32 kernel (`FP32_FAULTS`: the online softmax's rescale by alpha
+`gn_variants.py`, `ff_variants.py` and its `--fp32` variants,
+`wino_variants.py`, `flash_variants.py`) and of `chip_smoke.py`'s planted
+faults: the tanh-SiLU of K8, and one fault for each fp32 kernel (`FP32_FAULTS`: the online softmax's rescale by alpha
 skipped in the fp32 flash forward, a cluster peer's partial left out of
 K8's combine, an F chunk skipped in K9's GEMM2, a Winograd position left
 out of K10's sum).
@@ -27,6 +27,8 @@ def _specs():
     fp32, fp32_bwd = flash_variants.FP32_VARIANTS, flash_variants.FP32_BWD_VARIANTS
     sets = [("gn", gn_variants.variant_specs([n for n in gn_variants.VARIANTS if n != "old"])),
             ("ff", ff_variants.variant_specs(list(ff_variants.VARIANTS))),
+            ("ff_fp32", ff_variants.fp32_variant_specs(
+                [n for n, v in ff_variants.FP32_VARIANTS.items() if v is not None])),
             ("wino", wino_variants.variant_specs([n for n in wino_variants.VARIANTS
                                                   if n != "old"])),
             ("flash", flash_variants.variant_specs(list(fwd), "flash_attn_packed.cu", fwd)),
