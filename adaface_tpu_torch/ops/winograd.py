@@ -23,19 +23,30 @@ U_ij with fp32 accumulation; y = A^T m A summed in fp32; + bias in fp32; one
 cast.
 
 `launch_plan` splits the bf16 kernel's product launch where its grid would
-leave SMs idle (the fp32 kernel does not split), and `plan_items` lists the work items it then runs;
+leave SMs idle, and `plan_items` lists the work items it then runs;
+`fp32_launch_plan` picks the fp32 kernel's path (narrow in where Cin is 4,
+narrow out where Cout is 4, else the general GEMMs) and split, and
+`fp32_plan_items` lists the general path's work items;
 `winograd_conv3x3_split_plain` is the plain version of a split launch (fp32
-partials summed in slice order).
+partials summed in slice order; `split_partials(..., k_tile)` with the
+kernel's step width).
 
-`launches_by_shape` counts kernel calls (a transform and a product launch
-each, and a sum launch when split) per (dtype, B, H, W, Cin, Cout), dtype
-"bf16" or "fp32"; callers may clear it to count one run.
+The public op keeps each leaf weight's transformed layout (`kernel_layout`,
+keyed on the tensor, its storage, dtype, shape, device and version counter,
+so that an updated weight is transformed again).
+
+`launches_by_shape` counts kernel calls (each one C entry call: its
+transform, product and sum launches, or one narrow launch) per (dtype, B,
+H, W, Cin, Cout), dtype "bf16" or "fp32"; callers may clear it to count one
+run.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import weakref
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -72,13 +83,31 @@ _PEAK_BYTES = 3.35e12
 DEF_MIN_TILES = 256
 DEF_VMEM_BUDGET = 72 * 1024 * 1024
 
+# The fp32 kernel (csrc/winograd_fp32.cu): its paths, the general path's
+# tile (FP32_ROWS tile rows by FP32_N_TILE output columns, one CTA an SM,
+# steps of FP32_BK channels; Cin padded to a multiple of FP32_BK) and
+# splits. The narrow paths (Cin 4, Cout 4) take no split.
+FP32_GENERAL, FP32_NARROW_IN, FP32_NARROW_OUT = 0, 1, 2
+FP32_BK = 16
+FP32_ROWS, FP32_N_TILE = 128, 64
+FP32_MAX_SPLIT = 16
+# The plan's time model of the general path: a tile's ring fill and
+# epilogue, in steps; the products' share of the fp32 non-tensor peak an
+# SM, fitted to `wino_variants.py --fp32` on an H100 (PERF.md section 6, PR
+# 18: the whole op at 38-42% of its bound at the large shapes), where the
+# model's split is the fastest of the forced splits 1-4 (and 6) at all 13
+# general UNet shapes.
+_FP32_TILE_OVERHEAD = 4
+_FP32_RATE = 0.42
+_PEAK_FP32_FLOPS_PER_SM = 67e12 / 132
+
 launches_by_shape: Dict[Tuple[str, int, int, int, int, int], int] = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> (library, argument types), as declared in csrc/<library>.cu
 C_ENTRIES = {
     "winograd_conv3x3_fwd": ("winograd", [_P] * 6 + [_I] * 9 + [_P]),
-    "winograd_conv3x3_fp32_fwd": ("winograd_fp32", [_P] * 5 + [_I] * 7 + [_P]),
+    "winograd_conv3x3_fp32_fwd": ("winograd_fp32", [_P] * 6 + [_I] * 8 + [_P]),
 }
 
 
@@ -160,13 +189,20 @@ def _fn(name: str):
 
 
 def padded_weights(u: torch.Tensor) -> torch.Tensor:
-    """U [16, Cin, Cout] as the product kernels (bf16 and fp32) read it:
-    transposed to K-major [16, Cout_p, Cin_p] and zero-padded to the tile
-    multiples."""
+    """U [16, Cin, Cout] as the bf16 product kernel reads it: transposed to
+    K-major [16, Cout_p, Cin_p] and zero-padded to the tile multiples."""
     _, cin, cout = u.shape
     cin_p = -(-cin // K_TILE) * K_TILE
     cout_p = -(-cout // N_TILE) * N_TILE
     return F.pad(u.transpose(1, 2), (0, cin_p - cin, 0, cout_p - cout)).contiguous()
+
+
+def padded_weights_fp32(u: torch.Tensor) -> torch.Tensor:
+    """U [16, Cin, Cout] as the fp32 kernel reads it (every path): transposed
+    to K-major [16, Cout, Cin_p], Cin zero-padded to a multiple of
+    FP32_BK."""
+    cin = u.shape[1]
+    return F.pad(u.transpose(1, 2), (0, -(-cin // FP32_BK) * FP32_BK - cin)).contiguous()
 
 
 class LaunchPlan(NamedTuple):
@@ -226,15 +262,17 @@ def plan_items(m: int, cin: int, cout: int, plan: LaunchPlan) -> List[WorkItem]:
     return items
 
 
-def split_partials(x: torch.Tensor, u: torch.Tensor, split: int) -> torch.Tensor:
+def split_partials(x: torch.Tensor, u: torch.Tensor, split: int,
+                   k_tile: int = K_TILE) -> torch.Tensor:
     """The kernel's fp32 quadrants [split, 2, 2, M, Cout] of each slice of
-    the 16 * Cin_p / K_TILE product steps (x's promoted dtype for fp64),
+    the 16 * Cin_p / k_tile product steps (x's promoted dtype for fp64),
     in plain torch ops: t_ij as `winograd_conv3x3_plain` rounds it, each
-    step's product added with its A^T signs."""
+    step's product added with its A^T signs. k_tile: the kernel's channels
+    a step (K_TILE bf16, FP32_BK fp32)."""
     b, h, w, cin = x.shape
     cout = u.shape[-1]
     cdt = torch.promote_types(x.dtype, torch.float32)
-    nk = -(-cin // K_TILE)
+    nk = -(-cin // k_tile)
     steps = 16 * nk
     tile = _input_tiles(x)
     t = [_input_transform(tile, ij // 4, ij % 4).reshape(-1, cin).to(cdt) for ij in range(16)]
@@ -242,7 +280,7 @@ def split_partials(x: torch.Tensor, u: torch.Tensor, split: int) -> torch.Tensor
     for s in range(split):
         for st in range(s * steps // split, (s + 1) * steps // split):
             ij, kc = divmod(st, nk)
-            ks = slice(kc * K_TILE, (kc + 1) * K_TILE)
+            ks = slice(kc * k_tile, (kc + 1) * k_tile)
             mm = torch.matmul(t[ij][:, ks], u[ij, ks].to(cdt))
             for a in range(2):
                 for c in range(2):
@@ -250,6 +288,82 @@ def split_partials(x: torch.Tensor, u: torch.Tensor, split: int) -> torch.Tensor
                     if coef:
                         parts[s, a, c] += coef * mm
     return parts
+
+
+class FP32Plan(NamedTuple):
+    """The fp32 kernel's path and split."""
+    path: int  # FP32_GENERAL, FP32_NARROW_IN or FP32_NARROW_OUT
+    split: int  # general: slices of the steps; narrow paths: 1
+
+
+def fp32_path(cin: int, cout: int) -> int:
+    """The path the fp32 kernel takes for Cin -> Cout: narrow in where Cin is
+    4, narrow out where Cout is 4 (and Cin a multiple of 4), else general."""
+    if cin == 4:
+        return FP32_NARROW_IN
+    if cout == 4 and cin % 4 == 0:
+        return FP32_NARROW_OUT
+    return FP32_GENERAL
+
+
+def fp32_steps(cin: int) -> int:
+    """The general path's steps: 16 positions x Cin_p / FP32_BK channel
+    stages."""
+    return 16 * -(-cin // FP32_BK)
+
+
+def fp32_product_seconds(m: int, cin: int, cout: int, sms: int, split: int) -> float:
+    """The plan's time model of the general path's product launch on `sms`
+    SMs (one CTA each): waves of tiles, each as long as its steps (plus a
+    tile's overhead) at the fitted share of the FFMA peak, plus the
+    partials' bytes (written, then read by the sum) at the memory's peak."""
+    tiles = -(-m // FP32_ROWS) * -(-cout // FP32_N_TILE) * split
+    steps = fp32_steps(cin)
+    step = 2 * FP32_ROWS * FP32_N_TILE * FP32_BK / (_PEAK_FP32_FLOPS_PER_SM * _FP32_RATE)
+    extra = 0.0 if split == 1 else 2 * 16 * split * m * cout / _PEAK_BYTES
+    return -(-tiles // sms) * (steps / split + _FP32_TILE_OVERHEAD) * step + extra
+
+
+@functools.lru_cache(maxsize=256)
+def fp32_launch_plan(m: int, cin: int, cout: int, sms: int,
+                     path: Optional[int] = None) -> FP32Plan:
+    """The fp32 kernel's plan for M tiles, Cin -> Cout on a card of `sms`
+    SMs: `fp32_path`'s path (or `path`, forced); on the general path the
+    split that minimises `fp32_product_seconds` (ties to fewer slices), so
+    it splits only where the unsplit tiles leave SMs idle; the narrow paths
+    split 1."""
+    path = fp32_path(cin, cout) if path is None else path
+    if path != FP32_GENERAL:
+        return FP32Plan(path, 1)
+    steps = fp32_steps(cin)
+    return FP32Plan(path, min(range(1, min(FP32_MAX_SPLIT, steps) + 1),
+                              key=lambda s: (fp32_product_seconds(m, cin, cout, sms, s), s)))
+
+
+def fp32_plan_ok(plan: FP32Plan, cin: int, cout: int) -> bool:
+    """Whether the fp32 C entry takes `plan` for Cin -> Cout (it refuses
+    the rest with cudaErrorInvalidValue)."""
+    if plan.path == FP32_NARROW_IN:
+        return cin == 4 and plan.split == 1
+    if plan.path == FP32_NARROW_OUT:
+        return cout == 4 and cin % 4 == 0 and plan.split == 1
+    return plan.path == FP32_GENERAL and 1 <= plan.split <= min(FP32_MAX_SPLIT, fp32_steps(cin))
+
+
+def fp32_plan_items(m: int, cin: int, cout: int, split: int) -> List[WorkItem]:
+    """The general path's work items in grid order, as `wino32_product`
+    (csrc/winograd_fp32.cu) takes them: CTA t's slice t % split, then column
+    blocks, then row blocks; slice s covers steps [s*S/split, (s+1)*S/split)
+    of the S = `fp32_steps(Cin)` (step st: position st // nk, channels
+    [st % nk * FP32_BK, + FP32_BK), nk = Cin_p / FP32_BK)."""
+    nrow, ncol = -(-m // FP32_ROWS), -(-cout // FP32_N_TILE)
+    steps = fp32_steps(cin)
+    items = []
+    for t in range(nrow * ncol * split):
+        s, nb, mb = t % split, t // split % ncol, t // split // ncol
+        items.append(WorkItem(mb * FP32_ROWS, nb * FP32_N_TILE, s * steps // split,
+                              (s + 1) * steps // split, s))
+    return items
 
 
 def winograd_conv3x3_split_plain(x: torch.Tensor, parts: torch.Tensor,
@@ -271,10 +385,11 @@ def winograd_conv3x3_cuda(x: torch.Tensor, ut: torch.Tensor, bias: torch.Tensor,
                           split: Optional[int] = None) -> torch.Tensor:
     """Launch the Hopper kernel on CUDA tensors of one dtype, bf16
     (`csrc/winograd.cu`) or fp32 (`csrc/winograd_fp32.cu`): x NHWC [B, H, W,
-    Cin] (H, W even), the product launch's weights ut = padded_weights(U)
-    [16, Cout_p, Cin_p], bias [Cout]; `split` forces a split of the bf16
-    kernel's product steps (else `launch_plan`'s; the fp32 kernel takes none
-    but 1); raises on anything it does not take."""
+    Cin] (H, W even), the weights as the kernel reads them (bf16
+    `padded_weights(U)` [16, Cout_p, Cin_p], fp32 `padded_weights_fp32(U)`
+    [16, Cout, Cin_p]), bias [Cout]; `split` forces the split of the plan
+    (`launch_plan`'s, `fp32_launch_plan`'s; the fp32 narrow paths take 1
+    alone); raises on anything it does not take."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the CUDA kernels take bfloat16 or float32, x is {x.dtype}")
     for t, name in ((ut, "ut"), (bias, "bias")):
@@ -288,28 +403,42 @@ def winograd_conv3x3_cuda(x: torch.Tensor, ut: torch.Tensor, bias: torch.Tensor,
                          f"{tuple(bias.shape)}")
     b, h, w, cin = x.shape
     cout = bias.shape[0]
-    cin_p = -(-cin // K_TILE) * K_TILE
-    cout_p = -(-cout // N_TILE) * N_TILE
+    fp32 = x.dtype == torch.float32
+    if fp32:
+        cin_p, cout_p, what = -(-cin // FP32_BK) * FP32_BK, cout, "padded_weights_fp32"
+    else:
+        cin_p, cout_p, what = -(-cin // K_TILE) * K_TILE, -(-cout // N_TILE) * N_TILE, \
+            "padded_weights"
     if tuple(ut.shape) != (16, cout_p, cin_p) or not ut.is_contiguous():
-        raise ValueError(f"want ut = padded_weights(U), contiguous [16, {cout_p}, {cin_p}]; got "
+        raise ValueError(f"want ut = {what}(U), contiguous [16, {cout_p}, {cin_p}]; got "
                          f"{tuple(ut.shape)}")
     if h % 2 or w % 2 or b * h * w == 0:
         raise ValueError(f"the kernel takes even, non-empty H and W; got x {tuple(x.shape)}")
     x = x.contiguous()
     bias = bias.contiguous()
     m = b * (h // 2) * (w // 2)
-    v = torch.empty((16, m, cin_p), dtype=x.dtype, device=x.device)
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     key = (b, h, w, cin, cout)
-    if x.dtype == torch.float32:
-        if split not in (None, 1):
-            raise ValueError(f"the fp32 kernel has no split, got {split}")
+    if fp32:
+        plan = fp32_launch_plan(m, cin, cout, sm_count(x.device.index))
+        if split is not None:
+            plan = plan._replace(split=split)
+            if not fp32_plan_ok(plan, cin, cout):
+                raise ValueError(f"the fp32 kernel's path {plan.path} takes no split {split} "
+                                 f"at Cin {cin}, Cout {cout}")
+        general = plan.path == FP32_GENERAL
+        v = torch.empty((16, m, cin_p), dtype=x.dtype, device=x.device) if general else None
+        ws = (torch.empty((plan.split, 4, m, cout), dtype=x.dtype, device=x.device)
+              if general and plan.split > 1 else None)
         name, tag = "winograd_conv3x3_fp32_fwd", "fp32"
         with torch.cuda.device(x.device):
-            err = _fn(name)(x.data_ptr(), ut.data_ptr(), bias.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), b, h, w, cin, cout, cin_p, cout_p, stream)
+            err = _fn(name)(x.data_ptr(), ut.data_ptr(), bias.data_ptr(),
+                            None if v is None else v.data_ptr(),
+                            None if ws is None else ws.data_ptr(), out.data_ptr(), b, h, w, cin,
+                            cout, cin_p, *plan, stream)
     else:
+        v = torch.empty((16, m, cin_p), dtype=x.dtype, device=x.device)
         plan = launch_plan(m, cin, cout, sm_count(x.device.index))
         if split is not None:
             if not 1 <= split <= 16 * (cin_p // K_TILE):
@@ -337,10 +466,7 @@ class WinogradConv3x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel, bias):
         ctx.save_for_backward(x, kernel)
-        u = transform_weights(kernel)
-        if x.device.type == "cuda":
-            return winograd_conv3x3_cuda(x, padded_weights(u), bias)
-        return winograd_conv3x3_plain(x, u, bias)
+        return _winograd_forward(x, kernel, bias)
 
     @staticmethod
     def backward(ctx, g):
@@ -353,6 +479,54 @@ class WinogradConv3x3(torch.autograd.Function):
         return dx, dk, dbias
 
 
+# (id, storage, dtype, shape, device) of a leaf weight tensor -> (a weak
+# reference to it, its version counter, its layout); the most recent
+# _LAYOUT_CACHE_SIZE weights
+_layouts: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+_LAYOUT_CACHE_SIZE = 64
+
+
+def kernel_layout(kernel: torch.Tensor) -> torch.Tensor:
+    """The weights of an HWIO kernel as the op reads them: on a CUDA tensor
+    the kernel's layout (`padded_weights_fp32` in fp32, `padded_weights` in
+    bf16) of U = `transform_weights(kernel)`, on a CPU tensor U. Kept per
+    leaf weight tensor (a parameter, or a tensor that takes no gradient) and
+    served again while it is the same tensor object, on the same storage,
+    dtype, shape and device, at the same version counter (an in-place
+    update, e.g. an optimizer step, makes it anew; one made through
+    `.data` moves no version counter and is not seen). A tensor made under
+    `torch.inference_mode` has no version counter, and a non-leaf (e.g. a
+    cast of a parameter under autograd, which the backward keeps alive) is
+    made anew each forward: the layout of both is made every call."""
+    keep = kernel.is_leaf and not kernel.is_inference()
+    key = (id(kernel), kernel.data_ptr(), kernel.dtype, tuple(kernel.shape),
+           kernel.device) if keep else None
+    hit = _layouts.get(key)
+    if hit is not None and hit[0]() is kernel and hit[1] == kernel._version:
+        _layouts.move_to_end(key)
+        return hit[2]
+    with torch.no_grad():
+        u = transform_weights(kernel.detach())
+        if kernel.device.type == "cuda":
+            u = padded_weights_fp32(u) if kernel.dtype == torch.float32 else padded_weights(u)
+    if key is not None:
+        # the entry goes when its weight does
+        _layouts[key] = (weakref.ref(kernel, lambda _, key=key: _layouts.pop(key, None)),
+                         kernel._version, u)
+        _layouts.move_to_end(key)
+        while len(_layouts) > _LAYOUT_CACHE_SIZE:
+            _layouts.popitem(last=False)
+    return u
+
+
+def _winograd_forward(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The kernel (CUDA) or its plain version (CPU) on `kernel_layout`."""
+    u = kernel_layout(kernel)
+    if x.device.type == "cuda":
+        return winograd_conv3x3_cuda(x, u, bias)
+    return winograd_conv3x3_plain(x, u, bias)
+
+
 def winograd_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """stride-1 SAME 3x3 conv of NHWC x (H, W even) with an HWIO kernel and
@@ -362,10 +536,7 @@ def winograd_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
         raise ValueError(f"no Winograd path for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernel, bias)):
         return WinogradConv3x3.apply(x, kernel, bias)
-    u = transform_weights(kernel)
-    if x.device.type == "cuda":
-        return winograd_conv3x3_cuda(x, padded_weights(u), bias)
-    return winograd_conv3x3_plain(x, u, bias)
+    return _winograd_forward(x, kernel, bias)
 
 
 def vmem_estimate(h: int, w: int, cin: int, cout: int, itemsize: int) -> int:

@@ -197,6 +197,15 @@ Slice 17 (the fp32 K9 redesigned, with a launch plan) adds:
       knobs and one under the fused knobs through the profiler: device time
       by category (the fp32 kernels by name, fp32 K9 apart from bf16 K9)
       and the idle share.
+Slice 18 (the fp32 K10 redesigned: narrow paths for Cin or Cout 4, the
+general path on K9's design with a launch plan) adds:
+  4h. K10 fp32's rows print the plan, each shape's planted fault is its
+      path's (FP32_FAULTS "wino" general, "wino_narrow" narrow); at
+      WINO_FP32_FORCED it runs through its C entry under every path the
+      shape takes and every split (the fp32 gate, repeats bit for bit);
+      WINO_FP32_EDGE_SHAPES (ragged M, Cin and Cout off 16, B1) through
+      the wrapper; `conv3x3_same` itself timed at every shape, with its
+      cached weight layout and with the layout made anew a call.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -2736,9 +2745,18 @@ FP32_FAULTS = {
              "        for (int j = 0; j < NJ; ++j)\n"
              "          if (EPI == EPI_GEGLU || kt * BK / 64 != 1)\n"
              "            acc[i][j] = fmaf(fa[i], fb[j], acc[i][j]);")]),
-    "wino": ("winograd_fp32.cu", "winograd_conv3x3_fp32_fwd", "position 5 left out",
-             [("    if (kc == nkc - 1) add_position(y, mm, ij);",
-               "    if (kc == nkc - 1 && ij != 5) add_position(y, mm, ij);")]),
+    "wino": ("winograd_fp32.cu", "winograd_conv3x3_fp32_fwd",
+             "position 5 left out of the general path's quadrants",
+             [("      if (coef == 0) continue;\n#pragma unroll\n      for (int i = 0; i < MI; ++i)",
+               "      if (coef == 0 || ij == 5) continue;\n#pragma unroll\n"
+               "      for (int i = 0; i < MI; ++i)")]),
+    "wino_narrow": ("winograd_fp32.cu", "winograd_conv3x3_fp32_fwd",
+                    "position 5 left out of the narrow paths' products",
+                    [("    if (coef == 0) continue;  // position ij adds nothing to quadrant q",
+                      "    if (coef == 0 || ij == 5) continue;  // position ij adds nothing to "
+                      "quadrant q"),
+                     ("      const float4 tv = input_position(d, i, j);",
+                      "      const float4 tv = ij == 5 ? float4{} : input_position(d, i, j);")]),
 }
 # [fp32-main]: DDIM steps of each fp32 request (the generate path's STEPS
 # cut so that the script keeps its time; the only cut)
@@ -2855,6 +2873,50 @@ def ff_fp32_forced_plans(torch, ff, label, args, plain):
     say(f"[fp32-fused] {label:30s}: {len(plans)} forced plans (widths, splits 1.."
         f"{ff.FP32_MAX_SPLIT}) through the C entry: worst max abs err {worst[0]:.3e}, "
         f"rel L2 {worst[1]:.3e}; repeats bit for bit")
+
+
+# K10 fp32 shapes (B, H, W, Cin, Cout) that 4h also runs through its C
+# entry under every path the shape takes and every split; edge shapes
+# through the wrapper (ragged M, Cin and Cout off 16, B1; every path)
+WINO_FP32_FORCED = {(16, 8, 8, 1280, 1280), (8, 64, 64, 4, 320), (16, 64, 64, 320, 4)}
+WINO_FP32_EDGE_SHAPES = [(1, 18, 22, 20, 70), (1, 12, 10, 3, 17), (3, 10, 12, 8, 100),
+                         (1, 34, 30, 36, 4), (2, 14, 18, 44, 8), (1, 8, 8, 1280, 1280)]
+
+
+def wino_fp32_forced_plans(torch, tw, label, x, ut, bias, plain):
+    """K10 fp32 through its C entry under every plan it takes at this shape
+    (the general path under every split, and the narrow path of the shape):
+    each within the fp32 gate of `plain`, each repeat bit for bit."""
+    b, h, w, cin = x.shape
+    cout = bias.shape[0]
+    m = b * h * w // 4
+    cin_p = ut.shape[2]
+    plans = [tw.FP32Plan(tw.FP32_GENERAL, s)
+             for s in range(1, min(tw.FP32_MAX_SPLIT, tw.fp32_steps(cin)) + 1)]
+    narrow = tw.fp32_path(cin, cout)
+    if narrow != tw.FP32_GENERAL:
+        plans.append(tw.FP32Plan(narrow, 1))
+    v = x.new_empty((16, m, cin_p))
+    ws = x.new_empty((tw.FP32_MAX_SPLIT, 4, m, cout))
+    out = x.new_empty((b, h, w, cout))
+    fn = tw._fn("winograd_conv3x3_fp32_fwd")
+    stream = torch.cuda.current_stream().cuda_stream
+    worst = (0.0, 0.0)
+    for plan in plans:
+        got = []
+        for _ in range(2):
+            out.fill_(float("nan"))
+            rc = fn(x.data_ptr(), ut.data_ptr(), bias.data_ptr(), v.data_ptr(), ws.data_ptr(),
+                    out.data_ptr(), b, h, w, cin, cout, cin_p, *plan, stream)
+            torch.cuda.synchronize()
+            if rc:
+                fail(f"{label} under {plan}: CUDA error {rc}")
+            got.append(out.clone())
+        err, rel = _gate_fused_fp32(torch, f"{label} under {plan}", got[0], got[1], plain)
+        worst = (max(worst[0], err), max(worst[1], rel))
+    say(f"[fp32-fused] {label:40s}: {len(plans)} forced plans (paths, splits) "
+        f"through the C entry: worst max abs err {worst[0]:.3e}, rel L2 {worst[1]:.3e}; repeats "
+        f"bit for bit")
 
 
 def phase_fused_fp32_kernels(torch, card, exp2_rate, wino_shapes):
@@ -2980,14 +3042,16 @@ def phase_fused_fp32_kernels(torch, card, exp2_rate, wino_shapes):
         cases[key] = (x, kern, bias)
         label = f"winograd fp32 B{b} {h}x{w} Cin{cin} Cout{cout}"
         u = tw.transform_weights(kern)
-        ut = tw.padded_weights(u)  # the kernel's layout, made outside the timed call
+        ut = tw.padded_weights_fp32(u)  # the kernel's layout, made outside the timed call
         call = lambda: tw.winograd_conv3x3_cuda(x, ut, bias)
         tw.launches_by_shape.clear()
         out, again = call(), call()
         torch.cuda.synchronize()
         if tw.launches_by_shape != {("fp32",) + key: 2}:
             fail(f"{label}: the wrapper counted {tw.launches_by_shape} for two calls")
-        with entry_replaced(tw, FP32_FAULTS["wino"][1], faults["wino"]):
+        plan = tw.fp32_launch_plan(b * h * w // 4, cin, cout, sms)
+        fault = "wino" if plan.path == tw.FP32_GENERAL else "wino_narrow"
+        with entry_replaced(tw, FP32_FAULTS[fault][1], faults[fault]):
             wrong = call()
         plain = tw.winograd_conv3x3_plain(x, u, bias)
         err, rel = _gate_fused_fp32(torch, label, out, again, plain, wrong)
@@ -2998,13 +3062,41 @@ def phase_fused_fp32_kernels(torch, card, exp2_rate, wino_shapes):
         wc = kern.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         library_ms = time_ms(torch, lambda: F.conv2d(xc, wc, bias, padding=1))
         bound_ms, bound_by = wino_bound(b, h, w, cin, cout, itemsize=4, peak=PEAK_FP32_FLOPS)
+        # the public op, its weight layout kept (the default) and made anew
+        # every call; the direct conv where the fp32 gate sends the shape
+        with knobs_set({"ADAFACE_WINOGRAD": "1"}):
+            op = "" if tw.winograd_eligible(x.shape, cout, 4) else " (direct conv)"
+            op_ms = time_ms(torch, lambda: tw.conv3x3_same(x, kern, bias))
+
+            def anew():
+                tw._layouts.clear()
+                return tw.conv3x3_same(x, kern, bias)
+            anew_ms = time_ms(torch, anew, reps=3, rounds=5)
         say(f"[fp32-fused] {label:40s}: max abs err {err:.3e} of the largest value, rel L2 "
-            f"{rel:.3e}; kernel {ms:.4f} ms device {dev_ms:.4f} ms bound {bound_ms:.4f} ms "
-            f"({bound_by}) plain {plain_ms:.4f} ms F.conv2d fp32 {library_ms:.4f} ms [{card}]")
+            f"{rel:.3e} (fault: {FP32_FAULTS[fault][2]}); kernel {ms:.4f} ms device "
+            f"{dev_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) plain {plain_ms:.4f} ms "
+            f"F.conv2d fp32 {library_ms:.4f} ms; conv3x3_same{op} {op_ms:.4f} ms, layout made "
+            f"every call {anew_ms:.4f} ms; {plan} [{card}]")
+        if key in WINO_FP32_FORCED:
+            wino_fp32_forced_plans(torch, tw, label, x, ut, bias, plain)
         rows[("wino",) + key] = dict(max_abs_err=err * plain.abs().max().item(), ms=ms,
                                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                     library_ms=library_ms, device_ms=dev_ms)
+                                     library_ms=library_ms, device_ms=dev_ms,
+                                     conv3x3_same_ms=op_ms)
         del out, again, wrong, plain, ut, u
+    for b, h, w, cin, cout in WINO_FP32_EDGE_SHAPES:
+        x = randn(b, h, w, cin)
+        kern = randn(3, 3, cin, cout) / (9 * cin) ** 0.5
+        bias = 0.2 * randn(cout)
+        label = f"winograd fp32 B{b} {h}x{w} Cin{cin} Cout{cout}"
+        u = tw.transform_weights(kern)
+        ut = tw.padded_weights_fp32(u)
+        out = tw.winograd_conv3x3_cuda(x, ut, bias)
+        again = tw.winograd_conv3x3_cuda(x, ut, bias)
+        err, rel = _gate_fused_fp32(torch, label, out, again, tw.winograd_conv3x3_plain(x, u, bias))
+        say(f"[fp32-fused] {label:40s}: max abs err {err:.3e} rel L2 {rel:.3e}; "
+            f"{tw.fp32_launch_plan(b * h * w // 4, cin, cout, sms)}")
+        del x, out, again, ut, u
     # conv3x3_same in fp32: the gates at itemsize 4 decide, as in JAX
     tw.launches_by_shape.clear()
     with knobs_set({"ADAFACE_WINOGRAD": "1"}):

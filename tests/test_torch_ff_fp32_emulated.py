@@ -37,9 +37,9 @@ ENTRY = "ln_geglu_ff_fp32_fwd"
 
 
 # cp.async primitive -> its emulation: the kernel's own ring wait and the
-# shared header's (`csrc/ffma_tile.cuh`) copy, commit and wait
+# shared header's (`csrc/ffma_tile.cuh`) copy and commit
 EMU_BODIES = {"cp_async16": "emu_copy(dst, src, 4, valid);", "cp_async_commit": "emu_commit();",
-              "cp_async_wait_ring": "emu_wait(RING - 2);", "cp_async_wait_one": "emu_wait(1);"}
+              "cp_async_wait_ring": "emu_wait(RING - 2);"}
 
 
 def _emulated(text, names):
@@ -76,7 +76,7 @@ def libs(tmp_path_factory):
     shutil.copy(os.path.join(HERE, "cuda_emu.h"), out)
     header = open(os.path.join(kv.CSRC, "ffma_tile.cuh")).read()
     (out / "ffma_tile.cuh").write_text(_emulated(
-        header, ["cp_async16", "cp_async_commit", "cp_async_wait_one"]))
+        header, ["cp_async16", "cp_async_commit"]))
     source, _, _, patches = chip_smoke.FP32_FAULTS["ff"]
     srcs = {"base": open(os.path.join(kv.CSRC, SOURCE)).read(),
             "ff": kv.patched_sources(kv.CSRC, source, patches)["kernel.cu"]}

@@ -1,10 +1,11 @@
 """The text patches of the kernel-variant scripts (`kernel_variants.py`,
 `gn_variants.py`, `ff_variants.py` and its `--fp32` variants,
-`wino_variants.py`, `flash_variants.py`) and of `chip_smoke.py`'s planted
-faults: the tanh-SiLU of K8, and one fault for each fp32 kernel (`FP32_FAULTS`: the online softmax's rescale by alpha
+`wino_variants.py` and its `--fp32` variants, `flash_variants.py`) and of
+`chip_smoke.py`'s planted faults: the tanh-SiLU of K8, and the faults of
+the fp32 kernels (`FP32_FAULTS`: the online softmax's rescale by alpha
 skipped in the fp32 flash forward, a cluster peer's partial left out of
 K8's combine, an F chunk skipped in K9's GEMM2, a Winograd position left
-out of K10's sum).
+out of K10's general path and of its narrow paths).
 
 nvcc runs only on the card's machine; here each variant's sources are
 patched as `kernel_variants.build` patches them before it starts nvcc, so a
@@ -31,6 +32,8 @@ def _specs():
                 [n for n, v in ff_variants.FP32_VARIANTS.items() if v is not None])),
             ("wino", wino_variants.variant_specs([n for n in wino_variants.VARIANTS
                                                   if n != "old"])),
+            ("wino_fp32", wino_variants.fp32_variant_specs(
+                [n for n, v in wino_variants.FP32_VARIANTS.items() if v is not None])),
             ("flash", flash_variants.variant_specs(list(fwd), "flash_attn_packed.cu", fwd)),
             ("flash_bwd", flash_variants.variant_specs(
                 [n for n in bwd if bwd[n] is not None], "flash_attn_bwd.cu", bwd)),
