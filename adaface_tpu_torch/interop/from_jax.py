@@ -6,10 +6,14 @@ carry the flax names, so the map is mechanical:
 
 - Conv `kernel` HWIO -> `weight` OIHW;  Dense `kernel` [in, out] -> `weight` [out, in];
 - LayerNorm `scale` and Embed `embedding` -> `weight`;
-- every other leaf (biases, the bare GroupNorm `*_scale`/`*_bias`) as is.
+- every other leaf (biases, the bare GroupNorm `*_scale`/`*_bias`, the
+  vision tower's `class_embedding`, a generator's `[1, N, D]` `pos_embs` and
+  `latent_queries` and its `hidden_state_layer_weights`) as is.
 
 Each `*_state_dict_from_jax` returns what `load_state_dict(strict=True)` takes.
-`jax_tree_from_module` is the inverse, for round-trip checks.
+`load_subj_basis_generator_from_jax` loads a zero-shot generator, whose flax
+tree holds only the branches its init ran. `jax_tree_from_module` is the
+inverse, for round-trip checks.
 """
 
 from __future__ import annotations
@@ -45,7 +49,27 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+# the SD text encoder, the Arc2Face encoder (also a CLIP text tower), the
+# UNet and the CLIP vision tower
 clip_state_dict_from_jax = unet_state_dict_from_jax = state_dict_from_jax
+vision_state_dict_from_jax = state_dict_from_jax
+
+# the fg generator's DINO object branch: absent from a tree initialized
+# through the face branch (flax makes a submodule's params when it first runs)
+_OBJECT_BRANCH = ("obj_proj_dense.", "obj_proj_ln.")
+
+
+def load_subj_basis_generator_from_jax(gen: nn.Module, tree: Mapping) -> nn.Module:
+    """Load a JAX `SubjBasisGenerator` param tree into the port's `gen`.
+    Every leaf of the tree must land; of the module's own parameters only
+    the fg object branch may be missing from the tree (it then keeps its
+    values)."""
+    missing, unexpected = gen.load_state_dict(state_dict_from_jax(tree), strict=False)
+    missing = [k for k in missing if not k.startswith(_OBJECT_BRANCH)]
+    if missing or unexpected:
+        raise ValueError(f"generator tree mismatch: missing {missing}, "
+                         f"unexpected {unexpected}")
+    return gen
 
 
 def vae_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:

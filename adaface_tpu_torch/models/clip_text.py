@@ -6,7 +6,9 @@ the base vocabulary plus an extra table for placeholder ids (ids >=
 vocab_size), so the personalization layer can patch rows before the
 transformer; `forward` blends the last `num_skip_layers` hidden states with
 normalized `skip_weights` before the final LayerNorm (clip skip).
-Per-layer K/V multipliers (`kv_multipliers`) are not ported yet.
+`kv_multipliers` gives each layer m K/V copies of every token (the
+reference's `CLIPAttentionMKV`, made by `personalization.arc2face.
+extend_clip_mkv_params`): softmax runs over the m-times-longer key axis.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     layer_norm_eps: float = 1e-5
     num_extra_tokens: int = 0  # appended placeholder rows
+    kv_multipliers: Optional[tuple] = None  # per-layer K/V copies; None = all 1
 
     @classmethod
     def vit_l_14(cls, **kw) -> "CLIPTextConfig":
@@ -44,35 +47,42 @@ class CLIPTextConfig:
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, kv_multiplier: int = 1):
         super().__init__()
         w = cfg.hidden_size
         self.num_heads = cfg.num_heads
+        self.kv_multiplier = kv_multiplier
         self.q_proj = nn.Linear(w, w)
-        self.k_proj = nn.Linear(w, w)
-        self.v_proj = nn.Linear(w, w)
+        self.k_proj = nn.Linear(w, w * kv_multiplier)
+        self.v_proj = nn.Linear(w, w * kv_multiplier)
         self.out_proj = nn.Linear(w, w)
 
     def forward(self, x: torch.Tensor, causal: torch.Tensor) -> torch.Tensor:
         b, l, w = x.shape
         h = self.num_heads
         d = w // h
+        m = self.kv_multiplier
         split = lambda t: t.view(b, l, h, d).transpose(1, 2)
-        q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
+        # K/V copies lie [tok0_c0, .., tok0_c(m-1), tok1_c0, ..]: the copy
+        # index innermost, next to the sequence
+        split_kv = split if m == 1 else (
+            lambda t: t.view(b, l, m, h, d).permute(0, 3, 1, 2, 4).reshape(b, h, l * m, d))
+        q, k, v = split(self.q_proj(x)), split_kv(self.k_proj(x)), split_kv(self.v_proj(x))
         # fp32 score product, as the JAX encoder's preferred_element_type
         logits = torch.matmul((q * d ** -0.5).float(), k.float().transpose(-1, -2))
         # finfo.min, not -inf, as the JAX encoder masks
-        logits = logits.masked_fill(~causal, torch.finfo(torch.float32).min)
+        mask = causal if m == 1 else causal.repeat_interleave(m, dim=-1)
+        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         out = torch.matmul(probs, v).transpose(1, 2).reshape(b, l, w)
         return self.out_proj(out)
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, kv_multiplier: int = 1):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.self_attn = CLIPAttention(cfg)
+        self.self_attn = CLIPAttention(cfg, kv_multiplier)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
@@ -90,8 +100,9 @@ class CLIPTextEncoder(nn.Module):
         if cfg.num_extra_tokens > 0:
             self.extra_token_embedding = nn.Embedding(cfg.num_extra_tokens, cfg.hidden_size)
         self.position_embedding = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
+        mults = cfg.kv_multipliers or (1,) * cfg.num_layers
         for i in range(cfg.num_layers):
-            self.add_module(f"layers_{i}", CLIPEncoderLayer(cfg))
+            self.add_module(f"layers_{i}", CLIPEncoderLayer(cfg, mults[i]))
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:

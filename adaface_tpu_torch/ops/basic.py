@@ -7,6 +7,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -87,3 +88,32 @@ def geglu(x: torch.Tensor) -> torch.Tensor:
     with the tanh-approximate GELU (jax.nn.gelu's default)."""
     a, g = x.chunk(2, dim=-1)
     return a * F.gelu(g, approximate="tanh")
+
+
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] fp32 weights of `jax.image.resize`'s bilinear
+    (triangle) kernel with antialias: sample position (i + 0.5) * in/out -
+    0.5, kernel widened by in/out when shrinking, each column renormalized
+    to sum 1, columns sampled outside the input zeroed."""
+    inv_scale = np.float32(n_in / n_out)
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0).astype(np.float32)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+def resize_aa(x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """[..., H, W] -> [..., oh, ow] as `jax.image.resize(..., "bilinear")`
+    on those two axes (antialiased when shrinking), in fp32."""
+    h, w = x.shape[-2:]
+    x = x.float()
+    if (h, w) == (oh, ow):
+        return x
+    wh = torch.from_numpy(_resize_weights(h, oh)).to(x.device)
+    ww = torch.from_numpy(_resize_weights(w, ow)).to(x.device)
+    return torch.einsum("...hw,hy,wx->...yx", x, wh, ww)

@@ -1,25 +1,29 @@
-"""Placeholder registry and layerwise prompt patching, static embedders only
-(counterpart of the static part of
-`adaface_tpu/personalization/embedding_manager.py`).
+"""Placeholder registry and layerwise prompt patching (counterpart of
+`adaface_tpu/personalization/embedding_manager.py`): static embedders and
+zero-shot generators.
 
 Placeholder occupancy is a dense [B, T] slot map built on the host at
 tokenization time (k-th vector slot or -1); the layer axis leads: prompts
 patch into [L=16, B, T, D]. A K-vector token occupies K consecutive slots.
 Native checkpoints are the JAX package's `.npz` format (one array per
 `<placeholder>::<field>` plus a JSON header), so either package reads the
-other's. Zero-shot generators and reference `.pt` loading are not ported
-yet.
+other's. A zero-shot placeholder takes its embeddings from a
+`SubjBasisGenerator` fed by reference-image features (`arc2face_encoder`
+runs the frozen Arc2Face forward first). Reference `.pt` loading is not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
+from adaface_tpu_torch.personalization.arc2face import forward_face_embs
 from adaface_tpu_torch.personalization.static_embedding import (
     StaticEmbedderParams,
     compute_static_embedding,
@@ -44,7 +48,63 @@ class EmbeddingManager:
         self.placeholders: Dict[str, PlaceholderInfo] = {}
         self.embedders: Dict[str, StaticEmbedderParams] = {}
         self.emb_global_scale_scores: Dict[str, float] = {}
+        # zero-shot: placeholder -> SubjBasisGenerator
+        self.subj_basis_generators: Dict[str, nn.Module] = {}
+        # the frozen Arc2Face text encoder (a CLIPTextEncoder)
+        self.arc2face_encoder: Optional[nn.Module] = None
         self.use_conv_attn_kernel_size: int = -1
+
+    # ----------------------------------------------------------- zero-shot
+    def add_zero_shot_placeholder(self, string: str, token_id: int, generator: nn.Module,
+                                  num_vectors: Optional[int] = None,
+                                  is_background: bool = False):
+        """Register a placeholder whose embeddings come from `generator` (a
+        `SubjBasisGenerator`); no static embedder is made for it.
+        `num_vectors` defaults to the generator's K (16 fg, 4 bg) and must
+        equal it: more slots than the generator emits would repeat its last
+        embedding into the extra ones."""
+        gen_k = getattr(generator, "num_out_embs_per_layer", None)
+        if num_vectors is None:
+            num_vectors = gen_k if gen_k is not None else 16
+        elif gen_k is not None and num_vectors != gen_k:
+            raise ValueError(f"placeholder '{string}': num_vectors={num_vectors} != the "
+                             f"generator's num_out_embs_per_layer={gen_k}")
+        self.placeholders[string] = PlaceholderInfo(string, token_id, num_vectors,
+                                                    is_background)
+        self.subj_basis_generators[string] = generator
+        self.emb_global_scale_scores.setdefault(string, 0.0)
+
+    def compute_zero_shot_embeddings(self, features, inverse_template_ids,
+                                     forward_template_ids=None,
+                                     arcface_token_id: Optional[int] = None,
+                                     out_id_embs_scale: float = 1.0, is_face: bool = True,
+                                     is_training: bool = False,
+                                     inf_emb_type: str = "full_half_pad"
+                                     ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
+        """placeholder -> [L, B, K, D] zero-shot embeddings, and the fg
+        subject's inverse prompt embeddings: id embeddings -> the frozen
+        Arc2Face forward -> each placeholder's generator. `features` is a
+        `ZeroShotFeatures`; the template ids are [1, T]."""
+        arc2face_id_embs = None
+        if is_face and features.id_embs is not None:
+            if self.arc2face_encoder is None:
+                raise ValueError("set arc2face_encoder for zero-shot faces")
+            _, arc2face_id_embs = forward_face_embs(
+                self.arc2face_encoder, features.id_embs.detach(), forward_template_ids,
+                arcface_token_id)
+        out: Dict[str, torch.Tensor] = {}
+        inverse_prompt_embs = None
+        for s, gen in self.subj_basis_generators.items():
+            info = self.placeholders[s]
+            embs, inv = gen(features.clip_bg if info.is_background else features.clip_fg,
+                            None if is_face else features.id_embs, arc2face_id_embs,
+                            out_id_embs_scale=out_id_embs_scale, is_face=is_face,
+                            is_training=is_training, inverse_template_ids=inverse_template_ids,
+                            arc2face_inverse_prompt_embs_inf_type=inf_emb_type)
+            out[s] = embs.transpose(0, 1)  # [B, L, K, D] -> [L, B, K, D]
+            if inv is not None and not info.is_background:
+                inverse_prompt_embs = inv
+        return out, inverse_prompt_embs
 
     def add_placeholder(self, string: str, token_id: int, num_vectors: int = 1,
                         is_background: bool = False,

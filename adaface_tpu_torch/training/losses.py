@@ -13,7 +13,7 @@ Resizes: the recon battery's and the cross-layer map's are 2-tap bilinear
 (torch `F.interpolate` semantics, no antialias), as the JAX package writes
 them; the compositional losses' follow `jax.image.resize(..., "bilinear")`,
 which antialiases when it shrinks (a triangle kernel widened by the scale,
-weights renormalized): `_resize_aa` builds those weight matrices on the host.
+weights renormalized): `ops.basic.resize_aa` builds those weight matrices on the host.
 Options of the JAX helpers that only the webdataset losses use (squared
 means, sqrt-normalized scores, reweighted sums) are not ported yet.
 """
@@ -22,9 +22,9 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
+from adaface_tpu_torch.ops.basic import resize_aa
 from adaface_tpu_torch.ops.grad import scale_grad as grad_scale
 
 
@@ -374,35 +374,6 @@ def dyn_loss_scale(loss: torch.Tensor, loss_base: float, loss_scale_base: float,
                        loss_scale_base * max_scale_base_ratio)
 
 
-def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """[n_in, n_out] fp32 weights of `jax.image.resize`'s bilinear
-    (triangle) kernel with antialias: sample position (i + 0.5) * in/out -
-    0.5, kernel widened by in/out when shrinking, each column renormalized
-    to sum 1, columns sampled outside the input zeroed."""
-    inv_scale = np.float32(n_in / n_out)
-    kernel_scale = max(inv_scale, np.float32(1.0))
-    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
-    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, 1), 0).astype(np.float32)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0).astype(np.float32)
-
-
-def _resize_aa(x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
-    """[..., H, W] -> [..., oh, ow] as `jax.image.resize(..., "bilinear")`
-    on those two axes (antialiased when shrinking), in fp32."""
-    h, w = x.shape[-2:]
-    x = x.float()
-    if (h, w) == (oh, ow):
-        return x
-    wh = torch.from_numpy(_resize_weights(h, oh)).to(x.device)
-    ww = torch.from_numpy(_resize_weights(w, ow)).to(x.device)
-    return torch.einsum("...hw,hy,wx->...yx", x, wh, ww)
-
-
 def convert_attn_to_spatial_weight(flat_attn: torch.Tensor, out_hw,
                                    reverse: bool = True) -> torch.Tensor:
     """[B, h, Q] summed subject attention (detached) -> [B, H, W, 1] spatial
@@ -414,7 +385,7 @@ def convert_attn_to_spatial_weight(flat_attn: torch.Tensor, out_hw,
     s = int(round(a.shape[-1] ** 0.5))
     if s * s != a.shape[-1]:
         raise ValueError(f"non-square attention grid: Q={a.shape[-1]}")
-    attn = _resize_aa(a.mean(dim=1).reshape(B, s, s), out_hw[0], out_hw[1])[..., None]
+    attn = resize_aa(a.mean(dim=1).reshape(B, s, s), out_hw[0], out_hw[1])[..., None]
     mean = attn.mean(dim=(1, 2), keepdim=True)
     std = attn.std(dim=(1, 2), keepdim=True, correction=1)
     denom = torch.maximum(std + 0.001, mean / 2)
@@ -534,7 +505,7 @@ def comp_fg_bg_preserve_loss(ca_outfeats: dict, ca_qs: dict, ca_attnscores: dict
         q = ca_qs[idx].float()
         qh = int(round(q.shape[2] ** 0.5))
         q_img = q.transpose(2, 3).reshape(B4, -1, qh, qh)
-        feat_img = _resize_aa(outfeat.float().permute(0, 3, 1, 2), qh, qh)
+        feat_img = resize_aa(outfeat.float().permute(0, 3, 1, 2), qh, qh)
         feat_img = _channel_layer_norm(feat_img)
         if qh > 8:
             q_img = _avg_pool_nc(q_img, pool_kernel, pool_stride)
@@ -554,7 +525,7 @@ def comp_fg_bg_preserve_loss(ca_outfeats: dict, ca_qs: dict, ca_attnscores: dict
             n = subj_attn.shape[-1]
             if n != Np:
                 s, ph2 = int(round(n ** 0.5)), int(round(Np ** 0.5))
-                subj_attn = _resize_aa(subj_attn.reshape(B4, -1, s, s), ph2, ph2)
+                subj_attn = resize_aa(subj_attn.reshape(B4, -1, s, s), ph2, ph2)
                 subj_attn = subj_attn.reshape(B4, -1, ph2 * ph2)
             a4 = subj_attn.reshape(4, B, *subj_attn.shape[1:])  # [4, B, h, Np]
             subj_pos = torch.clamp_min(a4[1], 0.0)

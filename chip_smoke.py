@@ -206,6 +206,22 @@ general path on K9's design with a launch plan) adds:
       WINO_FP32_EDGE_SHAPES (ragged M, Cin and Cout off 16, B1) through
       the wrapper; `conv3x3_same` itself timed at every shape, with its
       cached weight layout and with the layout made anew a call.
+Slice 19 (zero-shot generation; no kernel of its own) adds:
+  [zero-shot]. after [fp32-main], the zero-shot stack at the shipped
+      model's widths in bf16 from seeds (a ViT-L/14 vision tower, a ViT-L/14
+      text Arc2Face encoder, the fg generator on that config with K 16, the
+      bg generator with K 4) on [main]'s UNet, VAE and CLIP, fed four
+      512x512 reference images with fg masks and a seeded face embedder
+      that finds no face in one: the three vision passes, the Arc2Face
+      forward and generators, `encode_prompts` (stage ms), one warm-up and
+      3 batch-8 requests at [main]'s point (s/request, peak GiB). Gates: the
+      fg and bg features, both generators' outputs and the context each
+      within its ZS_REL_TOL of the same code in fp32 on the CPU, while
+      each of its faults (a second identity, fg features in place of bg
+      ones) falls outside it; a second identity moves the context by more
+      than ZS_MOVE_MIN and the same one repeats it bit for bit; each
+      request's flash launches those of a [main] request;
+      `generate(context=...)` images of the right shape.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -1254,6 +1270,16 @@ def rel_err(a, b):
     return ((a.float().cpu() - b).norm() / b.norm()).item()
 
 
+def cpu_fp32_copy(torch, m, build=None):
+    """m's weights in fp32 on the CPU, in a module from `build()` (by
+    default `type(m)(m.cfg)`)."""
+    with torch.device("meta"):
+        c = build() if build is not None else type(m)(m.cfg)
+    c = c.to_empty(device="cpu")
+    c.load_state_dict({k: v.float().cpu() for k, v in m.state_dict().items()})
+    return c.eval()
+
+
 def phase_reference(torch, pipe):
     """SD-width models, bf16 on the card vs fp32 on the CPU, same weights;
     the UNet twice, with the default knobs and with `FUSED_KNOBS` (kernels
@@ -1261,13 +1287,7 @@ def phase_reference(torch, pipe):
     from adaface_tpu_torch.models.unet import precompute_cross_kv
 
     fn, ff = _fused_ops()
-
-    def cpu_copy(m):
-        with torch.device("meta"):
-            c = type(m)(m.cfg)
-        c = c.to_empty(device="cpu")
-        c.load_state_dict({k: v.float().cpu() for k, v in m.state_dict().items()})
-        return c.eval()
+    cpu_copy = lambda m: cpu_fp32_copy(torch, m)
 
     gen = torch.Generator().manual_seed(1)
     ids = pipe.tokenizer(["a photo of a z , , , , , , , , person", "a red car"])
@@ -1638,12 +1658,7 @@ def phase_train_reference(torch, pipe, trainer_cls, tmp):
                                              for n, t in embedder_leaves(p)})
                 for s, p in mgr.embedders.items()}
 
-    def cpu_copy(m):
-        with torch.device("meta"):
-            c = type(m)(m.cfg)
-        c = c.to_empty(device="cpu")
-        c.load_state_dict({k: v.float().cpu() for k, v in m.state_dict().items()})
-        return c.eval().requires_grad_(False)
+    cpu_copy = lambda m: cpu_fp32_copy(torch, m).requires_grad_(False)
 
     emb_gpu = copy_embedders(pipe.embedding_manager, pipe.device)
     eps_gpu, eps_cpu = [], []
@@ -3992,6 +4007,277 @@ def phase_upsample(torch, pipe, card):
         + ", ".join(f"{name} {t:.4f} ms" for name, t in total.items()) + f" [{card}]")
 
 
+# [zero-shot]: a request conditioned on reference images alone (the JAX
+# package's `scripts/zero_shot_test.py` path) on [main]'s UNet, VAE and CLIP
+ZS_PROMPT = "a photo of a z " + ", " * 15 + "y, person"
+ZS_IMAGES, ZS_IMAGE_SIZE, ZS_FACELESS = 4, 512, 2  # reference images; index without a face
+# relative L2 error of each zero-shot output, bf16 on the card vs the same
+# port code in fp32 on the CPU: the vision tower's fg and bg features, the
+# fg (z) and bg (y) generators' [16, 1, K, 768] outputs, and the context
+# after CLIP. The phase also runs faults through the card's stack (a second
+# identity; the fg features fed to the bg generator): each output they
+# change must fall outside its tolerance, so that the gate can tell a wrong
+# stack from a sound one. Measured on an H100: clip_fg 1.495e-2, clip_bg
+# 1.489e-2, z 1.274e-2, y 8.524e-3, context 1.143e-2; the faults 4.609e-2
+# (the context under fg features as bg) to 2.006
+ZS_REL_TOL = {"clip_fg": 3e-2, "clip_bg": 3e-2, "z": 2.5e-2, "y": 2e-2, "context": 3e-2}
+ZS_MOVE_MIN = 1e-3  # a second identity must move the context by more (max abs)
+ZS_CONTEXT_BATCH, ZS_CONTEXT_STEPS = 2, 10  # the generate(context=...) check
+
+
+def zero_shot_builds(tok):
+    """name -> constructor of each zero-shot module at the shipped model's widths:
+    a ViT-L/14 vision tower, a ViT-L/14 text Arc2Face encoder, a fg generator
+    (prompt2token_proj of that config, K 16) and a bg generator (1024-wide
+    image features, 4 heads, 257 tokens, K 4), as the JAX trainer builds
+    them."""
+    from adaface_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+    from adaface_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
+    from adaface_tpu_torch.personalization.subj_basis_generator import SubjBasisGenerator
+
+    vis = CLIPVisionConfig.vit_l_14()
+    return {
+        "vision": lambda: CLIPVisionEncoder(vis),
+        "arc2face": lambda: CLIPTextEncoder(CLIPTextConfig.vit_l_14()),
+        "fg": lambda: SubjBasisGenerator(
+            placeholder_is_bg=False, num_out_layers=16, num_out_embs_per_layer=16,
+            output_dim=768, proj_cfg=CLIPTextConfig.vit_l_14(), pad_token_id=tok.eos_id),
+        "bg": lambda: SubjBasisGenerator(
+            placeholder_is_bg=True, num_out_layers=16, num_out_embs_per_layer=4,
+            output_dim=768, image_embedding_dim=vis.hidden_size, num_heads=4,
+            bg_num_id_vecs=vis.num_tokens),
+    }
+
+
+def zero_shot_references(seed):
+    """ZS_IMAGES uint8 RGB images of ZS_IMAGE_SIZE and disk-shaped fg masks,
+    from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = ZS_IMAGE_SIZE
+    images = [rng.integers(0, 256, (n, n, 3), dtype=np.uint8) for _ in range(ZS_IMAGES)]
+    yy, xx = np.mgrid[:n, :n]
+    masks = []
+    for _ in range(ZS_IMAGES):
+        cy, cx, r = rng.uniform(0.3 * n, 0.7 * n, 2).tolist() + [rng.uniform(0.2, 0.4) * n]
+        masks.append(((yy - cy) ** 2 + (xx - cx) ** 2 <= r * r).astype(np.float32))
+    return images, masks
+
+
+def zero_shot_face_fn(images, seed):
+    """A face embedder for `images`: a seeded unit 512-d vector for each, and
+    None for image ZS_FACELESS (the face stack is not ported yet)."""
+    import numpy as np
+
+    def face(img):
+        i = next(k for k, im in enumerate(images) if im is img)
+        if i == ZS_FACELESS:
+            return None
+        v = np.random.default_rng([seed, i]).standard_normal(512)
+        return (v / np.linalg.norm(v)).astype(np.float32)
+    return face
+
+
+def zero_shot_pipeline(torch, tok, clip, unet, vae, models, features):
+    """A pipeline on (clip, unet, vae) whose manager holds the zero-shot
+    placeholders z (fg, K 16) and y (bg, K 4) of `models`, conditioned on
+    `features`."""
+    from adaface_tpu_torch.personalization.arc2face import (
+        FORWARD_TEMPLATE, INVERSE_TEMPLATE, make_template_ids)
+    from adaface_tpu_torch.pipeline import StableDiffusionPipeline
+
+    pipe = StableDiffusionPipeline(tok, clip, unet, vae)
+    mgr = pipe.embedding_manager
+    mgr.add_zero_shot_placeholder("z", tok.add_placeholder("z"), models["fg"])
+    mgr.add_zero_shot_placeholder("y", tok.add_placeholder("y"), models["bg"],
+                                  is_background=True)
+    mgr.arc2face_encoder = models["arc2face"]
+    templates = (make_template_ids(tok, FORWARD_TEMPLATE),
+                 make_template_ids(tok, INVERSE_TEMPLATE), int(tok.encode("id")[0]))
+    pipe.set_zero_shot_features(features, *templates)
+    return pipe, templates
+
+
+def phase_zero_shot(torch, pipe, card):
+    """[zero-shot]: the zero-shot stack at full width in bf16 on the card
+    (random weights from seeds), fed ZS_IMAGES reference images: the feature
+    extractor's three vision passes, the Arc2Face forward and the
+    generators, `encode_prompts`, then one warm-up and 3 timed batch-8
+    requests at [main]'s point. Gates: the fg and bg features, both
+    generators' outputs and the context against the same code in fp32 on
+    the CPU, each fault (a second identity, fg features in place of bg
+    ones) outside the tolerance it would have to pass; a second identity
+    moves the context and the same one repeats it bit for bit; each
+    request launches the flash kernels as a [main] request does;
+    `generate(context=...)` gives images of the right shape."""
+    from adaface_tpu_torch.data.tokenizer import HashTokenizer
+    from adaface_tpu_torch.models.unet import UNetConfig, UNetModel
+    from adaface_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from adaface_tpu_torch.personalization.arc2face import forward_face_embs
+    from adaface_tpu_torch.personalization.zero_shot import (
+        ZeroShotFeatureExtractor, ZeroShotFeatures)
+    from adaface_tpu_torch.pipeline import build_random
+
+    fa = _fa()
+    t_phase = time.time()
+    tok = HashTokenizer()
+    builds = zero_shot_builds(tok)
+    dtype = pipe.unet.in_conv.weight.dtype
+    models = {name: build_random(b, 100 + i, pipe.device, dtype)
+              for i, (name, b) in enumerate(builds.items())}
+    n_params = {k: sum(p.numel() for p in m.parameters()) / 1e6 for k, m in models.items()}
+    say(f"[zero-shot] stack built in {time.time() - t_phase:.1f} s (M parameters, bf16): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in n_params.items()))
+    images, masks = zero_shot_references(0)
+    face = zero_shot_face_fn(images, 1)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.time() - t0) * 1e3
+
+    ZeroShotFeatureExtractor(models["vision"], face_embed_fn=face).encode(
+        images, masks, calc_avg=True)  # warm-up
+    ex = ZeroShotFeatureExtractor(models["vision"], face_embed_fn=face)
+    feats, vision_ms = timed(lambda: ex.encode(images, masks, calc_avg=True))
+    if feats.faceless_img_count != 1 or feats.id_embs.shape != (1, 512):
+        fail(f"[zero-shot] {feats.faceless_img_count} faceless images, id embeddings "
+             f"{tuple(feats.id_embs.shape)}; want 1 and (1, 512)")
+    zpipe, templates = zero_shot_pipeline(torch, tok, pipe.clip, pipe.unet, pipe.vae, models,
+                                          feats)
+    mgr = zpipe.embedding_manager
+    gen_kw = dict(forward_template_ids=templates[0], arcface_token_id=templates[2])
+    with torch.inference_mode():
+        mgr.compute_zero_shot_embeddings(feats, templates[1], **gen_kw)  # warm-up
+        (subj, inv), gen_ms = timed(lambda: mgr.compute_zero_shot_embeddings(
+            feats, templates[1], **gen_kw))
+    prompts = [ZS_PROMPT] * BATCH
+    zpipe.encode_prompts(prompts)  # warm-up
+    ctx, encode_ms = timed(lambda: zpipe.encode_prompts(prompts))
+    say(f"[zero-shot] stages (host clock, synchronized): 3 vision passes (fg and bg over "
+        f"{ZS_IMAGES} images, the negative over 1) {vision_ms:.3f} ms, Arc2Face forward + "
+        f"generators {gen_ms:.3f} ms, encode_prompts (B{BATCH}, with the generators) "
+        f"{encode_ms:.3f} ms [{card}]")
+    D = pipe.clip.cfg.hidden_size
+    want_ctx = (16, BATCH, 77, D)
+    if (tuple(ctx.shape) != want_ctx or subj["z"].shape != (16, 1, 16, D)
+            or subj["y"].shape != (16, 1, 4, D) or not bool(torch.isfinite(ctx).all())):
+        fail(f"[zero-shot] context {tuple(ctx.shape)} (want {want_ctx}), z "
+             f"{tuple(subj['z'].shape)}, y {tuple(subj['y'].shape)}, or not finite")
+
+    # the same identity repeats the context bit for bit; faults a broken
+    # stack could make, run through the card's stack: a second identity,
+    # and the fg features fed to the bg generator
+    if not torch.equal(zpipe.encode_prompts(prompts), ctx):
+        fail("[zero-shot] the same features gave another context")
+
+    def run(features):
+        with torch.inference_mode():
+            out, _ = mgr.compute_zero_shot_embeddings(features, templates[1], **gen_kw)
+        zpipe.set_zero_shot_features(features, *templates)
+        return out, zpipe.encode_prompts(prompts)
+
+    subj_id, ctx_id = run(ZeroShotFeatures(feats.clip_fg, feats.clip_bg,
+                                           torch.roll(feats.id_embs, 1, dims=-1)))
+    subj_swap, ctx_swap = run(ZeroShotFeatures(feats.clip_fg, feats.clip_fg, feats.id_embs))
+    zpipe.set_zero_shot_features(feats, *templates)
+    moved = float((ctx_id.float() - ctx.float()).abs().max())
+    say(f"[zero-shot] a second identity moves the context by {moved:.4e} max abs "
+        f"(must exceed {ZS_MOVE_MIN})")
+    if not moved > ZS_MOVE_MIN:
+        fail(f"[zero-shot] a second identity moved the context by {moved:.3e} only")
+
+    # the same code in fp32 on the CPU, same weights, same reference images
+    t0 = time.time()
+    cpu_models = {k: cpu_fp32_copy(torch, m, builds[k]) for k, m in models.items()}
+    clip_cpu = cpu_fp32_copy(torch, pipe.clip)
+    feats_cpu = ZeroShotFeatureExtractor(cpu_models["vision"], face_embed_fn=face).encode(
+        images, masks, calc_avg=True)
+    # encode_prompts runs the CLIP and the generators only: the CPU
+    # pipeline's UNet and VAE are tiny stand-ins that never run
+    pipe_cpu, _ = zero_shot_pipeline(torch, HashTokenizer(), clip_cpu,
+                                     UNetModel(UNetConfig.tiny()),
+                                     AutoencoderKL(VAEConfig.tiny()), cpu_models, feats_cpu)
+    with torch.inference_mode():
+        subj_cpu, _ = pipe_cpu.embedding_manager.compute_zero_shot_embeddings(
+            feats_cpu, templates[1], **gen_kw)
+    ctx_cpu = pipe_cpu.encode_prompts(prompts)
+    # output -> (card, CPU reference, {fault: the card's output under it})
+    checks = {
+        "clip_fg": (feats.clip_fg, feats_cpu.clip_fg, {"bg features": feats.clip_bg}),
+        "clip_bg": (feats.clip_bg, feats_cpu.clip_bg, {"fg features": feats.clip_fg}),
+        "z": (subj["z"], subj_cpu["z"], {"second identity": subj_id["z"]}),
+        "y": (subj["y"], subj_cpu["y"], {"fg features as bg": subj_swap["y"]}),
+        "context": (ctx, ctx_cpu, {"second identity": ctx_id, "fg features as bg": ctx_swap}),
+    }
+    errs = {k: rel_err(got, ref) for k, (got, ref, _) in checks.items()}
+    fault_errs = {(k, f): rel_err(bad, ref) for k, (_, ref, faults) in checks.items()
+                  for f, bad in faults.items()}
+    say(f"[zero-shot] bf16 card vs fp32 cpu relative L2 error (tolerance; each fault's "
+        f"error): " + "; ".join(
+            f"{k} {errs[k]:.3e} (tol {ZS_REL_TOL[k]}; " + ", ".join(
+                f"{f} {e:.3e}" for (kk, f), e in fault_errs.items() if kk == k) + ")"
+            for k in checks) + f"; the CPU reference took {time.time() - t0:.1f} s")
+    del cpu_models, clip_cpu, pipe_cpu, subj_id, subj_swap, ctx_id, ctx_swap
+    for k, err in errs.items():
+        if not err <= ZS_REL_TOL[k]:
+            fail(f"[zero-shot] {k} on the card disagrees with the CPU reference "
+                 f"({err:.3e} > {ZS_REL_TOL[k]})")
+    for (k, f), err in fault_errs.items():
+        if not err > ZS_REL_TOL[k]:
+            fail(f"[zero-shot] the {k} gate cannot tell the fault '{f}' apart "
+                 f"({err:.3e} <= {ZS_REL_TOL[k]})")
+
+    kw = dict(num_steps=STEPS, guidance_scale=(10.0, 4.0), height=SIZE, width=SIZE)
+    t0 = time.time()
+    zpipe.generate(prompts, seed=0, **kw)
+    say(f"[zero-shot] warm-up request {time.time() - t0:.3f} s [{card}]")
+    want = {s: n for s, (_, n) in MAIN_SHAPES.items()}
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        fa.launches_by_shape.clear()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        imgs = zpipe.generate(prompts, seed=i + 1, **kw)
+        times.append(time.time() - t0)
+        counts = {(b, lq, h, d): n for (kind, arm, b, lq, lk, h, d), n
+                  in fa.launches_by_shape.items() if kind == "fwd"}
+        arms = launches_by_arm(fa)
+        say(f"[zero-shot] request {i}: {times[-1]:.3f} s, kernel launches {n_launches(fa)} "
+            f"{sorted(counts.items())} by arm {arms} [{card}]")
+        if n_launches(fa) != 750 or counts != want or arms != {"K1": 500, "K4": 250}:
+            fail(f"[zero-shot] expected [main]'s 750 launches ({want}; K1 500, K4 250), "
+                 f"got {n_launches(fa)} {counts} {arms}")
+        if (imgs.shape != (BATCH, SIZE, SIZE, 3) or str(imgs.dtype) != "uint8"
+                or imgs.std() < 1.0):
+            fail(f"[zero-shot] images {imgs.shape} {imgs.dtype} std {imgs.std():.3f}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = statistics.median(times)
+    say(f"[zero-shot] batch {BATCH} {SIZE}x{SIZE} DDIM-{STEPS} CFG 10->4 bf16 from {ZS_IMAGES} "
+        f"reference images: median {med:.3f} s/request, {BATCH / med:.4f} img/s, best "
+        f"{min(times):.3f} s, peak {peak:.2f} GiB [{card}]")
+
+    # the Arc2Face evaluation mode: its forward embeddings drive the UNet
+    with torch.inference_mode():
+        full, _ = forward_face_embs(models["arc2face"], feats.id_embs, templates[0],
+                                    templates[2])
+    imgs = zpipe.generate([ZS_PROMPT] * ZS_CONTEXT_BATCH, num_steps=ZS_CONTEXT_STEPS,
+                          height=SIZE, width=SIZE, context=full[None, :1])
+    want_shape = (ZS_CONTEXT_BATCH, SIZE, SIZE, 3)
+    if imgs.shape != want_shape or str(imgs.dtype) != "uint8":
+        fail(f"[zero-shot] generate(context=...) gave {imgs.shape} {imgs.dtype}, "
+             f"want {want_shape} uint8")
+    say(f"[zero-shot] generate(context=[1, 1, 77, {D}] Arc2Face forward embeddings) "
+        f"B{ZS_CONTEXT_BATCH} DDIM-{ZS_CONTEXT_STEPS}: images {imgs.shape} {imgs.dtype}")
+    del models, zpipe, ex
+    torch.cuda.empty_cache()
+    say(f"[zero-shot] phase {time.time() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -4042,6 +4328,7 @@ def main():
     phase_profile(torch, pipe, card)
     gn_counts, ff_counts = phase_fused_main_path(torch, pipe, card, med)
     fa_fp32_gen, gn_fp32_gen, ff_fp32_gen = phase_fp32_main_path(torch, card)
+    phase_zero_shot(torch, pipe, card)
 
     add_training_placeholders(torch, pipe)
     with tempfile.TemporaryDirectory() as tmp:

@@ -161,7 +161,7 @@ def test_resize_matches_jax_image_resize(s_in, s_out):
     rng = np.random.default_rng(4)
     x = rng.random((3, 2, s_in, s_in)).astype(np.float32)
     ref = jax.image.resize(jnp.asarray(x), (3, 2, s_out, s_out), "bilinear")
-    _close(tl._resize_aa(_t(x), s_out, s_out), ref, atol=1e-6)
+    _close(tl.resize_aa(_t(x), s_out, s_out), ref, atol=1e-6)
     plain = F.interpolate(_t(x), (s_out, s_out), mode="bilinear", align_corners=False)
     if s_out < s_in:
         assert _rel(plain, ref) > 10 * RTOL
@@ -272,7 +272,7 @@ def test_preserve_resize_stand_in_is_caught(monkeypatch):
     ref = jax.jit(lambda o, q, s: jl.comp_fg_bg_preserve_loss(
         o, q, s, jnp.asarray(fg), jnp.asarray(subj)))(
         outfeats, qs, scores)
-    monkeypatch.setattr(tl, "_resize_aa", lambda x, oh, ow: F.interpolate(
+    monkeypatch.setattr(tl, "resize_aa", lambda x, oh, ow: F.interpolate(
         x.float(), (oh, ow), mode="bilinear", align_corners=False))
     got, _ = _port_preserve(outfeats, qs, scores, fg, subj)
     worst = max(abs(float(g) - float(r)) / abs(float(r)) for g, r in zip(got[3:], ref[3:]))

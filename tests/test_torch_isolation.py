@@ -29,7 +29,9 @@ def _port_modules():
 def test_import_loads_no_jax():
     mods = _port_modules()
     for m in ("pipeline", "training.trainer", "training.train_step", "training.losses",
-              "training.prodigy", "data.personalized", "ops.grad"):
+              "training.prodigy", "data.personalized", "ops.grad", "models.clip_vision",
+              "personalization.arc2face", "personalization.subj_basis_generator",
+              "personalization.zero_shot"):
         assert f"adaface_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
