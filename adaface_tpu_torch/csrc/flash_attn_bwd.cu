@@ -829,3 +829,19 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// The rows one CTA owns at head dim D: query rows of `flash_attn_bwd_dq`
+// (dkv == 0; grid (ceil(Lq / rows), H, B)) or keys of `flash_attn_bwd_dkv`
+// (grid (ceil(Lk / rows) * split, H, B)). -1 for a D it is not built for.
+extern "C" int flash_attn_bwd_rows(int D, int dkv) {
+  switch (D) {
+    case 40:
+      return dkv ? Cfg<40>::DKV_ROWS : Cfg<40>::DQ_ROWS;
+    case 80:
+      return dkv ? Cfg<80>::DKV_ROWS : Cfg<80>::DQ_ROWS;
+    case 160:
+      return dkv ? Cfg<160>::DKV_ROWS : Cfg<160>::DQ_ROWS;
+    default:
+      return -1;
+  }
+}

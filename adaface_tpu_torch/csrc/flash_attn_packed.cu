@@ -559,3 +559,44 @@ extern "C" int flash_attn_packed_fwd(const void* q, const void* k, const void* v
       return (int)cudaErrorInvalidValue;
   }
 }
+
+namespace {
+
+template <int D, int FLAGS>
+int fwd_rows(bool bias) {
+  return bias ? Cfg<D, FLAGS, true>::BQ : Cfg<D, FLAGS, false>::BQ;
+}
+
+template <int D>
+int fwd_rows_flags(int flags, bool bias) {
+  switch (flags) {
+    case 0:
+      return fwd_rows<D, 0>(bias);
+    case FLAG_EXP_BF16:
+      return fwd_rows<D, FLAG_EXP_BF16>(bias);
+    case FLAG_MXU_SUM:
+      return fwd_rows<D, FLAG_MXU_SUM>(bias);
+    case FLAG_EXP_BF16 | FLAG_MXU_SUM:
+      return fwd_rows<D, FLAG_EXP_BF16 | FLAG_MXU_SUM>(bias);
+    default:
+      return -1;
+  }
+}
+
+}  // namespace
+
+// The query rows of one CTA of `flash_attn_packed_fwd` at head dim D, `flags`
+// and a key bias (bias != 0) or none: its grid is (ceil(Lq / rows), H, B).
+// -1 for a D or flags it is not built for.
+extern "C" int flash_attn_packed_fwd_rows(int D, int flags, int bias) {
+  switch (D) {
+    case 40:
+      return fwd_rows_flags<40>(flags, bias != 0);
+    case 80:
+      return fwd_rows_flags<80>(flags, bias != 0);
+    case 160:
+      return fwd_rows_flags<160>(flags, bias != 0);
+    default:
+      return -1;
+  }
+}

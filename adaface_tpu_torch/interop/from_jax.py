@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from adaface_tpu_torch.personalization.static_embedding import StaticEmbedderParams
+from adaface_tpu_torch.personalization.subj_basis_generator import OBJECT_BRANCH
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -54,10 +55,6 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 clip_state_dict_from_jax = unet_state_dict_from_jax = state_dict_from_jax
 vision_state_dict_from_jax = state_dict_from_jax
 
-# the fg generator's DINO object branch: absent from a tree initialized
-# through the face branch (flax makes a submodule's params when it first runs)
-_OBJECT_BRANCH = ("obj_proj_dense.", "obj_proj_ln.")
-
 
 def load_subj_basis_generator_from_jax(gen: nn.Module, tree: Mapping) -> nn.Module:
     """Load a JAX `SubjBasisGenerator` param tree into the port's `gen`.
@@ -65,7 +62,9 @@ def load_subj_basis_generator_from_jax(gen: nn.Module, tree: Mapping) -> nn.Modu
     the fg object branch may be missing from the tree (it then keeps its
     values)."""
     missing, unexpected = gen.load_state_dict(state_dict_from_jax(tree), strict=False)
-    missing = [k for k in missing if not k.startswith(_OBJECT_BRANCH)]
+    # the object branch is absent from a tree initialized through the face
+    # branch (flax makes a submodule's params when it first runs)
+    missing = [k for k in missing if not k.startswith(OBJECT_BRANCH)]
     if missing or unexpected:
         raise ValueError(f"generator tree mismatch: missing {missing}, "
                          f"unexpected {unexpected}")

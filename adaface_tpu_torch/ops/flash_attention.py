@@ -546,8 +546,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> (library, argument types), as declared in csrc/<library>.cu
 C_ENTRIES = {
     "flash_attn_packed_fwd": ("flash_attn_packed", [_P] * 6 + [_I] * 6 + [_P, _F, _P]),
+    "flash_attn_packed_fwd_rows": ("flash_attn_packed", [_I] * 3),
     "flash_attn_bwd_dq": ("flash_attn_bwd", [_P] * 8 + [_I] * 5 + [_P, _F, _F, _P]),
     "flash_attn_bwd_dkv": ("flash_attn_bwd", [_P] * 10 + [_I] * 5 + [_P, _F, _F, _I, _P, _P]),
+    "flash_attn_bwd_rows": ("flash_attn_bwd", [_I] * 2),
     "flash_attn_fp32_fwd": ("flash_attn_fp32", [_P] * 6 + [_I] * 8 + [_P, _F, _P]),
     "flash_attn_fp32_bwd_dq": ("flash_attn_fp32", [_P] * 8 + [_I] * 8 + [_P, _F, _F, _P, _P]),
     "flash_attn_fp32_bwd_dkv": ("flash_attn_fp32",
@@ -558,6 +560,20 @@ C_ENTRIES = {
 def _fn(name: str):
     """The ctypes entry `name` of its library, with its signature set."""
     return kernels.entry(name, *C_ENTRIES[name])
+
+
+def cta_rows(kind: str, d: int, flags: int = 0, bias: bool = False) -> int:
+    """The rows one CTA of a bf16 launch of `kind` owns at head dim d, asked
+    of the built kernel: query rows of "fwd" (with K1's `flags` and a key
+    bias or none) and "dq", keys of "dkv". The grid is ceil(L / rows) x H x
+    B CTAs, times the split for "dkv"."""
+    if kind == "fwd":
+        rows = _fn("flash_attn_packed_fwd_rows")(d, flags, int(bias))
+    else:
+        rows = _fn("flash_attn_bwd_rows")(d, int(kind == "dkv"))
+    if rows < 1:
+        raise ValueError(f"no {kind} kernel is built for d {d}, flags {flags}")
+    return rows
 
 
 def _check_call(q, k, v, num_heads, key_bias):

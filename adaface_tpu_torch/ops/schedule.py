@@ -29,17 +29,28 @@ class DiffusionSchedule:
     alphas_cumprod: np.ndarray
     sqrt_alphas_cumprod: np.ndarray
     sqrt_one_minus_alphas_cumprod: np.ndarray
+    sqrt_recip_alphas_cumprod: np.ndarray
+    sqrt_recipm1_alphas_cumprod: np.ndarray
     num_timesteps: int = 1000
+
+    def _at(self, table: np.ndarray, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """table[t] shaped [B, 1, ...] to broadcast against `like`."""
+        shape = (-1,) + (1,) * (like.dim() - 1)
+        return torch.as_tensor(table, device=like.device)[t.long().to(like.device)].view(shape)
 
     def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
                  noise: torch.Tensor) -> torch.Tensor:
         """Forward noising q(x_t | x_0) = sqrt(acp_t) x_0 + sqrt(1 - acp_t)
         noise, for t [B] int."""
-        shape = (-1,) + (1,) * (x_start.dim() - 1)
-        idx = t.long().to(x_start.device)
-        a = torch.as_tensor(self.sqrt_alphas_cumprod, device=x_start.device)[idx]
-        s = torch.as_tensor(self.sqrt_one_minus_alphas_cumprod, device=x_start.device)[idx]
-        return a.view(shape) * x_start + s.view(shape) * noise
+        return (self._at(self.sqrt_alphas_cumprod, t, x_start) * x_start
+                + self._at(self.sqrt_one_minus_alphas_cumprod, t, x_start) * noise)
+
+    def predict_x0_from_eps(self, x_t: torch.Tensor, t: torch.Tensor,
+                            eps: torch.Tensor) -> torch.Tensor:
+        """The x_0 estimate of an eps prediction, sqrt(1/acp_t) x_t -
+        sqrt(1/acp_t - 1) eps."""
+        return (self._at(self.sqrt_recip_alphas_cumprod, t, x_t) * x_t
+                - self._at(self.sqrt_recipm1_alphas_cumprod, t, x_t) * eps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +76,9 @@ def make_diffusion_schedule(num_timesteps: int = 1000, linear_start: float = 8.5
                              alphas_cumprod=acp.astype(np.float32),
                              sqrt_alphas_cumprod=np.sqrt(acp).astype(np.float32),
                              sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - acp).astype(np.float32),
+                             sqrt_recip_alphas_cumprod=np.sqrt(1.0 / acp).astype(np.float32),
+                             sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / acp - 1.0).astype(
+                                 np.float32),
                              num_timesteps=num_timesteps)
 
 

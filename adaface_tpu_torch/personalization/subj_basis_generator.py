@@ -13,14 +13,18 @@ training would have optimized.
   by 16 * K latent queries through a Perceiver cross-attention, scaled by
   D**-0.5 (no pad blend; a scale other than 1 only multiplies).
 
-Every LayerNorm here is flax's default, eps 1e-6. Dropout acts only in
-training mode. Submodules carry the flax tree's names.
+Every LayerNorm here is flax's default, eps 1e-6. The bg branch's attention
+dropout (p 0.05) runs only when the caller passes a `torch.Generator` to
+draw it from (`dropout_generator`; `dropout_stream` gives each generator
+its own), never because of the module's train/eval mode; the serving path
+passes none. Submodules carry the flax tree's names.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -30,10 +34,37 @@ from adaface_tpu_torch.personalization.arc2face import (
     CORE_BEGIN, NUM_CORE_EMBS, inverse_face_prompt_embs, make_pad_embeddings)
 
 FLAX_LN_EPS = 1e-6  # flax's nn.LayerNorm default (torch's is 1e-5)
+# the fg generator's DINO object branch, which a face-branch call never reads
+OBJECT_BRANCH = ("obj_proj_dense.", "obj_proj_ln.")
 
 
 def _ln(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=FLAX_LN_EPS)
+
+
+def dropout_stream(seed: Optional[int], index: int, device) -> Optional[torch.Generator]:
+    """The dropout stream of the `index`-th generator (sorted placeholder
+    order) of an iteration whose dropout seed is `seed`: a fresh
+    `torch.Generator` seeded from (seed, index), so every generator has its
+    own stream and a second call gives the same masks (the JAX package's
+    `fold_in(key, index)`; the numbers differ, the law does not). None for
+    a None seed: no dropout."""
+    if seed is None:
+        return None
+    state = np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state) & (2 ** 63 - 1))
+
+
+def attention_dropout(attn: torch.Tensor, p: float,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's `nn.Dropout`: each entry kept with probability 1 - p and then
+    divided by it, the mask drawn from `generator`; the identity when
+    `generator` is None."""
+    if generator is None or p == 0:
+        return attn
+    keep = torch.rand(attn.shape, generator=generator, device=attn.device) >= p
+    return torch.where(keep, attn / (1.0 - p), torch.zeros((), dtype=attn.dtype,
+                                                           device=attn.device))
 
 
 class PerceiverCrossAttention(nn.Module):
@@ -48,9 +79,10 @@ class PerceiverCrossAttention(nn.Module):
         for name in ("to_q", "to_k", "to_v"):
             self.add_module(f"{name}_dense", nn.Linear(dim, dim, bias=False))
             self.add_module(f"{name}_ln", _ln(dim))
-        self.dropout = nn.Dropout(p_dropout)
+        self.p_dropout = p_dropout
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.num_heads
         d = self.dim // h
         proj = lambda name, t: getattr(self, f"{name}_ln")(getattr(self, f"{name}_dense")(t))
@@ -62,7 +94,8 @@ class PerceiverCrossAttention(nn.Module):
         scale = d ** -0.25
         sim = torch.matmul((split(q, Q) * scale).float(),
                            (split(k, L) * scale).float().transpose(-1, -2))
-        attn = self.dropout(torch.softmax(sim, dim=-1).to(v.dtype))
+        attn = attention_dropout(torch.softmax(sim, dim=-1).to(v.dtype), self.p_dropout,
+                                 dropout_generator)
         return torch.matmul(attn, split(v, L)).transpose(1, 2).reshape(B, Q, self.dim)
 
 
@@ -103,17 +136,25 @@ class SubjBasisGenerator(nn.Module):
             self.obj_proj_dense = nn.Linear(dino_embedding_dim, NUM_CORE_EMBS * D, bias=False)
             self.obj_proj_ln = _ln(D)
 
+    def face_trainable_parameters(self) -> list:
+        """The parameters zero-shot training updates: all but the fg object
+        branch (the JAX package's tree from a face-branch init holds the
+        same leaves)."""
+        return [p for n, p in self.named_parameters() if not n.startswith(OBJECT_BRANCH)]
+
     def forward(self, clip_features: Optional[torch.Tensor],
                 raw_id_embs: Optional[torch.Tensor],
                 arc2face_id_embs: Optional[torch.Tensor],
                 out_id_embs_scale: float = 1.0, is_face: bool = True,
                 is_training: bool = False, inverse_template_ids=None,
-                arc2face_inverse_prompt_embs_inf_type: str = "full_half_pad"
+                arc2face_inverse_prompt_embs_inf_type: str = "full_half_pad",
+                dropout_generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Returns (output_embs [B, L, K, D], inverse prompt embeddings
         [B, T, D] of the fg face branch, else None). clip_features
         [B, 257, D_img] feed the bg branch, raw_id_embs [B, 384] (DINO) the
-        fg object branch, arc2face_id_embs [B, 16, D] the fg face branch."""
+        fg object branch, arc2face_id_embs [B, 16, D] the fg face branch.
+        `dropout_generator` turns on the bg branch's attention dropout."""
         D, K, L = self.output_dim, self.num_out_embs_per_layer, self.num_out_layers
         dtype = self.pos_embs.dtype
         if self.placeholder_is_bg:
@@ -121,7 +162,7 @@ class SubjBasisGenerator(nn.Module):
             id_embs = self.bg_proj_ln(self.bg_proj_dense(clip_features.to(dtype)))
             id_embs = id_embs + self.pos_embs_ln(self.pos_embs)
             latents = self.latent_queries_ln(self.latent_queries).expand(B, L * K, D)
-            out = self.prompt_translator(latents, id_embs)
+            out = self.prompt_translator(latents, id_embs, dropout_generator)
             output_embs = out.reshape(B, L, K, D) * (D ** -0.5)
             if out_id_embs_scale != 1.0:
                 output_embs = output_embs * out_id_embs_scale

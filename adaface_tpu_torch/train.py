@@ -10,7 +10,12 @@ initialized from the CLIP token embeddings of their init words, applies the
 YAML `model_options` to the UNet, and runs the port's `Trainer`
 (iteration-plan machine, Prodigy or AdamW behind clipping and accumulation,
 checkpoints every `ckpt_every_steps`, SIGUSR1 checkpoint, `--resume`,
-`--perturb_ratio`), then saves the resumable state.
+`--perturb_ratio`), then saves the resumable state. `--arc2face_unet` (a
+diffusers UNet file or directory) with `--arc2face_text_encoder` (an HF
+CLIPTextModel file or directory) loads the Arc2Face teacher
+(`training/arc2face_teacher.py`, on the card in the run's dtype; under
+`--tiny` on the tiny UNet's config) and turns the plan's Arc2Face
+iterations into distillation iterations.
 
 Precedence is the JAX script's: an explicit `--flag` beats the config file,
 which beats the argparse default. Its quirks are kept: only `--` flags count
@@ -21,7 +26,8 @@ a string); with the option at `prodigy`, even explicitly, the file's
 `--bf16`; other file values pass through as YAML gives them.
 
 Paths that are not ported exit with `SystemExit` naming their ROADMAP
-queue 1 item: `--zeroshot` and `--arc2face_unet` (11), `--dreambooth`,
+queue 1 item: `--zeroshot` (12: it needs the face stack; the zero-shot
+trainer runs through `training/zs_trainer.ZeroShotTrainer.fit`), `--dreambooth`,
 `--val_every` > 0 and webdataset shards (10), `--actual_resume` and a `.pt`
 `--embedding_manager_ckpt` (10b), more than one device (13). Reading image
 files needs PIL; `main(dataset=...)` takes a dataset built otherwise.
@@ -48,6 +54,7 @@ from adaface_tpu_torch.models.vae import VAEConfig
 from adaface_tpu_torch.ops.grad import perturb_params
 from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
 from adaface_tpu_torch.pipeline import StableDiffusionPipeline
+from adaface_tpu_torch.training.arc2face_teacher import load_arc2face_teacher
 from adaface_tpu_torch.training.iter_plan import IterPlanConfig
 from adaface_tpu_torch.training.trainer import Trainer, TrainerConfig
 
@@ -115,11 +122,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--perturb_ratio", type=float, default=0.0,
                    help="multiplicative U(1-r, 1+r) embedder perturbation after resume")
     p.add_argument("--arc2face_unet", type=str, default=None,
-                   help="Arc2Face teacher UNet (not ported)")
+                   help="Arc2Face teacher UNet (diffusers layout, file or directory)")
     p.add_argument("--arc2face_text_encoder", type=str, default=None,
-                   help="Arc2Face text encoder (not ported)")
+                   help="Arc2Face text encoder (HF CLIPTextModel, file or directory)")
     p.add_argument("--zeroshot", action="store_true",
-                   help="zero-shot generator training (not ported)")
+                   help="zero-shot generator training (not ported: needs the face stack)")
     p.add_argument("--dreambooth", action="store_true",
                    help="DreamBooth baseline (not ported)")
     p.add_argument("--reg_data_root", type=str, default=None,
@@ -132,9 +139,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def _refuse_unported(opt, cfg: dict, device: torch.device):
     """SystemExit for a path the port does not have yet, naming its ROADMAP
     queue 1 item."""
-    if opt.zeroshot or opt.arc2face_unet:
-        raise SystemExit("--zeroshot / --arc2face_unet: zero-shot and Arc2Face training are "
-                         "not ported yet (ROADMAP queue 1 item 11)")
+    if opt.zeroshot:
+        raise SystemExit("--zeroshot: the zero-shot entry point needs the face stack "
+                         "(default_face_app), which is not ported yet (ROADMAP queue 1 item "
+                         "12); train with training/zs_trainer.ZeroShotTrainer.fit")
     if opt.dreambooth:
         raise SystemExit("--dreambooth: DreamBooth is not ported yet (ROADMAP queue 1 item 10)")
     if opt.actual_resume:
@@ -340,7 +348,15 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
         if opt.perturb_ratio > 0:
             perturb_params(generator(9), trainer.mgr.embedders, opt.perturb_ratio)
             print(f"perturbed embedder params by U(1±{opt.perturb_ratio})")
-        trainer.fit()
+        teacher = None
+        if opt.arc2face_unet:
+            if not opt.arc2face_text_encoder:
+                raise SystemExit("--arc2face_unet requires --arc2face_text_encoder")
+            teacher = load_arc2face_teacher(
+                opt.arc2face_unet, opt.arc2face_text_encoder, tok, dtype=dtype,
+                unet_cfg=pipe.unet.cfg if opt.tiny else None, device=dev).as_tuple()
+            print(f"arc2face teacher loaded from {opt.arc2face_unet}")
+        trainer.fit(arc2face_teacher=teacher)
         trainer.save_state()
     finally:
         trainer.close()

@@ -16,7 +16,24 @@ pad slots in the class rows, mixes the class rows into V/K teacher contexts
 (`training/mixing.py`, optionally compel-weighted, `ops/compel.py`), runs
 one UNet call over (subj_single, subj_comp, mix_single, mix_comp) with the
 distillation layers' outfeat, scores and q captured, and sums the
-distillation battery. The Arc2Face distillation step is not ported yet.
+distillation battery.
+
+The zero-shot steps train the SubjBasisGenerators instead of static
+embedders: the frozen Arc2Face encoder turns the batch's identity
+embeddings into the 16 core embeddings, each placeholder's generator maps
+them (the bg one: the masked CLIP bg features) to [L, B, K, D] subject
+embeddings, which are patched into the prompt as above; the recon battery
+or, on a compositional iteration, the distillation battery follows (the
+subj-single block's embeddings blended with those of a frozen copy of the
+generators taken at setup). The bg generator's attention dropout is drawn
+from the batch's `dropout_seed`, one stream per generator.
+
+The Arc2Face distillation steps run a frozen teacher UNet over an S-step
+trajectory (earlier timesteps drawn in [t 0.5^k, t 0.7^k], k = (S-1)^-0.3)
+and make the student match its eps predictions at the trailing
+max(7 // B, 1) steps, the losses summed and divided by sqrt(S); the
+student's context comes from the static embedders or, zero-shot, from the
+generators on the same identity that conditions the teacher.
 """
 
 from __future__ import annotations
@@ -30,8 +47,10 @@ from adaface_tpu_torch.data.tokenizer import CLIP_VOCAB_SIZE
 from adaface_tpu_torch.models.unet import DISTILL_LAYER_INDICES
 from adaface_tpu_torch.ops.compel import apply_compel_cfg
 from adaface_tpu_torch.ops.grad import add_noise_to_tensor
+from adaface_tpu_torch.personalization.arc2face import forward_face_embs
 from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
 from adaface_tpu_torch.personalization.static_embedding import compute_static_embedding
+from adaface_tpu_torch.personalization.subj_basis_generator import dropout_stream
 from adaface_tpu_torch.training.losses import (
     ATTN_ALIGN_LAYER_WEIGHTS,
     _normalize_weights,
@@ -52,6 +71,12 @@ from adaface_tpu_torch.training.losses import (
 from adaface_tpu_torch.training.mixing import mix_static_vk_embeddings
 
 BOS_ID, EOS_ID = CLIP_VOCAB_SIZE - 2, CLIP_VOCAB_SIZE - 1
+# the frozen generators' share of a zero-shot compos iteration's subj-single
+# block
+FROZEN_BLEND = 0.9
+# an Arc2Face iteration's student matches the last max(7 // B, 1) of the
+# teacher's steps
+MAX_ACCUMU_BATCH = 7
 
 
 def _prompt_emb_mask(ids: torch.Tensor) -> torch.Tensor:
@@ -94,14 +119,31 @@ def _ids(ids, device) -> torch.Tensor:
 
 def _subject_embeddings(embedders, batch, device) -> Dict[str, torch.Tensor]:
     """The embedders' [L, K, D] subject embeddings, with the batch's
-    annealed noise when it carries one: one draw per placeholder in sorted
-    order from a torch.Generator seeded with `emb_noise_seed`."""
-    subj = {s: compute_static_embedding(p) for s, p in embedders.items()}
+    annealed noise (`_with_emb_noise`)."""
+    return _with_emb_noise({s: compute_static_embedding(p) for s, p in embedders.items()},
+                           batch, device)
+
+
+def _with_emb_noise(subj: Dict[str, torch.Tensor], batch, device) -> Dict[str, torch.Tensor]:
+    """The subject embeddings with the batch's annealed noise when it
+    carries one: one draw per placeholder in sorted order from a
+    torch.Generator seeded with `emb_noise_seed`."""
     if batch.emb_noise_std and batch.emb_noise_seed is not None:
         gen = torch.Generator(device=device).manual_seed(int(batch.emb_noise_seed))
         subj = {s: add_noise_to_tensor(e, batch.emb_noise_std, generator=gen)
                 for s, e in sorted(subj.items())}
     return subj
+
+
+def _encode_patched(clip, batch, subj, skip_weights) -> torch.Tensor:
+    """The batch's prompts with the subject embeddings patched in, through
+    CLIP: [L, B, T, D]."""
+    dev = clip.token_embedding.weight.device
+    patched = EmbeddingManager.patch_prompt_embeddings(
+        clip.embed_tokens(_ids(batch.token_ids, dev)), batch.slot_maps, subj)
+    L, B, T, D = patched.shape
+    return clip(input_embeds=patched.reshape(L * B, T, D),
+                skip_weights=_iter_skip_weights(batch, skip_weights)).reshape(L, B, T, D)
 
 
 def _recon_prompt_delta(clip, batch: ReconBatch, subj: Dict[str, torch.Tensor],
@@ -194,13 +236,8 @@ def make_recon_train_step(clip, unet, sched, optimizer=None, skip_weights=(0.5, 
     do_capture = complem_weight > 0 or xlayer_weight > 0
 
     def loss_fn(embedders, batch: ReconBatch):
-        dev = clip.token_embedding.weight.device
-        embedded = clip.embed_tokens(_ids(batch.token_ids, dev))
-        subj = _subject_embeddings(embedders, batch, dev)
-        patched = EmbeddingManager.patch_prompt_embeddings(embedded, batch.slot_maps, subj)
-        L, B, T, D = patched.shape
-        ctx = clip(input_embeds=patched.reshape(L * B, T, D),
-                   skip_weights=_iter_skip_weights(batch, skip_weights)).reshape(L, B, T, D)
+        subj = _subject_embeddings(embedders, batch, clip.token_embedding.weight.device)
+        ctx = _encode_patched(clip, batch, subj, skip_weights)
         x_noisy = sched.q_sample(batch.latents, batch.timesteps, batch.noise)
         if do_capture:
             # the battery reads only attnscore; capturing the rest would
@@ -462,3 +499,293 @@ def _make_compos_loss_core(clip, unet, sched, skip_weights, prompt_delta_weight,
         return loss, metrics
 
     return core
+
+
+# ------------------------------------------------------------------ zero-shot
+class ZeroShotTemplates(NamedTuple):
+    """What the zero-shot steps need of the frozen Arc2Face encoder's
+    prompts: [1, T] ids of the forward and inverse templates and the id of
+    the word "id"."""
+
+    forward_ids: np.ndarray
+    inverse_ids: np.ndarray
+    arcface_token_id: int
+
+
+def _arc2face_core(arc2face_encoder, id_embs: torch.Tensor, templates: ZeroShotTemplates):
+    """(full [B, T, D], core [B, 16, D]) Arc2Face forward embeddings of the
+    identity embeddings; frozen, no gradient."""
+    with torch.no_grad():
+        return forward_face_embs(arc2face_encoder, id_embs.detach(), templates.forward_ids,
+                                 templates.arcface_token_id)
+
+
+def _generator_embeddings(generators: dict, batch, arc_id_embs: torch.Tensor,
+                          bg_placeholders: frozenset,
+                          templates: ZeroShotTemplates) -> Dict[str, torch.Tensor]:
+    """placeholder -> [L, B, K, D]: each generator (sorted order, the i-th
+    drawing its dropout from stream i of `batch.dropout_seed`) on the bg
+    features (bg placeholders) or the Arc2Face core embeddings."""
+    subj = {}
+    dev = arc_id_embs.device
+    for i, (s, gen) in enumerate(sorted(generators.items())):
+        feats = batch.clip_bg if s in bg_placeholders else batch.clip_fg
+        embs, _ = gen(feats, None, arc_id_embs, is_face=True, is_training=True,
+                      inverse_template_ids=templates.inverse_ids,
+                      dropout_generator=dropout_stream(batch.dropout_seed, i, dev))
+        subj[s] = embs.transpose(0, 1)
+    return subj
+
+
+class ZeroShotReconBatch(NamedTuple):
+    """One zero-shot recon iteration: a ReconBatch plus the subjects'
+    identity evidence."""
+
+    latents: torch.Tensor  # [B, h, w, 4]
+    token_ids: np.ndarray  # [B, T]
+    slot_maps: Dict[str, np.ndarray]
+    fg_mask: Optional[torch.Tensor]  # [B, h, w, 1]
+    timesteps: torch.Tensor  # [B]
+    noise: torch.Tensor  # [B, h, w, 4]
+    clip_fg: torch.Tensor  # [B, 257, D_img] masked CLIP fg features
+    clip_bg: torch.Tensor  # [B, 257, D_img]
+    id_embs: torch.Tensor  # [B, 512] identity embeddings
+    emb_noise_std: Optional[float] = None
+    emb_noise_seed: Optional[int] = None
+    dropout_seed: Optional[int] = None  # the bg generator's attention dropout; None: off
+    delta_token_ids: Optional[np.ndarray] = None  # [4B, T]
+    delta_slot_maps: Optional[Dict[str, np.ndarray]] = None
+    img_mask: Optional[torch.Tensor] = None  # [B, h, w, 1]
+    have_fg_mask: Optional[torch.Tensor] = None  # [B]
+    skip_weights: Optional[torch.Tensor] = None
+
+
+def make_zero_shot_recon_step(clip, unet, sched, optimizer,
+                              bg_placeholders: frozenset, arc2face_encoder,
+                              templates: ZeroShotTemplates, skip_weights=(0.5, 0.5),
+                              bg_weight: float = 0.1, complem_weight: float = 0.0, xlayer_weight: float = 0.0,
+                              prompt_delta_weight: float = 0.0, use_bg_token: bool = False):
+    """Returns `step(generators, batch) -> metrics` of a zero-shot recon
+    iteration (identity -> frozen Arc2Face forward -> generators -> patched
+    prompt -> eps recon, with the complementary battery when its weights
+    are > 0); `step.loss_fn(generators, batch) -> (loss, metrics)`."""
+    do_capture = complem_weight > 0 or xlayer_weight > 0
+
+    def loss_fn(gens: dict, batch: ZeroShotReconBatch):
+        dev = clip.token_embedding.weight.device
+        _, arc_id_embs = _arc2face_core(arc2face_encoder, batch.id_embs, templates)
+        subj = _with_emb_noise(
+            _generator_embeddings(gens, batch, arc_id_embs, bg_placeholders, templates),
+            batch, dev)
+        ctx = _encode_patched(clip, batch, subj, skip_weights)
+        x_noisy = sched.q_sample(batch.latents, batch.timesteps, batch.noise)
+        if do_capture:
+            eps, aux = unet(x_noisy, batch.timesteps, ctx, capture=True,
+                            img_mask=batch.img_mask, capture_keys=("attnscore",))
+        else:
+            eps, aux = unet(x_noisy, batch.timesteps, ctx, img_mask=batch.img_mask), None
+        recon = masked_recon_loss(eps, batch.noise, batch.fg_mask, bg_weight=bg_weight,
+                                  img_mask=batch.img_mask)
+        loss = recon
+        metrics = {"recon": recon}
+        if prompt_delta_weight > 0 and batch.delta_token_ids is not None:
+            # per-instance embeddings; the 4-type battery repeats each instance
+            subj4 = {s: torch.cat([v] * 4, dim=1) for s, v in subj.items()}
+            loss_delta = _recon_prompt_delta(clip, batch, subj4, skip_weights)
+            loss = loss + prompt_delta_weight * loss_delta
+            metrics["prompt_delta"] = loss_delta
+        if do_capture:
+            complem, cm = _recon_complem_terms(
+                aux, batch.slot_maps, batch.fg_mask, bg_placeholders, use_bg_token, True,
+                complem_weight, xlayer_weight, instance_mask=batch.have_fg_mask)
+            loss = loss + complem
+            metrics.update(cm)
+        metrics["loss"] = loss
+        return loss, metrics
+
+    return _with_optimizer(loss_fn, optimizer)
+
+
+class ZeroShotComposBatch(NamedTuple):
+    """A compositional iteration's 4-type prompt block (as ComposBatch)
+    plus the identity evidence of its CB blocks (or of one shared subject)."""
+
+    token_ids: np.ndarray  # [4B, T]
+    slot_maps: Dict[str, np.ndarray]
+    subj_slot_map: np.ndarray
+    latents: torch.Tensor  # [B, h, w, 4]
+    fg_mask: Optional[torch.Tensor]
+    timesteps: torch.Tensor
+    noise: torch.Tensor
+    t_frac: torch.Tensor
+    training_percent: float
+    clip_fg: torch.Tensor  # [CB or 1, 257, D_img]
+    clip_bg: torch.Tensor
+    id_embs: torch.Tensor  # [CB or 1, 512]
+    compel_level: float = 0.0
+    compel_batch_mask: Optional[torch.Tensor] = None
+    emb_noise_std: Optional[float] = None
+    emb_noise_seed: Optional[int] = None
+    dropout_seed: Optional[int] = None
+    cls_mix_ranges: Optional[tuple] = None
+    skip_weights: Optional[torch.Tensor] = None
+    preserve_loss_scale: Optional[float] = None
+
+
+def make_zero_shot_compos_step(clip, unet, sched, optimizer, frozen_generators: dict,
+                               bg_placeholders: frozenset, arc2face_encoder, templates: ZeroShotTemplates,
+                               skip_weights=(0.5, 0.5), prompt_delta_weight: float = 2e-4,
+                               mix_prompt_distill_weight: float = 1e-4,
+                               fg_bg_weight: float = 1.0,
+                               comp_fg_bg_preserve_weight: float = 1e-3,
+                               xlayer_weight: float = 5e-5):
+    """Returns `step(generators, batch) -> metrics` of a zero-shot
+    compositional iteration: the distillation battery of
+    `make_compos_distill_step` (without the two regularizers that ship
+    disabled) on generator embeddings, the subj-single block's taken as
+    FROZEN_BLEND x the frozen copy's + (1 - FROZEN_BLEND) x the live
+    generators' (the same dropout streams for both);
+    `step.loss_fn(generators, batch)`."""
+    core = _make_compos_loss_core(
+        clip, unet, sched, skip_weights, prompt_delta_weight, mix_prompt_distill_weight,
+        fg_bg_weight, comp_fg_bg_preserve_weight, xlayer_weight, True, bg_placeholders,
+        0.0, 0.0, None)
+
+    def loss_fn(gens: dict, batch: ZeroShotComposBatch):
+        dev = clip.token_embedding.weight.device
+        _, arc_id_embs = _arc2face_core(arc2face_encoder, batch.id_embs, templates)
+        embs = lambda g: _generator_embeddings(g, batch, arc_id_embs, bg_placeholders,
+                                               templates)
+        live = embs(gens)
+        with torch.no_grad():
+            frozen = embs(frozen_generators)
+        CB = len(batch.token_ids) // 4
+        subj = {}
+        for s in live:
+            # [L, G, K, D]: G = CB block identities, or one shared identity
+            lv, fr = live[s], frozen[s]
+            if lv.shape[1] != CB:
+                shape = (lv.shape[0], CB) + tuple(lv.shape[2:])
+                lv, fr = lv.expand(shape), fr.expand(shape)
+            single = FROZEN_BLEND * fr + (1 - FROZEN_BLEND) * lv
+            # type-major rows; the class rows' slots are all -1
+            subj[s] = torch.cat([single, lv, lv, lv], dim=1)
+        subj = _with_emb_noise(subj, batch, dev)
+        embedded = clip.embed_tokens(_ids(batch.token_ids, dev))
+        return core(EmbeddingManager.patch_prompt_embeddings(embedded, batch.slot_maps, subj),
+                    batch)
+
+    return _with_optimizer(loss_fn, optimizer)
+
+
+# --------------------------------------------------------- Arc2Face teacher
+class Arc2FaceBatch(NamedTuple):
+    """One Arc2Face distillation iteration of per-subject training."""
+
+    latents: torch.Tensor  # [B, h, w, 4] x_start
+    teacher_context: torch.Tensor  # [B, T_a, D] Arc2Face prompt embeddings
+    token_ids: np.ndarray  # [B, T] the student's subject prompt
+    slot_maps: Dict[str, np.ndarray]
+    timesteps: torch.Tensor  # [B] the first step's t
+    noises: torch.Tensor  # [S, B, h, w, 4] a noise per step
+    relative_ts: torch.Tensor  # [max(S-1, 1), B] uniforms placing the earlier ts
+    fg_mask: Optional[torch.Tensor]
+    img_mask: Optional[torch.Tensor] = None  # None on a random-face iteration
+    skip_weights: Optional[torch.Tensor] = None
+
+
+class ZeroShotArc2FaceBatch(NamedTuple):
+    """Arc2Face distillation of the generators: the teacher's context is
+    the Arc2Face forward of `id_embs`, the student's the generators' output
+    on the same identity."""
+
+    latents: torch.Tensor
+    token_ids: np.ndarray
+    slot_maps: Dict[str, np.ndarray]
+    timesteps: torch.Tensor
+    noises: torch.Tensor
+    relative_ts: torch.Tensor
+    fg_mask: Optional[torch.Tensor]
+    clip_fg: torch.Tensor  # [B, 257, D_img]
+    clip_bg: torch.Tensor
+    id_embs: torch.Tensor  # [B, 512]
+    img_mask: Optional[torch.Tensor] = None
+    dropout_seed: Optional[int] = None
+    skip_weights: Optional[torch.Tensor] = None
+
+
+@torch.no_grad()
+def _teacher_trajectory(teacher_unet, sched, batch, teacher_context: torch.Tensor, S: int):
+    """The frozen teacher over S denoising steps: (x_starts, ts,
+    noise_preds), x_starts[i + 1] its x_0 estimate at step i, ts[i + 1]
+    drawn in [ts[i] 0.5^k, ts[i] 0.7^k] by `relative_ts[i]`."""
+    x_starts, ts, preds = [batch.latents], [batch.timesteps], []
+    ctx = teacher_context[None].to(teacher_unet.in_conv.weight.dtype)
+    for i in range(S):
+        x_noisy = sched.q_sample(x_starts[i], ts[i], batch.noises[i])
+        pred = teacher_unet(x_noisy, ts[i], ctx)
+        preds.append(pred)
+        x_starts.append(sched.predict_x0_from_eps(x_noisy, ts[i], pred))
+        if i < S - 1:
+            k = (S - 1) ** -0.3
+            t = ts[i].float()
+            lb = t * torch.tensor(0.5 ** k, dtype=torch.float32)
+            ub = t * torch.tensor(0.7 ** k, dtype=torch.float32)
+            ts.append(((ub - lb) * batch.relative_ts[i].float() + lb).to(torch.int32))
+    return x_starts, ts, preds
+
+
+def _student_loss(unet, sched, batch, ctx, trajectory, S: int, use_fg_mask: bool):
+    """The student's eps against the teacher's at the trailing
+    max(MAX_ACCUMU_BATCH // B, 1) steps, fg-masked with bg weight 0 unless
+    `use_fg_mask` is off; summed / sqrt(S). Returns (loss, metrics)."""
+    x_starts, ts, preds = trajectory
+    B = batch.latents.shape[0]
+    losses = []
+    for s in range(max(0, S - max(MAX_ACCUMU_BATCH // B, 1)), S):
+        x_noisy = sched.q_sample(x_starts[s], ts[s], batch.noises[s])
+        student = unet(x_noisy, ts[s], ctx, img_mask=batch.img_mask)
+        if use_fg_mask and batch.fg_mask is not None:
+            losses.append(masked_recon_loss(student, preds[s], batch.fg_mask, bg_weight=0.0,
+                                            img_mask=batch.img_mask))
+        else:
+            losses.append(torch.mean(torch.square(student.float() - preds[s].float())))
+    loss = sum(losses) / float(np.sqrt(float(S)))
+    return loss, {"loss": loss, "n_loss_steps": torch.tensor(float(len(losses)))}
+
+
+def make_arc2face_distill_step(clip, unet, teacher_unet, sched, optimizer,
+                               num_denoising_steps: int = 1, skip_weights=(0.5, 0.5),
+                               use_fg_mask: bool = True):
+    """Returns `step(embedders, batch) -> metrics` of an Arc2Face
+    distillation iteration of per-subject training (`use_fg_mask` off on a
+    random-face iteration); `step.loss_fn(embedders, batch)`."""
+    S = num_denoising_steps
+
+    def loss_fn(embedders, batch: Arc2FaceBatch):
+        trajectory = _teacher_trajectory(teacher_unet, sched, batch, batch.teacher_context, S)
+        subj = {s: compute_static_embedding(p) for s, p in embedders.items()}
+        ctx = _encode_patched(clip, batch, subj, skip_weights)
+        return _student_loss(unet, sched, batch, ctx, trajectory, S, use_fg_mask)
+
+    return _with_optimizer(loss_fn, optimizer)
+
+
+def make_zero_shot_arc2face_step(clip, unet, teacher_unet, sched, optimizer,
+                                 bg_placeholders: frozenset, arc2face_encoder,
+                                 templates: ZeroShotTemplates, num_denoising_steps: int = 1,
+                                 skip_weights=(0.5, 0.5), use_fg_mask: bool = True):
+    """Returns `step(generators, batch) -> metrics` of a zero-shot Arc2Face
+    distillation iteration: one identity conditions the teacher (its
+    Arc2Face forward context) and the generators; only the generators take
+    gradients. `step.loss_fn(generators, batch)`."""
+    S = num_denoising_steps
+
+    def loss_fn(gens: dict, batch: ZeroShotArc2FaceBatch):
+        full, arc_id_embs = _arc2face_core(arc2face_encoder, batch.id_embs, templates)
+        trajectory = _teacher_trajectory(teacher_unet, sched, batch, full, S)
+        subj = _generator_embeddings(gens, batch, arc_id_embs, bg_placeholders, templates)
+        ctx = _encode_patched(clip, batch, subj, skip_weights)
+        return _student_loss(unet, sched, batch, ctx, trajectory, S, use_fg_mask)
+
+    return _with_optimizer(loss_fn, optimizer)

@@ -28,10 +28,14 @@ checkpoints save. `save_state` / `load_state` hold everything a resumed run
 needs to continue as an uninterrupted one would (step, embedders, the whole
 optimizer chain, the host, dataset and subject-sampler RNG states, the EMA
 state) in the port's own `torch.save` file. SIGUSR1 asks for a checkpoint
-at the next step's end, SIGUSR2 enters pdb. Arc2Face plans run as recon, as
-the JAX trainer runs them when it is given no teacher (the port has none
-yet). `cached_inits` stays None until the teacher filter, which fills it,
-is ported. The data-parallel mesh (`num_devices` > 1), the webdataset
+at the next step's end, SIGUSR2 enters pdb. Given an Arc2Face teacher
+(`fit(arc2face_teacher=(teacher_unet, ctx_fn))`,
+`training/arc2face_teacher.py`), Arc2Face plans run the distillation step
+(batch ceil(batch_size / S) on an S-step plan, the teacher's context from
+`ctx_fn(examples, plan)`; a random-face iteration keeps the dataset's
+latents and drops the masks, as the JAX trainer does); without one they run
+as recon. `cached_inits` stays None until the teacher filter, which fills
+it, is ported. The data-parallel mesh (`num_devices` > 1), the webdataset
 compositor (`wds_shards`), validation (`val_every_steps`), the image logger
 and the teacher filter are not ported yet: the first three raise.
 """
@@ -70,8 +74,10 @@ from adaface_tpu_torch.training.adamw import AdamW
 from adaface_tpu_torch.training.ema import EmaState, ema_init, ema_update
 from adaface_tpu_torch.training.prodigy import AccumulatedClipped, Prodigy
 from adaface_tpu_torch.training.train_step import (
+    Arc2FaceBatch,
     ComposBatch,
     ReconBatch,
+    make_arc2face_distill_step,
     make_compos_distill_step,
     make_recon_train_step,
 )
@@ -156,13 +162,10 @@ class Trainer:
         os.makedirs(cfg.logdir, exist_ok=True)
         self._log_f = open(os.path.join(cfg.logdir, "metrics.jsonl"), "a")
 
-        # frozen backbone; every embedder leaf trains (pre_vecs included)
+        # frozen backbone
         for m in (pipeline.clip, pipeline.unet, pipeline.vae):
             m.requires_grad_(False)
-        params = []
-        for s in sorted(self.mgr.embedders):
-            for _, t in embedder_leaves(self.mgr.embedders[s]):
-                params.append(t.requires_grad_(True))
+        params = self._trainable_params()
         if cfg.use_prodigy:
             inner = Prodigy(params, lr=1.0, d_coef=cfg.d_coef)
         else:
@@ -182,6 +185,7 @@ class Trainer:
         self._emb_reg_w = 0.0 if self.plan_cfg.do_zero_shot else 2e-4 * damping
         self._recon_steps: Dict[tuple, object] = {}
         self._compos_step = None
+        self._a2f_steps: Dict[tuple, object] = {}
         # the empty prompt's first-layer context, frozen, for compel
         self._empty_ctx = None
         if cfg.apply_compel_cfg_prob > 0:
@@ -192,6 +196,11 @@ class Trainer:
                                               else None)
         signal.signal(signal.SIGUSR1, self._on_sigusr1)
         signal.signal(signal.SIGUSR2, self._on_sigusr2)
+
+    def _trainable_params(self) -> list:
+        """Every embedder leaf (pre_vecs included), set to take gradients."""
+        return [t.requires_grad_(True) for s in sorted(self.mgr.embedders)
+                for _, t in embedder_leaves(self.mgr.embedders[s])]
 
     # ------------------------------------------------------------- plumbing
     def _on_sigusr1(self, *_):
@@ -576,22 +585,77 @@ class Trainer:
             v = (1.0, 0.85) if fg_init else (1.0, 0.7)
         return (*k, *v)
 
+    # ------------------------------------------------------------- Arc2Face
+    @staticmethod
+    def _arc2face_batch_size(batch_size: int, S: int) -> int:
+        """A multi-step iteration keeps the first of S chunks of the batch,
+        ceil(batch_size / S) instances; a single-step one all of them."""
+        return -(-batch_size // S) if S > 1 else batch_size
+
+    def build_arc2face_batch(self, plan: IterPlan, ctx_fn) -> Arc2FaceBatch:
+        """Draw and prepare one Arc2Face distillation batch (host RNG in the
+        JAX order; `ctx_fn` draws from the teacher's own)."""
+        S = plan.num_denoising_steps
+        B = self._arc2face_batch_size(self.cfg.batch_size, S)
+        ex = self._draw_examples(B)
+        batch_np = collate_examples(ex)
+        latents = self._latents(batch_np["image"])
+        lh, lw = latents.shape[1:3]
+        ids, slots = self._prompt_batch(ex, "caption")
+        t = sample_timesteps(self.rng, plan, B, self.plan_cfg)
+        teacher_ctx = ctx_fn(ex, plan)
+        img_kw = {}
+        if not plan.gen_arc2face_rand_face:
+            # a random-face iteration keeps the dataset's latents but
+            # carries no augmentation mask (and its step ignores the fg mask)
+            img_kw["img_mask"] = self._tensor(
+                self._mask_to_latent(batch_np["aug_mask"], lh, lw))
+        return Arc2FaceBatch(
+            latents=latents, teacher_context=teacher_ctx.float(), token_ids=ids,
+            slot_maps=slots, timesteps=self._tensor(t, torch.int32),
+            noises=self._tensor(self.rng.standard_normal((S,) + tuple(latents.shape))),
+            relative_ts=self._tensor(self.rng.uniform(size=(max(S - 1, 1), B))),
+            fg_mask=self._tensor(self._mask_to_latent(batch_np["fg_mask"], lh, lw)),
+            **img_kw, **self._skip_weights_kw())
+
+    def _get_arc2face_step(self, plan: IterPlan, teacher_unet):
+        key = (plan.num_denoising_steps, plan.gen_arc2face_rand_face, id(teacher_unet))
+        if key not in self._a2f_steps:
+            p = self.pipe
+            # the configured skip weights are not passed: the JAX trainer's
+            # step takes its default (0.5, 0.5) here
+            self._a2f_steps[key] = make_arc2face_distill_step(
+                p.clip, p.unet, teacher_unet, p.base_sched, self.optimizer,
+                num_denoising_steps=plan.num_denoising_steps,
+                use_fg_mask=not plan.gen_arc2face_rand_face)
+        return self._a2f_steps[key]
+
+    def _run_arc2face(self, plan: IterPlan, teacher):
+        teacher_unet, ctx_fn = teacher
+        batch = self.build_arc2face_batch(plan, ctx_fn)
+        return self._get_arc2face_step(plan, teacher_unet)(self.mgr.embedders, batch)
+
     # ------------------------------------------------------------------ run
-    def fit(self, num_steps: Optional[int] = None):
+    def fit(self, num_steps: Optional[int] = None, arc2face_teacher=None):
         """Run the training loop until `num_steps` micro-steps (default
         max_steps) are done, in the JAX loop's order: step, log, EMA update,
         step count, a checkpoint SIGUSR1 asked for, then every
         `ckpt_every_steps` a checkpoint and the resumable state. On an
-        exception the checkpoint and state are saved as `exception`."""
+        exception the checkpoint and state are saved as `exception`.
+        `arc2face_teacher`: a (teacher_unet, ctx_fn(examples, plan) -> [B,
+        T, D]) pair (`Arc2FaceTeacher.as_tuple()`) turning Arc2Face plans
+        into distillation iterations."""
         n = num_steps or self.cfg.max_steps
         t0 = time.time()
         try:
             while self.global_step < n:
                 plan = plan_iteration(self.rng, self.global_step, self.plan_cfg)
-                if plan.iter_type == ARC2FACE_DISTILL:
-                    plan.iter_type = RECON  # no teacher
+                if plan.iter_type == ARC2FACE_DISTILL and arc2face_teacher is None:
+                    plan.iter_type = RECON
                 if plan.iter_type == COMPOS_DISTILL:
                     metrics = self._run_compos(plan)
+                elif plan.iter_type == ARC2FACE_DISTILL:
+                    metrics = self._run_arc2face(plan, arc2face_teacher)
                 else:
                     metrics = self._run_recon(plan)
                 self._log(metrics, plan)

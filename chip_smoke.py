@@ -222,6 +222,31 @@ Slice 19 (zero-shot generation; no kernel of its own) adds:
       than ZS_MOVE_MIN and the same one repeats it bit for bit; each
       request's flash launches those of a [main] request;
       `generate(context=...)` images of the right shape.
+Slice 20 (zero-shot training and Arc2Face distillation; no kernel of its
+own) adds:
+  4i. the flash forward with its lse, dq and dk/dv at batch 1
+      (`ZS_B1_SHAPES`: a multi-step Arc2Face iteration keeps ceil(3 / S) = 1
+      instance at S 3), with and without a key bias, against their plain
+      versions with 4's gates, planted faults and repeats; kernel, plain,
+      SDPA (forward and backward) and bound times; each launch's CTAs;
+  [zs-train]. after 9d, `ZeroShotTrainer.fit` at full width (finetune-ada
+      yaml's trainer values, zero-shot on): [main]'s UNet, VAE and CLIP in
+      bf16, a second SD v1.5 UNet as the Arc2Face teacher, the zero-shot
+      stack of [zero-shot] (the generators in fp32) over a seeded
+      two-subject dataset with a faceless image; ZS_TRAIN_ROUNDS rounds of
+      six scripted micro-step kinds (zs compos, zs recon with and without
+      the bg token, zs Arc2Face S 1 on a real face, S 3 on a random face,
+      S 3 on noised real ids), each with exact flash launches by kind and
+      shape; the generators move at the first update and stay finite; the
+      last checkpoint loads back bit for bit; s per micro-step kind, peak
+      GiB, one profiled zs recon micro-step; one zs recon loss with its
+      generator gradients and ZS_REF_A2F_DRAWS S 1 Arc2Face losses at 32x32
+      latents, bf16 against fp32 on the CPU, each gate (the two losses,
+      each generator's gradients) with planted faults of which one must
+      fall outside it; `Trainer.fit(arc2face_teacher=)` at S 1
+      and S 3 with exact launches; and the entry point with
+      `--arc2face_unet` / `--arc2face_text_encoder` on the teacher written
+      as diffusers and HF fp16 safetensors.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -765,7 +790,8 @@ def phase_backward_kernels(torch, fa, card, exp2_rate, shapes=TRAIN_SHAPES,
             if with_bias:
                 bias = torch.where(torch.rand((b, l), generator=gen, device="cuda") > 0.3,
                                    0.0, -1e30)
-                bias[0] = -1e30  # a fully masked batch row
+                if b > 1:  # a fully masked batch row (at B1 it would be all of them)
+                    bias[0] = -1e30
             scale = d ** -0.5
             label = f"B{b} L{l} H{h} d{d} {'bias' if with_bias else 'no bias'}"
             fa.launches_by_shape.clear()
@@ -1539,28 +1565,38 @@ def add_training_placeholders(torch, pipe):
                             emb_dim=table.shape[1], generator=gen, device=pipe.device)
 
 
-def make_dataset(folder, size=SIZE):
+def make_dataset(folder, size=SIZE, subjects=1, dark=(), **kw):
     """A `PersonalizedDataset` whose images and fg masks are made from a
     seed instead of read from files (the card's machine has no PIL);
-    augmentation and prompts are the port's own."""
+    augmentation and prompts are the port's own. `subjects` > 1 makes that
+    many subjects of 4 images, each in a subfolder; image i of subject j is
+    drawn below ZS_DARK_LEVEL where (j, i) is in `dark`; `kw` goes to the
+    dataset."""
     import numpy as np
 
     from adaface_tpu_torch.data.personalized import PersonalizedDataset, SubjectSpec
 
-    for i in range(4):
-        for name in (f"{i}.png", f"{i}_mask.png"):
-            open(os.path.join(folder, name), "wb").close()
+    specs = []
+    for j in range(subjects):
+        sub = folder if subjects == 1 else os.path.join(folder, f"s{j}")
+        os.makedirs(sub, exist_ok=True)
+        for i in range(4):
+            for name in (f"{i}.png", f"{i}_mask.png"):
+                open(os.path.join(sub, name), "wb").close()
+        specs.append(SubjectSpec("subject" if subjects == 1 else f"subject{j}", sub))
 
     class SeededImages(PersonalizedDataset):
         def _load(self, rec):
             i = int(os.path.basename(rec.path).split(".")[0])
-            g = np.random.default_rng(100 + i)
-            image = g.integers(0, 256, (size, size, 3), dtype=np.uint8)
+            j = rec.subject_idx
+            g = np.random.default_rng(100 + i + 10 * j)
+            top = ZS_DARK_LEVEL if (j, i) in dark else 256
+            image = g.integers(0, top, (size, size, 3), dtype=np.uint8)
             mask = np.zeros((size, size), np.uint8)
             mask[size // 5 + 8 * i: size - size // 5, size // 4: size - size // 4 + 8 * i] = 255
             return image, mask, True
 
-    return SeededImages([SubjectSpec("subject", folder)], size=size, seed=0)
+    return SeededImages(specs, size=size, seed=0, **kw)
 
 
 def train_configs(logdir, gap=COMPOS_GAP):
@@ -1800,6 +1836,17 @@ def phase_compos_reference(torch, pipe, trainer_cls, tmp):
     return eps_err
 
 
+def launches_between(before, after):
+    """kind -> (B, L, H, d) -> flash launches between two snapshots of
+    `launches_by_shape`."""
+    out = {}
+    for (kind, arm, b, lq, lk, h, d), n in after.items():
+        n -= before.get((kind, arm, b, lq, lk, h, d), 0)
+        if n:
+            out.setdefault(kind, {})[(b, lq, h, d)] = n
+    return out
+
+
 def flash_want(shapes):
     """kind -> (B, L, H, d) -> flash launches of one micro-step."""
     want = {"fwd": {s: n for s, (_, n, _) in shapes.items()}}
@@ -1868,11 +1915,7 @@ def phase_train(torch, pipe, fa, trainer_cls, tmp, card):
         trainer.fit(i + 1)
         torch.cuda.synchronize()
         times.append(time.time() - t0)
-        step_counts = {}
-        for (kind, arm, b, lq, lk, h, d), n in fa.launches_by_shape.items():
-            n -= before.get((kind, arm, b, lq, lk, h, d), 0)
-            if n:
-                step_counts.setdefault(kind, {})[(b, lq, h, d)] = n
+        step_counts = launches_between(before, fa.launches_by_shape)
         what = "compos" if is_compos_step(i) else "recon"
         say(f"[train] micro-step {i} ({what}): {times[-1]:.3f} s, launches "
             f"{ {k: sorted(v.items()) for k, v in sorted(step_counts.items())} } [{card}]")
@@ -2493,11 +2536,7 @@ def _cli_run(torch, fa, trainer_cls, tmp, name, argv, wants, card, counters=None
             torch.cuda.synchronize()
             rec["times"].append(time.time() - t0)
             rec["kinds"].append(kind)
-            got = {}
-            for (k, arm, b, lq, lk, h, d), n in fa.launches_by_shape.items():
-                n -= before.get((k, arm, b, lq, lk, h, d), 0)
-                if n:
-                    got.setdefault(k, {})[(b, lq, h, d)] = n
+            got = launches_between(before, fa.launches_by_shape)
             for k, c in counters.items():
                 delta = {shape: n - before_extra[k].get(shape, 0) for shape, n in c.items()
                          if n - before_extra[k].get(shape, 0)}
@@ -4278,6 +4317,573 @@ def phase_zero_shot(torch, pipe, card):
     say(f"[zero-shot] phase {time.time() - t_phase:.1f} s")
 
 
+# [zs-train]: zero-shot training of the generators (the JAX package's
+# `ZeroShotTrainer.fit`) and Arc2Face distillation of per-subject training
+# on [main]'s UNet, VAE and CLIP with a second SD v1.5 UNet as the teacher
+ZS_DARK_LEVEL = 48  # pixel values of the faceless reference image lie below
+ZS_FACELESS_MEAN = 40.0  # the phase's face embedder finds no face below this mean
+ZS_TRAIN_ROUNDS = 3  # rounds of the six micro-step kinds below
+# [zs-train-ref]: S 1 Arc2Face draws read against fp32 on the CPU, and their
+# loss gate. That loss is the masked mean square of two bf16 UNets' eps
+# difference (student and teacher), so it carries both UNets' rounding: on
+# an H100 the four draws read 6.6e-4 to 5.713e-3 (t 18) while the
+# student's and the teacher's eps each read 1.7-1.8e-2, within the
+# recon path's TRAIN_EPS_TOL. The gate lies between that largest sound
+# reading and the smallest reading of the teacher fed the student's
+# context (2.805e-2); a second identity reads 5.0e-3 to 1.2e-2, inside the
+# loss's noise, and is left to the generators' gradient gate.
+ZS_REF_A2F_DRAWS = 4
+ZS_A2F_LOSS_TOL = 1e-2
+# the flash kernels at batch 1: a multi-step Arc2Face iteration (S 3 at
+# batch 3) keeps ceil(3 / 3) = 1 instance; the student masks its keys (the
+# augmentation mask), the teacher does not
+ZS_B1_SHAPES = {(1, 4096, 8, 40): (K1, 5, 4), (1, 1024, 8, 80): (K1, 5, 5),
+                (1, 256, 8, 160): (K4, 5, 5)}
+
+
+def zs_train_face_fn(seed):
+    """A face embedder for the seeded dataset's augmented images: None for
+    an image darker than ZS_FACELESS_MEAN, else a unit 512-d vector seeded
+    by the image's content."""
+    import numpy as np
+
+    def face(img):
+        if float(img.mean()) < ZS_FACELESS_MEAN:
+            return None
+        v = np.random.default_rng([seed, int(img.astype(np.int64).sum())]).standard_normal(512)
+        return (v / np.linalg.norm(v)).astype(np.float32)
+    return face
+
+
+@contextlib.contextmanager
+def scripted_plans(module, plans):
+    """Within the block, the trainer module's `plan_iteration` hands out
+    `plans` in order, so that each micro-step kind runs where wanted."""
+    real = module.plan_iteration
+    queue = list(plans)
+    module.plan_iteration = lambda rng, step, cfg: queue.pop(0)
+    try:
+        yield queue
+    finally:
+        module.plan_iteration = real
+
+
+def zs_kinds():
+    """name -> (IterPlan maker, UNet batch, teacher calls, student calls) of
+    each micro-step kind the phase drives."""
+    from adaface_tpu_torch.training.iter_plan import (
+        ARC2FACE_DISTILL, COMPOS_DISTILL, RECON, IterPlan)
+
+    a2f = lambda **kw: IterPlan(iter_type=ARC2FACE_DISTILL, training_percent=0.3, **kw)
+    return {
+        "zs compos": (lambda: IterPlan(iter_type=COMPOS_DISTILL, training_percent=0.3,
+                                       use_background_token=True,
+                                       comp_init_fg_from_training_image=True), 4, 0, 1),
+        "zs recon, bg token": (lambda: IterPlan(iter_type=RECON, training_percent=0.3,
+                                                use_background_token=True,
+                                                emb_noise_std=0.04), 3, 0, 1),
+        "zs recon, no bg token": (lambda: IterPlan(iter_type=RECON, training_percent=0.3),
+                                  3, 0, 1),
+        "zs a2f S1 real face": (lambda: a2f(num_denoising_steps=1), 3, 1, 1),
+        "zs a2f S3 random face": (lambda: a2f(num_denoising_steps=3,
+                                              gen_arc2face_rand_face=True), 1, 3, 3),
+        "zs a2f S3 noised ids": (lambda: a2f(num_denoising_steps=3,
+                                             add_noise_to_real_id_embs=True), 1, 3, 3),
+    }
+
+
+def unet_flash_want(b, teacher_calls, student_calls):
+    """kind -> (B, L, H, d) -> flash launches of `teacher_calls` forward-only
+    and `student_calls` trained UNet calls at batch b (TRAIN_SHAPES' counts
+    a call)."""
+    want = {"fwd": {}, "dq": {}, "dkv": {}}
+    for (_, l, h, d), (_, nf, nb) in TRAIN_SHAPES.items():
+        want["fwd"][(b, l, h, d)] = nf * (teacher_calls + student_calls)
+        if student_calls:
+            want["dq"][(b, l, h, d)] = want["dkv"][(b, l, h, d)] = nb * student_calls
+    return {k: v for k, v in want.items() if v}
+
+
+def flash_ctas(kind, b, l, h, d, bias=False):
+    """CTAs of one bf16 flash launch of `kind` (flags 0), from the rows a
+    CTA the built kernel reports (`flash_attention.cta_rows`) and, for
+    dk/dv, the wrapper's split (`bwd_launch_plan`)."""
+    from adaface_tpu_torch.device import sm_count
+    from adaface_tpu_torch.ops import flash_attention as fa
+
+    split = fa.bwd_launch_plan(b, h, l, l, d, sm_count(0)).split if kind == "dkv" else 1
+    return -(-l // fa.cta_rows(kind, d, bias=bias)) * h * b * split
+
+
+def zs_train_configs(logdir, batch_size=None):
+    """`configs/finetune-ada.yaml`'s trainer and iter_plan values (batch 3,
+    Prodigy d_coef 10, accumulation 2, clip 0.5), zero-shot on, without
+    checkpoints or logging on the way."""
+    import dataclasses
+
+    from adaface_tpu_torch.config import load_config
+    from adaface_tpu_torch.training.iter_plan import IterPlanConfig
+    from adaface_tpu_torch.training.trainer import TrainerConfig
+
+    cfg = load_config(os.path.join(CONFIG_DIR, "finetune-ada.yaml"))
+    fields = lambda cls, section: {k: v for k, v in cfg[section].items()
+                                   if k in {f.name for f in dataclasses.fields(cls)}}
+    tcfg = TrainerConfig(**dict(fields(TrainerConfig, "trainer"), log_every_steps=10 ** 6,
+                                ckpt_every_steps=10 ** 6, logdir=logdir))
+    if batch_size is not None:
+        tcfg = dataclasses.replace(tcfg, batch_size=batch_size)
+    return tcfg, IterPlanConfig(**dict(fields(IterPlanConfig, "iter_plan"), do_zero_shot=True))
+
+
+def _grad_errs(torch, card_gens, cpu_gens):
+    """generator -> (relative L2 error of all its parameters' gradients
+    together, worst leaf error among leaves holding >= 1e-3 of the largest
+    leaf's norm, that leaf)."""
+    out = {}
+    for s in sorted(cpu_gens):
+        pairs = [(n, (g.grad if g.grad is not None else torch.zeros_like(g)).float().cpu(),
+                  c.grad if c.grad is not None else torch.zeros_like(c))
+                 for (n, g), (_, c) in zip(card_gens[s].named_parameters(),
+                                           cpu_gens[s].named_parameters())]
+        top = max(float(c.norm()) for _, _, c in pairs)
+        whole = (torch.cat([(g - c).flatten() for _, g, c in pairs]).norm()
+                 / torch.cat([c.flatten() for _, _, c in pairs]).norm()).item()
+        worst, where = 0.0, ""
+        for n, g, c in pairs:
+            if float(c.norm()) >= 1e-3 * top:
+                e = ((g - c).norm() / c.norm()).item()
+                if e > worst:
+                    worst, where = e, n
+        if not all(bool(torch.isfinite(g).all()) for _, g, _ in pairs):
+            worst = float("inf")
+        out[s] = (whole, worst, where)
+    return out
+
+
+def phase_zs_train_reference(torch, zpipe, trainer, gens, builds, teacher_unet, tmp, card):
+    """One zs recon loss with its generator gradients and ZS_REF_A2F_DRAWS
+    S 1 Arc2Face losses, at 32x32 latents and batch 1, bf16 on the card
+    (fp32 generators) against the same weights in fp32 on the CPU (the
+    reference's Upsample as `bf16_upsample_reference` sets it), dropout
+    off. Gates, each with planted faults of which at least one must read
+    outside it: the zs recon loss within `loss_tol` (faults: a second
+    identity, the fg features fed to the bg generator, the bg generator's
+    dropout left on, the recon loss without its fg mask); every draw's
+    Arc2Face loss within ZS_A2F_LOSS_TOL (faults on each draw: a second
+    identity, the teacher fed the student's context, the fg mask dropped);
+    the student's and the teacher's eps of the first draw, each within
+    TRAIN_EPS_TOL (the witness that the loss's error is the two bf16 UNets'
+    rounding); each generator's gradients (all its leaves as one vector)
+    within TRAIN_GRAD_TOL (faults: the recon loss's, and z's
+    prompt2token_proj gradient scale left out, which moves no loss)."""
+    import copy
+    import dataclasses
+
+    from adaface_tpu_torch.training import train_step as ts_mod
+    from adaface_tpu_torch.training.iter_plan import ARC2FACE_DISTILL, RECON, IterPlan
+    from adaface_tpu_torch.training.train_step import (
+        make_zero_shot_arc2face_step, make_zero_shot_recon_step)
+    from adaface_tpu_torch.training.zs_trainer import ZeroShotTrainer
+
+    ds_dir = os.path.join(tmp, "zs_ref_subjects")
+    g_card = {s: copy.deepcopy(g) for s, g in gens.items()}
+    small = ZeroShotTrainer(zpipe, make_dataset(ds_dir, size=256, subjects=2,
+                                                num_vectors_per_subj_token=16),
+                            trainer.extractor,
+                            g_card, trainer._arc_encoder,
+                            dataclasses.replace(trainer.cfg, batch_size=1,
+                                                logdir=os.path.join(tmp, "zs_ref")),
+                            trainer.plan_cfg, bg_placeholders=frozenset({"y"}))
+    recon_plan = IterPlan(iter_type=RECON, training_percent=0.3, use_background_token=True)
+    seeded = small.build_zs_recon_batch(small._draw_examples(1), recon_plan)
+    batch = seeded._replace(dropout_seed=None)
+    a2f_plan = IterPlan(iter_type=ARC2FACE_DISTILL, training_percent=0.3)
+    a2f_batches = [small.build_zs_arc2face_batch(a2f_plan)._replace(dropout_seed=None)
+                   for _ in range(ZS_REF_A2F_DRAWS)]
+    if tuple(batch.latents.shape) != (1, 32, 32, 4) or any(
+            b.latents.shape[0] != 1 for b in a2f_batches):
+        fail(f"[zs-train-ref] latents {tuple(batch.latents.shape)}, want (1, 32, 32, 4)")
+    recon_step = small._get_zs_recon_step(True)
+    a2f_step = small._get_zs_arc2face_step(a2f_plan, teacher_unet)
+
+    def card_recon(b):
+        for g in g_card.values():
+            g.zero_grad(set_to_none=True)
+        loss, m = recon_step.loss_fn(g_card, b)
+        loss.backward()
+        return loss.item(), m
+
+    def card_a2f(b):
+        with torch.no_grad():
+            return a2f_step.loss_fn(g_card, b)[0].item()
+
+    @contextlib.contextmanager
+    def teacher_context(ctx):
+        # the fault: the teacher fed `ctx` in place of the Arc2Face forward's
+        real = ts_mod._teacher_trajectory
+        ts_mod._teacher_trajectory = lambda unet, sched, b, _, S: real(unet, sched, b, ctx, S)
+        try:
+            yield
+        finally:
+            ts_mod._teacher_trajectory = real
+
+    second = lambda b: b._replace(id_embs=torch.roll(b.id_embs, 1, dims=-1))
+    a2f_gpu, a2f_faults, eps_gpu = [], [], {"student": [], "teacher": []}
+    for i, b in enumerate(a2f_batches):
+        captured = []
+        hook = zpipe.clip.register_forward_hook(lambda m, inp, o: captured.append(o.detach()))
+        with contextlib.ExitStack() as stack:
+            if i == 0:
+                stack.enter_context(first_output(zpipe.unet, eps_gpu["student"]))
+                stack.enter_context(first_output(teacher_unet, eps_gpu["teacher"]))
+            a2f_gpu.append(card_a2f(b))
+        hook.remove()
+        # the student's context (its first layer) from the clip call above
+        student0 = captured[-1].reshape((16, -1) + tuple(captured[-1].shape[1:]))[0]
+        with teacher_context(student0):
+            swap = card_a2f(b)
+        a2f_faults.append({"a second identity": card_a2f(second(b)),
+                           "the teacher fed the student's context": swap,
+                           "the fg mask dropped": card_a2f(b._replace(fg_mask=None))})
+
+    # the same code in fp32 on the CPU
+    t0 = time.time()
+    cpu = lambda m, build=None: cpu_fp32_copy(torch, m, build).requires_grad_(False)
+    clip_cpu, unet_cpu, teacher_cpu = cpu(zpipe.clip), cpu(zpipe.unet), cpu(teacher_unet)
+    arc_cpu = cpu(trainer._arc_encoder, builds["arc2face"])
+    g_cpu = {s: cpu(g, builds["fg" if s == "z" else "bg"]).requires_grad_(True)
+             for s, g in gens.items()}
+    kw = dict(bg_placeholders=frozenset({"y"}), arc2face_encoder=arc_cpu,
+              templates=small._templates, skip_weights=zpipe.skip_weights)
+    recon_cpu = make_zero_shot_recon_step(
+        clip_cpu, unet_cpu, zpipe.base_sched, None, **kw, bg_weight=small.cfg.bg_recon_weight,
+        complem_weight=small.cfg.fg_bg_complementary_loss_weight,
+        xlayer_weight=small.cfg.fg_bg_xlayer_consist_loss_weight,
+        prompt_delta_weight=small._delta_w, use_bg_token=True)
+    a2f_cpu = make_zero_shot_arc2face_step(clip_cpu, unet_cpu, teacher_cpu, zpipe.base_sched,
+                                           None, **kw, num_denoising_steps=1)
+    to_cpu = lambda b: b._replace(**{f: (v.detach().cpu().float() if v.is_floating_point()
+                                         else v.cpu())
+                                     for f, v in b._asdict().items() if torch.is_tensor(v)})
+    eps_cpu = {"student": [], "teacher": []}
+    a2f_ref = []
+    with bf16_upsample_reference(torch):
+        loss_cpu, m_cpu = recon_cpu.loss_fn(g_cpu, to_cpu(batch))
+        loss_cpu.backward()
+        for i, b in enumerate(a2f_batches):
+            with torch.no_grad(), contextlib.ExitStack() as stack:
+                if i == 0:
+                    stack.enter_context(first_output(unet_cpu, eps_cpu["student"]))
+                    stack.enter_context(first_output(teacher_cpu, eps_cpu["teacher"]))
+                a2f_ref.append(a2f_cpu.loss_fn(g_cpu, to_cpu(b))[0].item())
+    say(f"[zs-train-ref] fp32 CPU zs recon loss and gradients and {len(a2f_ref)} Arc2Face "
+        f"losses in {time.time() - t0:.1f} s")
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+    loss_gpu, m_gpu = card_recon(batch)
+    errs = _grad_errs(torch, g_card, g_cpu)
+    recon_faults = {}
+    for name, b in (("a second identity", second(batch)),
+                    ("the fg features fed to the bg generator",
+                     batch._replace(clip_bg=batch.clip_fg)),
+                    ("the bg generator's dropout left on", seeded),
+                    ("the recon loss without its fg mask", batch._replace(fg_mask=None))):
+        recon_faults[name] = (rel(card_recon(b)[0], loss_cpu.item()),
+                              _grad_errs(torch, g_card, g_cpu))
+    z_scale = g_card["z"].prompt2token_proj_grad_scale
+    g_card["z"].prompt2token_proj_grad_scale = 1.0
+    try:
+        grad_faults = {"z's prompt2token_proj gradient scale left out":
+                       (rel(card_recon(batch)[0], loss_cpu.item()),
+                        _grad_errs(torch, g_card, g_cpu))}
+    finally:
+        g_card["z"].prompt2token_proj_grad_scale = z_scale
+    grad_faults.update(recon_faults)
+
+    for k in sorted(m_cpu):
+        say(f"[zs-train-ref] {k:22s} card {m_gpu[k].item():.6e} cpu {m_cpu[k].item():.6e} "
+            f"relative error {rel(m_gpu[k].item(), m_cpu[k].item()):.3e}")
+    tol = loss_tol()
+    recon_err = rel(loss_gpu, loss_cpu.item())
+    say(f"[zs-train-ref] zs recon loss relative error {recon_err:.3e} (tol {tol}); faults: "
+        + ", ".join(f"{n} {e:.3e}" for n, (e, _) in recon_faults.items())
+        + f" [Upsample: {upsample_path()}]")
+    a2f_errs = [rel(g, r) for g, r in zip(a2f_gpu, a2f_ref)]
+    for i, (g, r, e, faults) in enumerate(zip(a2f_gpu, a2f_ref, a2f_errs, a2f_faults)):
+        say(f"[zs-train-ref] Arc2Face S1 draw {i} (t {int(a2f_batches[i].timesteps[0])}): "
+            f"loss card {g:.6e} cpu {r:.6e}, relative error {e:.3e} (tol {ZS_A2F_LOSS_TOL}); "
+            "faults: " + ", ".join(f"{n} {rel(v, r):.3e}" for n, v in faults.items()))
+    eps_errs = {who: rel_err(eps_gpu[who][0], eps_cpu[who][0]) for who in eps_gpu}
+    diff_err = rel_err(eps_gpu["student"][0] - eps_gpu["teacher"][0],
+                       eps_cpu["student"][0] - eps_cpu["teacher"][0])
+    say(f"[zs-train-ref] Arc2Face S1 draw 0 eps relative L2 error: student {eps_errs['student']:.3e}, "
+        f"teacher {eps_errs['teacher']:.3e} (tol {TRAIN_EPS_TOL}), student - teacher "
+        f"{diff_err:.3e}; the loss's relative error {a2f_errs[0]:.3e} against 2r + r^2 = "
+        f"{2 * diff_err + diff_err ** 2:.3e} of r = the difference's error")
+    for s in sorted(errs):
+        say(f"[zs-train-ref] generator {s} gradients relative L2 error {errs[s][0]:.3e} all "
+            f"leaves as one vector (tol {TRAIN_GRAD_TOL}; worst leaf holding >= 1e-3 of the "
+            f"largest leaf's norm {errs[s][1]:.3e}, {errs[s][2]}); faults: " + ", ".join(
+                f"{n} {fe[s][0]:.3e}" for n, (_, fe) in grad_faults.items()))
+    if not recon_err <= tol or not max(a2f_errs) <= ZS_A2F_LOSS_TOL:
+        fail("[zs-train-ref] a loss on the card disagrees with the fp32 CPU reference")
+    if not max(eps_errs.values()) <= TRAIN_EPS_TOL:
+        fail("[zs-train-ref] the student's or the teacher's eps disagrees with the fp32 CPU "
+             "reference")
+    if not all(e[0] <= TRAIN_GRAD_TOL for e in errs.values()):
+        fail("[zs-train-ref] a generator's gradients disagree with the fp32 CPU reference")
+    if not max(e for e, _ in recon_faults.values()) > tol:
+        fail("[zs-train-ref] the zs recon loss gate cannot tell any planted fault apart")
+    for i, (r, faults) in enumerate(zip(a2f_ref, a2f_faults)):
+        if not max(rel(v, r) for v in faults.values()) > ZS_A2F_LOSS_TOL:
+            fail(f"[zs-train-ref] the Arc2Face loss gate cannot tell any planted fault apart "
+                 f"on draw {i}")
+    for s in sorted(errs):
+        if not max(fe[s][0] for _, fe in grad_faults.values()) > TRAIN_GRAD_TOL:
+            fail(f"[zs-train-ref] generator {s}'s gradient gate cannot tell any planted fault "
+                 "apart")
+    small.close()
+    del g_card, g_cpu, clip_cpu, unet_cpu, teacher_cpu, arc_cpu, small
+
+
+def phase_zs_train(torch, pipe, trainer_cls, tmp, card):
+    """[zs-train]: `ZeroShotTrainer.fit` at full width in bf16 (fp32
+    generators), ZS_TRAIN_ROUNDS rounds of the six kinds of `zs_kinds` with
+    a second SD v1.5 UNet as the Arc2Face teacher, each micro-step's flash
+    launches exact by kind and shape; the generators move at the first
+    update and stay finite; the last checkpoint loads back bit for bit;
+    one profiled zs recon micro-step; the fp32 reference
+    (`phase_zs_train_reference`); then `Trainer.fit(arc2face_teacher=)` at
+    S 1 and S 3 and the training entry point with `--arc2face_unet` on the
+    teacher written as diffusers fp16 safetensors. Returns the flash
+    launches of the zero-shot micro-steps, (kind, B, L, H, d) -> n."""
+    import numpy as np
+
+    from adaface_tpu_torch.data.tokenizer import HashTokenizer
+    from adaface_tpu_torch.interop.checkpoint_io import save_safetensors
+    from adaface_tpu_torch.interop.diffusers_unet import diffusers_unet_state_dict
+    from adaface_tpu_torch.interop.hf_clip import hf_clip_text_state_dict
+    from adaface_tpu_torch.models.unet import UNetModel
+    from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
+    from adaface_tpu_torch.personalization.zero_shot import ZeroShotFeatureExtractor
+    from adaface_tpu_torch.pipeline import StableDiffusionPipeline, build_random
+    from adaface_tpu_torch.train import main as train_main
+    from adaface_tpu_torch.training import trainer as trainer_mod
+    from adaface_tpu_torch.training import zs_trainer as zs_mod
+    from adaface_tpu_torch.training.arc2face_teacher import Arc2FaceTeacher
+    from adaface_tpu_torch.training.iter_plan import IterPlan, RECON
+
+    fa = _fa()
+    t_phase = time.time()
+    tok = HashTokenizer()
+    builds = zero_shot_builds(tok)
+    dev, dt = pipe.device, pipe.unet.in_conv.weight.dtype
+    vision = build_random(builds["vision"], 100, dev, dt)
+    arc = build_random(builds["arc2face"], 101, dev, dt)
+    gens = {"z": build_random(builds["fg"], 102, dev), "y": build_random(builds["bg"], 103, dev)}
+    teacher_unet = build_random(lambda: UNetModel(pipe.unet.cfg), 200, dev, dt).to(
+        memory_format=torch.channels_last)
+    zpipe = StableDiffusionPipeline(tok, pipe.clip, pipe.unet, pipe.vae)
+    zpipe.embedding_manager.add_zero_shot_placeholder("z", tok.add_placeholder("z"), gens["z"])
+    zpipe.embedding_manager.add_zero_shot_placeholder("y", tok.add_placeholder("y"), gens["y"],
+                                                      is_background=True)
+    face = zs_train_face_fn(1)
+    tcfg, pcfg = zs_train_configs(os.path.join(tmp, "zs_run"))
+    # the prompts pad z to the fg generator's 16 vectors
+    ds = make_dataset(os.path.join(tmp, "zs_subjects"), subjects=2, dark={(0, 3)},
+                      num_vectors_per_subj_token=16)
+    trainer = zs_mod.ZeroShotTrainer(zpipe, ds, ZeroShotFeatureExtractor(vision,
+                                                                         face_embed_fn=face),
+                                     gens, arc, tcfg, pcfg, bg_placeholders=frozenset({"y"}))
+    say(f"[zs-train] models built in {time.time() - t_phase:.1f} s: the generators in fp32 "
+        f"(fg {sum(p.numel() for p in gens['z'].parameters()) / 1e6:.1f} M, bg "
+        f"{sum(p.numel() for p in gens['y'].parameters()) / 1e6:.1f} M parameters), the rest "
+        f"bf16 (a second SD v1.5 UNet as the teacher); finetune-ada.yaml: batch "
+        f"{tcfg.batch_size}, accumulation {tcfg.accumulate_grad_batches}, Prodigy d_coef "
+        f"{tcfg.d_coef}, clip {tcfg.grad_clip}, do_zero_shot {pcfg.do_zero_shot}")
+
+    kinds = zs_kinds()
+    order = [name for _ in range(ZS_TRAIN_ROUNDS) for name in kinds]
+    params = lambda: {(s, n): p.detach().clone() for s, g in gens.items()
+                      for n, p in g.named_parameters()}
+    start = params()
+    marks = []
+    real_post = trainer._post_step
+
+    def post(t0):
+        torch.cuda.synchronize()
+        marks.append((time.time(), dict(fa.launches_by_shape)))
+        if len(marks) == 3:  # the first optimizer update (accumulation 2)
+            now = params()
+            moved = max(float((now[k] - start[k]).abs().max()) for k in start)
+            finite = all(bool(torch.isfinite(t).all()) for t in now.values())
+            say(f"[zs-train] after the first update the generators moved by up to "
+                f"{moved:.3e}, finite {finite}")
+            if not finite or not moved > 0:
+                fail("[zs-train] the first update left the generators unchanged or non-finite")
+            del now
+        real_post(t0)
+
+    trainer._post_step = post
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches_by_shape.clear()
+    marks.append((time.time(), {}))
+    with scripted_plans(zs_mod, [kinds[name][0]() for name in order]):
+        trainer.fit(len(order), arc2face_teacher_unet=teacher_unet)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer._post_step = real_post
+    del start
+    times = {}
+    totals = {}
+    for i, name in enumerate(order):
+        (t_a, before), (t_b, after) = marks[i], marks[i + 1]
+        got = launches_between(before, after)
+        _, b, n_teacher, n_student = kinds[name]
+        want = unet_flash_want(b, n_teacher, n_student)
+        say(f"[zs-train] micro-step {i} ({name}): {t_b - t_a:.3f} s, launches "
+            f"{ {k: sorted(v.items()) for k, v in sorted(got.items())} } [{card}]")
+        if got != want:
+            fail(f"[zs-train] micro-step {i} ({name}): expected the launches {want}, got {got}")
+        times.setdefault(name, []).append(t_b - t_a)
+        for kind, by in got.items():
+            for (bb, l, h, d), n in by.items():
+                totals[(kind, bb, l, h, d)] = totals.get((kind, bb, l, h, d), 0) + n
+    recs = [json.loads(line) for line in open(os.path.join(tcfg.logdir, "metrics.jsonl"))]
+    steps = [r for r in recs if "loss" in r]
+    want_types = ["compos_distill" if "compos" in n else "arc2face_distill" if "a2f" in n
+                  else "recon" for n in order]
+    if [r["iter_type"] for r in steps] != want_types or not all(
+            np.isfinite(v) for r in steps for v in r.values() if isinstance(v, float)):
+        fail(f"[zs-train] the micro-steps ran as {[r['iter_type'] for r in steps]} (want "
+             f"{want_types}) or logged a non-finite value")
+    for i, name in enumerate(order[:len(kinds)]):
+        say(f"[zs-train] ran {name}: "
+            f"{ {k: round(v, 6) for k, v in steps[i].items() if isinstance(v, float)} }")
+    say(f"[zs-train] median s per micro-step after each kind's first (batch 3 512x512 bf16; "
+        f"compos one block of 4 UNet rows; a2f S3 at batch 1): " + ", ".join(
+            f"{name} {statistics.median(ts[1:]):.3f} (first {ts[0]:.3f})"
+            for name, ts in times.items()) + f"; peak {peak:.2f} GiB [{card}]")
+
+    # the last checkpoint: generators, frozen anchor, optimizer and RNG
+    # states come back bit for bit after a perturbation
+    t0 = time.time()
+    path = os.path.join(tcfg.logdir, "subj_basis_last.pt")
+    def leaves(x):
+        if torch.is_tensor(x):
+            return [x]
+        if isinstance(x, dict):
+            return [t for k in sorted(x, key=str) for t in leaves(x[k])]
+        if isinstance(x, (list, tuple)):
+            return [t for v in x for t in leaves(v)]
+        return [x]
+
+    state = lambda: leaves([[g.state_dict() for g in gens.values()],
+                            [g.state_dict() for g in trainer._gen0.values()],
+                            trainer.optimizer.state_dict(), trainer.rng.bit_generator.state,
+                            trainer.dataset.rng.bit_generator.state])
+    snap = [t.detach().clone() if torch.is_tensor(t) else t for t in state()]
+    with torch.no_grad():
+        for g in list(gens.values()) + list(trainer._gen0.values()):
+            for p in g.parameters():
+                p.add_(1.0)
+        for t in trainer.optimizer.inner.exp_avg:
+            t.add_(1.0)
+    trainer.rng.random(7)
+    trainer.load_checkpoint(path)
+    now = state()
+    same = len(now) == len(snap) and all(
+        (torch.is_tensor(a) and torch.is_tensor(b) and a.dtype == b.dtype
+         and torch.equal(a, b.to(a.device))) or (not torch.is_tensor(a) and a == b)
+        for a, b in zip(snap, now))
+    say(f"[zs-train] checkpoint {os.path.getsize(path) / 2 ** 30:.2f} GiB: save -> load "
+        f"{'bit for bit' if same else 'DIFFERS'} ({time.time() - t0:.1f} s to check)")
+    if not same:
+        fail("[zs-train] the checkpoint did not load back bit for bit")
+    del snap, now
+
+    profile_breakdown(torch, lambda: trainer._run_zs_recon(IterPlan(
+        iter_type=RECON, training_percent=0.3, use_background_token=True)), "zs-train-profile",
+        "one zs recon micro-step (bg token, batch 3)", card)
+    phase_zs_train_reference(torch, zpipe, trainer, gens, builds, teacher_unet, tmp, card)
+    trainer.close()
+    del trainer
+
+    # per-subject training with the teacher: Trainer.fit and the entry point
+    teacher = Arc2FaceTeacher(teacher_unet, arc, pipe.tokenizer, face_embed_fn=face)
+    a2f = {name: kinds[name] for name in ("zs a2f S1 real face", "zs a2f S3 random face")}
+    tcfg2, pcfg2 = train_configs(os.path.join(tmp, "a2f_run"))
+    tr = trainer_cls(pipe, make_dataset(os.path.join(tmp, "a2f_subject")), tcfg2, pcfg2)
+    leaves = lambda: {(s, n): t.detach().clone() for s, p in pipe.embedding_manager.embedders
+                      .items() for n, t in embedder_leaves(p)}
+    before_emb = leaves()
+    with scripted_plans(trainer_mod, [k[0]() for k in a2f.values()]):
+        for i, (name, (_, b, n_teacher, n_student)) in enumerate(a2f.items()):
+            before = dict(fa.launches_by_shape)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            tr.fit(i + 1, arc2face_teacher=teacher.as_tuple())
+            torch.cuda.synchronize()
+            got = launches_between(before, fa.launches_by_shape)
+            say(f"[a2f-train] Trainer micro-step {i} ({name[3:]}): {time.time() - t0:.3f} s, "
+                f"launches { {k: sorted(v.items()) for k, v in sorted(got.items())} } [{card}]")
+            if got != unet_flash_want(b, n_teacher, n_student):
+                fail(f"[a2f-train] micro-step {i}: expected "
+                     f"{unet_flash_want(b, n_teacher, n_student)}, got {got}")
+    recs = [json.loads(line) for line in open(os.path.join(tcfg2.logdir, "metrics.jsonl"))
+            if '"loss"' in line]
+    moved = max(float((t - before_emb[k]).abs().max()) for k, t in leaves().items())
+    say(f"[a2f-train] losses {[round(r['loss'], 6) for r in recs]}, embedders moved by up to "
+        f"{moved:.3e} after the update")
+    if ([r["iter_type"] for r in recs] != ["arc2face_distill"] * 2
+            or not all(np.isfinite(r["loss"]) for r in recs) or not moved > 0):
+        fail("[a2f-train] the Arc2Face micro-steps did not train")
+    tr.close()
+
+    # the entry point on the teacher written as Arc2Face ships: a diffusers
+    # UNet and an HF text encoder, fp16 safetensors
+    t0 = time.time()
+    unet_dir, enc_dir = os.path.join(tmp, "arc2face", "arc2face"), os.path.join(tmp, "arc2face",
+                                                                               "encoder")
+    os.makedirs(unet_dir)
+    os.makedirs(enc_dir)
+    half = lambda sd: {k: v.half() for k, v in sd.items()}
+    save_safetensors(diffusers_unet_state_dict(half(teacher_unet.state_dict()), pipe.unet.cfg),
+                     os.path.join(unet_dir, "diffusion_pytorch_model.safetensors"))
+    save_safetensors(hf_clip_text_state_dict(half(arc.state_dict()), arc.cfg.num_layers),
+                     os.path.join(enc_dir, "model.safetensors"))
+    say(f"[a2f-cli] teacher written as diffusers/HF fp16 safetensors in {time.time() - t0:.1f} s")
+    cli_dir = os.path.join(tmp, "a2f_cli")
+    argv = ["--base", os.path.join(CONFIG_DIR, "finetune-static-layerwise.yaml"), "--bf16",
+            "--data_root", os.path.join(tmp, "a2f_cli_subject"), "--max_steps", "2",
+            "--logdir", cli_dir, "--arc2face_unet", unet_dir, "--arc2face_text_encoder",
+            enc_dir]
+    before = dict(fa.launches_by_shape)
+    t0 = time.time()
+    with scripted_plans(trainer_mod, [k[0]() for k in a2f.values()]):
+        rc = train_main(argv, dataset=make_dataset(os.path.join(tmp, "a2f_cli_subject")))
+    torch.cuda.synchronize()
+    got = launches_between(before, fa.launches_by_shape)
+    want = {}
+    for _, b, n_teacher, n_student in a2f.values():
+        for kind, by in unet_flash_want(b, n_teacher, n_student).items():
+            want.setdefault(kind, {}).update(by)
+    recs = [json.loads(line) for line in open(os.path.join(cli_dir, "metrics.jsonl"))
+            if '"loss"' in line]
+    say(f"[a2f-cli] python -m adaface_tpu_torch.train --arc2face_unet (in-process, "
+        f"finetune-static-layerwise.yaml --bf16, 2 micro-steps): rc {rc}, "
+        f"{time.time() - t0:.1f} s with its setup, losses "
+        f"{[(r['iter_type'], round(r['loss'], 6)) for r in recs]}, launches "
+        f"{ {k: sorted(v.items()) for k, v in sorted(got.items())} } [{card}]")
+    if (rc != 0 or [r["iter_type"] for r in recs] != ["arc2face_distill"] * 2
+            or not all(np.isfinite(r["loss"]) for r in recs) or got != want):
+        fail(f"[a2f-cli] the entry point did not distill from the loaded teacher (launches "
+             f"want {want})")
+    del teacher, teacher_unet, vision, arc, gens, zpipe
+    torch.cuda.empty_cache()
+    say(f"[zs-train] phase {time.time() - t_phase:.1f} s")
+    return totals
+
+
 def main():
     import torch
 
@@ -4300,6 +4906,15 @@ def main():
     # 4f: the compos step's shapes, without its (absent) key bias first
     compos_bwd_rows = phase_backward_kernels(torch, fa, card, exp2_rate, COMPOS_SHAPES,
                                              biases=(False, True))
+    # [zs-train]'s multi-step Arc2Face iterations run them at batch 1: the
+    # student with a key mask, the teacher without
+    b1_bwd_rows = phase_backward_kernels(torch, fa, card, exp2_rate, ZS_B1_SHAPES)
+    say("[b1-grid] CTAs a launch at batch 1 (the card has "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs; the forward with "
+        "the student's key bias / the teacher's none): " + ", ".join(
+            f"{kind} L{l} d{d} {flash_ctas(kind, b, l, h, d, bias=True)}"
+            + (f" / {flash_ctas(kind, b, l, h, d)}" if kind == "fwd" else "")
+            for kind, b, l, h, d in sorted(b1_bwd_rows)))
     arm_rows, arm_bwd_rows = phase_arm_kernels(torch, fa, card, exp2_rate)
     phase_backward_edges(torch, fa, card)
     fp32_rows = phase_fp32_kernels(torch, fa, card, exp2_rate)
@@ -4343,6 +4958,7 @@ def main():
                                                compos_med, train_peak)
         arm_train = phase_arm_train(torch, pipe, Trainer, tmp, card)
         fp32_counts, fp32_fused_train = phase_entry_point(torch, fa, Trainer, tmp, card)
+        zs_counts = phase_zs_train(torch, pipe, Trainer, tmp, card)
 
     entries = []
     for (b, l, h, d), (replaces, _) in MAIN_SHAPES.items():
@@ -4360,6 +4976,12 @@ def main():
             entries.append(dict(name=f"{name} B{b} L{l} H{h} d{d} ({what})", route="cuda",
                                 source=source, launches=train_counts[(kind, b, l, h, d)],
                                 **row))
+    # batch 1: launches over [zs-train]'s zero-shot micro-steps
+    for (kind, b, l, h, d), row in sorted(b1_bwd_rows.items()):
+        name, source = names[kind]
+        entries.append(dict(name=f"{name} B{b} L{l} H{h} d{d} (zero-shot training)",
+                            route="cuda", source=source,
+                            launches=zs_counts.get((kind, b, l, h, d), 0), **row))
     # the arms: launches per generate request under each arm configuration
     default = expected_generate_launches("default")
     for name, got in arm_counts.items():

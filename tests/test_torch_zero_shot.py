@@ -323,6 +323,59 @@ def test_generator_loader_refuses_a_foreign_tree(stack):
             SubjBasisGenerator(**_gen_kw(False), proj_cfg=tct.CLIPTextConfig(**TXT_KW)), fg)
 
 
+def test_train_mode_generator_loaded_from_jax_is_deterministic(stack):
+    """A bg generator built and loaded from JAX's tree without `.eval()`
+    (a fresh module is in train mode) gives JAX's deterministic output, and
+    twice the same: dropout runs only on a generator the caller passes."""
+    port = from_jax.load_subj_basis_generator_from_jax(
+        SubjBasisGenerator(**_gen_kw(True)), stack["bg_params"])
+    assert port.training
+    inputs = _gen_inputs(7)
+    (got, _), (ref, _) = _run_generators(stack, "bg", 1.0, inputs, port=port)
+    _close(got, ref)
+    (again, _), _ = _run_generators(stack, "bg", 1.0, inputs, port=port)
+    assert torch.equal(got, again)
+
+
+def _bg_with_dropout(stack, seed, index=1):
+    from adaface_tpu_torch.personalization.subj_basis_generator import dropout_stream
+
+    with torch.no_grad():
+        out, _ = stack["bg"](_t(_gen_inputs(8)["clip"]), None, None,
+                             dropout_generator=dropout_stream(seed, index, "cpu"))
+    return out
+
+
+def test_generator_dropout_repeats_by_seed(stack):
+    """One seed repeats its masks bit for bit, another seed or another
+    generator's stream of the same seed differs, and no seed is the
+    deterministic output."""
+    from adaface_tpu_torch.personalization.subj_basis_generator import dropout_stream
+
+    a, b = _bg_with_dropout(stack, 11), _bg_with_dropout(stack, 11)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, _bg_with_dropout(stack, 12))
+    assert not torch.equal(a, _bg_with_dropout(stack, 11, index=0))
+    (plain, _), _ = _run_generators(stack, "bg", 1.0, _gen_inputs(8))
+    assert not torch.equal(a, plain)
+    assert dropout_stream(None, 0, "cpu") is None
+
+
+def test_attention_dropout_drops_five_percent():
+    """Over 2^22 attention weights the dropped share is 5% +- 1%, and the
+    kept ones are divided by 0.95 (flax's Dropout)."""
+    from adaface_tpu_torch.personalization.subj_basis_generator import (
+        attention_dropout, dropout_stream)
+
+    attn = torch.full((4, 4, 512, 512), 0.25)
+    out = attention_dropout(attn, 0.05, dropout_stream(3, 0, "cpu"))
+    dropped = float((out == 0).float().mean())
+    assert 0.04 <= dropped <= 0.06, dropped
+    kept = out[out != 0]
+    torch.testing.assert_close(kept, torch.full_like(kept, 0.25 / 0.95))
+    assert attention_dropout(attn, 0.05, None) is attn
+
+
 # --------------------------------------------------------- feature extractor
 
 def _images(seed):
