@@ -4,8 +4,9 @@ behavior and the same order of draws from the dataset's numpy RNG):
 
 - folder scan: per-subject subfolders, `*_mask.png` fg-mask pairing,
   `.txt` caption files, `metainfo.json` person_type cache;
-- loading: RGB (PIL, imported when an image is read), NEAREST resize with
-  the mask stacked as a 4th channel so one resample moves both;
+- loading: RGB (PNGs through the port's own codec, `data/png.py`; other
+  formats through PIL, imported when such a file is read), NEAREST resize
+  with the mask stacked as a 4th channel so one resample moves both;
 - augmentation: random horizontal flip, random uniform scale in
   [0.7, 1.0] about the center (zero-padded), then a random roll within the
   empty margins (margin 12) producing `aug_mask`;
@@ -13,9 +14,10 @@ behavior and the same order of draws from the dataset's numpy RNG):
   (subj/cls x single/comp) with bg-suffix and "face portrait" (fp)
   variants, multi-vector ", " padding;
 - `SubjectSampler`: weighted random subject choice (weight proportional to
-  image count, optional skip-non-faces).
-
-The C++ prefetching loader (`native_stream`) is not ported yet.
+  image count, optional skip-non-faces);
+- `native_stream`: batches whose image side (decode, resample, flip,
+  scale, shift) the C++ prefetching loader serves (`data/native_loader.py`),
+  the Python path where the loader cannot be built.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from adaface_tpu_torch.data.compositions import sample_compositions
+from adaface_tpu_torch.data.png import load_image
 
 # Standard Textual-Inversion prompt templates (Gal et al.); the reference
 # triples them with rendering/illustration/depiction variants (`:24-107`).
@@ -203,11 +206,9 @@ class PersonalizedDataset:
 
     # -------------------------------------------------------------- loading
     def _load(self, rec: ImageRecord):
-        from PIL import Image
-
-        image = np.asarray(Image.open(rec.path).convert("RGB"), np.uint8)
+        image = load_image(rec.path, "RGB")
         if rec.mask_path:
-            mask = np.asarray(Image.open(rec.mask_path).convert("L"), np.uint8)
+            mask = load_image(rec.mask_path, "L")
             has_fg_mask = True
         else:
             mask = np.full(image.shape[:2], 255, np.uint8)
@@ -319,6 +320,46 @@ class PersonalizedDataset:
                     *[subject_string + bg_suffix] * len(comps))
                 example["cls_prompt_comp_fp_bg"] = fp_comp.format(
                     *[cls_delta_string + cls_bg_suffix] * len(comps))
+
+    # ---------------------------------------------------------- native path
+    def native_stream(self, batch_size: int, n_workers: int = 2, queue_capacity: int = 8):
+        """Generator of collated batches whose image side (decode, NEAREST
+        resample, flip, scale, margin shift) the C++ prefetching loader
+        serves (`data/native_loader.py`); the prompts stay in Python. Where
+        the loader cannot be built it serves the Python path."""
+        from adaface_tpu_torch.data import native_loader
+
+        if not native_loader.is_available():
+            while True:
+                idxs = self.rng.integers(0, len(self.records), batch_size)
+                yield collate_examples([self[int(i)] for i in idxs])
+
+        loader = native_loader.NativeImageLoader(
+            [r.path for r in self.records], [r.mask_path for r in self.records],
+            size=self.size, flip_p=self.flip_p, scale_range=self.scale_range,
+            seed=int(self.rng.integers(2 ** 31)), n_workers=n_workers,
+            queue_capacity=queue_capacity)
+        try:
+            while True:
+                examples = []
+                for _ in range(batch_size):
+                    idx, image, fg_mask, aug_mask = loader.next()
+                    rec = self.records[idx]
+                    ex: Dict = {
+                        "image_path": rec.path,
+                        "has_fg_mask": rec.mask_path is not None,
+                        "fg_mask": fg_mask,
+                        "aug_mask": aug_mask,
+                        "image_unnorm": image,
+                        "image": (image / 127.5 - 1.0).astype(np.float32),
+                    }
+                    self.generate_prompts(ex, rec.subject_idx)
+                    if rec.caption:
+                        ex["caption"] = rec.caption
+                    examples.append(ex)
+                yield collate_examples(examples)
+        finally:
+            loader.close()
 
 
 class SubjectSampler:

@@ -15,7 +15,24 @@ diffusers UNet file or directory) with `--arc2face_text_encoder` (an HF
 CLIPTextModel file or directory) loads the Arc2Face teacher
 (`training/arc2face_teacher.py`, on the card in the run's dtype; under
 `--tiny` on the tiny UNet's config) and turns the plan's Arc2Face
-iterations into distillation iterations.
+iterations into distillation iterations. `--val_every N` (or the file's
+`trainer.val_every_steps`) runs a validation pass every N steps. With
+`data.wds_shards`, the trainer composites the subject over the shards'
+backgrounds; when the bg placeholder, the webdataset bg placeholder
+(`--wds_background_string`, default `w`) and shards are all set, that
+placeholder is registered too (initialized like the bg one, from seed + 3).
+
+`--dreambooth --reg_data_root <class images>` runs the DreamBooth baseline
+(`configs/finetune-db.yaml`) instead of the trainer: one (subject, class)
+image pair a step, subject recon plus `--db_reg_weight` x the class recon,
+and `embeddings_last.npz` at the end. It reads the options as the JAX
+script's DreamBooth loop does, which is a trap kept on purpose: the
+optimizer is clip 0.5 then AdamW at `--lr` (the file's `learning_rate` is not
+read, so `finetune-db.yaml` trains at the default 7e-4), `db_reg_weight`
+comes from the flag (the file's `dreambooth.db_reg_weight` is never read),
+and a step takes one pair whatever `batch_size` says; timesteps and noise
+come from a numpy RNG seeded with `--seed`, one Dirichlet skip-weight draw a
+step (under `--randomize_clip_skip_weights`) serves both halves.
 
 Precedence is the JAX script's: an explicit `--flag` beats the config file,
 which beats the argparse default. Its quirks are kept: only `--` flags count
@@ -27,10 +44,11 @@ a string); with the option at `prodigy`, even explicitly, the file's
 
 Paths that are not ported exit with `SystemExit` naming their ROADMAP
 queue 1 item: `--zeroshot` (12: it needs the face stack; the zero-shot
-trainer runs through `training/zs_trainer.ZeroShotTrainer.fit`), `--dreambooth`,
-`--val_every` > 0 and webdataset shards (10), `--actual_resume` and a `.pt`
-`--embedding_manager_ckpt` (10b), more than one device (13). Reading image
-files needs PIL; `main(dataset=...)` takes a dataset built otherwise.
+trainer runs through `training/zs_trainer.ZeroShotTrainer.fit`),
+`--actual_resume` and a `.pt` `--embedding_manager_ckpt` (10b), more than
+one device (13). PNG images load through the port's own codec
+(`data/png.py`), other formats through PIL; `main(dataset=...)` takes a
+dataset built otherwise.
 """
 
 from __future__ import annotations
@@ -50,12 +68,20 @@ from adaface_tpu_torch.data.tokenizer import HashTokenizer
 from adaface_tpu_torch.device import resolve_device
 from adaface_tpu_torch.models.clip_text import CLIPTextConfig
 from adaface_tpu_torch.models.unet import UNetConfig, UNetModel
-from adaface_tpu_torch.models.vae import VAEConfig
+from adaface_tpu_torch.models.vae import SD_VAE_SCALE_FACTOR, VAEConfig
 from adaface_tpu_torch.ops.grad import perturb_params
 from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
+from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
 from adaface_tpu_torch.pipeline import StableDiffusionPipeline
+from adaface_tpu_torch.training.adamw import AdamW
 from adaface_tpu_torch.training.arc2face_teacher import load_arc2face_teacher
 from adaface_tpu_torch.training.iter_plan import IterPlanConfig
+from adaface_tpu_torch.training.prodigy import AccumulatedClipped
+from adaface_tpu_torch.training.train_step import (
+    DreamBoothBatch,
+    ReconBatch,
+    make_dreambooth_train_step,
+)
 from adaface_tpu_torch.training.trainer import Trainer, TrainerConfig
 
 # --matmul_prec: torch's names, and the JAX script's (which maps torch's
@@ -77,7 +103,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--subject_string", type=str, default="z")
     p.add_argument("--background_string", type=str, default="y")
     p.add_argument("--wds_background_string", type=str, default="w",
-                   help="dedicated bg placeholder of webdataset composites (not ported)")
+                   help="dedicated bg placeholder of webdataset composites (registered only "
+                        "when webdataset shards are configured)")
     p.add_argument("--cls_delta_string", type=str, default="person")
     p.add_argument("--num_vectors_per_subj_token", type=int, default=9)
     p.add_argument("--num_vectors_per_bg_token", type=int, default=4)
@@ -113,7 +140,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--logdir", "-l", type=str, default="logs/run")
     p.add_argument("--ckpt_every_steps", type=int, default=500)
     p.add_argument("--val_every", type=int, default=0,
-                   help="validation every N steps (not ported; 0 disables)")
+                   help="a validation pass (val/ rows) every N steps; 0 disables")
     p.add_argument("--composition_regs_iter_gap", type=int, default=3)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--tiny", action="store_true", help="tiny random models")
@@ -128,7 +155,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--zeroshot", action="store_true",
                    help="zero-shot generator training (not ported: needs the face stack)")
     p.add_argument("--dreambooth", action="store_true",
-                   help="DreamBooth baseline (not ported)")
+                   help="DreamBooth baseline: subject recon + class prior preservation")
     p.add_argument("--reg_data_root", type=str, default=None,
                    help="class regularization image folder (dreambooth)")
     p.add_argument("--db_reg_weight", type=float, default=1.0)
@@ -143,8 +170,6 @@ def _refuse_unported(opt, cfg: dict, device: torch.device):
         raise SystemExit("--zeroshot: the zero-shot entry point needs the face stack "
                          "(default_face_app), which is not ported yet (ROADMAP queue 1 item "
                          "12); train with training/zs_trainer.ZeroShotTrainer.fit")
-    if opt.dreambooth:
-        raise SystemExit("--dreambooth: DreamBooth is not ported yet (ROADMAP queue 1 item 10)")
     if opt.actual_resume:
         raise SystemExit("--actual_resume: real-checkpoint loading is not ported yet "
                          "(ROADMAP queue 1 item 10b)")
@@ -157,12 +182,6 @@ def _refuse_unported(opt, cfg: dict, device: torch.device):
     if n != 1:
         raise SystemExit(f"--num_devices {opt.num_devices}: the port trains on one card; "
                          "data parallelism is ROADMAP queue 1 item 13")
-    if opt.val_every > 0 or int(cfg.get("trainer", {}).get("val_every_steps", 0)) > 0:
-        raise SystemExit("--val_every / val_every_steps: validation is not ported yet "
-                         "(ROADMAP queue 1 item 10)")
-    if cfg.get("data", {}).get("wds_shards"):
-        raise SystemExit("data.wds_shards: the webdataset compositor is not ported yet "
-                         "(ROADMAP queue 1 item 10)")
 
 
 def _rebuild_unet(unet: UNetModel, **options) -> UNetModel:
@@ -296,11 +315,17 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
                         num_vectors=opt.num_vectors_per_subj_token, generator=generator(1),
                         emb_dim=emb_dim, rank=opt.layerwise_lora_rank, device=dev,
                         **word_init(opt.cls_delta_string, opt.subj_init_word_weights))
+    bg_strings = []
     if opt.background_string:
-        mgr.add_placeholder(opt.background_string,
-                            token_id=tok.add_placeholder(opt.background_string),
+        bg_strings.append((opt.background_string, 2))
+        if opt.wds_background_string and cfg.get("data", {}).get("wds_shards"):
+            # the webdataset backgrounds' own embedder: wds captions swap the
+            # ordinary bg token for it
+            bg_strings.append((opt.wds_background_string, 3))
+    for string, offset in bg_strings:
+        mgr.add_placeholder(string, token_id=tok.add_placeholder(string),
                             num_vectors=opt.num_vectors_per_bg_token, is_background=True,
-                            generator=generator(2), emb_dim=emb_dim,
+                            generator=generator(offset), emb_dim=emb_dim,
                             rank=opt.layerwise_lora_rank, device=dev,
                             **word_init(opt.bg_init_string))
     if opt.embedding_manager_ckpt:
@@ -332,7 +357,9 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
         accumulate_grad_batches=opt.accumulate_grad_batches,
         learning_rate=lr, use_prodigy=use_prodigy,
         ckpt_every_steps=opt.ckpt_every_steps, seed=opt.seed,
-        val_every_steps=0, logdir=opt.logdir,
+        val_every_steps=(opt.val_every if opt.val_every
+                         else int(file_trainer.get("val_every_steps", 0))),
+        logdir=opt.logdir,
         randomize_clip_skip_weights=opt.randomize_clip_skip_weights,
         wds_background_string=opt.wds_background_string or "",
         clip_skip_weights_alpha=tuple(
@@ -341,6 +368,8 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
         **dataclass_cfg(IterPlanConfig, "iter_plan",
                         skip={"composition_regs_iter_gap", "max_steps"}),
         composition_regs_iter_gap=opt.composition_regs_iter_gap, max_steps=opt.max_steps)
+    if opt.dreambooth:
+        return run_dreambooth(opt, pipe)
     trainer = Trainer(pipe, dataset, tcfg, pcfg)
     try:
         if opt.resume:
@@ -360,6 +389,68 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
         trainer.save_state()
     finally:
         trainer.close()
+    return 0
+
+
+def dreambooth_batch(pipe: StableDiffusionPipeline, train: list, reg: list, rng,
+                     skip_weights: Optional[torch.Tensor] = None) -> DreamBoothBatch:
+    """The (train, reg) batch of a DreamBooth step from drawn examples: each
+    half's images VAE-encoded (the posterior mean times the scale factor),
+    its captions tokenized, then its timesteps and noise drawn from `rng`
+    (train first); both halves carry `skip_weights`."""
+
+    def half(examples) -> ReconBatch:
+        images = torch.as_tensor(np.stack([e["image"] for e in examples]), dtype=torch.float32,
+                                 device=pipe.device)
+        with torch.no_grad():
+            mean, _ = pipe.vae.encode(images)
+        latents = mean * SD_VAE_SCALE_FACTOR
+        ids = pipe.tokenizer([e["caption"] for e in examples])
+        t = rng.integers(0, 1000, len(examples))
+        noise = rng.standard_normal(tuple(latents.shape))
+        return ReconBatch(
+            latents=latents, token_ids=ids,
+            slot_maps=pipe.embedding_manager.build_slot_maps(ids), fg_mask=None,
+            timesteps=torch.as_tensor(t, dtype=torch.int32, device=pipe.device),
+            noise=torch.as_tensor(noise, dtype=torch.float32, device=pipe.device),
+            skip_weights=skip_weights)
+
+    return DreamBoothBatch(train=half(train), reg=half(reg))
+
+
+def run_dreambooth(opt, pipe: StableDiffusionPipeline) -> int:
+    """The DreamBooth loop: `opt.max_steps` steps of one (subject, class)
+    pair each through `make_dreambooth_train_step`, clip 0.5 then AdamW at
+    `opt.lr`, then `embeddings_last.npz` in the log dir."""
+    from adaface_tpu_torch.data.personalized_db import DreamBoothDataset
+
+    if not opt.reg_data_root:
+        raise SystemExit("--dreambooth needs --reg_data_root")
+    ds = DreamBoothDataset(opt.data_root, opt.reg_data_root, placeholder=opt.subject_string,
+                           class_word=opt.cls_delta_string, size=opt.size, seed=opt.seed)
+    mgr = pipe.embedding_manager
+    for m in (pipe.clip, pipe.unet, pipe.vae):
+        m.requires_grad_(False)
+    params = [t.requires_grad_(True) for s in sorted(mgr.embedders)
+              for _, t in embedder_leaves(mgr.embedders[s])]
+    step = make_dreambooth_train_step(
+        pipe.clip, pipe.unet, pipe.base_sched, AccumulatedClipped(AdamW(params, opt.lr), 0.5),
+        skip_weights=pipe.skip_weights, db_reg_weight=opt.db_reg_weight)
+    rng = np.random.default_rng(opt.seed)
+    os.makedirs(opt.logdir, exist_ok=True)
+    for i in range(opt.max_steps):
+        train, reg = ds.draw_pair()
+        sw = None
+        if opt.randomize_clip_skip_weights:
+            alpha = [float(x) for x in (opt.clip_last_layers_skip_weights or (1, 1))]
+            sw = torch.as_tensor(rng.dirichlet(alpha), dtype=torch.float32, device=pipe.device)
+        m = step(mgr.embedders, dreambooth_batch(pipe, [train], [reg], rng, sw))
+        if i % 10 == 0:
+            print(f"[db {i}/{opt.max_steps}] loss={float(m['loss']):.4f} "
+                  f"recon={float(m['recon']):.4f} reg={float(m['db_reg']):.4f}", flush=True)
+    path = os.path.join(opt.logdir, "embeddings_last.npz")
+    mgr.save_native(path)
+    print(f"saved {path}", flush=True)
     return 0
 
 

@@ -84,23 +84,26 @@ def load_arc2face_teacher(unet_path: str, text_encoder_path: str, tokenizer,
     UNet file or directory, `text_encoder_path` a CLIPTextModel file
     (`.safetensors` or torch `.bin` / `.pt`) or a directory holding
     `model.safetensors` / `pytorch_model.bin`. `unet_cfg` defaults to SD
-    v1.5's; the models are made on `device` (the card unless "cpu") in
-    `dtype`."""
+    v1.5's; the models are made on `device` (the card unless "cpu"): the
+    UNet in `dtype`, the text encoder in fp32 whatever `dtype` is, as JAX
+    builds it, so the teacher's context is fp32 on every run (the teacher
+    UNet casts it where it takes it)."""
     dev = resolve_device(device)
 
-    def built(build, state_dict):
+    def built(build, state_dict, dt):
         with torch.device("meta"):
             m = build()
-        m = m.to_empty(device=dev).to(dtype)
+        m = m.to_empty(device=dev).to(dt)
         m.load_state_dict(state_dict, strict=True)
         return m
 
     ucfg = unet_cfg or UNetConfig.sd_v1()
-    unet = built(lambda: UNetModel(ucfg), load_diffusers_unet(unet_path, ucfg))
+    unet = built(lambda: UNetModel(ucfg), load_diffusers_unet(unet_path, ucfg), dtype)
     if dev.type == "cuda":
         unet = unet.to(memory_format=torch.channels_last)
     sd = load_state_dict_file(find_weights_file(text_encoder_path, HF_TEXT_FILES))
     prefix = "text_model." if any(k.startswith("text_model.") for k in sd) else ""
     cfg = text_config_from_state_dict(sd, prefix)
-    enc = built(lambda: CLIPTextEncoder(cfg), map_clip_text_state_dict(sd, cfg.num_layers, prefix))
+    enc = built(lambda: CLIPTextEncoder(cfg), map_clip_text_state_dict(sd, cfg.num_layers, prefix),
+                torch.float32)
     return Arc2FaceTeacher(unet, enc, tokenizer, face_embed_fn)

@@ -14,8 +14,9 @@ Resizes: the recon battery's and the cross-layer map's are 2-tap bilinear
 them; the compositional losses' follow `jax.image.resize(..., "bilinear")`,
 which antialiases when it shrinks (a triangle kernel widened by the scale,
 weights renormalized): `ops.basic.resize_aa` builds those weight matrices on the host.
-Options of the JAX helpers that only the webdataset losses use (squared
-means, sqrt-normalized scores, reweighted sums) are not ported yet.
+The complementary loss takes the webdataset call's `do_sqrt_norm`. The JAX
+helpers' `do_sqr` (`masked_mean`) and `norm_pow` (`normalized_sum`) have no
+caller there, so the port leaves them out.
 """
 
 from __future__ import annotations
@@ -245,10 +246,14 @@ def fg_bg_complementary_loss(ca_attnscores: Dict[int, torch.Tensor],
                              subj_token_mask: torch.Tensor, bg_token_mask: torch.Tensor,
                              fg_mask: Optional[torch.Tensor] = None,
                              instance_mask: Optional[torch.Tensor] = None,
-                             fg_grad_scale: float = 0.1):
+                             fg_grad_scale: float = 0.1, do_sqrt_norm: bool = False):
     """Subject vs background token score complementarity plus the margin
     suppressions. Returns (complementary, subj_mb_suppress, bg_mf_suppress,
-    fg_bg_mask_contrast)."""
+    fg_bg_mask_contrast). K_fg and K_bg (tokens a subject / bg set) come
+    from the masks, which matters for the webdataset call, where the "bg"
+    set is the comp-extra tokens. `do_sqrt_norm` (that call's) divides each
+    instance's summed scores by the square root of its token count, a
+    detached normalizer."""
     weights = _normalize_weights(ATTN_ALIGN_LAYER_WEIGHTS)
     subj_mb_scale, bg_mf_scale, contrast_scale = 0.05, 0.1, 0.05
     mfmb_margin = 0.4
@@ -258,6 +263,8 @@ def fg_bg_complementary_loss(ca_attnscores: Dict[int, torch.Tensor],
     K_bg = torch.clamp_min(torch.mean(torch.sum(bg_m, dim=-1)), 1.0)
     subj_bg_at_mf_margin = 0.4 * K_fg / K_bg
     bg_subj_at_mb_margin = 0.4
+    sq_fg = torch.sqrt(torch.clamp_min(torch.sum(subj_m, dim=-1), 1.0)).detach()[:, None, None]
+    sq_bg = torch.sqrt(torch.clamp_min(torch.sum(bg_m, dim=-1), 1.0)).detach()[:, None, None]
 
     def hinge(excess):
         return masked_mean(excess, excess > 0, instance_weights=instance_mask)
@@ -269,6 +276,9 @@ def fg_bg_complementary_loss(ca_attnscores: Dict[int, torch.Tensor],
         w = weights[idx]
         subj_score = _token_score(attn, subj_token_mask)
         bg_score = _token_score(attn, bg_token_mask)
+        if do_sqrt_norm:
+            subj_score = subj_score / sq_fg
+            bg_score = bg_score / sq_bg
         # push the bg scores to be orthogonal to the subject scores
         l_comple.append(w * ref_cosine_loss(
             bg_score, subj_score, exponent=2.0, do_demean_first=False,

@@ -28,6 +28,9 @@ subj-single block's embeddings blended with those of a frozen copy of the
 generators taken at setup). The bg generator's attention dropout is drawn
 from the batch's `dropout_seed`, one stream per generator.
 
+The DreamBooth step sums two plain recon passes, the subject's and the
+class images' (weighted `db_reg_weight`).
+
 The Arc2Face distillation steps run a frozen teacher UNet over an S-step
 trajectory (earlier timesteps drawn in [t 0.5^k, t 0.7^k], k = (S-1)^-0.3)
 and make the student match its eps predictions at the trailing
@@ -107,6 +110,10 @@ class ReconBatch(NamedTuple):
     # in sorted order
     emb_noise_std: Optional[float] = None
     emb_noise_seed: Optional[int] = None
+    # webdataset composites: [B, T] mask of the comp-extra tokens (real
+    # tokens that are neither subject nor bg slots), which turns on the fg
+    # vs webdataset-extra complementary battery
+    wds_extra_token_mask: Optional[torch.Tensor] = None
     # the 4-type delta-prompt battery of the static prompt-delta regularizer
     delta_token_ids: Optional[np.ndarray] = None  # [4B, T]
     delta_slot_maps: Optional[Dict[str, np.ndarray]] = None
@@ -183,13 +190,16 @@ def _recon_complem_terms(aux: dict, slot_maps: Dict[str, np.ndarray],
                          fg_mask: Optional[torch.Tensor], bg_placeholders: frozenset,
                          use_bg_token: bool, do_zero_shot: bool, complem_weight: float,
                          xlayer_weight: float,
+                         wds_extra_token_mask: Optional[torch.Tensor] = None,
+                         wds_complem_weight: float = 0.0,
                          instance_mask: Optional[torch.Tensor] = None):
     """The recon iteration's attention battery on the captured scores:
     with a background token the complementary loss and its three
     suppressions (the complementary term x0.2 in zero-shot mode), without
-    one the subject fg/bg suppression only; and the cross-layer consistency
-    (zero-shot scales 0.2/0.06, else 1.0/0.3). Returns (loss, metrics). The
-    fg vs webdataset-extra variant comes with the webdataset compositor."""
+    one the subject fg/bg suppression only; on a webdataset composite the
+    fg vs comp-extra variant (the extra tokens in the bg role, scores
+    sqrt-normalized); and the cross-layer consistency (zero-shot scales
+    0.2/0.06, else 1.0/0.3). Returns (loss, metrics)."""
     scores = {i: aux[i]["attnscore"] for i in aux if "attnscore" in aux[i]}
     dev = next(iter(scores.values())).device
     subj_keys = sorted(k for k in slot_maps if k not in bg_placeholders)
@@ -213,6 +223,14 @@ def _recon_complem_terms(aux: dict, slot_maps: Dict[str, np.ndarray],
                                           instance_mask=instance_mask)
             loss = loss + subj_mb * complem_weight
             metrics.update(subj_mb_suppress=subj_mb)
+    if wds_complem_weight > 0 and wds_extra_token_mask is not None and fg_mask is not None:
+        # the comp-extra prompts are much longer than a bg token set: the
+        # scores are normalized by the square root of each set's size
+        w_comple, w_subj_mb, w_align, w_contrast = fg_bg_complementary_loss(
+            scores, subj_mask, wds_extra_token_mask, fg_mask, fg_grad_scale=0.1,
+            do_sqrt_norm=True, instance_mask=instance_mask)
+        loss = loss + (w_comple + w_align + w_subj_mb + w_contrast) * wds_complem_weight
+        metrics.update(fg_wds_complem=w_comple, wds_mask_align=w_align)
     if xlayer_weight > 0:
         fg_x, bg_x = fg_bg_xlayer_consist_loss(scores, subj_mask, bg_mask)
         fg_scale = 0.2 if do_zero_shot else 1.0
@@ -225,15 +243,17 @@ def _recon_complem_terms(aux: dict, slot_maps: Dict[str, np.ndarray],
 def make_recon_train_step(clip, unet, sched, optimizer=None, skip_weights=(0.5, 0.5),
                           bg_weight: float = 0.1, emb_reg_weight: float = 2e-4,
                           complem_weight: float = 0.0, xlayer_weight: float = 0.0,
+                          wds_complem_weight: float = 0.0,
                           prompt_delta_weight: float = 0.0, use_bg_token: bool = False,
                           do_zero_shot: bool = True,
                           bg_placeholders: frozenset = frozenset()):
     """Returns `step(embedders, batch) -> metrics`, closing over the frozen
     CLIP and UNet and the optimizer chain: loss, backward, optimizer step.
     `step.loss_fn(embedders, batch) -> (loss, metrics)` is the loss alone.
-    With complem/xlayer weights > 0 the UNet captures the distillation
-    layers' cross-attention scores for the complementary battery."""
-    do_capture = complem_weight > 0 or xlayer_weight > 0
+    With complem/xlayer/wds-complem weights > 0 the UNet captures the
+    distillation layers' cross-attention scores for the complementary
+    battery."""
+    do_capture = complem_weight > 0 or xlayer_weight > 0 or wds_complem_weight > 0
 
     def loss_fn(embedders, batch: ReconBatch):
         subj = _subject_embeddings(embedders, batch, clip.token_embedding.weight.device)
@@ -258,8 +278,8 @@ def make_recon_train_step(clip, unet, sched, optimizer=None, skip_weights=(0.5, 
         if do_capture:
             complem, cm = _recon_complem_terms(
                 aux, batch.slot_maps, batch.fg_mask, bg_placeholders, use_bg_token,
-                do_zero_shot, complem_weight, xlayer_weight,
-                instance_mask=batch.have_fg_mask)
+                do_zero_shot, complem_weight, xlayer_weight, batch.wds_extra_token_mask,
+                wds_complem_weight, instance_mask=batch.have_fg_mask)
             loss = loss + complem
             metrics.update(cm)
         metrics["loss"] = loss
@@ -501,6 +521,39 @@ def _make_compos_loss_core(clip, unet, sched, skip_weights, prompt_delta_weight,
     return core
 
 
+# ----------------------------------------------------------------- DreamBooth
+class DreamBoothBatch(NamedTuple):
+    """A (subject batch, class-regularization batch) pair; a per-iteration
+    clip-skip draw rides in both halves' `skip_weights` (one draw, shared)."""
+
+    train: ReconBatch
+    reg: ReconBatch
+
+
+def make_dreambooth_train_step(clip, unet, sched, optimizer=None, skip_weights=(0.5, 0.5),
+                               db_reg_weight: float = 1.0):
+    """Returns `step(embedders, batch) -> metrics` of the DreamBooth
+    objective: subject recon plus `db_reg_weight` x the prior-preservation
+    recon on class images, each a plain recon pass (no masks, no
+    regularizers); metrics `loss`, `recon` and `db_reg`. The trainable
+    contract is the other steps'; `step.loss_fn(embedders, batch)`."""
+
+    def one_loss(embedders, batch: ReconBatch) -> torch.Tensor:
+        subj = {s: compute_static_embedding(p) for s, p in embedders.items()}
+        ctx = _encode_patched(clip, batch, subj, skip_weights)
+        x_noisy = sched.q_sample(batch.latents, batch.timesteps, batch.noise)
+        eps = unet(x_noisy, batch.timesteps, ctx)
+        return masked_recon_loss(eps, batch.noise, batch.fg_mask)
+
+    def loss_fn(embedders, batch: DreamBoothBatch):
+        loss_train = one_loss(embedders, batch.train)
+        loss_reg = one_loss(embedders, batch.reg)
+        loss = loss_train + db_reg_weight * loss_reg
+        return loss, {"loss": loss, "recon": loss_train, "db_reg": loss_reg}
+
+    return _with_optimizer(loss_fn, optimizer)
+
+
 # ------------------------------------------------------------------ zero-shot
 class ZeroShotTemplates(NamedTuple):
     """What the zero-shot steps need of the frozen Arc2Face encoder's
@@ -553,6 +606,7 @@ class ZeroShotReconBatch(NamedTuple):
     emb_noise_std: Optional[float] = None
     emb_noise_seed: Optional[int] = None
     dropout_seed: Optional[int] = None  # the bg generator's attention dropout; None: off
+    wds_extra_token_mask: Optional[torch.Tensor] = None  # [B, T], as in ReconBatch
     delta_token_ids: Optional[np.ndarray] = None  # [4B, T]
     delta_slot_maps: Optional[Dict[str, np.ndarray]] = None
     img_mask: Optional[torch.Tensor] = None  # [B, h, w, 1]
@@ -563,13 +617,15 @@ class ZeroShotReconBatch(NamedTuple):
 def make_zero_shot_recon_step(clip, unet, sched, optimizer,
                               bg_placeholders: frozenset, arc2face_encoder,
                               templates: ZeroShotTemplates, skip_weights=(0.5, 0.5),
-                              bg_weight: float = 0.1, complem_weight: float = 0.0, xlayer_weight: float = 0.0,
+                              bg_weight: float = 0.1, complem_weight: float = 0.0,
+                              xlayer_weight: float = 0.0, wds_complem_weight: float = 0.0,
                               prompt_delta_weight: float = 0.0, use_bg_token: bool = False):
     """Returns `step(generators, batch) -> metrics` of a zero-shot recon
     iteration (identity -> frozen Arc2Face forward -> generators -> patched
-    prompt -> eps recon, with the complementary battery when its weights
-    are > 0); `step.loss_fn(generators, batch) -> (loss, metrics)`."""
-    do_capture = complem_weight > 0 or xlayer_weight > 0
+    prompt -> eps recon, with the complementary battery, the webdataset
+    variant included, when its weights are > 0); `step.loss_fn(generators,
+    batch) -> (loss, metrics)`."""
+    do_capture = complem_weight > 0 or xlayer_weight > 0 or wds_complem_weight > 0
 
     def loss_fn(gens: dict, batch: ZeroShotReconBatch):
         dev = clip.token_embedding.weight.device
@@ -597,7 +653,8 @@ def make_zero_shot_recon_step(clip, unet, sched, optimizer,
         if do_capture:
             complem, cm = _recon_complem_terms(
                 aux, batch.slot_maps, batch.fg_mask, bg_placeholders, use_bg_token, True,
-                complem_weight, xlayer_weight, instance_mask=batch.have_fg_mask)
+                complem_weight, xlayer_weight, batch.wds_extra_token_mask, wds_complem_weight,
+                instance_mask=batch.have_fg_mask)
             loss = loss + complem
             metrics.update(cm)
         metrics["loss"] = loss

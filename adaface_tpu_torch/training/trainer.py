@@ -34,14 +34,27 @@ at the next step's end, SIGUSR2 enters pdb. Given an Arc2Face teacher
 (batch ceil(batch_size / S) on an S-step plan, the teacher's context from
 `ctx_fn(examples, plan)`; a random-face iteration keeps the dataset's
 latents and drops the masks, as the JAX trainer does); without one they run
-as recon. `cached_inits` stays None until the teacher filter, which fills
-it, is ported. The data-parallel mesh (`num_devices` > 1), the webdataset
-compositor (`wds_shards`), validation (`val_every_steps`), the image logger
-and the teacher filter are not ported yet: the first three raise.
+as recon.
+
+With `wds_shards`, a `BackgroundCompositor` (`data/wds.py`) pastes the
+subject over LAION-style backgrounds: a `p_wds_comp_recon` share of the
+recon iterations train on the composite (its captions, the class flavor at
+an annealed probability, the bg token at 0.95, the discounted
+`wds_bg_recon_weight` and, when its weight is > 0, the fg vs comp-extra
+complementary battery), and a `p_wds_comp_compos` share of the compos
+iterations start from the bg-only image, their comp extras replaced by the
+background's. `val_every_steps` > 0 runs a validation pass (the recon
+battery without gradients on `val_batches` batches of a separate stream over
+the same images, `val/` rows, an `_ema` arm over the EMA shadow, and a
+sample grid when an image logger is set, `set_image_logger`). Validation
+draws from its own RNGs only, so it does not move the training stream.
+`cached_inits` stays None until the teacher filter, which fills it, is
+ported; the data-parallel mesh (`num_devices` > 1) raises.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -67,6 +80,7 @@ from adaface_tpu_torch.training.iter_plan import (
     RECON,
     IterPlan,
     IterPlanConfig,
+    anneal_value,
     plan_iteration,
     sample_timesteps,
 )
@@ -105,8 +119,9 @@ class TrainerConfig:
     fg_bg_complementary_loss_weight: float = 2e-4
     fg_bg_xlayer_consist_loss_weight: float = 5e-5
     # the webdataset compositor's settings (the `data` section of
-    # finetune-ada.yaml); a non-empty wds_shards raises until the compositor
-    # is ported (ROADMAP queue 1 item 10)
+    # finetune-ada.yaml): the fg vs comp-extra battery's weight, the shards,
+    # the composite's share of recon and compos iterations, the bg recon
+    # weight of a composite and its dedicated bg placeholder
     fg_wds_complementary_loss_weight: float = 0.0
     wds_shards: tuple = ()
     p_wds_comp_recon: float = 0.05
@@ -123,8 +138,7 @@ class TrainerConfig:
     # EMA shadow of the embedders (LitEma; the checkpoints save the shadow)
     use_ema: bool = False
     ema_decay: float = 0.9999
-    # validation every N steps; > 0 raises until validation is ported
-    # (ROADMAP queue 1 item 10)
+    # a validation pass every N steps (0: none) over val_batches batches
     val_every_steps: int = 0
     val_batches: int = 2
     seed: int = 0
@@ -139,12 +153,6 @@ class Trainer:
             raise NotImplementedError(
                 f"num_devices={cfg.num_devices}: the port trains on one card; the "
                 "data-parallel mesh is ROADMAP queue 1 item 13")
-        if cfg.wds_shards:
-            raise NotImplementedError("wds_shards: the webdataset compositor is not ported "
-                                      "yet (ROADMAP queue 1 item 10)")
-        if cfg.val_every_steps > 0:
-            raise NotImplementedError("val_every_steps > 0: validation is not ported yet "
-                                      "(ROADMAP queue 1 item 10)")
         self.pipe = pipeline
         self.dataset = dataset
         self.cfg = cfg
@@ -184,6 +192,7 @@ class Trainer:
         self._delta_w = self.plan_cfg.prompt_emb_delta_reg_weight * delta_scale
         self._emb_reg_w = 0.0 if self.plan_cfg.do_zero_shot else 2e-4 * damping
         self._recon_steps: Dict[tuple, object] = {}
+        self._val_loss = None
         self._compos_step = None
         self._a2f_steps: Dict[tuple, object] = {}
         # the empty prompt's first-layer context, frozen, for compel
@@ -192,10 +201,32 @@ class Trainer:
             self._empty_ctx = pipeline.encode_negative("", 1)[0, 0].clone()
         # reuse-init cache, filled by the teacher filter (not ported yet)
         self.cached_inits = None
+        self.image_logger = None
         self.ema_state: Optional[EmaState] = (ema_init(self.mgr.embedders) if cfg.use_ema
                                               else None)
+        self.compositor = None
+        if cfg.wds_shards:
+            from adaface_tpu_torch.data.wds import BackgroundCompositor
+
+            self.compositor = BackgroundCompositor(list(cfg.wds_shards), size=dataset.size)
+        # the validation stream: the same images under RNGs of their own
+        self._val_sampler = None
+        if cfg.val_every_steps > 0:
+            self._val_dataset = copy.copy(dataset)
+            self._val_dataset.rng = np.random.default_rng(cfg.seed + 1017)
+            self._val_sampler = SubjectSampler(
+                self._val_dataset, skip_non_faces=len(dataset.subjects) > 1,
+                seed=cfg.seed + 1017)
+            self._val_rng = np.random.default_rng(cfg.seed + 1017)
         signal.signal(signal.SIGUSR1, self._on_sigusr1)
         signal.signal(signal.SIGUSR2, self._on_sigusr2)
+
+    def set_image_logger(self, every_steps: int = 500, **kw):
+        """Write sample grids under `<logdir>/images/` (`training/image_logger.py`):
+        the validation pass's, and the teacher filter's candidates."""
+        from adaface_tpu_torch.training.image_logger import ImageLogger
+
+        self.image_logger = ImageLogger(self.cfg.logdir, every_steps=every_steps, **kw)
 
     def _trainable_params(self) -> list:
         """Every embedder leaf (pre_vecs included), set to take gradients."""
@@ -348,24 +379,30 @@ class Trainer:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     # ---------------------------------------------------------------- steps
-    def _get_recon_step(self, use_bg_token: bool):
-        """The recon step for this bg-token choice (it changes the battery)."""
-        if use_bg_token not in self._recon_steps:
+    def _get_recon_step(self, use_bg_token: bool, use_wds: bool = False):
+        """The recon step for this (bg token, webdataset composite) choice:
+        each changes the battery and the bg recon weight."""
+        key = (use_bg_token, use_wds)
+        if key not in self._recon_steps:
             p, cfg = self.pipe, self.cfg
-            self._recon_steps[use_bg_token] = make_recon_train_step(
+            self._recon_steps[key] = make_recon_train_step(
                 p.clip, p.unet, p.base_sched, self.optimizer, skip_weights=p.skip_weights,
-                bg_weight=cfg.bg_recon_weight if use_bg_token else 0.0,
+                bg_weight=(cfg.wds_bg_recon_weight if use_wds
+                           else cfg.bg_recon_weight if use_bg_token else 0.0),
                 emb_reg_weight=self._emb_reg_w, prompt_delta_weight=self._delta_w,
                 complem_weight=cfg.fg_bg_complementary_loss_weight,
                 xlayer_weight=cfg.fg_bg_xlayer_consist_loss_weight,
+                wds_complem_weight=cfg.fg_wds_complementary_loss_weight if use_wds else 0.0,
                 use_bg_token=use_bg_token, do_zero_shot=self.plan_cfg.do_zero_shot,
                 bg_placeholders=self._bg_placeholders)
-        return self._recon_steps[use_bg_token]
+        return self._recon_steps[key]
 
     def _delta_prompt_battery(self, plan: IterPlan, ex):
         """(token ids [4B, T], slot maps) of the 4-type delta prompts
         (subj/cls x single/comp, bg variants when the plan uses the bg
-        token), or None when the prompt-delta regularizer is off."""
+        token; on a webdataset iteration the comp prompts are the single
+        ones plus the background's extra), or None when the prompt-delta
+        regularizer is off."""
         if self._delta_w <= 0:
             return None
         keys = ["subj_prompt_single", "subj_prompt_comp", "cls_prompt_single",
@@ -373,13 +410,89 @@ class Trainer:
         sfx = "_bg" if (plan.use_background_token
                         and all(k + "_bg" in e for e in ex for k in keys)) else ""
         dp = [e[k + sfx].split("|")[0] for k in keys for e in ex]
+        if plan.use_wds_comp:
+            B = len(ex)
+            for i, e in enumerate(ex):
+                extra = e.get("wds_comp_extra", "")
+                if extra:
+                    dp[B + i] = dp[i] + extra  # subj_comp
+                    dp[3 * B + i] = dp[2 * B + i] + extra  # cls_comp
         ids = self.pipe.tokenizer(dp)
         return ids, self.mgr.build_slot_maps(ids)
 
+    # ------------------------------------------------------------ webdataset
+    def _subject_spec(self, e: dict):
+        """The SubjectSpec an example was drawn from."""
+        return next((s for s in self.dataset.subjects if s.name == e.get("subject_name")),
+                    self.dataset.subjects[0])
+
+    def _composite(self, e: dict) -> None:
+        """Fill the example's wds_* keys; the captions swap the bg token for
+        the dedicated webdataset one only when that placeholder is
+        registered."""
+        spec = self._subject_spec(e)
+        wbg = self.cfg.wds_background_string
+        if wbg not in getattr(self.mgr, "placeholders", {}):
+            wbg = None
+        self.compositor.composite(e, spec.cls_delta_string,
+                                  background_string=spec.background_string,
+                                  wds_background_string=wbg)
+
+    def _wds_extra_mask(self, ids: np.ndarray, slots: Dict,
+                        extend_subj_by_one: bool = False) -> np.ndarray:
+        """[B, T] comp-extra token mask of webdataset instances: real word
+        tokens (not BOS, not EOS/padding) that are neither subject nor bg
+        slots. With the class-flavored captions the class token right after
+        the subject's slots counts as subject (`extend_subj_by_one`)."""
+        ids = np.asarray(ids)
+        tok = self.pipe.tokenizer
+        real = ((ids != tok.bos_id) & (ids != tok.eos_id)).astype(np.float32)
+        for s, m in slots.items():
+            pos = np.asarray(m) >= 0
+            is_bg = (s in getattr(self, "bg_placeholders", ())
+                     or (s in getattr(self.mgr, "placeholders", {})
+                         and self.mgr.placeholders[s].is_background))
+            if extend_subj_by_one and not is_bg:
+                ext = np.zeros_like(pos)
+                ext[:, 1:] = pos[:, :-1]
+                pos = pos | ext
+            real = real * (~pos)
+        return real
+
+    def _wds_recon_swap(self, plan: IterPlan, ex) -> tuple:
+        """Roll and apply a recon iteration's webdataset composite: the
+        image becomes the fg-over-background overlay, the captions their
+        wds variants (the class flavor, the class word after the subject,
+        at a probability annealed 0.6 -> 0.1 over the first half of
+        training), and a plan without the bg token takes it at 0.5 (0.95 in
+        all, where the plan rolled 0.9). Changes `plan` in place. Returns
+        (plan, use_wds, use_wds_cls)."""
+        use_wds = self.compositor is not None and self.rng.random() < self.cfg.p_wds_comp_recon
+        use_wds_cls = False
+        if use_wds:
+            for e in ex:
+                self._composite(e)
+            use_wds = all(e.get("has_wds_comp") for e in ex)
+        if use_wds:
+            p_cls = anneal_value(plan.training_percent, 0.5, (0.6, 0.1))
+            use_wds_cls = (self.rng.random() < p_cls
+                           and all("wds_cls_caption" in e for e in ex))
+            ck = "wds_cls_caption" if use_wds_cls else "wds_caption"
+            for e in ex:
+                e["image"] = e["wds_image"]
+                e["caption"] = e[ck]
+                e["caption_bg"] = e.get(ck + "_bg", e[ck])
+            if not plan.use_background_token and self.rng.random() < 0.5:
+                plan.use_background_token = True
+            plan.use_wds_comp = True
+        return plan, use_wds, use_wds_cls
+
     def build_recon_batch(self, plan: IterPlan) -> ReconBatch:
-        """Draw and prepare one recon batch (host RNG in the JAX order)."""
+        """Draw and prepare one recon batch (host RNG in the JAX order); on a
+        webdataset composite `plan.use_wds_comp` comes back set."""
         B = self.cfg.batch_size
         ex = self._draw_examples(B)
+        plan, use_wds, use_wds_cls = self._wds_recon_swap(plan, ex)
         batch_np = collate_examples(ex)
         latents = self._latents(batch_np["image"])
         lh, lw = latents.shape[1:3]
@@ -390,6 +503,9 @@ class Trainer:
         if plan.emb_noise_std > 0:
             kw = dict(emb_noise_std=float(plan.emb_noise_std),
                       emb_noise_seed=int(self.rng.integers(2 ** 31)))
+        if use_wds and self.cfg.fg_wds_complementary_loss_weight > 0:
+            kw["wds_extra_token_mask"] = self._tensor(
+                self._wds_extra_mask(ids, slots, extend_subj_by_one=use_wds_cls))
         delta = self._delta_prompt_battery(plan, ex)
         if delta is not None:
             kw["delta_token_ids"], kw["delta_slot_maps"] = delta
@@ -404,8 +520,88 @@ class Trainer:
 
     def _run_recon(self, plan: IterPlan):
         batch = self.build_recon_batch(plan)
-        step = self._get_recon_step(plan.use_background_token)
+        step = self._get_recon_step(plan.use_background_token, plan.use_wds_comp)
         return step(self.mgr.embedders, batch)
+
+    # ------------------------------------------------------------ validation
+    def _get_val_loss(self):
+        """The validation pass's loss: the plain recon battery (bg weight 0,
+        no prompt-delta term, no bg token), no gradient."""
+        if self._val_loss is None:
+            p, cfg = self.pipe, self.cfg
+            self._val_loss = make_recon_train_step(
+                p.clip, p.unet, p.base_sched, None, skip_weights=p.skip_weights,
+                bg_weight=0.0, emb_reg_weight=self._emb_reg_w, prompt_delta_weight=0.0,
+                complem_weight=cfg.fg_bg_complementary_loss_weight,
+                xlayer_weight=cfg.fg_bg_xlayer_consist_loss_weight, use_bg_token=False,
+                do_zero_shot=self.plan_cfg.do_zero_shot,
+                bg_placeholders=self._bg_placeholders).loss_fn
+        return self._val_loss
+
+    def _val_plan(self) -> IterPlan:
+        return IterPlan(iter_type=RECON,
+                        training_percent=self.global_step / max(self.cfg.max_steps, 1))
+
+    def _val_examples(self, n: int) -> list:
+        return [self._val_dataset[(self._val_sampler.sample(), True)] for _ in range(n)]
+
+    def _val_batch(self, B: int) -> ReconBatch:
+        """One validation batch from the val stream (its dataset, sampler
+        and RNG; the training stream is not touched)."""
+        rng = self._val_rng
+        ex = self._val_examples(B)
+        batch_np = collate_examples(ex)
+        latents = self._latents(batch_np["image"])
+        lh, lw = latents.shape[1:3]
+        ids, slots = self._prompt_batch(ex, "caption")
+        t = sample_timesteps(rng, self._val_plan(), B, self.plan_cfg)
+        return ReconBatch(
+            latents=latents, token_ids=ids, slot_maps=slots,
+            fg_mask=self._tensor(self._mask_to_latent(batch_np["fg_mask"], lh, lw)),
+            timesteps=self._tensor(t, torch.int32),
+            noise=self._tensor(rng.standard_normal(latents.shape)),
+            img_mask=self._tensor(self._mask_to_latent(batch_np["aug_mask"], lh, lw)),
+            have_fg_mask=self._tensor([float(e.get("has_fg_mask", True)) for e in ex]))
+
+    def _check_val_stream(self):
+        if self._val_sampler is None:
+            raise RuntimeError("no validation stream: construct the trainer with "
+                               "TrainerConfig(val_every_steps > 0) (or train.py --val_every N)")
+
+    def _write_val(self, sums: Dict[str, float]) -> Dict:
+        """Log the batch means of `sums` as `val/` rows."""
+        rec: Dict = {"step": self.global_step}
+        rec.update({f"val/{k}": v / self.cfg.val_batches for k, v in sums.items()})
+        self._log_f.write(json.dumps(rec) + "\n")
+        self._log_f.flush()
+        msg = " ".join(f"{k}={v:.4f}" for k, v in rec.items() if k != "step")
+        print(f"[{self.global_step}/{self.cfg.max_steps}] val: {msg}", flush=True)
+        return rec
+
+    @torch.no_grad()
+    def run_validation(self) -> Dict[str, float]:
+        """One validation pass: the recon battery without gradients on
+        `val_batches` batches of the val stream, logged as `val/` rows; with
+        EMA on, the same batches over the shadow as `val/*_ema`; with an
+        image logger, a sample grid of a val example's subject prompt."""
+        self._check_val_stream()
+        loss_fn = self._get_val_loss()
+        arms = [("", self.mgr.embedders)]
+        if self.ema_state is not None:
+            arms.append(("_ema", self.ema_state.shadow))
+        sums: Dict[str, float] = {}
+        for _ in range(self.cfg.val_batches):
+            batch = self._val_batch(self.cfg.batch_size)
+            for suffix, emb in arms:
+                _, metrics = loss_fn(emb, batch)
+                for k, v in metrics.items():
+                    sums[k + suffix] = sums.get(k + suffix, 0.0) + float(v)
+        rec = self._write_val(sums)
+        if self.image_logger is not None:
+            ex = self._val_examples(1)[0]
+            self.image_logger.log_samples(self.global_step, self.pipe, ex["subj_prompt_single"],
+                                          tag="val_samples")
+        return rec
 
     # ------------------------------------------------------- compositional
     def _get_compos_step(self):
@@ -482,10 +678,22 @@ class Trainer:
             use_wds_comp=bool(plan.use_wds_comp))
 
     def _wds_compos_swap(self, plan: IterPlan, ex: list) -> None:
-        """The webdataset composite of a compos iteration (a fifth of them
-        start from the bg-only image) needs the compositor, which is not
-        ported yet. Without one the JAX trainer returns before drawing from
-        its RNG; so does this, and the plan and examples stay as they are."""
+        """A compos iteration's webdataset composite, at `p_wds_comp_compos`:
+        every block starts from its bg-only background image (kept intact as
+        x_start), with `comp_init_fg_from_training_image` forced on. All or
+        nothing over the blocks (the plan's flags are batch-global). Changes
+        `plan` and the examples in place; without a compositor it returns
+        before any draw."""
+        if self.compositor is None or self.rng.random() >= self.cfg.p_wds_comp_compos:
+            return
+        for e in ex:
+            self._composite(e)
+        if not all(e.get("has_wds_comp") for e in ex):
+            return
+        for e in ex:
+            e["image"] = e["wds_image_bgonly"]
+        plan.use_wds_comp = True
+        plan.comp_init_fg_from_training_image = True
 
     def _wds_comp_prompts(self, plan: IterPlan, e: dict, prompts: list) -> list:
         """On a webdataset iteration, the comp prompts' extras replaced by
@@ -639,8 +847,9 @@ class Trainer:
     def fit(self, num_steps: Optional[int] = None, arc2face_teacher=None):
         """Run the training loop until `num_steps` micro-steps (default
         max_steps) are done, in the JAX loop's order: step, log, EMA update,
-        step count, a checkpoint SIGUSR1 asked for, then every
-        `ckpt_every_steps` a checkpoint and the resumable state. On an
+        step count, a checkpoint SIGUSR1 asked for, every `val_every_steps`
+        a validation pass, then every `ckpt_every_steps` a checkpoint and
+        the resumable state. On an
         exception the checkpoint and state are saved as `exception`.
         `arc2face_teacher`: a (teacher_unet, ctx_fn(examples, plan) -> [B,
         T, D]) pair (`Arc2FaceTeacher.as_tuple()`) turning Arc2Face plans
@@ -666,6 +875,9 @@ class Trainer:
                 if self._sig_ckpt_requested:
                     self.save_checkpoint()
                     self._sig_ckpt_requested = False
+                if (self.cfg.val_every_steps > 0
+                        and self.global_step % self.cfg.val_every_steps == 0):
+                    self.run_validation()
                 if self.global_step % self.cfg.ckpt_every_steps == 0:
                     self.save_checkpoint()
                     self.save_state()

@@ -5,10 +5,14 @@ plan machine, optimizer chain, logging) reused.
 
 Per micro-step, `plan_iteration` rolls the iteration on the host:
 
-- recon: `batch_size` examples; their reference features (masked CLIP fg
-  and bg, face identity) from the `ZeroShotFeatureExtractor`; the zero-shot
-  recon step (`train_step.make_zero_shot_recon_step`), one per (bg token)
-  variant;
+- recon: `batch_size` examples (a webdataset composite at
+  `p_wds_comp_recon`, as in the static trainer); their reference features
+  (masked CLIP fg and bg, face identity) from the
+  `ZeroShotFeatureExtractor`; the zero-shot recon step
+  (`train_step.make_zero_shot_recon_step`), one per (bg token, composite)
+  variant, a composite's with the discounted bg recon weight and the fg vs
+  comp-extra battery. The webdataset background's generator is one more
+  entry of `generators` (the wds placeholder, a bg one);
 - compositional distillation: one block (4 UNet rows) of one example, its
   x_start as the static trainer makes it, the zero-shot compos step with
   the subj-single block anchored on `_gen0`, a frozen copy of the generators
@@ -25,11 +29,12 @@ dropout), so one seed builds the same batches in both. Checkpoints
 (`subj_basis_<tag>.pt`, the port's own `torch.save` file) hold the
 generators, their frozen anchor, the optimizer chain, the step and the host,
 dataset and sampler RNG states, so a resumed run draws what an uninterrupted
-one would. Not ported: the mesh placement of the trainables (one card;
-ROADMAP queue 1 item 13), the teacher filter's no-grad zero-shot contexts
-(`_zs_subject_embs`, `_zs_compos_contexts`: the filter is item 12) and the
-validation pass (`val_every_steps` > 0 raises, as in the static trainer:
-item 10).
+one would. `val_every_steps` > 0 runs the zero-shot validation pass: the
+zs recon battery without gradients on val-stream batches, with no dropout
+and no draw from the training RNG. Not ported: the mesh placement of the
+trainables (one card; ROADMAP queue 1 item 13) and the teacher filter's
+no-grad zero-shot contexts (`_zs_subject_embs`, `_zs_compos_contexts`: the
+filter is item 12).
 """
 
 from __future__ import annotations
@@ -90,7 +95,7 @@ class ZeroShotTrainer(Trainer):
                                             int(tok.encode("id")[0]))
         # the frozen anchor of the compos iterations' subj-single block
         self._gen0 = {s: copy.deepcopy(g).requires_grad_(False) for s, g in generators.items()}
-        self._zs_recon_steps: Dict[bool, object] = {}
+        self._zs_recon_steps: Dict[tuple, object] = {}
         self._zs_compos_step = None
         self._zs_a2f_steps: Dict[tuple, object] = {}
 
@@ -149,18 +154,25 @@ class ZeroShotTrainer(Trainer):
                     arc2face_encoder=self._arc_encoder, templates=self._templates,
                     skip_weights=p.skip_weights)
 
-    def _get_zs_recon_step(self, use_bg_token: bool):
-        """The zs recon step of this bg-token choice (it changes the battery
-        and the bg recon weight)."""
-        if use_bg_token not in self._zs_recon_steps:
-            p, cfg = self.pipe, self.cfg
-            self._zs_recon_steps[use_bg_token] = make_zero_shot_recon_step(
-                p.clip, p.unet, p.base_sched, self.optimizer, **self._step_kw(),
-                bg_weight=cfg.bg_recon_weight if use_bg_token else 0.0,
-                complem_weight=cfg.fg_bg_complementary_loss_weight,
-                xlayer_weight=cfg.fg_bg_xlayer_consist_loss_weight,
-                prompt_delta_weight=self._delta_w, use_bg_token=use_bg_token)
-        return self._zs_recon_steps[use_bg_token]
+    def _make_zs_recon_step(self, use_bg_token: bool, use_wds: bool, optimizer):
+        p, cfg = self.pipe, self.cfg
+        return make_zero_shot_recon_step(
+            p.clip, p.unet, p.base_sched, optimizer, **self._step_kw(),
+            bg_weight=(cfg.wds_bg_recon_weight if use_wds
+                       else cfg.bg_recon_weight if use_bg_token else 0.0),
+            complem_weight=cfg.fg_bg_complementary_loss_weight,
+            xlayer_weight=cfg.fg_bg_xlayer_consist_loss_weight,
+            wds_complem_weight=cfg.fg_wds_complementary_loss_weight if use_wds else 0.0,
+            prompt_delta_weight=self._delta_w, use_bg_token=use_bg_token)
+
+    def _get_zs_recon_step(self, use_bg_token: bool, use_wds: bool = False):
+        """The zs recon step of this (bg token, webdataset composite) choice:
+        each changes the battery and the bg recon weight."""
+        key = (use_bg_token, use_wds)
+        if key not in self._zs_recon_steps:
+            self._zs_recon_steps[key] = self._make_zs_recon_step(use_bg_token, use_wds,
+                                                                 self.optimizer)
+        return self._zs_recon_steps[key]
 
     def _get_zs_compos_step(self):
         if self._zs_compos_step is None:
@@ -191,20 +203,26 @@ class ZeroShotTrainer(Trainer):
         return dataclasses.replace(f, clip_fg=copy_(f.clip_fg), clip_bg=copy_(f.clip_bg),
                                    id_embs=copy_(f.id_embs))
 
-    def _id_embs_or_draw(self, feats, n: int) -> torch.Tensor:
+    def _id_embs_or_draw(self, feats, n: int, rng=None) -> torch.Tensor:
         """The extractor's identity embeddings, or (no face embedder) n
-        standard normal draws from the host RNG."""
+        standard normal draws from `rng` (default the host RNG)."""
         if feats.id_embs is not None:
             return feats.id_embs.float()
-        return self._tensor(self.rng.standard_normal((n, 512)))
+        return self._tensor((rng or self.rng).standard_normal((n, 512)))
 
     @staticmethod
     def _per_instance(t: torch.Tensor, n: int) -> torch.Tensor:
         return t if t.shape[0] == n else t.expand((n,) + tuple(t.shape[1:]))
 
-    def build_zs_recon_batch(self, ex: list, plan: IterPlan) -> ZeroShotReconBatch:
+    def build_zs_recon_batch(self, ex: list, plan: IterPlan, use_wds: bool = False,
+                             use_wds_cls: bool = False, rng=None,
+                             with_reg_kw: bool = True) -> ZeroShotReconBatch:
         """One zs recon batch from the drawn examples (host RNG in the JAX
-        order)."""
+        order). The validation pass passes its own `rng` and
+        `with_reg_kw=False`: no embedding noise, comp-extra mask, delta
+        prompts, dropout or clip-skip draw, so the training RNG stays as it
+        is."""
+        rng = self.rng if rng is None else rng
         B = len(ex)
         batch_np = collate_examples(ex)
         latents = self._latents(batch_np["image"])
@@ -212,25 +230,31 @@ class ZeroShotTrainer(Trainer):
         ids, slots = self._prompt_batch(
             ex, "caption_bg" if plan.use_background_token else "caption")
         feats = self._features(ex)
-        id_embs = self._id_embs_or_draw(feats, B)
-        t = sample_timesteps(self.rng, plan, B, self.plan_cfg)
+        id_embs = self._id_embs_or_draw(feats, B, rng)
+        t = sample_timesteps(rng, plan, B, self.plan_cfg)
         kw = {}
-        if plan.emb_noise_std > 0:
-            kw = dict(emb_noise_std=float(plan.emb_noise_std),
-                      emb_noise_seed=int(self.rng.integers(2 ** 31)))
-        delta = self._delta_prompt_battery(plan, ex)
-        if delta is not None:
-            kw["delta_token_ids"], kw["delta_slot_maps"] = delta
+        if with_reg_kw:
+            if plan.emb_noise_std > 0:
+                kw = dict(emb_noise_std=float(plan.emb_noise_std),
+                          emb_noise_seed=int(rng.integers(2 ** 31)))
+            if use_wds and self.cfg.fg_wds_complementary_loss_weight > 0:
+                kw["wds_extra_token_mask"] = self._tensor(
+                    self._wds_extra_mask(ids, slots, extend_subj_by_one=use_wds_cls))
+            delta = self._delta_prompt_battery(plan, ex)
+            if delta is not None:
+                kw["delta_token_ids"], kw["delta_slot_maps"] = delta
         fg = self._tensor(self._mask_to_latent(batch_np["fg_mask"], lh, lw))
-        noise = self._tensor(self.rng.standard_normal(tuple(latents.shape)))
+        noise = self._tensor(rng.standard_normal(tuple(latents.shape)))
+        if with_reg_kw:
+            kw["dropout_seed"] = self._dropout_seed()
+            kw.update(self._skip_weights_kw())
         return ZeroShotReconBatch(
             latents=latents, token_ids=ids, slot_maps=slots, fg_mask=fg,
             timesteps=self._tensor(t, torch.int32), noise=noise,
             img_mask=self._tensor(self._mask_to_latent(batch_np["aug_mask"], lh, lw)),
             have_fg_mask=self._tensor([float(e.get("has_fg_mask", True)) for e in ex]),
             clip_fg=self._per_instance(feats.clip_fg, B),
-            clip_bg=self._per_instance(feats.clip_bg, B), id_embs=id_embs,
-            dropout_seed=self._dropout_seed(), **self._skip_weights_kw(), **kw)
+            clip_bg=self._per_instance(feats.clip_bg, B), id_embs=id_embs, **kw)
 
     def build_zs_compos_batch(self, plan: IterPlan) -> ZeroShotComposBatch:
         """One zs compos block (host RNG in the JAX order). The reference
@@ -329,8 +353,35 @@ class ZeroShotTrainer(Trainer):
     def _run_zs_recon(self, plan: IterPlan):
         plan.iter_type = RECON
         ex = self._draw_examples(self.cfg.batch_size)
-        batch = self.build_zs_recon_batch(ex, plan)
-        return self._get_zs_recon_step(plan.use_background_token)(self.generators, batch)
+        plan, use_wds, use_wds_cls = self._wds_recon_swap(plan, ex)
+        batch = self.build_zs_recon_batch(ex, plan, use_wds, use_wds_cls)
+        step = self._get_zs_recon_step(plan.use_background_token, use_wds)
+        return step(self.generators, batch)
+
+    # ------------------------------------------------------------ validation
+    def _get_val_loss(self):
+        """The zs validation loss: the zs recon battery without the bg token
+        or a composite, no gradient."""
+        if self._val_loss is None:
+            self._val_loss = self._make_zs_recon_step(False, False, None).loss_fn
+        return self._val_loss
+
+    @torch.no_grad()
+    def run_validation(self) -> Dict[str, float]:
+        """The zero-shot validation pass: the zs recon battery without
+        gradients on `val_batches` batches of the val stream (its own RNG,
+        no dropout), logged as `val/` rows."""
+        self._check_val_stream()
+        loss_fn = self._get_val_loss()
+        sums: Dict[str, float] = {}
+        for _ in range(self.cfg.val_batches):
+            ex = self._val_examples(self.cfg.batch_size)
+            batch = self.build_zs_recon_batch(ex, self._val_plan(), rng=self._val_rng,
+                                              with_reg_kw=False)
+            _, metrics = loss_fn(self.generators, batch)
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+        return self._write_val(sums)
 
     def _run_zs_compos(self, plan: IterPlan):
         return self._get_zs_compos_step()(self.generators, self.build_zs_compos_batch(plan))
@@ -340,7 +391,11 @@ class ZeroShotTrainer(Trainer):
         return self._get_zs_arc2face_step(plan, teacher_unet)(self.generators, batch)
 
     def _post_step(self, t0: float):
+        """The step count, then every `val_every_steps` a validation pass and
+        every `ckpt_every_steps` a checkpoint."""
         self.global_step += 1
+        if self.cfg.val_every_steps > 0 and self.global_step % self.cfg.val_every_steps == 0:
+            self.run_validation()
         if self.global_step % self.cfg.ckpt_every_steps == 0:
             self.save_checkpoint()
             self._log_run_summary(t0)

@@ -247,6 +247,36 @@ own) adds:
       and S 3 with exact launches; and the entry point with
       `--arc2face_unet` / `--arc2face_text_encoder` on the teacher written
       as diffusers and HF fp16 safetensors.
+Slice 21 (DreamBooth, the webdataset compositor, validation, the image
+logger, the native loader; no kernel of its own) adds:
+  4i'. the bf16 flash kernels again at `DB_SHAPES` (batch 1) without key
+      bias, timed there (DreamBooth's passes carry no mask), and 4g' the
+      fp32 ones at the same shapes;
+  [zs-train] gains the "zs recon wds" kind (the compositor armed for it
+      alone: a composite with the fg vs comp-extra battery), and the entry
+      point's `--arc2face_unet --bf16` run checks that the teacher's text
+      encoder stays fp32;
+  [db-ref]. one DreamBooth loss and its embedder gradients on phase 8's
+      setup, bf16 on the card against fp32 on the CPU (`loss_tol`,
+      TRAIN_GRAD_TOL), with two planted faults (`db_reg_weight` 0, the reg
+      half given the train caption) that must read outside a gate;
+  [db]. `adaface_tpu_torch.train --dreambooth --base
+      configs/finetune-db.yaml --max_steps 4` in-process at SD v1.5 width,
+      512x512, on PNGs written with the port's codec, as shipped (fp32) and
+      with --bf16: each step's flash launches those of two B1 recon passes,
+      finite losses, `embeddings_last.npz` reloads bit for bit; s a step,
+      peak GiB;
+  [wds]. `Trainer.fit` on finetune-ada.yaml's values with the compositor
+      over a shard written here (composites at p 1.0 in recon and compos,
+      the `w` placeholder), 4 micro-steps, validation every 2 with the
+      image logger: one wds recon loss bf16 against an fp32 copy on the card
+      (and its battery's two terms at WDS_TERM_TOL) with two planted faults
+      (`do_sqrt_norm` dropped; the extra mask given the bg tokens'), one of
+      which must read outside; exact launches; `val/`
+      rows finite; the sample grids read back bit for bit;
+  [native]. the port's copy of the C++ loader built with g++: decode
+      equals the Python load bit for bit, `native_stream` batches match the
+      Python path's shapes; where it cannot be built it says so and passes.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -2158,7 +2188,7 @@ def _gate_fp32(got, ref, what):
     return err, rel, err <= FP32_ABS_TOL * scale and rel <= FP32_REL_TOL
 
 
-def phase_fp32_kernels(torch, fa, card, exp2_rate):
+def phase_fp32_kernels(torch, fa, card, exp2_rate, cases=None, edges=True):
     """(4g) The fp32 flash kernel (`csrc/flash_attn_fp32.cu`) through the
     wrappers on fp32 tensors: the forward with its lse, dq and dk/dv/dbias
     at the training shapes (B3 and B4; with and without key bias), the
@@ -2170,14 +2200,17 @@ def phase_fp32_kernels(torch, fa, card, exp2_rate):
     (SDPA on the same fp32 inputs, TF32 off), and the bound; then the forward
     at FP32_FWD_EDGES and the backward at FP32_BWD_EDGES. Returns the
     rows of the path's configurations (bias on B3, none on B4; the generate
-    shapes without bias, as a request runs them)."""
+    shapes without bias, as a request runs them). `cases` ((B, L, H, d), key
+    bias) replaces the training and generate cases ([db] passes DreamBooth's
+    B1 shapes without bias), and `edges` False leaves out the edge cases."""
     import torch.nn.functional as F
 
     t_phase = time.time()
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = {}
-    cases = [(shape, wb) for shape in FP32_TRAIN_SHAPES for wb in (True, False)]
-    cases += [(shape, None) for shape in FP32_GENERATE_SHAPES]  # forward only
+    if cases is None:
+        cases = [(shape, wb) for shape in FP32_TRAIN_SHAPES for wb in (True, False)]
+        cases += [(shape, None) for shape in FP32_GENERATE_SHAPES]  # forward only
     planted = build_fp32_faults()
     fwd_fault = planted["flash_fwd"]
     for (b, l, h, d), with_bias in cases:
@@ -2316,11 +2349,12 @@ def phase_fp32_kernels(torch, fa, card, exp2_rate):
             msg += f", sdpa fp32 backward {bwd_lib_ms:.4f} ms, plain backward {bwd_plain_ms:.3f}"
         say(msg + f" [{card}]")
         del q, k, v, do, out, lse, qh, kh, vh
-    for case in FP32_FWD_EDGES:
+    for case in FP32_FWD_EDGES if edges else ():
         fp32_fwd_edge(torch, fa, gen, fwd_fault, *case)
-    for case in FP32_BWD_EDGES:
+    for case in FP32_BWD_EDGES if edges else ():
         fp32_bwd_edge(torch, fa, gen, planted, *case)
-    say(f"[fp32-kernel] phase 4g {time.time() - t_phase:.1f} s")
+    say(f"[fp32-kernel] phase 4g{'' if edges else ' (its cases only)'} "
+        f"{time.time() - t_phase:.1f} s")
     fa.launches_by_shape.clear()
     torch.cuda.empty_cache()
     return rows
@@ -4384,6 +4418,8 @@ def zs_kinds():
                                                 emb_noise_std=0.04), 3, 0, 1),
         "zs recon, no bg token": (lambda: IterPlan(iter_type=RECON, training_percent=0.3),
                                   3, 0, 1),
+        # the trainer's compositor is armed for this kind alone (p 1.0)
+        "zs recon wds": (lambda: IterPlan(iter_type=RECON, training_percent=0.3), 3, 0, 1),
         "zs a2f S1 real face": (lambda: a2f(num_denoising_steps=1), 3, 1, 1),
         "zs a2f S3 random face": (lambda: a2f(num_denoising_steps=3,
                                               gen_arc2face_rand_face=True), 1, 3, 3),
@@ -4656,7 +4692,11 @@ def phase_zs_train(torch, pipe, trainer_cls, tmp, card):
     S 1 and S 3 and the training entry point with `--arc2face_unet` on the
     teacher written as diffusers fp16 safetensors. Returns the flash
     launches of the zero-shot micro-steps, (kind, B, L, H, d) -> n."""
+    import dataclasses
+
     import numpy as np
+
+    from adaface_tpu_torch import train as train_mod
 
     from adaface_tpu_torch.data.tokenizer import HashTokenizer
     from adaface_tpu_torch.interop.checkpoint_io import save_safetensors
@@ -4688,6 +4728,12 @@ def phase_zs_train(torch, pipe, trainer_cls, tmp, card):
                                                       is_background=True)
     face = zs_train_face_fn(1)
     tcfg, pcfg = zs_train_configs(os.path.join(tmp, "zs_run"))
+    # the compositor, for the "zs recon wds" kind: every recon iteration it
+    # is armed for composites, with the fg vs comp-extra battery on at the
+    # complementary loss's weight
+    tcfg = dataclasses.replace(
+        tcfg, wds_shards=(write_shard(os.path.join(tmp, "zs_wds.tar")),), p_wds_comp_recon=1.0,
+        fg_wds_complementary_loss_weight=tcfg.fg_bg_complementary_loss_weight)
     # the prompts pad z to the fg generator's 16 vectors
     ds = make_dataset(os.path.join(tmp, "zs_subjects"), subjects=2, dark={(0, 3)},
                       num_vectors_per_subj_token=16)
@@ -4703,6 +4749,12 @@ def phase_zs_train(torch, pipe, trainer_cls, tmp, card):
 
     kinds = zs_kinds()
     order = [name for _ in range(ZS_TRAIN_ROUNDS) for name in kinds]
+    compositor = trainer.compositor
+
+    def arm(i):
+        """The compositor for micro-step i: there only for the wds kind."""
+        trainer.compositor = compositor if i < len(order) and order[i] == "zs recon wds" else None
+
     params = lambda: {(s, n): p.detach().clone() for s, g in gens.items()
                       for n, p in g.named_parameters()}
     start = params()
@@ -4712,6 +4764,7 @@ def phase_zs_train(torch, pipe, trainer_cls, tmp, card):
     def post(t0):
         torch.cuda.synchronize()
         marks.append((time.time(), dict(fa.launches_by_shape)))
+        arm(len(marks) - 1)
         if len(marks) == 3:  # the first optimizer update (accumulation 2)
             now = params()
             moved = max(float((now[k] - start[k]).abs().max()) for k in start)
@@ -4728,6 +4781,7 @@ def phase_zs_train(torch, pipe, trainer_cls, tmp, card):
     torch.cuda.reset_peak_memory_stats()
     fa.launches_by_shape.clear()
     marks.append((time.time(), {}))
+    arm(0)
     with scripted_plans(zs_mod, [kinds[name][0]() for name in order]):
         trainer.fit(len(order), arc2face_teacher_unet=teacher_unet)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4759,6 +4813,12 @@ def phase_zs_train(torch, pipe, trainer_cls, tmp, card):
     for i, name in enumerate(order[:len(kinds)]):
         say(f"[zs-train] ran {name}: "
             f"{ {k: round(v, 6) for k, v in steps[i].items() if isinstance(v, float)} }")
+    wds = [(r["wds_comp"], r.get("fg_wds_complem", 0.0)) for r, name in zip(steps, order)
+           if name == "zs recon wds"]
+    if not all(w == 1.0 and abs(c) > 0 for w, c in wds) or any(
+            r["wds_comp"] for r, name in zip(steps, order) if name != "zs recon wds"):
+        fail(f"[zs-train] the wds kind did not composite with its battery, or another did: "
+             f"{wds}")
     say(f"[zs-train] median s per micro-step after each kind's first (batch 3 512x512 bf16; "
         f"compos one block of 4 UNet rows; a2f S3 at batch 1): " + ", ".join(
             f"{name} {statistics.median(ts[1:]):.3f} (first {ts[0]:.3f})"
@@ -4859,9 +4919,24 @@ def phase_zs_train(torch, pipe, trainer_cls, tmp, card):
             enc_dir]
     before = dict(fa.launches_by_shape)
     t0 = time.time()
-    with scripted_plans(trainer_mod, [k[0]() for k in a2f.values()]):
-        rc = train_main(argv, dataset=make_dataset(os.path.join(tmp, "a2f_cli_subject")))
+    loaded = []
+    real_load = train_mod.load_arc2face_teacher
+    train_mod.load_arc2face_teacher = lambda *a, **k: loaded.append(real_load(*a, **k)) or \
+        loaded[-1]
+    try:
+        with scripted_plans(trainer_mod, [k[0]() for k in a2f.values()]):
+            rc = train_main(argv, dataset=make_dataset(os.path.join(tmp, "a2f_cli_subject")))
+    finally:
+        train_mod.load_arc2face_teacher = real_load
     torch.cuda.synchronize()
+    enc_dtypes = {p.dtype for p in loaded[0].encoder.parameters()}
+    unet_dtypes = {p.dtype for p in loaded[0].unet.parameters()}
+    say(f"[a2f-cli] under --bf16 the teacher's encoder is {sorted(map(str, enc_dtypes))}, its "
+        f"UNet {sorted(map(str, unet_dtypes))}")
+    if enc_dtypes != {torch.float32} or unet_dtypes != {torch.bfloat16}:
+        fail("[a2f-cli] the teacher's text encoder must stay fp32 under --bf16 (JAX builds it "
+             "at its default fp32), its UNet bf16")
+    del loaded
     got = launches_between(before, fa.launches_by_shape)
     want = {}
     for _, b, n_teacher, n_student in a2f.values():
@@ -4882,6 +4957,510 @@ def phase_zs_train(torch, pipe, trainer_cls, tmp, card):
     torch.cuda.empty_cache()
     say(f"[zs-train] phase {time.time() - t_phase:.1f} s")
     return totals
+
+
+# ---------------------------------------------------------------- slice 21
+# DreamBooth runs its two recon passes (subject, class images) at batch 1
+# with no key mask: the B1 shapes of ZS_B1_SHAPES, without bias
+DB_SHAPES = ZS_B1_SHAPES
+DB_STEPS = 4
+# [wds]: micro-steps (compos at 0 and 3, recon at 1 and 2), validation every
+# WDS_VAL_EVERY of them
+WDS_STEPS, WDS_VAL_EVERY = 4, 2
+# [wds]'s gates of the fg vs comp-extra battery: the relative error of each of
+# its two logged terms, bf16 against the fp32 copy on the card. The recon
+# loss moves by the battery's weight (2e-4) times its terms, inside
+# loss_tol's noise, so the loss gate alone cannot see a fault in the battery.
+# Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W) on a fresh pipeline,
+# the same in two runs: fg_wds_complem 8.134e-5 (a cosine), wds_mask_align
+# 6.489e-2 (a hinge on pre-softmax scores summed over ~10 extra tokens: bf16
+# q and k round each logit, and the sum cancels against the 0.4 margin; the
+# bg tokens' hinge, bg_mf_suppress, read 2.431e-3 in the same runs); in the
+# whole script, after the earlier phases, 1.091e-4 and 3.193e-4. The gates
+# sit 3x over the largest readings, the cosine's floored at 1e-2. The planted
+# faults read outside: do_sqrt_norm dropped 1.974-2.037 on wds_mask_align,
+# the extra mask given the bg tokens' 2.371e-2-4.755e-2 on fg_wds_complem.
+WDS_TERM_TOL = {"fg_wds_complem": 1e-2, "wds_mask_align": 2e-1}
+WDS_CAPTIONS = ["a sunny mountain landscape with pine trees", "an empty cobblestone alley",
+                "a quiet lake at dusk", "a man walking on the beach",  # filtered: human
+                "an old red barn under a grey sky", "a field of sunflowers at noon",
+                "a snowy forest clearing", "a desert road at sunset"]
+
+
+def write_pngs(folder, n, size, seed):
+    """n seeded size x size RGB PNGs `0.png` .. in `folder`, written with the
+    port's own codec (the card's machine has no PIL); their paths."""
+    import numpy as np
+
+    from adaface_tpu_torch.data import png
+
+    os.makedirs(folder, exist_ok=True)
+    g = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        paths.append(os.path.join(folder, f"{i}.png"))
+        png.write(paths[-1], g.integers(0, 256, (size, size, 3), dtype=np.uint8))
+    return paths
+
+
+def write_shard(path, size=SIZE):
+    """A LAION-style tar shard of eight seeded PNG backgrounds with JSON
+    captions (WDS_CAPTIONS, one of which the human filter drops)."""
+    import io
+    import tarfile
+
+    import numpy as np
+
+    from adaface_tpu_torch.data import png
+
+    g = np.random.default_rng(21)
+    with tarfile.open(path, "w") as tf:
+        for i, cap in enumerate(WDS_CAPTIONS):
+            meta = {"caption": cap, "width": size, "height": size, "original_width": 2 * size,
+                    "original_height": 2 * size}
+            for name, data in ((f"{i:03d}.png", png.encode(
+                    g.integers(0, 256, (size, size, 3), dtype=np.uint8))),
+                               (f"{i:03d}.json", json.dumps(meta).encode())):
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    return path
+
+
+def phase_db_reference(torch, pipe, tmp):
+    """[db-ref] One DreamBooth loss and its embedder gradients on phase 8's
+    setup (SD widths, 256x256 images: a 32x32 latent), the batch from the
+    entry point's own `dreambooth_batch`: bf16 on the card against the same
+    weights in fp32 on the CPU. Gates: the loss at `loss_tol`, each
+    embedder leaf's gradient at TRAIN_GRAD_TOL (leaves no prompt reaches
+    must be zero on both). Planted faults, each of which must read outside
+    a gate: `db_reg_weight` 0 and the reg half given the train caption."""
+    import dataclasses
+
+    import numpy as np
+
+    from adaface_tpu_torch.data.personalized_db import DreamBoothDataset
+    from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
+    from adaface_tpu_torch.train import dreambooth_batch
+    from adaface_tpu_torch.training.train_step import make_dreambooth_train_step
+
+    t_phase = time.time()
+    subj, reg = os.path.join(tmp, "dbref_subject"), os.path.join(tmp, "dbref_class")
+    write_pngs(subj, 2, 256, 30)
+    write_pngs(reg, 2, 256, 31)
+    ds = DreamBoothDataset(subj, reg, placeholder="z", class_word="person", size=256, seed=0)
+    train, regx = ds.draw_pair()
+    batch = dreambooth_batch(pipe, [train], [regx], np.random.default_rng(0))
+    if tuple(batch.train.latents.shape) != (1, 32, 32, 4):
+        fail(f"[db-ref] latents {tuple(batch.train.latents.shape)}, want (1, 32, 32, 4)")
+
+    def embedders(device):
+        return {s: dataclasses.replace(p, **{n: t.detach().float().to(device).clone()
+                                             .requires_grad_(True)
+                                             for n, t in embedder_leaves(p)})
+                for s, p in pipe.embedding_manager.embedders.items()}
+
+    def run(step, emb, b):
+        loss, m = step.loss_fn(emb, b)
+        loss.backward()
+        grads = {(s, n): (torch.zeros_like(t) if t.grad is None else t.grad).float().cpu()
+                 for s in sorted(emb) for n, t in embedder_leaves(emb[s])}
+        return loss.item(), {k: v.item() for k, v in m.items()}, grads
+
+    card_step = lambda w: make_dreambooth_train_step(pipe.clip, pipe.unet, pipe.base_sched,
+                                                     None, skip_weights=pipe.skip_weights,
+                                                     db_reg_weight=w)
+    loss_gpu, m_gpu, g_gpu = run(card_step(1.0), embedders(pipe.device), batch)
+    cpu_step = make_dreambooth_train_step(
+        cpu_fp32_copy(torch, pipe.clip).requires_grad_(False),
+        cpu_fp32_copy(torch, pipe.unet).requires_grad_(False), pipe.base_sched, None,
+        skip_weights=pipe.skip_weights, db_reg_weight=1.0)
+    to_cpu = lambda r: r._replace(latents=r.latents.float().cpu(), noise=r.noise.float().cpu(),
+                                  timesteps=r.timesteps.cpu())
+    t0 = time.time()
+    with bf16_upsample_reference(torch):
+        loss_cpu, m_cpu, g_cpu = run(cpu_step, embedders("cpu"),
+                                     batch._replace(train=to_cpu(batch.train),
+                                                    reg=to_cpu(batch.reg)))
+    say(f"[db-ref] fp32 CPU loss and gradients in {time.time() - t0:.1f} s")
+
+    def readings(loss, grads):
+        errs = {}
+        for k, c in g_cpu.items():
+            if float(c.norm()) == 0:
+                errs[k] = 0.0 if float(grads[k].norm()) == 0 else float("inf")
+            else:
+                errs[k] = float((grads[k] - c).norm() / c.norm())
+        return abs(loss - loss_cpu) / abs(loss_cpu), errs
+
+    for k in sorted(m_cpu):
+        say(f"[db-ref] {k:8s} card {m_gpu[k]:.6e} cpu {m_cpu[k]:.6e} relative error "
+            f"{abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12):.3e}")
+    loss_err, errs = readings(loss_gpu, g_gpu)
+    for (s, n), e in sorted(errs.items()):
+        say(f"[db-ref] grad {s}.{n:18s} relative L2 error {e:.3e} (|g| "
+            f"{float(g_cpu[(s, n)].norm()):.3e})")
+    ok = lambda le, ge: le <= loss_tol() and all(e <= TRAIN_GRAD_TOL for e in ge.values())
+    if not np.isfinite(loss_gpu) or not ok(loss_err, errs):
+        fail(f"[db-ref] loss off by {loss_err:.3e} (tol {loss_tol()}) or a gradient off by "
+             f"{max(errs.values()):.3e} (tol {TRAIN_GRAD_TOL})")
+    # the planted faults, on the card against the same fp32 reference
+    ids = batch.train.token_ids
+    wrong_reg = batch.reg._replace(token_ids=ids,
+                                   slot_maps=pipe.embedding_manager.build_slot_maps(ids))
+    for name, w, b in (("db_reg_weight 0", 0.0, batch),
+                       ("the reg half given the train caption", 1.0,
+                        batch._replace(reg=wrong_reg))):
+        fl, _, fg = run(card_step(w), embedders(pipe.device), b)
+        le, ge = readings(fl, fg)
+        say(f"[db-ref]   planted fault, {name}: loss relative error {le:.3e} (tol "
+            f"{loss_tol()}), worst gradient {max(ge.values()):.3e} (tol {TRAIN_GRAD_TOL})")
+        if ok(le, ge):
+            fail(f"[db-ref] the gates pass a planted fault ({name})")
+    say(f"[db-ref] loss relative error {loss_err:.3e} (tol {loss_tol()}); worst gradient "
+        f"relative L2 error {max(errs.values()):.3e} (tol {TRAIN_GRAD_TOL}); "
+        f"{time.time() - t_phase:.1f} s")
+
+
+def phase_dreambooth(torch, fa, tmp, card):
+    """[db] `python -m adaface_tpu_torch.train --dreambooth --base
+    configs/finetune-db.yaml --max_steps DB_STEPS` (in-process `main`) at SD
+    v1.5 width, 512x512, on four subject and four class PNGs written with
+    the port's codec: once as shipped (fp32, on the fp32 kernels), once with
+    `--bf16`. Each step must launch the flash kernels as two B1 recon passes
+    without key mask do; the losses are finite; `embeddings_last.npz` loads
+    back equal to the trained embedders. Returns dtype -> the flash
+    launches over the run, (kind, B, L, H, d) -> n."""
+    import numpy as np
+
+    from adaface_tpu_torch import train
+    from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
+    from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
+
+    t_phase = time.time()
+    subj, reg = os.path.join(tmp, "db_subject"), os.path.join(tmp, "db_class")
+    write_pngs(subj, 4, SIZE, 40)
+    write_pngs(reg, 4, SIZE, 41)
+    want_steps = {}
+    for (_, l, h, d), (_, nf, nb) in DB_SHAPES.items():
+        for kind, n in (("fwd", nf), ("dq", nb), ("dkv", nb)):
+            want_steps.setdefault(kind, {})[(1, l, h, d)] = 2 * n
+    totals = {}
+    real_make = train.make_dreambooth_train_step
+    for mode, extra in (("fp32", []), ("bf16", ["--bf16"])):
+        rec = dict(times=[], launches=[], metrics=[], emb=None)
+
+        def timed_make(*a, **kw):
+            step = real_make(*a, **kw)
+
+            def timed(embedders, batch):
+                rec["emb"] = embedders
+                before = dict(fa.launches_by_shape)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                m = step(embedders, batch)
+                torch.cuda.synchronize()
+                rec["times"].append(time.time() - t0)
+                rec["launches"].append(launches_between(before, fa.launches_by_shape))
+                rec["metrics"].append({k: float(v) for k, v in m.items()})
+                return m
+            return timed
+
+        logdir = os.path.join(tmp, f"db_{mode}")
+        argv = ["--dreambooth", "--base", os.path.join(CONFIG_DIR, "finetune-db.yaml"),
+                "--data_root", subj, "--reg_data_root", reg, "--max_steps", str(DB_STEPS),
+                "--logdir", logdir] + extra
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches_by_shape.clear()
+        train.make_dreambooth_train_step = timed_make
+        t0 = time.time()
+        try:
+            rc = train.main(argv, device="cuda")
+        finally:
+            train.make_dreambooth_train_step = real_make
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        suffix = "_fp32" if mode == "fp32" else ""
+        want = {k + suffix: v for k, v in want_steps.items()}
+        for i, got in enumerate(rec["launches"]):
+            got = {k: v for k, v in got.items()}
+            say(f"[db] {mode} step {i}: {rec['times'][i]:.3f} s, losses "
+                f"{ {k: round(v, 6) for k, v in rec['metrics'][i].items()} }, launches "
+                f"{ {k: sorted(v.items()) for k, v in sorted(got.items())} }")
+            if got != want:
+                fail(f"[db] {mode} step {i}: expected the launches {want}, got {got}")
+            for kind, by in got.items():
+                for shape, n in by.items():
+                    key = (kind.replace("_fp32", ""),) + shape
+                    totals.setdefault(mode, {})[key] = totals.get(mode, {}).get(key, 0) + n
+        losses = [v for m in rec["metrics"] for v in m.values()]
+        if rc != 0 or len(rec["times"]) != DB_STEPS or not np.all(np.isfinite(losses)):
+            fail(f"[db] {mode}: main returned {rc} after {len(rec['times'])} steps, or a "
+                 "non-finite loss")
+        saved = EmbeddingManager.load_native(os.path.join(logdir, "embeddings_last.npz"))
+        same = sorted(saved.embedders) == sorted(rec["emb"]) == ["z"] and all(
+            torch.equal(t.detach().cpu(), dict(embedder_leaves(saved.embedders["z"]))[n].cpu())
+            for n, t in embedder_leaves(rec["emb"]["z"]))
+        if not same:
+            fail(f"[db] {mode}: embeddings_last.npz does not reload as the trained embedders")
+        say(f"[db] {mode}: {DB_STEPS} steps in {wall:.1f} s with setup; median "
+            f"{statistics.median(rec['times'][1:]):.3f} s a step (first {rec['times'][0]:.3f}); "
+            f"peak {peak:.2f} GiB; embeddings_last.npz reloads bit for bit [{card}]")
+        del rec
+    say(f"[db] phase {time.time() - t_phase:.1f} s")
+    return totals
+
+
+def phase_wds(torch, pipe, trainer_cls, tmp, card):
+    """[wds] `Trainer.fit` on finetune-ada.yaml's values at batch 3,
+    512x512, bf16, with the webdataset compositor over a shard this phase
+    writes (`p_wds_comp_recon` and `p_wds_comp_compos` 1.0, the fg vs
+    comp-extra battery at the complementary loss's weight, the dedicated
+    `w` placeholder registered), WDS_STEPS micro-steps (compos 0 and 3),
+    validation every WDS_VAL_EVERY with one batch and the image logger
+    (2 samples, 10 DDIM steps). Gates: one wds recon loss bf16 against an
+    fp32 copy on the card (loss_tol; the battery's `wds_mask_align` at
+    WDS_TERM_TOL), `do_sqrt_norm` dropped and the comp-extra mask given the
+    bg tokens' as the planted faults; each
+    micro-step's launches; `val/` rows finite; the sample grid reads back
+    bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from adaface_tpu_torch.config import load_config
+    from adaface_tpu_torch.data import png
+    from adaface_tpu_torch.training import train_step as ts_mod
+    from adaface_tpu_torch.training.image_logger import make_grid
+    from adaface_tpu_torch.training.iter_plan import IterPlan
+    from adaface_tpu_torch.training.trainer import TrainerConfig
+    from adaface_tpu_torch.training.train_step import make_recon_train_step
+
+    t_phase = time.time()
+    tcfg, pcfg = zs_train_configs(os.path.join(tmp, "wds_run"))
+    data = load_config(os.path.join(CONFIG_DIR, "finetune-ada.yaml"))["data"]
+    names = {f.name for f in dataclasses.fields(TrainerConfig)}
+    fields = {k: v for k, v in data.items() if k in names}
+    fields.update(wds_shards=(write_shard(os.path.join(tmp, "wds.tar")),), p_wds_comp_recon=1.0,
+                  p_wds_comp_compos=1.0,
+                  fg_wds_complementary_loss_weight=tcfg.fg_bg_complementary_loss_weight,
+                  max_steps=WDS_STEPS, val_every_steps=WDS_VAL_EVERY, val_batches=1)
+    tcfg = dataclasses.replace(tcfg, **fields)
+    pcfg = dataclasses.replace(pcfg, composition_regs_iter_gap=COMPOS_GAP)
+    mgr, tok = pipe.embedding_manager, pipe.tokenizer
+    table = pipe.clip.token_embedding.weight.detach().float().cpu().numpy()
+    mgr.add_placeholder("w", token_id=tok.extra_tokens.get("w") or tok.add_placeholder("w"),
+                        num_vectors=4, is_background=True, init_vecs=table[tok.encode("unknown")],
+                        rank=10, emb_dim=table.shape[1], device=pipe.device,
+                        generator=torch.Generator(device=pipe.device).manual_seed(12))
+    try:
+        trainer = trainer_cls(pipe, make_dataset(os.path.join(tmp, "wds_subject")), tcfg, pcfg)
+        trainer.set_image_logger(every_steps=WDS_VAL_EVERY, num_samples=2, sample_steps=10,
+                                 size=SIZE)
+        _wds_reference(torch, pipe, trainer, tcfg, ts_mod, make_recon_train_step, IterPlan)
+        rec = dict(times=[], kinds=[], launches=[], val=[], samples=[])
+        real = {k: getattr(trainer, k) for k in ("_run_recon", "_run_compos", "run_validation")}
+        real_log = trainer.image_logger.log_samples
+
+        def timed(kind, run):
+            def wrapper(*a):
+                before = dict(_fa().launches_by_shape)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out = run(*a)
+                torch.cuda.synchronize()
+                if kind == "val":
+                    rec["val"].append(time.time() - t0)
+                else:
+                    rec["times"].append(time.time() - t0)
+                    rec["kinds"].append(kind)
+                    rec["launches"].append(launches_between(before, _fa().launches_by_shape))
+                return out
+            return wrapper
+
+        def log_samples(*a, **k):
+            imgs = real_log(*a, **k)
+            rec["samples"].append((a[0], imgs))
+            return imgs
+
+        trainer._run_recon = timed("recon", real["_run_recon"])
+        trainer._run_compos = timed("compos", real["_run_compos"])
+        trainer.run_validation = timed("val", real["run_validation"])
+        trainer.image_logger.log_samples = log_samples
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.fit()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        trainer.close()
+    finally:
+        mgr.placeholders.pop("w", None)
+        mgr.embedders.pop("w", None)
+    for i, (kind, got) in enumerate(zip(rec["kinds"], rec["launches"])):
+        want = flash_want(COMPOS_SHAPES if kind == "compos" else TRAIN_SHAPES)
+        say(f"[wds] micro-step {i} ({kind}): {rec['times'][i]:.3f} s, launches "
+            f"{ {k: sorted(v.items()) for k, v in sorted(got.items())} }")
+        if got != want:
+            fail(f"[wds] micro-step {i} ({kind}): expected the launches {want}, got {got}")
+    recs = [json.loads(line) for line in open(os.path.join(tcfg.logdir, "metrics.jsonl"))]
+    steps = [r for r in recs if "iter_type" in r]
+    vals = [r for r in recs if any(k.startswith("val/") for k in r)]
+    say(f"[wds] micro-steps {[(r['iter_type'], r['wds_comp']) for r in steps]}; recon "
+        f"fg_wds_complem {[round(r['fg_wds_complem'], 6) for r in steps if 'fg_wds_complem' in r]}"
+        f"; val rows {[(r['step'], round(r['val/loss'], 6)) for r in vals]}")
+    if ([r["iter_type"] for r in steps] != ["compos_distill", "recon", "recon", "compos_distill"]
+            or not all(r["wds_comp"] == 1.0 for r in steps)
+            or not all(abs(r.get("fg_wds_complem", 0.0)) > 0 for r in steps
+                       if r["iter_type"] == "recon")
+            or [r["step"] for r in vals] != [2, 4]
+            or not all(np.isfinite(v) for r in steps + vals for v in r.values()
+                       if isinstance(v, float))):
+        fail("[wds] the micro-steps did not composite with their battery, or the val rows "
+             "are missing or non-finite")
+    for gs, imgs in rec["samples"]:
+        path = os.path.join(tcfg.logdir, "images", f"val_samples_gs-{gs:06}.png")
+        if not np.array_equal(png.read(path), make_grid(list(imgs))):
+            fail(f"[wds] {path} does not read back as the sample grid")
+    if len(rec["samples"]) != 2:
+        fail(f"[wds] {len(rec['samples'])} sample grids, want 2")
+    recon = [t for t, k in zip(rec["times"], rec["kinds"]) if k == "recon"]
+    compos = [t for t, k in zip(rec["times"], rec["kinds"]) if k == "compos"]
+    say(f"[wds] s per wds micro-step: recon {statistics.median(recon):.3f} "
+        f"({', '.join(f'{t:.3f}' for t in recon)}), compos {', '.join(f'{t:.3f}' for t in compos)}"
+        f"; per validation pass (1 batch of 3 and a 2-sample 10-step grid) "
+        f"{', '.join(f'{t:.3f}' for t in rec['val'])}; the sample grids read back bit for bit; "
+        f"peak {peak:.2f} GiB; phase {time.time() - t_phase:.1f} s [{card}]")
+
+
+def _wds_reference(torch, pipe, trainer, tcfg, ts_mod, make_recon_train_step, IterPlan):
+    """[wds]'s gate: one wds recon loss (a composite batch of 3 with the bg
+    token and the comp-extra mask) bf16 against an fp32 copy of CLIP and the
+    UNet on the card (einsum attention, 8b's pattern); `do_sqrt_norm`
+    dropped as the planted fault."""
+    import dataclasses
+
+    from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
+
+    plan = IterPlan(use_background_token=True, training_percent=0.3)
+    batch = trainer.build_recon_batch(plan)
+    if not plan.use_wds_comp or batch.wds_extra_token_mask is None:
+        fail("[wds-ref] the reference batch is not a composite with its comp-extra mask")
+    emb = lambda: {s: dataclasses.replace(p, **{n: t.detach().float().clone()
+                                                for n, t in embedder_leaves(p)})
+                   for s, p in pipe.embedding_manager.embedders.items()}
+
+    def fp32_copy(m, **cfg_kw):
+        with torch.device("meta"):
+            c = type(m)(dataclasses.replace(m.cfg, **cfg_kw))
+        c = c.to_empty(device=pipe.device)
+        c.load_state_dict({k: v.float() for k, v in m.state_dict().items()})
+        return c.eval().requires_grad_(False)
+
+    kw = dict(skip_weights=pipe.skip_weights, bg_weight=tcfg.wds_bg_recon_weight,
+              emb_reg_weight=trainer._emb_reg_w, prompt_delta_weight=trainer._delta_w,
+              complem_weight=tcfg.fg_bg_complementary_loss_weight,
+              xlayer_weight=tcfg.fg_bg_xlayer_consist_loss_weight,
+              wds_complem_weight=tcfg.fg_wds_complementary_loss_weight, use_bg_token=True,
+              do_zero_shot=trainer.plan_cfg.do_zero_shot,
+              bg_placeholders=trainer._bg_placeholders)
+    step = trainer._get_recon_step(True, True)
+    with torch.no_grad():
+        loss_bf16, m_bf16 = step.loss_fn(emb(), batch)
+        ref = make_recon_train_step(fp32_copy(pipe.clip),
+                                    fp32_copy(pipe.unet, use_flash_attention=False),
+                                    pipe.base_sched, None, **kw)
+        with bf16_upsample_reference(torch):
+            loss_ref, m_ref = ref.loss_fn(emb(), batch)
+        del ref
+        faults = {}
+        real = ts_mod.fg_bg_complementary_loss
+        ts_mod.fg_bg_complementary_loss = lambda *a, **k: real(*a, **dict(k, do_sqrt_norm=False))
+        try:
+            faults["do_sqrt_norm dropped"] = step.loss_fn(emb(), batch)
+        finally:
+            ts_mod.fg_bg_complementary_loss = real
+        bg = sum(torch.as_tensor(batch.slot_maps[s] >= 0, device=pipe.device).float()
+                 for s in trainer._bg_placeholders if s in batch.slot_maps)
+        faults["the comp-extra mask given the bg tokens'"] = step.loss_fn(
+            emb(), batch._replace(wds_extra_token_mask=bg.clamp(0, 1)))
+    torch.cuda.empty_cache()
+    rel = lambda a, b: abs(a.item() - b.item()) / max(abs(b.item()), 1e-12)
+    for k in sorted(m_ref):
+        say(f"[wds-ref] {k:22s} bf16 {m_bf16[k].item():.6e} fp32 {m_ref[k].item():.6e} relative "
+            f"error {rel(m_bf16[k], m_ref[k]):.3e}")
+
+    def readings(loss, m):
+        return rel(loss, loss_ref), {k: rel(m[k], m_ref[k]) for k in WDS_TERM_TOL}
+
+    inside = lambda le, te: (le <= loss_tol()
+                             and all(e <= WDS_TERM_TOL[k] for k, e in te.items()))
+    loss_err, term_err = readings(loss_bf16, m_bf16)
+    say(f"[wds-ref] loss relative error {loss_err:.3e} (tol {loss_tol()}); battery terms "
+        f"{ {k: f'{e:.3e}' for k, e in term_err.items()} } (tol {WDS_TERM_TOL})")
+    if not inside(loss_err, term_err):
+        fail("[wds-ref] the bf16 wds recon loss or its battery is off the fp32 copy's")
+    outside = []
+    for name, (fl, fm) in faults.items():
+        le, te = readings(fl, fm)
+        say(f"[wds-ref]   planted fault, {name}: loss {le:.3e}, battery terms "
+            f"{ {k: f'{e:.3e}' for k, e in te.items()} } -> "
+            f"{'inside the gates' if inside(le, te) else 'outside'}")
+        if not inside(le, te):
+            outside.append(name)
+    if not outside:
+        fail("[wds-ref] the gates pass every planted fault")
+
+
+def phase_native(torch, pngs, tmp, card):
+    """[native] The port's copy of the C++ loader: build it (g++, libjpeg,
+    libpng) and print whether it built, with the compiler's message if not;
+    if it did, decode without augmentation equals the port's Python load bit
+    for bit on `pngs`, and eight `native_stream` batches have the Python
+    path's keys, shapes and dtypes. Unavailable is reported and not a
+    failure: the dataset then serves the Python path."""
+    import numpy as np
+
+    from adaface_tpu_torch.data import native_loader
+    from adaface_tpu_torch.data.personalized import (
+        PersonalizedDataset, SubjectSpec, _nearest_resize)
+
+    t0 = time.time()
+    if not native_loader.is_available():
+        say(f"[native] the loader is unavailable on this machine (the Python path serves): "
+            f"{(native_loader.build_error() or '').strip()[-600:]}")
+        return
+    folder = os.path.dirname(pngs[0])
+    ds = PersonalizedDataset([SubjectSpec("s", folder)], size=256, seed=0)
+    loader = native_loader.NativeImageLoader([r.path for r in ds.records],
+                                             [r.mask_path for r in ds.records], size=256,
+                                             flip_p=0.0, scale_range=None, seed=0, n_workers=2,
+                                             queue_capacity=4)
+    try:
+        for _ in range(2 * len(ds.records)):
+            idx, img, fg, aug = loader.next()
+            image, mask, _ = ds._load(ds.records[idx])
+            if not (np.array_equal(img, _nearest_resize(image, 256))
+                    and np.array_equal(fg, (_nearest_resize(mask, 256) / 255).astype(np.uint8))
+                    and np.all(aug == 1)):
+                fail(f"[native] record {idx}: the native decode differs from the Python load")
+    finally:
+        loader.close()
+    ref = ds[0]
+    stream = ds.native_stream(batch_size=3)
+    try:
+        for _ in range(8):
+            b = next(stream)
+            for k, v in ref.items():
+                if isinstance(v, np.ndarray) and (b[k].shape != (3,) + v.shape
+                                                  or b[k].dtype != v.dtype):
+                    fail(f"[native] native_stream {k}: {b[k].shape} {b[k].dtype}, want "
+                         f"{(3,) + v.shape} {v.dtype}")
+    finally:
+        stream.close()
+    say(f"[native] built; decode equals the Python load bit for bit on {len(ds.records)} PNGs "
+        f"(256x256, no augmentation); 8 native_stream batches of 3 have the Python path's "
+        f"shapes and dtypes; {time.time() - t0:.1f} s")
 
 
 def main():
@@ -4909,6 +5488,8 @@ def main():
     # [zs-train]'s multi-step Arc2Face iterations run them at batch 1: the
     # student with a key mask, the teacher without
     b1_bwd_rows = phase_backward_kernels(torch, fa, card, exp2_rate, ZS_B1_SHAPES)
+    # DreamBooth's passes run them at batch 1 without a key mask: timed so
+    db_bwd_rows = phase_backward_kernels(torch, fa, card, exp2_rate, DB_SHAPES, biases=(False,))
     say("[b1-grid] CTAs a launch at batch 1 (the card has "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs; the forward with "
         "the student's key bias / the teacher's none): " + ", ".join(
@@ -4918,6 +5499,8 @@ def main():
     arm_rows, arm_bwd_rows = phase_arm_kernels(torch, fa, card, exp2_rate)
     phase_backward_edges(torch, fa, card)
     fp32_rows = phase_fp32_kernels(torch, fa, card, exp2_rate)
+    db_fp32_rows = phase_fp32_kernels(torch, fa, card, exp2_rate,
+                                      cases=[(shape, False) for shape in DB_SHAPES], edges=False)
     fused_rows = phase_fused_kernels(torch, card, exp2_rate)
 
     t0 = time.time()
@@ -4959,12 +5542,21 @@ def main():
         arm_train = phase_arm_train(torch, pipe, Trainer, tmp, card)
         fp32_counts, fp32_fused_train = phase_entry_point(torch, fa, Trainer, tmp, card)
         zs_counts = phase_zs_train(torch, pipe, Trainer, tmp, card)
+        t_slice = time.time()
+        phase_db_reference(torch, pipe, tmp)
+        db_counts = phase_dreambooth(torch, fa, tmp, card)
+        phase_wds(torch, pipe, Trainer, tmp, card)
+        phase_native(torch, write_pngs(os.path.join(tmp, "native"), 4, SIZE, 50), tmp, card)
+        say(f"[main] slice 21's phases ([db-ref], [db], [wds], [native]) "
+            f"{time.time() - t_slice:.1f} s")
 
     entries = []
     for (b, l, h, d), (replaces, _) in MAIN_SHAPES.items():
         entries.append(dict(name=f"flash_attn_packed B{b} L{l} H{h} d{d}", route="cuda",
                             source=SOURCE, replaces=replaces, launches=counts[(b, l, h, d)],
                             **rows[(b, l, h, d)]))
+    fp32_names_db = {"fwd": "flash_attn_fp32 fwd + lse", "dq": "flash_attn_fp32 dq",
+                     "dkv": "flash_attn_fp32 dk/dv"}
     names = {"fwd": ("flash_attn_packed fwd (lse when recorded)", SOURCE),
              "dq": ("flash_attn_bwd dq", BWD_SOURCE),
              "dkv": ("flash_attn_bwd dk/dv", BWD_SOURCE)}
@@ -4982,6 +5574,17 @@ def main():
         entries.append(dict(name=f"{name} B{b} L{l} H{h} d{d} (zero-shot training)",
                             route="cuda", source=source,
                             launches=zs_counts.get((kind, b, l, h, d), 0), **row))
+    # DreamBooth: B1 without key mask, launches over [db]'s runs (bf16 under
+    # --bf16; fp32 as shipped)
+    for (kind, b, l, h, d), row in sorted(db_bwd_rows.items()):
+        name, source = names[kind]
+        entries.append(dict(name=f"{name} B{b} L{l} H{h} d{d} (DreamBooth, no key mask)",
+                            route="cuda", source=source,
+                            launches=db_counts.get("bf16", {}).get((kind, b, l, h, d), 0), **row))
+    for (kind, b, l, h, d), row in sorted(db_fp32_rows.items()):
+        entries.append(dict(name=f"{fp32_names_db[kind]} B{b} L{l} H{h} d{d} (fp32 DreamBooth, "
+                                 f"no key mask)", route="cuda", source=FP32_SOURCE,
+                            launches=db_counts.get("fp32", {}).get((kind, b, l, h, d), 0), **row))
     # the arms: launches per generate request under each arm configuration
     default = expected_generate_launches("default")
     for name, got in arm_counts.items():

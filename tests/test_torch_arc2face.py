@@ -387,6 +387,34 @@ def test_teacher_matches_jax(teacher_files):
                                atol=2e-5 * float(np.abs(np.asarray(want)).max()))
 
 
+def test_bf16_teacher_keeps_an_fp32_encoder(teacher_files):
+    """At dtype bf16 only the teacher UNet is bf16: the Arc2Face encoder is
+    built in fp32 as JAX builds it (its `CLIPTextEncoder` at the default
+    dtype), so the context agrees with JAX's at the fp32 test's 2e-5. With
+    the encoder cast to bf16 (the fault this guards) it reads far outside."""
+    unet_dir, enc_dir, ucfg = teacher_files
+    from adaface_tpu.data.tokenizer import HashTokenizer as JTok
+
+    jt = j_load_teacher(unet_dir + "/diffusion_pytorch_model.safetensors",
+                        enc_dir + "/pytorch_model.bin", JTok(), dtype=jnp.bfloat16,
+                        unet_cfg=JUNetConfig(**ucfg))
+    pt = load_arc2face_teacher(unet_dir, enc_dir, HashTokenizer(), dtype=torch.bfloat16,
+                               unet_cfg=UNetConfig(**ucfg), device="cpu")
+    assert {p.dtype for p in pt.encoder.parameters()} == {torch.float32}
+    assert {p.dtype for p in pt.unet.parameters()} == {torch.bfloat16}
+    plan = IterPlan(iter_type=ARC2FACE_DISTILL, gen_arc2face_rand_face=True)
+    jplan = JIterPlan(iter_type=ARC2FACE_DISTILL, gen_arc2face_rand_face=True)
+    ex = [{"image_unnorm": np.zeros((8, 8, 3), np.uint8)}] * 2
+    ctx, jctx = pt.ctx(ex, plan), jt.ctx(ex, jplan)
+    assert ctx.dtype == torch.float32 and jctx.dtype == jnp.float32
+    jctx = np.asarray(jctx)
+    np.testing.assert_allclose(ctx.numpy(), jctx, rtol=0, atol=2e-5)
+    pt.encoder.to(torch.bfloat16)
+    pt._rng = np.random.default_rng(0)
+    faulty = pt.ctx(ex, plan).float().numpy()
+    assert np.abs(faulty - jctx).max() > 100 * 2e-5
+
+
 def test_cli_trains_with_the_teacher(teacher_files, subject_dir, tmp_path):
     import json
 
