@@ -43,9 +43,15 @@
   JAX's `nn.remat`; its flash forwards (and, under the fused knobs, its K9
   feed-forward) launch again there.
 
+- Subject-token conv attention (`UNetConfig.conv_attn_kernel_size` ks > 1,
+  read at call time): given `subj_slot_map` [B', T] (the subject's vector
+  slot per context token, -1 elsewhere), each cross-attention replaces the
+  subject slots' scores by `ops.attention.apply_conv_attn` at its layer's
+  kernel size, which is 1 (off) at layers 12, 16, 17, 18 and 19. A
+  cross-attention that does so takes the einsum path, never a flash entry.
+
 Submodules carry the flax tree's names (`down_0_res_0.in_conv`,
-`down_0_attn_0.block_0.attn1.to_q`, ...). Subject-token convolutional
-attention is not ported yet.
+`down_0_attn_0.block_0.attn1.to_q`, ...).
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ import torch.utils.checkpoint
 
 from adaface_tpu_torch import knobs
 from adaface_tpu_torch.ops import fused_ff
+from adaface_tpu_torch.ops.attention import apply_conv_attn
 from adaface_tpu_torch.ops.basic import conv_nhwc, group_norm, timestep_embedding
 from adaface_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_blc,
                                                    flash_attention_qkv)
@@ -72,6 +79,8 @@ CA_LAYER_INDEX = {1: 0, 2: 1, 4: 2, 5: 3, 7: 4, 8: 5, 12: 6, 16: 7,
 NUM_CA_LAYERS = 16
 # layers whose activations feed the distillation losses
 DISTILL_LAYER_INDICES = (7, 8, 12, 16, 17, 18, 19, 20, 21, 22, 23, 24)
+# layers whose conv attention is forced to 1x1 (off), as in the reference
+CONV_ATTN_1X1_LAYERS = (12, 16, 17, 18, 19)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +99,9 @@ class UNetConfig:
     # (torch.utils.checkpoint; JAX's nn.remat); capture layers keep their
     # activations, which are the distillation losses' inputs
     use_remat: bool = False
+    # subject-token conv attention: ks*ks subject key embeddings as a ks x ks
+    # kernel over the query map; <= 1 is off
+    conv_attn_kernel_size: int = -1
 
     @classmethod
     def sd_v1(cls, **kw) -> "UNetConfig":
@@ -143,7 +155,9 @@ class UNetCrossAttention(nn.Module):
     when no context is given. `kv` takes hoisted (k, v) projections,
     `key_mask` [B, Lk] (True = attend) masks the keys of a self-attention.
     Returns (out, captured dict or None); `capture` takes the einsum path,
-    whose scores it returns."""
+    whose scores it returns. A cross-attention given `conv_ks` > 1, a
+    `subj_slot_map` and the query map's `infeat_hw` applies conv attention,
+    on the einsum path."""
 
     def __init__(self, dim: int, ctx_dim: int, num_heads: int, use_flash: bool = True,
                  fuse_qkv: bool = False):
@@ -157,8 +171,11 @@ class UNetCrossAttention(nn.Module):
         self.to_out = nn.Linear(dim, dim)
 
     def forward(self, x, ctx_v=None, ctx_k=None, kv=None, key_mask=None,
-                capture: bool = False):
+                capture: bool = False, subj_slot_map=None, infeat_hw=None,
+                conv_ks: int = -1):
         h = self.num_heads
+        use_conv = (conv_ks > 1 and subj_slot_map is not None and ctx_v is not None
+                    and infeat_hw is not None)
         inner = self.to_q.weight.shape[0]
         d = inner // h
         qkv = None
@@ -179,7 +196,7 @@ class UNetCrossAttention(nn.Module):
         scale = d ** -0.5
         split = lambda t: t.reshape(b, t.shape[1], h, d).transpose(1, 2)
         merge = lambda t: t.transpose(1, 2).reshape(b, lq, inner)
-        if (self.use_flash and not capture
+        if (self.use_flash and not capture and not use_conv
                 and lk >= knobs.intval("ADAFACE_FLASH_MIN_LK", 0)):
             key_bias = (None if key_mask is None
                         else torch.where(key_mask, 0.0, -1e30).to(torch.float32))
@@ -195,6 +212,8 @@ class UNetCrossAttention(nn.Module):
             return self.to_out(out), None
         qh, kh, vh = split(q), split(k), split(v)
         sim = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+        if use_conv:
+            sim = apply_conv_attn(sim, qh, kh, subj_slot_map, infeat_hw, conv_ks, scale)
         if key_mask is not None:
             sim = torch.where(key_mask[:, None, None, :], sim,
                               -torch.finfo(torch.float32).max)
@@ -221,11 +240,14 @@ class TransformerBlock(nn.Module):
         self.ff_out = nn.Linear(dim * 4, dim)
 
     def forward(self, x, ctx_v, ctx_k, kv=None, cfg_tile: bool = False, key_mask=None,
-                capture: bool = False):
+                capture: bool = False, subj_slot_map=None, infeat_hw=None,
+                conv_ks: int = -1):
         x = x + self.attn1(self.norm1(x), key_mask=key_mask)[0]
         if cfg_tile:
             x = torch.cat([x, x], dim=0)
-        a2, aux = self.attn2(self.norm2(x), ctx_v, ctx_k, kv, capture=capture)
+        a2, aux = self.attn2(self.norm2(x), ctx_v, ctx_k, kv, capture=capture,
+                             subj_slot_map=subj_slot_map, infeat_hw=infeat_hw,
+                             conv_ks=conv_ks)
         x = x + a2
         # the fused feed-forward (ADAFACE_FUSED_FF=1) runs where the block uses
         # flash attention and does not capture, as in the JAX package; the
@@ -247,14 +269,15 @@ class SpatialTransformer(nn.Module):
         self.proj_out = _conv(ch, ch, kernel=1)
 
     def forward(self, x, ctx_v, ctx_k, kv=None, cfg_tile: bool = False, img_mask=None,
-                capture: bool = False):
+                capture: bool = False, subj_slot_map=None, conv_ks: int = -1):
         b, hh, ww, c = x.shape
         h = group_norm(x, self.norm_scale, self.norm_bias, 32, 1e-6)
         h = conv_nhwc(self.proj_in, h).reshape(b, hh * ww, c)
         key_mask = None
         if img_mask is not None:
             key_mask = _nearest_resize_mask(img_mask, hh, ww).reshape(b, hh * ww) > 0
-        h, aux = self.block_0(h, ctx_v, ctx_k, kv, cfg_tile, key_mask, capture)
+        h, aux = self.block_0(h, ctx_v, ctx_k, kv, cfg_tile, key_mask, capture,
+                              subj_slot_map, (hh, ww), conv_ks)
         if cfg_tile:  # the block returned 2B rows; tile the residual to match
             x = torch.cat([x, x], dim=0)
         h = conv_nhwc(self.proj_out, h.reshape(x.shape[0], hh, ww, c))
@@ -354,9 +377,12 @@ class UNetModel(nn.Module):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
                 context_k: Optional[torch.Tensor] = None, cfg_dedup: bool = False,
                 cross_kv: Optional[Tuple] = None, img_mask: Optional[torch.Tensor] = None,
-                capture: bool = False, capture_keys: Optional[Tuple[str, ...]] = None):
+                capture: bool = False, capture_keys: Optional[Tuple[str, ...]] = None,
+                subj_slot_map: Optional[torch.Tensor] = None):
         """x [B, H, W, C] (B = half the context batch under cfg_dedup),
-        timesteps [B], context [L|1, B', T, D], img_mask [B, H0, W0, 1].
+        timesteps [B], context [L|1, B', T, D], img_mask [B, H0, W0, 1],
+        subj_slot_map [B', T] (conv attention; ignored unless
+        `cfg.conv_attn_kernel_size` > 1).
         Returns fp32 eps [B', H, W, out_channels]; with `capture`, (eps,
         {layer_idx: captured tensors})."""
         c = self.cfg
@@ -371,6 +397,9 @@ class UNetModel(nn.Module):
             context = context[None]
         if context_k is not None and context_k.dim() == 3:
             context_k = context_k[None]
+        slot_map = None
+        if subj_slot_map is not None and c.conv_attn_kernel_size > 1:
+            slot_map = torch.as_tensor(subj_slot_map, device=x.device).long()
 
         captures = {}
 
@@ -383,14 +412,18 @@ class UNetModel(nn.Module):
                 if cross_kv is not None:
                     kv = cross_kv[i]
             do_cap = capture and layer_idx in DISTILL_LAYER_INDICES
+            ks = c.conv_attn_kernel_size
+            if ks > 1 and layer_idx in CONV_ATTN_1X1_LAYERS:
+                ks = 1
             block = getattr(self, name)
             if c.use_remat and not do_cap and torch.is_grad_enabled():
                 h, aux = torch.utils.checkpoint.checkpoint(
                     block, h, cv, ck, kv, cfg_dedup and layer_idx == 1, img_mask, False,
-                    use_reentrant=False)
+                    slot_map, ks, use_reentrant=False)
             else:
                 h, aux = block(h, cv, ck, kv, cfg_tile=cfg_dedup and layer_idx == 1,
-                               img_mask=img_mask, capture=do_cap)
+                               img_mask=img_mask, capture=do_cap, subj_slot_map=slot_map,
+                               conv_ks=ks)
             if do_cap:
                 aux["outfeat"] = h
                 if capture_keys is not None:

@@ -9,8 +9,9 @@ Native checkpoints are the JAX package's `.npz` format (one array per
 `<placeholder>::<field>` plus a JSON header), so either package reads the
 other's. A zero-shot placeholder takes its embeddings from a
 `SubjBasisGenerator` fed by reference-image features (`arc2face_encoder`
-runs the frozen Arc2Face forward first). Reference `.pt` loading is not
-ported yet.
+runs the frozen Arc2Face forward first). `load_reference_checkpoint`
+imports a reference `embeddings_gs-*.pt` (static embedders and zero-shot
+generators, read without running pickled code).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from adaface_tpu_torch.personalization.static_embedding import (
     compute_static_embedding,
     embedder_leaves,
     init_static_embedder,
+    static_embedder_from_torch_stub,
 )
 
 NUM_CA_LAYERS = 16
@@ -222,3 +224,122 @@ class EmbeddingManager:
             mgr.embedders[s] = StaticEmbedderParams(**fields)
             mgr.emb_global_scale_scores[s] = header.get("scores", {}).get(s, 0.0)
         return mgr
+
+    def load_reference_checkpoint(self, path: str, token_id_resolver=None,
+                                  placeholder_remap: Optional[Dict[str, str]] = None,
+                                  load_subj_basis_generators: bool = True,
+                                  extend_attention_multiplier: int = -1,
+                                  ext_perturb_ratio: float = 0.0,
+                                  ext_generator: Optional[torch.Generator] = None,
+                                  device=None) -> "EmbeddingManager":
+        """Import a reference `embeddings_gs-*.pt` (the JAX package's
+        `load_reference_checkpoint`). `token_id_resolver(string)` gives a
+        placeholder's token id (default: sequential ids from 49408);
+        `placeholder_remap` renames placeholders as they load. K comes from
+        the embedder's bias when it has one, else `token2num_vectors`; the
+        checkpoint's scores align with its `string_to_token_dict` order. A
+        degenerate embedder (no `basis_vecs`, no `pre_vecs`: the zero-shot
+        passthrough) registers its placeholder but no embedder. The
+        checkpoint's `use_conv_attn_kernel_size` is kept. Zero-shot
+        generators load through `_load_subj_basis_generators`. Embedders
+        land on `device` (CPU by default), generators too."""
+        from adaface_tpu_torch.interop.torch_pickle import (
+            TorchObjectStub, load_torch_checkpoint, walk_stub_tree)
+
+        ckpt = load_torch_checkpoint(path)
+        remap = placeholder_remap or {}
+        token2num = {str(k): int(torch.as_tensor(v)) for k, v in
+                     dict(ckpt.get("token2num_vectors") or {}).items()}
+        score_by_name = {}
+        if ckpt.get("emb_global_scale_scores") is not None:
+            names = list(dict(ckpt.get("string_to_token_dict") or {}).keys())
+            scores = torch.as_tensor(ckpt["emb_global_scale_scores"]).reshape(-1)
+            score_by_name = {str(n): float(scores[i]) for i, n in enumerate(names)
+                             if i < len(scores)}
+        bg_strings = list(ckpt.get("background_strings") or [])
+        embedders = ckpt["string_to_static_embedder"]
+        if isinstance(embedders, TorchObjectStub):  # a ModuleDict / ParameterDict
+            d = embedders.__dict__
+            items = dict(d.get("_parameters") or {})
+            items.update(d.get("_modules") or {})
+        else:
+            items = dict(embedders)
+        next_id = 49408 + len(self.placeholders)
+        for name, stub in items.items():
+            target = remap.get(name, name)
+            params = static_embedder_from_torch_stub(walk_stub_tree(stub), device)
+            K = token2num.get(name, 1)
+            if params.bias is not None:
+                K = params.bias.shape[1]
+            if token_id_resolver is not None:
+                tid = token_id_resolver(target)
+            else:
+                tid, next_id = next_id, next_id + 1
+            self.placeholders[target] = PlaceholderInfo(target, tid, K,
+                                                        is_background=name in bg_strings)
+            if params.basis_vecs is not None or params.pre_vecs is not None:
+                self.embedders[target] = params
+            self.emb_global_scale_scores[target] = score_by_name.get(
+                name, self.emb_global_scale_scores.get(target, 0.0))
+        ks = ckpt.get("use_conv_attn_kernel_size")
+        if ks is not None:
+            try:
+                self.use_conv_attn_kernel_size = int(torch.as_tensor(ks))
+            except (TypeError, ValueError, RuntimeError):
+                pass
+        if load_subj_basis_generators:
+            self._load_subj_basis_generators(ckpt, remap, extend_attention_multiplier,
+                                             ext_perturb_ratio, ext_generator, device)
+        return self
+
+    def _load_subj_basis_generators(self, ckpt, remap, extend_attention_multiplier=-1,
+                                    ext_perturb_ratio=0.0, ext_generator=None, device=None):
+        """Import `string_to_subj_basis_generator_dict`. With
+        `extend_attention_multiplier` > 1, an fg generator's text encoder
+        is MKV-extended as it loads: an unextended checkpoint on every
+        layer by the multiplier; one already extended by m0 (the
+        multiplier a multiple of m0 above it) on layers 0-3 by the ratio.
+        A placeholder already registered takes the generator (and its bg
+        flag); a new one is added with token id 49408 + the number of
+        placeholders."""
+        from adaface_tpu_torch.interop.subj_basis import (
+            load_generator, map_subj_basis_generator, proj_config_from_meta)
+        from adaface_tpu_torch.interop.torch_pickle import TorchObjectStub
+        from adaface_tpu_torch.personalization.arc2face import extend_clip_mkv_params
+
+        gens = ckpt.get("string_to_subj_basis_generator_dict")
+        if gens is None:
+            return
+        items = (dict(gens.__dict__.get("_modules") or {})
+                 if isinstance(gens, TorchObjectStub) else dict(gens))
+        for name, stub in items.items():
+            target = remap.get(name, name)
+            sd, meta = map_subj_basis_generator(stub)
+            if not meta.placeholder_is_bg and extend_attention_multiplier > 1:
+                proj_cfg = proj_config_from_meta(meta)
+                m0 = max(meta.kv_multipliers or (1,))
+                span = None
+                if m0 == 1:
+                    span = (extend_attention_multiplier, -1, -1)
+                elif (extend_attention_multiplier % m0 == 0
+                      and extend_attention_multiplier > m0):
+                    span = (extend_attention_multiplier // m0, 0, 3)
+                if span is not None:
+                    proj = {k[len("prompt2token_proj."):]: v for k, v in sd.items()
+                            if k.startswith("prompt2token_proj.")}
+                    proj, proj_cfg = extend_clip_mkv_params(
+                        proj, proj_cfg, ext_generator, multiplier=span[0],
+                        noise_std=ext_perturb_ratio, begin_layer_idx=span[1],
+                        end_layer_idx=span[2])
+                    sd.update({"prompt2token_proj." + k: v for k, v in proj.items()})
+                meta = dataclasses.replace(meta, kv_multipliers=proj_cfg.kv_multipliers)
+            gen = load_generator(sd, meta, device=device)
+            info = self.placeholders.get(target)
+            if info is not None:
+                info.is_background = meta.placeholder_is_bg or info.is_background
+                self.subj_basis_generators[target] = gen
+            else:
+                self.add_zero_shot_placeholder(
+                    target, token_id=49408 + len(self.placeholders), generator=gen,
+                    num_vectors=meta.num_out_embs_per_layer,
+                    is_background=meta.placeholder_is_bg)

@@ -84,3 +84,14 @@ def compute_static_embedding(p: StaticEmbedderParams) -> torch.Tensor:
     if p.bias is not None:
         out = out + p.bias.float()
     return out
+
+
+def static_embedder_from_torch_stub(stub_params: dict, device=None) -> StaticEmbedderParams:
+    """Params from the tensors of a pickled reference StaticLayerwiseEmbedding
+    (flattened by `interop.torch_pickle.walk_stub_tree`); absent or None
+    fields stay None, the others as fp32 tensors on `device` (the CPU)."""
+    g = lambda n: (None if stub_params.get(n) is None
+                   else torch.as_tensor(stub_params[n]).detach().float().to(device, copy=True))
+    return StaticEmbedderParams(
+        basis_rand_weights=g("basis_rand_weights"), basis_comm_weights=g("basis_comm_weights"),
+        basis_vecs=g("basis_vecs"), pre_vecs=g("pre_vecs"), bias=g("bias"))

@@ -4,8 +4,10 @@ per-subject path of `scripts/train.py`):
     python -m adaface_tpu_torch.train --base configs/finetune-ti.yaml \\
         --data_root <subject image folder> [--bf16] [a.b=c ...]
 
-It builds the dataset and a random-weight backbone on the card (the SD v1.5
-widths, or `--tiny`), registers the subject (and background) placeholders
+It builds the dataset and the backbone on the card (an SD v1.x checkpoint
+with `--actual_resume`, `.ckpt` or `.safetensors`; else random weights at the
+SD v1.5 widths, or `--tiny`; with `--tiny` a checkpoint is read at the tiny
+widths), registers the subject (and background) placeholders
 initialized from the CLIP token embeddings of their init words, applies the
 YAML `model_options` to the UNet, and runs the port's `Trainer`
 (iteration-plan machine, Prodigy or AdamW behind clipping and accumulation,
@@ -42,10 +44,12 @@ a string); with the option at `prodigy`, even explicitly, the file's
 `use_prodigy` decides; the file's `model.params.dtype: bfloat16` turns on
 `--bf16`; other file values pass through as YAML gives them.
 
+`--embedding_manager_ckpt` warm-starts the embedders from the port's `.npz`
+or a reference `.pt` (`EmbeddingManager.load_reference_checkpoint`).
+
 Paths that are not ported exit with `SystemExit` naming their ROADMAP
 queue 1 item: `--zeroshot` (12: it needs the face stack; the zero-shot
-trainer runs through `training/zs_trainer.ZeroShotTrainer.fit`),
-`--actual_resume` and a `.pt` `--embedding_manager_ckpt` (10b), more than
+trainer runs through `training/zs_trainer.ZeroShotTrainer.fit`), more than
 one device (13). PNG images load through the port's own codec
 (`data/png.py`), other formats through PIL; `main(dataset=...)` takes a
 dataset built otherwise.
@@ -99,7 +103,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "per-subject folders with --subjects")
     p.add_argument("--subjects", nargs="*", default=None)
     p.add_argument("--actual_resume", type=str, default=None,
-                   help="SD v1.x backbone checkpoint (not ported: random weights only)")
+                   help="SD v1.x backbone checkpoint (.ckpt or .safetensors)")
     p.add_argument("--subject_string", type=str, default="z")
     p.add_argument("--background_string", type=str, default="y")
     p.add_argument("--wds_background_string", type=str, default="w",
@@ -127,7 +131,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="fp32 matmul precision: highest/high/medium, or the JAX names "
                         "float32/tensorfloat32/bfloat16")
     p.add_argument("--embedding_manager_ckpt", type=str, default=None,
-                   help="warm-start embedders from a native .npz checkpoint")
+                   help="warm-start embedders from a native .npz or a reference .pt")
     p.add_argument("--max_steps", type=int, default=2000)
     p.add_argument("--batch_size", type=int, default=3)
     p.add_argument("--num_devices", type=int, default=1,
@@ -170,12 +174,6 @@ def _refuse_unported(opt, cfg: dict, device: torch.device):
         raise SystemExit("--zeroshot: the zero-shot entry point needs the face stack "
                          "(default_face_app), which is not ported yet (ROADMAP queue 1 item "
                          "12); train with training/zs_trainer.ZeroShotTrainer.fit")
-    if opt.actual_resume:
-        raise SystemExit("--actual_resume: real-checkpoint loading is not ported yet "
-                         "(ROADMAP queue 1 item 10b)")
-    if opt.embedding_manager_ckpt and not opt.embedding_manager_ckpt.endswith(".npz"):
-        raise SystemExit("--embedding_manager_ckpt: only the native .npz loads; reference .pt "
-                         "checkpoints are ROADMAP queue 1 item 10b")
     n = opt.num_devices
     if n == -1:
         n = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -253,10 +251,9 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
             common_placeholder_prefix=opt.common_placeholder_prefix,
             template_set=opt.template_set, seed=opt.seed)
 
-    # backbone: random weights (real checkpoints are not ported)
+    # backbone
     tok = HashTokenizer()
     dtype = torch.bfloat16 if opt.bf16 else torch.float32
-    print("NOTE: random backbone (smoke mode)", flush=True)
     kw = {}
     if opt.tiny:
         kw = dict(clip_cfg=CLIPTextConfig.tiny(vocab_size=tok.vocab_size,
@@ -266,7 +263,13 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
                                       attention_levels=(0, 1), num_heads=4, context_dim=64,
                                       use_flash_attention=False),
                   vae_cfg=VAEConfig.tiny())
-    pipe = StableDiffusionPipeline.from_random(opt.seed, tok, dtype=dtype, device=dev, **kw)
+    if opt.actual_resume:
+        pipe = StableDiffusionPipeline.from_sd_checkpoint(opt.actual_resume, tok, dtype=dtype,
+                                                          device=dev, **kw)
+        print(f"backbone loaded from {opt.actual_resume}", flush=True)
+    else:
+        print("NOTE: no --actual_resume checkpoint; random backbone (smoke mode)", flush=True)
+        pipe = StableDiffusionPipeline.from_random(opt.seed, tok, dtype=dtype, device=dev, **kw)
 
     # model_options: UNetConfig fields from the YAML (use_remat, ...)
     mo = cfg.get("model_options", {})
@@ -328,13 +331,17 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
                             generator=generator(offset), emb_dim=emb_dim,
                             rank=opt.layerwise_lora_rank, device=dev,
                             **word_init(opt.bg_init_string))
-    if opt.embedding_manager_ckpt:
+    if opt.embedding_manager_ckpt and opt.embedding_manager_ckpt.endswith(".npz"):
         loaded = EmbeddingManager.load_native(opt.embedding_manager_ckpt, device=dev)
         for s, info in loaded.placeholders.items():
             info.token_id = tok.add_placeholder(s)
             mgr.placeholders[s] = info
             mgr.embedders[s] = loaded.embedders[s]
             mgr.emb_global_scale_scores.setdefault(s, loaded.emb_global_scale_scores.get(s, 0.0))
+    elif opt.embedding_manager_ckpt:
+        mgr.load_reference_checkpoint(opt.embedding_manager_ckpt,
+                                      token_id_resolver=tok.add_placeholder, device=dev)
+    if opt.embedding_manager_ckpt:
         print(f"warm-started embedding manager from {opt.embedding_manager_ckpt}")
 
     cli_handled = {"max_steps", "batch_size", "accumulate_grad_batches", "ckpt_every_steps",

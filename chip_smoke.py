@@ -277,6 +277,34 @@ logger, the native loader; no kernel of its own) adds:
   [native]. the port's copy of the C++ loader built with g++: decode
       equals the Python load bit for bit, `native_stream` batches match the
       Python path's shapes; where it cannot be built it says so and passes.
+Slice 22 (the serving surface; no kernel of its own) adds, after [zero-shot]:
+  3. the flash forward also at the entry points' batch-2 shapes
+      (`CLI_SHAPES`: B2 L4096 d40 for the stem, B4 L4096 / L1024 / L256),
+      with phase 3's gates, faults and times;
+  [ckpt]. [main]'s weights in SD v1.x LDM names (the inverse maps) written
+      as an fp32 torch zip `.ckpt` (`state_dict`, `global_step` and a
+      callback object of a class the loader has never seen) and a bf16
+      `.safetensors`, each loaded by `from_sd_checkpoint` in bf16 (seconds
+      and sizes); a DDIM-CKPT_STEPS batch-2 request at a fixed x_T must equal
+      [main]'s bit for bit, and a checkpoint with one cross-attention's
+      to_k and to_v swapped must not;
+  [serve]. `txt2img.main` in-process on the `.ckpt` with a reference-format
+      `.pt` (stand-in classes under the reference's module names; [main]'s
+      static 9-vector z, conv kernel size 2): DDIM-50 at batch 8 launches
+      750 forwards and its PNGs read back equal `generate` on [main]'s
+      modules with that `.pt`, bit for bit; PLMS cut to 10 steps (11 UNet
+      calls) and `--compel_cfg_weight_level 1` (DDIM-10) launch exactly
+      their forwards; a `.pt` holding [zero-shot]'s fg generator loads to a
+      generator whose embeddings equal the in-memory one's bit for bit;
+  [img2img] / [inpaint]. both entry points at 512x512, batch 2, DDIM-50
+      (37 UNet calls at strength 0.75; 50) with exact launches, on [main]'s
+      weights with the cross-attention scaled by I2I_XATTN_SCALE (so that
+      the context moves the images), against an fp32 copy on the card
+      (einsum attention, TF32 off) within I2I_REL_TOL; planted faults
+      (strength ignored, the mask inverted, conv attention off) must read
+      outside it;
+  9d. one more run: `finetune-ada.yaml --actual_resume <the .ckpt>
+      --embedding_manager_ckpt <the .pt>`, 2 micro-steps with exact launches.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -690,6 +718,7 @@ def phase_kernels(torch, fa, card, exp2_rate):
     rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     rows = {}
     cases = [(shape, "packed") for shape in MAIN_SHAPES] + [
+        (shape, "packed") for shape in CLI_SHAPES if shape not in MAIN_SHAPES] + [
         ((16, 1024, 8, 80), "fused-qkv"), ((4, 4096, 8, 40), "bias, row 0 fully masked")]
     for (b, l, h, d), kind in cases:
         inner = h * d
@@ -2622,7 +2651,7 @@ def _cli_run(torch, fa, trainer_cls, tmp, name, argv, wants, card, counters=None
     return rec
 
 
-def phase_entry_point(torch, fa, trainer_cls, tmp, card):
+def phase_entry_point(torch, fa, trainer_cls, tmp, card, resume_from=None):
     """(9d) `adaface_tpu_torch.train.main` in-process at full SD width with
     random weights on the seeded dataset, on the shipped per-subject configs:
     `finetune-static-layerwise.yaml` in fp32 (exact fp32-kernel launches; the
@@ -2635,8 +2664,12 @@ def phase_entry_point(torch, fa, trainer_cls, tmp, card):
     and with it under FUSED_KNOBS (K9 launched again by the recompute, K8
     not). (9e) The fp32 run again under FUSED_KNOBS: exact fp32 flash, K8
     and K9 launches and no bf16 K8 or K9 one, each micro-step's loss within
-    TRAIN_LOSS_TOL of the fp32 run's. Returns the fp32 run's flash launches
-    by (kind, B, L, H, d) and 9e's K8 and K9 launches by (dtype, shape)."""
+    TRAIN_LOSS_TOL of the fp32 run's. With `resume_from` ([ckpt]'s `.ckpt`,
+    [serve]'s reference `.pt`): `finetune-ada.yaml --actual_resume <.ckpt>
+    --embedding_manager_ckpt <.pt>`, 2 micro-steps with exact launches, the
+    backbone the checkpoint's and z the `.pt`'s. Returns the fp32 run's flash
+    launches by (kind, B, L, H, d) and 9e's K8 and K9 launches by (dtype,
+    shape)."""
     import shutil
 
     import numpy as np
@@ -2781,6 +2814,23 @@ def phase_entry_point(torch, fa, trainer_cls, tmp, card):
             fused_wants, card, counters={"gn": fn.launches_by_shape,
                                          "ff": ff.launches_by_shape})
     runs["ada remat fused"]["trainer"] = None
+    if resume_from is not None:
+        ckpt, pt = resume_from
+        runs["ada from ckpt"] = _cli_run(
+            torch, fa, trainer_cls, tmp, "ada_from_ckpt",
+            base("finetune-ada") + ["--max_steps", "2", "--actual_resume", ckpt,
+                                    "--embedding_manager_ckpt", pt], bf16_wants, card)
+        tr = runs["ada from ckpt"]["trainer"]
+        if (tr.pipe.unet.in_conv.weight.dtype != torch.bfloat16
+                or tr.mgr.placeholders["z"].num_vectors != 9
+                or tuple(tr.mgr.embedders["z"].bias.shape) != (16, 9, 768)):
+            fail("[cli ada from ckpt] not a bf16 backbone with the .pt's 9-vector z")
+        say(f"[cli] ada from --actual_resume (.ckpt) and a reference .pt: 2 micro-steps, median "
+            f"recon {runs['ada from ckpt']['recon_med']:.3f} s, compos "
+            f"{runs['ada from ckpt']['compos_med']:.3f} s, peak "
+            f"{runs['ada from ckpt']['peak']:.2f} GiB [{card}]")
+        runs["ada from ckpt"]["trainer"] = None
+        del tr
     say(f"[cli] ada peak memory with remat {runs['ada remat']['peak']:.2f} GiB, without "
         f"{runs['ada']['peak']:.2f} GiB; median recon {runs['ada remat']['recon_med']:.3f} / "
         f"{runs['ada']['recon_med']:.3f} s, compos {runs['ada remat']['compos_med']:.3f} / "
@@ -5463,6 +5513,430 @@ def phase_native(torch, pngs, tmp, card):
         f"shapes and dtypes; {time.time() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------- slice 22
+# The serving surface: SD checkpoints in LDM names ([ckpt]), the txt2img entry
+# point with reference `.pt` embeddings, PLMS and compel ([serve]), img2img and
+# inpainting through their entry points ([img2img], [inpaint]), and 9d's run
+# from a checkpoint and a reference `.pt`.
+SERVE_PROMPT = "a photo of a z person"  # the entry points pad z to its 9 vectors
+SERVE_PADDED = "a photo of a z , , , , , , , , person"
+CKPT_STEPS, CKPT_BATCH = 10, 2  # [ckpt]'s request at a fixed x_T
+SERVE_CUT_STEPS = 10  # [serve]'s PLMS and compel runs (its DDIM run keeps STEPS)
+CONV_KS = 2  # the reference `.pt`'s use_conv_attn_kernel_size
+ZS_FG_SEED = 102  # [zero-shot]'s fg generator: build_random seed 100 + its index
+I2I_BATCH, I2I_STRENGTH, I2I_SCALE, I2I_SEED = 2, 0.75, 7.5, 4
+I2I_T_ENC = max(1, min(int(I2I_STRENGTH * STEPS), STEPS - 1))  # 37 UNet calls
+# (B, L, H, d) -> (TPU kernel, flash forwards a UNet call) of a batch-2 request:
+# the stem's self-attention at B 2 (CFG stem dedup), the others at 2B
+CLI_SHAPES = {(2, 4096, 8, 40): (K1, 1), (4, 4096, 8, 40): (K1, 4),
+              (4, 1024, 8, 80): (K1, 5), (4, 256, 8, 160): (K4, 5)}
+# relative L2 error of the bf16 entry point's uint8 images against an fp32
+# copy of its pipeline on the card (einsum attention, TF32 off); each planted
+# fault must read above its gate. [img2img] and [inpaint] run [main]'s weights
+# with every cross-attention weight times I2I_XATTN_SCALE (a checkpoint of
+# their own): with the random weights as they are, conv attention moves the
+# images less than bf16 rounding does. Readings of `xattn_sweep.py` (PR 22,
+# NVIDIA H100 80GB HBM3, 700.00 W), bf16 error / conv attention off, img2img:
+# scale 1 1.84e-2 / 1.85e-2 (4.96e-3 in fp32), 3 1.33e-2 / 4.69e-2, 10
+# 1.38e-1 / 1.92e-1; inpaint at 3 1.40e-2 / 6.36e-2. The gates sit about 2x
+# over the scale-3 readings and 2x under the conv fault.
+I2I_REL_TOL = {"img2img": 2.5e-2, "inpaint": 3e-2}
+I2I_XATTN_SCALE = 3.0
+UNET_CROSS_KEY = "model.diffusion_model.input_blocks.1.1.transformer_blocks.0.attn2.{}.weight"
+
+
+def per_unet_call(shapes, calls):
+    """(B, L, H, d) -> forwards of `calls` UNet calls, from a table of
+    forwards per call."""
+    return {s: n * calls for s, (_, n) in shapes.items()}
+
+
+# forwards a UNet call of a batch-8 request ([main]'s 750 over STEPS calls)
+MAIN_PER_CALL = {s: (k, n // STEPS) for s, (k, n) in MAIN_SHAPES.items()}
+
+
+class ServeCallbackState:
+    """A callback object pickled into [ckpt]'s `.ckpt` beside the state dict:
+    a class the loader has never seen. Unpickling it for real would raise."""
+
+    def __init__(self):
+        self.best_model_score = 1.0
+
+    def __setstate__(self, state):
+        raise RuntimeError("the checkpoint loader ran pickled code")
+
+
+def write_reference_pt(torch, path, statics=None, generators=None, token2num=None,
+                       conv_ks=None):
+    """A reference-format `embeddings_gs-*.pt`: `statics` placeholder ->
+    embedder tensors, `generators` placeholder -> (flat state dict in the
+    reference's names, module attributes, HF config of its text encoder),
+    pickled as live modules of stand-in classes registered under the
+    reference's module names while the file is written."""
+    import types
+
+    import torch.nn as nn
+
+    mods = {"ldm": None, "ldm.modules": None,
+            "ldm.modules.embedding_manager": "StaticLayerwiseEmbedding",
+            "ldm.modules.subj_basis_generator": "SubjBasisGenerator"}
+    saved = {n: sys.modules.get(n) for n in mods}
+    classes = {}
+
+    def build(cls, flat, **attrs):
+        root = cls()
+        for name, t in flat.items():
+            *path, leaf = name.split(".")
+            m = root
+            for part in path:
+                if part not in m._modules:
+                    m.add_module(part, nn.Module())
+                m = m._modules[part]
+            m.register_parameter(leaf, nn.Parameter(t.detach().cpu().clone(),
+                                                    requires_grad=False))
+        for k, v in attrs.items():
+            setattr(root, k, v)
+        return root
+
+    try:
+        for n, cls_name in mods.items():
+            sys.modules[n] = types.ModuleType(n)
+            if cls_name:
+                classes[cls_name] = type(cls_name, (nn.Module,),
+                                         {"__module__": n, "__qualname__": cls_name})
+                setattr(sys.modules[n], cls_name, classes[cls_name])
+        gens = {}
+        for s, (flat, attrs, proj_config) in (generators or {}).items():
+            gens[s] = build(classes["SubjBasisGenerator"], flat, **attrs)
+            if proj_config:
+                gens[s].prompt2token_proj.config = dict(proj_config)
+        names = list(statics or {}) + [g for g in gens if g not in (statics or {})]
+        torch.save({
+            "string_to_token_dict": {s: torch.tensor(49408 + i) for i, s in enumerate(names)},
+            "string_to_static_embedder": nn.ModuleDict(
+                {s: build(classes["StaticLayerwiseEmbedding"], f)
+                 for s, f in (statics or {}).items()}),
+            "string_to_subj_basis_generator_dict": nn.ModuleDict(gens),
+            "token2num_vectors": dict(token2num or {}),
+            "emb_global_scale_scores": torch.zeros(len(names)),
+            "use_conv_attn_kernel_size": conv_ks,
+            "placeholder_strings": names, "background_strings": [],
+        }, path)
+    finally:
+        for n, m in saved.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+
+
+def fwd_counts(fa):
+    return {(b, lq, h, d): n for (kind, arm, b, lq, lk, h, d), n in fa.launches_by_shape.items()
+            if kind == "fwd"}
+
+
+def phase_ckpt(torch, pipe, folder, card):
+    """[ckpt] [main]'s weights in LDM names through the inverse maps, written
+    as a torch zip `.ckpt` (fp32, `{"state_dict", "global_step",
+    "callbacks"}`, the callbacks an object of a class the loader has never
+    seen) and as a bf16 `.safetensors`; each loaded by `from_sd_checkpoint`
+    in bf16 (seconds and size printed). Gate: a DDIM-CKPT_STEPS batch-
+    CKPT_BATCH request at a fixed x_T equals [main]'s bit for bit; planted
+    fault: a checkpoint with one cross-attention's to_k and to_v swapped
+    must fail it. Also writes [img2img]'s checkpoint (I2I_XATTN_SCALE).
+    Returns the files."""
+    import numpy as np
+
+    from adaface_tpu_torch.interop.checkpoint_io import save_safetensors
+    from adaface_tpu_torch.pipeline import StableDiffusionPipeline
+
+    t_phase = time.time()
+    sd = pipe.ldm_state_dict()
+    files = {"ckpt": os.path.join(folder, "sd-v1-main.ckpt"),
+             "safetensors": os.path.join(folder, "sd-v1-main-bf16.safetensors")}
+    t0 = time.time()
+    torch.save({"state_dict": {k: v.float().cpu() for k, v in sd.items()}, "global_step": 0,
+                "callbacks": {"ModelCheckpoint": ServeCallbackState()}}, files["ckpt"])
+    written = {"ckpt": time.time() - t0}
+    t0 = time.time()
+    bf16 = {k: v.to(torch.bfloat16).cpu() for k, v in sd.items()}
+    save_safetensors(bf16, files["safetensors"])
+    written["safetensors"] = time.time() - t0
+    xattn = os.path.join(folder, "sd-v1-main-xattn-bf16.safetensors")
+    save_safetensors({k: (v.float() * I2I_XATTN_SCALE).to(torch.bfloat16) if ".attn2." in k else v
+                      for k, v in bf16.items()}, xattn)
+    lat = SIZE // 2 ** (len(pipe.vae.cfg.ch_mult) - 1)
+    x_T = np.random.default_rng(22).standard_normal((CKPT_BATCH, lat, lat, 4)).astype(np.float32)
+    kw = dict(num_steps=CKPT_STEPS, height=SIZE, width=SIZE, x_T=x_T)
+    prompts = [PROMPT] * CKPT_BATCH
+    want = pipe.generate(prompts, **kw)
+
+    def request(path):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loaded = StableDiffusionPipeline.from_sd_checkpoint(path, pipe.tokenizer,
+                                                            dtype=torch.bfloat16,
+                                                            device=pipe.device)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        loaded.embedding_manager = pipe.embedding_manager
+        imgs = loaded.generate(prompts, **kw)
+        del loaded
+        torch.cuda.empty_cache()
+        return imgs, load_s
+
+    for name, path in files.items():
+        imgs, load_s = request(path)
+        same = np.array_equal(imgs, want)
+        say(f"[ckpt] {name}: {os.path.getsize(path) / 1e9:.3f} GB written in "
+            f"{written[name]:.1f} s, loaded by from_sd_checkpoint (bf16, on the card) in "
+            f"{load_s:.1f} s; a DDIM-{CKPT_STEPS} B{CKPT_BATCH} request at a fixed x_T "
+            f"{'equals' if same else 'differs from'} [main]'s bit for bit [{card}]")
+        if not same:
+            fail(f"[ckpt] the {name} pipeline's request differs from [main]'s")
+    fault = os.path.join(folder, "sd-v1-fault.safetensors")
+    k, v = UNET_CROSS_KEY.format("to_k"), UNET_CROSS_KEY.format("to_v")
+    bf16[k], bf16[v] = bf16[v], bf16[k]
+    save_safetensors(bf16, fault)
+    del bf16, sd
+    imgs, _ = request(fault)
+    os.remove(fault)
+    diff = np.abs(imgs.astype(int) - want.astype(int))
+    say(f"[ckpt] planted fault (input_blocks.1.1's cross-attention to_k and to_v swapped): "
+        f"max {diff.max()} levels, mean {diff.mean():.4f} from [main]'s request; "
+        f"phase {time.time() - t_phase:.1f} s")
+    if np.array_equal(imgs, want):
+        fail("[ckpt] the swapped to_k / to_v checkpoint passed the bit-for-bit gate")
+    return dict(files, xattn=xattn)
+
+
+def phase_serve(torch, pipe, files, folder, card):
+    """[serve] `adaface_tpu_torch.txt2img.main` in-process on [ckpt]'s files at
+    SIZE and --n_samples BATCH, with a reference-format `.pt` holding [main]'s
+    static 9-vector z and use_conv_attn_kernel_size CONV_KS: DDIM-STEPS on the
+    `.ckpt` launches [main]'s 750 flash forwards and its PNGs read back equal
+    to `generate` on [main]'s modules with that `.pt` loaded, bit for bit;
+    PLMS (cut to SERVE_CUT_STEPS, S + 1 UNet calls) and
+    `--compel_cfg_weight_level 1` (DDIM-SERVE_CUT_STEPS) on the `.safetensors`
+    launch exactly their computed forwards. A `.pt` holding [zero-shot]'s fg
+    generator loads to a generator whose embeddings equal the in-memory
+    one's (in fp32) bit for bit. Returns the static `.pt`."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from adaface_tpu_torch import txt2img
+    from adaface_tpu_torch.data import png
+    from adaface_tpu_torch.data.tokenizer import HashTokenizer
+    from adaface_tpu_torch.interop.subj_basis import export_subj_basis_generator
+    from adaface_tpu_torch.personalization.arc2face import INVERSE_TEMPLATE, make_template_ids
+    from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
+    from adaface_tpu_torch.pipeline import StableDiffusionPipeline, build_random
+
+    fa = _fa()
+    t_phase = time.time()
+    z = pipe.embedding_manager.embedders["z"]
+    pt_static = os.path.join(folder, "embeddings_gs-static.pt")
+    write_reference_pt(torch, pt_static, statics={"z": {
+        f: getattr(z, f) for f in ("basis_rand_weights", "basis_comm_weights", "basis_vecs",
+                                   "pre_vecs", "bias") if getattr(z, f) is not None}},
+        token2num={"z": 9}, conv_ks=CONV_KS)
+
+    def cli(name, argv, want):
+        fa.launches_by_shape.clear()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rc = txt2img.main(argv + ["--bf16", "--size", str(SIZE), "--seed", "3",
+                                  "--n_samples", str(BATCH), "--prompt", SERVE_PROMPT,
+                                  "--embedding_paths", pt_static,
+                                  "--out", os.path.join(folder, name)], device=pipe.device)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        got = fwd_counts(fa)
+        say(f"[serve] {name}: txt2img.main {dt:.3f} s (checkpoint load included), flash "
+            f"launches {sum(got.values())} {sorted(got.items())} [{card}]")
+        if rc != 0 or got != want:
+            fail(f"[serve] {name}: main returned {rc}; launches {got}, want {want}")
+        return os.path.join(folder, name)
+
+    out = cli("ddim", ["--ckpt", files["ckpt"], "--steps", str(STEPS)],
+              per_unet_call(MAIN_PER_CALL, STEPS))
+    got = np.stack([png.read(os.path.join(out, f"{i:05}.png")) for i in range(BATCH)])
+    tok = HashTokenizer()
+    ref = StableDiffusionPipeline(tok, pipe.clip, pipe.unet, pipe.vae)
+    ref.embedding_manager.load_reference_checkpoint(
+        pt_static, token_id_resolver=tok.add_placeholder, device=pipe.device)
+    ref.set_conv_attn_kernel_size(ref.embedding_manager.use_conv_attn_kernel_size)
+    try:
+        want = ref.generate([SERVE_PADDED] * BATCH, seed=3, num_steps=STEPS, height=SIZE,
+                            width=SIZE)
+    finally:  # [main]'s UNet module is shared: conv attention off again
+        pipe.unet.cfg = dataclasses.replace(pipe.unet.cfg, conv_attn_kernel_size=-1)
+    say(f"[serve] DDIM-{STEPS} B{BATCH} with conv attention (ks {CONV_KS}): the PNGs read back "
+        f"{'equal' if np.array_equal(got, want) else 'differ from'} generate on [main]'s modules "
+        f"bit for bit (images {got.shape}, mean {got.mean():.2f}, std {got.std():.2f})")
+    if not np.array_equal(got, want):
+        fail("[serve] the entry point's PNGs differ from generate")
+    cli("plms", ["--ckpt", files["safetensors"], "--steps", str(SERVE_CUT_STEPS), "--sampler",
+                 "plms"], per_unet_call(MAIN_PER_CALL, SERVE_CUT_STEPS + 1))
+    cli("compel", ["--ckpt", files["safetensors"], "--steps", str(SERVE_CUT_STEPS),
+                   "--compel_cfg_weight_level", "1"], per_unet_call(MAIN_PER_CALL,
+                                                                    SERVE_CUT_STEPS))
+
+    gen = build_random(zero_shot_builds(tok)["fg"], ZS_FG_SEED, pipe.device,
+                       pipe.unet.in_conv.weight.dtype)
+    flat = export_subj_basis_generator(gen.state_dict(), False)
+    D = gen.output_dim
+    flat.update({"pos_embs_ln.weight": torch.ones(D), "pos_embs_ln.bias": torch.zeros(D)})
+    pt_zs = os.path.join(folder, "embeddings_gs-zs.pt")
+    proj = gen.prompt2token_proj.cfg
+    write_reference_pt(torch, pt_zs, generators={"z": (
+        flat, dict(placeholder_is_bg=False, num_out_layers=16, num_out_embs_per_layer=16),
+        dict(hidden_size=proj.hidden_size, num_hidden_layers=proj.num_layers,
+             num_attention_heads=proj.num_heads, intermediate_size=proj.intermediate_size,
+             vocab_size=proj.vocab_size))})
+    t0 = time.time()
+    mgr = EmbeddingManager().load_reference_checkpoint(pt_zs, device=pipe.device)
+    load_s = time.time() - t0
+    loaded = mgr.subj_basis_generators["z"]
+    mem = copy.deepcopy(gen).float()
+    inv_ids = make_template_ids(tok, INVERSE_TEMPLATE)
+    arc = torch.randn((2, 16, D), generator=torch.Generator(device=pipe.device).manual_seed(5),
+                      device=pipe.device)
+    with torch.inference_mode():
+        a, a_inv = loaded(None, None, arc, inverse_template_ids=inv_ids)
+        b, b_inv = mem(None, None, arc, inverse_template_ids=inv_ids)
+    same = torch.equal(a, b) and torch.equal(a_inv, b_inv)
+    say(f"[serve] zero-shot .pt ({os.path.getsize(pt_zs) / 1e6:.1f} MB, [zero-shot]'s fg "
+        f"generator, read in {load_s:.1f} s): placeholder K {mgr.placeholders['z'].num_vectors}; "
+        f"embeddings {tuple(a.shape)} and inverse prompt embeddings "
+        f"{'equal' if same else 'differ from'} the in-memory generator's (fp32) bit for bit")
+    if not same or mgr.placeholders["z"].num_vectors != 16:
+        fail("[serve] the zero-shot .pt's generator differs from the in-memory one")
+    del gen, mem, loaded, mgr, ref
+    os.remove(pt_zs)
+    torch.cuda.empty_cache()
+    say(f"[serve] phase {time.time() - t_phase:.1f} s")
+    return pt_static
+
+
+def i2i_inputs(folder):
+    """A seeded SIZE x SIZE init image (smooth colour ramps and noise) and a
+    disk mask (255 = repaint), written as PNGs; returns (paths, image, mask
+    in [0, 1])."""
+    import numpy as np
+
+    from adaface_tpu_torch.data import png
+
+    rng = np.random.default_rng(23)
+    yy, xx = np.mgrid[:SIZE, :SIZE] / SIZE
+    ramps = np.stack([yy, xx, 1 - yy], axis=-1) * 200
+    img = np.clip(ramps + rng.normal(0, 20, ramps.shape), 0, 255).astype(np.uint8)
+    mask = (((yy - 0.45) ** 2 + (xx - 0.55) ** 2) <= 0.3 ** 2).astype(np.uint8) * 255
+    paths = (os.path.join(folder, "init.png"), os.path.join(folder, "mask.png"))
+    png.write(paths[0], img)
+    png.write(paths[1], np.repeat(mask[:, :, None], 3, axis=2))
+    return paths, img, mask / 255.0
+
+
+def phase_img2img(torch, files, pt_static, folder, card, device="cuda"):
+    """[img2img] / [inpaint] both entry points in-process at SIZE, batch
+    I2I_BATCH, DDIM-STEPS (img2img at strength I2I_STRENGTH: I2I_T_ENC UNet
+    calls; inpaint every step) on [ckpt]'s cross-attention-scaled
+    `.safetensors` with [serve]'s `.pt` (conv attention on): exact flash
+    forwards by shape (CLI_SHAPES per UNet call), PNGs against an fp32 copy
+    of the pipeline on the card (einsum attention, TF32 off) on the same
+    draws, relative L2 within I2I_REL_TOL;
+    planted faults run on the entry point's own bf16 pipeline must read
+    outside it: strength ignored (1.0 in place of I2I_STRENGTH), the mask
+    inverted, conv attention off. Returns the forwards by shape over both
+    runs."""
+    import numpy as np
+
+    from adaface_tpu_torch import img2img, inpaint, txt2img
+    from adaface_tpu_torch.data import png
+    from adaface_tpu_torch.data.tokenizer import HashTokenizer
+    from adaface_tpu_torch.models.unet import UNetConfig
+    from adaface_tpu_torch.pipeline import StableDiffusionPipeline
+
+    fa = _fa()
+    t_phase = time.time()
+    (init_path, mask_path), init, mask = i2i_inputs(folder)
+    base = ["--ckpt", files["xattn"], "--bf16", "--embedding_paths", pt_static,
+            "--init_img", init_path, "--prompt", SERVE_PROMPT, "--n_samples", str(I2I_BATCH),
+            "--steps", str(STEPS), "--size", str(SIZE), "--seed", str(I2I_SEED),
+            "--scale", str(I2I_SCALE)]
+    runs = {"img2img": (img2img.main, ["--strength", str(I2I_STRENGTH)], I2I_T_ENC),
+            "inpaint": (inpaint.main, ["--mask", mask_path], STEPS)}
+    got, total = {}, {}
+    for name, (main_fn, extra, calls) in runs.items():
+        out = os.path.join(folder, name)
+        fa.launches_by_shape.clear()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rc = main_fn(base + extra + ["--out", out], device=device)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        counts, want = fwd_counts(fa), per_unet_call(CLI_SHAPES, calls)
+        say(f"[{name}] entry point {dt:.3f} s (checkpoint load included), {calls} UNet calls, "
+            f"flash launches {sum(counts.values())} {sorted(counts.items())} [{card}]")
+        if rc != 0 or counts != want:
+            fail(f"[{name}] main returned {rc}; launches {counts}, want {want}")
+        for s, n in counts.items():
+            total[s] = total.get(s, 0) + n
+        got[name] = np.stack([png.read(os.path.join(out, f"{i:05}.png"))
+                              for i in range(I2I_BATCH)])
+
+    prompts = [SERVE_PADDED] * I2I_BATCH
+    kw = dict(num_steps=STEPS, guidance_scale=I2I_SCALE, seed=I2I_SEED)
+    tok = HashTokenizer()
+    t0 = time.time()
+    ref = StableDiffusionPipeline.from_sd_checkpoint(
+        files["xattn"], tok, dtype=torch.float32, device=device,
+        unet_cfg=UNetConfig.sd_v1(use_flash_attention=False))
+    ref.embedding_manager.load_reference_checkpoint(
+        pt_static, token_id_resolver=tok.add_placeholder, device=device)
+    ref.set_conv_attn_kernel_size(ref.embedding_manager.use_conv_attn_kernel_size)
+    want = {"img2img": ref.img2img(init, prompts, strength=I2I_STRENGTH, **kw),
+            "inpaint": img2img.inpaint(ref, init, mask, prompts, **kw)}
+    torch.cuda.synchronize()
+    ref_s = time.time() - t0
+    del ref
+    torch.cuda.empty_cache()
+    pipe, _ = txt2img.build_pipeline(img2img.parse_args(base + ["--out", folder]), device)
+    faults = {"img2img": {"strength ignored": lambda: pipe.img2img(init, prompts, strength=1.0,
+                                                                   **kw)},
+              "inpaint": {"mask inverted": lambda: img2img.inpaint(pipe, init, 1.0 - mask,
+                                                                   prompts, **kw)}}
+    pipe.set_conv_attn_kernel_size(-1)
+    off = {"img2img": pipe.img2img(init, prompts, strength=I2I_STRENGTH, **kw),
+           "inpaint": img2img.inpaint(pipe, init, mask, prompts, **kw)}
+    pipe.set_conv_attn_kernel_size(CONV_KS)
+    t_img = lambda a: torch.as_tensor(a).float()
+    for name in runs:
+        err = rel_err(t_img(got[name]), t_img(want[name]))
+        fault_errs = {f: rel_err(t_img(fn()), t_img(want[name]))
+                      for f, fn in faults[name].items()}
+        fault_errs["conv attention off"] = rel_err(t_img(off[name]), t_img(want[name]))
+        say(f"[{name}] bf16 entry point vs fp32 copy on the card: relative L2 error of the "
+            f"images {err:.4e} (tol {I2I_REL_TOL[name]}); faults: " + ", ".join(
+                f"{f} {e:.4e}" for f, e in fault_errs.items())
+            + f"; mean abs {np.abs(got[name].astype(int) - want[name].astype(int)).mean():.3f} "
+              f"levels [{card}]")
+        if not err <= I2I_REL_TOL[name]:
+            fail(f"[{name}] the entry point's images are off the fp32 copy's by {err:.3e}")
+        for f, e in fault_errs.items():
+            if not e > I2I_REL_TOL[name]:
+                fail(f"[{name}] the gate cannot tell the fault '{f}' apart ({e:.3e})")
+    del pipe
+    os.remove(files["xattn"])
+    torch.cuda.empty_cache()
+    say(f"[img2img] phases {time.time() - t_phase:.1f} s (the fp32 copy's two requests "
+        f"{ref_s:.1f} s with its load)")
+    return total
+
+
 def main():
     import torch
 
@@ -5528,33 +6002,47 @@ def main():
     fa_fp32_gen, gn_fp32_gen, ff_fp32_gen = phase_fp32_main_path(torch, card)
     phase_zero_shot(torch, pipe, card)
 
-    add_training_placeholders(torch, pipe)
-    with tempfile.TemporaryDirectory() as tmp:
-        # 8 and 8b gate the bf16 training arithmetic against fp32 on the
-        # same weights, under the default Upsample and again under the
-        # naive one; the fold's eps error may not exceed the naive path's
-        # by more than FOLD_EPS_RATIO
-        phase_fold_eps_ratio(torch, pipe, Trainer, tmp)
-        train_counts, train_med, compos_med, train_peak = phase_train(torch, pipe, fa, Trainer,
-                                                                      tmp, card)
-        gn_train, ff_train = phase_fused_train(torch, pipe, Trainer, tmp, card, train_med,
-                                               compos_med, train_peak)
-        arm_train = phase_arm_train(torch, pipe, Trainer, tmp, card)
-        fp32_counts, fp32_fused_train = phase_entry_point(torch, fa, Trainer, tmp, card)
-        zs_counts = phase_zs_train(torch, pipe, Trainer, tmp, card)
+    # slice 22: [ckpt]'s files stay until 9d has trained from them
+    with tempfile.TemporaryDirectory() as serve_dir:
         t_slice = time.time()
-        phase_db_reference(torch, pipe, tmp)
-        db_counts = phase_dreambooth(torch, fa, tmp, card)
-        phase_wds(torch, pipe, Trainer, tmp, card)
-        phase_native(torch, write_pngs(os.path.join(tmp, "native"), 4, SIZE, 50), tmp, card)
-        say(f"[main] slice 21's phases ([db-ref], [db], [wds], [native]) "
+        serve_files = phase_ckpt(torch, pipe, serve_dir, card)
+        pt_static = phase_serve(torch, pipe, serve_files, serve_dir, card)
+        i2i_counts = phase_img2img(torch, serve_files, pt_static, serve_dir, card)
+        say(f"[main] slice 22's phases ([ckpt], [serve], [img2img], [inpaint]) "
             f"{time.time() - t_slice:.1f} s")
+        add_training_placeholders(torch, pipe)
+        with tempfile.TemporaryDirectory() as tmp:
+            # 8 and 8b gate the bf16 training arithmetic against fp32 on the
+            # same weights, under the default Upsample and again under the
+            # naive one; the fold's eps error may not exceed the naive path's
+            # by more than FOLD_EPS_RATIO
+            phase_fold_eps_ratio(torch, pipe, Trainer, tmp)
+            train_counts, train_med, compos_med, train_peak = phase_train(torch, pipe, fa, Trainer,
+                                                                          tmp, card)
+            gn_train, ff_train = phase_fused_train(torch, pipe, Trainer, tmp, card, train_med,
+                                                   compos_med, train_peak)
+            arm_train = phase_arm_train(torch, pipe, Trainer, tmp, card)
+            fp32_counts, fp32_fused_train = phase_entry_point(
+                torch, fa, Trainer, tmp, card, resume_from=(serve_files["ckpt"], pt_static))
+            zs_counts = phase_zs_train(torch, pipe, Trainer, tmp, card)
+            t_slice = time.time()
+            phase_db_reference(torch, pipe, tmp)
+            db_counts = phase_dreambooth(torch, fa, tmp, card)
+            phase_wds(torch, pipe, Trainer, tmp, card)
+            phase_native(torch, write_pngs(os.path.join(tmp, "native"), 4, SIZE, 50), tmp, card)
+            say(f"[main] slice 21's phases ([db-ref], [db], [wds], [native]) "
+                f"{time.time() - t_slice:.1f} s")
 
     entries = []
     for (b, l, h, d), (replaces, _) in MAIN_SHAPES.items():
         entries.append(dict(name=f"flash_attn_packed B{b} L{l} H{h} d{d}", route="cuda",
                             source=SOURCE, replaces=replaces, launches=counts[(b, l, h, d)],
                             **rows[(b, l, h, d)]))
+    # the entry points' batch-2 requests: launches over [img2img] and [inpaint]
+    for (b, l, h, d), (replaces, _) in CLI_SHAPES.items():
+        entries.append(dict(name=f"flash_attn_packed B{b} L{l} H{h} d{d} (img2img + inpaint)",
+                            route="cuda", source=SOURCE, replaces=replaces,
+                            launches=i2i_counts[(b, l, h, d)], **rows[(b, l, h, d)]))
     fp32_names_db = {"fwd": "flash_attn_fp32 fwd + lse", "dq": "flash_attn_fp32 dq",
                      "dkv": "flash_attn_fp32 dk/dv"}
     names = {"fwd": ("flash_attn_packed fwd (lse when recorded)", SOURCE),

@@ -19,10 +19,14 @@ PNGs written with PIL into a temporary folder).
   for bit.
 - Each path that is not ported exits with `SystemExit` naming its ROADMAP
   item. The paths that were refused until validation, the webdataset
-  compositor and DreamBooth were ported keep their cases: `--val_every`,
-  `val_every_steps` and `data.wds_shards` now run (`main` returns 0 and
-  writes their rows), and `--dreambooth` without `--reg_data_root` exits
-  as the JAX script stops."""
+  compositor, DreamBooth and checkpoint loading were ported keep their
+  cases: `--val_every`, `val_every_steps` and `data.wds_shards` now run
+  (`main` returns 0 and writes their rows), `--actual_resume` (a tiny SD
+  checkpoint in LDM names) and a reference `.pt` `--embedding_manager_ckpt`
+  load and train, and `--dreambooth` without `--reg_data_root` exits as
+  the JAX script stops.
+- Loading: with `--actual_resume` the trainer gets the checkpoint's weights
+  bit for bit, with a reference `.pt` the checkpoint's embedder."""
 
 import copy
 import dataclasses
@@ -250,8 +254,9 @@ UNPORTED = {
                  "--arc2face_unet requires --arc2face_text_encoder"),
     # ported: without its class images DreamBooth stops as the JAX script does
     "dreambooth": (["--dreambooth"], "--dreambooth needs --reg_data_root"),
-    "actual_resume": (["--actual_resume", "sd.ckpt"], "item 10b"),
-    "pt checkpoint": (["--embedding_manager_ckpt", "emb.pt"], "item 10b"),
+    # ported: these load and train (None)
+    "actual_resume": (["--actual_resume", "CKPT"], None),
+    "pt checkpoint": (["--embedding_manager_ckpt", "PT"], None),
     "num_devices": (["--num_devices", "2"], "item 13"),
     # ported: these run (None), and write what they add
     "val_every": (["--val_every", "1"], None),
@@ -282,11 +287,62 @@ def _shard(path):
     return str(path)
 
 
+def _tiny_ckpt(path):
+    """A random pipeline at the entry point's --tiny widths, written as an SD
+    checkpoint in LDM names; returns the pipeline."""
+    from adaface_tpu_torch.data.tokenizer import HashTokenizer
+    from adaface_tpu_torch.pipeline import StableDiffusionPipeline
+    from adaface_tpu_torch.txt2img import tiny_configs
+    from tests.torch_serve_helpers import save_ldm_checkpoint
+
+    pipe = StableDiffusionPipeline.from_random(11, HashTokenizer(), device="cpu",
+                                               **tiny_configs(HashTokenizer()))
+    save_ldm_checkpoint(path, pipe.ldm_state_dict())
+    return pipe
+
+
+def _reference_pt(path, k=9, seed=0):
+    """A reference `.pt` holding one static 64-wide embedder "z" of K vectors."""
+    from tests.torch_serve_helpers import save_reference_embeddings
+
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    fields = {"basis_rand_weights": f(16, k, 4), "basis_comm_weights": f(1, k, 4),
+              "basis_vecs": f(k, 4, 64), "bias": 0.1 * f(16, k, 64)}
+    save_reference_embeddings(path, {"z": fields}, token2num={"z": k})
+    return fields
+
+
+def test_actual_resume_and_reference_pt_load(monkeypatch, data_root, tmp_path):
+    ckpt, pt = str(tmp_path / "sd.ckpt"), str(tmp_path / "embeddings_gs-5.pt")
+    src = _tiny_ckpt(ckpt)
+    fields = _reference_pt(pt)
+    got = {}
+    monkeypatch.setattr(ttrain, "Trainer", _recorder(got))
+    with pytest.raises(_Stop):
+        ttrain.main(["--base", CONFIGS["finetune-ada"], "--data_root", data_root, "--tiny",
+                     "--actual_resume", ckpt, "--embedding_manager_ckpt", pt], device="cpu")
+    pipe = got["pipe"]  # finetune-ada.yaml trains in bf16
+    for a, b in ((pipe.unet, src.unet), (pipe.vae, src.vae), (pipe.clip, src.clip)):
+        sd = a.state_dict()
+        for k, v in b.state_dict().items():
+            if k != "extra_token_embedding.weight":
+                assert sd[k].dtype == torch.bfloat16 and torch.equal(sd[k], v.bfloat16()), k
+    emb = pipe.embedding_manager.embedders["z"]
+    np.testing.assert_array_equal(emb.basis_vecs.numpy(), fields["basis_vecs"])
+    assert pipe.embedding_manager.placeholders["z"].num_vectors == 9
+    assert pipe.embedding_manager.placeholders["z"].token_id == \
+        pipe.tokenizer.encode("z")[0]
+
+
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_paths_exit(data_root, tmp_path, name):
     extra, item = UNPORTED[name]
-    extra = [a.replace("SHARD", _shard(tmp_path / "s.tar")) if "SHARD" in a else a
-             for a in extra]
+    files = {"SHARD": lambda: _shard(tmp_path / "s.tar"),
+             "CKPT": lambda: (_tiny_ckpt(str(tmp_path / "sd.ckpt")), str(tmp_path / "sd.ckpt"))[1],
+             "PT": lambda: (_reference_pt(str(tmp_path / "e.pt")), str(tmp_path / "e.pt"))[1]}
+    extra = [a.replace(a.split("=")[-1].strip("[]"), files[a.split("=")[-1].strip("[]")]())
+             if a.split("=")[-1].strip("[]") in files else a for a in extra]
     argv = ["--base", CONFIGS["finetune-ada"], "--data_root", data_root, "--tiny",
             "--logdir", str(tmp_path)]
     if item is not None:
@@ -298,7 +354,11 @@ def test_unported_paths_exit(data_root, tmp_path, name):
     import json
 
     recs = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
-    if name == "wds_shards":
+    if name in ("actual_resume", "pt checkpoint"):
+        assert len([r for r in recs if "iter_type" in r]) == 2
+        z = EmbeddingManager.load_native(str(tmp_path / "embeddings_last.npz")).placeholders["z"]
+        assert z.num_vectors == 9
+    elif name == "wds_shards":
         assert [r["wds_comp"] for r in recs if "iter_type" in r] == [1.0, 1.0]
         assert EmbeddingManager.load_native(str(tmp_path / "embeddings_last.npz")).placeholders[
             "w"].is_background
