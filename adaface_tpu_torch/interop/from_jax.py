@@ -12,7 +12,9 @@ carry the flax names, so the map is mechanical:
 
 Each `*_state_dict_from_jax` returns what `load_state_dict(strict=True)` takes.
 `load_subj_basis_generator_from_jax` loads a zero-shot generator, whose flax
-tree holds only the branches its init ran. `jax_tree_from_module` is the
+tree holds only the branches its init ran. `iresnet_state_dict_from_jax`
+carries a JAX `IResNet` tree, whose fc takes NHWC-flattened features, to the
+port's recognizer, which flattens NCHW. `jax_tree_from_module` is the
 inverse, for round-trip checks.
 """
 
@@ -69,6 +71,20 @@ def load_subj_basis_generator_from_jax(gen: nn.Module, tree: Mapping) -> nn.Modu
         raise ValueError(f"generator tree mismatch: missing {missing}, "
                          f"unexpected {unexpected}")
     return gen
+
+
+def iresnet_state_dict_from_jax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """A JAX `IResNet` tree -> the port's `IResNet` state dict. The JAX
+    fc kernel's rows follow the H, W, C flatten of its NHWC features; the
+    port's fc takes C, H, W, so the rows are permuted: both packages then
+    compute the same embedding from the same params. (BatchNorm `scale` ->
+    `weight`; `mean`, `var` and PReLU `alpha` as they are.)"""
+    sd = state_dict_from_jax(tree)
+    w = sd["fc.weight"]
+    g, c = cfg.grid, cfg.channels[-1]
+    sd["fc.weight"] = w.reshape(w.shape[0], g, g, c).permute(0, 3, 1, 2).reshape(
+        w.shape[0], -1).contiguous()
+    return sd
 
 
 def vae_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -85,6 +85,16 @@ def build_random(build, seed: int, device=None, dtype: torch.dtype = torch.float
     return m.to(dtype).eval()
 
 
+def build_loaded(build, state_dict, device: torch.device) -> nn.Module:
+    """`build()` made on `device` with `state_dict` loaded strictly (in the
+    module's dtype), in eval mode."""
+    with torch.device("meta"):
+        m = build()
+    m = m.to_empty(device=device)
+    m.load_state_dict(state_dict, strict=True)
+    return m.eval()
+
+
 class StableDiffusionPipeline:
     def __init__(self, tokenizer: TokenizerBase, clip: CLIPTextEncoder,
                  unet: UNetModel, vae: AutoencoderKL,

@@ -47,12 +47,24 @@ a string); with the option at `prodigy`, even explicitly, the file's
 `--embedding_manager_ckpt` warm-starts the embedders from the port's `.npz`
 or a reference `.pt` (`EmbeddingManager.load_reference_checkpoint`).
 
-Paths that are not ported exit with `SystemExit` naming their ROADMAP
-queue 1 item: `--zeroshot` (12: it needs the face stack; the zero-shot
-trainer runs through `training/zs_trainer.ZeroShotTrainer.fit`), more than
-one device (13). PNG images load through the port's own codec
-(`data/png.py`), other formats through PIL; `main(dataset=...)` takes a
-dataset built otherwise.
+`--zeroshot` trains the zero-shot SubjBasisGenerators instead
+(`training/zs_trainer.ZeroShotTrainer`) over the subjects: a fg generator (K
+16, its prompt2token projection on the Arc2Face encoder's config) and a bg
+generator per bg placeholder (the webdataset one too, when shards are set),
+fed by the masked CLIP vision tower (`CLIP_VISION_PT`, an HF
+CLIPVisionModel state dict at ViT-L/14; a tiny random tower without it or
+under `--tiny`), the Arc2Face text encoder (`--arc2face_text_encoder`; tiny
+random likewise) and the face embedder of `face_app.default_face_app()`
+(`ARCFACE_ONNX`). The towers, the encoder and the generators stay fp32
+whatever `--bf16` says. A reference `.pt` `--embedding_manager_ckpt` warm
+starts the generators; `--resume` takes a `subj_basis_*.pt`;
+`--arc2face_unet` adds the teacher; the run ends with
+`subj_basis_last.pt`.
+
+More than one device exits with `SystemExit` naming its ROADMAP queue 1
+item (13). PNG images load through the port's own codec (`data/png.py`),
+other formats through PIL; `main(dataset=...)` takes a dataset built
+otherwise.
 """
 
 from __future__ import annotations
@@ -157,7 +169,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--arc2face_text_encoder", type=str, default=None,
                    help="Arc2Face text encoder (HF CLIPTextModel, file or directory)")
     p.add_argument("--zeroshot", action="store_true",
-                   help="zero-shot generator training (not ported: needs the face stack)")
+                   help="zero-shot generator training (ZeroShotTrainer)")
     p.add_argument("--dreambooth", action="store_true",
                    help="DreamBooth baseline: subject recon + class prior preservation")
     p.add_argument("--reg_data_root", type=str, default=None,
@@ -170,10 +182,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def _refuse_unported(opt, cfg: dict, device: torch.device):
     """SystemExit for a path the port does not have yet, naming its ROADMAP
     queue 1 item."""
-    if opt.zeroshot:
-        raise SystemExit("--zeroshot: the zero-shot entry point needs the face stack "
-                         "(default_face_app), which is not ported yet (ROADMAP queue 1 item "
-                         "12); train with training/zs_trainer.ZeroShotTrainer.fit")
     n = opt.num_devices
     if n == -1:
         n = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -314,12 +322,14 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
     def generator(offset: int) -> torch.Generator:
         return torch.Generator(device=dev).manual_seed(opt.seed + offset)
 
-    mgr.add_placeholder(opt.subject_string, token_id=tok.add_placeholder(opt.subject_string),
-                        num_vectors=opt.num_vectors_per_subj_token, generator=generator(1),
-                        emb_dim=emb_dim, rank=opt.layerwise_lora_rank, device=dev,
-                        **word_init(opt.cls_delta_string, opt.subj_init_word_weights))
+    if not opt.zeroshot:  # zero-shot placeholders are generator-backed
+        mgr.add_placeholder(
+            opt.subject_string, token_id=tok.add_placeholder(opt.subject_string),
+            num_vectors=opt.num_vectors_per_subj_token, generator=generator(1), emb_dim=emb_dim,
+            rank=opt.layerwise_lora_rank, device=dev,
+            **word_init(opt.cls_delta_string, opt.subj_init_word_weights))
     bg_strings = []
-    if opt.background_string:
+    if opt.background_string and not opt.zeroshot:
         bg_strings.append((opt.background_string, 2))
         if opt.wds_background_string and cfg.get("data", {}).get("wds_shards"):
             # the webdataset backgrounds' own embedder: wds captions swap the
@@ -331,7 +341,9 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
                             generator=generator(offset), emb_dim=emb_dim,
                             rank=opt.layerwise_lora_rank, device=dev,
                             **word_init(opt.bg_init_string))
-    if opt.embedding_manager_ckpt and opt.embedding_manager_ckpt.endswith(".npz"):
+    if opt.zeroshot:
+        pass  # run_zero_shot warm-starts the generators
+    elif opt.embedding_manager_ckpt and opt.embedding_manager_ckpt.endswith(".npz"):
         loaded = EmbeddingManager.load_native(opt.embedding_manager_ckpt, device=dev)
         for s, info in loaded.placeholders.items():
             info.token_id = tok.add_placeholder(s)
@@ -341,7 +353,7 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
     elif opt.embedding_manager_ckpt:
         mgr.load_reference_checkpoint(opt.embedding_manager_ckpt,
                                       token_id_resolver=tok.add_placeholder, device=dev)
-    if opt.embedding_manager_ckpt:
+    if opt.embedding_manager_ckpt and not opt.zeroshot:
         print(f"warm-started embedding manager from {opt.embedding_manager_ckpt}")
 
     cli_handled = {"max_steps", "batch_size", "accumulate_grad_batches", "ckpt_every_steps",
@@ -375,6 +387,9 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
         **dataclass_cfg(IterPlanConfig, "iter_plan",
                         skip={"composition_regs_iter_gap", "max_steps"}),
         composition_regs_iter_gap=opt.composition_regs_iter_gap, max_steps=opt.max_steps)
+    if opt.zeroshot:
+        return run_zero_shot(opt, pipe, tok, dataset, tcfg, pcfg, dtype, dev,
+                             wds=bool(cfg.get("data", {}).get("wds_shards")))
     if opt.dreambooth:
         return run_dreambooth(opt, pipe)
     trainer = Trainer(pipe, dataset, tcfg, pcfg)
@@ -394,6 +409,110 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
             print(f"arc2face teacher loaded from {opt.arc2face_unet}")
         trainer.fit(arc2face_teacher=teacher)
         trainer.save_state()
+    finally:
+        trainer.close()
+    return 0
+
+
+def _zero_shot_towers(opt, tok, hidden: int, dev: torch.device):
+    """(vision tower, Arc2Face text encoder), fp32: from `CLIP_VISION_PT`
+    (ViT-L/14) and `--arc2face_text_encoder` where given and not `--tiny`,
+    else tiny random ones from seed + 3 and seed + 4."""
+    from adaface_tpu_torch.interop.checkpoint_io import find_weights_file, load_state_dict_file
+    from adaface_tpu_torch.interop.hf_clip import (
+        HF_TEXT_FILES, map_clip_text_state_dict, map_clip_vision_state_dict,
+        text_config_from_state_dict)
+    from adaface_tpu_torch.interop.torch_pickle import load_sd_state_dict
+    from adaface_tpu_torch.models.clip_text import CLIPTextEncoder
+    from adaface_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
+    from adaface_tpu_torch.pipeline import build_loaded, build_random
+
+    vis_ckpt = os.environ.get("CLIP_VISION_PT")
+    if opt.tiny or not (vis_ckpt and os.path.exists(vis_ckpt)):
+        if not opt.tiny:
+            print("NOTE: no CLIP_VISION_PT; random vision tower (smoke mode)")
+        vis_cfg = CLIPVisionConfig.tiny(hidden_size=48)
+        vision = build_random(lambda: CLIPVisionEncoder(vis_cfg), opt.seed + 3, dev)
+    else:
+        sd = load_sd_state_dict(vis_ckpt)
+        prefix = "vision_model." if any(k.startswith("vision_model.") for k in sd) else ""
+        vis_cfg = CLIPVisionConfig.vit_l_14()
+        vision = build_loaded(lambda: CLIPVisionEncoder(vis_cfg),
+                              map_clip_vision_state_dict(sd, vis_cfg.num_layers, prefix), dev)
+        print(f"vision tower loaded from {vis_ckpt}")
+    arc_path = opt.arc2face_text_encoder
+    if opt.tiny or not (arc_path and os.path.exists(arc_path)):
+        if not opt.tiny:
+            print("NOTE: no --arc2face_text_encoder; random encoder (smoke mode)")
+        arc_cfg = CLIPTextConfig.tiny(vocab_size=tok.vocab_size, hidden_size=hidden,
+                                      num_layers=2, max_position_embeddings=77)
+        arc = build_random(lambda: CLIPTextEncoder(arc_cfg), opt.seed + 4, dev)
+    else:
+        sd = load_state_dict_file(find_weights_file(arc_path, HF_TEXT_FILES))
+        prefix = "text_model." if any(k.startswith("text_model.") for k in sd) else ""
+        arc_cfg = text_config_from_state_dict(sd, prefix)
+        arc = build_loaded(lambda: CLIPTextEncoder(arc_cfg),
+                           map_clip_text_state_dict(sd, arc_cfg.num_layers, prefix), dev)
+        print(f"arc2face text encoder loaded from {arc_path}")
+    return vision, arc
+
+
+def run_zero_shot(opt, pipe: StableDiffusionPipeline, tok, dataset, tcfg: TrainerConfig,
+                  pcfg: IterPlanConfig, dtype: torch.dtype, dev: torch.device,
+                  wds: bool = False) -> int:
+    """Train the zero-shot generators (`ZeroShotTrainer.fit`), then write
+    `subj_basis_last.pt`. The generators are made from seed + 5 (fg) and
+    seed + 6 + i (the i-th bg placeholder), fp32."""
+    from adaface_tpu_torch.face_app import default_face_app
+    from adaface_tpu_torch.personalization.embedding_manager import NUM_CA_LAYERS
+    from adaface_tpu_torch.personalization.subj_basis_generator import SubjBasisGenerator
+    from adaface_tpu_torch.personalization.zero_shot import ZeroShotFeatureExtractor
+    from adaface_tpu_torch.pipeline import build_random
+    from adaface_tpu_torch.training.zs_trainer import ZeroShotTrainer
+
+    D = pipe.clip.cfg.hidden_size
+    vision, arc = _zero_shot_towers(opt, tok, D, dev)
+    ext = ZeroShotFeatureExtractor(vision, face_embed_fn=default_face_app(device=dev).embed_image)
+    mgr = pipe.embedding_manager
+    gens = {opt.subject_string: build_random(lambda: SubjBasisGenerator(
+        placeholder_is_bg=False, num_out_layers=NUM_CA_LAYERS, num_out_embs_per_layer=16,
+        output_dim=D, proj_cfg=arc.cfg, pad_token_id=tok.eos_id), opt.seed + 5, dev)}
+    mgr.add_zero_shot_placeholder(opt.subject_string, tok.add_placeholder(opt.subject_string),
+                                  gens[opt.subject_string], num_vectors=16)
+    bg_strings = [opt.background_string] if opt.background_string else []
+    if bg_strings and opt.wds_background_string and wds:
+        # the webdataset backgrounds' own generator, as the bg one
+        bg_strings.append(opt.wds_background_string)
+    vis_cfg = vision.cfg
+    for i, bg in enumerate(bg_strings):
+        gens[bg] = build_random(lambda: SubjBasisGenerator(
+            placeholder_is_bg=True, num_out_layers=NUM_CA_LAYERS,
+            num_out_embs_per_layer=opt.num_vectors_per_bg_token, output_dim=D,
+            image_embedding_dim=vis_cfg.hidden_size, num_heads=4,
+            bg_num_id_vecs=vis_cfg.num_tokens), opt.seed + 6 + i, dev)
+        mgr.add_zero_shot_placeholder(bg, tok.add_placeholder(bg), gens[bg],
+                                      num_vectors=opt.num_vectors_per_bg_token,
+                                      is_background=True)
+    if opt.embedding_manager_ckpt:
+        mgr.load_reference_checkpoint(opt.embedding_manager_ckpt,
+                                      token_id_resolver=tok.add_placeholder, device=dev)
+        gens.update(mgr.subj_basis_generators)
+        print(f"zs generators warm-started from {opt.embedding_manager_ckpt}")
+    trainer = ZeroShotTrainer(pipe, dataset, ext, gens, arc, tcfg,
+                              dataclasses.replace(pcfg, do_zero_shot=True),
+                              bg_placeholders=frozenset(bg_strings))
+    try:
+        if opt.resume:
+            trainer.load_checkpoint(opt.resume)
+        teacher_unet = None
+        if opt.arc2face_unet:
+            if not opt.arc2face_text_encoder:
+                raise SystemExit("--arc2face_unet requires --arc2face_text_encoder")
+            teacher_unet = load_arc2face_teacher(
+                opt.arc2face_unet, opt.arc2face_text_encoder, tok, dtype=dtype,
+                unet_cfg=pipe.unet.cfg if opt.tiny else None, device=dev).unet
+            print(f"arc2face teacher loaded from {opt.arc2face_unet}")
+        trainer.fit(arc2face_teacher_unet=teacher_unet)
     finally:
         trainer.close()
     return 0

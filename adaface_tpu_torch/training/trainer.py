@@ -48,8 +48,14 @@ battery without gradients on `val_batches` batches of a separate stream over
 the same images, `val/` rows, an `_ema` arm over the EMA shadow, and a
 sample grid when an image logger is set, `set_image_logger`). Validation
 draws from its own RNGs only, so it does not move the training stream.
-`cached_inits` stays None until the teacher filter, which fills it, is
-ported; the data-parallel mesh (`num_devices` > 1) raises.
+`set_teacher_filter(clip_scorer)` turns on CLIP teacher filtering of the
+compos iterations (`training/teacher_filter.py`): `num_candidate_teachers`
+candidate (noise, t) draws of the block are denoised without gradients under
+the subject-comp and the class-mixed comp contexts and CLIP-scored; an
+unteachable block skips the iteration (`skipped_unteachable`), a teachable
+one trains on its best candidate's noise and t and caches that candidate's
+reconstruction, which a later compos iteration of the subject reuses
+(reuse-init). The data-parallel mesh (`num_devices` > 1) raises.
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ from adaface_tpu_torch.training.iter_plan import (
 )
 from adaface_tpu_torch.training.adamw import AdamW
 from adaface_tpu_torch.training.ema import EmaState, ema_init, ema_update
+from adaface_tpu_torch.training.mixing import mix_static_vk_embeddings
 from adaface_tpu_torch.training.prodigy import AccumulatedClipped, Prodigy
 from adaface_tpu_torch.training.train_step import (
     Arc2FaceBatch,
@@ -96,6 +103,10 @@ from adaface_tpu_torch.training.train_step import (
     make_recon_train_step,
 )
 from adaface_tpu_torch.training.x_init import init_x_with_fg_from_training_image
+
+
+# the metrics of a compos iteration the teacher filter skips
+SKIPPED_UNTEACHABLE = {"loss": 0.0, "skipped_unteachable": 1.0}
 
 
 @dataclasses.dataclass
@@ -199,7 +210,8 @@ class Trainer:
         self._empty_ctx = None
         if cfg.apply_compel_cfg_prob > 0:
             self._empty_ctx = pipeline.encode_negative("", 1)[0, 0].clone()
-        # reuse-init cache, filled by the teacher filter (not ported yet)
+        # the teacher filter and its reuse-init cache (`set_teacher_filter`)
+        self.teacher_filter = None
         self.cached_inits = None
         self.image_logger = None
         self.ema_state: Optional[EmaState] = (ema_init(self.mgr.embedders) if cfg.use_ema
@@ -220,6 +232,17 @@ class Trainer:
             self._val_rng = np.random.default_rng(cfg.seed + 1017)
         signal.signal(signal.SIGUSR1, self._on_sigusr1)
         signal.signal(signal.SIGUSR2, self._on_sigusr2)
+
+    def set_teacher_filter(self, clip_scorer, **filter_kw):
+        """Turn on CLIP teacher filtering and reuse-init caching of the
+        compos iterations. `filter_kw` goes to `TeacherFilter`
+        (clip_loss_thres, cls_subj_clip_margin, student_cfg_scale,
+        teacher_cfg_scale)."""
+        from adaface_tpu_torch.training.teacher_filter import CachedInits, TeacherFilter
+
+        p = self.pipe
+        self.teacher_filter = TeacherFilter(clip_scorer, p.unet, p.vae, p.base_sched, **filter_kw)
+        self.cached_inits = CachedInits()
 
     def set_image_logger(self, every_steps: int = 500, **kw):
         """Write sample grids under `<logdir>/images/` (`training/image_logger.py`):
@@ -624,7 +647,7 @@ class Trainer:
         each subject's entry is popped once. Otherwise fresh: the training
         image's fg scaled onto noise when the plan asks for it and a mask
         has fg, else pure noise. Returns (latents, fg_latent, prompts,
-        prev_t or None)."""
+        prev_t or None, the popped cache entries or None)."""
         prev_t, entries = None, None
         flag_keys = ("use_background_token", "comp_init_fg_from_training_image",
                      "use_wds_comp")
@@ -662,12 +685,14 @@ class Trainer:
         else:
             plan.comp_init_fg_from_training_image = False
             latents = self._tensor(self.rng.standard_normal(tuple(latents.shape)))
-        return latents, fg_latent, prompts, prev_t
+        return latents, fg_latent, prompts, prev_t, entries
 
-    def _cache_teacher_recon(self, e: dict, x_recon, t, fg_latent, plan: IterPlan, prompts):
+    def _cache_teacher_recon(self, e: dict, x_recon, t, fg_latent, plan: IterPlan, prompts,
+                             **zs_extra):
         """Cache a reconstruction for a later reuse-init iteration of this
         subject, with the conditioning it was denoised under (this block's
-        4 prompts and the plan's flags)."""
+        4 prompts and the plan's flags; on the zero-shot path its reference
+        features through `zs_extra`)."""
         if self.cached_inits is None:
             return
         host = lambda a: a.detach().float().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
@@ -675,7 +700,108 @@ class Trainer:
             e["subject_name"], host(x_recon), host(t), fg_mask=host(fg_latent),
             prompts=list(prompts), use_background_token=bool(plan.use_background_token),
             comp_init_fg_from_training_image=bool(plan.comp_init_fg_from_training_image),
-            use_wds_comp=bool(plan.use_wds_comp))
+            use_wds_comp=bool(plan.use_wds_comp), **zs_extra)
+
+    def _filter_verdict_per_block(self, verdict, n_cand: int, CB: int):
+        """(any teachable, best candidate [CB], block teachable [CB]):
+        `TeacherFilter.per_block`, where the thresholds live."""
+        return self.teacher_filter.per_block(verdict, n_cand, CB)
+
+    def _cache_filtered_blocks(self, ex, verdict, best, block_teachable, cand_t, fg_latent,
+                               plan: IterPlan, prompts, n_cand: int, zs_extra_fn=None):
+        """Each teachable block caches its best candidate's subject-context
+        reconstruction (cand-major row best * CB + b) with its own 4 prompts
+        and mask; `zs_extra_fn(b)` adds the zero-shot features."""
+        CB = len(ex)
+        for b in range(CB):
+            if not block_teachable[b]:
+                continue
+            i = int(best[b]) * CB + b
+            extra = zs_extra_fn(b) if zs_extra_fn is not None else {}
+            self._cache_teacher_recon(
+                ex[b], verdict.x_recons[i:i + 1], np.asarray(cand_t)[i:i + 1],
+                np.asarray(fg_latent)[b:b + 1], plan, [prompts[k * CB + b] for k in range(4)],
+                **extra)
+
+    def _teacher_filter_block(self, plan: IterPlan, ex: list, latents: torch.Tensor,
+                              fg_latent: np.ndarray, prompts: list, ctx_fn,
+                              zs_extra_fn=None):
+        """The teacher filter of a fresh compos iteration over the CB blocks
+        `ex`, when it is on: `num_candidate_teachers` cand-major copies of the
+        x_start with noise and timesteps drawn from the host RNG (after the
+        batch's own), their contexts from `ctx_fn(cand_t)`, the verdict, the
+        candidates' grid to the image logger when it is due. Returns None
+        when the filter is off, "skip" when no block is teachable, else the
+        chosen (noise, t) after caching the teachable blocks."""
+        if (self.teacher_filter is None or not plan.do_teacher_filter
+                or plan.reuse_init_conds):
+            return None
+        CB = len(ex)
+        n_cand = self.plan_cfg.num_candidate_teachers
+        cand_x = torch.cat([latents] * n_cand)
+        cand_noise = self._tensor(self.rng.standard_normal(tuple(cand_x.shape)))
+        cand_t = np.asarray(sample_timesteps(self.rng, plan, n_cand * CB, self.plan_cfg),
+                            np.int32)
+        ctx = ctx_fn(cand_t)
+        verdict = self.teacher_filter.filter(
+            cand_x, cand_noise, self._tensor(cand_t, torch.int32), ctx["subj_comp"],
+            ctx["mix_comp"], ctx["uncond"], prompts[3 * CB:] * n_cand)
+        ok, best, block_ok = self._filter_verdict_per_block(verdict, n_cand, CB)
+        if self.image_logger is not None and self.image_logger.should_log(self.global_step):
+            sel = {int(best[b]) * CB + b for b in range(CB) if block_ok[b]}
+            colors = [2 if i % (n_cand * CB) in sel else 1 for i in range(2 * n_cand * CB)]
+            self.image_logger.log_candidates(self.global_step, verdict.images, colors)
+        if not ok:
+            return "skip"
+        rows = [int(best[b]) * CB + b for b in range(CB)]
+        self._cache_filtered_blocks(ex, verdict, best, block_ok, cand_t, fg_latent, plan,
+                                    prompts, n_cand, zs_extra_fn=zs_extra_fn)
+        return cand_noise[rows], cand_t[rows]
+
+    @torch.no_grad()
+    def _compos_contexts(self, ids: np.ndarray, slots: Dict, plan: IterPlan, t: np.ndarray):
+        """(subj_comp, mix_comp, uncond) contexts of the teacher filter's
+        candidate denoise: the 4-type prompts encoded with the static
+        subject embeddings patched in, the class word spread over the pad
+        slots, then V/K-mixed."""
+        ctx = self._distribute_cls_ctx(self.pipe._encode_patched(ids, slots), slots)
+        subj = next(s for s, i in self.mgr.placeholders.items() if not i.is_background)
+        return self._mix_ctx_for_filter(ctx, slots[subj], plan, t, ids.shape[1])
+
+    @staticmethod
+    def _distribute_cls_ctx(ctx: torch.Tensor, slots: Dict) -> torch.Tensor:
+        """The class word spread over the multi-vector pad slots in the cls
+        halves of an encoded 4-type context [L, 4B, T, D] (each
+        placeholder's subject-prompt slot map, in sorted order)."""
+        B = ctx.shape[1] // 4
+        cs, cc = ctx[:, 2 * B:3 * B], ctx[:, 3 * B:]
+        for s in sorted(slots):
+            sm = np.asarray(slots[s])[:B]
+            cs = EmbeddingManager.distribute_cls_embeddings(cs, sm)
+            cc = EmbeddingManager.distribute_cls_embeddings(cc, sm)
+        return torch.cat([ctx[:, :2 * B], cs, cc], dim=1)
+
+    @torch.no_grad()
+    def _mix_ctx_for_filter(self, ctx: torch.Tensor, subj_slot, plan: IterPlan, t: np.ndarray,
+                            T: int) -> Dict:
+        """The filter contexts from an encoded 4-type context [L, 4B, T, D]:
+        subject-comp and class-comp rows repeated num_candidate_teachers
+        times (cand-major), V/K-mixed at the candidates' t, and the empty
+        prompt's context. Each of subj_comp / mix_comp is a (V, K) pair."""
+        B = ctx.shape[1] // 4
+        n_cand = self.plan_cfg.num_candidate_teachers
+        sc = torch.cat([ctx[:, B:2 * B]] * n_cand, dim=1)
+        cc = torch.cat([ctx[:, 3 * B:]] * n_cand, dim=1)
+        tok = torch.as_tensor(np.asarray(subj_slot)[B:2 * B] >= 0, dtype=ctx.dtype,
+                              device=ctx.device)
+        r = self._cls_mix_ranges(plan)
+        s_vk, m_vk = mix_static_vk_embeddings(
+            sc, cc, torch.cat([tok] * n_cand), plan.training_percent,
+            self._tensor(np.asarray(t) / self.plan_cfg.num_timesteps),
+            v_cls_scale_range=(r[2], r[3]), k_cls_scale_range=(r[0], r[1]))
+        return {"subj_comp": (s_vk[:, :, :T], s_vk[:, :, T:]),
+                "mix_comp": (m_vk[:, :, :T], m_vk[:, :, T:]),
+                "uncond": self.pipe.encode_negative("", n_cand * B)}
 
     def _wds_compos_swap(self, plan: IterPlan, ex: list) -> None:
         """A compos iteration's webdataset composite, at `p_wds_comp_compos`:
@@ -724,8 +850,9 @@ class Trainer:
                      for e in ex]
         return [p[k] for k in range(4) for p in per_block]
 
-    def build_compos_batch(self, plan: IterPlan) -> ComposBatch:
-        """Draw and prepare one compos block (host RNG in the JAX order)."""
+    def build_compos_batch(self, plan: IterPlan) -> Optional[ComposBatch]:
+        """Draw and prepare one compos block (host RNG in the JAX order);
+        None when the teacher filter finds it unteachable."""
         CB = 1  # one block on one card
         ex = self._draw_examples(CB)
         self._wds_compos_swap(plan, ex)
@@ -738,7 +865,7 @@ class Trainer:
                 # a maskless instance must not preserve its all-1 default
                 # mask; zeroing it also turns fg-init off
                 fg_latent[b] = 0.0
-        latents, fg_latent, prompts, prev_t = self._compos_x_start(
+        latents, fg_latent, prompts, prev_t, _ = self._compos_x_start(
             plan, ex, latents, fg_latent, prompts)
         # tokenized after the cache check: a reuse-init iteration restores
         # the cached prompts
@@ -748,6 +875,13 @@ class Trainer:
                            if not info.is_background)
         t = sample_timesteps(self.rng, plan, CB, self.plan_cfg, prev_t=prev_t)
         noise = self._tensor(self.rng.standard_normal(tuple(latents.shape)))
+        chosen = self._teacher_filter_block(
+            plan, ex, latents, fg_latent, prompts,
+            lambda cand_t: self._compos_contexts(ids, slots, plan, cand_t))
+        if chosen == "skip":
+            return None
+        if chosen is not None:
+            noise, t = chosen
         compel_level, compel_mask = 0.0, None
         if self.cfg.apply_compel_cfg_prob > 0:
             compel_level, compel_mask = sample_compel_cfg(
@@ -771,6 +905,8 @@ class Trainer:
 
     def _run_compos(self, plan: IterPlan):
         batch = self.build_compos_batch(plan)
+        if batch is None:  # unteachable: the distillation is skipped
+            return SKIPPED_UNTEACHABLE
         return self._get_compos_step()(self.mgr.embedders, batch)
 
     def _preserve_scale(self, plan: IterPlan) -> float:

@@ -31,10 +31,13 @@ generators, their frozen anchor, the optimizer chain, the step and the host,
 dataset and sampler RNG states, so a resumed run draws what an uninterrupted
 one would. `val_every_steps` > 0 runs the zero-shot validation pass: the
 zs recon battery without gradients on val-stream batches, with no dropout
-and no draw from the training RNG. Not ported: the mesh placement of the
-trainables (one card; ROADMAP queue 1 item 13) and the teacher filter's
-no-grad zero-shot contexts (`_zs_subject_embs`, `_zs_compos_contexts`: the
-filter is item 12).
+and no draw from the training RNG. With `set_teacher_filter`, a compos
+iteration's candidates are denoised under the live generators' embeddings
+(no gradients, no dropout: `_zs_subject_embs`, `_zs_compos_contexts`); a
+teachable block caches its reconstruction together with the reference
+features and identity it was made from, which the reuse-init iteration
+restores in place of this draw's. Not ported: the mesh placement of the
+trainables (one card; ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -53,8 +56,11 @@ from adaface_tpu_torch.data.personalized import collate_examples
 from adaface_tpu_torch.personalization.arc2face import (
     FORWARD_TEMPLATE,
     INVERSE_TEMPLATE,
+    forward_face_embs,
     make_template_ids,
 )
+from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
+from adaface_tpu_torch.personalization.zero_shot import ZeroShotFeatures
 from adaface_tpu_torch.training.iter_plan import (
     ARC2FACE_DISTILL,
     COMPOS_DISTILL,
@@ -73,7 +79,7 @@ from adaface_tpu_torch.training.train_step import (
     make_zero_shot_compos_step,
     make_zero_shot_recon_step,
 )
-from adaface_tpu_torch.training.trainer import Trainer, TrainerConfig
+from adaface_tpu_torch.training.trainer import SKIPPED_UNTEACHABLE, Trainer, TrainerConfig
 
 
 class ZeroShotTrainer(Trainer):
@@ -256,10 +262,48 @@ class ZeroShotTrainer(Trainer):
             clip_fg=self._per_instance(feats.clip_fg, B),
             clip_bg=self._per_instance(feats.clip_bg, B), id_embs=id_embs, **kw)
 
-    def build_zs_compos_batch(self, plan: IterPlan) -> ZeroShotComposBatch:
-        """One zs compos block (host RNG in the JAX order). The reference
-        images' features come from this draw's example: the cached-feature
-        branch of a reuse-init iteration needs the teacher filter's cache."""
+    @torch.no_grad()
+    def _zs_subject_embs(self, feats: ZeroShotFeatures, id_embs: torch.Tensor) -> Dict:
+        """placeholder -> [L, CB, K, D] embeddings of the live generators
+        over the CB blocks, without gradients or dropout: the filter pass's
+        twin of the step's generator call."""
+        t = self._templates
+        _, arc_id_embs = forward_face_embs(self._arc_encoder, id_embs.float(), t.forward_ids,
+                                           t.arcface_token_id)
+        subj = {}
+        for s, gen in self.generators.items():
+            f = feats.clip_bg if s in self.bg_placeholders else feats.clip_fg
+            embs, _ = gen(f, None, arc_id_embs, is_face=True, is_training=True,
+                          inverse_template_ids=t.inverse_ids)
+            subj[s] = embs.transpose(0, 1)
+        return subj
+
+    @torch.no_grad()
+    def _zs_compos_contexts(self, ids: np.ndarray, slots: Dict, plan: IterPlan,
+                            t: np.ndarray, feats: ZeroShotFeatures,
+                            id_embs: torch.Tensor) -> Dict:
+        """(subj_comp, mix_comp, uncond) filter contexts of the zero-shot
+        path: the generators' embeddings (tiled over the 4 type-major prompt
+        types) patched into the prompts, encoded, the class word spread, then
+        V/K-mixed."""
+        p = self.pipe
+        subj = self._zs_subject_embs(feats, id_embs)
+        B4 = ids.shape[0]
+        subj4 = {s: torch.cat([v] * (B4 // v.shape[1]), dim=1) for s, v in subj.items()}
+        embedded = p.clip.embed_tokens(torch.as_tensor(ids, dtype=torch.long, device=self.device))
+        patched = EmbeddingManager.patch_prompt_embeddings(embedded, slots, subj4)
+        L, B, T, D = patched.shape
+        ctx = p.clip(input_embeds=patched.reshape(L * B, T, D),
+                     skip_weights=p.skip_weights).reshape(L, B, T, D)
+        ctx = self._distribute_cls_ctx(ctx, slots)
+        subj_string = next(s for s in self.generators if s not in self.bg_placeholders)
+        return self._mix_ctx_for_filter(ctx, slots[subj_string], plan, t, T)
+
+    def build_zs_compos_batch(self, plan: IterPlan) -> Optional[ZeroShotComposBatch]:
+        """One zs compos block (host RNG in the JAX order); None when the
+        teacher filter finds it unteachable. A reuse-init iteration whose
+        cache entries hold reference features restores them (and the
+        identity) in place of this draw's."""
         CB = 1  # one block on one card
         ex = self._draw_examples(CB)
         self._wds_compos_swap(plan, ex)
@@ -270,15 +314,39 @@ class ZeroShotTrainer(Trainer):
         for b, e in enumerate(ex):
             if not e.get("has_fg_mask", True):
                 fg_latent[b] = 0.0
-        latents, fg_latent, prompts, prev_t = self._compos_x_start(
+        latents, fg_latent, prompts, prev_t, entries = self._compos_x_start(
             plan, ex, latents, fg_latent, prompts)
         ids = self.pipe.tokenizer(prompts)
         slots = self.mgr.build_slot_maps(ids)
         subj_string = next(s for s in self.generators if s not in self.bg_placeholders)
-        feats = self._features(ex)
-        id_embs = self._id_embs_or_draw(feats, CB)
+        if entries is not None and all(c.get("zs_feats") is not None for c in entries):
+            # the cached reconstruction was denoised under these features
+            fs = [c["zs_feats"] for c in entries]
+            feats = ZeroShotFeatures(clip_fg=torch.cat([f.clip_fg[:1] for f in fs]),
+                                     clip_bg=torch.cat([f.clip_bg[:1] for f in fs]),
+                                     id_embs=None)
+            id_embs = self._tensor(np.concatenate([np.asarray(c["zs_id_embs"])[:1]
+                                                   for c in entries]))
+        else:
+            feats = self._features(ex)
+            id_embs = self._id_embs_or_draw(feats, CB)
         t = sample_timesteps(self.rng, plan, CB, self.plan_cfg, prev_t=prev_t)
         noise = self._tensor(self.rng.standard_normal(tuple(latents.shape)))
+
+        def zs_extra(b):
+            return dict(zs_feats=ZeroShotFeatures(clip_fg=feats.clip_fg[b:b + 1].clone(),
+                                                  clip_bg=feats.clip_bg[b:b + 1].clone(),
+                                                  id_embs=None),
+                        zs_id_embs=id_embs[b:b + 1].detach().float().cpu().numpy())
+
+        chosen = self._teacher_filter_block(
+            plan, ex, latents, fg_latent, prompts,
+            lambda cand_t: self._zs_compos_contexts(ids, slots, plan, cand_t, feats, id_embs),
+            zs_extra_fn=zs_extra)
+        if chosen == "skip":
+            return None
+        if chosen is not None:
+            noise, t = chosen
         kw = {}
         if plan.emb_noise_std > 0:
             kw = dict(emb_noise_std=float(plan.emb_noise_std),
@@ -384,7 +452,10 @@ class ZeroShotTrainer(Trainer):
         return self._write_val(sums)
 
     def _run_zs_compos(self, plan: IterPlan):
-        return self._get_zs_compos_step()(self.generators, self.build_zs_compos_batch(plan))
+        batch = self.build_zs_compos_batch(plan)
+        if batch is None:  # unteachable: the distillation is skipped
+            return SKIPPED_UNTEACHABLE
+        return self._get_zs_compos_step()(self.generators, batch)
 
     def _run_zs_arc2face(self, plan: IterPlan, teacher_unet):
         batch = self.build_zs_arc2face_batch(plan)

@@ -18,11 +18,18 @@ It runs on the CUDA card; `--device cpu` (or `main(..., device="cpu")`)
 runs it on the CPU. Images are PNGs written by the port's own codec
 (`data/png.py`), where the JAX script writes JPEGs through PIL. With
 `--tiny` a `--ckpt` is read at the tiny widths (the JAX script reads it at
-SD v1.5's). Options that need modules not ported yet exit naming their
-ROADMAP queue 1 item: `--compare_with` and `--calc_face_sim` (the scorers
-and the face stack, item 12; `--use_first_gt_img_as_init` reads the
-`--compare_with` folder, so it exits with it), `--num_devices` / `--tp`
-other than 1 (item 13).
+SD v1.5's).
+
+`--compare_with <folder>` scores each output folder against the reference
+images (`evaluation/eval_utils.compare_folders`: CLIP-I and CLIP-T with the
+ViT-B/32 scorer of `CLIP_SCORER_PT`, DINO with the ViT-S/16 of
+`DINO_VITS16_PT`; random tiny towers without them), takes the means and
+appends a row to `<out>/scores.csv`: prompt, CLIP-I, CLIP-T, DINO.
+`--calc_face_sim` adds the face similarity (the first face of each image,
+embedded by a tiny random recognizer as in the JAX script), the count of
+generated images without a face and their share. `--use_first_gt_img_as_init`
+starts from the `--compare_with` images' latents. `--num_devices` / `--tp`
+other than 1 exit naming ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -67,10 +74,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "1.1**level")
     p.add_argument("--out", "--outdir", dest="outdir", type=str, default="outputs/txt2img")
     p.add_argument("--compare_with", type=str, default=None,
-                   help="reference image folder for scoring (not ported: item 12)")
+                   help="reference image folder: score the samples against it")
     p.add_argument("--class_prompt", type=str, default=None)
     p.add_argument("--calc_face_sim", action="store_true",
-                   help="face similarity scoring (not ported: item 12)")
+                   help="add face similarity to the --compare_with scores")
     p.add_argument("--skip_save", action="store_true", help="do not save individual samples")
     p.add_argument("--n_rows", type=int, default=0,
                    help="images per grid row (0 = one row per batch, first 4 batches)")
@@ -90,10 +97,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def refuse_unported(opt, device: torch.device):
     """SystemExit for an option that needs a module not ported yet, naming
     its ROADMAP queue 1 item."""
-    for flag in ("compare_with", "calc_face_sim"):
-        if getattr(opt, flag, None):
-            raise SystemExit(f"--{flag}: scoring needs the evaluation scorers and the face "
-                             "stack, which are not ported yet (ROADMAP queue 1 item 12)")
     n = getattr(opt, "num_devices", 1)
     if n == -1:
         n = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -287,7 +290,48 @@ def main(argv: Optional[Sequence[str]] = None, *, device=None) -> int:
             all_imgs.append(imgs)
         print(f"wrote {idx} images to {outd} for prompt: {prompt!r}")
     png.write(os.path.join(opt.outdir, "grid.png"), make_grid(all_imgs, opt.n_rows))
+    if opt.compare_with:
+        opt.scores = evaluate(opt, jobs, pipe.device)
+        print("scores:", opt.scores)
     return 0
+
+
+def evaluate(opt, jobs, device) -> dict:
+    """Score each job's output folder against `--compare_with` (CLIP-I,
+    CLIP-T against `--class_prompt` or the job's prompt, DINO), take the
+    means, and with `--calc_face_sim` the mean face similarity and the
+    faceless generated images; append the row to `scores.csv`."""
+    from adaface_tpu_torch.evaluation.eval_utils import (
+        compare_face_folders, compare_folders, list_image_files)
+    from adaface_tpu_torch.evaluation.scorers import init_evaluators
+
+    scorer, dino = init_evaluators(device=device)
+    dirs = [os.path.join(opt.outdir, subdir) if subdir else opt.outdir for subdir, _, _ in jobs]
+    per_dir = [compare_folders(scorer, dino, d, opt.compare_with, opt.class_prompt or prompt)
+               for d, (_, prompt, _) in zip(dirs, jobs)]
+    ci, ct, dn = (float(np.mean([r[k] for r in per_dir])) for k in range(3))
+    res = {"clip_i": ci, "clip_t": ct, "dino": dn}
+    row = [opt.class_prompt or jobs[0][1], f"{ci:.4f}", f"{ct:.4f}", f"{dn:.4f}"]
+    if opt.calc_face_sim:
+        from adaface_tpu_torch.face_app import FaceApp
+        from adaface_tpu_torch.models.arcface import IResNet, IResNetConfig, init_iresnet_
+
+        rec = IResNet(IResNetConfig.tiny()).to(device)
+        app = FaceApp(init_iresnet_(rec, torch.Generator(device=device).manual_seed(3)))
+        embed = lambda im: (lambda fs: fs[0].normed_embedding if fs else None)(app.get(im))
+        sims, nf_gen, n_gen = [], 0, 0
+        for d in dirs:
+            sim, nf_g, _ = compare_face_folders(embed, d, opt.compare_with)
+            sims.append(sim)
+            nf_gen += nf_g
+            n_gen += len(list_image_files(d))
+        sim = float(np.mean(sims)) if sims else 0.0
+        rate = nf_gen / max(n_gen, 1)
+        res.update({"face_sim": sim, "face_exceptions": nf_gen, "face_exception_rate": rate})
+        row += [f"{sim:.4f}", str(nf_gen), f"{rate:.4f}"]
+    with open(os.path.join(opt.outdir, "scores.csv"), "a") as f:
+        csv.writer(f).writerow(row)
+    return res
 
 
 if __name__ == "__main__":

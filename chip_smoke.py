@@ -305,6 +305,36 @@ Slice 22 (the serving surface; no kernel of its own) adds, after [zero-shot]:
       outside it;
   9d. one more run: `finetune-ada.yaml --actual_resume <the .ckpt>
       --embedding_manager_ckpt <the .pt>`, 2 micro-steps with exact launches.
+Slice 23 (the face recognizer, the scorers and the teacher filter; no
+kernel of its own) adds:
+  [face]. after [zero-shot], `face_app.default_face_app()` with ARCFACE_ONNX
+      pointing at a seeded IResNet-100 written by the script's own ONNX
+      writer (`write_iresnet_onnx`): the fp32 embeddings of FACE_IMAGES
+      512x512 images and one 600x440 against the same app on the CPU
+      (FACE_REL_TOL), the fc columns read in H, W, C order (the JAX map's
+      reading) as the planted fault, degenerate landmarks raising; ms a
+      face at one and at eight faces a call;
+  [scorers]. `init_evaluators()` on seeded HF CLIP ViT-B/32 and DINO
+      ViT-S/16 files (CLIP_SCORER_PT, DINO_VITS16_PT): CLIP image / text and
+      DINO features and `compare_folders`' three scores over 8 generated and
+      4 reference PNGs against the CPU (SCORER_FEAT_TOL, SCORER_ABS_TOL),
+      mirrored images and CLIP-T pooled at row 0 as the faults;
+  [compare]. after [inpaint], `txt2img.main --compare_with --calc_face_sim`
+      on [ckpt]'s `.ckpt`, DDIM cut to COMPARE_STEPS, batch 2: exact
+      launches, a `scores.csv` row of 7 finite columns;
+  [filter]. after [native], `Trainer.set_teacher_filter` on phase 9's setup
+      for FILTER_STEPS micro-steps (compos 0 unteachable and skipped, 3
+      teachable: grad pass and cache, 6 reuse-init: the cache popped), the
+      filter's candidate denoise at batch 4 (x, V, K, uncond shapes gated),
+      exact flash launches per micro-step (the filter's two UNet calls:
+      forwards only), s per compos micro-step of each kind;
+  [zeroshot-cli]. `train.main(["--zeroshot", "--bf16", "--base",
+      finetune-ada.yaml, ...])` at 512x512 on seeded HF ViT-L/14 vision
+      and text files (CLIP_VISION_PT, `--arc2face_text_encoder`), [face]'s
+      ONNX and two subjects of PNGs (one dark: no face), ZS_CLI_STEPS
+      micro-steps: the checkpoint written and loaded, the towers and
+      generators fp32 under --bf16, exact launches per micro-step, s per
+      micro-step and peak GiB.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -5937,6 +5967,552 @@ def phase_img2img(torch, files, pt_static, folder, card, device="cuda"):
     return total
 
 
+# ------------------------------------------------------------------ slice 23
+FACE_SEED = 23
+FACE_IMAGES = 8  # seeded 512x512 images (one face each: the full-image detector)
+FACE_ODD_SHAPE = (600, 440)
+# relative L2 of each embedding: IResNet-100 on the card against an fp32
+# copy on the CPU (TF32 off)
+FACE_REL_TOL = 1e-5
+SCORER_SEED = 24
+SCORER_GEN, SCORER_REF = 8, 4
+SCORER_PROMPT = "a photo of a person"
+# CLIP image / text and DINO features (relative L2) and the three scores
+# (absolute), card against an fp32 copy on the CPU (TF32 off)
+SCORER_FEAT_TOL = 1e-5
+SCORER_ABS_TOL = 1e-5
+# [filter]: compos at 0 (unteachable: skipped), 3 (teachable: the grad pass
+# and the cache) and 6 (reuse-init: the cache popped), recon between; six
+# micro-steps at gap 3 hold only two compos ones
+FILTER_STEPS = 7
+# CLIP-T of the filter's rows (2 subj-comp candidates, then 2 mix-comp) at
+# its first and second call: the mix loss 0.4 > 0.28, then candidate 1's gap
+FILTER_SIMS = ([0.2, 0.2, 0.1, 0.1], [0.2, 0.1, 0.25, 0.3])
+ZS_CLI_STEPS = 4
+COMPARE_STEPS = 10  # [compare]'s DDIM steps (batch 2: CLI_SHAPES)
+
+
+def _pb_varint(v):
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _pb_len(field, payload):
+    return _pb_varint((field << 3) | 2) + _pb_varint(len(payload)) + payload
+
+
+def write_iresnet_onnx(path, sd, cfg):
+    """An IResNet state dict (`models/arcface.IResNet`'s names) as an ONNX
+    protobuf in insightface's node order (the port's own writer: no onnx
+    package): fp32 raw initializers, the Gemm weight [out, C*H*W] as the
+    file keeps it."""
+    import numpy as np
+
+    inits, nodes = [], []
+
+    def add(op, *names):
+        ins = []
+        for n in names:
+            a = sd[n].detach().float().cpu().numpy()
+            if op == "PRelu":
+                a = a.reshape(-1, 1, 1)
+            t = b"".join(_pb_varint(8) + _pb_varint(d) for d in a.shape)
+            t += _pb_varint(16) + _pb_varint(1) + _pb_len(8, n.encode())
+            inits.append(_pb_len(5, t + _pb_len(9, np.ascontiguousarray(a).tobytes())))
+            ins.append(n)
+        node = b"".join(_pb_len(1, i.encode()) for i in ["x"] + ins)
+        nodes.append(_pb_len(1, node + _pb_len(2, f"y{len(nodes)}".encode())
+                             + _pb_len(4, op.encode())))
+
+    conv = lambda p: add("Conv", f"{p}.weight")
+    bn = lambda p: add("BatchNormalization", *(f"{p}.{k}" for k in ("weight", "bias", "mean",
+                                                                     "var")))
+    conv("conv1"), bn("bn1"), add("PRelu", "prelu1.alpha")
+    for si, depth in enumerate(cfg.depths):
+        for bi in range(depth):
+            p = f"layer{si + 1}_{bi}"
+            bn(f"{p}.bn1"), conv(f"{p}.conv1"), bn(f"{p}.bn2"), add("PRelu", f"{p}.prelu.alpha")
+            conv(f"{p}.conv2"), bn(f"{p}.bn3")
+            if bi == 0:
+                conv(f"{p}.downsample_conv"), bn(f"{p}.downsample_bn")
+    bn("bn2")
+    add("Gemm", "fc.weight", "fc.bias")
+    bn("features")
+    with open(path, "wb") as f:
+        f.write(_pb_len(7, b"".join(inits) + b"".join(nodes)))
+
+
+def random_iresnet(torch, cfg, seed):
+    """A seeded IResNet on the CPU, fp32: `init_iresnet_`'s weights, and
+    BatchNorms moved off the identity (running means U(-0.2, 0.2), variances
+    U(0.5, 1.5), scales U(0.8, 1.2), shifts U(-0.1, 0.1); each block's last
+    BatchNorm, which scales its residual branch, U(0.1, 0.3), so that 49
+    blocks do not grow the features by orders of magnitude)."""
+    from adaface_tpu_torch.models.arcface import BN, IResNet, init_iresnet_
+
+    g = torch.Generator().manual_seed(seed)
+    m = init_iresnet_(IResNet(cfg), g)
+    u = lambda t, lo, hi: t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=g))
+    with torch.no_grad():
+        for name, mod in m.named_modules():
+            if isinstance(mod, BN):
+                lo, hi = (0.1, 0.3) if name.endswith("bn3") else (0.8, 1.2)
+                u(mod.mean, -0.2, 0.2), u(mod.var, 0.5, 1.5)
+                u(mod.weight, lo, hi), u(mod.bias, -0.1, 0.1)
+    return m.eval()
+
+
+def face_images():
+    """FACE_IMAGES seeded 512x512 RGB images and one of FACE_ODD_SHAPE."""
+    import numpy as np
+
+    g = np.random.default_rng(FACE_SEED)
+    imgs = [g.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8) for _ in range(FACE_IMAGES)]
+    return imgs + [g.integers(0, 256, FACE_ODD_SHAPE + (3,), dtype=np.uint8)]
+
+
+def _rel_l2(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_face(torch, folder, card):
+    """[face] `face_app.default_face_app()` with ARCFACE_ONNX pointing at a
+    seeded IResNet-100 written by `write_iresnet_onnx`: the card's fp32
+    embeddings of FACE_IMAGES 512x512 images and one 600x440 one against the
+    same app on the CPU (FACE_REL_TOL relative L2 each); the planted fault
+    (the fc weight's columns read in H, W, C order, as the JAX package's map
+    reads them) must fall outside it; degenerate landmarks must raise. ms a
+    face, one face a call and eight in one call. Returns the ONNX path."""
+    import numpy as np
+
+    from adaface_tpu_torch import face_app
+    from adaface_tpu_torch.models.arcface import ARCFACE_DST, IResNetConfig
+
+    t0 = time.time()
+    cfg = IResNetConfig.iresnet100()
+    src = random_iresnet(torch, cfg, FACE_SEED)
+    path = os.path.join(folder, "glintr100.onnx")
+    write_iresnet_onnx(path, src.state_dict(), cfg)
+    del src
+    os.environ["ARCFACE_ONNX"] = path
+    say(f"[face] seeded IResNet-100 written as ONNX ({os.path.getsize(path) / 2 ** 20:.1f} MiB) "
+        f"in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    app = face_app.default_face_app()
+    torch.cuda.synchronize()
+    say(f"[face] default_face_app() on the card (read + map + load): {time.time() - t0:.1f} s")
+    cpu_app = face_app.default_face_app(device="cpu")
+    imgs = face_images()
+    for im in imgs[:2]:  # warm-up
+        app.embed_image(im)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    card_embs = [app.embed_image(im) for im in imgs[:FACE_IMAGES]]
+    torch.cuda.synchronize()
+    one_ms = (time.time() - t0) * 1e3 / FACE_IMAGES
+    card_embs.append(app.embed_image(imgs[-1]))
+    cpu_embs = [cpu_app.embed_image(im) for im in imgs]
+    errs = [_rel_l2(a, b) for a, b in zip(card_embs, cpu_embs)]
+    say(f"[face] {len(imgs)} embeddings (8 at 512x512, one at {FACE_ODD_SHAPE[0]}x"
+        f"{FACE_ODD_SHAPE[1]}), fp32 card vs the CPU: relative L2 max {max(errs):.3e} "
+        f"(gate {FACE_REL_TOL:.0e}; the odd shape {errs[-1]:.3e})")
+    if not max(errs) <= FACE_REL_TOL:
+        fail(f"[face] the card's embeddings differ from the CPU's: {errs}")
+    # the planted fault: the fc columns in H, W, C order
+    rec = app.recognizer
+    w = rec.fc.weight.data.clone()
+    g, c = cfg.grid, cfg.channels[-1]
+    rec.fc.weight.data.copy_(w.view(-1, c, g, g).permute(0, 2, 3, 1).reshape(w.shape))
+    fault = max(_rel_l2(app.embed_image(im), e) for im, e in zip(imgs, cpu_embs))
+    rec.fc.weight.data.copy_(w)
+    say(f"[face] planted fault (fc columns in H, W, C order, the JAX map's reading): relative "
+        f"L2 {fault:.3e}")
+    if not fault > FACE_REL_TOL:
+        fail("[face] the fc-order fault passes the gate")
+    coincident = face_app.FaceApp(rec, detect_fn=lambda im: [(
+        np.array([0, 0, 64, 64], np.float32), np.full((5, 2), 10.0, np.float32), 1.0)])
+    try:
+        coincident.get(imgs[0])
+        fail("[face] degenerate landmarks were embedded")
+    except ValueError as e:
+        say(f"[face] degenerate landmarks raise: {e}")
+    lms = [ARCFACE_DST * s + o for s, o in zip(np.linspace(2.0, 4.0, 8), np.linspace(0, 60, 8))]
+    multi = face_app.FaceApp(rec, detect_fn=lambda im: [(
+        np.array([0, 0, SIZE, SIZE], np.float32), lm.astype(np.float32), 1.0) for lm in lms])
+    ms8 = time_ms(torch, lambda: multi.get(imgs[0]), reps=3, rounds=5, warmup=1)
+    faces = multi.get(imgs[0])
+    if len(faces) != 8 or not all(np.isfinite(f.embedding).all() for f in faces):
+        fail("[face] eight faces of one image did not embed")
+    say(f"[face] IResNet-100 fp32: {one_ms:.2f} ms a face at one face a call (host "
+        f"detection, alignment, warp and forward), {ms8 / 8:.2f} ms a face at eight faces a "
+        f"call [{card}]")
+    return path
+
+
+def _hf_scorer_files(torch, folder):
+    """Seeded HF-named CLIP ViT-B/32 (`CLIPModel`: both towers and
+    projections) and DINO ViT-S/16 (`ViTModel`) state dicts, saved with
+    torch.save: (clip path, dino path)."""
+    from adaface_tpu_torch.evaluation.scorers import clip_b32_text_config
+    from adaface_tpu_torch.interop.hf_clip import hf_clip_text_state_dict, hf_clip_vision_state_dict
+    from adaface_tpu_torch.models.clip_text import CLIPTextEncoder
+    from adaface_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
+    from adaface_tpu_torch.models.vit import ViTConfig, ViTEncoder, hf_vit_state_dict
+    from adaface_tpu_torch.pipeline import build_random
+
+    text = build_random(lambda: CLIPTextEncoder(clip_b32_text_config()), SCORER_SEED, "cpu")
+    vis = build_random(lambda: CLIPVisionEncoder(CLIPVisionConfig.vit_b_32()), SCORER_SEED + 1,
+                       "cpu")
+    g = torch.Generator().manual_seed(SCORER_SEED + 2)
+    sd = hf_clip_text_state_dict(text.state_dict(), 12, "text_model.")
+    sd.update(hf_clip_vision_state_dict(vis.state_dict(), 12, "vision_model."))
+    sd["text_projection.weight"] = torch.randn(512, 512, generator=g) / 512 ** 0.5
+    sd["visual_projection.weight"] = torch.randn(512, 768, generator=g) / 768 ** 0.5
+    clip_path = os.path.join(folder, "clip-vit-base-patch32.pt")
+    torch.save(sd, clip_path)
+    vit = build_random(lambda: ViTEncoder(ViTConfig.dino_vits16()), SCORER_SEED + 3, "cpu")
+    dino_path = os.path.join(folder, "dino-vits16.pt")
+    torch.save(hf_vit_state_dict(vit.state_dict(), 12), dino_path)
+    return clip_path, dino_path
+
+
+def phase_scorers(torch, folder, card):
+    """[scorers] `init_evaluators()` on seeded CLIP ViT-B/32 and DINO ViT-S/16
+    files (CLIP_SCORER_PT, DINO_VITS16_PT) on the card, scoring SCORER_GEN
+    generated against SCORER_REF reference 512x512 PNGs (CLIP-I, CLIP-T,
+    DINO through `compare_folders`): the features and the scores against the
+    same scorers in fp32 on the CPU (SCORER_FEAT_TOL, SCORER_ABS_TOL); the
+    planted faults (images mirrored; CLIP-T pooled at the first row, not
+    EOT) must fall outside the feature gate. Returns the reference folder."""
+    import numpy as np
+
+    from adaface_tpu_torch.evaluation.eval_utils import compare_folders, load_image_folder
+    from adaface_tpu_torch.evaluation.scorers import init_evaluators
+
+    t0 = time.time()
+    clip_path, dino_path = _hf_scorer_files(torch, folder)
+    os.environ["CLIP_SCORER_PT"], os.environ["DINO_VITS16_PT"] = clip_path, dino_path
+    gen = os.path.join(folder, "gen")
+    ref = os.path.join(folder, "ref")
+    write_pngs(gen, SCORER_GEN, SIZE, SCORER_SEED)
+    write_pngs(ref, SCORER_REF, SIZE, SCORER_SEED + 1)
+    say(f"[scorers] seeded HF CLIP ViT-B/32 and DINO ViT-S/16 files and {SCORER_GEN} + "
+        f"{SCORER_REF} PNGs written in {time.time() - t0:.1f} s")
+    with warnings_quiet():
+        clip, dino = init_evaluators()
+        cpu_clip, cpu_dino = init_evaluators(device="cpu")
+    imgs = load_image_folder(gen)
+    feats = {"clip image": (clip.get_image_features, cpu_clip.get_image_features, imgs),
+             "clip text": (clip.get_text_features, cpu_clip.get_text_features,
+                           [SCORER_PROMPT, "a red car", "a dog on a beach"]),
+             "dino": (dino.get_image_features, cpu_dino.get_image_features, imgs)}
+    errs = {}
+    for name, (f_card, f_cpu, x) in feats.items():
+        errs[name] = _rel_l2(f_card(x).cpu().numpy(), f_cpu(x).numpy())
+    mirrored = _rel_l2(clip.get_image_features(imgs[:, :, ::-1].copy()).cpu().numpy(),
+                       cpu_clip.get_image_features(imgs).numpy())
+    ids = torch.as_tensor(np.asarray(clip.tokenizer([SCORER_PROMPT])), device=clip.device)
+    with torch.inference_mode():
+        seq = clip.text(ids.long()).float()
+        first = seq[:, 0] @ clip.text_projection
+    first_row = _rel_l2((first / first.norm(dim=-1, keepdim=True)).cpu().numpy(),
+                        cpu_clip.get_text_features([SCORER_PROMPT]).numpy())
+    say(f"[scorers] features, card vs the CPU (relative L2): "
+        f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (gate {SCORER_FEAT_TOL:.0e}); faults: "
+        f"mirrored images {mirrored:.3e}, CLIP-T pooled at row 0 {first_row:.3e}")
+    if not max(errs.values()) <= SCORER_FEAT_TOL:
+        fail(f"[scorers] the card's features differ from the CPU's: {errs}")
+    if not (mirrored > SCORER_FEAT_TOL and first_row > SCORER_FEAT_TOL):
+        fail("[scorers] a planted fault passes the feature gate")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = compare_folders(clip, dino, gen, ref, SCORER_PROMPT)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    want = compare_folders(cpu_clip, cpu_dino, gen, ref, SCORER_PROMPT)
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    say(f"[scorers] compare_folders (CLIP-I, CLIP-T, DINO) = "
+        f"({got[0]:.6f}, {got[1]:.6f}, {got[2]:.6f}) on the card, max abs difference from the "
+        f"CPU {diff:.3e} (gate {SCORER_ABS_TOL:.0e}); {dt * 1e3:.1f} ms for {SCORER_GEN} "
+        f"against {SCORER_REF} images, PNG decode included [{card}]")
+    if not diff <= SCORER_ABS_TOL:
+        fail(f"[scorers] the card's scores {got} differ from the CPU's {want}")
+    return ref
+
+
+@contextlib.contextmanager
+def warnings_quiet():
+    """Within the block, the scorers' hash-tokenizer warning is not shown
+    (the phases write no vocabulary: CLIP-T runs on hash ids)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="CLIP_SCORER_PT set")
+        yield
+
+
+class SwitchScorer:
+    """CLIP-T stand-in of [filter]: FILTER_SIMS at its successive calls."""
+
+    def __init__(self, sims):
+        self.sims = list(sims)
+        self.calls = 0
+
+    def txt_to_img_similarity(self, prompts, images, reduction="diag"):
+        import numpy as np
+
+        assert reduction == "diag" and len(prompts) == len(images)
+        sims = self.sims[min(self.calls, len(self.sims) - 1)]
+        self.calls += 1
+        return np.asarray(sims, np.float32)
+
+
+def filter_want(i, kind):
+    """kind -> (B, L, H, d) -> flash launches of [filter]'s micro-step i."""
+    if i % COMPOS_GAP:
+        return flash_want(TRAIN_SHAPES)
+    want = flash_want(COMPOS_SHAPES) if kind != "unteachable" else {}
+    if kind != "reuse-init":  # the filter's two UNet calls over 4 rows
+        fwd = want.setdefault("fwd", {})
+        for (b, l, h, d), (_, nf, _) in COMPOS_SHAPES.items():
+            fwd[(b, l, h, d)] = fwd.get((b, l, h, d), 0) + 2 * nf
+    return want
+
+
+def phase_filter(torch, pipe, fa, trainer_cls, tmp, card, compos_med):
+    """[filter] `Trainer.set_teacher_filter` on phase 9's setup (bf16,
+    finetune-static-layerwise's values, gap 3), FILTER_STEPS micro-steps,
+    `num_candidate_teachers` 2, a scorer switching verdicts (FILTER_SIMS):
+    compos 0 unteachable (skipped, no grad pass), compos 3 teachable (the
+    grad pass on the best candidate, its reconstruction cached), compos 6
+    reuse-init (the cache popped, no filter). Exact flash launches per
+    micro-step (the filter's UNet calls at batch 4, forward only) and the
+    filter's shapes; s per compos micro-step of each kind beside phase 9's
+    without the filter. Returns the launch totals."""
+    import dataclasses
+
+    import numpy as np
+
+    tcfg, pcfg = train_configs(os.path.join(tmp, "filter"))
+    tcfg = dataclasses.replace(tcfg, max_steps=FILTER_STEPS)
+    ds_dir = os.path.join(tmp, "filter-subject")
+    os.makedirs(ds_dir)
+    trainer = trainer_cls(pipe, make_dataset(ds_dir), tcfg, pcfg)
+    scorer = SwitchScorer(FILTER_SIMS)
+    trainer.set_teacher_filter(scorer)
+    tf = trainer.teacher_filter
+    shapes = []
+    real_denoise = tf.denoise
+
+    def denoise(x, noise, t, ctx_v, ctx_k, uncond, scales):
+        shapes.append((tuple(x.shape), tuple(ctx_v.shape), tuple(ctx_k.shape),
+                       tuple(uncond.shape)))
+        return real_denoise(x, noise, t, ctx_v, ctx_k, uncond, scales)
+    tf.denoise = denoise
+    kinds = {0: "unteachable", 3: "teachable", 6: "reuse-init"}
+    totals, times = {}, {}
+    fa.launches_by_shape.clear()
+    for i in range(FILTER_STEPS):
+        before = dict(fa.launches_by_shape)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trainer.fit(i + 1)
+        torch.cuda.synchronize()
+        times[i] = time.time() - t0
+        got = launches_between(before, fa.launches_by_shape)
+        want = filter_want(i, kinds.get(i))
+        say(f"[filter] micro-step {i} ({kinds.get(i, 'recon')}): {times[i]:.3f} s, launches "
+            f"{ {k: sorted(v.items()) for k, v in sorted(got.items())} } [{card}]")
+        if got != want:
+            fail(f"[filter] micro-step {i}: expected the launches {want}, got {got}")
+        if i == 3 and "subject" not in trainer.cached_inits:
+            fail("[filter] the teachable iteration cached no reconstruction")
+    for (kind, arm, b, lq, lk, h, d), n in fa.launches_by_shape.items():
+        totals[(kind, b, lq, h, d)] = n
+    recs = [json.loads(l) for l in open(os.path.join(tcfg.logdir, "metrics.jsonl"))]
+    steps = [r for r in recs if "iter_type" in r]
+    flags = [(r.get("skipped_unteachable", 0.0), r["reuse_init"]) for r in steps[::COMPOS_GAP]]
+    if flags != [(1.0, 0.0), (0.0, 0.0), (0.0, 1.0)] or "subject" in trainer.cached_inits:
+        fail(f"[filter] the compos micro-steps ran as (skipped, reuse-init) {flags}")
+    if not all(np.isfinite(v) for r in steps for v in r.values() if isinstance(v, float)):
+        fail("[filter] a non-finite metric")
+    want_shapes = [((4, SIZE // 8, SIZE // 8, 4), (16, 4, 77, 768), (16, 4, 77, 768),
+                    (1, 4, 77, 768))] * 2
+    if shapes != want_shapes:
+        fail(f"[filter] the candidate denoise ran at {shapes}, not {want_shapes}")
+    say(f"[filter] the candidate denoise: x, V, K, uncond {shapes[0]} (2 candidates x "
+        f"(student, teacher) rows); s per compos micro-step: unteachable (the filter alone) "
+        f"{times[0]:.3f}, teachable (filter + grad pass) {times[3]:.3f}, reuse-init (no "
+        f"filter) {times[6]:.3f}; phase 9's compos median without the filter "
+        f"{compos_med:.3f} [{card}]")
+    trainer.close()
+    return totals
+
+
+def phase_zeroshot_cli(torch, fa, tmp, card):
+    """[zeroshot-cli] `adaface_tpu_torch.train.main(["--zeroshot", "--bf16",
+    "--base", finetune-ada.yaml, ...])` in-process at 512x512: CLIP_VISION_PT
+    a seeded HF ViT-L/14 vision tower, `--arc2face_text_encoder` a seeded HF
+    ViT-L/14 text encoder, ARCFACE_ONNX [face]'s file (its detector finds no
+    face in the one dark image, which the run draws once); two subjects of 4
+    PNGs; ZS_CLI_STEPS micro-steps. The checkpoint is written and loads; the
+    towers, the encoder and the generators are fp32 under --bf16; each
+    micro-step's flash
+    launches (a zs recon one at batch 3, a zs compos one at batch 4) exact;
+    s per micro-step and peak GiB. Returns the launch totals."""
+    import numpy as np
+
+    from adaface_tpu_torch import face_app, train
+    from adaface_tpu_torch.data import png
+    from adaface_tpu_torch.interop.hf_clip import hf_clip_text_state_dict, hf_clip_vision_state_dict
+    from adaface_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+    from adaface_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
+    from adaface_tpu_torch.pipeline import build_random
+    from adaface_tpu_torch.training import zs_trainer
+
+    t0 = time.time()
+    vis = build_random(lambda: CLIPVisionEncoder(CLIPVisionConfig.vit_l_14()), 31, "cpu")
+    vis_path = os.path.join(tmp, "clip-vit-large-patch14-vision.pt")
+    torch.save({k: v.half() for k, v in hf_clip_vision_state_dict(vis.state_dict(), 24).items()},
+               vis_path)
+    arc = build_random(lambda: CLIPTextEncoder(CLIPTextConfig.vit_l_14()), 32, "cpu")
+    arc_path = os.path.join(tmp, "arc2face-text-encoder.pt")
+    torch.save({k: v.half() for k, v in hf_clip_text_state_dict(arc.state_dict(), 12).items()},
+               arc_path)
+    del vis, arc
+    root = os.path.join(tmp, "zs-cli-data")
+    for j in range(2):
+        write_pngs(os.path.join(root, f"s{j}"), 4, SIZE, 60 + j)
+    dark = np.random.default_rng(62).integers(0, ZS_DARK_LEVEL, (SIZE, SIZE, 3), dtype=np.uint8)
+    png.write(os.path.join(root, "s1", "1.png"), dark)
+    say(f"[zeroshot-cli] seeded HF ViT-L/14 vision and text files (fp16) and 8 PNGs written in "
+        f"{time.time() - t0:.1f} s")
+
+    real_app, real_trainer = face_app.default_face_app, zs_trainer.ZeroShotTrainer
+    seen = {"faceless": 0, "faces": 0}
+
+    def app_with_dark_faceless(*a, **k):
+        app = real_app(*a, **k)
+
+        def detect(im):
+            found = float(im.mean()) >= ZS_FACELESS_MEAN
+            seen["faces" if found else "faceless"] += 1
+            return face_app.full_image_detector(im) if found else []
+        app.detect_fn = detect
+        return app
+
+    stamps, holder = [], {}
+
+    class Timed(real_trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            holder["trainer"] = self
+
+        def _log(self, metrics, plan):
+            super()._log(metrics, plan)
+            torch.cuda.synchronize()
+            stamps.append((time.time(), plan.iter_type, dict(fa.launches_by_shape)))
+
+    logdir = os.path.join(tmp, "zs-cli")
+    argv = ["--zeroshot", "--bf16", "--base", os.path.join(CONFIG_DIR, "finetune-ada.yaml"),
+            "--data_root", root, "--subjects", "s0", "s1", "--arc2face_text_encoder", arc_path,
+            "--max_steps", str(ZS_CLI_STEPS), "--size", str(SIZE), "--logdir", logdir]
+    saved = os.environ.get("CLIP_VISION_PT")
+    os.environ["CLIP_VISION_PT"] = vis_path
+    face_app.default_face_app, zs_trainer.ZeroShotTrainer = app_with_dark_faceless, Timed
+    fa.launches_by_shape.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        rc = train.main(argv)
+    finally:
+        face_app.default_face_app, zs_trainer.ZeroShotTrainer = real_app, real_trainer
+        if saved is None:
+            os.environ.pop("CLIP_VISION_PT")
+        else:
+            os.environ["CLIP_VISION_PT"] = saved
+    dt = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tr = holder["trainer"]
+    ckpt = torch.load(os.path.join(logdir, "subj_basis_last.pt"), weights_only=True)
+    if rc != 0 or ckpt["global_step"] != ZS_CLI_STEPS or sorted(ckpt["generators"]) != ["y", "z"]:
+        fail(f"[zeroshot-cli] main returned {rc}; checkpoint step {ckpt['global_step']}, "
+             f"generators {sorted(ckpt['generators'])}")
+    fp32 = {"vision tower": tr.extractor.vision, "Arc2Face encoder": tr._arc_encoder,
+            **{f"generator {s}": g for s, g in tr.generators.items()}}
+    dtypes = {k: sorted({str(p.dtype) for p in m.parameters()}) for k, m in fp32.items()}
+    if any(d != ["torch.float32"] for d in dtypes.values()) or \
+            tr.pipe.unet.in_conv.weight.dtype != torch.bfloat16:
+        fail(f"[zeroshot-cli] under --bf16 the towers must stay fp32 (the UNet bf16): {dtypes}")
+    kinds = {"recon": unet_flash_want(3, 0, 1), "compos_distill": unet_flash_want(4, 0, 1)}
+    prev, prev_counts, per_step = t0, {}, []
+    for i, (t, kind, counts) in enumerate(stamps):
+        got = launches_between(prev_counts, counts)
+        want = kinds.get(kind)
+        say(f"[zeroshot-cli] micro-step {i} ({kind}): {t - prev:.3f} s, launches "
+            f"{ {k: sorted(v.items()) for k, v in sorted(got.items())} } [{card}]")
+        if got != want:
+            fail(f"[zeroshot-cli] micro-step {i} ({kind}): expected {want}, got {got}")
+        per_step.append(t - prev)
+        prev, prev_counts = t, counts
+    if len(stamps) != ZS_CLI_STEPS or "compos_distill" not in [k for _, k, _ in stamps]:
+        fail(f"[zeroshot-cli] {len(stamps)} micro-steps, kinds {[k for _, k, _ in stamps]}")
+    if not seen["faceless"]:
+        fail("[zeroshot-cli] the dark image was never drawn: the faceless branch did not run")
+    say(f"[zeroshot-cli] train --zeroshot --bf16 (finetune-ada.yaml, 512x512, 2 subjects, "
+        f"{ZS_CLI_STEPS} micro-steps): {dt:.1f} s in all (setup and the first micro-step's "
+        f"warm-up included), s per micro-step {[round(x, 3) for x in per_step]}, later ones "
+        f"median {statistics.median(per_step[1:]):.3f}; peak {peak:.2f} GiB; towers fp32 "
+        f"{dtypes}; face embedder calls {seen} [{card}]")
+    return {(kind, b, lq, h, d): n
+            for (kind, arm, b, lq, lk, h, d), n in fa.launches_by_shape.items()}
+
+
+def phase_compare(torch, fa, files, pt_static, folder, ref_dir, card):
+    """[compare] `txt2img.main` on [ckpt]'s `.ckpt` with `--compare_with`
+    [scorers]' reference folder and `--calc_face_sim` (the scorers of
+    CLIP_SCORER_PT / DINO_VITS16_PT), DDIM cut to COMPARE_STEPS, batch 2:
+    exact flash launches, one scores.csv row of 7 finite columns."""
+    import csv
+
+    import numpy as np
+
+    from adaface_tpu_torch import txt2img
+
+    out = os.path.join(folder, "compare")
+    fa.launches_by_shape.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with warnings_quiet():
+        rc = txt2img.main(["--ckpt", files["ckpt"], "--steps", str(COMPARE_STEPS), "--bf16",
+                           "--size", str(SIZE), "--seed", "5", "--n_samples", "2", "--prompt",
+                           SERVE_PROMPT, "--embedding_paths", pt_static, "--compare_with",
+                           ref_dir, "--calc_face_sim", "--out", out])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    got = fwd_counts(fa)
+    want = per_unet_call(CLI_SHAPES, COMPARE_STEPS)
+    rows = list(csv.reader(open(os.path.join(out, "scores.csv"))))
+    say(f"[compare] txt2img --compare_with --calc_face_sim, DDIM-{COMPARE_STEPS} B2: "
+        f"{dt:.2f} s (checkpoint load and scoring included), flash launches "
+        f"{sorted(got.items())}; scores.csv {rows} [{card}]")
+    if rc != 0 or got != want:
+        fail(f"[compare] main returned {rc}; launches {got}, want {want}")
+    if len(rows) != 1 or len(rows[0]) != 7 or not all(np.isfinite(float(v))
+                                                       for v in rows[0][1:]):
+        fail(f"[compare] scores.csv: {rows}")
+    return got
+
+
 def main():
     import torch
 
@@ -6001,6 +6577,13 @@ def main():
     gn_counts, ff_counts = phase_fused_main_path(torch, pipe, card, med)
     fa_fp32_gen, gn_fp32_gen, ff_fp32_gen = phase_fp32_main_path(torch, card)
     phase_zero_shot(torch, pipe, card)
+    # slice 23: the face stack and the scorers; their files serve [compare]
+    # and [zeroshot-cli] later
+    s23 = tempfile.TemporaryDirectory()
+    t_slice = time.time()
+    phase_face(torch, s23.name, card)
+    ref_dir = phase_scorers(torch, s23.name, card)
+    say(f"[main] slice 23's [face] and [scorers] {time.time() - t_slice:.1f} s")
 
     # slice 22: [ckpt]'s files stay until 9d has trained from them
     with tempfile.TemporaryDirectory() as serve_dir:
@@ -6010,6 +6593,10 @@ def main():
         i2i_counts = phase_img2img(torch, serve_files, pt_static, serve_dir, card)
         say(f"[main] slice 22's phases ([ckpt], [serve], [img2img], [inpaint]) "
             f"{time.time() - t_slice:.1f} s")
+        t_slice = time.time()
+        compare_counts = phase_compare(torch, fa, serve_files, pt_static, serve_dir, ref_dir,
+                                       card)
+        say(f"[main] slice 23's [compare] {time.time() - t_slice:.1f} s")
         add_training_placeholders(torch, pipe)
         with tempfile.TemporaryDirectory() as tmp:
             # 8 and 8b gate the bf16 training arithmetic against fp32 on the
@@ -6032,30 +6619,41 @@ def main():
             phase_native(torch, write_pngs(os.path.join(tmp, "native"), 4, SIZE, 50), tmp, card)
             say(f"[main] slice 21's phases ([db-ref], [db], [wds], [native]) "
                 f"{time.time() - t_slice:.1f} s")
+            t_slice = time.time()
+            filter_counts = phase_filter(torch, pipe, fa, Trainer, tmp, card, compos_med)
+            zs_cli_counts = phase_zeroshot_cli(torch, fa, tmp, card)
+            say(f"[main] slice 23's [filter] and [zeroshot-cli] {time.time() - t_slice:.1f} s")
+    s23.cleanup()
 
     entries = []
     for (b, l, h, d), (replaces, _) in MAIN_SHAPES.items():
         entries.append(dict(name=f"flash_attn_packed B{b} L{l} H{h} d{d}", route="cuda",
                             source=SOURCE, replaces=replaces, launches=counts[(b, l, h, d)],
                             **rows[(b, l, h, d)]))
-    # the entry points' batch-2 requests: launches over [img2img] and [inpaint]
+    # the entry points' batch-2 requests: launches over [img2img], [inpaint]
+    # and [compare]
     for (b, l, h, d), (replaces, _) in CLI_SHAPES.items():
-        entries.append(dict(name=f"flash_attn_packed B{b} L{l} H{h} d{d} (img2img + inpaint)",
-                            route="cuda", source=SOURCE, replaces=replaces,
-                            launches=i2i_counts[(b, l, h, d)], **rows[(b, l, h, d)]))
+        entries.append(dict(
+            name=f"flash_attn_packed B{b} L{l} H{h} d{d} (img2img + inpaint + compare)",
+            route="cuda", source=SOURCE, replaces=replaces,
+            launches=i2i_counts[(b, l, h, d)] + compare_counts.get((b, l, h, d), 0),
+            **rows[(b, l, h, d)]))
     fp32_names_db = {"fwd": "flash_attn_fp32 fwd + lse", "dq": "flash_attn_fp32 dq",
                      "dkv": "flash_attn_fp32 dk/dv"}
     names = {"fwd": ("flash_attn_packed fwd (lse when recorded)", SOURCE),
              "dq": ("flash_attn_bwd dq", BWD_SOURCE),
              "dkv": ("flash_attn_bwd dk/dv", BWD_SOURCE)}
-    # launches over phase 9's micro-steps: B3 on the recon ones, B4 on the
-    # compos ones
+    # launches over phase 9's micro-steps, [filter]'s and [zeroshot-cli]'s:
+    # B3 on the recon ones, B4 on the compos ones and the filter's denoise
     for rows_, what in ((bwd_rows, "training"), (compos_bwd_rows, "compos training")):
         for (kind, b, l, h, d), row in rows_.items():
             name, source = names[kind]
-            entries.append(dict(name=f"{name} B{b} L{l} H{h} d{d} ({what})", route="cuda",
-                                source=source, launches=train_counts[(kind, b, l, h, d)],
-                                **row))
+            key = (kind, b, l, h, d)
+            entries.append(dict(
+                name=f"{name} B{b} L{l} H{h} d{d} ({what}, with [filter] and [zeroshot-cli])",
+                route="cuda", source=source,
+                launches=(train_counts[key] + filter_counts.get(key, 0)
+                          + zs_cli_counts.get(key, 0)), **row))
     # batch 1: launches over [zs-train]'s zero-shot micro-steps
     for (kind, b, l, h, d), row in sorted(b1_bwd_rows.items()):
         name, source = names[kind]

@@ -19,8 +19,9 @@ PNGs written with PIL into a temporary folder).
   for bit.
 - Each path that is not ported exits with `SystemExit` naming its ROADMAP
   item. The paths that were refused until validation, the webdataset
-  compositor, DreamBooth and checkpoint loading were ported keep their
-  cases: `--val_every`, `val_every_steps` and `data.wds_shards` now run
+  compositor, DreamBooth, checkpoint loading and zero-shot training were
+  ported keep their cases: `--zeroshot` trains and writes
+  `subj_basis_last.pt`, `--val_every`, `val_every_steps` and `data.wds_shards` now run
   (`main` returns 0 and writes their rows), `--actual_resume` (a tiny SD
   checkpoint in LDM names) and a reference `.pt` `--embedding_manager_ckpt`
   load and train, and `--dreambooth` without `--reg_data_root` exits as
@@ -248,7 +249,8 @@ def test_cli_trains_jax_reads_and_resume_is_exact(monkeypatch, data_root, tmp_pa
 
 
 UNPORTED = {
-    "zeroshot": (["--zeroshot"], "item 12"),
+    # ported: zero-shot generator training runs (None) and writes its checkpoint
+    "zeroshot": (["--zeroshot"], None),
     # ported: without its text encoder the teacher exits as the JAX script does
     "arc2face": (["--arc2face_unet", "teacher"],
                  "--arc2face_unet requires --arc2face_text_encoder"),
@@ -358,6 +360,10 @@ def test_unported_paths_exit(data_root, tmp_path, name):
         assert len([r for r in recs if "iter_type" in r]) == 2
         z = EmbeddingManager.load_native(str(tmp_path / "embeddings_last.npz")).placeholders["z"]
         assert z.num_vectors == 9
+    elif name == "zeroshot":
+        assert len([r for r in recs if "iter_type" in r]) == 2
+        ckpt = torch.load(tmp_path / "subj_basis_last.pt", weights_only=True)
+        assert ckpt["global_step"] == 2 and sorted(ckpt["generators"]) == ["y", "z"]
     elif name == "wds_shards":
         assert [r["wds_comp"] for r in recs if "iter_type" in r] == [1.0, 1.0]
         assert EmbeddingManager.load_native(str(tmp_path / "embeddings_last.npz")).placeholders[

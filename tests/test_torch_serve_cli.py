@@ -14,13 +14,15 @@ one uint8 level (the bar of tests/test_golden_chain.py):
 - the three entry points at `--tiny` on the CPU, end to end: PNGs that
   read back as `generate` made them (a `--ckpt`, a reference `.pt` with
   conv attention), `--from_file` / `--n_repeat` / `--n_rows`, PLMS and
-  compel, img2img and inpaint; the options of ROADMAP items 12 and 13
-  exit naming them; without `--device cpu` they raise on a machine
-  without a card.
+  compel, img2img and inpaint; `--compare_with` (with `--calc_face_sim`,
+  `--use_first_gt_img_as_init`) scores into `scores.csv`; the options of
+  ROADMAP item 13 exit naming it; without `--device cpu` they raise on a
+  machine without a card.
 
 The cross-attention weights are scaled up (x10) so that the prompt, and
 with it guidance and compel, move the images by more than a level."""
 
+import csv
 import importlib.util
 import os
 
@@ -291,9 +293,12 @@ def test_img2img_and_inpaint_clis(tmp_path, mode):
 
 
 @pytest.mark.parametrize("module,extra,item", [
-    ("txt2img", ["--compare_with", "ref"], "item 12"),
-    ("txt2img", ["--calc_face_sim"], "item 12"),
-    ("txt2img", ["--use_first_gt_img_as_init", "--compare_with", "ref"], "item 12"),
+    # ported: these run (None); with a reference folder the scores go to
+    # scores.csv (the ids are those of the cases when they exited)
+    pytest.param("txt2img", ["--compare_with", "ref"], None, id="txt2img-extra0-item 12"),
+    pytest.param("txt2img", ["--calc_face_sim"], None, id="txt2img-extra1-item 12"),
+    pytest.param("txt2img", ["--use_first_gt_img_as_init", "--compare_with", "ref"], None,
+                 id="txt2img-extra2-item 12"),
     ("txt2img", ["--num_devices", "2"], "item 13"),
     ("txt2img", ["--tp", "2"], "item 13"),
     ("img2img", ["--num_devices", "4"], "item 13"),
@@ -303,8 +308,24 @@ def test_unported_options_exit(tmp_path, module, extra, item):
     if module == "img2img":
         argv += ["--init_img", "x.png"]
     main = {"txt2img": tt2i.main, "img2img": ti2i.main}[module]
-    with pytest.raises(SystemExit, match=item):
-        main(argv + extra)
+    if item is not None:
+        with pytest.raises(SystemExit, match=item):
+            main(argv + extra)
+        return
+    ref = tmp_path / "ref"
+    ref.mkdir()
+    png.write(str(ref / "0.png"), _init_image())
+    out = tmp_path / "out"
+    argv = ["--tiny", "--device", "cpu", "--steps", "2", "--size", "32", "--n_samples", "2",
+            "--prompt", "a z person", "--out", str(out)]
+    assert main(argv + [str(ref) if a == "ref" else a for a in extra]) == 0
+    assert len(_png_dir(out)) == 2
+    if "--compare_with" not in extra:  # nothing to score against, as in JAX
+        assert not os.path.exists(out / "scores.csv")
+        return
+    rows = list(csv.reader(open(out / "scores.csv")))
+    assert len(rows) == 1 and len(rows[0]) == 4  # prompt, CLIP-I, CLIP-T, DINO
+    assert rows[0][0] == "a z person" and all(np.isfinite(float(v)) for v in rows[0][1:])
 
 
 @pytest.mark.parametrize("main", [tt2i.main, ti2i.main, tinp.main])
