@@ -11,6 +11,9 @@ carry the flax names, so the map is mechanical:
   `latent_queries` and its `hidden_state_layer_weights`) as is.
 
 Each `*_state_dict_from_jax` returns what `load_state_dict(strict=True)` takes.
+The face detectors and the parser (`scrfd_state_dict_from_jax`,
+`bisenet_state_dict_from_jax`: the plain map; `retinaface_state_dict_from_jax`
+also moves flax's `batch_stats` into BatchNorm2d's running statistics).
 `load_subj_basis_generator_from_jax` loads a zero-shot generator, whose flax
 tree holds only the branches its init ran. `iresnet_state_dict_from_jax`
 carries a JAX `IResNet` tree, whose fc takes NHWC-flattened features, to the
@@ -53,9 +56,25 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 # the SD text encoder, the Arc2Face encoder (also a CLIP text tower), the
-# UNet and the CLIP vision tower
+# UNet and the CLIP vision tower; SCRFD (its BN's `mean` / `var` are
+# parameters, as in the recognizer) and BiSeNet (BN folded)
 clip_state_dict_from_jax = unet_state_dict_from_jax = state_dict_from_jax
 vision_state_dict_from_jax = state_dict_from_jax
+scrfd_state_dict_from_jax = bisenet_state_dict_from_jax = state_dict_from_jax
+
+
+def retinaface_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX `RetinaFace`'s {"params", "batch_stats"} -> the port's state
+    dict: the params as `state_dict_from_jax` maps them (a depthwise HWIO
+    [3, 3, 1, C] kernel becomes [C, 1, 3, 3]), each BatchNorm's `mean` /
+    `var` as `running_mean` / `running_var`, `num_batches_tracked` 0."""
+    sd = state_dict_from_jax(variables["params"])
+    for path, leaf in _leaves(variables["batch_stats"]):
+        name = {"mean": "running_mean", "var": "running_var"}[path[-1]]
+        prefix = ".".join(path[:-1])
+        sd[f"{prefix}.{name}"] = torch.tensor(np.asarray(leaf))
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
 
 
 def load_subj_basis_generator_from_jax(gen: nn.Module, tree: Mapping) -> nn.Module:

@@ -1,10 +1,11 @@
 """SD VAE (AutoencoderKL), NHWC at the interface (counterpart of
-`adaface_tpu/models/vae.py` without the fg-mask isolation of the mid
-attention): `Encoder` + `quant_conv` (`encode` -> mean, logvar) and
-`post_quant_conv` + `Decoder` (`decode`), GroupNorm eps 1e-6. The mid-block
-attention is single-head with fp32 scores, query-chunked (512 query rows at
-a time from 1024 tokens up), plain torch. Submodules carry the flax tree's
-names under `encoder.` and `decoder.`."""
+`adaface_tpu/models/vae.py`): `Encoder` + `quant_conv` (`encode` -> mean,
+logvar) and `post_quant_conv` + `Decoder` (`decode`), GroupNorm eps 1e-6.
+The mid-block attention is single-head with fp32 scores, query-chunked (512
+query rows at a time from 1024 tokens up), plain torch. `encode(x, fg_mask,
+aug_mask)` isolates the encoder's mid attention by a foreground mask: the
+probabilities of fg/bg-mixed pairs are zeroed after the softmax. Submodules
+carry the flax tree's names under `encoder.` and `decoder.`."""
 
 from __future__ import annotations
 
@@ -66,9 +67,14 @@ class ResnetBlock(nn.Module):
 
 
 class AttnBlock(nn.Module):
-    """Single-head spatial self-attention (the unmasked path): scores from
-    an fp32 product (the JAX package's `preferred_element_type`), fp32
-    softmax, probabilities cast to v's dtype for the value product."""
+    """Single-head spatial self-attention: scores from an fp32 product (the
+    JAX package's `preferred_element_type`), fp32 softmax, probabilities
+    cast to v's dtype for the value product.
+
+    With `fg_mask` ([B, H0, W0, 1] at image resolution) the whole [B, L, L]
+    probability matrix is formed and `isolate_fg` zeroes its fg/bg-mixed
+    pairs after the softmax (`aug_mask` alone is ignored, as in JAX).
+    Without it, 1024 tokens and up are query-chunked."""
 
     CHUNK = 512
 
@@ -81,14 +87,14 @@ class AttnBlock(nn.Module):
         self.v = _conv(ch, ch, 1)
         self.proj_out = _conv(ch, ch, 1)
 
-    def forward(self, x):
+    def forward(self, x, fg_mask=None, aug_mask=None):
         b, hh, ww, c = x.shape
         l = hh * ww
         h = group_norm(x, self.norm_scale, self.norm_bias, 32, 1e-6)
         qf, kf, vf = (conv_nhwc(m, h).reshape(b, l, c) for m in (self.q, self.k, self.v))
         scale = c ** -0.5
         kt = kf.float().transpose(1, 2)
-        if l >= 1024:
+        if fg_mask is None and l >= 1024:
             # query-chunked: the fp32 logits slab is [B, 512, L], not [B, L, L]
             outs = []
             for s in range(0, l, self.CHUNK):
@@ -97,8 +103,37 @@ class AttnBlock(nn.Module):
             out = torch.cat(outs, dim=1)
         else:
             probs = torch.softmax(torch.matmul(qf.float(), kt) * scale, dim=-1)
+            if fg_mask is not None:
+                probs = isolate_fg(probs, fg_mask, aug_mask, hh, ww)
             out = torch.matmul(probs.to(vf.dtype), vf)
         return x + conv_nhwc(self.proj_out, out.reshape(b, hh, ww, c))
+
+
+def isolate_fg(probs: torch.Tensor, fg_mask: torch.Tensor, aug_mask, hh: int,
+               ww: int) -> torch.Tensor:
+    """[B, L, L] probabilities with fg/bg-mixed pairs zeroed (no
+    renormalization): the masks at the attention's hh x ww grid
+    (`nearest_resize`), bg = 1 - fg, both times `aug_mask` where given; a
+    pair is kept where the fg products or the bg products are > 0."""
+    b = probs.shape[0]
+    fg = nearest_resize(fg_mask.to(probs.device), hh, ww).float()
+    bg = 1.0 - fg
+    if aug_mask is not None:
+        aug = nearest_resize(aug_mask.to(probs.device), hh, ww).float()
+        fg, bg = fg * aug, bg * aug
+    fgf, bgf = fg.reshape(b, -1), bg.reshape(b, -1)
+    homo = (fgf[:, :, None] * fgf[:, None, :] > 0) | (bgf[:, :, None] * bgf[:, None, :] > 0)
+    return torch.where(homo, probs, 0.0)
+
+
+def nearest_resize(m: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, H0, W0, ...] -> [B, h, w, ...] by source index floor(dst * in /
+    out), torch's `F.interpolate(mode="nearest")` (not `jax.image.resize`'s
+    half-pixel nearest)."""
+    ih, iw = m.shape[1:3]
+    ridx = torch.arange(h, device=m.device) * ih // h
+    cidx = torch.arange(w, device=m.device) * iw // w
+    return m[:, ridx][:, :, cidx]
 
 
 class Upsample(nn.Module):
@@ -141,7 +176,7 @@ class Encoder(nn.Module):
         self.norm_out_bias = nn.Parameter(torch.empty(ch))
         self.conv_out = _conv(ch, 2 * cfg.z_channels if cfg.double_z else cfg.z_channels)
 
-    def forward(self, x):
+    def forward(self, x, fg_mask=None, aug_mask=None):
         c = self.cfg
         h = conv_nhwc(self.conv_in, x)
         for i in range(len(c.ch_mult)):
@@ -149,7 +184,7 @@ class Encoder(nn.Module):
                 h = getattr(self, f"down_{i}_block_{j}")(h)
             if i != len(c.ch_mult) - 1:
                 h = getattr(self, f"down_{i}_downsample")(h)
-        h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
+        h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h), fg_mask, aug_mask))
         h = F.silu(group_norm(h, self.norm_out_scale, self.norm_out_bias, 32, 1e-6))
         return conv_nhwc(self.conv_out, h)
 
@@ -199,11 +234,12 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = _conv(mul * cfg.z_channels, mul * cfg.embed_dim, 1)
         self.post_quant_conv = _conv(cfg.embed_dim, cfg.z_channels, 1)
 
-    def encode(self, x: torch.Tensor):
+    def encode(self, x: torch.Tensor, fg_mask=None, aug_mask=None):
         """(mean, logvar), each [B, h, w, embed_dim]; logvar clamped to
-        [-30, 20] as in DiagonalGaussianDistribution."""
+        [-30, 20] as in DiagonalGaussianDistribution. `fg_mask` / `aug_mask`
+        ([B, H, W, 1]) isolate the mid attention (`AttnBlock`)."""
         x = x.to(self.quant_conv.weight.dtype)
-        moments = conv_nhwc(self.quant_conv, self.encoder(x))
+        moments = conv_nhwc(self.quant_conv, self.encoder(x, fg_mask, aug_mask))
         mean, logvar = moments.chunk(2, dim=-1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
 

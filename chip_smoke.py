@@ -106,8 +106,8 @@ knobs, set in-process and restored) and the Winograd conv add:
       split and at another (split and unsplit), two launches bit for bit;
       kernel, bound, plain and F.conv2d times; one backward through the op;
   6c. generate under each of `ARM_CONFIGS` (K2, K5, K4 cross, K6, K7, K1
-      flags, fuse_qkv, ADAFACE_CFG_DEDUP=0, ADAFACE_CROSS_KV=0): one
-      warm-up and one timed request each, with
+      flags, fuse_qkv, ADAFACE_CFG_DEDUP=0, ADAFACE_CROSS_KV=0): a
+      warm-up cut to ARM_WARMUP_STEPS and one timed request each, with
       exactly the expected launches by (TPU kernel id, shape); images bit
       for bit the default request's where the arm changes no arithmetic,
       else within ARM_UINT8_MEAN_TOL;
@@ -335,6 +335,33 @@ kernel of its own) adds:
       micro-steps: the checkpoint written and loaded, the towers and
       generators fp32 under --bf16, exact launches per micro-step, s per
       micro-step and peak GiB.
+Slice 24 (the face detectors, the face parser, the face tools and the VAE's
+fg-mask encode; no kernel of its own) adds, after [scorers]:
+  [detect]. SCRFD-10G (`init_scrfd`, seeded) through `SCRFDDetector` at
+      640x640 and RetinaFace-MobileNet0.25 from a seeded biubug6 `.pth`
+      through `RetinaFaceDetector` at 320, on a 512x512 and a 600x440 PNG,
+      fp32: the raw head outputs against the CPU (DETECT_REL_TOL) and the
+      decoded detections (`decoded_gate`: detections within DETECT_MARGIN
+      of the score threshold or of the NMS IoU decide nothing); the faults
+      (SCRFD's downsample without its average pool, RetinaFace's ConvBNs
+      ReLU in place of leaky 0.1) must fail both; ms an image;
+  [parse]. `load_bisenet` on a seeded face-parsing `.pth` at 512: logits
+      against the CPU (PARSE_REL_TOL), masks differing only at argmax
+      near-ties, equal parts counts; the fault (the final upsample with
+      align_corners=False) must fail both; ms an image;
+  [face-tools]. the four entry points of `adaface_tpu_torch.tools`
+      (`gen_face_masks --precise --route`, `--use_detector` with each
+      detector, the default ellipse; `filter_faces` with and without
+      `--dry_run`; `knn_faces`; `comparefaces`) on two subjects of PNGs,
+      one dark, with [face]'s ONNX, each against the same entry point with
+      `device="cpu"`: trees, printed lines and `compare_face_folders`'
+      similarity (TOOLS_SIM_TOL); s a folder;
+  [vae-fg]. [main]'s SD VAE encoding two 512x512 images with disk fg masks
+      and an aug mask with a zero band: bf16 against an fp32 copy on the
+      card (the VAE gate), that copy against the CPU (VAE_FG_REL_TOL); the
+      faults (renormalized probabilities, the mask resized with the
+      half-pixel nearest, the aug mask ignored) must fail the fp32 gate;
+      ms a masked and an unmasked encode, peak GiB.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -1610,10 +1637,12 @@ def phase_profile(torch, pipe, card):
 
 def profile_breakdown(torch, fn, tag, what, card):
     """Run fn() once under torch.profiler: device kernel time by category,
-    the top kernels, and the device's idle share of the wall time."""
+    the top kernels, and the device's idle share of the wall time. Only the
+    device's activity is traced: the breakdown reads kernels alone, and the
+    host operators' trace took minutes of the script's time limit to sort."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.time()
         fn()
@@ -3414,6 +3443,10 @@ ARM_CONFIGS = [
 TRAIN_ARM_CONFIGS = [("K6", {"ADAFACE_FLASH_PACKED": "0"}),
                      ("K4 cross", {"ADAFACE_FLASH_CROSS": "1"})]
 ARM_TRAIN_STEPS = 2
+# DDIM steps of 6c's warm-up request under each arm (full-length warm-ups
+# cost ~33 s of the script's time limit; two steps run every kernel the
+# timed request runs, at its shapes)
+ARM_WARMUP_STEPS = 2
 # Max abs gate of the cross-attention rows: with 77 keys the output is about
 # 4x larger than at L4096 (std ~0.11), and so are the bf16 roundings of p and
 # o (measured 7.4e-3 at d40 on an H100); the relative L2 gate is unchanged.
@@ -3981,8 +4014,9 @@ def fuse_qkv_set(torch, unet, on):
 
 
 def phase_arm_generate(torch, pipe, card, default_imgs, default_med):
-    """(6c) generate under each arm configuration: one warm-up and one timed
-    request (seed 1, the default run's first), each with exactly the
+    """(6c) generate under each arm configuration: a warm-up request cut to
+    ARM_WARMUP_STEPS DDIM steps (the arm's kernels at the request's shapes)
+    and one timed request (seed 1, the default run's first), each with exactly the
     expected launches by (arm, shape); images bit for bit the default
     request's for the arms that change no arithmetic, within
     ARM_UINT8_MEAN_TOL otherwise. Returns name -> launches by key."""
@@ -3994,7 +4028,7 @@ def phase_arm_generate(torch, pipe, card, default_imgs, default_med):
     counts = {}
     for name, knobs, fuse, exact in ARM_CONFIGS:
         with knobs_set(knobs), fuse_qkv_set(torch, pipe.unet, fuse):
-            pipe.generate(prompts, seed=0, **kw)
+            pipe.generate(prompts, seed=0, **dict(kw, num_steps=ARM_WARMUP_STEPS))
             fa.launches_by_shape.clear()
             torch.cuda.synchronize()
             t0 = time.time()
@@ -6513,6 +6547,710 @@ def phase_compare(torch, fa, files, pt_static, folder, ref_dir, card):
     return got
 
 
+# ------------------------------------------------------------------ slice 24
+DETECT_SEED = 24
+DETECT_SHAPES = [(512, 512), (600, 440)]
+# the raw head outputs (relative L2), the card's fp32 against the CPU's (TF32
+# off), as [face]
+DETECT_REL_TOL = 1e-5
+# A detection whose score lies this close to the threshold, or whose IoU
+# with a better one lies this close to the NMS threshold, may be missing on
+# one side (fp32 roundoff may decide it): a hundred times the score
+# difference that the raw gate leaves (~1e-6 on scores below 1) and the IoU
+# difference it implies on boxes of a few pixels
+DETECT_MARGIN = 1e-4
+DETECT_BOX_TOL = 1e-2  # px: boxes and keypoints matched across card and CPU
+PARSE_SEED = 25
+PARSE_SIZE = 512
+PARSE_REL_TOL = 1e-5  # logits, relative L2
+# a pixel whose class-0 decision rests on a logit gap under this share of
+# the largest logit may differ (ten times the raw gate)
+PARSE_TIE_REL = 1e-4
+TOOLS_SEED = 26
+# of a detector ellipse mask's pixels: boundary pixels that a sub-pixel
+# box difference moves across the ellipse
+TOOLS_MASK_SHARE = 1e-3
+TOOLS_SIM_TOL = 1e-5
+# the fp32 masked encode, card against the CPU: 2e-5, not [face]'s 1e-5,
+# because the SD VAE's 30-odd fp32 convolutions read 6.574e-6 apart in this
+# PR's first call (two thirds of 1e-5); the faults read 100x above it
+VAE_FG_REL_TOL = 2e-5
+# rows of the aug mask's zero band, as shares of the height: at 512 rows
+# 196-235, whose edges fall where the floor and the half-pixel nearest pick
+# different rows of the 64-row attention grid (24 and 29)
+VAE_FG_BAND = (0.383, 0.461)
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def detect_images(folder):
+    """DETECT_SHAPES seeded RGB noise PNGs in `folder`, read back by the
+    port's codec."""
+    import numpy as np
+
+    from adaface_tpu_torch.data import png
+
+    g = np.random.default_rng(DETECT_SEED)
+    imgs = []
+    for i, shape in enumerate(DETECT_SHAPES):
+        path = os.path.join(folder, f"detect_{i}.png")
+        png.write(path, g.integers(0, 256, shape + (3,), dtype=np.uint8))
+        imgs.append(png.load_image(path))
+    return imgs
+
+
+def write_biubug6_pth(torch, path, seed):
+    """A seeded RetinaFace-MobileNet0.25 as a biubug6 `mobilenet0.25_Final.pth`
+    (torch.save, the file's names): `init_retinaface(seed)` with its
+    BatchNorms moved off the identity (running means and shifts U(-0.1,
+    0.1), variances U(0.5, 1.5), scales U(0.8, 1.2))."""
+    from adaface_tpu_torch.models.retinaface import biubug6_names, init_retinaface
+
+    m = init_retinaface(seed)
+    g = torch.Generator().manual_seed(seed)
+    u = lambda t, lo, hi: t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=g))
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                u(mod.running_mean, -0.1, 0.1), u(mod.running_var, 0.5, 1.5)
+                u(mod.weight, 0.8, 1.2), u(mod.bias, -0.1, 0.1)
+    sd = m.state_dict()
+    torch.save({theirs: sd[ours] for ours, theirs in biubug6_names()}, path)
+    return path
+
+
+def write_face_parsing_pth(torch, path, seed):
+    """A seeded face-parsing `79999_iter.pth` (the face-parsing.PyTorch
+    names, BatchNorms unfolded, the aux heads included, no conv biases):
+    conv weights N(0, 1 / fan_in), BatchNorm statistics and affines off the
+    identity as in `write_biubug6_pth`."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    u = lambda n, lo, hi: lo + (hi - lo) * torch.rand(n, generator=g)
+
+    def conv(name, cout, cin, k):
+        sd[name + ".weight"] = torch.randn(cout, cin, k, k, generator=g) / (cin * k * k) ** 0.5
+
+    def bn(name, c):
+        sd[name + ".weight"], sd[name + ".bias"] = u(c, 0.8, 1.2), u(c, -0.1, 0.1)
+        sd[name + ".running_mean"], sd[name + ".running_var"] = u(c, -0.1, 0.1), u(c, 0.5, 1.5)
+        sd[name + ".num_batches_tracked"] = torch.tensor(80000)
+
+    def cbr(name, cout, cin, k):
+        conv(name + ".conv", cout, cin, k), bn(name + ".bn", cout)
+
+    conv("cp.resnet.conv1", 64, 3, 7), bn("cp.resnet.bn1", 64)
+    for layer, (cout, cin0) in {1: (64, 64), 2: (128, 64), 3: (256, 128), 4: (512, 256)}.items():
+        for blk in (0, 1):
+            pre, cin = f"cp.resnet.layer{layer}.{blk}", cin0 if blk == 0 else cout
+            conv(pre + ".conv1", cout, cin, 3), bn(pre + ".bn1", cout)
+            conv(pre + ".conv2", cout, cout, 3), bn(pre + ".bn2", cout)
+            if blk == 0 and layer > 1:
+                conv(pre + ".downsample.0", cout, cin, 1), bn(pre + ".downsample.1", cout)
+    for arm, cin in (("arm16", 256), ("arm32", 512)):
+        cbr(f"cp.{arm}.conv", 128, cin, 3)
+        conv(f"cp.{arm}.conv_atten", 128, 128, 1), bn(f"cp.{arm}.bn_atten", 128)
+    cbr("cp.conv_avg", 128, 512, 1)
+    cbr("cp.conv_head16", 128, 128, 3)
+    cbr("cp.conv_head32", 128, 128, 3)
+    cbr("ffm.convblk", 256, 256, 1)
+    conv("ffm.conv1", 64, 256, 1), conv("ffm.conv2", 256, 64, 1)
+    for head, mid, cin in (("conv_out", 256, 256), ("conv_out16", 64, 128),
+                           ("conv_out32", 64, 128)):
+        cbr(head + ".conv", mid, cin, 3)
+        conv(head + ".conv_out", 19, mid, 1)
+    torch.save(sd, path)
+    return path
+
+
+def _iou(box, boxes):
+    """IoU of one xyxy box with each of `boxes`, as `retinaface.nms` counts it."""
+    import numpy as np
+
+    xx1, yy1 = np.maximum(box[0], boxes[:, 0]), np.maximum(box[1], boxes[:, 1])
+    xx2, yy2 = np.minimum(box[2], boxes[:, 2]), np.minimum(box[3], boxes[:, 3])
+    inter = np.maximum(xx2 - xx1, 0) * np.maximum(yy2 - yy1, 0)
+    a = (box[2] - box[0]) * (box[3] - box[1])
+    b = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    return inter / (a + b - inter + 1e-12)
+
+
+def _match(a, b, tol):
+    """For each box of a [N, 4], the index of a box of b [M, 4] within `tol`
+    px in every coordinate, or -1."""
+    import numpy as np
+
+    order = np.argsort(b[:, 0], kind="stable")
+    x1 = b[order, 0]
+    lo = np.searchsorted(x1, a[:, 0] - tol)
+    hi = np.searchsorted(x1, a[:, 0] + tol, "right")
+    out = np.full(len(a), -1)
+    for i in range(len(a)):
+        for j in order[lo[i]:hi[i]]:
+            if np.abs(b[j] - a[i]).max() <= tol:
+                out[i] = j
+                break
+    return out
+
+
+def decoded_gate(card, cpu, thresh, nms_thresh, margin=DETECT_MARGIN, limit=20):
+    """(errors, matched, undecided) of two detection lists [(box, kps,
+    score)]: every detection must match one of the other list (box and
+    keypoints within DETECT_BOX_TOL px, score within `margin`) unless fp32
+    roundoff could have decided it: its score within `margin` of the
+    threshold, an IoU within `margin` of the NMS threshold with a
+    better-scoring detection of either list, or an overlap above
+    nms_thresh - margin with a better-scoring unmatched one. Stops at
+    `limit` errors."""
+    import numpy as np
+
+    def arrays(dets):
+        return (np.asarray([d[0] for d in dets], np.float64).reshape(-1, 4),
+                np.asarray([np.asarray(d[1]).reshape(-1) for d in dets], np.float64).reshape(
+                    len(dets), -1),
+                np.asarray([d[2] for d in dets], np.float64))
+
+    (cb, ck, cs), (pb, pk, ps) = arrays(card), arrays(cpu)
+    errors, unmatched = [], []
+    for (b1, k1, s1), (b2, k2, s2), side in (((cb, ck, cs), (pb, pk, ps), "card"),
+                                             ((pb, pk, ps), (cb, ck, cs), "CPU")):
+        m = _match(b1, b2, DETECT_BOX_TOL)
+        for i in np.nonzero(m < 0)[0]:
+            unmatched.append((s1[i], b1[i], side))
+        for i in np.nonzero(m >= 0)[0]:
+            j = m[i]
+            if abs(s1[i] - s2[j]) > margin or np.abs(k1[i] - k2[j]).max() > DETECT_BOX_TOL:
+                errors.append(f"{side} detection {i}: score {s1[i]:.6f} / {s2[j]:.6f}, "
+                              f"keypoints {np.abs(k1[i] - k2[j]).max():.2e} px apart")
+    kept = np.concatenate([pb, cb]), np.concatenate([ps, cs])
+    loose = (np.asarray([u[1] for u in unmatched]).reshape(-1, 4),
+             np.asarray([u[0] for u in unmatched]))
+    for score, box, side in unmatched:
+        better = kept[1] > score
+        near = np.abs(_iou(box, kept[0][better]) - nms_thresh) <= margin if better.any() else []
+        lb = loose[1] > score
+        over = _iou(box, loose[0][lb]) > nms_thresh - margin if lb.any() else []
+        if not (abs(score - thresh) < margin or np.any(near) or np.any(over)):
+            errors.append(f"{side} box {np.round(box, 2).tolist()} ({score:.5f}) unmatched")
+            if len(errors) >= limit:
+                break
+    return errors, len(cs) - sum(u[2] == "card" for u in unmatched), len(unmatched)
+
+
+def _detectors(torch, retina_pth, dev):
+    """(SCRFD-10G, RetinaFace) detectors on `dev`: `init_scrfd(DETECT_SEED)`
+    and the biubug6 file read and mapped."""
+    from adaface_tpu_torch.interop.torch_pickle import load_torch_checkpoint
+    from adaface_tpu_torch.models.retinaface import (
+        RetinaFace,
+        RetinaFaceDetector,
+        map_retinaface_torch_params,
+    )
+    from adaface_tpu_torch.models.scrfd import SCRFDDetector, init_scrfd
+    from adaface_tpu_torch.pipeline import build_loaded
+
+    retina = build_loaded(RetinaFace, map_retinaface_torch_params(
+        load_torch_checkpoint(retina_pth)), torch.device(dev))
+    return {"scrfd": SCRFDDetector(init_scrfd(DETECT_SEED, device=dev)),
+            "retinaface": RetinaFaceDetector(retina)}
+
+
+def _heads(name, det, img):
+    """The raw head outputs of one image, flat numpy."""
+    import numpy as np
+
+    outs = det.heads(det.prepare(img)[0]) if name == "scrfd" else det.heads(img)
+    return np.concatenate([a.reshape(-1) for o in outs for a in (o if name == "scrfd" else [o])])
+
+
+def _detect_faults(dets):
+    """The planted faults, each a (name, detector, apply, undo) on the card:
+    SCRFD's ResNetV1e downsample as a strided 1x1 conv without the average
+    pool, and RetinaFace's `_leaky` rule inverted on its ConvBNs (ReLU in
+    place of leaky 0.1: the shipped MobileNet0.25 has no ConvBN wider than
+    64 channels, so its ReLU side never runs)."""
+    from adaface_tpu_torch.models.retinaface import ConvBN
+    from adaface_tpu_torch.models.scrfd import BasicBlock
+
+    blocks = [m for m in dets["scrfd"].model.modules()
+              if isinstance(m, BasicBlock) and m.stride == 2]
+    convbns = [m for m in dets["retinaface"].model.modules()
+               if isinstance(m, ConvBN) and m.slope == 0.1]
+
+    def no_pool(on):
+        for m in blocks:
+            m.stride, m.ds_conv.stride = (1, (2, 2)) if on else (2, (1, 1))
+
+    def relu(on):
+        for m in convbns:
+            m.slope = 0.0 if on else 0.1
+
+    return [("downsample without the average pool", "scrfd", no_pool),
+            ("ConvBN ReLU in place of leaky 0.1", "retinaface", relu)]
+
+
+def phase_detect(torch, folder, card, dev="cuda"):
+    """[detect] SCRFD-10G (`init_scrfd(DETECT_SEED)`) through `SCRFDDetector`
+    at (640, 640) and RetinaFace-MobileNet0.25 from a seeded biubug6 `.pth`
+    through `RetinaFaceDetector` at 320, on DETECT_SHAPES PNGs, fp32 on the
+    card against the same detectors on the CPU: the raw head outputs within
+    DETECT_REL_TOL (relative L2), the decoded detections by `decoded_gate`
+    (a score or IoU within DETECT_MARGIN of its threshold decides nothing).
+    The planted faults (`_detect_faults`) must fail both gates. ms an image
+    for each detector, and for its forward alone. Returns the `.pth`."""
+    t0 = time.time()
+    imgs = detect_images(folder)
+    pth = write_biubug6_pth(torch, os.path.join(folder, "mobilenet0.25_Final.pth"),
+                            DETECT_SEED)
+    dets, cpu = _detectors(torch, pth, dev), _detectors(torch, pth, "cpu")
+    n_par = {k: sum(p.numel() for p in d.model.parameters()) / 1e6 for k, d in dets.items()}
+    say(f"[detect] seeded SCRFD-10G ({n_par['scrfd']:.2f} M) and RetinaFace-MobileNet0.25 from "
+        f"a biubug6 .pth ({n_par['retinaface']:.3f} M), {len(imgs)} PNGs {DETECT_SHAPES}: "
+        f"{time.time() - t0:.1f} s")
+    refs = {}
+    for name, det in dets.items():
+        for i, img in enumerate(imgs):
+            ref_flat, ref_dets = _heads(name, cpu[name], img), cpu[name](img)
+            refs[name, i] = ref_flat, ref_dets
+            flat = _heads(name, det, img)  # the first call warms the convolutions
+            _sync(torch, dev)
+            t0 = time.time()
+            for _ in range(3):
+                flat = _heads(name, det, img)
+            t1 = time.time()
+            got = det(img)
+            t2 = time.time()
+            err = _rel_l2(flat, ref_flat)
+            errors, matched, loose = decoded_gate(got, ref_dets, det.score_thresh, det.nms_thresh)
+            say(f"[detect] {name} {img.shape[0]}x{img.shape[1]}: heads relative L2 {err:.3e} "
+                f"(gate {DETECT_REL_TOL:.0e}); {len(got)} detections on the card, {len(ref_dets)} "
+                f"on the CPU, {matched} matched, {loose} unmatched but undecided (margin "
+                f"{DETECT_MARGIN:.0e}); {(t2 - t1) * 1e3:.2f} ms an image (prepare, forward, host "
+                f"decode and NMS), the forward with the copy back {(t1 - t0) * 1e3 / 3:.2f} ms "
+                f"[{card}]")
+            if not err <= DETECT_REL_TOL or errors:
+                fail(f"[detect] {name} on image {i}: heads {err:.3e}, decoded {errors[:5]}")
+    for fault, name, plant in _detect_faults(dets):
+        det, (ref_flat, ref_dets) = dets[name], refs[name, 0]
+        plant(True)
+        try:
+            err = _rel_l2(_heads(name, det, imgs[0]), ref_flat)
+            errors, _, _ = decoded_gate(det(imgs[0]), ref_dets, det.score_thresh, det.nms_thresh)
+        finally:
+            plant(False)
+        say(f"[detect] planted fault ({name}: {fault}): heads relative L2 {err:.3e}, "
+            f"{len(errors)} decoded errors, e.g. {errors[:1]}")
+        if not (err > DETECT_REL_TOL and errors):
+            fail(f"[detect] the fault '{fault}' passes a gate ({err:.3e}, {errors[:2]})")
+    return pth
+
+
+def _parse_ties(lg):
+    """Pixels whose class-0 decision rests on a logit gap under
+    PARSE_TIE_REL of the largest logit: [H, W] bool."""
+    best_other = lg[..., 1:].max(-1).values
+    return (lg[..., 0] - best_other).abs() < PARSE_TIE_REL * lg.abs().max()
+
+
+def phase_parse(torch, folder, card, dev="cuda"):
+    """[parse] `load_bisenet` on a seeded face-parsing `.pth`
+    (`write_face_parsing_pth`) at PARSE_SIZE, fp32 on the card against the
+    CPU: the logits of two PNGs within PARSE_REL_TOL (relative L2); the
+    masks may differ only at argmax near-ties (`_parse_ties`), and the parts
+    counts must be equal. The planted fault (the final upsample with
+    align_corners=False) must fail both. ms an image through
+    `gen_face_masks.make_parser`'s parse. Returns the `.pth`."""
+    import argparse
+
+    import numpy as np
+
+    from adaface_tpu_torch.data import png
+    from adaface_tpu_torch.interop.bisenet import load_bisenet
+    from adaface_tpu_torch.models import bisenet
+    from adaface_tpu_torch.tools import gen_face_masks
+
+    t0 = time.time()
+    pth = write_face_parsing_pth(torch, os.path.join(folder, "79999_iter.pth"), PARSE_SEED)
+    model, cpu = load_bisenet(pth, dev), load_bisenet(pth, "cpu")
+    g = np.random.default_rng(PARSE_SEED)
+    imgs = np.stack([g.integers(0, 256, (PARSE_SIZE, PARSE_SIZE, 3), dtype=np.uint8)
+                     for _ in range(2)])
+    say(f"[parse] seeded BiSeNet face-parsing .pth ({os.path.getsize(pth) / 2 ** 20:.1f} MiB) "
+        f"written and loaded on both devices in {time.time() - t0:.1f} s")
+    x = bisenet.preprocess(torch.from_numpy(imgs))
+
+    def run():
+        with torch.inference_mode():
+            lg = model(x.to(dev)).float().cpu()
+        return lg, bisenet.parsing_to_mask(lg.argmax(-1))
+
+    with torch.inference_mode():
+        ref = cpu(x)
+    ref_mask, ref_parts = bisenet.parsing_to_mask(ref.argmax(-1))
+    ties = torch.stack([_parse_ties(r) for r in ref])
+
+    def gate(label):
+        lg, (mask, parts) = run()
+        err = rel_err(lg, ref)
+        diff = mask != ref_mask
+        bad = int((diff & ~ties).sum())
+        say(f"[parse] {label}: logits relative L2 {err:.3e} (gate {PARSE_REL_TOL:.0e}); masks "
+            f"differ at {int(diff.sum())} of {diff.numel()} pixels ({float(diff.float().mean()):.2e}), "
+            f"{bad} of them outside the {int(ties.sum())} near-tie pixels; parts "
+            f"{parts.tolist()} against the CPU's {ref_parts.tolist()}")
+        return err <= PARSE_REL_TOL and bad == 0 and torch.equal(parts, ref_parts), err, bad
+
+    ok, _, _ = gate("card vs the CPU")
+    if not ok:
+        fail("[parse] the card's parsing differs from the CPU's")
+    orig = bisenet.resize_bilinear_ac
+    bisenet.resize_bilinear_ac = lambda t, h, w: torch.nn.functional.interpolate(
+        t, size=(h, w), mode="bilinear", align_corners=False)
+    try:
+        ok, err, bad = gate("planted fault (final upsample align_corners=False)")
+    finally:
+        bisenet.resize_bilinear_ac = orig
+    if not (err > PARSE_REL_TOL and bad > 0):
+        fail("[parse] the align_corners fault passes a gate")
+    opt = argparse.Namespace(parsing_ckpt=pth, parsing_size=PARSE_SIZE)
+    parse = gen_face_masks.make_parser(opt, torch.device(dev))
+    for im in imgs:
+        parse(im)
+    _sync(torch, dev)
+    t0 = time.time()
+    for _ in range(3):
+        for im in imgs:
+            parse(im)
+    _sync(torch, dev)
+    say(f"[parse] {(time.time() - t0) * 1e3 / (3 * len(imgs)):.2f} ms an image at "
+        f"{PARSE_SIZE}x{PARSE_SIZE} (preprocess, BiSeNet, argmax, mask and parts, the copy "
+        f"back) [{card}]")
+    return pth
+
+
+_NUMBER = r"-?\d+\.\d+"
+
+
+def _same_lines(a, b, tol=1.5e-4):
+    """Printed lines equal but for their decimal numbers, which may differ
+    by `tol` (the tools print 3 or 4 decimals)."""
+    import re
+
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        nx, ny = re.findall(_NUMBER, x), re.findall(_NUMBER, y)
+        if (re.sub(_NUMBER, "#", x) != re.sub(_NUMBER, "#", y)
+                or any(abs(float(p) - float(q)) > tol for p, q in zip(nx, ny))):
+            return False
+    return True
+
+
+def _tool_run(main, argv, dev):
+    """(return code, printed lines, s) of one tool run on `dev`."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv, device=dev)
+    return rc, buf.getvalue().splitlines(), time.time() - t0
+
+
+def _tree_diff(a, b, mask_share):
+    """Differences between two trees of PNGs: file names, then each file's
+    pixels (masks may differ at up to `mask_share` of their pixels)."""
+    import numpy as np
+
+    from adaface_tpu_torch.data import png
+
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    fa, fb = files(a), files(b)
+    if fa != fb:
+        return [f"files {sorted(set(fa) ^ set(fb))[:6]}"], 0.0
+    errors, worst = [], 0.0
+    for f in fa:
+        pa, pb = png.read(os.path.join(a, f)), png.read(os.path.join(b, f))
+        share = float((pa != pb).mean()) if pa.shape == pb.shape else 1.0
+        worst = max(worst, share) if f.endswith("_mask.png") else worst
+        if share > (mask_share if f.endswith("_mask.png") else 0.0):
+            errors.append(f"{f}: {share:.2e} of its pixels")
+    return errors, worst
+
+
+def _gap_threshold(values, first, last):
+    """A threshold midway in the widest gap between consecutive values
+    ranked `first` to `last` from the top (all arrays pooled), and its
+    distance from the nearest value: at least `first` values lie above it."""
+    import numpy as np
+
+    v = np.sort(np.concatenate([np.asarray(x, np.float64).reshape(-1) for x in values]))[::-1]
+    v = v[first - 1:last + 1]
+    i = int(np.argmax(v[:-1] - v[1:]))
+    return float((v[i] + v[i + 1]) / 2), float((v[i] - v[i + 1]) / 2)
+
+
+def phase_face_tools(torch, folder, parse_pth, retina_pth, card, dev="cuda"):
+    """[face-tools] the four entry points of `adaface_tpu_torch.tools` on
+    two subjects of TOOLS_SEED PNGs at PARSE_SIZE (one dark), each run on
+    the card and with `device="cpu"` on a copy: `gen_face_masks` with
+    `--precise --route` ([parse]'s `.pth`), with `--use_detector` for each
+    detector (RETINAFACE_PT [detect]'s `.pth`; each `--score_thresh` the
+    value near the default farthest from every CPU score, so that roundoff
+    decides no candidate) and the default ellipse; `filter_faces` with and
+    without `--dry_run` ([face]'s ONNX, its threshold in the widest gap of
+    the similarities); `knn_faces`; `comparefaces` pair and `--self`. The
+    trees (masks within TOOLS_MASK_SHARE of their pixels, moved files
+    exactly) and the printed lines must agree, and the similarities of
+    `compare_face_folders` within TOOLS_SIM_TOL. s a folder."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from adaface_tpu_torch import face_app
+    from adaface_tpu_torch.data import png
+    from adaface_tpu_torch.evaluation.eval_utils import compare_face_folders
+    from adaface_tpu_torch.models.scrfd import SCRFDDetector, init_scrfd
+    from adaface_tpu_torch.tools import comparefaces, filter_faces, gen_face_masks, knn_faces
+
+    t_phase = time.time()
+    base = os.path.join(folder, "tools")
+    g = np.random.default_rng(TOOLS_SEED)
+    subjects = []
+    for s, n in (("subj_a", 4), ("subj_b", 3)):
+        d = os.path.join(base, "src", s)
+        os.makedirs(d)
+        for i in range(n):
+            hi = 16 if (s == "subj_a" and i == n - 1) else 256  # one dark image
+            png.write(os.path.join(d, f"{i}.png"),
+                      g.integers(0, hi, (PARSE_SIZE, PARSE_SIZE, 3), dtype=np.uint8))
+        subjects.append(d)
+    os.environ["RETINAFACE_PT"] = retina_pth
+    imgs = [png.load_image(os.path.join(d, f)) for d in subjects for f in sorted(os.listdir(d))]
+    cpu_scrfd = SCRFDDetector(init_scrfd(0))
+    cpu_retina = _detectors(torch, retina_pth, "cpu")["retinaface"]
+    # each detector's --score_thresh in the widest gap among the top 3-40
+    # CPU scores of the subjects' images
+    thresh = {
+        "scrfd": _gap_threshold([cpu_scrfd.heads(cpu_scrfd.prepare(im)[0])[k][0]
+                                 for im in imgs for k in range(3)], 3, 40),
+        "retinaface": _gap_threshold([cpu_retina.heads(im)[0][:, 1] for im in imgs], 3, 40)}
+    errors, report = [], []
+
+    def both(label, main, argv, copy=True, mask_share=0.0):
+        """The run on the card and on the CPU, each on its own copy of the
+        subjects; returns the card's lines."""
+        roots, out = {}, {}
+        for side, d in (("card", dev), ("cpu", "cpu")):
+            root = os.path.join(base, f"{label}_{side}")
+            if copy:
+                shutil.copytree(os.path.join(base, "src"), root)
+            roots[side] = root
+            args = [a.replace("{root}", root) for a in argv]
+            rc, lines, dt = _tool_run(main, args, d)
+            out[side] = [l.replace(root, "<root>") for l in lines]
+            if side == "card":
+                report.append(f"{label} {dt:.2f} s ({dt / len(subjects):.2f} s a folder)")
+            if rc != 0:
+                errors.append(f"{label} {side}: exit {rc}")
+        if not _same_lines(out["card"], out["cpu"]):
+            errors.append(f"{label}: printed {out['card'][-3:]} against {out['cpu'][-3:]}")
+        if copy:
+            diff, worst = _tree_diff(roots["card"], roots["cpu"], mask_share)
+            errors.extend(f"{label}: {e}" for e in diff)
+            if mask_share:
+                report[-1] += f", masks differ at most at {worst:.2e} of their pixels"
+        return out["card"]
+
+    subj = ["{root}/subj_a", "{root}/subj_b"]
+    both("precise", gen_face_masks.main, subj + ["--precise", "--route", "--parsing_ckpt",
+                                                 parse_pth, "--parsing_size", str(PARSE_SIZE)],
+         mask_share=TOOLS_MASK_SHARE)
+    for det in ("scrfd", "retinaface"):
+        t, margin = thresh[det]
+        lines = both(det, gen_face_masks.main, subj + ["--use_detector", "--detector", det,
+                                                       "--score_thresh", f"{t:.6f}"],
+                     mask_share=TOOLS_MASK_SHARE)
+        report[-1] += (f", --score_thresh {t:.5f} ({margin:.1e} from every CPU score), "
+                       f"images without a face: {sum(l.startswith('no face') for l in lines)}")
+        if not margin > DETECT_MARGIN:
+            errors.append(f"{det}: no threshold {DETECT_MARGIN:.0e} from every score")
+    both("ellipse", gen_face_masks.main, subj)
+    # the tools' runs take these two apps (each loaded once, [face]'s file);
+    # the CPU one embeds each image once, its embeddings memoized by pixels
+    card_app, cpu_app = face_app.default_face_app(dev), face_app.default_face_app("cpu")
+    memo, embed = {}, cpu_app.embed_image
+
+    def embed_once(img):
+        key = (img.shape, hashlib.sha1(np.ascontiguousarray(img).tobytes()).digest())
+        if key not in memo:
+            memo[key] = embed(img)
+        return memo[key]
+
+    cpu_app.embed_image = embed_once
+    default_app = face_app.default_face_app
+    face_app.default_face_app = lambda device=None: (
+        cpu_app if torch.device(device or "cuda").type == "cpu" else card_app)
+    sims = []
+    for d in subjects:
+        e = np.stack([cpu_app.embed_image(png.load_image(os.path.join(d, f)))
+                      for f in sorted(os.listdir(d))])
+        m = e.mean(0)
+        sims.append(e @ (m / np.linalg.norm(m)))
+    t, margin = _gap_threshold(sims, 1, sum(map(len, sims)) - 1)
+    both("filter_dry", filter_faces.main, subj + ["--threshold", f"{t:.6f}", "--dry_run"])
+    lines = both("filter", filter_faces.main, subj + ["--threshold", f"{t:.6f}"])
+    report[-1] += f", threshold {t:.4f} ({margin:.1e} from every similarity): {lines[-2:]}"
+    q = os.path.join(subjects[0], "0.png")
+    lines = both("knn", knn_faces.main, ["--query", q, "--gallery"] + subjects + ["-k", "5"],
+                 copy=False)
+    report[-1] += f": {lines[:2]}"
+    for argv in ([subjects[0], subjects[1]], [subjects[1], "--self"]):
+        lines = both("comparefaces", comparefaces.main, argv, copy=False)
+        report[-1] += f": {lines[-1].split(': ', 1)[-1]}"
+    sim_card = compare_face_folders(card_app.embed_image, *subjects)
+    sim_cpu = compare_face_folders(cpu_app.embed_image, *subjects)
+    sim_err = abs(sim_card[0] - sim_cpu[0])
+    face_app.default_face_app = default_app
+    del os.environ["RETINAFACE_PT"]
+    for line in report:
+        say(f"[face-tools] {line}")
+    say(f"[face-tools] compare_face_folders card {sim_card} vs the CPU {sim_cpu}: "
+        f"{sim_err:.3e} (gate {TOOLS_SIM_TOL:.0e}); the phase {time.time() - t_phase:.1f} s "
+        f"with the CPU runs [{card}]")
+    if errors or not sim_err <= TOOLS_SIM_TOL or sim_card[1:] != sim_cpu[1:]:
+        fail(f"[face-tools] {errors[:6]}; sims {sim_card} vs {sim_cpu}")
+    # the gate's own fault: a mask inverted on one side reads outside it
+    a = os.path.join(base, "ellipse_card", "subj_a", "0_mask.png")
+    png.write(a, 255 - png.read(a))
+    diff, _ = _tree_diff(os.path.join(base, "ellipse_card"), os.path.join(base, "ellipse_cpu"),
+                         TOOLS_MASK_SHARE)
+    say(f"[face-tools] planted fault (a mask inverted): {diff}")
+    if not diff:
+        fail("[face-tools] an inverted mask passes the tree gate")
+
+
+def vae_fg_inputs(torch):
+    """Two SIZE x SIZE images in [-1, 1] (`face_images`), disk fg masks at
+    two centres and an aug mask with a zero band (VAE_FG_BAND rows), [2,
+    SIZE, SIZE, 1] fp32."""
+    import numpy as np
+
+    x = torch.from_numpy(np.stack(face_images()[:2]).astype(np.float32) / 127.5 - 1.0)
+    yy, xx = np.mgrid[0:SIZE, 0:SIZE]
+    fg = np.stack([((yy - cy) ** 2 + (xx - cx) ** 2 < (0.3 * SIZE) ** 2)
+                   for cy, cx in ((0.45 * SIZE, 0.5 * SIZE), (0.55 * SIZE, 0.4 * SIZE))])
+    aug = np.ones_like(fg, np.float32)
+    aug[:, int(VAE_FG_BAND[0] * SIZE):int(VAE_FG_BAND[1] * SIZE)] = 0.0
+    return x, torch.from_numpy(fg[..., None].astype(np.float32)), torch.from_numpy(aug[..., None])
+
+
+def _vae_fg_faults(vae):
+    """(name, patch, undo) of the planted faults of the masked attention."""
+    isolate, resize = vae.isolate_fg, vae.nearest_resize
+
+    def renormalized(probs, *a):
+        p = isolate(probs, *a)
+        s = p.sum(-1, keepdim=True)
+        return p / s.clamp_min(1e-30)
+
+    def half_pixel(m, h, w):
+        import torch.nn.functional as F
+
+        return F.interpolate(m.permute(0, 3, 1, 2), size=(h, w),
+                             mode="nearest-exact").permute(0, 2, 3, 1)
+
+    return [("renormalized probabilities", "isolate_fg", renormalized),
+            ("mask resized with the half-pixel nearest", "nearest_resize", half_pixel),
+            ("aug mask ignored", "isolate_fg",
+             lambda probs, fg, aug, hh, ww: isolate(probs, fg, None, hh, ww))]
+
+
+def phase_vae_fg(torch, pipe, card, dev="cuda"):
+    """[vae-fg] [main]'s SD VAE encoding two SIZE x SIZE images with disk fg
+    masks and an aug mask with a zero band (`vae_fg_inputs`). bf16 against
+    an fp32 copy on the card, within the VAE gate (REFERENCE_TOL["vae
+    decode"], relative L2): the encode's mean and logvar, and the masked
+    mid attention's contribution (its output minus its input), where the
+    mask acts; that fp32 copy against the CPU on the first image
+    (VAE_FG_REL_TOL). The planted faults (`_vae_fg_faults`) must fail the
+    attention gate in bf16 and the CPU gate in fp32. ms a masked and an
+    unmasked bf16 encode (B2), peak GiB of the masked one."""
+    from adaface_tpu_torch.models import vae as vae_mod
+
+    x, fg, aug = vae_fg_inputs(torch)
+    vae32 = cpu_fp32_copy(torch, pipe.vae).to(dev)
+    cpu = cpu_fp32_copy(torch, pipe.vae)
+    xd, fgd, augd = x.to(dev), fg.to(dev), aug.to(dev)
+    dtype = pipe.vae.quant_conv.weight.dtype
+    tol = REFERENCE_TOL["vae decode"]
+
+    def enc(m, xx, f=fgd, a=augd):
+        """(mean and logvar, the mid attention's output minus its input)."""
+        store = {}
+        hook = m.encoder.mid_attn_1.register_forward_hook(
+            lambda mod, inp, out: store.update(d=(out - inp[0]).float().cpu()))
+        try:
+            with torch.inference_mode():
+                moments = torch.cat(m.encode(xx.to(m.quant_conv.weight.dtype), f, a), -1)
+        finally:
+            hook.remove()
+        return moments.float().cpu(), store["d"]
+
+    t0 = time.time()
+    ref_cpu, _ = enc(cpu, x[:1], fg[:1], aug[:1])
+    cpu_s = time.time() - t0
+    f32, d32 = enc(vae32, xd)
+    bf, dbf = enc(pipe.vae, xd)
+    unmasked, dun = enc(pipe.vae, xd, None, None)
+    e_bf, e_dbf = rel_err(bf, f32), rel_err(dbf, d32)
+    e_cpu = rel_err(enc(vae32, xd[:1], fgd[:1], augd[:1])[0], ref_cpu)
+    say(f"[vae-fg] masked encode B2 {SIZE}x{SIZE}, bf16 vs the fp32 copy on the card: mean and "
+        f"logvar {e_bf:.3e}, the mid attention's contribution {e_dbf:.3e} (gate {tol:.0e}); "
+        f"the fp32 copy vs the CPU (image 0) {e_cpu:.3e} (gate {VAE_FG_REL_TOL:.0e}; the CPU's "
+        f"encode {cpu_s:.1f} s); the unmasked bf16 encode reads {rel_err(unmasked, f32):.3e} "
+        f"and {rel_err(dun, d32):.3e} from the masked fp32")
+    if not (e_bf <= tol and e_dbf <= tol and e_cpu <= VAE_FG_REL_TOL):
+        fail(f"[vae-fg] masked encode off: bf16 {e_bf:.3e} / {e_dbf:.3e}, fp32 vs CPU "
+             f"{e_cpu:.3e}")
+    for name, attr, fn in _vae_fg_faults(vae_mod):
+        orig = getattr(vae_mod, attr)
+        setattr(vae_mod, attr, fn)
+        try:
+            e32 = rel_err(enc(vae32, xd[:1], fgd[:1], augd[:1])[0], ref_cpu)
+            e16 = rel_err(enc(pipe.vae, xd)[1], d32)
+        finally:
+            setattr(vae_mod, attr, orig)
+        say(f"[vae-fg] planted fault ({name}): fp32 vs the CPU {e32:.3e}, the bf16 mid "
+            f"attention's contribution vs fp32 {e16:.3e}")
+        if not (e32 > VAE_FG_REL_TOL and e16 > tol):
+            fail(f"[vae-fg] the fault '{name}' passes a gate ({e32:.3e}, {e16:.3e})")
+    del vae32
+    xb = xd.to(dtype)
+    cuda = torch.device(dev).type == "cuda"
+    times, peak, held = {}, float("nan"), float("nan")
+    for label, f, a in (("masked", fgd, augd), ("unmasked", None, None)):
+        with torch.inference_mode():
+            if label == "masked" and cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated() / 2 ** 30
+            times[label] = time_ms(torch, lambda: pipe.vae.encode(xb, f, a), reps=2, rounds=5,
+                                   warmup=1)
+            if label == "masked" and cuda:
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"[vae-fg] bf16 encode B2 {SIZE}x{SIZE}: masked {times['masked']:.2f} ms, unmasked "
+        f"{times['unmasked']:.2f} ms; peak {peak:.2f} GiB during the masked encodes, "
+        f"{peak - held:.2f} above the {held:.2f} GiB held before [{card}]")
+
+
 def main():
     import torch
 
@@ -6584,6 +7322,15 @@ def main():
     phase_face(torch, s23.name, card)
     ref_dir = phase_scorers(torch, s23.name, card)
     say(f"[main] slice 23's [face] and [scorers] {time.time() - t_slice:.1f} s")
+    # slice 24: the detectors, the parser, the face tools on [face]'s ONNX,
+    # the VAE's masked encode
+    t_slice = time.time()
+    retina_pth = phase_detect(torch, s23.name, card)
+    parse_pth = phase_parse(torch, s23.name, card)
+    phase_face_tools(torch, s23.name, parse_pth, retina_pth, card)
+    phase_vae_fg(torch, pipe, card)
+    say(f"[main] slice 24's [detect], [parse], [face-tools] and [vae-fg] "
+        f"{time.time() - t_slice:.1f} s")
 
     # slice 22: [ckpt]'s files stay until 9d has trained from them
     with tempfile.TemporaryDirectory() as serve_dir:

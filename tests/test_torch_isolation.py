@@ -91,3 +91,45 @@ def test_sources_import_no_yaml():
     for line in ("import yaml", "from yaml import safe_load", "  import yaml as y"):
         assert YAML_RE.search(line), line
     assert not YAML_RE.search("from adaface_tpu_torch import _yaml")
+
+
+def test_face_tools_load_no_pil(tmp_path):
+    """The face tools and the new models import without PIL, and a tools
+    run on PNGs loads none: `gen_face_masks --precise` on images at
+    `--parsing_size` (the resizes are copies) and `--use_detector
+    --detector retinaface` (an integer-index resize)."""
+    import numpy as np
+    import torch
+
+    from adaface_tpu_torch.data import png
+
+    from test_bisenet import synth_state_dict
+
+    mods = [m for m in _port_modules() if m.startswith("adaface_tpu_torch.tools.")]
+    assert {f"adaface_tpu_torch.tools.{t}" for t in
+            ("gen_face_masks", "filter_faces", "knn_faces", "comparefaces")} <= set(mods)
+    mods += [f"adaface_tpu_torch.{m}" for m in ("models.scrfd", "models.retinaface",
+                                                "models.bisenet", "interop.bisenet")]
+    folder = tmp_path / "faces"
+    folder.mkdir()
+    g = np.random.default_rng(0)
+    for i in range(2):
+        png.write(str(folder / f"{i}.png"), g.integers(0, 256, (64, 64, 3), dtype=np.uint8))
+    ckpt = str(tmp_path / "79999_iter.pth")
+    torch.save({k: torch.tensor(v) for k, v in synth_state_dict(0).items()}, ckpt)
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print('IMPORTED', sorted(m for m in sys.modules if m.split('.')[0] == 'PIL'))\n"
+            "from adaface_tpu_torch.tools import gen_face_masks as g\n"
+            f"g.main([{str(folder)!r}, '--precise', '--parsing_ckpt', {ckpt!r},\n"
+            "        '--parsing_size', '64'], device='cpu')\n"
+            f"g.main([{str(folder)!r}, '--use_detector', '--detector', 'retinaface',\n"
+            "        '--overwrite'], device='cpu')\n"
+            "print('LOADED', sorted(m for m in sys.modules if m.split('.')[0] == 'PIL'))\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
+    env.pop("RETINAFACE_PT", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "IMPORTED []" in r.stdout and "LOADED []" in r.stdout, r.stdout
+    assert "wrote 2 masks (trash 0, inspect 0)" in r.stdout, r.stdout
