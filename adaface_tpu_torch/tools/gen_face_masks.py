@@ -20,9 +20,8 @@ of `scripts/gen_face_masks.py`):
 An existing mask is kept unless `--overwrite`. The networks run on the CUDA
 card; `--device cpu` (or `main(..., device="cpu")`) runs them on the CPU.
 Images are read and masks written by the port's PNG codec (`data/png.py`):
-with PNGs, and for `--precise` images already at `--parsing_size` (a resize
-to the same size is a copy, as PIL's is), no PIL is loaded. Any other
-resize is PIL's, as in the JAX script. Seeded weights are drawn from torch
+with PNGs no PIL is loaded: the resizes are PIL's filters as
+`data/resample.py` computes them, bit for bit. Seeded weights are drawn from torch
 seeds where the JAX script draws from PRNGKey(0): same laws, other numbers.
 """
 
@@ -56,13 +55,11 @@ def bbox_to_mask(shape, bbox, landmarks=None, grow=(0.35, 0.55)) -> np.ndarray:
 
 def pil_resize(img: np.ndarray, size_wh, resample: str) -> np.ndarray:
     """PIL's `Image.resize(size_wh, resample)` ("bilinear" or "nearest") of
-    a uint8 image; at its own size a copy, without PIL."""
-    if (img.shape[1], img.shape[0]) == tuple(size_wh):
-        return img.copy()
-    from PIL import Image
+    a uint8 image, by `data/resample.py`'s copy of it (bit for bit; no PIL);
+    at its own size a copy."""
+    from adaface_tpu_torch.data.resample import resize
 
-    filt = {"bilinear": Image.BILINEAR, "nearest": Image.NEAREST}[resample]
-    return np.array(Image.fromarray(img).resize(tuple(size_wh), filt))
+    return resize(img, tuple(size_wh), resample)
 
 
 def make_parser(opt, dev: torch.device):

@@ -182,12 +182,13 @@ def nearest_indices(n_out: int, n_in: int) -> np.ndarray:
 def load_resized(path: str, size: int, mode: str = "RGB") -> np.ndarray:
     """uint8 pixels of an image at size x size: PNGs through the port's
     codec; an image of another size is resized with PIL's default filter
-    (bicubic), as the JAX scripts do, which needs PIL."""
+    (bicubic), as the JAX scripts do, by `data/resample.py`'s copy of it
+    (bit for bit; no PIL)."""
+    from adaface_tpu_torch.data.resample import resize
+
     img = png.load_image(path, mode)
     if img.shape[:2] != (size, size):
-        from PIL import Image
-
-        img = np.asarray(Image.fromarray(img).resize((size, size)), np.uint8)
+        img = resize(img, (size, size), "bicubic")
     return img
 
 

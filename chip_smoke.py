@@ -362,6 +362,41 @@ fg-mask encode; no kernel of its own) adds, after [scorers]:
       faults (renormalized probabilities, the mask resized with the
       half-pixel nearest, the aug mask ignored) must fail the fp32 gate;
       ms a masked and an unmasked encode, peak GiB.
+Slice 25 (the evaluation and serving CLIs, the checkpoint, embedding and data
+tools; no kernel of its own) adds, after [compare]:
+  [eval-cli]. `gen_subjects_and_eval` on a two-subject info file (a face and
+      an object, [scorers]' reference PNGs as ground truth, [serve]'s `.pt`
+      as each subject's newest embeddings) on [ckpt]'s `.ckpt`, EVAL_PROMPTS
+      prompts, DDIM-EVAL_STEPS, batch 2, fp32: the txt2img argv equal to
+      what `--dryrun` prints and a prompt's images equal to `txt2img.main` on
+      it bit for bit (the fault: the other prompt's); `all_scores.csv` holds
+      each subject's rows and its MEAN row is their mean to 4 decimals (the
+      fault: a perturbed row); `evaluate_subjects` on the tree; s a subject;
+  [app]. `app.App` on the `.ckpt` (bf16, [serve]'s `.pt`) served on
+      127.0.0.1 port 0: one GET and three POSTs (DDIM-10, compel 1, PLMS-10,
+      batch 2), each PNG decoded by `data/png.py` equal bit for bit to
+      `App.generate`'s strip for the same fields (the fault: the seed plus
+      one); a new App on the settings file written renders the last
+      request's seed and sampler (the fault: an App without the file); s a
+      request and the flash launches;
+  [zs-test]. `tools/zero_shot_test` in its three arms at the shipped
+      zero-shot widths in fp32 (DDIM-10, batch 2) on two of [zero-shot]'s
+      reference images: the statistics printed
+      before generation against the same tool on the CPU (steps 1, batch 1,
+      256x256) within ZS_TEST_REL_TOL (the fault: the features of the vision
+      tower's last layer, not the one before); s an arm;
+  [db-reg]. `tools/gen_db_reg --num_images 3 --n_samples 2 --steps 10` on
+      the `.safetensors`: three `reg_*.png`, batch 0 equal to `txt2img.main`
+      on the argv the tool builds bit for bit (the fault: batch 1's image),
+      the DreamBooth reg loader reading them;
+  [tools]. every host tool as a subprocess with the script's environment,
+      all started before [eval-cli] and collected after [db-reg] (export
+      static and `--zs`, merge, avgemb, chk_ckpt_weights, modeldiff,
+      repl_component, resize_imgs, exam_wds --dump, text_sim_exp): the
+      exported `.pt`s load back to the same embeddings and generator
+      outputs (faults: the embedder's bias, a transposed weight);
+      text_sim_exp's cosines on the card against the CPU within 1e-5 (the
+      fault: b and c swapped); calc_stats / count_params on [main]'s UNet.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -7251,6 +7286,685 @@ def phase_vae_fg(torch, pipe, card, dev="cuda"):
         f"{peak - held:.2f} above the {held:.2f} GiB held before [{card}]")
 
 
+# ------------------------------------------------------------------ slice 25
+EVAL_STEPS, EVAL_PROMPTS, EVAL_BATCH = 10, 2, 2  # [eval-cli]'s txt2img runs (fp32)
+EVAL_SUBJECTS = """\\
+set -g subjects alice rexdog
+set -g class_names "woman" "dog"
+set -g cls_delta_strings "young woman" "corgi dog"
+set -g broad_classes 1 0
+set -g are_faces 1 0
+set -g data_folder subjects
+"""
+APP_STEPS = 10
+# [app]'s POSTs, the PLMS one last (the restart gate reads its sampler)
+APP_REQUESTS = [dict(prompt=SERVE_PROMPT, neg_prompt="", steps=APP_STEPS, scale_hi=10.0,
+                     scale_lo=4.0, seed=11, n_samples=2, sampler="ddim", compel=0.0),
+                dict(prompt="a z in a garden", neg_prompt="blurry", steps=APP_STEPS,
+                     scale_hi=7.5, scale_lo=7.5, seed=12, n_samples=2, sampler="ddim",
+                     compel=1.0),
+                dict(prompt=SERVE_PROMPT, neg_prompt="", steps=APP_STEPS, scale_hi=10.0,
+                     scale_lo=4.0, seed=13, n_samples=2, sampler="plms", compel=0.0)]
+ZS_TEST_STEPS = 10
+ZS_TEST_CPU_SIZE = 256  # the CPU side's size: the statistics do not depend on it
+ZS_TEST_IMAGES = 2  # of [zero-shot]'s reference images (the CPU side's ViT-L/14 passes)
+ZS_TEST_REL_TOL = 1e-4  # the statistics zero_shot_test prints, card vs CPU, relative
+DB_REG_IMAGES, DB_REG_BATCH, DB_REG_STEPS = 3, 2, 10
+TEXT_SIM_TOL = 1e-5  # text_sim_exp's cosines, card vs CPU, absolute
+REPL_SLOW_S = 20.0  # repl_component on the full-width .safetensors
+
+
+def flash_launch_summary(fa):
+    """kind -> launches of the flash wrappers' counters."""
+    out = {}
+    for (kind, *_), n in fa.launches_by_shape.items():
+        out[kind] = out.get(kind, 0) + n
+    return dict(sorted(out.items()))
+
+
+def mean_row_ok(rows):
+    """(gate, want): `all_scores.csv`'s MEAN row equals its rows' mean to 4
+    decimals (CLIP-I, CLIP-T, DINO)."""
+    import numpy as np
+
+    body, mean = rows[1:-1], rows[-1]
+    want = [f"{np.mean([float(r[2 + k]) for r in body]):.4f}" for k in range(3)]
+    return mean[0] == "MEAN" and mean[2:5] == want, want
+
+
+def phase_eval_cli(torch, fa, files, pt_static, ref_dir, folder, card, dev="cuda"):
+    """[eval-cli] `gen_subjects_and_eval.main` on EVAL_SUBJECTS (alice, a face:
+    [scorers]' reference PNGs as ground truth, `--calc_face_sim`; rexdog, an
+    object: two seeded PNGs), [serve]'s `.pt` as each subject's embeddings,
+    [ckpt]'s `.ckpt`, EVAL_PROMPTS prompts of DDIM-EVAL_STEPS at batch
+    EVAL_BATCH in fp32. Gates: the txt2img argv is what `--dryrun` prints,
+    and txt2img.main on it gives the first prompt's images bit for bit (the
+    fault: the second prompt's images); all_scores.csv holds each subject's
+    scores.csv rows and a MEAN row of their mean to 4 decimals (the fault: a
+    perturbed row). Then `evaluate_subjects` on each subject's folder (the
+    manifest copied in: JAX's layout), its means printed beside the
+    generator's. Returns the flash launches."""
+    import csv
+    import io
+    import shutil
+
+    import numpy as np
+
+    from adaface_tpu_torch import evaluate_subjects, gen_subjects_and_eval, txt2img
+    from adaface_tpu_torch.data import png
+
+    t_phase = time.time()
+    root = os.path.join(folder, "eval")
+    data_root, logdir, out = (os.path.join(root, d) for d in ("subjects", "logs", "out"))
+    os.makedirs(root)
+    info = os.path.join(root, "info.sh")
+    with open(info, "w") as f:
+        f.write(EVAL_SUBJECTS)
+    shutil.copytree(ref_dir, os.path.join(data_root, "alice"))
+    write_pngs(os.path.join(data_root, "rexdog"), 2, SIZE, 41)
+    for subject in ("alice", "rexdog"):
+        os.makedirs(os.path.join(logdir, f"{subject}-run"))
+        shutil.copy(pt_static, os.path.join(logdir, f"{subject}-run", "embeddings_gs-10.pt"))
+    argv = ["--subject_file", info, "--data_root", data_root, "--logdir", logdir, "--outdir",
+            out, "--ckpt", files["ckpt"], "--max_prompts", str(EVAL_PROMPTS), "--steps",
+            str(EVAL_STEPS), "--n_samples", str(EVAL_BATCH), "--size", str(SIZE), "--range", "1-2"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        gen_subjects_and_eval.main(argv + ["--dryrun"], device=dev)
+    printed = [ln[len("   txt2img "):] for ln in buf.getvalue().splitlines()
+               if ln.startswith("   txt2img ")]
+    real, calls, secs = txt2img.main, [], []
+
+    def recorded(a, device=None):
+        calls.append(list(a))
+        _sync(torch, dev)
+        t0 = time.time()
+        rc = real(a, device=device)
+        _sync(torch, dev)
+        secs.append(time.time() - t0)
+        return rc
+
+    fa.launches_by_shape.clear()
+    txt2img.main = recorded
+    buf = io.StringIO()
+    try:
+        with warnings_quiet(), contextlib.redirect_stdout(buf):
+            rc = gen_subjects_and_eval.main(argv, device=dev)
+    finally:
+        txt2img.main = real
+    launches = flash_launch_summary(fa)
+    say("[eval-cli] " + buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or [" ".join(c) for c in calls] != printed or len(calls) != 2:
+        fail(f"[eval-cli] main returned {rc}; txt2img argv {calls} against --dryrun's {printed}")
+    say(f"[eval-cli] gen_subjects_and_eval, 2 subjects x {EVAL_PROMPTS} prompts, DDIM-"
+        f"{EVAL_STEPS} B{EVAL_BATCH} fp32 on the .ckpt: "
+        f"{', '.join(f'{s:.1f}' for s in secs)} s a subject (checkpoint load, generation and "
+        f"scoring); flash launches {launches}; the txt2img argv is --dryrun's [{card}]")
+    # gate: txt2img.main on the printed argv gives the first prompt's images
+    again = list(calls[0])
+    rerun = os.path.join(root, "rerun")
+    again[again.index("--out") + 1] = rerun
+    with warnings_quiet(), contextlib.redirect_stdout(io.StringIO()):
+        real(again, device=dev)
+    sub = os.path.join(out, "alice")
+    names = [f"{i:05}.png" for i in range(EVAL_BATCH)]
+    same = all(np.array_equal(png.read(os.path.join(sub, "p00", n)),
+                              png.read(os.path.join(rerun, "p00", n))) for n in names)
+    other = max(int(np.abs(png.read(os.path.join(sub, "p01", n)).astype(int)
+                           - png.read(os.path.join(rerun, "p00", n)).astype(int)).max())
+                for n in names)
+    say(f"[eval-cli] txt2img.main on the printed argv: prompt p00's {EVAL_BATCH} images "
+        f"{'equal' if same else 'differ from'} the generator's bit for bit; planted fault "
+        f"(p01's images): max {other} levels off")
+    if not same:
+        fail("[eval-cli] the generator's images differ from txt2img.main on its argv")
+    if other == 0:
+        fail("[eval-cli] the other prompt's images pass the bit-for-bit gate")
+    rows = list(csv.reader(open(os.path.join(out, "all_scores.csv"))))
+    want_rows = [[s] + r for s in ("alice", "rexdog")
+                 for r in csv.reader(open(os.path.join(out, s, "scores.csv")))]
+    ok, want_mean = mean_row_ok(rows)
+    bad = [list(r) for r in rows]
+    bad[1][2] = f"{float(bad[1][2]) + 0.01:.4f}"
+    fault_ok, _ = mean_row_ok(bad)
+    say(f"[eval-cli] all_scores.csv: {rows}; MEAN of the rows {want_mean}; planted fault (a "
+        f"row's CLIP-I + 0.01) {'passes' if fault_ok else 'fails'} the MEAN gate")
+    if rows[1:-1] != want_rows or not ok or len(rows[1]) != 8 or len(rows[2]) != 5:
+        fail(f"[eval-cli] all_scores.csv {rows} against the subjects' rows {want_rows}")
+    if fault_ok:
+        fail("[eval-cli] a perturbed row passes the MEAN gate")
+    for i, subject in enumerate(("alice", "rexdog")):
+        shutil.copy(os.path.join(out, f"{subject}-prompts.tsv"), os.path.join(out, subject))
+        csv_path = os.path.join(root, f"rescored-{subject}.csv")
+        t0 = time.time()
+        with warnings_quiet(), contextlib.redirect_stdout(io.StringIO()):
+            rc = evaluate_subjects.main(["--gt_dir", data_root, "--samples_dir",
+                                         os.path.join(out, subject), "--subject_file", info,
+                                         "--range", str(i + 1), "--num_samples",
+                                         str(EVAL_BATCH), "--out_csv", csv_path], device=dev)
+        final = list(csv.reader(open(csv_path)))[-1]
+        say(f"[eval-cli] evaluate_subjects on {subject}'s tree: CLIP-I / CLIP-T / DINO "
+            f"{final[2]} / {final[3]} / {final[4]} beside the generator's "
+            f"{' / '.join(want_rows[i][2:5])} (CLIP-T against each prompt's own class prompt "
+            f"there, the first prompt's here) in {time.time() - t0:.1f} s")
+        if rc != 0:
+            fail(f"[eval-cli] evaluate_subjects returned {rc}")
+    say(f"[eval-cli] phase {time.time() - t_phase:.1f} s")
+    return launches
+
+
+def phase_app(torch, fa, files, pt_static, folder, card, dev="cuda"):
+    """[app] `app.App` on [ckpt]'s `.ckpt` in bf16 with [serve]'s `.pt` and a
+    settings file in `folder`, served by the standard library's server on
+    127.0.0.1, port 0, in a thread: one GET and the POSTs of APP_REQUESTS.
+    Gates: each response's PNG, decoded by `data/png.py`, equals
+    `App.generate`'s strip for the same fields bit for bit (the fault, on
+    the first request: the seed plus one); a new App on the settings file written renders the last
+    request's seed and sampler (the fault: an App without the file), read
+    and written without pyyaml. s a request, flash launches."""
+    import base64
+    import re
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    from urllib.parse import urlencode
+
+    import numpy as np
+
+    from adaface_tpu_torch import app as app_mod
+    from adaface_tpu_torch import txt2img
+    from adaface_tpu_torch.data import png
+
+    t_phase = time.time()
+    settings = os.path.join(folder, "webui-settings.yaml")
+    opt = txt2img.parse_args(["--ckpt", files["ckpt"], "--bf16", "--embedding_paths", pt_static,
+                              "--prompt", "unused"])
+    t0 = time.time()
+    app = app_mod.App(opt, settings_path=settings, device=dev)
+    _sync(torch, dev)
+    say(f"[app] App on the .ckpt (bf16) built in {time.time() - t0:.1f} s")
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), app_mod.make_handler(app))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with contextlib.redirect_stdout(sys.stderr):  # the handler's access log
+            page = urllib.request.urlopen(base + "/", timeout=60).read().decode()
+        if 'name="prompt"' not in page or 'value="20"' not in page:
+            fail("[app] the GET page lacks the form or the settings' defaults")
+        for req in APP_REQUESTS:
+            req = dict(req, size=SIZE)
+            fa.launches_by_shape.clear()
+            _sync(torch, dev)
+            t0 = time.time()
+            with contextlib.redirect_stdout(sys.stderr):
+                resp = urllib.request.urlopen(urllib.request.Request(
+                    base + "/generate", data=urlencode(req).encode()), timeout=600).read().decode()
+            dt = time.time() - t0
+            launches = fwd_counts(fa)
+            m = re.search(r'src="data:image/png;base64,([^"]+)"', resp)
+            if m is None:
+                fail(f"[app] no image in the response: {resp[-2000:]}")
+            strip = png.decode(base64.b64decode(m.group(1)))
+            fields = {k: str(v) for k, v in req.items()}  # as the form posts them
+            first = req["seed"] == APP_REQUESTS[0]["seed"]
+            saved, app.settings_path = app.settings_path, None  # the checks persist nothing
+            try:
+                want = app.generate(fields)
+                # the fault, on the first request: the seed plus one
+                fault = app.generate(dict(fields, seed=str(req["seed"] + 1))) if first else None
+            finally:
+                app.settings_path = saved
+            calls = req["steps"] + (req["sampler"] == "plms")
+            expect = per_unet_call(CLI_SHAPES, calls)
+            same = strip.shape == want.shape and np.array_equal(strip, want)
+            off = None if fault is None else int(np.abs(fault.astype(int)
+                                                        - strip.astype(int)).max())
+            say(f"[app] POST {req['sampler']} steps {req['steps']} compel {req['compel']} B"
+                f"{req['n_samples']}: {dt:.3f} s a request (HTTP, generation, PNG encode); PNG "
+                f"{strip.shape} {'equals' if same else 'differs from'} App.generate's strip bit "
+                f"for bit" + ("" if off is None else f"; planted fault (seed + 1) max {off} "
+                                                     "levels off")
+                + f"; flash launches {sum(launches.values())} {sorted(launches.items())} "
+                f"[{card}]")
+            if not same or off == 0 or launches != expect:
+                fail(f"[app] response image / fault / launches {launches} (want {expect})")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    last = APP_REQUESTS[-1]
+    real = app_mod.build_pipeline
+    app_mod.build_pipeline = lambda opt, device=None: (app.pipe, app.pipe.tokenizer)
+    try:
+        restarted = app_mod.App(opt, settings_path=settings, device=dev).render({})
+        without = app_mod.App(opt, device=dev).render({})
+    finally:
+        app_mod.build_pipeline = real
+    marks = (f'name="seed" type="number" value="{last["seed"]}"', f"selected>{last['sampler']}")
+    ok = all(m in restarted for m in marks)
+    fault_ok = all(m in without for m in marks)
+    say(f"[app] a new App on the settings file written ({os.path.getsize(settings)} bytes, "
+        f"pyyaml {'loaded' if 'yaml' in sys.modules else 'absent'}) renders seed "
+        f"{last['seed']} and {last['sampler']}: {ok}; planted fault (an App without the file): "
+        f"{fault_ok}; phase {time.time() - t_phase:.1f} s")
+    if not ok or fault_ok:
+        fail("[app] the restart round trip")
+    del app
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def pipeline_copy(torch, pipe, device):
+    """A copy of `pipe` on `device`: its modules, tokenizer and embedding
+    manager (the static embedders' tensors moved), the same numbers."""
+    import copy
+    import dataclasses
+
+    from adaface_tpu_torch.pipeline import StableDiffusionPipeline
+
+    mods = [copy.deepcopy(m).to(device) for m in (pipe.clip, pipe.unet, pipe.vae)]
+    mgr = copy.deepcopy(pipe.embedding_manager)
+    mgr.embedders = {s: dataclasses.replace(e, **{f.name: (None if getattr(e, f.name) is None
+                                                           else getattr(e, f.name).to(device))
+                                                  for f in dataclasses.fields(e)})
+                     for s, e in mgr.embedders.items()}
+    return StableDiffusionPipeline(copy.deepcopy(pipe.tokenizer), *mods, embedding_manager=mgr,
+                                   base_sched=pipe.base_sched, skip_weights=pipe.skip_weights)
+
+
+def phase_zs_test(torch, fa, folder, card, dev="cuda"):
+    """[zs-test] `tools/zero_shot_test`'s `build_models` / `run` at the shipped
+    zero-shot widths (ViT-L/14 vision, the ViT-L/14 text Arc2Face encoder,
+    the fg generator, K 16; a random fp32 SD v1.5 backbone) on ZS_TEST_IMAGES
+    of [zero-shot]'s seeded 512x512 reference images as PNGs, with `default_face_app()` ([face]'s
+    ONNX), in its three arms: DDIM-ZS_TEST_STEPS, batch 2, on the card.
+    Gate: the statistics printed before generation (the clip features' std,
+    the id embedding's norm, the context's std) equal the same tool's on a
+    CPU copy of the models (steps 1, batch 1, 256x256) within
+    ZS_TEST_REL_TOL relative; the fault (the personalised arm's features
+    taken at the vision tower's last layer, not the one before) must fall
+    outside it. s an arm."""
+    import copy
+    import io
+
+    import numpy as np
+
+    from adaface_tpu_torch import face_app, txt2img
+    from adaface_tpu_torch.data import png
+    from adaface_tpu_torch.personalization import zero_shot as zs_mod
+    from adaface_tpu_torch.tools import zero_shot_test as zst
+
+    t_phase = time.time()
+    images = zero_shot_references(0)[0][:ZS_TEST_IMAGES]
+    refs = []
+    for i, im in enumerate(images):
+        refs.append(os.path.join(folder, f"zs-ref{i}.png"))
+        png.write(refs[-1], im)
+    base = ["--ref_images", *refs]
+    card_argv = ["--steps", str(ZS_TEST_STEPS), "--n_samples", "2", "--size", str(SIZE)]
+    cpu_argv = ["--steps", "1", "--n_samples", "1", "--size", str(ZS_TEST_CPU_SIZE)]
+    t0 = time.time()
+    opt = zst.parse_args(base + card_argv)
+    pipe, tok = txt2img.build_pipeline(opt, dev)
+    cpu_pipe = pipeline_copy(torch, pipe, "cpu")
+    cpu_models = zst.build_models(opt, pipeline=(cpu_pipe, cpu_pipe.tokenizer))
+    models = dict(pipe=pipe, tok=tok, **{k: copy.deepcopy(cpu_models[k]).to(dev)
+                                         for k in ("vision", "arc2face", "generator")})
+    app, cpu_app = face_app.default_face_app(dev), face_app.default_face_app(device="cpu")
+    _sync(torch, dev)
+    n_params = sum(p.numel() for k in ("vision", "arc2face", "generator")
+                   for p in models[k].parameters())
+    say(f"[zs-test] models built in {time.time() - t0:.1f} s (the seeded vision tower, "
+        f"Arc2Face encoder and fg generator: {n_params / 1e6:.1f} M parameters, drawn on the "
+        "CPU and copied to the card; a random fp32 SD v1.5 backbone and its CPU copy)")
+    keys = ("clip_std", "id_norm", "context_std")
+    real_extractor = zs_mod.ZeroShotFeatureExtractor
+
+    def last_layer(vision, **kw):  # the fault: features of the last layer, not the one before
+        return real_extractor(vision, feature_layer=-1, **kw)
+
+    for arm in ("", "--apply_arc2face_embs", "--apply_arc2face_inverse_embs"):
+        extra = [arm] if arm else []
+        out = os.path.join(folder, "zs-test" + arm.replace("--apply", ""))
+        fa.launches_by_shape.clear()
+        _sync(torch, dev)
+        t0 = time.time()
+        sink = io.StringIO()
+        with contextlib.redirect_stdout(sink):
+            got = zst.run(zst.parse_args(base + card_argv + extra + ["--out", out]), models,
+                          app.embed_image)
+        _sync(torch, dev)
+        dt = time.time() - t0
+        launches = flash_launch_summary(fa)
+        cpu_opt = zst.parse_args(base + cpu_argv + extra + ["--out", out + "-cpu"])
+        with contextlib.redirect_stdout(io.StringIO()):
+            want = zst.run(cpu_opt, cpu_models, cpu_app.embed_image)
+            faulted = want
+            if not arm:
+                zs_mod.ZeroShotFeatureExtractor = last_layer
+                try:
+                    faulted = zst.run(cpu_opt, cpu_models, cpu_app.embed_image)
+                finally:
+                    zs_mod.ZeroShotFeatureExtractor = real_extractor
+        rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in keys)
+        frel = max(abs(got[k] - faulted[k]) / abs(faulted[k]) for k in keys)
+        lines = [ln for ln in sink.getvalue().splitlines() if "std=" in ln]
+        say(f"[zs-test] {arm or 'personalized'}: {dt:.2f} s (DDIM-{ZS_TEST_STEPS} B2 fp32, "
+            f"the features, the generator and 2 PNGs); {' | '.join(lines)}; against the CPU "
+            f"max relative {rel:.3e} (gate {ZS_TEST_REL_TOL:.0e})"
+            + ("" if arm else f"; planted fault (the vision features of the last layer, not "
+                              f"the one before) {frel:.3e}")
+            + f"; images {got['images'].shape}; flash launches {launches} [{card}]")
+        if not rel <= ZS_TEST_REL_TOL or (not arm and not frel > ZS_TEST_REL_TOL):
+            fail(f"[zs-test] {arm or 'personalized'}: stats {[got[k] for k in keys]} against "
+                 f"{[want[k] for k in keys]}, fault {[faulted[k] for k in keys]}")
+        if not np.isfinite(got["images"]).all() or got["images"].shape != (2, SIZE, SIZE, 3):
+            fail(f"[zs-test] images {got['images'].shape}")
+    say(f"[zs-test] phase {time.time() - t_phase:.1f} s")
+    del models, cpu_models, pipe, cpu_pipe
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_db_reg(torch, fa, files, ref_dir, folder, card, dev="cuda"):
+    """[db-reg] `tools/gen_db_reg.main` on [ckpt]'s `.safetensors` (fp32),
+    DB_REG_IMAGES images in batches of DB_REG_BATCH, DDIM-DB_REG_STEPS at
+    512x512. Gates: reg_00000..2.png, batch 0's equal to `txt2img.main` on
+    the argv the tool builds bit for bit (the fault: batch 1's image against
+    batch 0's first), and `DreamBoothDataset` reads the folder."""
+    import io
+
+    import numpy as np
+
+    from adaface_tpu_torch import txt2img
+    from adaface_tpu_torch.data import png
+    from adaface_tpu_torch.data.personalized_db import DreamBoothDataset
+    from adaface_tpu_torch.tools import gen_db_reg
+
+    out = os.path.join(folder, "reg")
+    argv = ["--class_prompt", "a photo of a person", "--out", out, "--num_images",
+            str(DB_REG_IMAGES), "--n_samples", str(DB_REG_BATCH), "--steps", str(DB_REG_STEPS),
+            "--size", str(SIZE), "--ckpt", files["safetensors"]]
+    fa.launches_by_shape.clear()
+    _sync(torch, dev)
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = gen_db_reg.main(argv, device=dev)
+    _sync(torch, dev)
+    dt = time.time() - t0
+    launches = flash_launch_summary(fa)
+    names = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    first = gen_db_reg.batch_argvs(gen_db_reg.parse_args(argv))[0]
+    check = os.path.join(folder, "reg-check")
+    first[first.index("--out") + 1] = check
+    with contextlib.redirect_stdout(io.StringIO()):
+        txt2img.main(first, device=dev)
+    same = all(np.array_equal(png.read(os.path.join(out, f"reg_{i:05}.png")),
+                              png.read(os.path.join(check, f"{i:05}.png")))
+               for i in range(DB_REG_BATCH))
+    off = int(np.abs(png.read(os.path.join(out, f"reg_{DB_REG_BATCH:05}.png")).astype(int)
+                     - png.read(os.path.join(check, "00000.png")).astype(int)).max())
+    ds = DreamBoothDataset(ref_dir, out, size=SIZE, seed=0)
+    _, reg = ds.draw_pair()
+    say(f"[db-reg] gen_db_reg {DB_REG_IMAGES} images, batches of {DB_REG_BATCH}, DDIM-"
+        f"{DB_REG_STEPS} fp32: {dt:.1f} s (two checkpoint loads); {names}; batch 0 "
+        f"{'equals' if same else 'differs from'} txt2img.main on the tool's argv bit for bit; "
+        f"planted fault (batch 1's image) max {off} levels off; the DreamBooth loader reads "
+        f"{len(ds.reg_paths)} reg images ({reg['image'].shape}); flash launches {launches} "
+        f"[{card}]")
+    if rc != 0 or names != [f"reg_{i:05}.png" for i in range(DB_REG_IMAGES)] or not same:
+        fail(f"[db-reg] rc {rc}, files {names}, bit for bit {same}")
+    if off == 0 or len(ds.reg_paths) != DB_REG_IMAGES or reg["image"].shape != (SIZE, SIZE, 3):
+        fail("[db-reg] the fault passed, or the loader did not read the folder")
+
+
+def write_png_shard(path, seed):
+    """A webdataset tar of PNG members (the card's machine has no PIL): three
+    captions the compositor accepts and two it filters out."""
+    import io
+    import tarfile
+
+    import numpy as np
+
+    from adaface_tpu_torch.data import png
+
+    rng = np.random.default_rng(seed)
+    rows = [("a sunny mountain landscape with trees", 640, 640),
+            ("a man walking on the beach", 640, 640),
+            ("old red barn under a grey sky", 800, 600),
+            ("the letter z carved into stone", 640, 640),
+            ("a lake at dusk", 640, 700)]
+    with tarfile.open(path, "w") as tf:
+        for i, (caption, ow, oh) in enumerate(rows):
+            for name, data in ((f"{i:03}.png", png.encode(rng.integers(
+                    0, 256, (oh // 10, ow // 10, 3), dtype=np.uint8))),
+                    (f"{i:03}.json", json.dumps({"caption": caption, "width": ow // 10,
+                                                  "height": oh // 10, "original_width": ow,
+                                                  "original_height": oh}).encode())):
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    return path
+
+
+def start_tools(torch, pipe, files, pt_static, folder, dev="cuda"):
+    """[tools]' inputs, and its host tools started as subprocesses with the
+    script's environment, all together, each waited on by a thread of its
+    own: export_embeddings (static and `--zs`), merge_embeddings, avgemb,
+    chk_ckpt_weights, modeldiff, repl_component on [ckpt]'s `.safetensors`,
+    resize_imgs, exam_wds --dump, text_sim_exp. They run while the slice's
+    other phases do; `phase_tools` collects them."""
+    import threading
+
+    from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
+    from adaface_tpu_torch.personalization.subj_basis_generator import SubjBasisGenerator
+    from adaface_tpu_torch.pipeline import build_random
+
+    d = os.path.join(folder, "tools")
+    os.makedirs(d)
+    p = lambda name: os.path.join(d, name)
+    # inputs: [main]'s z as a native .npz and a perturbed copy; zero-shot
+    # generators as the port's subj_basis checkpoint
+    pipe.embedding_manager.save_native(p("embeddings_gs-100.npz"))
+    later = EmbeddingManager.load_native(p("embeddings_gs-100.npz"))
+    g = torch.Generator().manual_seed(51)
+    z = later.embedders["z"]
+    z.bias = z.bias + 0.01 * torch.randn(z.bias.shape, generator=g)
+    later.add_placeholder("y", 49500, num_vectors=4, emb_dim=768, generator=g)
+    later.save_native(p("embeddings_gs-200.npz"))
+    os.utime(p("embeddings_gs-100.npz"), (100, 100))
+    os.utime(p("embeddings_gs-200.npz"), (200, 200))
+    # the shipped fg generator; the bg one at the generator's default 6 heads:
+    # a state dict carries no head count, so the export reloads at 6
+    gens = {"z": build_random(zero_shot_builds(pipe.tokenizer)["fg"], 52, "cpu"),
+            "y": build_random(lambda: SubjBasisGenerator(
+                placeholder_is_bg=True, num_out_layers=16, num_out_embs_per_layer=4,
+                output_dim=768, image_embedding_dim=1024, bg_num_id_vecs=257), 53, "cpu")}
+    torch.save({"generators": {s: gm.state_dict() for s, gm in gens.items()}, "global_step": 3,
+                "use_prodigy": True}, p("subj_basis_gs-3.pt"))
+    bg_sd = gens["y"].state_dict()
+    torch.save({"state_dict": bg_sd}, p("bg-a.ckpt"))
+    torch.save({"state_dict": {k: v + 0.01 for k, v in bg_sd.items()}}, p("bg-b.ckpt"))
+    resize_src = p("resize-src")
+    write_pngs(resize_src, 2, SIZE, 54)
+    shard = write_png_shard(p("shard-000.tar"), 55)
+    runs = {
+        "export": ["export_embeddings", p("embeddings_gs-100.npz"), "--out", p("ref.pt")],
+        "export --zs": ["export_embeddings", p("subj_basis_gs-3.pt"), "--zs", "--out",
+                        p("zs.pt")],
+        "merge": ["merge_embeddings", p("embeddings_gs-100.npz"), p("embeddings_gs-200.npz"),
+                  pt_static, "--out", p("merged.npz")],
+        "avgemb": ["avgemb", p("embeddings_gs-*.npz"), "--last_n", "2", "--out", p("avg.npz")],
+        "chk_ckpt_weights": ["chk_ckpt_weights", p("embeddings_gs-*.npz")],
+        "modeldiff": ["modeldiff", p("bg-a.ckpt"), p("bg-b.ckpt"), "--top", "3"],
+        "repl_component": ["repl_component", "--base", files["safetensors"], "--out",
+                           p("bundle.npz")],
+        "resize_imgs": ["resize_imgs", resize_src, p("resized"), "--size", "384"],
+        "exam_wds": ["exam_wds", shard, "--n", "4", "--size", "256", "--dump", p("wds")],
+        "text_sim_exp": ["text_sim_exp", "--device", dev],
+    }
+    done = {}
+
+    def wait(name, t0, proc):
+        out, err = proc.communicate()
+        done[name] = (time.time() - t0, proc.returncode, out.splitlines(), err)
+
+    threads = []
+    for name, (tool, *args) in runs.items():
+        proc = subprocess.Popen([sys.executable, "-m", f"adaface_tpu_torch.tools.{tool}", *args],
+                                cwd=os.path.dirname(os.path.abspath(__file__)),
+                                env=dict(os.environ), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        threads.append(threading.Thread(target=wait, args=(name, time.time(), proc)))
+        threads[-1].start()
+    return dict(d=d, gens=gens, runs=runs, done=done, threads=threads, t0=time.time())
+
+
+def phase_tools(torch, pipe, started, card, dev="cuda"):
+    """[tools] `start_tools`' subprocesses collected (that they ran at all
+    shows that none needs PIL, pyyaml or JAX). Gates: the static export
+    loads back through `load_reference_checkpoint` with its embeddings equal
+    to the computed ones bit for bit (the fault: the embedder's bias); the
+    `--zs` export loads back through `_load_subj_basis_generators` to
+    generators whose outputs equal the saved ones' bit for bit (the fault:
+    one weight transposed); text_sim_exp's cosines on the card equal the
+    CPU's within TEXT_SIM_TOL (the fault: b and c swapped); calc_stats and
+    count_params on [main]'s UNet."""
+    import copy
+    import io
+
+    import numpy as np
+
+    from adaface_tpu_torch import utils
+    from adaface_tpu_torch.data import png
+    from adaface_tpu_torch.evaluation.scorers import init_evaluators
+    from adaface_tpu_torch.interop.torch_pickle import load_torch_checkpoint
+    from adaface_tpu_torch.personalization.arc2face import INVERSE_TEMPLATE, make_template_ids
+    from adaface_tpu_torch.personalization.embedding_manager import (EmbeddingManager,
+                                                                     PlaceholderInfo)
+    from adaface_tpu_torch.personalization.static_embedding import compute_static_embedding
+    from adaface_tpu_torch.personalization.zero_shot import ZeroShotFeatures
+    from adaface_tpu_torch.tools.text_sim_exp import TRIPLETS, triplet_cosines
+
+    t_phase = time.time()
+    p = lambda name: os.path.join(started["d"], name)
+    gens, runs, done = started["gens"], started["runs"], started["done"]
+    for th in started["threads"]:
+        th.join(timeout=600)
+    waited = time.time() - t_phase
+    outs, secs = {}, {}
+    for name in runs:
+        if name not in done:
+            fail(f"[tools] {name} did not end within 600 s")
+        secs[name], rc, outs[name], err = done[name]
+        if rc != 0:
+            fail(f"[tools] {name} exited {rc}: {err[-3000:]}")
+    g = torch.Generator().manual_seed(56)
+    say("[tools] subprocesses, all started together before [eval-cli] (s each to its end, its "
+        "import included): " + ", ".join(f"{n} {secs[n]:.1f}" for n in runs)
+        + f"; {waited:.1f} s waited for them here")
+    for name in ("merge", "avgemb", "chk_ckpt_weights", "modeldiff", "resize_imgs", "exam_wds"):
+        say(f"[tools] {name}: " + " | ".join(outs[name][-4:]))
+    bundle = np.load(p("bundle.npz"))
+    n_bundle = sum(int(np.prod(bundle[k].shape)) for k in bundle.files)
+    slow = secs["repl_component"] > REPL_SLOW_S
+    say(f"[tools] repl_component on the full-width .safetensors: {len(bundle.files)} arrays, "
+        f"{n_bundle / 1e6:.1f} M values, {os.path.getsize(p('bundle.npz')) / 1e9:.3f} GB, "
+        f"{secs['repl_component']:.1f} s" + (f" (over {REPL_SLOW_S:.0f} s)" if slow else ""))
+    del bundle
+    resized = [png.read(os.path.join(p("resized"), f)) for f in sorted(os.listdir(p("resized")))]
+    dumped = sorted(os.listdir(p("wds")))
+    if [im.shape for im in resized] != [(384, 384, 3)] * 2 or not dumped:
+        fail(f"[tools] resize_imgs {[im.shape for im in resized]}, exam_wds {dumped}")
+    # the static export loads back, its embeddings the computed ones
+    ck = load_torch_checkpoint(p("ref.pt"))
+    stored = ck["string_to_static_embedder"].__dict__["_parameters"]["z"]
+    src = EmbeddingManager.load_native(p("embeddings_gs-100.npz")).embedders["z"]
+    computed = compute_static_embedding(src)
+    back = EmbeddingManager().load_reference_checkpoint(p("ref.pt"))
+    same = torch.equal(stored, computed) and back.placeholders["z"].num_vectors == 9
+    bias_off = float((stored - src.bias).abs().max())
+    say(f"[tools] export: ref.pt loads back (z, K {back.placeholders['z'].num_vectors}), its "
+        f"embeddings {'equal' if same else 'differ from'} compute_static_embedding's bit for "
+        f"bit; planted fault (the embedder's bias) max {bias_off:.3e} off")
+    if not same or bias_off == 0:
+        fail("[tools] the static export's load-back")
+    # the --zs export loads back through _load_subj_basis_generators
+    zs = load_torch_checkpoint(p("zs.pt"))
+    sds = zs["string_to_subj_basis_generator_state_dicts"]
+    tok = copy.deepcopy(pipe.tokenizer)
+    feats = ZeroShotFeatures(*(torch.randn(s, generator=g).to(dev) for s in
+                               ((1, 257, 1024), (1, 257, 1024), (1, 384))))
+    inv = make_template_ids(tok, INVERSE_TEMPLATE)
+
+    def outputs(generators, swap=None):
+        """(embeddings, generators) of the saved generators or, with None, of
+        the export loaded back (`swap`: a bg tensor transposed first)."""
+        mgr = EmbeddingManager()
+        for s in ("z", "y"):
+            mgr.placeholders[s] = PlaceholderInfo(s, tok.add_placeholder(s), 16 if s == "z" else 4,
+                                                  is_background=s == "y")
+        if generators is None:
+            flat = {s: dict(sd) for s, sd in sds.items()}
+            if swap:
+                flat["y"][swap] = flat["y"][swap].t().contiguous()
+            mgr._load_subj_basis_generators({"string_to_subj_basis_generator_dict": flat}, {},
+                                            device=dev)
+        else:
+            mgr.subj_basis_generators = {s: gm.to(dev) for s, gm in generators.items()}
+        with torch.inference_mode():
+            embs, _ = mgr.compute_zero_shot_embeddings(feats, inv, is_face=False)
+        return {s: e.float().cpu() for s, e in embs.items()}, mgr.subj_basis_generators
+
+    want, saved = outputs({s: copy.deepcopy(gm) for s, gm in gens.items()})
+    got, loaded = outputs(None)
+    wkey = "prompt_translator.to_q.0.weight"
+    faulted, _ = outputs(None, swap=wkey)
+    same = all(torch.equal(got[s], want[s]) for s in want)
+    same_sd = all(sorted(loaded[s].state_dict()) == sorted(saved[s].state_dict()) and all(
+        torch.equal(v, saved[s].state_dict()[k]) for k, v in loaded[s].state_dict().items())
+        for s in saved)
+    off = max(float((faulted[s] - want[s]).abs().max()) for s in want)
+    say(f"[tools] export --zs: zs.pt loads back through _load_subj_basis_generators (the bg "
+        f"generator at the generator's default 6 heads: a state dict holds no head count); "
+        f"the fg (object branch) and bg generators' embeddings "
+        f"{({s: tuple(e.shape) for s, e in got.items()})} {'equal' if same else 'differ from'} "
+        f"the saved generators' bit for bit, every tensor {'equal' if same_sd else 'not equal'}"
+        f"; planted fault (the bg {wkey} transposed) max {off:.3e} off")
+    if not same or not same_sd or off == 0:
+        fail("[tools] the --zs export's load-back")
+    # text_sim_exp: the card's cosines against the CPU's
+    with warnings_quiet():
+        clip, _ = init_evaluators(device=dev)
+        cpu_clip, _ = init_evaluators(device="cpu")
+    card_cos = triplet_cosines(clip, TRIPLETS)
+    cpu_cos = triplet_cosines(cpu_clip, TRIPLETS)
+    swapped = triplet_cosines(cpu_clip, [(a, c, b) for a, b, c in TRIPLETS])
+    diff = lambda xs, ys: max(abs(u - v) for x, y in zip(xs, ys)
+                              for arm in ("sentence", "token_mean")
+                              for u, v in zip(x[arm], y[arm]))
+    err, ferr = diff(card_cos, cpu_cos), diff(card_cos, swapped)
+    say(f"[tools] text_sim_exp: {len(TRIPLETS)} triplets' cosines, card vs the CPU max abs "
+        f"{err:.3e} (gate {TEXT_SIM_TOL:.0e}); planted fault (b and c swapped) {ferr:.3e}; the "
+        f"subprocess printed {len(outs['text_sim_exp'])} lines")
+    if not err <= TEXT_SIM_TOL or not ferr > TEXT_SIM_TOL:
+        fail("[tools] text_sim_exp's card / CPU gate")
+    # calc_stats and count_params on [main]'s UNet
+    w = pipe.unet.in_conv.weight.detach().float()
+    with contextlib.redirect_stdout(io.StringIO()) as line:
+        stats = utils.calc_stats("unet.in_conv.weight", w)
+    x = w.float().cpu().numpy().astype(np.float64)
+    want_std, ddof1 = float(x.std()), float(x.std(ddof=1))
+    n_unet = utils.count_params(pipe.unet)
+    std_ok = abs(stats[1] - want_std) <= 1e-6 * want_std
+    say(f"[tools] calc_stats: {line.getvalue().strip()} (population std {want_std:.6f}; the "
+        f"fault, ddof 1, {ddof1:.6f}, {abs(ddof1 - want_std) / want_std:.2e} relative); "
+        f"count_params(unet) {n_unet:.3f} M; phase {time.time() - t_phase:.1f} s")
+    if not std_ok or abs(ddof1 - want_std) <= 1e-6 * want_std or \
+            round(n_unet * 1e6) != sum(q.numel() for q in pipe.unet.parameters()):
+        fail("[tools] calc_stats / count_params")
+
+
 def main():
     import torch
 
@@ -7344,6 +8058,17 @@ def main():
         compare_counts = phase_compare(torch, fa, serve_files, pt_static, serve_dir, ref_dir,
                                        card)
         say(f"[main] slice 23's [compare] {time.time() - t_slice:.1f} s")
+        # slice 25: the CLIs and tools on [ckpt]'s files, [serve]'s `.pt`,
+        # [scorers]' PNGs and [face]'s ONNX
+        t_slice = time.time()
+        tools = start_tools(torch, pipe, serve_files, pt_static, serve_dir)
+        phase_eval_cli(torch, fa, serve_files, pt_static, ref_dir, serve_dir, card)
+        phase_app(torch, fa, serve_files, pt_static, serve_dir, card)
+        phase_zs_test(torch, fa, serve_dir, card)
+        phase_db_reg(torch, fa, serve_files, ref_dir, serve_dir, card)
+        phase_tools(torch, pipe, tools, card)
+        say(f"[main] slice 25's phases ([eval-cli], [app], [zs-test], [db-reg], [tools]) "
+            f"{time.time() - t_slice:.1f} s")
         add_training_placeholders(torch, pipe)
         with tempfile.TemporaryDirectory() as tmp:
             # 8 and 8b gate the bf16 training arithmetic against fp32 on the

@@ -99,14 +99,18 @@ UNSUPPORTED = {
     "flow mapping in a list": "a: [{b: 1}]\n",
     "tab indentation": "a:\n\tb: 1\n",
     "tab in a value": "a: 1\t# c\n",
-    "block sequence": "a:\n  - 1\n  - 2\n",
-    "top-level sequence": "- 1\n- 2\n",
+    # block sequences of scalars are read (tests/test_torch_webui_params.py);
+    # of anything else they are not
+    "block sequence": "a:\n  - b: 1\n  - 2\n",
+    "top-level sequence": "- - 1\n- 2\n",
     "timestamp": "a: 2001-12-14\n",
     "merge key": "<<: 1\n",
     "duplicate key": "a: 1\na: 2\n",
     "mapping in a value": "a: b: c\n",
     "directive": "%YAML 1.1\na: 1\n",
-    "multi-line plain scalar": "a: one\n  two\n",
+    # a multi-line plain scalar is read as pyyaml folds it, but not across a
+    # blank or comment line (pyyaml never writes one there)
+    "multi-line plain scalar": "a: one\n\n  two\n",
     "bad indentation": "a:\n    b: 1\n  c: 2\n",
     "unterminated list": "a: [1, 2\n",
     "unterminated quote": "a: 'x\n",

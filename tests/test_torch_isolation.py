@@ -133,3 +133,55 @@ def test_face_tools_load_no_pil(tmp_path):
     assert r.returncode == 0, r.stderr
     assert "IMPORTED []" in r.stdout and "LOADED []" in r.stdout, r.stdout
     assert "wrote 2 masks (trash 0, inspect 0)" in r.stdout, r.stdout
+
+
+NEW_ENTRY_POINTS = ("app", "gen_subjects_and_eval", "evaluate_subjects", "webui_params",
+                    "utils", "data.resample", "tools.zero_shot_test", "tools.gen_db_reg",
+                    "tools.export_embeddings", "tools.merge_embeddings", "tools.avgemb",
+                    "tools.chk_ckpt_weights", "tools.modeldiff", "tools.repl_component",
+                    "tools.resize_imgs", "tools.exam_wds", "tools.text_sim_exp")
+
+
+def test_cli_entry_points_load_no_yaml_or_pil(tmp_path):
+    """The evaluation and serving CLIs and the checkpoint, embedding and data
+    tools import without yaml and PIL, and their host paths run on PNGs with
+    neither loaded: the settings round trip, `resize_imgs`, a resize through
+    `txt2img.load_resized` and `gen_face_masks.pil_resize`, `exam_wds
+    --dump`."""
+    import numpy as np
+
+    from adaface_tpu_torch.data import png
+
+    from test_torch_data_tools import write_shard
+
+    mods = _port_modules()
+    for m in NEW_ENTRY_POINTS:
+        assert f"adaface_tpu_torch.{m}" in mods, m
+    src = tmp_path / "src"
+    src.mkdir()
+    g = np.random.default_rng(0)
+    png.write(str(src / "a.png"), g.integers(0, 256, (60, 90, 3), dtype=np.uint8))
+    shard = write_shard(tmp_path / "shard.tar")
+    code = ("import importlib, sys\n"
+            f"for m in {NEW_ENTRY_POINTS!r}: importlib.import_module('adaface_tpu_torch.' + m)\n"
+            "print('IMPORTED', sorted(m for m in sys.modules\n"
+            "                         if m.split('.')[0] in ('yaml', 'PIL')))\n"
+            "from adaface_tpu_torch import webui_params as w, txt2img\n"
+            "from adaface_tpu_torch.tools import resize_imgs, exam_wds, gen_face_masks\n"
+            f"w.update_settings({str(tmp_path / 's.yaml')!r}, seed=3, prompt='a ' * 60)\n"
+            f"assert w.load_settings({str(tmp_path / 's.yaml')!r})[0].seed == 3\n"
+            f"resize_imgs.main([{str(src)!r}, {str(tmp_path / 'dst')!r}, '--size', '32'])\n"
+            f"assert txt2img.load_resized({str(src / 'a.png')!r}, 40).shape == (40, 40, 3)\n"
+            f"img = txt2img.load_resized({str(src / 'a.png')!r}, 40)\n"
+            "assert gen_face_masks.pil_resize(img, (20, 30), 'bilinear').shape == (30, 20, 3)\n"
+            f"exam_wds.main([{shard!r}, '--n', '3', '--size', '32', '--dump',\n"
+            f"               {str(tmp_path / 'dump')!r}])\n"
+            "print('LOADED', sorted(m for m in sys.modules\n"
+            "                       if m.split('.')[0] in ('yaml', 'PIL')))\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO / "tests"), env.get("PYTHONPATH", "")])
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "IMPORTED []" in r.stdout and "LOADED []" in r.stdout, r.stdout
+    assert "resized 1 images" in r.stdout
