@@ -4,8 +4,11 @@ behavior and the same order of draws from the dataset's numpy RNG):
 
 - folder scan: per-subject subfolders, `*_mask.png` fg-mask pairing,
   `.txt` caption files, `metainfo.json` person_type cache;
-- loading: RGB (PNGs through the port's own codec, `data/png.py`; other
-  formats through PIL, imported when such a file is read), NEAREST resize
+- loading: RGB (PNGs through the port's own codec, `data/png.py`, JPEGs
+  through its own decoder, `data/jpeg.py`; other formats through PIL,
+  imported when such a file is read), each image decoded once and kept,
+  keyed by path, size and mtime (a subject folder holds a handful); NEAREST
+  resize
   with the mask stacked as a 4th channel so one resample moves both;
 - augmentation: random horizontal flip, random uniform scale in
   [0.7, 1.0] about the center (zero-padded), then a random roll within the
@@ -197,6 +200,8 @@ class PersonalizedDataset:
                 except (json.JSONDecodeError, OSError):
                     pass
         self._repeats = max(1, repeats)
+        # (path, mode) -> ((size, mtime), pixels): each image decoded once
+        self._decoded: Dict[tuple, tuple] = {}
 
     def __len__(self) -> int:
         return len(self.records) * self._repeats
@@ -205,10 +210,23 @@ class PersonalizedDataset:
         return len(self.subject_records[subject_idx])
 
     # -------------------------------------------------------------- loading
+    def _read(self, path: str, mode: str) -> np.ndarray:
+        """`load_image(path, mode)`, decoded at the first read and kept while
+        the file's size and mtime stay (read-only: callers copy)."""
+        st = os.stat(path)
+        stamp = (st.st_size, st.st_mtime_ns)
+        hit = self._decoded.get((path, mode))
+        if hit is not None and hit[0] == stamp:
+            return hit[1]
+        px = load_image(path, mode)
+        px.setflags(write=False)
+        self._decoded[(path, mode)] = (stamp, px)
+        return px
+
     def _load(self, rec: ImageRecord):
-        image = load_image(rec.path, "RGB")
+        image = self._read(rec.path, "RGB")
         if rec.mask_path:
-            mask = load_image(rec.mask_path, "L")
+            mask = self._read(rec.mask_path, "L")
             has_fg_mask = True
         else:
             mask = np.full(image.shape[:2], 255, np.uint8)

@@ -5,8 +5,8 @@ Two plain image folders: the subject's photos, captioned "a photo of a
 <placeholder> <class>", and pre-generated class images, captioned "a photo
 of a <class>", drawn as (train, reg) pairs. The draws from the dataset's
 numpy RNG are the JAX dataset's, in its order: the subject index, the reg
-index, then a flip for each image. PNGs load through `data/png.py`, other
-formats through PIL.
+index, then a flip for each image. PNGs load through `data/png.py`, JPEGs
+through `data/jpeg.py`, other formats through PIL.
 """
 
 from __future__ import annotations

@@ -7,8 +7,11 @@ own images where PIL is missing.
   (RGB), 4 (LA) and 6 (RGBA), with all five row filters. Other PNGs
   (palette, 16-bit, interlaced) raise `UnsupportedPNG`.
 - `load_image(path_or_bytes, mode)`: "RGB" or "L" pixels the way PIL's
-  `Image.open(...).convert(mode)` gives them: PNGs through this codec,
-  anything else (and an unsupported PNG) through PIL, imported only then.
+  `Image.open(...).convert(mode)` gives them, routed by the file's
+  signature: PNGs through this codec, JPEGs through `data/jpeg.py`, and
+  only then PIL (other formats, or a PNG or JPEG those refuse), imported
+  only then. Where PIL is missing, such a file raises an ImportError that
+  names the file and the feature; no substitute pixels are returned.
 
 The conversions are PIL's: L and LA to RGB repeat the gray value, RGBA and
 LA drop alpha, RGB to L is (19595 R + 38470 G + 7471 B + 2^15) >> 16. PNG is
@@ -20,7 +23,7 @@ from __future__ import annotations
 import io
 import struct
 import zlib
-from typing import Optional, Union
+from typing import Union
 
 import numpy as np
 
@@ -143,20 +146,31 @@ def convert(px: np.ndarray, mode: str) -> np.ndarray:
 
 def load_image(src: Union[str, bytes], mode: str = "RGB") -> np.ndarray:
     """uint8 pixels of an image file (a path or its bytes) in `mode` ("RGB"
-    or "L"): PNGs through this codec, other formats through PIL."""
-    data: Optional[bytes] = src if isinstance(src, (bytes, bytearray)) else None
-    if data is None:
-        with open(src, "rb") as f:
-            head = f.read(len(SIGNATURE))
-        if head == SIGNATURE:
-            with open(src, "rb") as f:
-                data = f.read()
-    if data is not None and bytes(data[:len(SIGNATURE)]) == SIGNATURE:
-        try:
-            return convert(decode(bytes(data)), mode)
-        except UnsupportedPNG:
-            pass
-    from PIL import Image
+    or "L"), as PIL's `Image.open(src).convert(mode)` gives them: PNGs
+    through this codec, JPEGs through `data/jpeg.py`, anything else (and a
+    PNG or JPEG those refuse) through PIL."""
+    from adaface_tpu_torch.data import jpeg
 
-    img = Image.open(io.BytesIO(data) if data is not None else src)
-    return np.asarray(img.convert(mode), np.uint8)
+    if isinstance(src, (bytes, bytearray)):
+        data = bytes(src)
+    else:
+        with open(src, "rb") as f:
+            data = f.read()
+    feature = "neither a PNG nor a JPEG"
+    if data.startswith(SIGNATURE):
+        try:
+            return convert(decode(data), mode)
+        except UnsupportedPNG as e:
+            feature = f"PNG of {e}"
+    elif data.startswith(jpeg.SOI):
+        try:
+            return jpeg.load(data, mode)
+        except jpeg.UnsupportedJPEG as e:
+            feature = e.feature
+    try:
+        from PIL import Image
+    except ImportError as e:
+        name = "<image bytes>" if isinstance(src, (bytes, bytearray)) else src
+        raise ImportError(f"{name}: {feature}, which the port's own decoders do not read, "
+                          "and PIL is not installed") from e
+    return np.asarray(Image.open(io.BytesIO(data)).convert(mode), np.uint8)

@@ -4,7 +4,8 @@ copy of `adaface_tpu/data/wds.py`).
 Tar shards are streamed with the stdlib `tarfile`, yielding (image,
 metadata) pairs from `.jpg/.png` members paired with `.json` (or `.txt`)
 captions, looping over the shards forever. PNG members decode through
-`data/png.py`, other formats through PIL.
+`data/png.py`, JPEG members through `data/jpeg.py` (each member once;
+nothing is kept), other formats through PIL.
 
 Filters (`BackgroundCompositor.next_background`):
 - prompts shorter than 5 chars;

@@ -14,8 +14,9 @@
   typed fields and the sel_set 1-offset.
 - `parse_range_str` (`:480-499`).
 
-Images load through `data/png.load_image`: PNGs by the port's own codec
-(the card's machine has no PIL), other formats through PIL.
+Images load through `data/png.load_image`: PNGs by the port's own codec,
+JPEGs by its own decoder (`data/jpeg.py`; the card's machine has no PIL),
+other formats through PIL.
 """
 
 from __future__ import annotations

@@ -8,9 +8,10 @@ Without `--mask`: `StableDiffusionPipeline.img2img` (the init image's
 latent noised to t = strength * steps, then DDIM from there at a fixed
 guidance scale). With `--mask` (white = repaint): `inpaint`, masked latent
 blending on an ordinary SD model. The backbone, embeddings and devices are
-`txt2img.build_pipeline`'s (`--device cpu` for the CPU); images are read and
-written as PNGs by the port's codec (another format, or another size than
-`--size`, goes through PIL).
+`txt2img.build_pipeline`'s (`--device cpu` for the CPU); images are read by
+`txt2img.load_resized` (PNGs and JPEGs by the port's decoders, another size
+than `--size` by `data/resample.py`'s bicubic, other formats through PIL)
+and written as PNGs by the port's codec.
 """
 
 from __future__ import annotations

@@ -18,10 +18,11 @@ NCHW inside, NHWC at the interface; submodules carry the flax tree's names
 stride` repeated per anchor, distances times the stride, a `>=` score
 threshold, greedy NMS (`retinaface.nms`). `SCRFDDetector` letterboxes at the
 top left, normalizes as (x - 127.5) / 128 and divides boxes and keypoints by
-the scale. Its resize is the JAX function's own two branches: PIL's default
-filter where PIL imports, the integer-index sampling where it does not (the
-card's machine has no PIL); a frame already at the letterbox size is copied,
-as PIL's resize copies it. JAX has no SCRFD weight reader, so neither has
+the scale. Its resize is Pillow's default (bicubic) filter, which JAX's
+detector takes where PIL imports, computed by `data/resample.py` bit for bit
+with no PIL (the card's machine has none); `resample="index"` takes the
+integer-index sampling of JAX's branch without PIL instead. A frame already
+at the letterbox size is copied, as PIL's resize copies it. JAX has no SCRFD weight reader, so neither has
 the port; `init_scrfd` draws seeded weights.
 """
 
@@ -35,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from adaface_tpu_torch.data.resample import resize
 from adaface_tpu_torch.models.arcface import BN
 from adaface_tpu_torch.models.flax_init import seeded
 from adaface_tpu_torch.models.retinaface import nms
@@ -238,19 +240,21 @@ def decode_scrfd(outputs, score_thresh: float = 0.5, nms_thresh: float = 0.4) ->
     return [(boxes[i], kps[i], float(scores[i])) for i in nms(boxes, scores, nms_thresh)]
 
 
-def letterbox_resize(image: np.ndarray, nh: int, nw: int) -> np.ndarray:
-    """`image` at nh x nw: a copy at its own size, PIL's default filter
-    where PIL imports, else the integer-index sampling."""
+def letterbox_resize(image: np.ndarray, nh: int, nw: int,
+                     resample: str = "bicubic") -> np.ndarray:
+    """`image` at nh x nw: a copy at its own size, else Pillow's default
+    (bicubic) resize by `data/resample.py`, or with resample="index" the
+    integer-index sampling of JAX's branch without PIL."""
     H, W = image.shape[:2]
     if (nh, nw) == (H, W):
         return image.copy()
-    try:
-        from PIL import Image as PILImage
-    except ImportError:
+    if resample == "index":
         yi = (np.arange(nh) * H / nh).astype(int)
         xi = (np.arange(nw) * W / nw).astype(int)
         return image[yi][:, xi]
-    return np.asarray(PILImage.fromarray(image.astype(np.uint8)).resize((nw, nh)))
+    if resample != "bicubic":
+        raise ValueError(f"resample {resample!r}: bicubic or index")
+    return resize(image.astype(np.uint8), (nw, nh), "bicubic")
 
 
 class SCRFDDetector:
@@ -259,11 +263,13 @@ class SCRFDDetector:
     original frame."""
 
     def __init__(self, model: SCRFD, input_size: Tuple[int, int] = (640, 640),
-                 score_thresh: float = 0.5, nms_thresh: float = 0.4):
+                 score_thresh: float = 0.5, nms_thresh: float = 0.4,
+                 resample: str = "bicubic"):
         self.model = model.eval().requires_grad_(False)
         self.input_size = input_size
         self.score_thresh = score_thresh
         self.nms_thresh = nms_thresh
+        self.resample = resample  # letterbox_resize's
 
     def prepare(self, image: np.ndarray) -> Tuple[np.ndarray, float]:
         """(normalized [ih, iw, 3] fp32 canvas, scale)."""
@@ -272,7 +278,7 @@ class SCRFDDetector:
         scale = min(ih / H, iw / W)
         nh, nw = int(round(H * scale)), int(round(W * scale))
         canvas = np.zeros((ih, iw, 3), np.float32)
-        canvas[:nh, :nw] = letterbox_resize(image, nh, nw)
+        canvas[:nh, :nw] = letterbox_resize(image, nh, nw, self.resample)
         return (canvas - 127.5) / 128.0, scale
 
     @torch.inference_mode()

@@ -10,7 +10,7 @@ recognizer), its cosine similarity to the folder's mean taken, and images
 below `--threshold` or without a face move into `<dir>/trash`, with their
 `_mask.png` and `.txt` companions. The recognizer runs on the CUDA card;
 `--device cpu` (or `main(..., device="cpu")`) runs it on the CPU. Images are
-read by `data/png.py` (PNGs without PIL).
+read by `data/png.load_image` (PNGs and JPEGs without PIL).
 """
 
 from __future__ import annotations

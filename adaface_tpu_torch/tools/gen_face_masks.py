@@ -19,8 +19,8 @@ of `scripts/gen_face_masks.py`):
 
 An existing mask is kept unless `--overwrite`. The networks run on the CUDA
 card; `--device cpu` (or `main(..., device="cpu")`) runs them on the CPU.
-Images are read and masks written by the port's PNG codec (`data/png.py`):
-with PNGs no PIL is loaded: the resizes are PIL's filters as
+Images are read by `data/png.load_image` (PNGs and JPEGs without PIL) and
+masks written by the port's PNG codec: the resizes are PIL's filters as
 `data/resample.py` computes them, bit for bit. Seeded weights are drawn from torch
 seeds where the JAX script draws from PRNGKey(0): same laws, other numbers.
 """

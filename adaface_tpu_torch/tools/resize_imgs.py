@@ -6,8 +6,11 @@ Every `.jpg`, `.jpeg`, `.png` and `.webp` of SRC_DIR (sorted) is scaled so
 that its short side is `--size` (each side `round(side * scale)`) with
 Pillow's LANCZOS, as `data/resample.py` computes it bit for bit, and saved
 under the same name in DST_DIR. PNGs are read and written by the port's
-codec (`data/png.py`): no PIL is loaded for them. Other formats go through
-PIL, imported only then. Host only: no card is used.
+codec (`data/png.py`), JPEGs read by the port's decoder (`data/jpeg.py`):
+no PIL is loaded for them. Every destination that is not a PNG (`.jpg`,
+`.jpeg`, `.webp`) is written through PIL; where PIL is missing and such a
+destination exists, the tool exits before it writes anything, naming them.
+Host only: no card is used.
 """
 
 from __future__ import annotations
@@ -33,11 +36,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("dst")
     p.add_argument("--size", type=int, default=512, help="target short-side length")
     opt = p.parse_args(argv)
+    names = [n for n in sorted(os.listdir(opt.src))
+             if n.lower().endswith((".jpg", ".jpeg", ".png", ".webp"))]
+    via_pil = [n for n in names if not n.lower().endswith(".png")]
+    if via_pil:
+        try:
+            import PIL  # noqa: F401
+        except ImportError:
+            raise SystemExit(
+                f"resize_imgs: {len(via_pil)} destination(s) are not PNGs "
+                f"({', '.join(via_pil[:3])}{', ...' if len(via_pil) > 3 else ''}): the port "
+                "writes PNGs only, and JPEG or WebP files need PIL, which is not installed; "
+                "nothing was written") from None
     os.makedirs(opt.dst, exist_ok=True)
     n = 0
-    for name in sorted(os.listdir(opt.src)):
-        if not name.lower().endswith((".jpg", ".jpeg", ".png", ".webp")):
-            continue
+    for name in names:
         img = png.load_image(os.path.join(opt.src, name), "RGB")
         h, w = img.shape[:2]
         out = resize(img, resized_size(w, h, opt.size), "lanczos")

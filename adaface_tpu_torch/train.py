@@ -63,8 +63,8 @@ starts the generators; `--resume` takes a `subj_basis_*.pt`;
 
 More than one device exits with `SystemExit` naming its ROADMAP queue 1
 item (13). PNG images load through the port's own codec (`data/png.py`),
-other formats through PIL; `main(dataset=...)` takes a dataset built
-otherwise.
+JPEGs through its own decoder (`data/jpeg.py`), other formats through PIL;
+`main(dataset=...)` takes a dataset built otherwise.
 """
 
 from __future__ import annotations

@@ -180,10 +180,10 @@ def nearest_indices(n_out: int, n_in: int) -> np.ndarray:
 
 
 def load_resized(path: str, size: int, mode: str = "RGB") -> np.ndarray:
-    """uint8 pixels of an image at size x size: PNGs through the port's
-    codec; an image of another size is resized with PIL's default filter
-    (bicubic), as the JAX scripts do, by `data/resample.py`'s copy of it
-    (bit for bit; no PIL)."""
+    """uint8 pixels of an image at size x size: PNGs and JPEGs through the
+    port's decoders (`png.load_image`); an image of another size is resized
+    with PIL's default filter (bicubic), as the JAX scripts do, by
+    `data/resample.py`'s copy of it (bit for bit; no PIL)."""
     from adaface_tpu_torch.data.resample import resize
 
     img = png.load_image(path, mode)

@@ -397,6 +397,25 @@ tools; no kernel of its own) adds, after [compare]:
       outputs (faults: the embedder's bias, a transposed weight);
       text_sim_exp's cosines on the card against the CPU within 1e-5 (the
       fault: b and c swapped); calc_stats / count_params on [main]'s UNet.
+Slice 26 adds, after slice 25's phases:
+  [jpeg]. `data/jpeg.py` on the card's host with no PIL loaded: the
+      fixtures of `tests/fixtures/jpeg/` (written by
+      `tests/make_torch_jpeg_fixtures.py`) decode to the SHA-256 digests of
+      PIL's decodes recorded beside them, in RGB and L; two planted faults
+      (plain upsampling, a float IDCT) must miss a digest; four 512x512
+      4:2:0 JPEGs from the harness's own baseline encoder (`jpeg_encode`:
+      three photo-like, one noise) decode within JPEG_PSNR_MIN of their
+      sources; decode ms an image at 512 and 1024; `train.main`
+      (`finetune-ti.yaml --bf16` on [ckpt]'s `.safetensors`) for JPEG_STEPS
+      micro-steps from the JPEG folder and from PNGs of the same pixels,
+      exact flash launches each micro-step, the recon steps timed with the
+      dataset's kept decodes dropped (JPEG_UNCACHED) and kept (JPEG_CACHED);
+  [batch]. `tools/train_subjects` on a two-subject info file over those two
+      folders (BATCH_STEPS micro-steps each, exact launches, an
+      `embeddings_last.npz` each, no card memory kept from one subject to
+      the next) and `tools/test_subjects` on both (DDIM-BATCH_DDIM, batch 2:
+      exact launches, a `scores.csv` row of finite scores each, the JPEG
+      folder read by `--compare_with`).
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -2661,31 +2680,26 @@ def _remat_want(shapes):
     return want
 
 
-def _cli_run(torch, fa, trainer_cls, tmp, name, argv, wants, card, counters=None):
-    """`adaface_tpu_torch.train.main(argv)` in-process on a seeded dataset at
-    full SD width on the card, the launch counters cleared just before it.
-    Each micro-step (`Trainer._run_recon` / `_run_compos`, batch preparation
-    included) is timed and its flash launches by kind and shape (and those
-    of `counters`, name -> a `launches_by_shape` keyed by shape) must equal
-    wants[is compos]. Returns a record: times, kinds, per-step launches,
-    the trainer, peak GiB, logdir."""
+@contextlib.contextmanager
+def micro_steps_timed(torch, fa, trainer_cls, rec, counters=None, before=None,
+                      keep_trainer=True):
+    """Within the block each micro-step (`Trainer._run_recon` /
+    `_run_compos`, batch preparation included) is timed, and its flash
+    launches by kind and shape (and those of `counters`, name -> a
+    `launches_by_shape` keyed by shape) recorded: rec's "times", "kinds" and
+    "launches" grow by one a micro-step, rec["trainer"] is the trainer
+    (`keep_trainer`). `before(trainer, i)` runs untimed before micro-step
+    i."""
     counters = counters or {}
-    import gc
-
-    import numpy as np
-
-    from adaface_tpu_torch import train
-
-    logdir = os.path.join(tmp, f"cli_{name}")
-    ds_dir = os.path.join(tmp, f"cli_{name}_subject")
-    os.makedirs(ds_dir)
-    rec = dict(times=[], kinds=[], launches=[], trainer=None, logdir=logdir)
     real = {k: getattr(trainer_cls, k) for k in ("_run_recon", "_run_compos")}
 
     def timed(kind, run):
         def wrapper(self, plan):
-            rec["trainer"] = self
-            before = dict(fa.launches_by_shape)
+            if keep_trainer:
+                rec["trainer"] = self
+            if before is not None:
+                before(self, len(rec["times"]))
+            before_fa = dict(fa.launches_by_shape)
             before_extra = {k: dict(c) for k, c in counters.items()}
             torch.cuda.synchronize()
             t0 = time.time()
@@ -2693,7 +2707,7 @@ def _cli_run(torch, fa, trainer_cls, tmp, name, argv, wants, card, counters=None
             torch.cuda.synchronize()
             rec["times"].append(time.time() - t0)
             rec["kinds"].append(kind)
-            got = launches_between(before, fa.launches_by_shape)
+            got = launches_between(before_fa, fa.launches_by_shape)
             for k, c in counters.items():
                 delta = {shape: n - before_extra[k].get(shape, 0) for shape, n in c.items()
                          if n - before_extra[k].get(shape, 0)}
@@ -2703,23 +2717,19 @@ def _cli_run(torch, fa, trainer_cls, tmp, name, argv, wants, card, counters=None
             return metrics
         return wrapper
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     for c in [fa.launches_by_shape, *counters.values()]:
         c.clear()
     trainer_cls._run_recon = timed("recon", real["_run_recon"])
     trainer_cls._run_compos = timed("compos", real["_run_compos"])
     try:
-        rc = train.main(argv + ["--logdir", logdir], dataset=make_dataset(ds_dir),
-                        device="cuda")
+        yield rec
     finally:
         for k, f in real.items():
             setattr(trainer_cls, k, f)
-    rec["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    if rc != 0:
-        fail(f"[cli {name}] main returned {rc}")
+
+
+def check_micro_steps(rec, wants, card, name):
+    """Each recorded micro-step's launches must equal wants[is compos]."""
     for i, (kind, got) in enumerate(zip(rec["kinds"], rec["launches"])):
         want = wants[kind == "compos"]
         say(f"[cli] {name} micro-step {i} ({kind}): {rec['times'][i]:.3f} s, launches "
@@ -2727,6 +2737,54 @@ def _cli_run(torch, fa, trainer_cls, tmp, name, argv, wants, card, counters=None
         if got != want:
             fail(f"[cli {name}] micro-step {i} ({kind}): expected the launches {want}, "
                  f"got {got}")
+
+
+def launch_totals(recs):
+    """(kind, B, L, H, d) -> flash launches summed over the records'
+    micro-steps."""
+    totals = {}
+    for rec in recs:
+        for got in rec["launches"]:
+            for kind, by_shape in got.items():
+                for (b, l, h, d), n in by_shape.items():
+                    totals[(kind, b, l, h, d)] = totals.get((kind, b, l, h, d), 0) + n
+    return totals
+
+
+def _cli_run(torch, fa, trainer_cls, tmp, name, argv, wants, card, counters=None, seeded=True,
+             before=None):
+    """`adaface_tpu_torch.train.main(argv)` in-process on a seeded dataset
+    (`seeded`; else the one `--data_root` in argv names) at full SD width on
+    the card, the launch counters cleared just before it. Each micro-step
+    (`Trainer._run_recon` / `_run_compos`, batch preparation included) is
+    timed and its flash launches by kind and shape (and those of `counters`,
+    name -> a `launches_by_shape` keyed by shape) must equal wants[is
+    compos]; `before(trainer, i)` runs untimed before micro-step i. Returns a
+    record: times, kinds, per-step launches, the trainer, peak GiB,
+    logdir."""
+    import gc
+
+    import numpy as np
+
+    from adaface_tpu_torch import train
+
+    logdir = os.path.join(tmp, f"cli_{name}")
+    dataset = None
+    if seeded:
+        ds_dir = os.path.join(tmp, f"cli_{name}_subject")
+        os.makedirs(ds_dir)
+        dataset = make_dataset(ds_dir)
+    rec = dict(times=[], kinds=[], launches=[], trainer=None, logdir=logdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with micro_steps_timed(torch, fa, trainer_cls, rec, counters, before):
+        rc = train.main(argv + ["--logdir", logdir], dataset=dataset, device="cuda")
+    rec["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if rc != 0:
+        fail(f"[cli {name}] main returned {rc}")
+    check_micro_steps(rec, wants, card, name)
     recs = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
     rec["metrics"] = [r for r in recs if "loss" in r]
     if len(rec["metrics"]) != len(rec["times"]) or not all(
@@ -2930,12 +2988,7 @@ def phase_entry_point(torch, fa, trainer_cls, tmp, card, resume_from=None):
         f"{runs['ada']['recon_med']:.3f} s, compos {runs['ada remat']['compos_med']:.3f} / "
         f"{runs['ada']['compos_med']:.3f} s [{card}]")
     say(f"[cli] phase 9d {time.time() - t_phase:.1f} s")
-    totals = {}
-    for got in runs["static fp32"]["launches"]:
-        for kind, by_shape in got.items():
-            for (b, l, h, d), n in by_shape.items():
-                key = (kind, b, l, h, d)
-                totals[key] = totals.get(key, 0) + n
+    totals = launch_totals([runs["static fp32"]])
     fused_totals = {"gn": {}, "ff": {}}
     for got in runs["static fp32 fused"]["launches"]:
         for kind in fused_totals:
@@ -2996,18 +3049,37 @@ FP32_REQUEST_STEPS = 10
 
 
 _fp32_fault_libs = {}
+_fp32_fault_pending = []
+
+
+def start_fp32_fault_build():
+    """Start the nvcc of the planted faults (one a fault, into
+    `_variants/fault_fp32_<key>/`) beside phase_build's, so that their
+    compile overlaps it; `build_fp32_faults` collects them, and an exit
+    before then stops them."""
+    import atexit
+
+    import kernel_variants as kv
+    try:
+        pending = kv.start({k: (kv.CSRC, src, patches)
+                            for k, (src, _, _, patches) in FP32_FAULTS.items()},
+                           prefix="fault_fp32_")
+    except ValueError as e:
+        fail(f"a planted fp32 fault did not build: {e}")
+    atexit.register(kv.stop, pending)
+    _fp32_fault_pending.append(pending)
 
 
 def build_fp32_faults():
-    """The planted faults' libraries, built side by side into
-    `_variants/fault_fp32_<key>/` at the first call (4g): key -> library."""
+    """The planted faults' libraries (4g): those `start_fp32_fault_build`
+    started, else built now: key -> library."""
     import kernel_variants as kv
     if not _fp32_fault_libs:
+        if not _fp32_fault_pending:
+            start_fp32_fault_build()
         try:
-            built = kv.build({k: (kv.CSRC, src, patches)
-                              for k, (src, _, _, patches) in FP32_FAULTS.items()},
-                             prefix="fault_fp32_")
-        except (ValueError, RuntimeError) as e:
+            built = kv.finish(_fp32_fault_pending.pop())
+        except RuntimeError as e:
             fail(f"a planted fp32 fault did not build: {e}")
         _fp32_fault_libs.update({k: lib for k, (lib, _) in built.items()})
     return _fp32_fault_libs
@@ -7336,7 +7408,8 @@ def phase_eval_cli(torch, fa, files, pt_static, ref_dir, folder, card, dev="cuda
     """[eval-cli] `gen_subjects_and_eval.main` on EVAL_SUBJECTS (alice, a face:
     [scorers]' reference PNGs as ground truth, `--calc_face_sim`; rexdog, an
     object: two seeded PNGs), [serve]'s `.pt` as each subject's embeddings,
-    [ckpt]'s `.ckpt`, EVAL_PROMPTS prompts of DDIM-EVAL_STEPS at batch
+    [ckpt]'s `.safetensors` (its loads take 3.4 s where the `.ckpt`'s take
+    8.4: the script's time), EVAL_PROMPTS prompts of DDIM-EVAL_STEPS at batch
     EVAL_BATCH in fp32. Gates: the txt2img argv is what `--dryrun` prints,
     and txt2img.main on it gives the first prompt's images bit for bit (the
     fault: the second prompt's images); all_scores.csv holds each subject's
@@ -7366,7 +7439,7 @@ def phase_eval_cli(torch, fa, files, pt_static, ref_dir, folder, card, dev="cuda
         os.makedirs(os.path.join(logdir, f"{subject}-run"))
         shutil.copy(pt_static, os.path.join(logdir, f"{subject}-run", "embeddings_gs-10.pt"))
     argv = ["--subject_file", info, "--data_root", data_root, "--logdir", logdir, "--outdir",
-            out, "--ckpt", files["ckpt"], "--max_prompts", str(EVAL_PROMPTS), "--steps",
+            out, "--ckpt", files["safetensors"], "--max_prompts", str(EVAL_PROMPTS), "--steps",
             str(EVAL_STEPS), "--n_samples", str(EVAL_BATCH), "--size", str(SIZE), "--range", "1-2"]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -7397,7 +7470,7 @@ def phase_eval_cli(torch, fa, files, pt_static, ref_dir, folder, card, dev="cuda
     if rc != 0 or [" ".join(c) for c in calls] != printed or len(calls) != 2:
         fail(f"[eval-cli] main returned {rc}; txt2img argv {calls} against --dryrun's {printed}")
     say(f"[eval-cli] gen_subjects_and_eval, 2 subjects x {EVAL_PROMPTS} prompts, DDIM-"
-        f"{EVAL_STEPS} B{EVAL_BATCH} fp32 on the .ckpt: "
+        f"{EVAL_STEPS} B{EVAL_BATCH} fp32 on the .safetensors: "
         f"{', '.join(f'{s:.1f}' for s in secs)} s a subject (checkpoint load, generation and "
         f"scoring); flash launches {launches}; the txt2img argv is --dryrun's [{card}]")
     # gate: txt2img.main on the printed argv gives the first prompt's images
@@ -7965,6 +8038,459 @@ def phase_tools(torch, pipe, started, card, dev="cuda"):
         fail("[tools] calc_stats / count_params")
 
 
+# ------------------------------------------------------------------ slice 26
+# JPEG input without PIL ([jpeg]) and the per-subject batch drivers
+# ([batch]). The card's machine has no PIL: `data/jpeg.py` reads the JPEGs,
+# and the harness writes its subject folder's JPEGs with an encoder of its
+# own (`jpeg_encode`).
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                             "jpeg")
+JPEG_QUALITY = 95
+JPEG_PSNR_MIN = 30.0  # dB: each harness JPEG's decode against its source
+# [jpeg]'s runs: 8 micro-steps each (compos 0, 3, 6); the recon micro-steps
+# in JPEG_UNCACHED decode their images anew (the dataset's kept decodes
+# dropped before each), those in JPEG_CACHED read kept decodes (all four
+# images decoded just before the first of them)
+JPEG_STEPS = 8
+JPEG_UNCACHED = (2, 4)
+JPEG_CACHED = (5, 7)
+# the uncached JPEG recon step over the PNG one past which decoding paces
+# training and the per-subject dataset keeps each decoded image
+JPEG_PACE_RATIO = 1.25
+BATCH_STEPS = 2  # [batch]'s micro-steps a subject (compos 0, recon 1)
+BATCH_DDIM = 4  # [batch]'s DDIM steps a test request (batch 2): 4 UNet calls (3 would make
+# 4: the schedule takes every 1000 // S-th timestep)
+# Annex K: the quantisation tables (natural order), scaled by quality as
+# libjpeg scales them, and the Huffman tables (16 counts, then the symbols)
+JPEG_STD_QUANT = (
+    [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+     14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+     18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    [17, 18, 24, 47] + [99] * 4 + [18, 21, 26, 66] + [99] * 4 + [24, 26, 56] + [99] * 5
+    + [47, 66] + [99] * 38)
+JPEG_STD_HUFFMAN = {  # (class 0 DC / 1 AC, table 0 luma / 1 chroma)
+    (0, 0): "00010501010101010100000000000000000102030405060708090a0b",
+    (0, 1): "00030101010101010101010000000000000102030405060708090a0b",
+    (1, 0): "0002010303020403050504040000017d01020300041105122131410613516107227114328191a108"
+            "2342b1c11552d1f02433627282090a161718191a25262728292a3435363738393a43444546474849"
+            "4a535455565758595a636465666768696a737475767778797a838485868788898a92939495969798"
+            "999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2"
+            "e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa",
+    (1, 1): "00020102040403040705040400010277000102031104052131061241510761711322328108144291"
+            "a1b1c109233352f0156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+            "494a535455565758595a636465666768696a737475767778797a82838485868788898a9293949596"
+            "9798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9da"
+            "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa",
+}
+
+
+def _dct_matrix():
+    import numpy as np
+
+    u = np.arange(8)
+    c = np.where(u == 0, 1 / np.sqrt(2), 1.0)
+    return (c[:, None] / 2) * np.cos((2 * u[None, :] + 1) * u[:, None] * np.pi / 16)
+
+
+def _huffman_codes(spec: bytes):
+    """symbol -> (code, length) of a DHT spec."""
+    import numpy as np
+
+    counts, values = spec[:16], spec[16:]
+    table = np.zeros((256, 2), np.int64)
+    code, k = 0, 0
+    for n in range(1, 17):
+        for _ in range(counts[n - 1]):
+            table[values[k]] = (code, n)
+            code, k = code + 1, k + 1
+        code <<= 1
+    return table
+
+
+def jpeg_encode(rgb, quality=JPEG_QUALITY) -> bytes:
+    """A baseline JFIF JPEG of an [H, W, 3] uint8 image in numpy: 4:2:0 (2x2
+    means of the chroma), a float DCT, Annex K's tables (the quantisation
+    ones scaled by `quality` as libjpeg scales them), one interleaved scan.
+    The harness's own writer: the card's machine has no PIL."""
+    import struct
+
+    import numpy as np
+
+    from adaface_tpu_torch.data.jpeg import NATURAL_ORDER
+
+    h, w = rgb.shape[:2]
+    r, g, b = (rgb[..., i].astype(np.float64) for i in range(3))
+    planes = [0.299 * r + 0.587 * g + 0.114 * b,
+              -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+              0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+    H, W = -(-h // 16) * 16, -(-w // 16) * 16
+    planes = [np.pad(p, ((0, H - h), (0, W - w)), mode="edge") for p in planes]
+    planes[1:] = [p.reshape(H // 2, 2, W // 2, 2).mean(axis=(1, 3)) for p in planes[1:]]
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    quant = [np.clip((np.asarray(t) * scale + 50) // 100, 1, 255) for t in JPEG_STD_QUANT]
+    m = _dct_matrix()
+
+    def coefficients(p, q):  # [bh, bw, 64] quantised, natural order
+        bh, bw = p.shape[0] // 8, p.shape[1] // 8
+        f = p.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3) - 128
+        F = np.einsum("vy,...yx,ux->...vu", m, f, m).reshape(bh, bw, 64)
+        return np.rint(F / q).astype(np.int64)
+
+    my, mx = H // 16, W // 16
+    y = coefficients(planes[0], quant[0]).reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4)
+    mcu = np.concatenate([y.reshape(my, mx, 4, 64)] + [
+        coefficients(p, quant[1]).reshape(my, mx, 1, 64) for p in planes[1:]], axis=2)
+    zz = mcu.reshape(-1, 64)[:, NATURAL_ORDER]
+    comp = np.tile([0, 0, 0, 0, 1, 2], my * mx)
+    n = zz.shape[0]
+    specs = {k: bytes.fromhex(v) for k, v in JPEG_STD_HUFFMAN.items()}
+    codes = {k: _huffman_codes(v) for k, v in specs.items()}
+    size_of = lambda v: np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)  # noqa: E731
+    bits_of = lambda v, s: np.where(v >= 0, v, v + (1 << s) - 1)  # noqa: E731
+    words, lens, keys = [], [], []
+
+    def emit(word, length, key):
+        words.append(np.asarray(word, np.int64))
+        lens.append(np.asarray(length, np.int64))
+        keys.append(np.asarray(key, np.int64))
+
+    # DC: the difference from the component's previous block
+    dc = zz[:, 0]
+    diff = np.empty_like(dc)
+    for c in range(3):
+        sel = np.flatnonzero(comp == c)
+        diff[sel] = np.diff(dc[sel], prepend=0)
+    s = size_of(diff)
+    table = np.where(comp == 0, 0, 1)
+    dc_code = np.where(table == 0, codes[(0, 0)][s, 0], codes[(0, 1)][s, 0])
+    dc_len = np.where(table == 0, codes[(0, 0)][s, 1], codes[(0, 1)][s, 1])
+    base = np.arange(n) * 8192
+    emit(dc_code, dc_len, base)
+    emit(bits_of(diff, s), s, base + 1)
+    # AC: (run, size) symbols, ZRL for each 16 zeros of a run, EOB after the
+    # last nonzero coefficient short of 63
+    blk, k = np.nonzero(zz[:, 1:])
+    k = k + 1
+    v = zz[blk, k]
+    first = np.r_[True, blk[1:] != blk[:-1]]
+    prev = np.where(first, 0, np.r_[0, k[:-1]])
+    run = k - prev - 1
+    s = size_of(v)
+    sym = (run % 16) * 16 + s
+    ac = lambda b, col: np.where(table[b] == 0, codes[(1, 0)][:, col][sym],  # noqa: E731
+                                 codes[(1, 1)][:, col][sym])
+    key = blk * 8192 + k * 64
+    emit(ac(blk, 0), ac(blk, 1), key + 8)
+    emit(bits_of(v, s), s, key + 9)
+    zrl = np.repeat(np.arange(len(k)), run // 16)
+    if len(zrl):
+        nth = np.arange(len(zrl)) - np.repeat(np.cumsum(run // 16) - run // 16, run // 16)
+        zt = table[blk[zrl]]
+        emit(np.where(zt == 0, codes[(1, 0)][0xF0, 0], codes[(1, 1)][0xF0, 0]),
+             np.where(zt == 0, codes[(1, 0)][0xF0, 1], codes[(1, 1)][0xF0, 1]),
+             key[zrl] + nth)
+    last = np.zeros(n, np.int64)
+    np.maximum.at(last, blk, k)
+    eob = np.flatnonzero(last < 63)
+    emit(np.where(table[eob] == 0, codes[(1, 0)][0, 0], codes[(1, 1)][0, 0]),
+         np.where(table[eob] == 0, codes[(1, 0)][0, 1], codes[(1, 1)][0, 1]),
+         eob * 8192 + 64 * 64)
+    word, length, key = (np.concatenate(a) for a in (words, lens, keys))
+    keep = length > 0
+    order = np.argsort(key[keep], kind="stable")
+    word, length = word[keep][order], length[keep][order]
+    total = int(length.sum())
+    item = np.repeat(np.arange(len(length), dtype=np.int32), length)
+    j = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(length) - length, length)
+    bits = ((word[item] >> (length[item] - 1 - j)) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones((-total) % 8, np.uint8)])  # pad with ones
+    data = np.packbits(bits)
+    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0)  # byte stuffing
+
+    def segment(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    dqt = b"".join(bytes([t]) + bytes(quant[t][NATURAL_ORDER].astype(np.uint8).tolist())
+                   for t in (0, 1))
+    sof = struct.pack(">BHHB", 8, h, w, 3) + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])
+    dht = b"".join(bytes([tc << 4 | th]) + specs[(tc, th)] for tc, th in sorted(specs))
+    sos = bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])
+    return (b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+            + segment(0xDB, dqt) + segment(0xC0, sof) + segment(0xC4, dht)
+            + segment(0xDA, sos) + data.tobytes() + b"\xff\xd9")
+
+
+def jpeg_scene(seed, size, noise=False):
+    """A photo-like RGB image: smooth colour fields, soft-edged disks and a
+    little grain; with `noise`, uniform grey noise over a faint colour field
+    (random luma, smooth chroma, no clipping: what 4:2:0 keeps), the worst
+    case for the Huffman decoder."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size] / size
+    field = np.stack([128 + 50 * np.sin(2 * np.pi * (g.uniform(0.5, 2) * xx + g.uniform()))
+                      * np.cos(2 * np.pi * (g.uniform(0.5, 2) * yy + g.uniform()))
+                      for _ in range(3)], axis=-1)
+    if noise:
+        lum = g.integers(45, 211, (size, size))[..., None]
+        return np.clip(lum + (field - 128) * 0.3, 0, 255).astype(np.uint8)
+    for _ in range(6):
+        cy, cx, rad = g.uniform(0.1, 0.9), g.uniform(0.1, 0.9), g.uniform(0.05, 0.25)
+        edge = np.clip((rad - np.hypot(yy - cy, xx - cx)) * size / 3, 0, 1)[..., None]
+        field = field * (1 - edge) + g.uniform(20, 235, 3) * edge
+    field += g.normal(0, 2, field.shape)
+    return np.clip(np.rint(field), 0, 255).astype(np.uint8)
+
+
+def jpeg_float_idct(coef, quant):
+    """[jpeg]'s planted fault: the textbook IDCT in float64, rounded."""
+    import numpy as np
+
+    m = _dct_matrix()
+    f = np.einsum("vy,nvu,ux->nyx", m, (coef * quant).reshape(-1, 8, 8).astype(np.float64), m)
+    return np.clip(np.rint(f) + 128, 0, 255).astype(np.uint8).reshape(coef.shape[:-1] + (8, 8))
+
+
+def jpeg_fixture_misses(jpeg, table):
+    """The fixtures (name, mode) whose decode by `jpeg` differs from the
+    recorded digest of PIL's."""
+    import hashlib
+
+    import numpy as np
+
+    misses = []
+    for name in sorted(k for k in table if not k.startswith("_")):
+        for mode, want in sorted(table[name].items()):
+            px = jpeg.load(os.path.join(JPEG_FIXTURES, name), mode)
+            sha = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
+            if (sha, list(px.shape)) != (want["sha256"], want["shape"]):
+                misses.append((name, mode))
+    return misses
+
+
+def pil_modules():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] == "PIL" and sys.modules[m] is not None)
+
+
+def phase_jpeg(torch, fa, trainer_cls, files, folder, card):
+    """[jpeg] `data/jpeg.py` on the card's host, no PIL loaded: each fixture
+    of `tests/fixtures/jpeg/` decodes to the SHA-256 of PIL's decode recorded
+    beside it, in RGB and L, and two planted faults (plain upsampling, a
+    float IDCT) each miss a digest; a subject folder of four 512x512 4:2:0
+    JPEGs from `jpeg_encode` (three photo-like, one noise), each decoded
+    within JPEG_PSNR_MIN of its source, and a folder of PNGs of the decoded
+    pixels; decode ms an image at 512 and 1024 (photo-like and noise);
+    `train.main` (`finetune-ti.yaml --bf16` on the `.safetensors`) for
+    JPEG_STEPS micro-steps from each folder with exact flash launches, the
+    recon steps timed with the dataset's kept decodes dropped and kept.
+    Returns (the data root holding `jpegsubj` and `pngsubj`, the flash
+    launches by (kind, B, L, H, d))."""
+    import functools
+    import math
+
+    import numpy as np
+
+    from adaface_tpu_torch.data import jpeg, png
+
+    t0 = time.time()
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+        table = json.load(f)
+    n_fix = sum(1 for k in table if not k.startswith("_"))
+    misses = jpeg_fixture_misses(jpeg, table)
+    if misses or n_fix < 10:
+        fail(f"[jpeg] {len(misses)} of {2 * n_fix} fixture decodes miss PIL's digest: {misses}")
+    say(f"[jpeg] {n_fix} fixtures decode to PIL's digests in RGB and L ({2 * n_fix} arrays; "
+        f"digests of {table['_decoder']} through Pillow, taken on the CPU); numpy "
+        f"{np.__version__} on this host")
+    for label, attr, fault in (
+            ("plain upsampling", "upsample", functools.partial(jpeg.upsample, fancy=False)),
+            ("a float IDCT", "idct_islow", jpeg_float_idct)):
+        real = getattr(jpeg, attr)
+        setattr(jpeg, attr, fault)
+        try:
+            hit = jpeg_fixture_misses(jpeg, table)
+        finally:
+            setattr(jpeg, attr, real)
+        say(f"[jpeg] planted fault, {label}: {len(hit)} of {2 * n_fix} digests missed")
+        if not hit:
+            fail(f"[jpeg] the digest gate does not see {label}")
+
+    root = os.path.join(folder, "s26_subjects")
+    jdir, pdir = os.path.join(root, "jpegsubj"), os.path.join(root, "pngsubj")
+    os.makedirs(jdir)
+    os.makedirs(pdir)
+    psnr, nbytes = [], []
+    for i in range(4):
+        src = jpeg_scene(260 + i, SIZE, noise=i == 3)
+        data = jpeg_encode(src)
+        with open(os.path.join(jdir, f"{i}.jpg"), "wb") as f:
+            f.write(data)
+        px = jpeg.decode(data)
+        png.write(os.path.join(pdir, f"{i}.png"), px)
+        mse = float(((px.astype(np.float64) - src) ** 2).mean())
+        psnr.append(10 * math.log10(255 ** 2 / max(mse, 1e-12)))
+        nbytes.append(len(data))
+    say(f"[jpeg] subject folder: four {SIZE}x{SIZE} 4:2:0 q{JPEG_QUALITY} JPEGs (the last "
+        f"noise) of {nbytes} bytes, decoded at PSNR {[round(p, 2) for p in psnr]} dB of their "
+        f"sources (gate {JPEG_PSNR_MIN})")
+    if min(psnr) < JPEG_PSNR_MIN:
+        fail(f"[jpeg] a decode sits at {min(psnr):.2f} dB of its source")
+    for size in (512, 1024):
+        for noise in (False, True):
+            data = jpeg_encode(jpeg_scene(270, size, noise=noise))
+            ms = []
+            for _ in range(3 if size == 512 else 2):
+                t = time.perf_counter()
+                jpeg.decode(data)
+                ms.append((time.perf_counter() - t) * 1e3)
+            say(f"[jpeg] decode {size}x{size} 4:2:0 q{JPEG_QUALITY} "
+                f"{'noise' if noise else 'photo-like'} ({len(data)} bytes): "
+                f"{statistics.median(ms):.1f} ms an image (runs {[round(x, 1) for x in ms]}; "
+                f"host CPU, one thread)")
+
+    def decodes(trainer, i):
+        ds = trainer.dataset
+        if i in JPEG_UNCACHED:
+            ds._decoded.clear()
+        elif i == JPEG_CACHED[0]:
+            for r in ds.records:
+                ds._load(r)
+
+    wants = {False: flash_want(TRAIN_SHAPES), True: flash_want(COMPOS_SHAPES)}
+    runs = {}
+    for name, d in (("jpeg", jdir), ("png", pdir)):
+        runs[name] = _cli_run(
+            torch, fa, trainer_cls, folder, f"s26_{name}",
+            ["--base", os.path.join(CONFIG_DIR, "finetune-ti.yaml"), "--data_root", d, "--bf16",
+             "--max_steps", str(JPEG_STEPS), "--seed", "0", "--actual_resume",
+             files["safetensors"]], wants, card, seeded=False, before=decodes)
+        runs[name]["trainer"] = None
+    step = {name: {i: rec["times"][i] for i in JPEG_UNCACHED + JPEG_CACHED}
+            for name, rec in runs.items()}
+    for name, rec in runs.items():
+        kinds = [rec["kinds"][i] for i in JPEG_UNCACHED + JPEG_CACHED]
+        if kinds != ["recon"] * len(kinds):
+            fail(f"[jpeg] {name}: micro-steps {JPEG_UNCACHED + JPEG_CACHED} are {kinds}")
+    mean = lambda name, steps: statistics.mean(step[name][i] for i in steps)  # noqa: E731
+    uncached = mean("jpeg", JPEG_UNCACHED) / mean("png", JPEG_UNCACHED)
+    cached = mean("jpeg", JPEG_CACHED) / mean("png", JPEG_CACHED)
+    say(f"[jpeg] recon micro-step, images decoded anew (steps {JPEG_UNCACHED}): JPEG "
+        f"{[round(step['jpeg'][i], 3) for i in JPEG_UNCACHED]} s, PNG "
+        f"{[round(step['png'][i], 3) for i in JPEG_UNCACHED]} s, ratio {uncached:.3f} "
+        f"({'over' if uncached > JPEG_PACE_RATIO else 'within'} {JPEG_PACE_RATIO}: decoding "
+        f"{'paces' if uncached > JPEG_PACE_RATIO else 'does not pace'} training); kept decodes "
+        f"(steps {JPEG_CACHED}): JPEG {[round(step['jpeg'][i], 3) for i in JPEG_CACHED]} s, "
+        f"PNG {[round(step['png'][i], 3) for i in JPEG_CACHED]} s, ratio {cached:.3f} [{card}]")
+    if pil_modules():
+        fail(f"[jpeg] PIL was imported: {pil_modules()}")
+    say(f"[jpeg] {time.time() - t0:.1f} s")
+    return root, launch_totals(runs.values())
+
+
+def phase_batch(torch, fa, trainer_cls, files, root, folder, card):
+    """[batch] `tools/train_subjects` on a two-subject info file over
+    [jpeg]'s JPEG and PNG folders (`finetune-ti.yaml --bf16`, BATCH_STEPS
+    micro-steps on the `.safetensors`; exact flash launches each micro-step,
+    `embeddings_last.npz` for each subject, no memory kept from one subject
+    to the next), then `tools/test_subjects` on both (the `.safetensors`,
+    DDIM-BATCH_DDIM, batch 2): exact flash launches each request and a
+    `scores.csv` row of finite scores each, the JPEG folder's read by
+    `--compare_with` without PIL. Returns (the training launches by (kind,
+    B, L, H, d), the requests' by (B, L, H, d))."""
+    import csv
+
+    import numpy as np
+
+    from adaface_tpu_torch import train, txt2img
+    from adaface_tpu_torch.tools import test_subjects, train_subjects
+
+    t0 = time.time()
+    subjects = ("jpegsubj", "pngsubj")
+    info = os.path.join(folder, "s26_info.sh")
+    with open(info, "w") as f:
+        f.write(f"set -g subjects {' '.join(subjects)}\nset -g class_names person person\n"
+                "set -g cls_delta_strings person person\nset -g data_folder s26_subjects\n")
+    logroot, outroot = os.path.join(folder, "s26_logs"), os.path.join(folder, "s26_out")
+    held = []  # (card memory allocated at a run's start, its peak), GiB
+    real_train, real_t2i = train.main, txt2img.main
+
+    def tracked(argv, *, device=None, dataset=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated() / 2 ** 30
+        rc = real_train(argv, device=device, dataset=dataset)
+        held.append((start, torch.cuda.max_memory_allocated() / 2 ** 30))
+        return rc
+
+    rec = dict(times=[], kinds=[], launches=[], trainer=None)
+    train.main = tracked
+    try:
+        with micro_steps_timed(torch, fa, trainer_cls, rec, keep_trainer=False):
+            rc = train_subjects.main(
+                [info, root, logroot, "", "--base", os.path.join(CONFIG_DIR, "finetune-ti.yaml"),
+                 "--bf16", "--max_steps", str(BATCH_STEPS), "--seed", "0", "--actual_resume",
+                 files["safetensors"]], device="cuda")
+    finally:
+        train.main = real_train
+    if rc != 0 or len(rec["times"]) != BATCH_STEPS * len(subjects):
+        fail(f"[batch] train_subjects returned {rc} after {len(rec['times'])} micro-steps")
+    check_micro_steps(rec, {False: flash_want(TRAIN_SHAPES), True: flash_want(COMPOS_SHAPES)},
+                      card, "batch train_subjects")
+    for subj in subjects:
+        if not os.path.exists(os.path.join(logroot, subj, "embeddings_last.npz")):
+            fail(f"[batch] no embeddings_last.npz for {subj}")
+    say(f"[batch] train_subjects, 2 subjects x {BATCH_STEPS} micro-steps: card memory at each "
+        f"run's start {[round(a, 3) for a, _ in held]} GiB, peaks "
+        f"{[round(b, 2) for _, b in held]} GiB; {time.time() - t0:.1f} s [{card}]")
+    if held[1][0] > held[0][0] + 0.25:
+        fail(f"[batch] the second subject starts with {held[1][0]:.3f} GiB held, the first "
+             f"with {held[0][0]:.3f}")
+
+    requests = []
+
+    def counted(argv, *, device=None):
+        fa.launches_by_shape.clear()
+        torch.cuda.synchronize()
+        t = time.time()
+        with warnings_quiet():
+            rc = real_t2i(argv, device=device)
+        torch.cuda.synchronize()
+        requests.append((time.time() - t, fwd_counts(fa), rc))
+        return rc
+
+    t1 = time.time()
+    txt2img.main = counted
+    try:
+        rc = test_subjects.main(
+            [info, root, logroot, outroot, "", "--ckpt", files["safetensors"], "--bf16",
+             "--steps", str(BATCH_DDIM), "--size", str(SIZE), "--seed", "5", "--n_samples", "2"],
+            device="cuda")
+    finally:
+        txt2img.main = real_t2i
+    want = per_unet_call(CLI_SHAPES, BATCH_DDIM)
+    totals = {}
+    for subj, (dt, got, req_rc) in zip(subjects, requests):
+        rows = list(csv.reader(open(os.path.join(outroot, subj, "scores.csv"))))
+        say(f"[batch] test_subjects {subj}: {dt:.2f} s (the load and scoring included), flash "
+            f"launches {sorted(got.items())}; scores.csv {rows} [{card}]")
+        if req_rc != 0 or got != want:
+            fail(f"[batch] {subj}: txt2img returned {req_rc}; launches {got}, want {want}")
+        if len(rows) != 1 or len(rows[0]) != 4 or not all(np.isfinite(float(v))
+                                                           for v in rows[0][1:]):
+            fail(f"[batch] {subj}: scores.csv {rows}")
+        for k, n in got.items():
+            totals[k] = totals.get(k, 0) + n
+    if rc != 0 or len(requests) != len(subjects):
+        fail(f"[batch] test_subjects returned {rc} after {len(requests)} requests")
+    if pil_modules():
+        fail(f"[batch] PIL was imported: {pil_modules()}")
+    say(f"[batch] test_subjects {time.time() - t1:.1f} s; phase {time.time() - t0:.1f} s")
+    return launch_totals([rec]), totals
+
+
 def main():
     import torch
 
@@ -7981,6 +8507,7 @@ def main():
     t_start = time.time()
 
     card, exp2_rate = phase_card(torch)
+    start_fp32_fault_build()  # 4g's faults compile beside the build
     phase_build(kernels)
     rows = phase_kernels(torch, fa, card, exp2_rate)
     bwd_rows = phase_backward_kernels(torch, fa, card, exp2_rate)
@@ -8069,6 +8596,14 @@ def main():
         phase_tools(torch, pipe, tools, card)
         say(f"[main] slice 25's phases ([eval-cli], [app], [zs-test], [db-reg], [tools]) "
             f"{time.time() - t_slice:.1f} s")
+        # slice 26: JPEG input without PIL and the per-subject batch drivers,
+        # on [ckpt]'s `.safetensors`
+        t_slice = time.time()
+        with tempfile.TemporaryDirectory() as s26_dir:
+            s26_root, jpeg_counts = phase_jpeg(torch, fa, Trainer, serve_files, s26_dir, card)
+            batch_train, batch_requests = phase_batch(torch, fa, Trainer, serve_files, s26_root,
+                                                      s26_dir, card)
+        say(f"[main] slice 26's phases ([jpeg], [batch]) {time.time() - t_slice:.1f} s")
         add_training_placeholders(torch, pipe)
         with tempfile.TemporaryDirectory() as tmp:
             # 8 and 8b gate the bf16 training arithmetic against fp32 on the
@@ -8102,30 +8637,33 @@ def main():
         entries.append(dict(name=f"flash_attn_packed B{b} L{l} H{h} d{d}", route="cuda",
                             source=SOURCE, replaces=replaces, launches=counts[(b, l, h, d)],
                             **rows[(b, l, h, d)]))
-    # the entry points' batch-2 requests: launches over [img2img], [inpaint]
-    # and [compare]
+    # the entry points' batch-2 requests: launches over [img2img], [inpaint],
+    # [compare] and [batch]'s test_subjects
     for (b, l, h, d), (replaces, _) in CLI_SHAPES.items():
         entries.append(dict(
-            name=f"flash_attn_packed B{b} L{l} H{h} d{d} (img2img + inpaint + compare)",
+            name=f"flash_attn_packed B{b} L{l} H{h} d{d} (img2img + inpaint + compare + batch)",
             route="cuda", source=SOURCE, replaces=replaces,
-            launches=i2i_counts[(b, l, h, d)] + compare_counts.get((b, l, h, d), 0),
-            **rows[(b, l, h, d)]))
+            launches=(i2i_counts[(b, l, h, d)] + compare_counts.get((b, l, h, d), 0)
+                      + batch_requests.get((b, l, h, d), 0)), **rows[(b, l, h, d)]))
     fp32_names_db = {"fwd": "flash_attn_fp32 fwd + lse", "dq": "flash_attn_fp32 dq",
                      "dkv": "flash_attn_fp32 dk/dv"}
     names = {"fwd": ("flash_attn_packed fwd (lse when recorded)", SOURCE),
              "dq": ("flash_attn_bwd dq", BWD_SOURCE),
              "dkv": ("flash_attn_bwd dk/dv", BWD_SOURCE)}
-    # launches over phase 9's micro-steps, [filter]'s and [zeroshot-cli]'s:
-    # B3 on the recon ones, B4 on the compos ones and the filter's denoise
+    # launches over phase 9's micro-steps, [filter]'s, [zeroshot-cli]'s,
+    # [jpeg]'s and [batch]'s: B3 on the recon ones, B4 on the compos ones and
+    # the filter's denoise
     for rows_, what in ((bwd_rows, "training"), (compos_bwd_rows, "compos training")):
         for (kind, b, l, h, d), row in rows_.items():
             name, source = names[kind]
             key = (kind, b, l, h, d)
             entries.append(dict(
-                name=f"{name} B{b} L{l} H{h} d{d} ({what}, with [filter] and [zeroshot-cli])",
+                name=(f"{name} B{b} L{l} H{h} d{d} ({what}, with [filter], [zeroshot-cli], "
+                      "[jpeg] and [batch])"),
                 route="cuda", source=source,
                 launches=(train_counts[key] + filter_counts.get(key, 0)
-                          + zs_cli_counts.get(key, 0)), **row))
+                          + zs_cli_counts.get(key, 0) + jpeg_counts.get(key, 0)
+                          + batch_train.get(key, 0)), **row))
     # batch 1: launches over [zs-train]'s zero-shot micro-steps
     for (kind, b, l, h, d), row in sorted(b1_bwd_rows.items()):
         name, source = names[kind]

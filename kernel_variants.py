@@ -50,11 +50,11 @@ def ptxas_lines(log):
     return lines
 
 
-def build(variants, prefix=""):
-    """variants: name -> (source directory, source file, patches). Starts
-    one nvcc per variant and waits for all; returns name -> (the loaded
-    library, nvcc's log). Raises ValueError or RuntimeError, naming the
-    variant, if a patch does not apply or nvcc fails; no nvcc outlives it."""
+def start(variants, prefix=""):
+    """variants: name -> (source directory, source file, patches). Writes
+    each variant and starts its nvcc; returns the pending build, for
+    `finish` (or `stop`). Raises ValueError, naming the variant, if a patch
+    does not apply; no nvcc is left running then."""
     procs = {}
     try:
         for name, (src_dir, source, patches) in variants.items():
@@ -70,15 +70,37 @@ def build(variants, prefix=""):
             procs[name] = subprocess.Popen(
                 [kernels.cuda_tool("nvcc"), *kernels.NVCC_FLAGS, "-o", f"{d}/lib.so",
                  f"{d}/kernel.cu"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except BaseException:
+        stop((prefix, procs))
+        raise
+    return prefix, procs
+
+
+def stop(pending):
+    """Kill the nvcc of a pending build that still run."""
+    for proc in pending[1].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish(pending):
+    """Wait for a pending build; returns name -> (the loaded library, nvcc's
+    log). Raises RuntimeError, naming the variant, if nvcc fails; no nvcc
+    outlives it."""
+    prefix, procs = pending
+    try:
         logs = {name: proc.communicate()[0] for name, proc in procs.items()}
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop(pending)
     for name, proc in procs.items():
         if proc.returncode:
             raise RuntimeError(f"variant {name}: nvcc exited {proc.returncode}\n"
                                f"{logs[name][-3000:]}")
     return {name: (ctypes.CDLL(os.path.abspath(f"{OUT}/{prefix}{name}/lib.so")), logs[name])
             for name in procs}
+
+
+def build(variants, prefix=""):
+    """`start` then `finish`: one nvcc per variant, all started together."""
+    return finish(start(variants, prefix))

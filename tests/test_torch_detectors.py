@@ -351,7 +351,8 @@ def test_scrfd_detector_matches_jax(tiny_scrfd, branch, monkeypatch):
     if branch == "index":
         monkeypatch.setitem(sys.modules, "PIL", None)
     img = np.random.default_rng(11).integers(0, 256, (50, 40, 3), dtype=np.uint8)
-    tdet = ts.SCRFDDetector(port, input_size=(64, 64), score_thresh=0.5)
+    tdet = ts.SCRFDDetector(port, input_size=(64, 64), score_thresh=0.5,
+                            resample="bicubic" if branch == "pil" else "index")
     jdet = js.SCRFDDetector(js.SCRFD(js.SCRFDConfig.tiny()), params, input_size=(64, 64),
                             score_thresh=0.5)
     x, scale = tdet.prepare(img)
@@ -381,6 +382,33 @@ def test_scrfd_detector_matches_jax(tiny_scrfd, branch, monkeypatch):
     # at the letterbox size the resize is a copy, with or without PIL
     same = np.random.default_rng(12).integers(0, 256, (64, 64, 3), dtype=np.uint8)
     np.testing.assert_array_equal(ts.letterbox_resize(same, 64, 64), same)
+
+
+LETTERBOX_FRAMES = [((50, 40), (64, 64)), ((37, 91), (64, 64)), ((100, 100), (64, 64)),
+                    ((480, 360), (640, 640)), ((21, 200), (96, 64))]
+
+
+@pytest.mark.parametrize("hw,input_size", LETTERBOX_FRAMES,
+                         ids=[f"{h}x{w}-{a}x{b}" for (h, w), (a, b) in LETTERBOX_FRAMES])
+def test_scrfd_default_letterbox_is_jax_pil_branch(tiny_scrfd, hw, input_size, monkeypatch):
+    """The port's default letterbox (`data/resample.py`'s bicubic) gives the
+    canvas that JAX's detector feeds its network where PIL imports, bit for
+    bit, with PIL blocked for the port."""
+    port, params = tiny_scrfd
+    img = np.random.default_rng(hw[0] * 7 + hw[1]).integers(0, 256, hw + (3,), dtype=np.uint8)
+    jdet = js.SCRFDDetector(js.SCRFD(js.SCRFDConfig.tiny()), params, input_size=input_size,
+                            score_thresh=2.0)
+    fed = []
+    real_fwd = jdet._fwd
+    jdet._fwd = lambda p, x: fed.append(np.asarray(x[0])) or real_fwd(p, x)
+    jdet(img)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    x, scale = ts.SCRFDDetector(port, input_size=input_size).prepare(img)
+    assert scale == min(input_size[0] / hw[0], input_size[1] / hw[1])
+    np.testing.assert_array_equal(x, fed[0])
+    # the other branch differs wherever the frame is resized
+    other, _ = ts.SCRFDDetector(port, input_size=input_size, resample="index").prepare(img)
+    assert (other != x).any()
 
 
 def test_biubug6_map_matches_jax(tmp_path):

@@ -185,3 +185,41 @@ def test_cli_entry_points_load_no_yaml_or_pil(tmp_path):
     assert r.returncode == 0, r.stderr
     assert "IMPORTED []" in r.stdout and "LOADED []" in r.stdout, r.stdout
     assert "resized 1 images" in r.stdout
+
+
+def test_jpeg_subject_folder_and_batch_drivers_without_pil_or_yaml(tmp_path):
+    """With `PIL` and `yaml` blocked, a JPEG subject folder (sequential and
+    progressive files) loads through the per-subject dataset, pixels equal to
+    PIL's decode, and both batch drivers import."""
+    import numpy as np
+
+    from make_torch_jpeg_fixtures import encode, make
+
+    folder = tmp_path / "subject"
+    folder.mkdir()
+    for i, options in enumerate((dict(quality=95), dict(quality=80, progressive=True))):
+        a = make("smooth", 72, 56, False, i)
+        (folder / f"{i}.jpg").write_bytes(encode(a, **options))
+    from PIL import Image
+
+    want = [np.asarray(Image.open(folder / f"{i}.jpg").convert("RGB")) for i in range(2)]
+    np.save(tmp_path / "want.npy", np.stack(want))
+    code = ("import sys\n"
+            "sys.modules['PIL'] = None\n"
+            "sys.modules['yaml'] = None\n"
+            "import numpy as np\n"
+            "from adaface_tpu_torch.tools import train_subjects, test_subjects\n"
+            "from adaface_tpu_torch.data.personalized import PersonalizedDataset, SubjectSpec\n"
+            f"ds = PersonalizedDataset([SubjectSpec('s', {str(folder)!r})], size=64, seed=0)\n"
+            f"want = np.load({str(tmp_path / 'want.npy')!r})\n"
+            "for i, rec in enumerate(ds.records):\n"
+            "    assert np.array_equal(ds._load(rec)[0], want[i])\n"
+            "assert ds[0]['image'].shape == (64, 64, 3)\n"
+            "print('LOADED', sorted(m for m in sys.modules\n"
+            "                       if m.split('.')[0] in ('yaml', 'PIL')\n"
+            "                       and sys.modules[m] is not None))\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "LOADED []" in r.stdout, r.stdout

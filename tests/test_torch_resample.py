@@ -129,3 +129,22 @@ def test_resize_imgs_equals_jax_script(tmp_path, capsys):
         assert got.shape == want.shape and min(got.shape[:2]) == 128
         assert np.array_equal(got, want), name
     assert (tdst / "5.jpg").read_bytes() == (jdst / "5.jpg").read_bytes()
+
+
+def test_resize_imgs_without_pil_refuses_jpeg_destinations_first(tmp_path, monkeypatch):
+    """Where PIL is missing, a folder with a JPEG destination fails before
+    anything is written, naming the gap; a PNG-only folder still resizes."""
+    import sys
+
+    src = tmp_path / "src"
+    src.mkdir()
+    png.write(str(src / "a.png"), _image(40, 60, seed=1))
+    Image.fromarray(_image(30, 50, seed=2)).save(src / "b.jpg", quality=90)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(SystemExit) as e:
+        resize_imgs.main([str(src), str(tmp_path / "dst"), "--size", "20"])
+    assert "b.jpg" in str(e.value) and "PIL" in str(e.value)
+    assert not (tmp_path / "dst").exists()
+    os.remove(src / "b.jpg")
+    assert resize_imgs.main([str(src), str(tmp_path / "dst"), "--size", "20"]) == 0
+    assert os.listdir(tmp_path / "dst") == ["a.png"]
