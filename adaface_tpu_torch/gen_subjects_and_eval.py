@@ -18,8 +18,8 @@ subject's txt2img argv; `--gen_prompt_set_only` writes the manifests alone.
 
 It runs on the CUDA card; `--device cpu` (or `main(..., device="cpu")`)
 runs it on the CPU. Samples are PNGs (the port's txt2img). `--num_devices`
-/ `--tp` other than 1 are forwarded, and txt2img exits naming ROADMAP queue
-1 item 13.
+/ `--tp` other than 1 are forwarded: txt2img then serves each subject over
+a dp x tp mesh of ranks, rank 0 writing.
 """
 
 from __future__ import annotations
@@ -51,8 +51,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--num_devices", type=int, default=1,
-                   help="forwarded to txt2img (one card in the port)")
-    p.add_argument("--tp", type=int, default=1, help="forwarded to txt2img (1 in the port)")
+                   help="forwarded to txt2img: ranks to serve on (-1 = all cards)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="forwarded to txt2img: tensor-parallel ranks of the UNet")
     p.add_argument("--z_prefix", default="")
     p.add_argument("--z_suffix_type", default=None,
                    help="'' | class_name | cls_delta_string | literal text (default: "

@@ -8,10 +8,11 @@ Without `--mask`: `StableDiffusionPipeline.img2img` (the init image's
 latent noised to t = strength * steps, then DDIM from there at a fixed
 guidance scale). With `--mask` (white = repaint): `inpaint`, masked latent
 blending on an ordinary SD model. The backbone, embeddings and devices are
-`txt2img.build_pipeline`'s (`--device cpu` for the CPU); images are read by
-`txt2img.load_resized` (PNGs and JPEGs by the port's decoders, another size
-than `--size` by `data/resample.py`'s bicubic, other formats through PIL)
-and written as PNGs by the port's codec.
+`txt2img.build_pipeline`'s (`--device cpu` for the CPU; `--num_devices` /
+`--tp` serve over a dp x tp mesh by `txt2img`'s rules, rank 0 writing);
+images are read by `txt2img.load_resized` (PNGs and JPEGs by the port's
+decoders, another size than `--size` by `data/resample.py`'s bicubic, other
+formats through PIL) and written as PNGs by the port's codec.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from adaface_tpu_torch import txt2img as t2i
 from adaface_tpu_torch.data import png
+from adaface_tpu_torch.parallel import mesh as pmesh
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -48,8 +50,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="cards to serve on (one in the port; -1 = all)")
-    p.add_argument("--tp", type=int, default=1, help="tensor parallelism (1 in the port)")
+                   help="ranks to serve on, one card each (-1 = all cards)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks of the UNet (alone: a tp-only mesh)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
     return p.parse_args(argv)
@@ -59,6 +62,9 @@ def main(argv: Optional[Sequence[str]] = None, *, device=None, opt=None) -> int:
     """img2img, or inpainting with `--mask`. `device` overrides `--device`;
     `opt` takes already parsed options."""
     opt = opt if opt is not None else parse_args(argv)
+    ranks = t2i.run_ranks(main, opt, device, kwargs={"opt": opt})
+    if ranks is not None:
+        return ranks
     pipe, _ = t2i.build_pipeline(opt, device)
     init = t2i.load_resized(opt.init_img, opt.size)
     k = max((i.num_vectors for i in pipe.embedding_manager.placeholders.values()), default=1)
@@ -71,6 +77,8 @@ def main(argv: Optional[Sequence[str]] = None, *, device=None, opt=None) -> int:
     else:
         imgs = pipe.img2img(init, [prompt] * opt.n_samples, strength=opt.strength,
                             num_steps=opt.steps, guidance_scale=guidance, seed=opt.seed)
+    if not pmesh.is_main(pipe.mesh):  # rank 0 writes
+        return 0
     os.makedirs(opt.outdir, exist_ok=True)
     for i, im in enumerate(imgs):
         png.write(os.path.join(opt.outdir, f"{i:05}.png"), im)
@@ -96,12 +104,18 @@ def inpaint(pipe, init_image: np.ndarray, mask: np.ndarray, prompts: Sequence[st
     outside the latent-resolution mask is reset to the init latent noised to
     the step's a_prev by ONE fixed draw (`blend_noise`, else a draw from a
     torch.Generator seeded with 0, as JAX draws it from PRNGKey(0)), the
-    same at every step."""
+    same at every step. Under the pipeline's mesh both draws are made for
+    the whole batch and each dp rank denoises its rows; every rank returns
+    the whole gathered batch."""
     from adaface_tpu_torch.models.vae import SD_VAE_SCALE_FACTOR
     from adaface_tpu_torch.ops.schedule import make_ddim_schedule
     from adaface_tpu_torch.samplers.ddim import ddim_step
 
     dev = pipe.device
+    b_all = len(prompts)
+    rows = pipe._rows(b_all)
+    if rows is not None:
+        prompts = [prompts[i] for i in rows]
     b = len(prompts)
     ids = pipe.tokenizer(list(prompts))
     ctx_c = pipe.encode_prompts(prompts)
@@ -118,9 +132,11 @@ def inpaint(pipe, init_image: np.ndarray, mask: np.ndarray, prompts: Sequence[st
 
     def draw(given, s):
         if given is not None:
-            return torch.as_tensor(np.array(given, np.float32), device=dev)
-        gen = torch.Generator(device=dev).manual_seed(s)
-        return torch.randn(z0.shape, generator=gen, device=dev)
+            out = torch.as_tensor(np.array(given, np.float32), device=dev)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(s)
+            out = torch.randn((b_all,) + tuple(z0.shape[1:]), generator=gen, device=dev)
+        return out if rows is None else out[torch.as_tensor(rows, device=dev)]
 
     x = draw(x_T, seed)
     noise = draw(blend_noise, 0)
@@ -134,7 +150,7 @@ def inpaint(pipe, init_image: np.ndarray, mask: np.ndarray, prompts: Sequence[st
         z0_noised = (float(np.sqrt(a_prev)) * z0
                      + float(np.sqrt(f32(1) - a_prev)) * noise)
         x = ml * x + (1 - ml) * z0_noised
-    return pipe._decode_uint8(x)
+    return pipe._gather_images(pipe._decode_uint8(x), b_all)
 
 
 if __name__ == "__main__":

@@ -50,6 +50,18 @@
   kernel size, which is 1 (off) at layers 12, 16, 17, 18 and 19. A
   cross-attention that does so takes the einsum path, never a flash entry.
 
+- Tensor parallelism (serving; `shard_unet_tp`, JAX's `use_mesh` with tp >
+  1): each tp rank keeps H/tp whole heads of every attention (the column
+  split of `to_q`/`to_k`/`to_v` in the packed [B, L, H*D] layout, so the
+  flash kernels run unchanged on fewer heads), the matching columns of
+  `to_out` (row split; the partial products are all-reduced over tp before
+  the bias), and the same rows of the GEGLU value and gate halves of
+  `ff_in` with the matching columns of `ff_out` (all-reduced before its
+  bias and the residual). Under `ADAFACE_FUSED_FF=1` the fused feed-forward
+  (K9) adds the residual inside the kernel, so a row split would add it tp
+  times: there every rank keeps and runs the whole feed-forward, as GSPMD
+  gathers a Pallas call's operands.
+
 Submodules carry the flax tree's names (`down_0_res_0.in_conv`,
 `down_0_attn_0.block_0.attn1.to_q`, ...).
 """
@@ -67,7 +79,7 @@ import torch.utils.checkpoint
 from adaface_tpu_torch import knobs
 from adaface_tpu_torch.ops import fused_ff
 from adaface_tpu_torch.ops.attention import apply_conv_attn
-from adaface_tpu_torch.ops.basic import conv_nhwc, group_norm, timestep_embedding
+from adaface_tpu_torch.ops.basic import conv_nhwc, geglu, group_norm, timestep_embedding
 from adaface_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_blc,
                                                    flash_attention_qkv)
 from adaface_tpu_torch.ops.fused_norm import group_norm_silu
@@ -150,6 +162,19 @@ class ResBlock(nn.Module):
         return x + h
 
 
+def _row_parallel(mesh, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """A row-split linear layer: this tp rank's partial product, summed over
+    the tp ranks in fp32, then the bias (`_row_parallel_finish`)."""
+    return _row_parallel_finish(mesh.all_reduce_(F.linear(x.float(), w.float()), "tp"), bias,
+                                x.dtype)
+
+
+def _row_parallel_finish(y: torch.Tensor, bias: torch.Tensor, dtype) -> torch.Tensor:
+    """The summed fp32 product plus the bias, rounded once to `dtype`, as
+    the whole layer's GEMM adds its bias before the one rounding."""
+    return (y + bias.float()).to(dtype)
+
+
 class UNetCrossAttention(nn.Module):
     """Multi-head attention on packed [B, L, H*D] projections; self-attention
     when no context is given. `kv` takes hoisted (k, v) projections,
@@ -169,6 +194,13 @@ class UNetCrossAttention(nn.Module):
         self.to_k = nn.Linear(ctx_dim, dim, bias=False)
         self.to_v = nn.Linear(ctx_dim, dim, bias=False)
         self.to_out = nn.Linear(dim, dim)
+        self.tp_mesh = None  # set by shard_unet_tp
+
+    def _out(self, o: torch.Tensor) -> torch.Tensor:
+        """`to_out`; under tp the row-split product all-reduced, then the bias."""
+        if self.tp_mesh is None:
+            return self.to_out(o)
+        return _row_parallel(self.tp_mesh, o, self.to_out.weight, self.to_out.bias)
 
     def forward(self, x, ctx_v=None, ctx_k=None, kv=None, key_mask=None,
                 capture: bool = False, subj_slot_map=None, infeat_hw=None,
@@ -209,7 +241,7 @@ class UNetCrossAttention(nn.Module):
             else:
                 out = merge(flash_attention(split(q), split(k), split(v), key_bias=key_bias,
                                             scale=scale))
-            return self.to_out(out), None
+            return self._out(out), None
         qh, kh, vh = split(q), split(k), split(v)
         sim = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
         if use_conv:
@@ -218,7 +250,7 @@ class UNetCrossAttention(nn.Module):
             sim = torch.where(key_mask[:, None, None, :], sim,
                               -torch.finfo(torch.float32).max)
         attn = torch.softmax(sim, dim=-1)
-        out = self.to_out(merge(torch.matmul(attn.to(vh.dtype), vh)))
+        out = self._out(merge(torch.matmul(attn.to(vh.dtype), vh)))
         if not capture:
             return out, None
         # q scaled by sqrt(scale) so q.q^T products carry the full scale
@@ -238,6 +270,9 @@ class TransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff_in = nn.Linear(dim, dim * 8)  # GEGLU: 2 x 4*dim
         self.ff_out = nn.Linear(dim * 4, dim)
+        # (mesh, ff_in weight, ff_in bias, ff_out weight) of this tp rank,
+        # set by shard_unet_tp; the whole weights stay for the fused path
+        self.tp_ff = None
 
     def forward(self, x, ctx_v, ctx_k, kv=None, cfg_tile: bool = False, key_mask=None,
                 capture: bool = False, subj_slot_map=None, infeat_hw=None,
@@ -253,6 +288,10 @@ class TransformerBlock(nn.Module):
         # flash attention and does not capture, as in the JAX package; the
         # weights go in transposed views
         fused = self.use_flash and not capture
+        if self.tp_ff is not None and not (fused and knobs.get("ADAFACE_FUSED_FF") == "1"):
+            mesh, w1, b1, w2 = self.tp_ff
+            y = F.layer_norm(x, x.shape[-1:], self.norm3.weight, self.norm3.bias, 1e-5)
+            return x + _row_parallel(mesh, geglu(F.linear(y, w1, b1)), w2, self.ff_out.bias), aux
         ff = fused_ff.ln_geglu_ff if fused else fused_ff.ln_geglu_ff_unfused
         return ff(x, self.norm3.weight, self.norm3.bias, self.ff_in.weight.t(),
                   self.ff_in.bias, self.ff_out.weight.t(), self.ff_out.bias), aux
@@ -466,6 +505,52 @@ class UNetModel(nn.Module):
         h = group_norm_silu(h, self.out_norm_scale, self.out_norm_bias, 32, 1e-5)
         eps = conv_nhwc(self.out_conv, h).float()
         return (eps, captures) if capture else eps
+
+
+@torch.no_grad()
+def shard_unet_tp(unet: "UNetModel", mesh) -> "UNetModel":
+    """Megatron tensor parallelism of `unet` over `mesh`'s tp ranks, in
+    place (serving only), on the dims `parallel.mesh.param_sharding_rules`
+    gives. Every attention keeps its rank's H/tp whole heads: rows of
+    `to_q`/`to_k`/`to_v` (column split) and the matching columns of `to_out`
+    (row split, all-reduced before the bias). Every feed-forward keeps the
+    same rows of the GEGLU value and gate halves of `ff_in` (a contiguous
+    split would give one rank every value and the other every gate) and the
+    matching columns of `ff_out`; the whole ff weights stay for the fused
+    path (module docstring). Refuses a head count that tp does not divide."""
+    from adaface_tpu_torch.parallel.mesh import param_sharding_rules
+
+    tp, r = mesh.tp, mesh.tp_rank
+    if tp == 1:
+        return unet
+    for name, m in unet.named_modules():
+        if isinstance(m, UNetCrossAttention) and m.num_heads % tp:
+            raise ValueError(f"{name}: {m.num_heads} heads do not split over tp {tp}")
+    dims = param_sharding_rules(mesh, dict(unet.named_parameters()))
+
+    def part(t, dim):
+        n = t.shape[dim] // tp
+        return t.narrow(dim, r * n, n).clone()
+
+    for name, m in unet.named_modules():
+        if isinstance(m, UNetCrossAttention):
+            for lname in ("to_q", "to_k", "to_v", "to_out"):
+                lin = getattr(m, lname)
+                lin.weight = nn.Parameter(part(lin.weight, dims[f"{name}.{lname}.weight"]),
+                                          requires_grad=False)
+            m.num_heads //= tp
+            m.tp_mesh = mesh
+        elif isinstance(m, TransformerBlock):
+            f = m.ff_out.weight.shape[1]
+            if f % tp:
+                raise ValueError(f"{name}: feed-forward width {f} does not split over tp {tp}")
+            # ff_in's column split (dim 0) takes its rows from both halves
+            c = f // tp
+            keep = torch.cat([torch.arange(r * c, (r + 1) * c),
+                              f + torch.arange(r * c, (r + 1) * c)]).to(m.ff_in.weight.device)
+            m.tp_ff = (mesh, m.ff_in.weight[keep].clone(), m.ff_in.bias[keep].clone(),
+                       part(m.ff_out.weight, dims[f"{name}.ff_out.weight"]))
+    return unet
 
 
 def precompute_cross_kv(unet: UNetModel, context: torch.Tensor,

@@ -22,7 +22,7 @@ passes none. Submodules carry the flax tree's names.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,27 +42,45 @@ def _ln(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=FLAX_LN_EPS)
 
 
-def dropout_stream(seed: Optional[int], index: int, device) -> Optional[torch.Generator]:
+class DropoutStream(NamedTuple):
+    """An attention-dropout stream: each mask is drawn for `n_rows` rows
+    (the global batch of a dp-sliced call; None: the call's own rows) from
+    `generator`, and the rows `rows` kept (None: all), so that dp ranks drop
+    what one device drops for the whole batch."""
+
+    generator: torch.Generator
+    rows: Optional[np.ndarray] = None
+    n_rows: Optional[int] = None
+
+
+def dropout_stream(seed: Optional[int], index: int, device, rows: Optional[np.ndarray] = None,
+                   n_rows: Optional[int] = None) -> Optional[DropoutStream]:
     """The dropout stream of the `index`-th generator (sorted placeholder
     order) of an iteration whose dropout seed is `seed`: a fresh
     `torch.Generator` seeded from (seed, index), so every generator has its
     own stream and a second call gives the same masks (the JAX package's
-    `fold_in(key, index)`; the numbers differ, the law does not). None for
-    a None seed: no dropout."""
+    `fold_in(key, index)`; the numbers differ, the law does not), with the
+    call's `rows` of `n_rows` (`DropoutStream`). None for a None seed: no
+    dropout."""
     if seed is None:
         return None
     state = np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state) & (2 ** 63 - 1))
+    return DropoutStream(torch.Generator(device=device).manual_seed(int(state) & (2 ** 63 - 1)),
+                         rows, n_rows)
 
 
 def attention_dropout(attn: torch.Tensor, p: float,
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
+                      stream: Optional[DropoutStream]) -> torch.Tensor:
     """flax's `nn.Dropout`: each entry kept with probability 1 - p and then
-    divided by it, the mask drawn from `generator`; the identity when
-    `generator` is None."""
-    if generator is None or p == 0:
+    divided by it, the mask drawn from `stream`; the identity when `stream`
+    is None."""
+    if stream is None or p == 0:
         return attn
-    keep = torch.rand(attn.shape, generator=generator, device=attn.device) >= p
+    u = torch.rand((stream.n_rows or attn.shape[0],) + tuple(attn.shape[1:]),
+                   generator=stream.generator, device=attn.device)
+    if stream.rows is not None:
+        u = u[torch.as_tensor(stream.rows, device=attn.device)]
+    keep = u >= p
     return torch.where(keep, attn / (1.0 - p), torch.zeros((), dtype=attn.dtype,
                                                            device=attn.device))
 
@@ -82,7 +100,7 @@ class PerceiverCrossAttention(nn.Module):
         self.p_dropout = p_dropout
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                dropout_generator: Optional[DropoutStream] = None) -> torch.Tensor:
         h = self.num_heads
         d = self.dim // h
         proj = lambda name, t: getattr(self, f"{name}_ln")(getattr(self, f"{name}_dense")(t))
@@ -148,7 +166,7 @@ class SubjBasisGenerator(nn.Module):
                 out_id_embs_scale: float = 1.0, is_face: bool = True,
                 is_training: bool = False, inverse_template_ids=None,
                 arc2face_inverse_prompt_embs_inf_type: str = "full_half_pad",
-                dropout_generator: Optional[torch.Generator] = None
+                dropout_generator: Optional[DropoutStream] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Returns (output_embs [B, L, K, D], inverse prompt embeddings
         [B, T, D] of the fg face branch, else None). clip_features

@@ -10,6 +10,12 @@ t = strength * steps and decodes from there.
 `.safetensors` (LDM names, `interop/sd_unet.py`, `interop/sd_vae.py`,
 `interop/hf_clip.py`), with fresh placeholder rows in the CLIP table.
 
+`use_mesh(n_devices, dp, tp)` serves over a dp x tp mesh of ranks (JAX's
+`use_mesh`; `parallel/mesh.py`): each request's batch is split over dp (a
+batch that dp does not divide runs whole on every rank, as JAX then runs it
+unsharded), the UNet is tensor-parallel over tp (`models/unet.shard_unet_tp`),
+CLIP, the VAE and the embedders stay replicated.
+
 The JAX package compiles each path into one program; here it runs eagerly on
 the pipeline's device. The initial noise and img2img's encode noise come
 from a torch.Generator seeded with `seed` (JAX draws them with
@@ -107,6 +113,7 @@ class StableDiffusionPipeline:
         self.base_sched = base_sched or make_diffusion_schedule()
         self.skip_weights = skip_weights
         self.device = unet.in_conv.weight.device
+        self.mesh = None  # serving mesh, set by use_mesh()
 
     @classmethod
     def from_random(cls, seed: int, tokenizer: TokenizerBase,
@@ -180,6 +187,32 @@ class StableDiffusionPipeline:
                 m = m.to(memory_format=torch.channels_last)
             models.append(m.eval())
         return cls(tokenizer, *models)
+
+    def use_mesh(self, n_devices: Optional[int] = None, dp: Optional[int] = None, tp: int = 1,
+                 mesh=None):
+        """Serve over a dp x tp mesh of this process group's ranks (every
+        rank calls it, then every request): `generate`, `img2img` and
+        `inpaint` draw their noise at the whole batch and each dp rank
+        computes its rows; tp > 1 tensor-shards the UNet's attention and
+        feed-forward (`shard_unet_tp`, Megatron's column / row pairs). The
+        gathered images come back whole on every rank."""
+        from adaface_tpu_torch.models.unet import shard_unet_tp
+        from adaface_tpu_torch.parallel import mesh as pmesh
+
+        self.mesh = mesh if mesh is not None else pmesh.make_mesh(n_devices, dp, tp)
+        shard_unet_tp(self.unet, self.mesh)
+        return self.mesh
+
+    def _rows(self, b: int):
+        """This dp rank's rows of a b-row request (None: all of them)."""
+        return None if self.mesh is None else self.mesh.local_rows(b)
+
+    def _gather_images(self, imgs: np.ndarray, b: int) -> np.ndarray:
+        """uint8 rows of every dp rank into the whole [b, H, W, 3] batch."""
+        if self._rows(b) is None:
+            return imgs
+        full = self.mesh.gather_rows(torch.as_tensor(imgs.astype(np.int32), device=self.device), b)
+        return full.cpu().numpy().astype(np.uint8)
 
     def ldm_state_dict(self) -> Dict[str, torch.Tensor]:
         """The backbone's weights in SD v1.x LDM names (the inverse of
@@ -330,19 +363,27 @@ class StableDiffusionPipeline:
         `context` [L|1, B|1, T, D] replaces the prompt encoding (layer and
         batch dims of size 1 broadcast, a single layer to all 16): the
         Arc2Face evaluation modes, where raw Arc2Face or inverse prompt
-        embeddings drive the UNet. The prompts then only size the batch."""
+        embeddings drive the UNet. The prompts then only size the batch.
+        Under `use_mesh` the noise is drawn for the whole batch, each dp rank
+        samples its rows and every rank returns the whole gathered batch."""
         if sampler not in ("ddim", "plms"):
             raise ValueError(f"unknown sampler {sampler!r}")
-        b = len(prompts)
+        b_all = len(prompts)
+        rows = self._rows(b_all)
         f = 2 ** (len(self.vae.cfg.ch_mult) - 1)
         lh, lw = height // f, width // f
         ids = self.tokenizer(list(prompts))
         sm = self.embedding_manager.build_slot_maps(ids)
+        if rows is not None:
+            ids, sm = ids[rows], {k: np.asarray(v)[rows] for k, v in sm.items()}
+        b = len(ids)
         if context is not None:
             ctx_c = torch.as_tensor(context).to(device=self.device,
                                                 dtype=self.clip.token_embedding.weight.dtype)
             L = NUM_CA_LAYERS if ctx_c.shape[0] == 1 else ctx_c.shape[0]
-            ctx_c = ctx_c.expand((L, b) + tuple(ctx_c.shape[2:]))
+            ctx_c = ctx_c.expand((L, b_all) + tuple(ctx_c.shape[2:]))
+            if rows is not None:
+                ctx_c = ctx_c[:, torch.as_tensor(rows, device=self.device)]
         else:
             # Encode each distinct prompt row once (token row + slot-map
             # rows): a serving batch of one repeated prompt pays 16 CLIP
@@ -366,19 +407,21 @@ class StableDiffusionPipeline:
         in_ch = self.unet.cfg.in_channels
         if x_T is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            x = torch.randn((b, lh, lw, in_ch), generator=gen, device=self.device)
+            x = torch.randn((b_all, lh, lw, in_ch), generator=gen, device=self.device)
         else:
             x = torch.as_tensor(np.asarray(x_T, np.float32), device=self.device)
-            if tuple(x.shape) != (b, lh, lw, in_ch):
+            if tuple(x.shape) != (b_all, lh, lw, in_ch):
                 raise ValueError(f"x_T has shape {tuple(x.shape)}, "
-                                 f"want {(b, lh, lw, in_ch)}")
+                                 f"want {(b_all, lh, lw, in_ch)}")
+        if rows is not None:
+            x = x[torch.as_tensor(rows, device=self.device)]
         eps_fn = self._cfg_eps_fn(ctx_c, ctx_u, self._cfg_slot_map(ids, sm))
         sched = make_ddim_schedule(self.base_sched, num_steps, guidance_scale=guidance_scale)
         if sampler == "plms":
             z = plms_sample(eps_fn, sched, x, guide_scale=_first(guidance_scale))
         else:
             z = ddim_sample(eps_fn, sched, x)
-        return self._decode_uint8(z)
+        return self._gather_images(self._decode_uint8(z), b_all)
 
     @torch.inference_mode()
     def img2img(self, init_image: np.ndarray, prompts: Sequence[str], strength: float = 0.75,
@@ -390,10 +433,15 @@ class StableDiffusionPipeline:
         sampling index steps - t_enc (t_enc = strength * steps, kept in
         [1, steps - 1]) by `noise` [B, h, w, C] or a draw from a
         torch.Generator seeded with `seed`, then DDIM from there at one fixed
-        guidance scale (the pair's first value; no annealing)."""
-        b = len(prompts)
+        guidance scale (the pair's first value; no annealing). Under
+        `use_mesh` as `generate`: each dp rank its rows of the whole draw."""
+        b_all = len(prompts)
+        rows = self._rows(b_all)
         ids = self.tokenizer(list(prompts))
         sm = self.embedding_manager.build_slot_maps(ids)
+        if rows is not None:
+            ids, sm = ids[rows], {k: np.asarray(v)[rows] for k, v in sm.items()}
+        b = len(ids)
         ctx_c = self._encode_ids(ids, sm)
         ctx_u = self.encode_negative(negative_prompt, b)
         sched = make_ddim_schedule(self.base_sched, num_steps, guidance_scale=guidance_scale)
@@ -406,13 +454,16 @@ class StableDiffusionPipeline:
         t = torch.full((b,), int(sched.timesteps[start]), dtype=torch.int32, device=self.device)
         if noise is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            n = torch.randn(z0.shape, generator=gen, device=self.device)
+            n = torch.randn((b_all,) + tuple(z0.shape[1:]), generator=gen, device=self.device)
         else:
             n = torch.as_tensor(np.array(noise, np.float32), device=self.device)
+        if rows is not None:
+            n = n[torch.as_tensor(rows, device=self.device)]
         z_t = stochastic_encode(self.base_sched, z0, t, n)
         eps_fn = self._cfg_eps_fn(ctx_c, ctx_u, self._cfg_slot_map(ids, sm))
-        return self._decode_uint8(ddim_decode(eps_fn, sched, z_t, start,
-                                              guide_scale=_first(guidance_scale)))
+        return self._gather_images(
+            self._decode_uint8(ddim_decode(eps_fn, sched, z_t, start,
+                                           guide_scale=_first(guidance_scale))), b_all)
 
 
 def _first(guidance_scale) -> float:

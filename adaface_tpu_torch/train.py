@@ -61,8 +61,14 @@ starts the generators; `--resume` takes a `subj_basis_*.pt`;
 `--arc2face_unet` adds the teacher; the run ends with
 `subj_basis_last.pt`.
 
-More than one device exits with `SystemExit` naming its ROADMAP queue 1
-item (13). PNG images load through the port's own codec (`data/png.py`),
+`--num_devices N` (N > 1; -1: every card, 1 on the CPU) trains
+data-parallel on N ranks (`parallel/mesh.py`): started here (`launch`, one
+card each, NCCL) unless the process is already a rank of a group (a
+`torchrun` start); more ranks than cards exit naming the card count, as
+JAX's `make_mesh` fails with fewer devices. `--device cpu --num_devices N`
+runs N gloo ranks on the CPU. `batch_size` is per device; rank 0 writes
+the logs and checkpoints; `main` returns rank 0's code. `--dreambooth`
+runs one (train, reg) pair a rank. PNG images load through the port's own codec (`data/png.py`),
 JPEGs through its own decoder (`data/jpeg.py`), other formats through PIL;
 `main(dataset=...)` takes a dataset built otherwise.
 """
@@ -82,6 +88,7 @@ from adaface_tpu_torch.config import apply_dotlist, load_config
 from adaface_tpu_torch.data.personalized import PersonalizedDataset, SubjectSpec
 from adaface_tpu_torch.data.tokenizer import HashTokenizer
 from adaface_tpu_torch.device import resolve_device
+from adaface_tpu_torch.parallel import mesh as pmesh
 from adaface_tpu_torch.models.clip_text import CLIPTextConfig
 from adaface_tpu_torch.models.unet import UNetConfig, UNetModel
 from adaface_tpu_torch.models.vae import SD_VAE_SCALE_FACTOR, VAEConfig
@@ -147,7 +154,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--max_steps", type=int, default=2000)
     p.add_argument("--batch_size", type=int, default=3)
     p.add_argument("--num_devices", type=int, default=1,
-                   help="data-parallel size (one card only in the port); -1 = all cards")
+                   help="data-parallel ranks, one card each (gloo ranks on the CPU "
+                        "under --device cpu); -1 = all cards")
+    p.add_argument("--device", type=str, default=None,
+                   help="cuda (the default: the card) or cpu")
     p.add_argument("--accumulate_grad_batches", type=int, default=2)
     p.add_argument("--lr", type=float, default=7e-4)
     p.add_argument("--optimizer", choices=("prodigy", "adamw"), default="prodigy")
@@ -179,15 +189,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _refuse_unported(opt, cfg: dict, device: torch.device):
-    """SystemExit for a path the port does not have yet, naming its ROADMAP
-    queue 1 item."""
-    n = opt.num_devices
+def num_ranks(num_devices: int, device: torch.device) -> int:
+    """The data-parallel size `--num_devices` asks for: -1 is every card (1
+    on the CPU). On CUDA more ranks than cards exit naming the card count."""
+    n = num_devices
     if n == -1:
         n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n != 1:
-        raise SystemExit(f"--num_devices {opt.num_devices}: the port trains on one card; "
-                         "data parallelism is ROADMAP queue 1 item 13")
+    if n < 1:
+        raise SystemExit(f"--num_devices {num_devices}: at least 1 (or -1)")
+    if device.type == "cuda" and not pmesh.in_group() and n > torch.cuda.device_count():
+        raise SystemExit(f"--num_devices {n}: this machine has {torch.cuda.device_count()} "
+                         "CUDA device(s), one rank a card")
+    return n
+
+
+def _rank_main(argv, dataset):
+    """One rank of `--num_devices N`: `main` on the rank's device."""
+    return main(argv, dataset=dataset, device=pmesh.rank_device())
 
 
 def _rebuild_unet(unet: UNetModel, **options) -> UNetModel:
@@ -209,7 +227,13 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
     card (pass "cpu" to run on the CPU)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     opt = parse_args(argv)
-    dev = resolve_device(device)
+    dev = resolve_device(device if device is not None else opt.device)
+    n_dev = num_ranks(opt.num_devices, dev)
+    if n_dev > 1 and not pmesh.in_group():
+        return pmesh.launch(_rank_main, n_dev, (argv, dataset), device=dev.type)[0]
+    mesh = pmesh.make_mesh(n_dev) if n_dev > 1 else None
+    if mesh is not None:
+        dev = mesh.device
     cfg = load_config(*opt.base) if opt.base else {}
     cfg = apply_dotlist(cfg, opt.overrides)
     # precedence: explicit CLI flag > YAML config > argparse default; only
@@ -235,7 +259,6 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
     if cfg.get("model", {}).get("params", {}).get("dtype") == "bfloat16" \
             and "bf16" not in explicit:
         opt.bf16 = True
-    _refuse_unported(opt, cfg, dev)
 
     def dataclass_cfg(dc_cls, section: str, skip=()):
         """cfg[section]'s keys that are fields of dc_cls (lists as tuples)."""
@@ -372,7 +395,7 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
     tcfg = TrainerConfig(
         **dataclass_cfg(TrainerConfig, "trainer", skip=cli_handled),
         **dataclass_cfg(TrainerConfig, "data", skip=cli_handled),
-        max_steps=opt.max_steps, batch_size=opt.batch_size, num_devices=1,
+        max_steps=opt.max_steps, batch_size=opt.batch_size, num_devices=n_dev,
         accumulate_grad_batches=opt.accumulate_grad_batches,
         learning_rate=lr, use_prodigy=use_prodigy,
         ckpt_every_steps=opt.ckpt_every_steps, seed=opt.seed,
@@ -391,7 +414,7 @@ def main(argv: Optional[Sequence[str]] = None, *, dataset=None, device=None) -> 
         return run_zero_shot(opt, pipe, tok, dataset, tcfg, pcfg, dtype, dev,
                              wds=bool(cfg.get("data", {}).get("wds_shards")))
     if opt.dreambooth:
-        return run_dreambooth(opt, pipe)
+        return run_dreambooth(opt, pipe, mesh)
     trainer = Trainer(pipe, dataset, tcfg, pcfg)
     try:
         if opt.resume:
@@ -519,18 +542,22 @@ def run_zero_shot(opt, pipe: StableDiffusionPipeline, tok, dataset, tcfg: Traine
 
 
 def dreambooth_batch(pipe: StableDiffusionPipeline, train: list, reg: list, rng,
-                     skip_weights: Optional[torch.Tensor] = None) -> DreamBoothBatch:
+                     skip_weights: Optional[torch.Tensor] = None, mesh=None) -> DreamBoothBatch:
     """The (train, reg) batch of a DreamBooth step from drawn examples: each
     half's images VAE-encoded (the posterior mean times the scale factor),
     its captions tokenized, then its timesteps and noise drawn from `rng`
-    (train first); both halves carry `skip_weights`."""
+    (train first); both halves carry `skip_weights`. Under a dp `mesh` each
+    rank encodes its own rows and the latents are gathered."""
 
     def half(examples) -> ReconBatch:
-        images = torch.as_tensor(np.stack([e["image"] for e in examples]), dtype=torch.float32,
-                                 device=pipe.device)
+        images = np.stack([e["image"] for e in examples])
+        idx = None if mesh is None else mesh.local_rows(len(images))
         with torch.no_grad():
-            mean, _ = pipe.vae.encode(images)
+            mean, _ = pipe.vae.encode(torch.as_tensor(images if idx is None else images[idx],
+                                                      dtype=torch.float32, device=pipe.device))
         latents = mean * SD_VAE_SCALE_FACTOR
+        if idx is not None:
+            latents = mesh.gather_rows(latents, len(images))
         ids = pipe.tokenizer([e["caption"] for e in examples])
         t = rng.integers(0, 1000, len(examples))
         noise = rng.standard_normal(tuple(latents.shape))
@@ -544,10 +571,12 @@ def dreambooth_batch(pipe: StableDiffusionPipeline, train: list, reg: list, rng,
     return DreamBoothBatch(train=half(train), reg=half(reg))
 
 
-def run_dreambooth(opt, pipe: StableDiffusionPipeline) -> int:
+def run_dreambooth(opt, pipe: StableDiffusionPipeline, mesh=None) -> int:
     """The DreamBooth loop: `opt.max_steps` steps of one (subject, class)
-    pair each through `make_dreambooth_train_step`, clip 0.5 then AdamW at
-    `opt.lr`, then `embeddings_last.npz` in the log dir."""
+    pair a device each (the dp `mesh`'s size) through
+    `make_dreambooth_train_step`, clip 0.5 then AdamW at `opt.lr` (its
+    moments ZeRO-1-sharded over the mesh), then `embeddings_last.npz` in the
+    log dir (rank 0)."""
     from adaface_tpu_torch.data.personalized_db import DreamBoothDataset
 
     if not opt.reg_data_root:
@@ -560,23 +589,27 @@ def run_dreambooth(opt, pipe: StableDiffusionPipeline) -> int:
     params = [t.requires_grad_(True) for s in sorted(mgr.embedders)
               for _, t in embedder_leaves(mgr.embedders[s])]
     step = make_dreambooth_train_step(
-        pipe.clip, pipe.unet, pipe.base_sched, AccumulatedClipped(AdamW(params, opt.lr), 0.5),
-        skip_weights=pipe.skip_weights, db_reg_weight=opt.db_reg_weight)
+        pipe.clip, pipe.unet, pipe.base_sched,
+        AccumulatedClipped(AdamW(params, opt.lr, mesh=mesh), 0.5),
+        skip_weights=pipe.skip_weights, db_reg_weight=opt.db_reg_weight, mesh=mesh)
     rng = np.random.default_rng(opt.seed)
     os.makedirs(opt.logdir, exist_ok=True)
     for i in range(opt.max_steps):
-        train, reg = ds.draw_pair()
+        drawn = [ds.draw_pair() for _ in range(pmesh.dp_of(mesh))]
         sw = None
         if opt.randomize_clip_skip_weights:
             alpha = [float(x) for x in (opt.clip_last_layers_skip_weights or (1, 1))]
             sw = torch.as_tensor(rng.dirichlet(alpha), dtype=torch.float32, device=pipe.device)
-        m = step(mgr.embedders, dreambooth_batch(pipe, [train], [reg], rng, sw))
-        if i % 10 == 0:
+        batch = dreambooth_batch(pipe, [p[0] for p in drawn], [p[1] for p in drawn], rng, sw,
+                                 mesh)
+        m = step(mgr.embedders, pmesh.shard_train_batch(mesh, batch))
+        if i % 10 == 0 and pmesh.is_main(mesh):
             print(f"[db {i}/{opt.max_steps}] loss={float(m['loss']):.4f} "
                   f"recon={float(m['recon']):.4f} reg={float(m['db_reg']):.4f}", flush=True)
     path = os.path.join(opt.logdir, "embeddings_last.npz")
-    mgr.save_native(path)
-    print(f"saved {path}", flush=True)
+    if pmesh.is_main(mesh):
+        mgr.save_native(path)
+        print(f"saved {path}", flush=True)
     return 0
 
 

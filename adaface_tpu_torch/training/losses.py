@@ -17,6 +17,17 @@ weights renormalized): `ops.basic.resize_aa` builds those weight matrices on the
 The complementary loss takes the webdataset call's `do_sqrt_norm`. The JAX
 helpers' `do_sqr` (`masked_mean`) and `norm_pow` (`normalized_sum`) have no
 caller there, so the port leaves them out.
+
+A loss over a batch that is sliced over dp ranks takes the step's `mesh`
+(`parallel/mesh.py`; None: one device) and makes every reduction over the
+batch global (`_gsum` / `_gmean`: the value over all ranks, the gradient of
+this rank's part scaled to match), so the dp-mean of the ranks' gradients is
+the gradient of the global loss: the masked recon's ratio of sums, the
+weighted and plain means of `ref_cosine_loss` and its hinge, `masked_mean`
+over the batch, the complementary loss's token counts, the prompt-mix
+attention norm and feature MSE, the elastic battery's mean over blocks.
+A reduction within one block (the elastic matching of a block, the K/V
+orthogonality of block 0) is called without a mesh.
 """
 
 from __future__ import annotations
@@ -27,17 +38,29 @@ import torch
 
 from adaface_tpu_torch.ops.basic import resize_aa
 from adaface_tpu_torch.ops.grad import scale_grad as grad_scale
+from adaface_tpu_torch.parallel import mesh as pmesh
+
+
+def _gsum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A sum over the batch, global under a dp mesh (`mesh.global_sum`)."""
+    return pmesh.global_sum(x, mesh)
+
+
+def _gmean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of a batch-sliced tensor, global under a dp mesh."""
+    return pmesh.global_mean(x, mesh)
 
 
 def masked_recon_loss(eps_pred: torch.Tensor, eps_target: torch.Tensor,
                       fg_mask: Optional[torch.Tensor] = None, bg_weight: float = 0.0,
-                      img_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      img_mask: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Masked MSE of the eps prediction: foreground pixels weigh 1,
     background `bg_weight`; `img_mask` (the augmentation's valid area) zeroes
-    the empty margins. Averaged over the weighted pixel count."""
+    the empty margins. Averaged over the weighted pixel count (of the global
+    batch under a dp `mesh`)."""
     err = torch.square(eps_pred.float() - eps_target.float())
     if fg_mask is None and img_mask is None:
-        return err.mean()
+        return _gmean(err, mesh)
     if fg_mask is not None:
         w = fg_mask + (1.0 - fg_mask) * bg_weight
     else:
@@ -45,7 +68,7 @@ def masked_recon_loss(eps_pred: torch.Tensor, eps_target: torch.Tensor,
     if img_mask is not None:
         w = w * img_mask
     w = w.expand(err.shape)
-    return torch.sum(err * w) / torch.clamp_min(torch.sum(w), 1e-6)
+    return _gsum(torch.sum(err * w), mesh) / torch.clamp_min(_gsum(torch.sum(w), mesh), 1e-6)
 
 
 def ortho_subtract(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -80,13 +103,14 @@ def _sum(x: torch.Tensor, axis, keepdims: bool = False) -> torch.Tensor:
 def ref_cosine_loss(delta, ref_delta, emb_weights=None, exponent: float = 2.0,
                     do_demean_first: bool = True, ref_grad_scale: float = 0.05,
                     aim_to_align: bool = True, margin: float = 0.0,
-                    instance_axis: Optional[int] = None) -> torch.Tensor:
+                    instance_axis: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Weighted cosine alignment of `delta` to `ref_delta`: demean both over
     the last dim, gradient-scale and signed-pow the reference side
     (x |x|^(e-1)), per-token cosine loss, weight-averaged (per instance
     along `instance_axis` when given, each instance counting equally). A
     `margin` > 0 hinges the mean (per instance with `instance_axis`): no
-    gradient until it exceeds the margin."""
+    gradient until it exceeds the margin. The means are over the batch,
+    global under a dp `mesh`."""
     if do_demean_first:
         delta = _demean(delta)
         ref_delta = _demean(ref_delta)
@@ -102,12 +126,12 @@ def ref_cosine_loss(delta, ref_delta, emb_weights=None, exponent: float = 2.0,
         per = torch.sum(losses * w, dim=axes) / (torch.sum(w, dim=axes) + 1e-8)
         if margin > 0:
             per = torch.clamp_min(per - margin, 0.0)
-        return per.mean()
+        return _gmean(per, mesh)
     if emb_weights is not None:
         w = emb_weights.expand(losses.shape)
-        loss = torch.sum(losses * w) / (torch.sum(w) + 1e-8)
+        loss = _gsum(torch.sum(losses * w), mesh) / (_gsum(torch.sum(w), mesh) + 1e-8)
     else:
-        loss = losses.mean()
+        loss = _gmean(losses, mesh)
     if margin > 0:
         loss = torch.clamp_min(loss - margin, 0.0)
     return loss
@@ -116,7 +140,7 @@ def ref_cosine_loss(delta, ref_delta, emb_weights=None, exponent: float = 2.0,
 def prompt_delta_loss(subj_single: torch.Tensor, subj_comp: torch.Tensor,
                       cls_single: torch.Tensor, cls_comp: torch.Tensor,
                       single_mask: Optional[torch.Tensor] = None,
-                      comp_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      comp_mask: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Static prompt-delta regularizer on [L, B, T, D] prompt embeddings:
     ortho-subtracted comp-single deltas of the subject prompts aligned to
     those of the class prompts, token weights (m_single + m_comp)^2 / 4 with
@@ -129,18 +153,21 @@ def prompt_delta_loss(subj_single: torch.Tensor, subj_comp: torch.Tensor,
         weights = agg ** 2 / 4.0
         weights[:, 0] = 0.0  # exclude BOS
         weights = weights[None]  # broadcast over L
-    return ref_cosine_loss(d_subj, d_cls, emb_weights=weights, instance_axis=1)
+    return ref_cosine_loss(d_subj, d_cls, emb_weights=weights, instance_axis=1, mesh=mesh)
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=None, keepdims: bool = False,
                 instance_weights: Optional[torch.Tensor] = None,
-                eps: float = 1e-8) -> torch.Tensor:
+                eps: float = 1e-8, mesh=None) -> torch.Tensor:
     """Mean of x over the elements where mask is truthy, each instance's
-    mask scaled by `instance_weights`."""
+    mask scaled by `instance_weights`; over everything (axis None) the sums
+    are global under a dp `mesh`."""
     m = mask.float()
     v = x.float()
     if instance_weights is not None:
         m = m * instance_weights.reshape((m.shape[0],) + (1,) * (m.dim() - 1))
+    if axis is None:
+        return _gsum(torch.sum(v * m), mesh) / (_gsum(torch.sum(m), mesh) + eps)
     return _sum(v * m, axis, keepdims) / (_sum(m, axis, keepdims) + eps)
 
 
@@ -221,7 +248,7 @@ def _resize_fg_mask_to_q(fg_mask: torch.Tensor, q_len: int) -> torch.Tensor:
 
 def fg_mb_suppress_loss(ca_attnscores: Dict[int, torch.Tensor],
                         subj_token_mask: torch.Tensor, fg_mask: torch.Tensor,
-                        instance_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        instance_mask: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Subject-token scores in the background must stay 0.4 below the
     subject's mean score inside the fg mask."""
     weights = _normalize_weights(ATTN_ALIGN_LAYER_WEIGHTS)
@@ -237,7 +264,7 @@ def fg_mb_suppress_loss(ca_attnscores: Dict[int, torch.Tensor],
         subj_at_mb = subj_score * bg3
         avg_mf = masked_mean(subj_at_mf, fg3, axis=(1, 2), keepdims=True)
         excess = subj_at_mb + 0.4 - avg_mf
-        loss = masked_mean(excess, excess > 0, instance_weights=instance_mask)
+        loss = masked_mean(excess, excess > 0, instance_weights=instance_mask, mesh=mesh)
         losses.append(loss * weights[idx] * 0.05)
     return normalized_sum(losses)
 
@@ -246,7 +273,8 @@ def fg_bg_complementary_loss(ca_attnscores: Dict[int, torch.Tensor],
                              subj_token_mask: torch.Tensor, bg_token_mask: torch.Tensor,
                              fg_mask: Optional[torch.Tensor] = None,
                              instance_mask: Optional[torch.Tensor] = None,
-                             fg_grad_scale: float = 0.1, do_sqrt_norm: bool = False):
+                             fg_grad_scale: float = 0.1, do_sqrt_norm: bool = False,
+                             mesh=None):
     """Subject vs background token score complementarity plus the margin
     suppressions. Returns (complementary, subj_mb_suppress, bg_mf_suppress,
     fg_bg_mask_contrast). K_fg and K_bg (tokens a subject / bg set) come
@@ -259,15 +287,15 @@ def fg_bg_complementary_loss(ca_attnscores: Dict[int, torch.Tensor],
     mfmb_margin = 0.4
     subj_m = subj_token_mask.float()
     bg_m = bg_token_mask.float()
-    K_fg = torch.clamp_min(torch.mean(torch.sum(subj_m, dim=-1)), 1.0)
-    K_bg = torch.clamp_min(torch.mean(torch.sum(bg_m, dim=-1)), 1.0)
+    K_fg = torch.clamp_min(_gmean(torch.sum(subj_m, dim=-1), mesh), 1.0)
+    K_bg = torch.clamp_min(_gmean(torch.sum(bg_m, dim=-1), mesh), 1.0)
     subj_bg_at_mf_margin = 0.4 * K_fg / K_bg
     bg_subj_at_mb_margin = 0.4
     sq_fg = torch.sqrt(torch.clamp_min(torch.sum(subj_m, dim=-1), 1.0)).detach()[:, None, None]
     sq_bg = torch.sqrt(torch.clamp_min(torch.sum(bg_m, dim=-1), 1.0)).detach()[:, None, None]
 
     def hinge(excess):
-        return masked_mean(excess, excess > 0, instance_weights=instance_mask)
+        return masked_mean(excess, excess > 0, instance_weights=instance_mask, mesh=mesh)
 
     l_comple, l_subj_mb, l_bg_mf, l_contrast = [], [], [], []
     for idx, attn in ca_attnscores.items():
@@ -282,7 +310,7 @@ def fg_bg_complementary_loss(ca_attnscores: Dict[int, torch.Tensor],
         # push the bg scores to be orthogonal to the subject scores
         l_comple.append(w * ref_cosine_loss(
             bg_score, subj_score, exponent=2.0, do_demean_first=False,
-            ref_grad_scale=fg_grad_scale, aim_to_align=False))
+            ref_grad_scale=fg_grad_scale, aim_to_align=False, mesh=mesh))
         if fg_mask is None:
             continue
         fg3 = _resize_fg_mask_to_q(fg_mask, subj_score.shape[-1])[:, None]
@@ -305,7 +333,7 @@ def fg_bg_complementary_loss(ca_attnscores: Dict[int, torch.Tensor],
 
 def fg_bg_xlayer_consist_loss(ca_attnscores: Dict[int, torch.Tensor],
                               subj_token_mask: torch.Tensor,
-                              bg_token_mask: Optional[torch.Tensor] = None):
+                              bg_token_mask: Optional[torch.Tensor] = None, mesh=None):
     """Cross-layer consistency: each layer's head-averaged subject (and bg)
     score map, bilinear-resized to the coarser grid, cosine-aligned with the
     layer below. Returns (fg_consist, bg_consist)."""
@@ -332,7 +360,8 @@ def fg_bg_xlayer_consist_loss(ca_attnscores: Dict[int, torch.Tensor],
             a_small = _bilinear_2tap(a.reshape(a.shape[0], s, s), sx, sx)
             a_small = a_small.reshape(a.shape[0], sx * sx)
             acc.append(w * ref_cosine_loss(a_small, ax, exponent=2.0,
-                                           do_demean_first=True, ref_grad_scale=1.0))
+                                           do_demean_first=True, ref_grad_scale=1.0,
+                                           mesh=mesh))
     return normalized_sum(l_fg), normalized_sum(l_bg)
 
 
@@ -367,10 +396,10 @@ def delta_alignment_loss(feat_base, feat_ex, ref_feat_base, ref_feat_ex,
     return out
 
 
-def ortho_l2loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """MSE of the ortho residual of a against b."""
+def ortho_l2loss(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
+    """MSE of the ortho residual of a against b (a batch mean)."""
     r = ortho_subtract(a, b)
-    return torch.mean(r * r)
+    return _gmean(r * r, mesh)
 
 
 def dyn_loss_scale(loss: torch.Tensor, loss_base: float, loss_scale_base: float,
@@ -413,7 +442,7 @@ def _avg_pool_nc(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     return torch.nn.functional.avg_pool2d(x, k, s)
 
 
-def prompt_mix_layer_losses(outfeat: torch.Tensor, subj_attn: torch.Tensor):
+def prompt_mix_layer_losses(outfeat: torch.Tensor, subj_attn: torch.Tensor, mesh=None):
     """One layer of the prompt-mix distillation over the 4-type batch
     (order subj_single, subj_comp, mix_single, mix_comp). outfeat
     [4B, H, W, C], subj_attn [4B, h, Q] (scores summed over the subject's
@@ -431,9 +460,10 @@ def prompt_mix_layer_losses(outfeat: torch.Tensor, subj_attn: torch.Tensor):
     src = ortho_subtract(ss_a, grad_scale(ms_a, mix_attn_gs))
     tgt = ortho_subtract(sc_a, grad_scale(mc_a, mix_attn_gs))
     attn_delta = ref_cosine_loss(tgt, src, exponent=3.0, do_demean_first=False,
-                                 ref_grad_scale=1.0)
-    attn_norm = (torch.abs(sc_a.mean(-1) - grad_scale(mc_a, mix_attn_gs).mean(-1)).mean()
-                 + torch.abs(ss_a.mean(-1) - grad_scale(ms_a, mix_attn_gs).mean(-1)).mean())
+                                 ref_grad_scale=1.0, mesh=mesh)
+    attn_norm = (_gmean(torch.abs(sc_a.mean(-1) - grad_scale(mc_a, mix_attn_gs).mean(-1)), mesh)
+                 + _gmean(torch.abs(ss_a.mean(-1) - grad_scale(ms_a, mix_attn_gs).mean(-1)),
+                          mesh))
     H, W, C = outfeat.shape[1:]
     sw = 0.5 * (convert_attn_to_spatial_weight(mc_a, (H, W))
                 + convert_attn_to_spatial_weight(sc_a, (H, W)))  # [B, H, W, 1]
@@ -443,7 +473,7 @@ def prompt_mix_layer_losses(outfeat: torch.Tensor, subj_attn: torch.Tensor):
     f2d = pooled.reshape(4, B, -1)
     comp_delta = ortho_subtract(f2d[1], grad_scale(f2d[3], 0.1))
     single_delta = ortho_subtract(f2d[0], grad_scale(f2d[2], 0.1))
-    return ortho_l2loss(comp_delta, single_delta), attn_delta, attn_norm
+    return ortho_l2loss(comp_delta, single_delta, mesh), attn_delta, attn_norm
 
 
 def elastic_matching_loss(ca_q: torch.Tensor, ca_outfeat: torch.Tensor, fg_mask: torch.Tensor,
@@ -469,6 +499,7 @@ def elastic_matching_loss(ca_q: torch.Tensor, ca_outfeat: torch.Tensor, fg_mask:
     sc_recon_ss = torch.einsum("bcn,bnm->bmc", sc_feat, sc_map_ss)  # [1, N, C]
     ss_feat_gs = grad_scale(ss_feat.transpose(1, 2), single_feat_grad_scale)
     fg_hw = fg[:, :, None] * fg[:, None, :]
+    # one block: its reductions stay local
     loss_map_align = masked_mean(torch.abs(sc_map_ss - mc_map_ms), fg_hw)
     loss_sc_ss_fg_match = ref_cosine_loss(sc_recon_ss, ss_feat_gs, emb_weights=fg,
                                           exponent=2.0, do_demean_first=False,
@@ -493,7 +524,7 @@ def _channel_layer_norm(x: torch.Tensor) -> torch.Tensor:
 def comp_fg_bg_preserve_loss(ca_outfeats: dict, ca_qs: dict, ca_attnscores: dict,
                              fg_mask: torch.Tensor, subj_token_mask: torch.Tensor,
                              pool_kernel: int = 4, pool_stride: int = 2,
-                             mix_attn_grad_scale: float = 0.02):
+                             mix_attn_grad_scale: float = 0.02, mesh=None):
     """The elastic-matching battery of each distillation layer over the
     4-type batch: outfeat [4B, H, W, C], q [4B, heads, N, d], attnscore
     [4B, heads, N, T]; fg_mask [B, H, W, 1] carries each block's own mask.
@@ -526,9 +557,9 @@ def comp_fg_bg_preserve_loss(ca_outfeats: dict, ca_qs: dict, ca_attnscores: dict
         fg_small = _resize_fg_mask_to_q(fg_mask, Np)  # [B, Np]
         per = [elastic_matching_loss(q_grp[:, b], feat_grp[:, b], fg_small[b:b + 1])
                for b in range(B)]
-        l_map.append(w * torch.stack([p[0] for p in per]).mean())
-        l_fg.append(w * torch.stack([p[1] for p in per]).mean())
-        l_bg.append(w * torch.stack([p[2] for p in per]).mean())
+        l_map.append(w * _gmean(torch.stack([p[0] for p in per]), mesh))
+        l_fg.append(w * _gmean(torch.stack([p[1] for p in per]), mesh))
+        l_bg.append(w * _gmean(torch.stack([p[2] for p in per]), mesh))
         if idx in ca_attnscores:
             subj_attn = torch.einsum("bhnt,bt->bhn", ca_attnscores[idx].float(),
                                      subj_token_mask.float())
@@ -542,8 +573,8 @@ def comp_fg_bg_preserve_loss(ca_outfeats: dict, ca_qs: dict, ca_attnscores: dict
             mix_pos = torch.clamp_min(grad_scale(a4[3], mix_attn_grad_scale), 0.0)
             sc_bg = torch.stack([p[3][0] for p in per])  # [B, 1, Np]
             mc_bg = torch.stack([p[3][1] for p in per])
-            l_subj_sup.append(w * masked_mean(subj_pos, sc_bg.expand(subj_pos.shape)))
-            l_mix_sup.append(w * masked_mean(mix_pos, mc_bg.expand(mix_pos.shape)))
+            l_subj_sup.append(w * masked_mean(subj_pos, sc_bg.expand(subj_pos.shape), mesh=mesh))
+            l_mix_sup.append(w * masked_mean(mix_pos, mc_bg.expand(mix_pos.shape), mesh=mesh))
     return (normalized_sum(l_map), normalized_sum(l_fg), normalized_sum(l_bg),
             normalized_sum(l_subj_sup), normalized_sum(l_mix_sup))
 
@@ -552,7 +583,7 @@ def padding_embs_align_loss(prompt_embs: torch.Tensor, prompt_emb_mask: torch.Te
                             subj_token_mask: torch.Tensor,
                             bg_token_mask: Optional[torch.Tensor] = None,
                             subj_contrast_paddings_grad_scale: float = 0.02,
-                            subj_contrast_bg_grad_scale: float = 0.3):
+                            subj_contrast_bg_grad_scale: float = 0.3, mesh=None):
     """Padding (and background) embeddings of [L, B, T, D] prompt embeddings
     pushed orthogonal to the summed subject embedding, each instance's
     weighted mean counting equally (off by default). Returns
@@ -567,7 +598,7 @@ def padding_embs_align_loss(prompt_embs: torch.Tensor, prompt_emb_mask: torch.Te
         subj = grad_scale(subj_sum, subj_grad_scale)
         return ref_cosine_loss(embs, subj[:, None], emb_weights=token_mask[:, :, None],
                                exponent=2.0, do_demean_first=True, ref_grad_scale=1.0,
-                               aim_to_align=False, instance_axis=0)
+                               aim_to_align=False, instance_axis=0, mesh=mesh)
 
     loss_pad = contrast(pad_mask, subj_contrast_paddings_grad_scale)
     loss_bg = (contrast(bg_token_mask.float(), subj_contrast_bg_grad_scale)

@@ -50,6 +50,7 @@ from adaface_tpu_torch.data.tokenizer import CLIP_VOCAB_SIZE
 from adaface_tpu_torch.models.unet import DISTILL_LAYER_INDICES
 from adaface_tpu_torch.ops.compel import apply_compel_cfg
 from adaface_tpu_torch.ops.grad import add_noise_to_tensor
+from adaface_tpu_torch.parallel import mesh as pmesh
 from adaface_tpu_torch.personalization.arc2face import forward_face_embs
 from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
 from adaface_tpu_torch.personalization.static_embedding import compute_static_embedding
@@ -119,6 +120,9 @@ class ReconBatch(NamedTuple):
     delta_slot_maps: Optional[Dict[str, np.ndarray]] = None
     skip_weights: Optional[torch.Tensor] = None  # [2] per-iteration clip skip
 
+    # the fields that hold a 4-type battery, type-major (`mesh.shard_train_batch`)
+    TYPE_MAJOR = frozenset({"delta_token_ids", "delta_slot_maps"})
+
 
 def _ids(ids, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(ids), dtype=torch.long, device=device)
@@ -131,15 +135,27 @@ def _subject_embeddings(embedders, batch, device) -> Dict[str, torch.Tensor]:
                            batch, device)
 
 
-def _with_emb_noise(subj: Dict[str, torch.Tensor], batch, device) -> Dict[str, torch.Tensor]:
+def _with_emb_noise(subj: Dict[str, torch.Tensor], batch, device, mesh=None,
+                    groups: int = 1) -> Dict[str, torch.Tensor]:
     """The subject embeddings with the batch's annealed noise when it
     carries one: one draw per placeholder in sorted order from a
-    torch.Generator seeded with `emb_noise_seed`."""
-    if batch.emb_noise_std and batch.emb_noise_seed is not None:
-        gen = torch.Generator(device=device).manual_seed(int(batch.emb_noise_seed))
-        subj = {s: add_noise_to_tensor(e, batch.emb_noise_std, generator=gen)
-                for s, e in sorted(subj.items())}
-    return subj
+    torch.Generator seeded with `emb_noise_seed`, its std relative to the
+    embedding's own. Per-instance embeddings ([L, B, K, D], the zero-shot
+    steps') are batch rows: under a dp `mesh` the noise is drawn at the
+    global batch and this rank's rows kept (`groups` type-major blocks on a
+    4-type battery), with the std taken over the global batch."""
+    if not (batch.emb_noise_std and batch.emb_noise_seed is not None):
+        return subj
+    gen = torch.Generator(device=device).manual_seed(int(batch.emb_noise_seed))
+    out = {}
+    for s, e in sorted(subj.items()):
+        if e.dim() != 4:
+            out[s] = add_noise_to_tensor(e, batch.emb_noise_std, generator=gen)
+            continue
+        std = batch.emb_noise_std * pmesh.global_mean(e.detach().std(dim=-1, unbiased=False),
+                                                      mesh)
+        out[s] = e + pmesh.draw_rows(e.shape, 1, gen, e.device, e.dtype, mesh, groups) * std
+    return out
 
 
 def _encode_patched(clip, batch, subj, skip_weights) -> torch.Tensor:
@@ -154,7 +170,7 @@ def _encode_patched(clip, batch, subj, skip_weights) -> torch.Tensor:
 
 
 def _recon_prompt_delta(clip, batch: ReconBatch, subj: Dict[str, torch.Tensor],
-                        skip_weights) -> torch.Tensor:
+                        skip_weights, mesh=None) -> torch.Tensor:
     """The static prompt-delta regularizer on a recon iteration: encode the
     4-type battery with the same subject embeddings as the recon pass,
     spread the class word over the pad slots of the class prompts, and align
@@ -174,7 +190,7 @@ def _recon_prompt_delta(clip, batch: ReconBatch, subj: Dict[str, torch.Tensor],
         cs = EmbeddingManager.distribute_cls_embeddings(cs, sm1b)
         cc = EmbeddingManager.distribute_cls_embeddings(cc, sm1b)
     return prompt_delta_loss(ss, sc, cs, cc, _prompt_emb_mask(ids[:B]),
-                             _prompt_emb_mask(ids[B:2 * B]))
+                             _prompt_emb_mask(ids[B:2 * B]), mesh=mesh)
 
 
 def _slot_union_mask(slot_maps: Dict[str, np.ndarray], keys, device) -> Optional[torch.Tensor]:
@@ -192,7 +208,7 @@ def _recon_complem_terms(aux: dict, slot_maps: Dict[str, np.ndarray],
                          xlayer_weight: float,
                          wds_extra_token_mask: Optional[torch.Tensor] = None,
                          wds_complem_weight: float = 0.0,
-                         instance_mask: Optional[torch.Tensor] = None):
+                         instance_mask: Optional[torch.Tensor] = None, mesh=None):
     """The recon iteration's attention battery on the captured scores:
     with a background token the complementary loss and its three
     suppressions (the complementary term x0.2 in zero-shot mode), without
@@ -213,14 +229,14 @@ def _recon_complem_terms(aux: dict, slot_maps: Dict[str, np.ndarray],
         if bg_mask is not None:
             comple, subj_mb, bg_mf, contrast = fg_bg_complementary_loss(
                 scores, subj_mask, bg_mask, fg_mask, fg_grad_scale=0.1,
-                instance_mask=instance_mask)
+                instance_mask=instance_mask, mesh=mesh)
             comple_scale = 0.2 if do_zero_shot else 1.0
             loss = loss + (comple * comple_scale + subj_mb + bg_mf + contrast) * complem_weight
             metrics.update(fg_bg_complem=comple, subj_mb_suppress=subj_mb,
                            bg_mf_suppress=bg_mf, fg_bg_mask_contrast=contrast)
         else:
             subj_mb = fg_mb_suppress_loss(scores, subj_mask, fg_mask,
-                                          instance_mask=instance_mask)
+                                          instance_mask=instance_mask, mesh=mesh)
             loss = loss + subj_mb * complem_weight
             metrics.update(subj_mb_suppress=subj_mb)
     if wds_complem_weight > 0 and wds_extra_token_mask is not None and fg_mask is not None:
@@ -228,11 +244,11 @@ def _recon_complem_terms(aux: dict, slot_maps: Dict[str, np.ndarray],
         # scores are normalized by the square root of each set's size
         w_comple, w_subj_mb, w_align, w_contrast = fg_bg_complementary_loss(
             scores, subj_mask, wds_extra_token_mask, fg_mask, fg_grad_scale=0.1,
-            do_sqrt_norm=True, instance_mask=instance_mask)
+            do_sqrt_norm=True, instance_mask=instance_mask, mesh=mesh)
         loss = loss + (w_comple + w_align + w_subj_mb + w_contrast) * wds_complem_weight
         metrics.update(fg_wds_complem=w_comple, wds_mask_align=w_align)
     if xlayer_weight > 0:
-        fg_x, bg_x = fg_bg_xlayer_consist_loss(scores, subj_mask, bg_mask)
+        fg_x, bg_x = fg_bg_xlayer_consist_loss(scores, subj_mask, bg_mask, mesh=mesh)
         fg_scale = 0.2 if do_zero_shot else 1.0
         bg_scale = 0.06 if do_zero_shot else 0.3
         loss = loss + (fg_x * fg_scale + bg_x * bg_scale) * xlayer_weight
@@ -246,13 +262,15 @@ def make_recon_train_step(clip, unet, sched, optimizer=None, skip_weights=(0.5, 
                           wds_complem_weight: float = 0.0,
                           prompt_delta_weight: float = 0.0, use_bg_token: bool = False,
                           do_zero_shot: bool = True,
-                          bg_placeholders: frozenset = frozenset()):
+                          bg_placeholders: frozenset = frozenset(), mesh=None):
     """Returns `step(embedders, batch) -> metrics`, closing over the frozen
     CLIP and UNet and the optimizer chain: loss, backward, optimizer step.
     `step.loss_fn(embedders, batch) -> (loss, metrics)` is the loss alone.
     With complem/xlayer/wds-complem weights > 0 the UNet captures the
     distillation layers' cross-attention scores for the complementary
-    battery."""
+    battery. Under a dp `mesh` each rank takes its slice of the global batch
+    (`mesh.shard_train_batch`): the losses' batch reductions are global and
+    the gradients averaged (`_with_optimizer`)."""
     do_capture = complem_weight > 0 or xlayer_weight > 0 or wds_complem_weight > 0
 
     def loss_fn(embedders, batch: ReconBatch):
@@ -267,36 +285,45 @@ def make_recon_train_step(clip, unet, sched, optimizer=None, skip_weights=(0.5, 
         else:
             eps, aux = unet(x_noisy, batch.timesteps, ctx, img_mask=batch.img_mask), None
         recon = masked_recon_loss(eps, batch.noise, batch.fg_mask, bg_weight=bg_weight,
-                                  img_mask=batch.img_mask)
+                                  img_mask=batch.img_mask, mesh=mesh)
         reg = sum(embedding_norm_loss(e) for e in subj.values()) / max(len(subj), 1)
         loss = recon + emb_reg_weight * reg
         metrics = {"recon": recon, "emb_reg": reg}
         if prompt_delta_weight > 0 and batch.delta_token_ids is not None:
-            loss_delta = _recon_prompt_delta(clip, batch, subj, skip_weights)
+            loss_delta = _recon_prompt_delta(clip, batch, subj, skip_weights, mesh)
             loss = loss + prompt_delta_weight * loss_delta
             metrics["prompt_delta"] = loss_delta
         if do_capture:
             complem, cm = _recon_complem_terms(
                 aux, batch.slot_maps, batch.fg_mask, bg_placeholders, use_bg_token,
                 do_zero_shot, complem_weight, xlayer_weight, batch.wds_extra_token_mask,
-                wds_complem_weight, instance_mask=batch.have_fg_mask)
+                wds_complem_weight, instance_mask=batch.have_fg_mask, mesh=mesh)
             loss = loss + complem
             metrics.update(cm)
         metrics["loss"] = loss
         return loss, metrics
 
-    return _with_optimizer(loss_fn, optimizer)
+    return _with_optimizer(loss_fn, optimizer, mesh)
 
 
-def _with_optimizer(loss_fn, optimizer):
+def _with_optimizer(loss_fn, optimizer, mesh=None):
     """`step(embedders, batch) -> metrics`: loss, backward, optimizer step;
-    `step.loss_fn` is the loss alone."""
+    `step.loss_fn` is the loss alone. Under a dp `mesh` the trainables'
+    gradients are averaged over the ranks between the backward and the
+    optimizer (one flat bucket; a leaf without a gradient counts as zeros,
+    as the accumulation treats it), and the metrics come back averaged: the
+    global ones."""
 
     def step(embedders, batch):
         loss, metrics = loss_fn(embedders, batch)
         loss.backward()
+        if pmesh.dp_of(mesh) > 1:
+            for p in optimizer.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            mesh.all_reduce_mean_([p.grad for p in optimizer.params])
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return {k: v.detach() for k, v in pmesh.metrics_mean(metrics, mesh).items()}
 
     step.loss_fn = loss_fn
     return step
@@ -330,6 +357,8 @@ class ComposBatch(NamedTuple):
     # fg-initialized, 0.5 fresh, 0.25 on a reuse-init iteration; None = 0.5
     preserve_loss_scale: Optional[float] = None
 
+    TYPE_MAJOR = frozenset({"token_ids", "slot_maps", "subj_slot_map", "compel_batch_mask"})
+
 
 def make_compos_distill_step(clip, unet, sched, optimizer=None, skip_weights=(0.5, 0.5),
                              prompt_delta_weight: float = 2e-4,
@@ -340,18 +369,19 @@ def make_compos_distill_step(clip, unet, sched, optimizer=None, skip_weights=(0.
                              bg_placeholders: frozenset = frozenset(),
                              padding_embs_align_weight: float = 0.0,
                              subj_comp_ortho_weight: float = 0.0,
-                             empty_ctx: Optional[torch.Tensor] = None):
+                             empty_ctx: Optional[torch.Tensor] = None, mesh=None):
     """Returns `step(embedders, batch) -> metrics` of a compositional
     iteration, closing over the frozen CLIP and UNet and the optimizer
     chain; `step.loss_fn(embedders, batch) -> (loss, metrics)` is the loss
     alone. `empty_ctx` (the empty prompt's first-layer context) turns on
     the compel weighting of the V and K contexts. The padding-alignment and
     subject/comp orthogonality regularizers run when their weights are > 0
-    (the latter captures the keys and values too)."""
+    (the latter captures the keys and values too). Under a dp `mesh` each
+    rank takes its blocks of the global batch, as the recon step does."""
     core = _make_compos_loss_core(
         clip, unet, sched, skip_weights, prompt_delta_weight, mix_prompt_distill_weight,
         fg_bg_weight, comp_fg_bg_preserve_weight, xlayer_weight, do_zero_shot,
-        bg_placeholders, padding_embs_align_weight, subj_comp_ortho_weight, empty_ctx)
+        bg_placeholders, padding_embs_align_weight, subj_comp_ortho_weight, empty_ctx, mesh)
 
     def loss_fn(embedders, batch: ComposBatch):
         dev = clip.token_embedding.weight.device
@@ -360,16 +390,16 @@ def make_compos_distill_step(clip, unet, sched, optimizer=None, skip_weights=(0.
         return core(EmbeddingManager.patch_prompt_embeddings(embedded, batch.slot_maps, subj),
                     batch)
 
-    return _with_optimizer(loss_fn, optimizer)
+    return _with_optimizer(loss_fn, optimizer, mesh)
 
 
 def _make_compos_loss_core(clip, unet, sched, skip_weights, prompt_delta_weight,
                            mix_prompt_distill_weight, fg_bg_weight,
                            comp_fg_bg_preserve_weight, xlayer_weight, do_zero_shot,
                            bg_placeholders, padding_embs_align_weight,
-                           subj_comp_ortho_weight, empty_ctx):
+                           subj_comp_ortho_weight, empty_ctx, mesh=None):
     """The distillation battery over an already-patched [L, 4B, T, D]
-    prompt-embedding batch."""
+    prompt-embedding batch (this rank's blocks under a dp `mesh`)."""
 
     def core(patched, batch: ComposBatch):
         L, B4, T, D = patched.shape
@@ -392,7 +422,7 @@ def _make_compos_loss_core(clip, unet, sched, skip_weights, prompt_delta_weight,
         single_mask = _prompt_emb_mask(ids[:B])
         comp_mask = _prompt_emb_mask(ids[B:2 * B])
         loss_delta = prompt_delta_loss(subj_single, subj_comp, cls_single, cls_comp,
-                                       single_mask, comp_mask)
+                                       single_mask, comp_mask, mesh=mesh)
 
         first = torch.as_tensor(np.asarray(batch.subj_slot_map), device=dev)
         subj_tok_single = (first[:B] >= 0).float()
@@ -436,7 +466,7 @@ def _make_compos_loss_core(clip, unet, sched, skip_weights, prompt_delta_weight,
             if idx not in aux or idx not in layer_w:
                 continue
             subj_attn = torch.einsum("bhqt,bt->bhq", aux[idx]["attnscore"].float(), subj_mask4)
-            fd, ad, an = prompt_mix_layer_losses(aux[idx]["outfeat"], subj_attn)
+            fd, ad, an = prompt_mix_layer_losses(aux[idx]["outfeat"], subj_attn, mesh)
             l_feat.append(layer_w[idx] * fd)
             l_attn.append(layer_w[idx] * ad)
             l_attn_norm.append(layer_w[idx] * an)
@@ -452,22 +482,23 @@ def _make_compos_loss_core(clip, unet, sched, skip_weights, prompt_delta_weight,
         loss_xlayer = zero
         if xlayer_weight > 0:
             subj_scores = {i: aux[i]["attnscore"][:2 * B] for i in aux if "attnscore" in aux[i]}
-            fg_x, bg_x = fg_bg_xlayer_consist_loss(subj_scores, subj_mask2, bg_mask2)
+            fg_x, bg_x = fg_bg_xlayer_consist_loss(subj_scores, subj_mask2, bg_mask2, mesh=mesh)
             fg_scale = 0.2 if do_zero_shot else 1.0
             bg_scale = 0.06 if do_zero_shot else 0.3
             if bg_mask2 is not None:
                 # no bg token in this iteration's prompts: an empty mask
-                bg_x = bg_x * torch.clamp(torch.sum(bg_mask2), 0.0, 1.0)
+                bg_x = bg_x * torch.clamp(pmesh.global_sum(torch.sum(bg_mask2), mesh), 0.0, 1.0)
             loss_xlayer = fg_x * fg_scale + bg_x * bg_scale
 
         loss_fg_bg = zero
         loss_preserve = zero
         if batch.fg_mask is not None:
             scores_first = {i: aux[i]["attnscore"][:B] for i in aux if "attnscore" in aux[i]}
-            loss_fg_bg = fg_mb_suppress_loss(scores_first, subj_tok_single, batch.fg_mask)
+            loss_fg_bg = fg_mb_suppress_loss(scores_first, subj_tok_single, batch.fg_mask,
+                                             mesh=mesh)
             p_map, p_fg, p_bg, p_subj_sup, p_mix_sup = comp_fg_bg_preserve_loss(
                 {i: aux[i]["outfeat"] for i in aux}, {i: aux[i]["q"] for i in aux},
-                {i: aux[i]["attnscore"] for i in aux}, batch.fg_mask, subj_mask4)
+                {i: aux[i]["attnscore"] for i in aux}, batch.fg_mask, subj_mask4, mesh=mesh)
             loss_preserve = (p_map + p_fg + p_bg * dyn_loss_scale(p_bg, 0.2, 2.0, 1.0, 3.0)
                              + (p_subj_sup + p_mix_sup) * 0.02)
 
@@ -475,11 +506,12 @@ def _make_compos_loss_core(clip, unet, sched, skip_weights, prompt_delta_weight,
         if padding_embs_align_weight > 0:
             lp, lb = padding_embs_align_loss(ctx[:, :2 * B],
                                              torch.cat([single_mask, comp_mask], dim=0),
-                                             subj_mask2, bg_mask2)
+                                             subj_mask2, bg_mask2, mesh=mesh)
             loss_pad_align = lp + lb
         loss_ortho_k = loss_ortho_v = zero
         if subj_comp_ortho_weight > 0:
-            # block 0 of each prompt type; the class rows carry the class
+            # block 0 of each prompt type (under a dp mesh the global batch's
+            # block 0, on dp rank 0); the class rows carry the class
             # embedding at the subject's slot positions
             sel = [0, B, 2 * B, 3 * B]
             loss_ortho_k, loss_ortho_v = subj_comp_ortho_loss(
@@ -490,6 +522,8 @@ def _make_compos_loss_core(clip, unet, sched, skip_weights, prompt_delta_weight,
                 cls_comp_subj_mask=subj_tok_comp[0],
                 cls_comp_extra_mask=comp_extra_token_mask(
                     _prompt_emb_mask(ids[3 * B:3 * B + 1])[0], subj_tok_comp[0]))
+            loss_ortho_k = pmesh.on_block0(loss_ortho_k, mesh)
+            loss_ortho_v = pmesh.on_block0(loss_ortho_v, mesh)
 
         attn_norm_scale = 1.0 if do_zero_shot else dyn_loss_scale(loss_attn_norm, 5.0, 0.2)
         loss_mix_distill = (loss_attn * 0.1 + loss_attn_norm * attn_norm_scale
@@ -531,19 +565,20 @@ class DreamBoothBatch(NamedTuple):
 
 
 def make_dreambooth_train_step(clip, unet, sched, optimizer=None, skip_weights=(0.5, 0.5),
-                               db_reg_weight: float = 1.0):
+                               db_reg_weight: float = 1.0, mesh=None):
     """Returns `step(embedders, batch) -> metrics` of the DreamBooth
     objective: subject recon plus `db_reg_weight` x the prior-preservation
     recon on class images, each a plain recon pass (no masks, no
     regularizers); metrics `loss`, `recon` and `db_reg`. The trainable
-    contract is the other steps'; `step.loss_fn(embedders, batch)`."""
+    contract is the other steps'; `step.loss_fn(embedders, batch)`. Under
+    a dp `mesh` each rank takes its (train, reg) pairs."""
 
     def one_loss(embedders, batch: ReconBatch) -> torch.Tensor:
         subj = {s: compute_static_embedding(p) for s, p in embedders.items()}
         ctx = _encode_patched(clip, batch, subj, skip_weights)
         x_noisy = sched.q_sample(batch.latents, batch.timesteps, batch.noise)
         eps = unet(x_noisy, batch.timesteps, ctx)
-        return masked_recon_loss(eps, batch.noise, batch.fg_mask)
+        return masked_recon_loss(eps, batch.noise, batch.fg_mask, mesh=mesh)
 
     def loss_fn(embedders, batch: DreamBoothBatch):
         loss_train = one_loss(embedders, batch.train)
@@ -551,7 +586,7 @@ def make_dreambooth_train_step(clip, unet, sched, optimizer=None, skip_weights=(
         loss = loss_train + db_reg_weight * loss_reg
         return loss, {"loss": loss, "recon": loss_train, "db_reg": loss_reg}
 
-    return _with_optimizer(loss_fn, optimizer)
+    return _with_optimizer(loss_fn, optimizer, mesh)
 
 
 # ------------------------------------------------------------------ zero-shot
@@ -574,18 +609,21 @@ def _arc2face_core(arc2face_encoder, id_embs: torch.Tensor, templates: ZeroShotT
 
 
 def _generator_embeddings(generators: dict, batch, arc_id_embs: torch.Tensor,
-                          bg_placeholders: frozenset,
-                          templates: ZeroShotTemplates) -> Dict[str, torch.Tensor]:
+                          bg_placeholders: frozenset, templates: ZeroShotTemplates,
+                          mesh=None) -> Dict[str, torch.Tensor]:
     """placeholder -> [L, B, K, D]: each generator (sorted order, the i-th
     drawing its dropout from stream i of `batch.dropout_seed`) on the bg
-    features (bg placeholders) or the Arc2Face core embeddings."""
+    features (bg placeholders) or the Arc2Face core embeddings. The feature
+    rows are batch rows: under a dp `mesh` the dropout masks are drawn for
+    the global batch and this rank's rows kept."""
     subj = {}
     dev = arc_id_embs.device
     for i, (s, gen) in enumerate(sorted(generators.items())):
         feats = batch.clip_bg if s in bg_placeholders else batch.clip_fg
+        rows, n_rows = pmesh.global_rows(mesh, feats.shape[0])
         embs, _ = gen(feats, None, arc_id_embs, is_face=True, is_training=True,
                       inverse_template_ids=templates.inverse_ids,
-                      dropout_generator=dropout_stream(batch.dropout_seed, i, dev))
+                      dropout_generator=dropout_stream(batch.dropout_seed, i, dev, rows, n_rows))
         subj[s] = embs.transpose(0, 1)
     return subj
 
@@ -613,26 +651,29 @@ class ZeroShotReconBatch(NamedTuple):
     have_fg_mask: Optional[torch.Tensor] = None  # [B]
     skip_weights: Optional[torch.Tensor] = None
 
+    TYPE_MAJOR = ReconBatch.TYPE_MAJOR
+
 
 def make_zero_shot_recon_step(clip, unet, sched, optimizer,
                               bg_placeholders: frozenset, arc2face_encoder,
                               templates: ZeroShotTemplates, skip_weights=(0.5, 0.5),
                               bg_weight: float = 0.1, complem_weight: float = 0.0,
                               xlayer_weight: float = 0.0, wds_complem_weight: float = 0.0,
-                              prompt_delta_weight: float = 0.0, use_bg_token: bool = False):
+                              prompt_delta_weight: float = 0.0, use_bg_token: bool = False,
+                              mesh=None):
     """Returns `step(generators, batch) -> metrics` of a zero-shot recon
     iteration (identity -> frozen Arc2Face forward -> generators -> patched
     prompt -> eps recon, with the complementary battery, the webdataset
     variant included, when its weights are > 0); `step.loss_fn(generators,
-    batch) -> (loss, metrics)`."""
+    batch) -> (loss, metrics)`. A dp `mesh` as in `make_recon_train_step`."""
     do_capture = complem_weight > 0 or xlayer_weight > 0 or wds_complem_weight > 0
 
     def loss_fn(gens: dict, batch: ZeroShotReconBatch):
         dev = clip.token_embedding.weight.device
         _, arc_id_embs = _arc2face_core(arc2face_encoder, batch.id_embs, templates)
         subj = _with_emb_noise(
-            _generator_embeddings(gens, batch, arc_id_embs, bg_placeholders, templates),
-            batch, dev)
+            _generator_embeddings(gens, batch, arc_id_embs, bg_placeholders, templates, mesh),
+            batch, dev, mesh)
         ctx = _encode_patched(clip, batch, subj, skip_weights)
         x_noisy = sched.q_sample(batch.latents, batch.timesteps, batch.noise)
         if do_capture:
@@ -641,26 +682,26 @@ def make_zero_shot_recon_step(clip, unet, sched, optimizer,
         else:
             eps, aux = unet(x_noisy, batch.timesteps, ctx, img_mask=batch.img_mask), None
         recon = masked_recon_loss(eps, batch.noise, batch.fg_mask, bg_weight=bg_weight,
-                                  img_mask=batch.img_mask)
+                                  img_mask=batch.img_mask, mesh=mesh)
         loss = recon
         metrics = {"recon": recon}
         if prompt_delta_weight > 0 and batch.delta_token_ids is not None:
             # per-instance embeddings; the 4-type battery repeats each instance
             subj4 = {s: torch.cat([v] * 4, dim=1) for s, v in subj.items()}
-            loss_delta = _recon_prompt_delta(clip, batch, subj4, skip_weights)
+            loss_delta = _recon_prompt_delta(clip, batch, subj4, skip_weights, mesh)
             loss = loss + prompt_delta_weight * loss_delta
             metrics["prompt_delta"] = loss_delta
         if do_capture:
             complem, cm = _recon_complem_terms(
                 aux, batch.slot_maps, batch.fg_mask, bg_placeholders, use_bg_token, True,
                 complem_weight, xlayer_weight, batch.wds_extra_token_mask, wds_complem_weight,
-                instance_mask=batch.have_fg_mask)
+                instance_mask=batch.have_fg_mask, mesh=mesh)
             loss = loss + complem
             metrics.update(cm)
         metrics["loss"] = loss
         return loss, metrics
 
-    return _with_optimizer(loss_fn, optimizer)
+    return _with_optimizer(loss_fn, optimizer, mesh)
 
 
 class ZeroShotComposBatch(NamedTuple):
@@ -688,6 +729,8 @@ class ZeroShotComposBatch(NamedTuple):
     skip_weights: Optional[torch.Tensor] = None
     preserve_loss_scale: Optional[float] = None
 
+    TYPE_MAJOR = ComposBatch.TYPE_MAJOR
+
 
 def make_zero_shot_compos_step(clip, unet, sched, optimizer, frozen_generators: dict,
                                bg_placeholders: frozenset, arc2face_encoder, templates: ZeroShotTemplates,
@@ -695,24 +738,25 @@ def make_zero_shot_compos_step(clip, unet, sched, optimizer, frozen_generators: 
                                mix_prompt_distill_weight: float = 1e-4,
                                fg_bg_weight: float = 1.0,
                                comp_fg_bg_preserve_weight: float = 1e-3,
-                               xlayer_weight: float = 5e-5):
+                               xlayer_weight: float = 5e-5, mesh=None):
     """Returns `step(generators, batch) -> metrics` of a zero-shot
     compositional iteration: the distillation battery of
     `make_compos_distill_step` (without the two regularizers that ship
     disabled) on generator embeddings, the subj-single block's taken as
     FROZEN_BLEND x the frozen copy's + (1 - FROZEN_BLEND) x the live
     generators' (the same dropout streams for both);
-    `step.loss_fn(generators, batch)`."""
+    `step.loss_fn(generators, batch)`. A dp `mesh` as in
+    `make_compos_distill_step`."""
     core = _make_compos_loss_core(
         clip, unet, sched, skip_weights, prompt_delta_weight, mix_prompt_distill_weight,
         fg_bg_weight, comp_fg_bg_preserve_weight, xlayer_weight, True, bg_placeholders,
-        0.0, 0.0, None)
+        0.0, 0.0, None, mesh)
 
     def loss_fn(gens: dict, batch: ZeroShotComposBatch):
         dev = clip.token_embedding.weight.device
         _, arc_id_embs = _arc2face_core(arc2face_encoder, batch.id_embs, templates)
         embs = lambda g: _generator_embeddings(g, batch, arc_id_embs, bg_placeholders,
-                                               templates)
+                                               templates, mesh)
         live = embs(gens)
         with torch.no_grad():
             frozen = embs(frozen_generators)
@@ -727,12 +771,12 @@ def make_zero_shot_compos_step(clip, unet, sched, optimizer, frozen_generators: 
             single = FROZEN_BLEND * fr + (1 - FROZEN_BLEND) * lv
             # type-major rows; the class rows' slots are all -1
             subj[s] = torch.cat([single, lv, lv, lv], dim=1)
-        subj = _with_emb_noise(subj, batch, dev)
+        subj = _with_emb_noise(subj, batch, dev, mesh, groups=pmesh.PROMPT_TYPES)
         embedded = clip.embed_tokens(_ids(batch.token_ids, dev))
         return core(EmbeddingManager.patch_prompt_embeddings(embedded, batch.slot_maps, subj),
                     batch)
 
-    return _with_optimizer(loss_fn, optimizer)
+    return _with_optimizer(loss_fn, optimizer, mesh)
 
 
 # --------------------------------------------------------- Arc2Face teacher
@@ -792,57 +836,63 @@ def _teacher_trajectory(teacher_unet, sched, batch, teacher_context: torch.Tenso
     return x_starts, ts, preds
 
 
-def _student_loss(unet, sched, batch, ctx, trajectory, S: int, use_fg_mask: bool):
+def _student_loss(unet, sched, batch, ctx, trajectory, S: int, use_fg_mask: bool, mesh=None):
     """The student's eps against the teacher's at the trailing
-    max(MAX_ACCUMU_BATCH // B, 1) steps, fg-masked with bg weight 0 unless
-    `use_fg_mask` is off; summed / sqrt(S). Returns (loss, metrics)."""
+    max(MAX_ACCUMU_BATCH // B, 1) steps (B the global batch under a dp
+    `mesh`), fg-masked with bg weight 0 unless `use_fg_mask` is off; summed /
+    sqrt(S). Returns (loss, metrics)."""
     x_starts, ts, preds = trajectory
-    B = batch.latents.shape[0]
+    B = batch.latents.shape[0] * pmesh.dp_of(mesh)
     losses = []
     for s in range(max(0, S - max(MAX_ACCUMU_BATCH // B, 1)), S):
         x_noisy = sched.q_sample(x_starts[s], ts[s], batch.noises[s])
         student = unet(x_noisy, ts[s], ctx, img_mask=batch.img_mask)
         if use_fg_mask and batch.fg_mask is not None:
             losses.append(masked_recon_loss(student, preds[s], batch.fg_mask, bg_weight=0.0,
-                                            img_mask=batch.img_mask))
+                                            img_mask=batch.img_mask, mesh=mesh))
         else:
-            losses.append(torch.mean(torch.square(student.float() - preds[s].float())))
+            losses.append(pmesh.global_mean(torch.square(student.float() - preds[s].float()),
+                                            mesh))
     loss = sum(losses) / float(np.sqrt(float(S)))
     return loss, {"loss": loss, "n_loss_steps": torch.tensor(float(len(losses)))}
 
 
 def make_arc2face_distill_step(clip, unet, teacher_unet, sched, optimizer,
                                num_denoising_steps: int = 1, skip_weights=(0.5, 0.5),
-                               use_fg_mask: bool = True):
+                               use_fg_mask: bool = True, mesh=None):
     """Returns `step(embedders, batch) -> metrics` of an Arc2Face
     distillation iteration of per-subject training (`use_fg_mask` off on a
-    random-face iteration); `step.loss_fn(embedders, batch)`."""
+    random-face iteration); `step.loss_fn(embedders, batch)`. A dp `mesh` as
+    in `make_recon_train_step` (the batch rides dim 1 of `noises` and
+    `relative_ts`)."""
     S = num_denoising_steps
 
     def loss_fn(embedders, batch: Arc2FaceBatch):
         trajectory = _teacher_trajectory(teacher_unet, sched, batch, batch.teacher_context, S)
         subj = {s: compute_static_embedding(p) for s, p in embedders.items()}
         ctx = _encode_patched(clip, batch, subj, skip_weights)
-        return _student_loss(unet, sched, batch, ctx, trajectory, S, use_fg_mask)
+        return _student_loss(unet, sched, batch, ctx, trajectory, S, use_fg_mask, mesh)
 
-    return _with_optimizer(loss_fn, optimizer)
+    return _with_optimizer(loss_fn, optimizer, mesh)
 
 
 def make_zero_shot_arc2face_step(clip, unet, teacher_unet, sched, optimizer,
                                  bg_placeholders: frozenset, arc2face_encoder,
                                  templates: ZeroShotTemplates, num_denoising_steps: int = 1,
-                                 skip_weights=(0.5, 0.5), use_fg_mask: bool = True):
+                                 skip_weights=(0.5, 0.5), use_fg_mask: bool = True,
+                                 mesh=None):
     """Returns `step(generators, batch) -> metrics` of a zero-shot Arc2Face
     distillation iteration: one identity conditions the teacher (its
     Arc2Face forward context) and the generators; only the generators take
-    gradients. `step.loss_fn(generators, batch)`."""
+    gradients. `step.loss_fn(generators, batch)`. A dp `mesh` as in
+    `make_arc2face_distill_step`."""
     S = num_denoising_steps
 
     def loss_fn(gens: dict, batch: ZeroShotArc2FaceBatch):
         full, arc_id_embs = _arc2face_core(arc2face_encoder, batch.id_embs, templates)
         trajectory = _teacher_trajectory(teacher_unet, sched, batch, full, S)
-        subj = _generator_embeddings(gens, batch, arc_id_embs, bg_placeholders, templates)
+        subj = _generator_embeddings(gens, batch, arc_id_embs, bg_placeholders, templates, mesh)
         ctx = _encode_patched(clip, batch, subj, skip_weights)
-        return _student_loss(unet, sched, batch, ctx, trajectory, S, use_fg_mask)
+        return _student_loss(unet, sched, batch, ctx, trajectory, S, use_fg_mask, mesh)
 
-    return _with_optimizer(loss_fn, optimizer)
+    return _with_optimizer(loss_fn, optimizer, mesh)

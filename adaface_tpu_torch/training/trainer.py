@@ -11,8 +11,8 @@ runs the recon step. A compositional-distillation plan (every
 prompt block, its x_start (the training image's foreground scaled onto
 noise, pure noise, or a cached reconstruction on a reuse-init iteration),
 timesteps in the top 20% (mid-range on reuse), compel draws and the class-mix
-ranges, and runs the compositional step; one block (4 UNet rows) on one
-card, whatever `batch_size` says. Gradient accumulation and global-norm
+ranges, and runs the compositional step; one block (4 UNet rows) a device,
+whatever `batch_size` says. Gradient accumulation and global-norm
 clipping live in the optimizer chain (`training/prodigy.py`). The host numpy
 RNG is consumed in the JAX trainer's order, so one seed builds the same
 batches in both. Checkpoints are the embedding manager's native `.npz`
@@ -55,7 +55,23 @@ the subject-comp and the class-mixed comp contexts and CLIP-scored; an
 unteachable block skips the iteration (`skipped_unteachable`), a teachable
 one trains on its best candidate's noise and t and caches that candidate's
 reconstruction, which a later compos iteration of the subject reuses
-(reuse-init). The data-parallel mesh (`num_devices` > 1) raises.
+(reuse-init).
+
+Data parallelism (`num_devices` > 1, in one of that many ranks of
+`parallel.mesh.launch`; the trainer builds its dp mesh over them, as JAX's
+does, `trainer.py:140-152`):
+`batch_size` is per device, so every rank draws the global batch
+(`batch_size x dp`, `dp` compos blocks) from the same host RNGs, VAE-encodes
+its own rows and gathers the latents (and, zero-shot, the reference
+features), so that every host decision is the same on every rank; the
+teacher filter denoises the rank's own candidates and the ranks' CLIP
+losses are gathered before the per-block verdicts. The step gets the rank's
+slice (`mesh.shard_train_batch`); the step builders take the mesh, so the
+gradients are averaged over the ranks and the losses' batch reductions are
+global (`train_step`, `losses`). The
+trainables and the frozen backbone are replicated, the optimizer state
+ZeRO-1-sharded (`training/prodigy.py`). Rank 0 alone writes metrics.jsonl,
+the checkpoints, the train state, the image grids and the validation rows.
 """
 
 from __future__ import annotations
@@ -78,6 +94,7 @@ from adaface_tpu_torch.data.personalized import (
 )
 from adaface_tpu_torch.models.vae import SD_VAE_SCALE_FACTOR
 from adaface_tpu_torch.ops.compel import sample_compel_cfg
+from adaface_tpu_torch.parallel import mesh as pmesh
 from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
 from adaface_tpu_torch.personalization.static_embedding import embedder_leaves
 from adaface_tpu_torch.training.iter_plan import (
@@ -119,7 +136,8 @@ class TrainerConfig:
     # under scale_lr
     learning_rate: float = 7e-4
     scale_lr: bool = True
-    # one card; more raise (the data-parallel mesh is ROADMAP queue 1 item 13)
+    # data-parallel ranks (-1: every rank of this process's group);
+    # batch_size is per device
     num_devices: int = 1
     use_prodigy: bool = True
     d_coef: float = 10.0
@@ -160,10 +178,16 @@ class Trainer:
     def __init__(self, pipeline, dataset: PersonalizedDataset,
                  cfg: TrainerConfig = TrainerConfig(),
                  plan_cfg: IterPlanConfig = IterPlanConfig()):
-        if cfg.num_devices != 1:
-            raise NotImplementedError(
-                f"num_devices={cfg.num_devices}: the port trains on one card; the "
-                "data-parallel mesh is ROADMAP queue 1 item 13")
+        # the trainer builds its dp mesh from num_devices, as JAX's does
+        # (`trainer.py:140-152`), over the ranks of this process's group (-1:
+        # all of them); more devices than ranks raise
+        n = cfg.num_devices
+        mesh = pmesh.make_mesh(None if n == -1 else n) if n != 1 else None
+        have = pmesh.dp_of(mesh)
+        cfg = dataclasses.replace(cfg, num_devices=have)
+        self.mesh = mesh if have > 1 else None
+        self._dp = have
+        self._main = pmesh.is_main(mesh)
         self.pipe = pipeline
         self.dataset = dataset
         self.cfg = cfg
@@ -179,19 +203,21 @@ class Trainer:
         self._sig_ckpt_requested = False
 
         os.makedirs(cfg.logdir, exist_ok=True)
-        self._log_f = open(os.path.join(cfg.logdir, "metrics.jsonl"), "a")
+        # rank 0 alone writes the metrics
+        self._log_f = open(os.path.join(cfg.logdir, "metrics.jsonl") if self._main
+                           else os.devnull, "a")
 
         # frozen backbone
         for m in (pipeline.clip, pipeline.unet, pipeline.vae):
             m.requires_grad_(False)
         params = self._trainable_params()
         if cfg.use_prodigy:
-            inner = Prodigy(params, lr=1.0, d_coef=cfg.d_coef)
+            inner = Prodigy(params, lr=1.0, d_coef=cfg.d_coef, mesh=self.mesh)
         else:
             lr = cfg.learning_rate
             if cfg.scale_lr:
-                lr *= cfg.accumulate_grad_batches * cfg.num_devices * cfg.batch_size
-            inner = AdamW(params, lr)
+                lr *= cfg.accumulate_grad_batches * self._dp * cfg.batch_size
+            inner = AdamW(params, lr, mesh=self.mesh)
         self.optimizer = AccumulatedClipped(inner, cfg.grad_clip, cfg.accumulate_grad_batches)
 
         self._bg_placeholders = frozenset(
@@ -278,7 +304,7 @@ class Trainer:
             raise FloatingPointError(f"non-finite metric at step {self.global_step}: {rec}")
         self._log_f.write(json.dumps(rec) + "\n")
         self._log_f.flush()
-        if self.global_step % self.cfg.log_every_steps == 0:
+        if self.global_step % self.cfg.log_every_steps == 0 and self._main:
             msg = " ".join(f"{k}={v:.4f}" for k, v in rec.items() if isinstance(v, float))
             print(f"[{self.global_step}/{self.cfg.max_steps}] {plan.iter_type}: {msg}",
                   flush=True)
@@ -286,9 +312,11 @@ class Trainer:
     def save_checkpoint(self, tag: Optional[str] = None) -> str:
         """The embeddings' `.npz` (`embeddings_<tag>.npz`, default
         `gs-<step>`): the EMA shadow when EMA is on, else the live
-        embedders."""
+        embedders. Rank 0 writes (the embedders are replicated)."""
         tag = tag or f"gs-{self.global_step}"
         path = os.path.join(self.cfg.logdir, f"embeddings_{tag}.npz")
+        if not self._main:
+            return path
         if self.ema_state is not None:
             live = self.mgr.embedders
             self.mgr.embedders = self.ema_state.shadow
@@ -328,13 +356,17 @@ class Trainer:
         embedders, the optimizer chain (the accumulation's micro-step count
         and running mean included), the host, dataset and subject-sampler
         RNG states, and the EMA state, as plain tensors, ints and dicts
-        (`torch.save`; the JAX package's pickle holds optax classes)."""
+        (`torch.save`; the JAX package's pickle holds optax classes). Every
+        rank takes part (the ZeRO-1 state is gathered); rank 0 writes."""
         path = path or os.path.join(self.cfg.logdir, "train_state.pt")
+        opt_state = self.optimizer.state_dict()
+        if not self._main:
+            return path
         state = {
             "global_step": self.global_step,
             "use_prodigy": self.cfg.use_prodigy,
             "embedders": self._leaves_cpu(self.mgr.embedders),
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": opt_state,
             "rng_state": self.rng.bit_generator.state,
             "dataset_rng_state": self.dataset.rng.bit_generator.state,
             "sampler_rng_state": self.sampler.rng.bit_generator.state,
@@ -347,7 +379,8 @@ class Trainer:
         return path
 
     def load_state(self, path: str) -> "Trainer":
-        """Restore `save_state`'s file into this trainer, in place."""
+        """Restore `save_state`'s file into this trainer, in place (every rank
+        reads it; a state saved at any dp resumes at any other)."""
         state = torch.load(path, map_location="cpu", weights_only=True)
         if bool(state["use_prodigy"]) != bool(self.cfg.use_prodigy):
             raise ValueError(f"{path} was saved with use_prodigy={state['use_prodigy']}, "
@@ -374,10 +407,32 @@ class Trainer:
     def _draw_examples(self, n: int):
         return [self.dataset[(self.sampler.sample(), True)] for _ in range(n)]
 
+    def _own_rows(self, fn, items, n: int):
+        """`fn(items)` over the whole batch of `n` rows; under a dp mesh each
+        rank runs `fn` on its own rows and the results are gathered (every
+        rank then holds the same global tensors). `fn` returns a tensor, or a
+        tuple of tensors or Nones."""
+        idx = None if self.mesh is None else self.mesh.local_rows(n)
+        if idx is None:
+            return fn(items)
+        out = fn(items[idx] if isinstance(items, np.ndarray) else [items[i] for i in idx])
+        gather = lambda t: self.mesh.gather_rows(t, n)
+        return tuple(gather(t) for t in out) if isinstance(out, tuple) else gather(out)
+
     @torch.no_grad()
     def _latents(self, images: np.ndarray) -> torch.Tensor:
-        mean, _ = self.pipe.vae.encode(torch.as_tensor(images, device=self.device))
-        return mean * SD_VAE_SCALE_FACTOR
+        """VAE posterior means x scale factor; each dp rank encodes its own
+        rows."""
+        def encode(x):
+            mean, _ = self.pipe.vae.encode(torch.as_tensor(x, device=self.device))
+            return mean * SD_VAE_SCALE_FACTOR
+
+        return self._own_rows(encode, np.asarray(images), len(images))
+
+    def _shard(self, batch):
+        """This rank's slice of a global batch (the batch itself on one
+        device)."""
+        return pmesh.shard_train_batch(self.mesh, batch)
 
     def _mask_to_latent(self, mask: np.ndarray, lh: int, lw: int) -> np.ndarray:
         m = mask.astype(np.float32)
@@ -417,7 +472,7 @@ class Trainer:
                 xlayer_weight=cfg.fg_bg_xlayer_consist_loss_weight,
                 wds_complem_weight=cfg.fg_wds_complementary_loss_weight if use_wds else 0.0,
                 use_bg_token=use_bg_token, do_zero_shot=self.plan_cfg.do_zero_shot,
-                bg_placeholders=self._bg_placeholders)
+                bg_placeholders=self._bg_placeholders, mesh=self.mesh)
         return self._recon_steps[key]
 
     def _delta_prompt_battery(self, plan: IterPlan, ex):
@@ -512,8 +567,9 @@ class Trainer:
 
     def build_recon_batch(self, plan: IterPlan) -> ReconBatch:
         """Draw and prepare one recon batch (host RNG in the JAX order); on a
-        webdataset composite `plan.use_wds_comp` comes back set."""
-        B = self.cfg.batch_size
+        webdataset composite `plan.use_wds_comp` comes back set. Global:
+        batch_size x dp rows."""
+        B = self.cfg.batch_size * self._dp
         ex = self._draw_examples(B)
         plan, use_wds, use_wds_cls = self._wds_recon_swap(plan, ex)
         batch_np = collate_examples(ex)
@@ -544,7 +600,7 @@ class Trainer:
     def _run_recon(self, plan: IterPlan):
         batch = self.build_recon_batch(plan)
         step = self._get_recon_step(plan.use_background_token, plan.use_wds_comp)
-        return step(self.mgr.embedders, batch)
+        return step(self.mgr.embedders, self._shard(batch))
 
     # ------------------------------------------------------------ validation
     def _get_val_loss(self):
@@ -558,7 +614,7 @@ class Trainer:
                 complem_weight=cfg.fg_bg_complementary_loss_weight,
                 xlayer_weight=cfg.fg_bg_xlayer_consist_loss_weight, use_bg_token=False,
                 do_zero_shot=self.plan_cfg.do_zero_shot,
-                bg_placeholders=self._bg_placeholders).loss_fn
+                bg_placeholders=self._bg_placeholders, mesh=self.mesh).loss_fn
         return self._val_loss
 
     def _val_plan(self) -> IterPlan:
@@ -592,13 +648,14 @@ class Trainer:
                                "TrainerConfig(val_every_steps > 0) (or train.py --val_every N)")
 
     def _write_val(self, sums: Dict[str, float]) -> Dict:
-        """Log the batch means of `sums` as `val/` rows."""
+        """Log the batch means of `sums` as `val/` rows (rank 0)."""
         rec: Dict = {"step": self.global_step}
         rec.update({f"val/{k}": v / self.cfg.val_batches for k, v in sums.items()})
         self._log_f.write(json.dumps(rec) + "\n")
         self._log_f.flush()
-        msg = " ".join(f"{k}={v:.4f}" for k, v in rec.items() if k != "step")
-        print(f"[{self.global_step}/{self.cfg.max_steps}] val: {msg}", flush=True)
+        if self._main:
+            msg = " ".join(f"{k}={v:.4f}" for k, v in rec.items() if k != "step")
+            print(f"[{self.global_step}/{self.cfg.max_steps}] val: {msg}", flush=True)
         return rec
 
     @torch.no_grad()
@@ -614,13 +671,13 @@ class Trainer:
             arms.append(("_ema", self.ema_state.shadow))
         sums: Dict[str, float] = {}
         for _ in range(self.cfg.val_batches):
-            batch = self._val_batch(self.cfg.batch_size)
+            batch = self._shard(self._val_batch(self.cfg.batch_size * self._dp))
             for suffix, emb in arms:
                 _, metrics = loss_fn(emb, batch)
-                for k, v in metrics.items():
+                for k, v in pmesh.metrics_mean(metrics, self.mesh).items():
                     sums[k + suffix] = sums.get(k + suffix, 0.0) + float(v)
         rec = self._write_val(sums)
-        if self.image_logger is not None:
+        if self.image_logger is not None and self._main:
             ex = self._val_examples(1)[0]
             self.image_logger.log_samples(self.global_step, self.pipe, ex["subj_prompt_single"],
                                           tag="val_samples")
@@ -635,7 +692,8 @@ class Trainer:
                 prompt_delta_weight=self._delta_w,
                 mix_prompt_distill_weight=self.plan_cfg.mix_prompt_distill_weight,
                 do_zero_shot=self.plan_cfg.do_zero_shot,
-                bg_placeholders=self._bg_placeholders, empty_ctx=self._empty_ctx)
+                bg_placeholders=self._bg_placeholders, empty_ctx=self._empty_ctx,
+                mesh=self.mesh)
         return self._compos_step
 
     def _compos_x_start(self, plan: IterPlan, ex: list, latents: torch.Tensor,
@@ -743,11 +801,12 @@ class Trainer:
         cand_t = np.asarray(sample_timesteps(self.rng, plan, n_cand * CB, self.plan_cfg),
                             np.int32)
         ctx = ctx_fn(cand_t)
-        verdict = self.teacher_filter.filter(
-            cand_x, cand_noise, self._tensor(cand_t, torch.int32), ctx["subj_comp"],
-            ctx["mix_comp"], ctx["uncond"], prompts[3 * CB:] * n_cand)
+        log_now = (self.image_logger is not None
+                   and self.image_logger.should_log(self.global_step))
+        verdict = self._filter_candidates(cand_x, cand_noise, cand_t, ctx,
+                                          prompts[3 * CB:] * n_cand, n_cand, CB, log_now)
         ok, best, block_ok = self._filter_verdict_per_block(verdict, n_cand, CB)
-        if self.image_logger is not None and self.image_logger.should_log(self.global_step):
+        if log_now and self._main:
             sel = {int(best[b]) * CB + b for b in range(CB) if block_ok[b]}
             colors = [2 if i % (n_cand * CB) in sel else 1 for i in range(2 * n_cand * CB)]
             self.image_logger.log_candidates(self.global_step, verdict.images, colors)
@@ -757,6 +816,46 @@ class Trainer:
         self._cache_filtered_blocks(ex, verdict, best, block_ok, cand_t, fg_latent, plan,
                                     prompts, n_cand, zs_extra_fn=zs_extra_fn)
         return cand_noise[rows], cand_t[rows]
+
+    def _filter_candidates(self, cand_x, cand_noise, cand_t, ctx: Dict, cls_prompts: list,
+                           n_cand: int, CB: int, with_images: bool):
+        """The teacher filter's verdict over the cand-major [n_cand * CB]
+        candidates. Under a dp mesh each rank denoises and scores the
+        candidates of its own blocks; the CLIP losses, the subject rows'
+        reconstructions (and, when the grid is due, the images) are gathered,
+        so every rank takes the same per-block verdicts."""
+        from adaface_tpu_torch.training.teacher_filter import FilterVerdict
+
+        tf = self.teacher_filter
+        N = n_cand * CB
+        idx = None if self.mesh is None else self.mesh.local_rows(CB)
+        if idx is None:
+            return tf.filter(cand_x, cand_noise, self._tensor(cand_t, torch.int32),
+                             ctx["subj_comp"], ctx["mix_comp"], ctx["uncond"], cls_prompts)
+        rows = np.concatenate([c * CB + idx for c in range(n_cand)])
+        pick = lambda t: t.index_select(1, torch.as_tensor(rows, device=t.device))
+        u = ctx["uncond"]
+        v = tf.filter(cand_x[rows], cand_noise[rows], self._tensor(cand_t[rows], torch.int32),
+                      tuple(pick(t) for t in ctx["subj_comp"]),
+                      tuple(pick(t) for t in ctx["mix_comp"]),
+                      u if u.shape[1] == 1 else pick(u), [cls_prompts[i] for i in rows])
+        n_loc = len(rows)
+
+        def gather(local, n_rows_global, rows_global):
+            full = torch.zeros((n_rows_global,) + tuple(local.shape[1:]), dtype=local.dtype,
+                               device=self.device)
+            full[torch.as_tensor(rows_global, device=self.device)] = local.to(self.device)
+            return self.mesh.all_reduce_(full)
+
+        losses = gather(torch.as_tensor(np.stack([v.losses_subj_comp, v.losses_mix_comp], 1),
+                                        dtype=torch.float64), N, rows).cpu().numpy()
+        x_recons = gather(v.x_recons[:n_loc], N, rows)
+        images = None
+        if with_images:
+            both = np.concatenate([rows, rows + N])
+            images = gather(torch.as_tensor(v.images.astype(np.int32)), 2 * N,
+                            both).cpu().numpy().astype(np.uint8)
+        return FilterVerdict(False, 0, losses[:, 0], losses[:, 1], images, x_recons)
 
     @torch.no_grad()
     def _compos_contexts(self, ids: np.ndarray, slots: Dict, plan: IterPlan, t: np.ndarray):
@@ -851,9 +950,10 @@ class Trainer:
         return [p[k] for k in range(4) for p in per_block]
 
     def build_compos_batch(self, plan: IterPlan) -> Optional[ComposBatch]:
-        """Draw and prepare one compos block (host RNG in the JAX order);
-        None when the teacher filter finds it unteachable."""
-        CB = 1  # one block on one card
+        """Draw and prepare one compos iteration (host RNG in the JAX order):
+        one block a device (CB = dp); None when the teacher filter finds it
+        unteachable."""
+        CB = self._dp
         ex = self._draw_examples(CB)
         self._wds_compos_swap(plan, ex)
         prompts = self._compos_prompt_battery(plan, ex)
@@ -907,7 +1007,7 @@ class Trainer:
         batch = self.build_compos_batch(plan)
         if batch is None:  # unteachable: the distillation is skipped
             return SKIPPED_UNTEACHABLE
-        return self._get_compos_step()(self.mgr.embedders, batch)
+        return self._get_compos_step()(self.mgr.embedders, self._shard(batch))
 
     def _preserve_scale(self, plan: IterPlan) -> float:
         """The elastic-matching preserve battery's scale: on only when x_start
@@ -940,7 +1040,7 @@ class Trainer:
         """Draw and prepare one Arc2Face distillation batch (host RNG in the
         JAX order; `ctx_fn` draws from the teacher's own)."""
         S = plan.num_denoising_steps
-        B = self._arc2face_batch_size(self.cfg.batch_size, S)
+        B = self._arc2face_batch_size(self.cfg.batch_size, S) * self._dp
         ex = self._draw_examples(B)
         batch_np = collate_examples(ex)
         latents = self._latents(batch_np["image"])
@@ -971,13 +1071,14 @@ class Trainer:
             self._a2f_steps[key] = make_arc2face_distill_step(
                 p.clip, p.unet, teacher_unet, p.base_sched, self.optimizer,
                 num_denoising_steps=plan.num_denoising_steps,
-                use_fg_mask=not plan.gen_arc2face_rand_face)
+                use_fg_mask=not plan.gen_arc2face_rand_face, mesh=self.mesh)
         return self._a2f_steps[key]
 
     def _run_arc2face(self, plan: IterPlan, teacher):
         teacher_unet, ctx_fn = teacher
         batch = self.build_arc2face_batch(plan, ctx_fn)
-        return self._get_arc2face_step(plan, teacher_unet)(self.mgr.embedders, batch)
+        return self._get_arc2face_step(plan, teacher_unet)(self.mgr.embedders,
+                                                           self._shard(batch))
 
     # ------------------------------------------------------------------ run
     def fit(self, num_steps: Optional[int] = None, arc2face_teacher=None):
@@ -1028,8 +1129,9 @@ class Trainer:
         self.save_checkpoint("last")
         dt = time.time() - t0
         self._log_run_summary(t0)
-        print(f"trained {self.global_step} steps in {dt:.1f}s "
-              f"({self.global_step / max(dt, 1e-9):.2f} it/s)", flush=True)
+        if self._main:
+            print(f"trained {self.global_step} steps in {dt:.1f}s "
+                  f"({self.global_step / max(dt, 1e-9):.2f} it/s)", flush=True)
         return self.mgr
 
     def _log_run_summary(self, t_start: float):
@@ -1042,6 +1144,8 @@ class Trainer:
             rec["peak_mem_gib"] = round(torch.cuda.max_memory_allocated(self.device) / 2**30, 3)
         self._log_f.write(json.dumps(rec) + "\n")
         self._log_f.flush()
+        if not self._main:
+            return
         mem = f", peak memory {rec['peak_mem_gib']:.2f} GiB" if "peak_mem_gib" in rec else ""
         print(f"[summary] {self.global_step} steps, {dt:.1f}s "
               f"({rec['steps_per_sec']:.2f} it/s){mem}", flush=True)

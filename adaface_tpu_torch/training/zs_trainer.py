@@ -13,7 +13,7 @@ Per micro-step, `plan_iteration` rolls the iteration on the host:
   variant, a composite's with the discounted bg recon weight and the fg vs
   comp-extra battery. The webdataset background's generator is one more
   entry of `generators` (the wds placeholder, a bg one);
-- compositional distillation: one block (4 UNet rows) of one example, its
+- compositional distillation: one block (4 UNet rows) a device, its
   x_start as the static trainer makes it, the zero-shot compos step with
   the subj-single block anchored on `_gen0`, a frozen copy of the generators
   taken at setup;
@@ -36,8 +36,14 @@ iteration's candidates are denoised under the live generators' embeddings
 (no gradients, no dropout: `_zs_subject_embs`, `_zs_compos_contexts`); a
 teachable block caches its reconstruction together with the reference
 features and identity it was made from, which the reuse-init iteration
-restores in place of this draw's. Not ported: the mesh placement of the
-trainables (one card; ROADMAP queue 1 item 13).
+restores in place of this draw's.
+
+Data parallelism as the static trainer's (JAX `zs_trainer.py:100-113`): the
+global batch on every rank, each rank's VAE encode and reference features
+gathered, the step on the rank's slice (the Arc2Face batch's `noises` and
+`relative_ts` by dim 1), the generators replicated and their Prodigy state
+ZeRO-1-sharded (the 123-128 M generator parameters are where ZeRO-1 saves
+memory). Rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import torch
 import torch.nn as nn
 
 from adaface_tpu_torch.data.personalized import collate_examples
+from adaface_tpu_torch.parallel import mesh as pmesh
 from adaface_tpu_torch.personalization.arc2face import (
     FORWARD_TEMPLATE,
     INVERSE_TEMPLATE,
@@ -118,14 +125,19 @@ class ZeroShotTrainer(Trainer):
 
     # ------------------------------------------------------------ checkpoints
     def save_checkpoint(self, tag: Optional[str] = None) -> str:
+        """`subj_basis_<tag>.pt`; every rank takes part (the ZeRO-1 state is
+        gathered), rank 0 writes."""
         tag = tag or f"gs-{self.global_step}"
         path = os.path.join(self.cfg.logdir, f"subj_basis_{tag}.pt")
+        opt_state = self.optimizer.state_dict()
+        if not self._main:
+            return path
         cpu = lambda gens: {s: {k: v.detach().cpu() for k, v in g.state_dict().items()}
                             for s, g in gens.items()}
         torch.save({"generators": cpu(self.generators), "frozen_generators": cpu(self._gen0),
                     "global_step": self.global_step,
                     "use_prodigy": self.cfg.use_prodigy,
-                    "optimizer": self.optimizer.state_dict(),
+                    "optimizer": opt_state,
                     "rng_state": self.rng.bit_generator.state,
                     "dataset_rng_state": self.dataset.rng.bit_generator.state,
                     "sampler_rng_state": self.sampler.rng.bit_generator.state}, path)
@@ -158,7 +170,7 @@ class ZeroShotTrainer(Trainer):
         p = self.pipe
         return dict(bg_placeholders=self.bg_placeholders,
                     arc2face_encoder=self._arc_encoder, templates=self._templates,
-                    skip_weights=p.skip_weights)
+                    skip_weights=p.skip_weights, mesh=self.mesh)
 
     def _make_zs_recon_step(self, use_bg_token: bool, use_wds: bool, optimizer):
         p, cfg = self.pipe, self.cfg
@@ -201,13 +213,18 @@ class ZeroShotTrainer(Trainer):
 
     # ------------------------------------------------------------ batch prep
     def _features(self, ex):
-        f = self.extractor.encode([e["image_unnorm"] for e in ex],
-                                  [e["fg_mask"] for e in ex], is_face=True)
-        # the extractor runs in inference mode, whose tensors a backward
-        # cannot save: normal copies
-        copy_ = lambda t: None if t is None else t.clone()
-        return dataclasses.replace(f, clip_fg=copy_(f.clip_fg), clip_bg=copy_(f.clip_bg),
-                                   id_embs=copy_(f.id_embs))
+        """The examples' reference features; under a dp mesh each rank
+        encodes its own rows and the features are gathered."""
+        def encode(rows):
+            f = self.extractor.encode([e["image_unnorm"] for e in rows],
+                                      [e["fg_mask"] for e in rows], is_face=True)
+            # the extractor runs in inference mode, whose tensors a backward
+            # cannot save: normal copies
+            copy_ = lambda t: None if t is None else t.clone()
+            return copy_(f.clip_fg), copy_(f.clip_bg), copy_(f.id_embs)
+
+        fg, bg, ids = self._own_rows(encode, ex, len(ex))
+        return ZeroShotFeatures(clip_fg=fg, clip_bg=bg, id_embs=ids)
 
     def _id_embs_or_draw(self, feats, n: int, rng=None) -> torch.Tensor:
         """The extractor's identity embeddings, or (no face embedder) n
@@ -304,7 +321,7 @@ class ZeroShotTrainer(Trainer):
         teacher filter finds it unteachable. A reuse-init iteration whose
         cache entries hold reference features restores them (and the
         identity) in place of this draw's."""
-        CB = 1  # one block on one card
+        CB = self._dp  # one block a device
         ex = self._draw_examples(CB)
         self._wds_compos_swap(plan, ex)
         prompts = self._compos_prompt_battery(plan, ex)
@@ -376,7 +393,7 @@ class ZeroShotTrainer(Trainer):
         """One zs Arc2Face batch (host RNG in the JAX order): ceil(batch /
         S) examples on an S-step plan."""
         S = plan.num_denoising_steps
-        B = self._arc2face_batch_size(self.cfg.batch_size, S)
+        B = self._arc2face_batch_size(self.cfg.batch_size, S) * self._dp
         ex = self._draw_examples(B)
         batch_np = collate_examples(ex)
         feats = self._features(ex)
@@ -420,11 +437,11 @@ class ZeroShotTrainer(Trainer):
     # -------------------------------------------------------------------- run
     def _run_zs_recon(self, plan: IterPlan):
         plan.iter_type = RECON
-        ex = self._draw_examples(self.cfg.batch_size)
+        ex = self._draw_examples(self.cfg.batch_size * self._dp)
         plan, use_wds, use_wds_cls = self._wds_recon_swap(plan, ex)
         batch = self.build_zs_recon_batch(ex, plan, use_wds, use_wds_cls)
         step = self._get_zs_recon_step(plan.use_background_token, use_wds)
-        return step(self.generators, batch)
+        return step(self.generators, self._shard(batch))
 
     # ------------------------------------------------------------ validation
     def _get_val_loss(self):
@@ -443,11 +460,11 @@ class ZeroShotTrainer(Trainer):
         loss_fn = self._get_val_loss()
         sums: Dict[str, float] = {}
         for _ in range(self.cfg.val_batches):
-            ex = self._val_examples(self.cfg.batch_size)
-            batch = self.build_zs_recon_batch(ex, self._val_plan(), rng=self._val_rng,
-                                              with_reg_kw=False)
+            ex = self._val_examples(self.cfg.batch_size * self._dp)
+            batch = self._shard(self.build_zs_recon_batch(ex, self._val_plan(),
+                                                          rng=self._val_rng, with_reg_kw=False))
             _, metrics = loss_fn(self.generators, batch)
-            for k, v in metrics.items():
+            for k, v in pmesh.metrics_mean(metrics, self.mesh).items():
                 sums[k] = sums.get(k, 0.0) + float(v)
         return self._write_val(sums)
 
@@ -455,11 +472,12 @@ class ZeroShotTrainer(Trainer):
         batch = self.build_zs_compos_batch(plan)
         if batch is None:  # unteachable: the distillation is skipped
             return SKIPPED_UNTEACHABLE
-        return self._get_zs_compos_step()(self.generators, batch)
+        return self._get_zs_compos_step()(self.generators, self._shard(batch))
 
     def _run_zs_arc2face(self, plan: IterPlan, teacher_unet):
         batch = self.build_zs_arc2face_batch(plan)
-        return self._get_zs_arc2face_step(plan, teacher_unet)(self.generators, batch)
+        return self._get_zs_arc2face_step(plan, teacher_unet)(self.generators,
+                                                              self._shard(batch))
 
     def _post_step(self, t0: float):
         """The step count, then every `val_every_steps` a validation pass and

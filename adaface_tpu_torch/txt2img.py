@@ -28,8 +28,16 @@ appends a row to `<out>/scores.csv`: prompt, CLIP-I, CLIP-T, DINO.
 `--calc_face_sim` adds the face similarity (the first face of each image,
 embedded by a tiny random recognizer as in the JAX script), the count of
 generated images without a face and their share. `--use_first_gt_img_as_init`
-starts from the `--compare_with` images' latents. `--num_devices` / `--tp`
-other than 1 exit naming ROADMAP queue 1 item 13.
+starts from the `--compare_with` images' latents.
+
+`--num_devices N` / `--tp T` serve over a dp x tp mesh (JAX's rules: `-1`
+is every card, `--tp T` alone means a T-device tp-only mesh, N must be a
+multiple of T): N ranks, one card each (gloo ranks on the CPU under
+`--device cpu`), started here unless the process is already a rank of a
+group; more ranks than cards exit naming the card count. Each request's
+batch is split over dp (`pipeline.use_mesh`), the UNet over tp; rank 0
+alone writes the PNGs, the grid and `scores.csv`, and `main` returns its
+code.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import torch
 
 from adaface_tpu_torch.data import png
 from adaface_tpu_torch.device import resolve_device
+from adaface_tpu_torch.parallel import mesh as pmesh
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -86,24 +95,47 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--init_img_weight", type=float, default=0.1)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="cards to serve on (one in the port; -1 = all)")
-    p.add_argument("--tp", type=int, default=1, help="tensor parallelism (1 in the port)")
+                   help="ranks to serve on, one card each (-1 = all cards)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks of the UNet (alone: a tp-only mesh)")
     p.add_argument("--tiny", action="store_true", help="tiny models (CPU smoke mode)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
     return p.parse_args(argv)
 
 
-def refuse_unported(opt, device: torch.device):
-    """SystemExit for an option that needs a module not ported yet, naming
-    its ROADMAP queue 1 item."""
-    n = getattr(opt, "num_devices", 1)
-    if n == -1:
-        n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n != 1 or getattr(opt, "tp", 1) != 1:
-        raise SystemExit(f"--num_devices {getattr(opt, 'num_devices', 1)} --tp "
-                         f"{getattr(opt, 'tp', 1)}: the port serves on one card; multi-card "
-                         "serving is ROADMAP queue 1 item 13")
+def serving_mesh_size(opt, device: torch.device):
+    """(devices, tp) of `--num_devices` / `--tp` by the JAX script's rules:
+    -1 is every card (1 on the CPU), `--tp T` alone means T devices, and the
+    device count must be a multiple of tp. On CUDA more ranks than cards exit
+    naming the card count."""
+    nd, tp = getattr(opt, "num_devices", 1), getattr(opt, "tp", 1)
+    if nd == -1:
+        nd = torch.cuda.device_count() if device.type == "cuda" else 1
+    if nd == 1 and tp > 1:
+        nd = tp
+    if tp < 1 or nd < 1 or nd % tp or nd < tp:
+        raise SystemExit(f"--num_devices {nd} not divisible by --tp {tp}")
+    if device.type == "cuda" and not pmesh.in_group() and nd > torch.cuda.device_count():
+        raise SystemExit(f"--num_devices {nd}: this machine has {torch.cuda.device_count()} "
+                         "CUDA device(s), one rank a card")
+    return nd, tp
+
+
+def _serve_rank(entry, args, kwargs):
+    """One serving rank: `entry(*args, device=<the rank's device>, **kwargs)`."""
+    return entry(*args, device=pmesh.rank_device(), **kwargs)
+
+
+def run_ranks(entry, opt, device, args=(), kwargs=None):
+    """Rank 0's result of `entry` started on the mesh's ranks when the
+    options ask for more than one device and this process is not yet a rank,
+    else None (run in this process)."""
+    dev = resolve_device(device if device is not None else getattr(opt, "device", None))
+    nd, _ = serving_mesh_size(opt, dev)
+    if nd == 1 or pmesh.in_group():
+        return None
+    return pmesh.launch(_serve_rank, nd, (entry, args, kwargs or {}), device=dev.type)[0]
 
 
 def tiny_configs(tok) -> dict:
@@ -129,7 +161,7 @@ def build_pipeline(opt, device=None):
     from adaface_tpu_torch.pipeline import StableDiffusionPipeline
 
     dev = resolve_device(device if device is not None else getattr(opt, "device", None))
-    refuse_unported(opt, dev)
+    nd, tp = serving_mesh_size(opt, dev)
     vocab, merges = os.environ.get("CLIP_VOCAB_JSON"), os.environ.get("CLIP_MERGES_TXT")
     tok = (CLIPBPETokenizer(vocab, merges) if vocab and merges and os.path.exists(vocab)
            else HashTokenizer())
@@ -160,6 +192,10 @@ def build_pipeline(opt, device=None):
                             num_vectors=opt.num_vectors_per_subj_token,
                             generator=torch.Generator(device=dev).manual_seed(7),
                             emb_dim=pipe.clip.cfg.hidden_size, device=dev)
+    if nd > 1:
+        mesh = pipe.use_mesh(nd, dp=nd // tp, tp=tp)
+        if mesh.is_main:
+            print(f"serving mesh: dp{mesh.dp} x tp{mesh.tp}")
     return pipe, tok
 
 
@@ -237,11 +273,16 @@ def make_grid(all_imgs, n_rows: int) -> np.ndarray:
 
 def main(argv: Optional[Sequence[str]] = None, *, device=None) -> int:
     """Generate as the options say. `argv` defaults to the command line;
-    `device` overrides `--device`."""
+    `device` overrides `--device`. Over several devices rank 0 writes and
+    its code comes back."""
     from adaface_tpu_torch.pipeline import DEFAULT_NEGATIVE_PROMPT
 
     opt = parse_args(argv)
+    ranks = run_ranks(main, opt, device, (list(sys.argv[1:]) if argv is None else argv,))
+    if ranks is not None:
+        return ranks
     pipe, _ = build_pipeline(opt, device)
+    writes = pmesh.is_main(pipe.mesh)
     neg = opt.neg_prompt if opt.neg_prompt is not None else DEFAULT_NEGATIVE_PROMPT
     guidance = tuple(opt.scale) if len(opt.scale) > 1 else opt.scale[0]
     gt_avg = None
@@ -275,7 +316,8 @@ def main(argv: Optional[Sequence[str]] = None, *, device=None) -> int:
         k = max((i.num_vectors for i in pipe.embedding_manager.placeholders.values()), default=1)
         prompt = pad_placeholders(prompt, opt.subject_string, k)
         outd = os.path.join(opt.outdir, subdir) if subdir else opt.outdir
-        os.makedirs(outd, exist_ok=True)
+        if writes:
+            os.makedirs(outd, exist_ok=True)
         idx = 0
         for rep in range(n_rep):
             imgs = pipe.generate([prompt] * opt.n_samples, negative_prompt=neg,
@@ -286,10 +328,14 @@ def main(argv: Optional[Sequence[str]] = None, *, device=None) -> int:
                                  x_T=rep_x_T(rep))
             if not opt.skip_save:
                 for im in imgs:
-                    png.write(os.path.join(outd, f"{idx:05}.png"), im)
+                    if writes:
+                        png.write(os.path.join(outd, f"{idx:05}.png"), im)
                     idx += 1
             all_imgs.append(imgs)
-        print(f"wrote {idx} images to {outd} for prompt: {prompt!r}")
+        if writes:
+            print(f"wrote {idx} images to {outd} for prompt: {prompt!r}")
+    if not writes:
+        return 0
     png.write(os.path.join(opt.outdir, "grid.png"), make_grid(all_imgs, opt.n_rows))
     if opt.compare_with:
         opt.scores = evaluate(opt, jobs, pipe.device)

@@ -34,7 +34,7 @@ Phases, each of which exits non-zero on failure:
      subject placeholder: one warm-up and 3 timed requests, each of which
      must launch the forward kernel exactly 750 times;
   7. generate profile: stage times, and device time by kernel category and
-     the device's idle share for one whole request;
+     the device's idle share for one whole DDIM-PROFILE_STEPS request;
   8. training reference: one recon loss and its embedder gradients at SD
      widths on a 32x32 latent, bf16 on the card against fp32 on the CPU;
   8b. compos reference: one compositional loss and its embedder gradients
@@ -74,7 +74,7 @@ restored after each use) adds:
       launches at its small input);
   6b. generate under the knobs: one warm-up and 2 timed requests, each of
       which must launch exactly 750 flash forwards, 2,250 K8 and 800 K9;
-      one profiled request;
+      one profiled DDIM-PROFILE_STEPS request;
   9b. training under the knobs: 4 micro-steps (compos 0 and 3), each with
       exactly 15/14/14 flash launches, 45 K8 and 4 K9 (the transformer
       blocks of layers 1, 2, 4 and 5; the others capture), at batch 3 on a
@@ -193,8 +193,9 @@ Slice 17 (the fp32 K9 redesigned, with a launch plan) adds:
       FF_FP32_FORCED it runs through its C entry under every GEMM2 width
       that divides C and every split of F (the fp32 gate, repeats bit for
       bit);
-  [fp32-profile]. after [fp32-main], one fp32 request under the default
-      knobs and one under the fused knobs through the profiler: device time
+  [fp32-profile]. after [fp32-main], one fp32 DDIM-FP32_PROFILE_STEPS request
+      under the default knobs and one under the fused knobs through the
+      profiler: device time
       by category (the fp32 kernels by name, fp32 K9 apart from bf16 K9)
       and the idle share.
 Slice 18 (the fp32 K10 redesigned: narrow paths for Cin or Cout 4, the
@@ -416,6 +417,21 @@ Slice 26 adds, after slice 25's phases:
       the next) and `tools/test_subjects` on both (DDIM-BATCH_DDIM, batch 2:
       exact launches, a `scores.csv` row of finite scores each, the JPEG
       folder read by `--compare_with`).
+Slice 27 (data and tensor parallelism, `parallel/mesh.py`; no kernel of its
+own) adds, last:
+  [dp]. two ranks sharing cuda:0 over gloo (`parallel.mesh.launch`; the
+      training CLI refuses more ranks than cards, shown first) against one
+      process at the global batch: 9d's fp32 run recon-only, DP_STEPS
+      micro-steps at batch 1 a rank (each micro-step's averaged gradient
+      and the embedders after the update, gated, with two planted faults:
+      each rank's own loss denominator, the gradient all-reduce skipped),
+      a compos step at CB 2 (one block a rank), the zero-shot stack's
+      micro-steps (ZeRO-1: each rank's optimizer-state bytes; the
+      generators, gated), a DDIM-4 B4 request at dp 2 and at tp 2 within
+      the arms' image gate (planted: the GEGLU halves split contiguously,
+      `to_out` without its all-reduce); each rank's flash launches by kind
+      (every part must launch its kernels on both ranks); seconds at dp 1
+      and dp 2 and the all-reduce's ms as readings.
 The last lines are one JSON object per kernel list, the card line, and
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -450,6 +466,9 @@ MASKED_ROW_TOL = 1e-3  # the fully masked row vs the uniform average of v
 # decoder 3.5e-2 with its ~30 convs at up to 512 channels)
 REFERENCE_TOL = {"clip": 5e-2, "unet eps": 5e-2, "vae decode": 1e-1}
 STEPS, BATCH, SIZE = 50, 8, 512
+# the profiled requests' DDIM steps ([profile], [fused-profile]; cut from
+# STEPS for the script's time); [fp32-profile]'s
+PROFILE_STEPS, FP32_PROFILE_STEPS = 10, 4
 PROMPT = "a photo of a z , , , , , , , , person"
 SOURCE = "adaface_tpu_torch/csrc/flash_attn_packed.cu"
 FWD_LIB = "flash_attn_packed"
@@ -1627,8 +1646,9 @@ def phase_fused_main_path(torch, pipe, card, default_med):
         say(f"[fused] batch {BATCH} 512x512 DDIM-{STEPS} bf16 under {FUSED_KNOBS}: median "
             f"{med:.3f} s/request, {BATCH / med:.4f} img/s; default knobs {default_med:.3f} "
             f"s/request, {BATCH / default_med:.4f} img/s [{card}]")
-        profile_breakdown(torch, lambda: pipe.generate(prompts, seed=4, **kw), "fused-profile",
-                          "one request under the fused knobs", card)
+        pkw = dict(kw, num_steps=PROFILE_STEPS)
+        profile_breakdown(torch, lambda: pipe.generate(prompts, seed=4, **pkw), "fused-profile",
+                          f"one DDIM-{PROFILE_STEPS} request under the fused knobs", card)
     return got_gn, got_ff
 
 
@@ -1684,9 +1704,9 @@ def phase_profile(torch, pipe, card):
     say(f"[profile] stages (CUDA events, mean of back-to-back calls): text encode {encode_ms:.3f} ms, "
         f"one UNet call (B{2 * BATCH} 64x64) {unet_ms:.3f} ms, VAE decode (B{BATCH}) "
         f"{vae_ms:.3f} ms [{card}]")
-    kw = dict(num_steps=STEPS, guidance_scale=(10.0, 4.0), height=SIZE, width=SIZE)
+    kw = dict(num_steps=PROFILE_STEPS, guidance_scale=(10.0, 4.0), height=SIZE, width=SIZE)
     profile_breakdown(torch, lambda: pipe.generate(prompts, seed=4, **kw), "profile",
-                      "one request", card)
+                      f"one DDIM-{PROFILE_STEPS} request", card)
 
 
 def profile_breakdown(torch, fn, tag, what, card):
@@ -3497,10 +3517,11 @@ def phase_fp32_main_path(torch, card):
     if not diff.mean() <= ARM_UINT8_MEAN_TOL:
         fail(f"[fp32-main] the fused request's images differ by {diff.mean():.3f} levels")
     # [fp32-profile]: where each request's device time goes
+    pkw = dict(kw, num_steps=FP32_PROFILE_STEPS)
     for name, values in (("default", {}), ("fused", FUSED_KNOBS)):
         with knobs_set(values):
-            profile_breakdown(torch, lambda: pipe.generate(prompts, seed=1, **kw), "fp32-profile",
-                              f"one fp32 DDIM-{FP32_REQUEST_STEPS} request under the {name} knobs",
+            profile_breakdown(torch, lambda: pipe.generate(prompts, seed=1, **pkw), "fp32-profile",
+                              f"one fp32 DDIM-{FP32_PROFILE_STEPS} request under the {name} knobs",
                               card)
     for m in (fa, fn, ff):
         m.launches_by_shape.clear()
@@ -8491,6 +8512,707 @@ def phase_batch(torch, fa, trainer_cls, files, root, folder, card):
     return launch_totals([rec]), totals
 
 
+DP_RANKS = 2  # [dp]'s ranks, both on cuda:0 over gloo (NCCL refuses two ranks on a card)
+DP_STEPS = 2  # [dp]'s recon-only micro-steps (accumulation 2: one update)
+# [dp]'s request: DDIM-4 B4 512x512, in fp32 and in bf16 (the serving
+# dtype); its warm-up DDIM-1
+DP_SERVE_STEPS, DP_SERVE_BATCH, DP_WARMUP_STEPS = 4, 4, 1
+# [dp] gates (PERF.md, §6; readings on an H100). (a): the ranks' averaged
+# gradient of each micro-step against one process's at the global batch
+# (relative L2), and the embedders' update (relative L2 of after - before).
+# Prodigy's first update is sign-like (each element moves by about
+# +-3.2e-6), so the embedders' max abs difference sees only sign flips and
+# is printed, not gated. The faults (each rank's own denominator, no
+# all-reduce) read 8.0e-2 / 3.6e-1 in the gradient and 2.3e-1 / 5.5e-1 in
+# the update, the sound run 2.7e-6 / 4.9e-5.
+DP_GRAD_TOL = 1e-2
+DP_UPDATE_TOL = 1e-1
+# (c): the zero-shot run (bf16 backbone) against one process: the averaged
+# gradient of each micro-step (relative L2; read 1.1e-2, the bf16 products
+# of other batch sizes) and ZeRO-1's global sums, the clip's squared norm
+# and Prodigy's d_denom (relative; read 8.2e-4 and 7.8e-5); the planted
+# fault, each rank's own sums without the all-reduce, reads 0.29-0.49
+DP_ZS_GRAD_TOL = 5e-2
+DP_ZS_SUM_TOL = 1e-2
+DP_COMPOS_TOL = 1e-3  # (b): the compos loss (relative) and gradient (relative L2) at CB 2
+# (d): mean uint8 levels from one process's B4 images. fp32: the arms'
+# gate (read 0.0013). bf16: one process doing the ranks' arithmetic (dp's
+# B2 requests on the B4 rows; tp's out-projections as head-group products
+# summed in fp32) reads 3.83 / 4.09 levels off its B4 request, which random
+# weights and CFG 10 amplify from roundings of other shapes: the ranks
+# against the B4 request within DP_BF16_TOL, and against the witness that
+# does their arithmetic within DP_SAME_TOL (read 0: equal bit for bit). The
+# tp faults read 24.7-27.8 levels.
+DP_BF16_TOL = 6.0
+DP_SAME_TOL = 0.05
+DP_ALLREDUCE_MB = 64  # the all-reduce reading's bucket
+
+
+def _dp_grads(torch, trainer_cls, rec):
+    """Patch `AccumulatedClipped.step` so that each call records the flat
+    gradient it is handed (the ranks' average under dp) and the live
+    parameters; returns the restore function."""
+    from adaface_tpu_torch.training import prodigy
+
+    real = prodigy.AccumulatedClipped.step
+
+    flat = lambda ts: torch.cat([t.detach().float().reshape(-1) for t in ts]).cpu().numpy()
+
+    def step(self):
+        rec.setdefault("grads", []).append(flat(torch.zeros_like(p) if p.grad is None else p.grad
+                                                for p in self.params))
+        rec.setdefault("start", flat(self.params))
+        rec["params"] = self.params
+        return real(self)
+
+    prodigy.AccumulatedClipped.step = step
+    return lambda: setattr(prodigy.AccumulatedClipped, "step", real)
+
+
+def dp_recon_run(torch, trainer_cls, tmp, name, batch, ranks=1, dev="cuda"):
+    """`train.main` on `finetune-static-layerwise.yaml` in fp32 as 9d runs it,
+    recon-only, DP_STEPS micro-steps at `batch` a device over `ranks` dp
+    ranks (in a rank of `dp_rank_main`, `train.main` builds the ranks'
+    mesh). Returns the
+    gradients each micro-step handed the optimizer, the embedders before
+    and after the update (flat numpy), the micro-step times and each one's
+    flash launches."""
+    import gc
+
+    from adaface_tpu_torch import train
+    from adaface_tpu_torch.parallel import mesh as pmesh
+
+    fa = _fa()
+    logdir = os.path.join(tmp, f"dp_{name}")
+    ds_dir = os.path.join(tmp, f"dp_{name}_subject")
+    os.makedirs(ds_dir, exist_ok=True)
+    argv = ["--base", os.path.join(CONFIG_DIR, "finetune-static-layerwise.yaml"),
+            "--data_root", "seeded", "--seed", "0", "--max_steps", str(DP_STEPS),
+            "--composition_regs_iter_gap", "0", "--batch_size", str(batch),
+            "--num_devices", str(ranks), "--logdir", logdir]
+    rec = dict(times=[], kinds=[], launches=[], trainer=None)
+    restore = _dp_grads(torch, trainer_cls, rec)
+    dev = pmesh.rank_device() if ranks > 1 else dev
+    try:
+        with micro_steps_timed(torch, fa, trainer_cls, rec, keep_trainer=False):
+            rc = train.main(argv, dataset=make_dataset(ds_dir), device=dev)
+    finally:
+        restore()
+    if rc != 0:
+        fail(f"[dp] {name}: train.main returned {rc}")
+    emb = torch.cat([p.detach().float().reshape(-1) for p in rec.pop("params")]).cpu().numpy()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(grads=rec["grads"], start=rec["start"], emb=emb, times=rec["times"],
+                launches=rec["launches"], kernels=_by_kernel(fa.launches_by_shape))
+
+
+def dp_compos_batch(torch, trainer_cls, tmp, mesh=None, dev="cuda"):
+    """A pipeline as phase 9's (fp32 here: `from_random(0)` and
+    `add_training_placeholders`), a trainer on 9d's config over the dp
+    `mesh`, and a compos batch of DP_RANKS blocks (CB = dp): the single
+    process builds it with the trainer's CB set to DP_RANKS, the ranks
+    receive it."""
+    import dataclasses
+
+    from adaface_tpu_torch.data.tokenizer import HashTokenizer
+    from adaface_tpu_torch.parallel import mesh as pmesh
+    from adaface_tpu_torch.pipeline import StableDiffusionPipeline
+    from adaface_tpu_torch.training.iter_plan import COMPOS_DISTILL, IterPlan
+
+    ranks = pmesh.dp_of(mesh)
+    dev = mesh.device if mesh is not None else dev
+    pipe = StableDiffusionPipeline.from_random(0, HashTokenizer(), device=dev)
+    add_training_placeholders(torch, pipe)
+    tcfg, pcfg = train_configs(os.path.join(tmp, f"dp_compos_{ranks}"))
+    ds_dir = os.path.join(tmp, f"dp_compos_subject_{ranks}")
+    os.makedirs(ds_dir, exist_ok=True)
+    tr = trainer_cls(pipe, make_dataset(ds_dir), dataclasses.replace(tcfg, num_devices=ranks),
+                     pcfg)
+    plan = IterPlan(iter_type=COMPOS_DISTILL, training_percent=0.3, use_background_token=True,
+                    comp_init_fg_from_training_image=True)
+    batch = None
+    if ranks == 1:
+        tr._dp = DP_RANKS  # the global batch of DP_RANKS blocks, in one process
+        batch = tr.build_compos_batch(plan)
+        tr._dp = 1
+    return tr, batch
+
+
+def dp_compos_step(torch, tr, batch):
+    """The compos loss and the embedders' gradient (averaged over the ranks
+    under dp) of `batch` (this rank's blocks of it under dp)."""
+    from adaface_tpu_torch.parallel import mesh as pmesh
+
+    params = tr.optimizer.params
+    for p in params:
+        p.grad = None
+    fa = _fa()
+    fa.launches_by_shape.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loss, metrics = tr._get_compos_step().loss_fn(tr.mgr.embedders, tr._shard(batch))
+    loss.backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    if tr.mesh is not None:
+        tr.mesh.all_reduce_mean_(grads)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    flat = torch.cat([g.float().reshape(-1) for g in grads]).cpu().numpy()
+    for p in params:
+        p.grad = None
+    return dict(loss=float(pmesh.metrics_mean({"loss": loss.detach()}, tr.mesh)["loss"]), grad=flat,
+                time=dt, launches=launches_between({}, fa.launches_by_shape),
+                kernels=_by_kernel(fa.launches_by_shape))
+
+
+def _dp_sums(torch, rec, local=False):
+    """Patch `Zero1Layout.gsum` so that each global sum it returns (the
+    clip's squared norm, Prodigy's dots and d_denom, in call order) is
+    recorded in the list `rec`; `local` plants the fault: each rank's own
+    sum, every leaf counted, without the all-reduce. Returns the restore
+    function."""
+    from adaface_tpu_torch.training import prodigy
+
+    real = prodigy.Zero1Layout.gsum
+
+    def gsum(self, parts):
+        out = sum(parts) if local else real(self, parts)
+        rec.append(float(out))
+        return out
+
+    prodigy.Zero1Layout.gsum = gsum
+    return lambda: setattr(prodigy.Zero1Layout, "gsum", real)
+
+
+def dp_zs_run(torch, trainer_cls, tmp, batch, mesh=None, ref_path=None, dev="cuda", fault=False):
+    """[zs-train]'s zero-shot stack (`zero_shot_builds`, bf16 backbone, fp32
+    generators) on a bf16 pipeline like [main]'s, DP_STEPS recon-only
+    micro-steps at `batch` a device over the dp `mesh` (accumulation 2: one
+    update; `fault`
+    plants `_dp_sums`' local sums). Returns the bytes of this rank's
+    optimizer state (the Prodigy slabs and the accumulation), the micro-step
+    times and flash launches; the single process saves its generators,
+    gradients and global sums to `tmp`, a rank compares with `ref_path`'s:
+    each micro-step's averaged gradient (relative L2), the global sums
+    (relative), the update (relative L2, and the share of elements whose
+    update has the other sign) and the generators' max abs difference."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from adaface_tpu_torch.data.tokenizer import HashTokenizer
+    from adaface_tpu_torch.parallel import mesh as pmesh
+    from adaface_tpu_torch.personalization.zero_shot import ZeroShotFeatureExtractor
+    from adaface_tpu_torch.pipeline import StableDiffusionPipeline, build_random
+    from adaface_tpu_torch.training import zs_trainer as zs_mod
+
+    fa = _fa()
+    ranks = pmesh.dp_of(mesh)
+    dev = mesh.device if mesh is not None else torch.device(dev)
+    tok = HashTokenizer()
+    pipe = StableDiffusionPipeline.from_random(0, tok, dtype=torch.bfloat16, device=dev)
+    builds = zero_shot_builds(tok)
+    dt = torch.bfloat16
+    vision = build_random(builds["vision"], 100, dev, dt)
+    arc = build_random(builds["arc2face"], 101, dev, dt)
+    gens = {"z": build_random(builds["fg"], 102, dev), "y": build_random(builds["bg"], 103, dev)}
+    pipe.embedding_manager.add_zero_shot_placeholder("z", tok.add_placeholder("z"), gens["z"])
+    pipe.embedding_manager.add_zero_shot_placeholder("y", tok.add_placeholder("y"), gens["y"],
+                                                     is_background=True)
+    tag = f"{ranks}{'f' if fault else ''}"
+    tcfg, pcfg = zs_train_configs(os.path.join(tmp, f"dp_zs_{tag}"), batch_size=batch)
+    tcfg = dataclasses.replace(tcfg, num_devices=ranks, max_steps=DP_STEPS)
+    pcfg = dataclasses.replace(pcfg, composition_regs_iter_gap=0, max_steps=DP_STEPS)
+    ds = make_dataset(os.path.join(tmp, f"dp_zs_subjects_{tag}"), subjects=2,
+                      num_vectors_per_subj_token=16)
+    ext = ZeroShotFeatureExtractor(vision, face_embed_fn=zs_train_face_fn(1))
+    tr = zs_mod.ZeroShotTrainer(pipe, ds, ext, gens, arc, tcfg, pcfg,
+                                bg_placeholders=frozenset({"y"}))
+    # the phase times the micro-steps; the ~3 GiB checkpoint is not written
+    tr.save_checkpoint = lambda tag=None: None
+    rec = dict(times=[], kinds=[], launches=[], trainer=None)
+    sums = []
+    real = {k: getattr(zs_mod.ZeroShotTrainer, k) for k in ("_run_zs_recon",)}
+
+    def timed(self, plan):
+        before = dict(fa.launches_by_shape)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = real["_run_zs_recon"](self, plan)
+        torch.cuda.synchronize()
+        rec["times"].append(time.time() - t0)
+        rec["launches"].append(launches_between(before, fa.launches_by_shape))
+        return m
+
+    fa.launches_by_shape.clear()
+    zs_mod.ZeroShotTrainer._run_zs_recon = timed
+    restore = [_dp_grads(torch, trainer_cls, rec), _dp_sums(torch, sums, local=fault)]
+    try:
+        tr.fit(DP_STEPS)
+    finally:
+        zs_mod.ZeroShotTrainer._run_zs_recon = real["_run_zs_recon"]
+        for r in restore:
+            r()
+    opt = tr.optimizer
+    state = [t for n in ("exp_avg", "exp_avg_sq", "s", "p0") for t in getattr(opt.inner, n)]
+    nbytes = sum(t.numel() * t.element_size() for t in state + list(opt.acc))
+    flat = lambda ts: torch.cat([t.detach().float().reshape(-1) for t in ts]).cpu().numpy()
+    emb = flat(rec.pop("params"))
+    out = dict(state_bytes=nbytes, times=rec["times"], launches=rec["launches"],
+               kernels=_by_kernel(fa.launches_by_shape), sums=sums)
+    if ref_path is None:
+        torch.save({"emb": torch.from_numpy(emb), "start": torch.from_numpy(rec["start"]),
+                    "grads": [torch.from_numpy(g) for g in rec["grads"]], "sums": sums},
+                   os.path.join(tmp, "dp_zs_ref.pt"))
+    else:
+        ref = torch.load(ref_path, weights_only=True)
+        r_emb, start = ref["emb"].numpy(), ref["start"].numpy()
+        out["grad_rel"] = [_rel(g, h.numpy()) for g, h in zip(rec["grads"], ref["grads"])]
+        out["sums_rel"] = [abs(a - b) / abs(b) for a, b in zip(sums, ref["sums"]) if b != 0]
+        out["max_abs"] = float(np.abs(emb - r_emb).max())
+        out["moved"] = float(np.abs(emb - start).max())
+        upd, r_upd = emb - start, r_emb - start
+        out["update_rel"] = _rel(upd, r_upd)
+        out["flips"] = float(np.mean(np.sign(upd) != np.sign(r_upd)))
+    tr.close()
+    del tr, gens, vision, arc, pipe, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_serve_pipe(torch, dev, dtype=None):
+    """[main]'s pipeline as it stands at the end of the script, in fp32 or
+    `dtype`: seed 0, `z` drawn from seed 7, then the training
+    placeholders."""
+    from adaface_tpu_torch.data.tokenizer import HashTokenizer
+    from adaface_tpu_torch.pipeline import StableDiffusionPipeline
+
+    tok = HashTokenizer()
+    kw = {} if dtype is None else {"dtype": dtype}
+    pipe = StableDiffusionPipeline.from_random(0, tok, device=dev, **kw)
+    pipe.embedding_manager.add_placeholder(
+        "z", token_id=tok.add_placeholder("z"), num_vectors=9, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(7))
+    add_training_placeholders(torch, pipe)
+    return pipe
+
+
+def dp_request(torch, pipe, steps=DP_SERVE_STEPS, x_T=None):
+    """One DDIM-`steps` request, B DP_SERVE_BATCH (or x_T's rows): (images,
+    seconds, flash launches)."""
+    fa = _fa()
+    fa.launches_by_shape.clear()
+    b = DP_SERVE_BATCH if x_T is None else len(x_T)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    imgs = pipe.generate([PROMPT] * b, num_steps=steps, height=SIZE, width=SIZE, seed=0,
+                         x_T=x_T)
+    torch.cuda.synchronize()
+    return imgs, time.time() - t0, _by_kernel(fa.launches_by_shape)
+
+
+def dp_rows_witness(torch, pipe):
+    """dp's arithmetic in one process: the B4 request's initial noise (as
+    `generate` draws it from seed 0) run as DP_RANKS requests of their
+    rows, the images concatenated."""
+    import numpy as np
+
+    f = 2 ** (len(pipe.vae.cfg.ch_mult) - 1)
+    gen = torch.Generator(device=pipe.device).manual_seed(0)
+    x = torch.randn((DP_SERVE_BATCH, SIZE // f, SIZE // f, pipe.unet.cfg.in_channels),
+                    generator=gen, device=pipe.device).cpu().numpy()
+    n = DP_SERVE_BATCH // DP_RANKS
+    return np.concatenate([dp_request(torch, pipe, x_T=x[r * n:(r + 1) * n])[0]
+                           for r in range(DP_RANKS)])
+
+
+def dp_tp_witness(torch, pipe):
+    """tp's arithmetic in one process: every attention and feed-forward
+    takes the tp path with whole weights, and `_row_parallel` sums the
+    partial products of the DP_RANKS head groups (feed-forward column
+    groups) in fp32 where the ranks all-reduce them. Returns the B4
+    request's images."""
+    import torch.nn.functional as F
+
+    from adaface_tpu_torch.models import unet as unet_mod
+
+    def split_sum(mesh, x, w, bias):
+        n = x.shape[-1] // DP_RANKS
+        y = sum(F.linear(x[..., g * n:(g + 1) * n].float(), w[:, g * n:(g + 1) * n].float())
+                for g in range(DP_RANKS))
+        return unet_mod._row_parallel_finish(y, bias, x.dtype)
+
+    saved = []
+    for m in pipe.unet.modules():
+        if isinstance(m, unet_mod.UNetCrossAttention):
+            saved.append((m, "tp_mesh", m.tp_mesh))
+            m.tp_mesh = "one process"
+        elif isinstance(m, unet_mod.TransformerBlock):
+            saved.append((m, "tp_ff", m.tp_ff))
+            m.tp_ff = (None, m.ff_in.weight, m.ff_in.bias, m.ff_out.weight)
+    real = unet_mod._row_parallel
+    unet_mod._row_parallel = split_sum
+    try:
+        return dp_request(torch, pipe)[0]
+    finally:
+        unet_mod._row_parallel = real
+        for m, k, v in saved:
+            setattr(m, k, v)
+
+
+def _geglu_contiguous(torch, unet, mesh):
+    """Planted fault: each tp rank's ff_in rows a contiguous 1/tp of the
+    GEGLU output (rank 0 every value, rank 1 every gate)."""
+    from adaface_tpu_torch.models.unet import TransformerBlock
+
+    for m in unet.modules():
+        if isinstance(m, TransformerBlock) and m.tp_ff is not None:
+            rows = m.ff_in.weight.shape[0] // mesh.tp
+            r = mesh.tp_rank
+            m.tp_ff = (m.tp_ff[0], m.ff_in.weight[r * rows:(r + 1) * rows],
+                       m.ff_in.bias[r * rows:(r + 1) * rows], m.tp_ff[3])
+
+
+def dp_rank_main(tmp, compos_batch, zs_ref):
+    """One of [dp]'s ranks (`parallel.mesh.launch`, gloo, both on cuda:0):
+    the recon run and its two planted faults, the compos step at CB 2, the
+    zero-shot run and its planted fault, fp32 and bf16 requests at dp 2 and
+    at tp 2 and bf16 ones under tp's two planted faults, the all-reduce's
+    time. Returns the readings and each part's
+    flash launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from adaface_tpu_torch.models import unet as unet_mod
+    from adaface_tpu_torch.parallel import mesh as pmesh
+    from adaface_tpu_torch.training import losses, train_step
+    from adaface_tpu_torch.training.trainer import Trainer
+
+    # as phase_card sets them in the script's process (cuDNN's default is on)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = pmesh.make_mesh(DP_RANKS)
+    out = {"rank": mesh.rank}
+    out["recon"] = dp_recon_run(torch, Trainer, tmp, f"r{mesh.rank}", 1, DP_RANKS)
+
+    # planted faults: each rank's own loss denominator; the all-reduce skipped
+    real_loss = train_step.masked_recon_loss
+    train_step.masked_recon_loss = lambda *a, **k: _local_recon_loss(losses, *a, **k)
+    try:
+        out["fault_denominator"] = dp_recon_run(torch, Trainer, tmp, f"d{mesh.rank}", 1,
+                                                DP_RANKS)
+    finally:
+        train_step.masked_recon_loss = real_loss
+    real_ar = pmesh.Mesh.all_reduce_mean_
+    pmesh.Mesh.all_reduce_mean_ = lambda self, tensors: None
+    try:
+        out["fault_allreduce"] = dp_recon_run(torch, Trainer, tmp, f"a{mesh.rank}", 1, DP_RANKS)
+    finally:
+        pmesh.Mesh.all_reduce_mean_ = real_ar
+
+    batch = compos_batch._replace(**{k: v.to(mesh.device) for k, v in compos_batch._asdict().items()
+                                     if torch.is_tensor(v)})
+    tr, _ = dp_compos_batch(torch, Trainer, tmp, mesh)
+    out["compos"] = dp_compos_step(torch, tr, batch)
+    tr.close()
+    del tr
+    out["zs"] = dp_zs_run(torch, Trainer, tmp, 1, mesh, zs_ref)
+    out["zs_fault"] = dp_zs_run(torch, Trainer, tmp, 1, mesh, zs_ref, fault=True)
+
+    # fp32 and bf16 requests at dp 2, then at tp 2; tp's faults in bf16
+    for dt, suffix in ((None, ""), (torch.bfloat16, "_bf16")):
+        pipe = dp_serve_pipe(torch, mesh.device, dt)
+        pipe.use_mesh(mesh=mesh)
+        dp_request(torch, pipe, DP_WARMUP_STEPS)
+        out["serve_dp" + suffix] = dp_request(torch, pipe)
+        del pipe
+    tp_mesh = pmesh.make_mesh(DP_RANKS, dp=1, tp=DP_RANKS)
+    for dt, suffix in ((None, ""), (torch.bfloat16, "_bf16")):
+        pipe = dp_serve_pipe(torch, mesh.device, dt)
+        pipe.use_mesh(mesh=tp_mesh)
+        out["serve_tp" + suffix] = dp_request(torch, pipe)  # the dp requests built its kernels
+    saved = {id(m): m.tp_ff for m in pipe.unet.modules()
+             if isinstance(m, unet_mod.TransformerBlock)}
+    _geglu_contiguous(torch, pipe.unet, tp_mesh)
+    out["fault_geglu"] = dp_request(torch, pipe)[0]
+    for m in pipe.unet.modules():
+        if id(m) in saved:
+            m.tp_ff = saved[id(m)]
+    real_out = unet_mod.UNetCrossAttention._out
+    unet_mod.UNetCrossAttention._out = lambda self, o: F.linear(o, self.to_out.weight,
+                                                                 self.to_out.bias)
+    try:
+        out["fault_to_out"] = dp_request(torch, pipe)[0]
+    finally:
+        unet_mod.UNetCrossAttention._out = real_out
+    del pipe
+
+    # the all-reduce: one flat fp32 bucket of the recon gradient's size, and
+    # one of DP_ALLREDUCE_MB
+    for name, n in (("grad", out["recon"]["grads"][0].size),
+                    ("mb", DP_ALLREDUCE_MB * 2 ** 20 // 4)):
+        t = torch.ones(n, device=mesh.device)
+        mesh.all_reduce_(t)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(5):
+            mesh.all_reduce_(t)
+        torch.cuda.synchronize()
+        out[f"allreduce_{name}_ms"] = (time.time() - t0) / 5 * 1e3
+        out[f"allreduce_{name}_n"] = n
+    return out
+
+
+def _local_recon_loss(losses, eps_pred, eps_target, fg_mask=None, bg_weight=0.0, img_mask=None,
+                      mesh=None):
+    """Planted fault: the masked recon loss over this rank's rows alone (its
+    own denominator, the mesh ignored), as a plain per-rank mean would take
+    it."""
+    import torch
+
+    err = torch.square(eps_pred.float() - eps_target.float())
+    if fg_mask is None and img_mask is None:
+        return err.mean()
+    w = (fg_mask + (1.0 - fg_mask) * bg_weight if fg_mask is not None
+         else torch.ones(err.shape[:-1] + (1,), dtype=torch.float32, device=err.device))
+    if img_mask is not None:
+        w = w * img_mask
+    w = w.expand(err.shape)
+    return torch.sum(err * w) / torch.clamp_min(torch.sum(w), 1e-6)
+
+
+def _rel(a, b):
+    """Relative L2 error of numpy a against b."""
+    import numpy as np
+
+    return float(np.linalg.norm(a.astype(np.float64) - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _by_kernel(launches_by_shape):
+    """"<kind> <kernel id>" -> flash launches, summed over shapes, of a
+    `launches_by_shape` counter."""
+    out = {}
+    for (kind, arm, *_), n in launches_by_shape.items():
+        out[f"{kind} {arm}"] = out.get(f"{kind} {arm}", 0) + n
+    return out
+
+
+def phase_dp(torch, trainer_cls, tmp, card, dev="cuda"):
+    """[dp] Data and tensor parallelism (`parallel/mesh.py`) on two ranks
+    that share cuda:0 over gloo, started through `parallel.mesh.launch` (the
+    CLI refuses more ranks than cards: shown first), against one process at
+    the global batch, at SD v1.5 widths and 512x512 from seeded weights:
+    (a) 9d's fp32 per-subject run, recon-only, DP_STEPS micro-steps at batch
+    1 a rank against batch 2: each micro-step's averaged gradient and the
+    embedders after the update, with two planted faults (each rank's own
+    loss denominator; the gradient all-reduce skipped) that must read
+    outside both gates; (b) one compos micro-step at CB 2 (one block a rank)
+    against the single process's CB-2 step; (c) the zero-shot stack's
+    recon-only micro-steps at dp 2 (ZeRO-1: each rank's optimizer-state
+    bytes against dp 1's) against dp 1 at batch 2: each micro-step's
+    averaged gradient and ZeRO-1's global sums, with a planted fault (each
+    rank's own sums) outside; (d) fp32 and bf16 DDIM-4 B4 requests at dp 2
+    and at tp 2 within the image gates of one process's, the bf16 gate set
+    from one process doing dp's and tp's arithmetic (the ranks against it
+    too), with two planted tp faults (GEGLU halves split contiguously;
+    `to_out` without its all-reduce) outside both; (e) each rank's flash
+    launches by kind. Prints the micro-step and request seconds at dp 1 and
+    dp 2 and the all-reduce's ms (readings: both ranks share one card).
+    Returns rank 0's flash launches of the training parts, (kind, B, L, H,
+    d) -> n. `dev="cpu"` rehearses the phase on the CPU (two CPU ranks)."""
+    import numpy as np
+
+    from adaface_tpu_torch import train as train_mod
+    from adaface_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.time()
+    if torch.device(dev).type == "cuda":
+        try:
+            train_mod.main(["--num_devices", "2", "--data_root", "seeded"], device=dev)
+            fail("[dp] train --num_devices 2 did not exit on a one-card machine")
+        except SystemExit as e:
+            if "CUDA device" not in str(e):
+                raise
+            say(f"[dp] train --num_devices 2 on this machine exits: {e}")
+
+    # the single process at the global batch
+    one = dp_recon_run(torch, trainer_cls, tmp, "one", DP_RANKS, dev=dev)
+    tr, cbatch = dp_compos_batch(torch, trainer_cls, tmp, dev=dev)
+    one_compos = dp_compos_step(torch, tr, cbatch)
+    tr.close()
+    del tr
+    one_zs = dp_zs_run(torch, trainer_cls, tmp, DP_RANKS, dev=dev)
+    serve = dp_serve_pipe(torch, dev)  # [main]'s pipe has trained embedders by now
+    dp_request(torch, serve, DP_WARMUP_STEPS)
+    ref = {"": dp_request(torch, serve)}
+    del serve
+    serve = dp_serve_pipe(torch, dev, torch.bfloat16)
+    dp_request(torch, serve, DP_WARMUP_STEPS)
+    ref["_bf16"] = dp_request(torch, serve)
+    # the bf16 noise floor: one process doing dp's and tp's arithmetic
+    witness = {"serve_dp_bf16": dp_rows_witness(torch, serve),
+               "serve_tp_bf16": dp_tp_witness(torch, serve)}
+    del serve
+    ref_imgs, one_req_s, _ = ref[""]
+    cpu_batch = cbatch._replace(**{k: v.cpu() for k, v in cbatch._asdict().items()
+                                   if torch.is_tensor(v)})
+    del cbatch
+    torch.cuda.empty_cache()
+    say(f"[dp] one process at the global batch: recon micro-steps {one['times']} s, compos "
+        f"CB {DP_RANKS} {one_compos['time']:.3f} s, zs micro-steps {one_zs['times']} s, request "
+        f"DDIM-{DP_SERVE_STEPS} B{DP_SERVE_BATCH} {one_req_s:.3f} s (bf16 {ref['_bf16'][1]:.3f} s) "
+        f"[{card}]")
+
+    t0 = time.time()
+    res = pmesh.launch(dp_rank_main, DP_RANKS, (tmp, cpu_batch,
+                                                 os.path.join(tmp, "dp_zs_ref.pt")),
+                       devices=["cuda:0" if torch.device(dev).type == "cuda" else "cpu"] * DP_RANKS,
+                       backend="gloo", timeout=900)
+    say(f"[dp] {DP_RANKS} ranks on cuda:0 over gloo ran in {time.time() - t0:.1f} s (start-up "
+        "included)")
+
+    # every reading is printed before any gate fails the phase
+    errors = []
+
+    # (a) recon
+    ok = True
+    for r in res:
+        k = r["rank"]
+        rows = {}
+        for name in ("recon", "fault_denominator", "fault_allreduce"):
+            g = max(_rel(a, b) for a, b in zip(r[name]["grads"], one["grads"]))
+            e = float(np.abs(r[name]["emb"] - one["emb"]).max())
+            u = _rel(r[name]["emb"] - one["start"], one["emb"] - one["start"])
+            rows[name] = (g, e, u)
+        moved = float(np.abs(one["emb"] - one["start"]).max())
+        say(f"[dp] (a) rank {k} recon, fp32 static-layerwise, {DP_STEPS} micro-steps at batch 1 "
+            f"against one process at batch {DP_RANKS}: gradient relative L2 {rows['recon'][0]:.3e} "
+            f"(gate {DP_GRAD_TOL}), embedders max abs {rows['recon'][1]:.3e}, the update's "
+            f"relative L2 {rows['recon'][2]:.3e} (gate {DP_UPDATE_TOL}); faults: own denominator "
+            f"{rows['fault_denominator'][0]:.3e} / {rows['fault_denominator'][1]:.3e} / "
+            f"{rows['fault_denominator'][2]:.3e}, all-reduce skipped "
+            f"{rows['fault_allreduce'][0]:.3e} / {rows['fault_allreduce'][1]:.3e} / "
+            f"{rows['fault_allreduce'][2]:.3e}; the update "
+            f"moved the embedders by up to {moved:.3e}; micro-steps "
+            f"{[round(t, 3) for t in r['recon']['times']]} s (one process "
+            f"{[round(t, 3) for t in one['times']]} s) [{card}]")
+        if not (rows["recon"][0] <= DP_GRAD_TOL and rows["recon"][2] <= DP_UPDATE_TOL):
+            ok = False
+        for f in ("fault_denominator", "fault_allreduce"):
+            if rows[f][0] <= DP_GRAD_TOL or rows[f][2] <= DP_UPDATE_TOL:
+                errors.append(f"[dp] (a) planted fault {f} reads inside a gate: {rows[f]}")
+    if not ok:
+        errors.append("[dp] (a) the dp-2 recon run is outside its gates")
+
+    # (b) compos at CB 2
+    for r in res:
+        c = r["compos"]
+        le = abs(c["loss"] - one_compos["loss"]) / max(abs(one_compos["loss"]), 1e-30)
+        ge = _rel(c["grad"], one_compos["grad"])
+        say(f"[dp] (b) rank {r['rank']} compos at CB {DP_RANKS} (one block a rank): loss "
+            f"{c['loss']:.6e} vs {one_compos['loss']:.6e} (relative {le:.3e}), gradient relative "
+            f"L2 {ge:.3e} (gate {DP_COMPOS_TOL}); {c['time']:.3f} s (one process "
+            f"{one_compos['time']:.3f} s) [{card}]")
+        if not (le <= DP_COMPOS_TOL and ge <= DP_COMPOS_TOL):
+            errors.append(f"[dp] (b) rank {r['rank']}: compos loss {le:.3e} / gradient "
+                          f"{ge:.3e} (gate {DP_COMPOS_TOL})")
+
+    # (c) zero-shot, ZeRO-1
+    for r in res:
+        z, f = r["zs"], r["zs_fault"]
+        g, sm = max(z["grad_rel"]), max(z["sums_rel"])
+        say(f"[dp] (c) rank {r['rank']} zero-shot recon (bf16 backbone), {DP_STEPS} micro-steps at "
+            f"batch 1 against one process at batch {DP_RANKS}: gradient relative L2 "
+            f"{[f'{x:.3e}' for x in z['grad_rel']]} (gate {DP_ZS_GRAD_TOL}), global sums (clip "
+            f"norm^2, dots, d_denom) {[f'{x:.4e}' for x in z['sums']]} relative "
+            f"{[f'{x:.3e}' for x in z['sums_rel']]} (gate {DP_ZS_SUM_TOL}); planted fault (each "
+            f"rank's own sums): gradient {max(f['grad_rel']):.3e}, sums "
+            f"{[f'{x:.3e}' for x in f['sums_rel']]}; optimizer state "
+            f"{z['state_bytes'] / 2 ** 20:.1f} MiB (one process "
+            f"{one_zs['state_bytes'] / 2 ** 20:.1f} MiB); generators max abs {z['max_abs']:.3e} "
+            f"(moved {z['moved']:.3e}), the update's relative L2 {z['update_rel']:.3e} with "
+            f"{z['flips']:.3e} of its elements of the other sign (2 sqrt(share) "
+            f"{2 * z['flips'] ** 0.5:.3e}); micro-steps {[round(t, 3) for t in z['times']]} s (one "
+            f"process {[round(t, 3) for t in one_zs['times']]} s) [{card}]")
+        if not (g <= DP_ZS_GRAD_TOL and sm <= DP_ZS_SUM_TOL and z["moved"] > 0
+                and len(z["sums_rel"]) >= 2 and z["state_bytes"] < one_zs["state_bytes"]):
+            errors.append(f"[dp] (c) rank {r['rank']}: gradient {g:.3e} (gate {DP_ZS_GRAD_TOL}), "
+                          f"sums {z['sums_rel']} (gate {DP_ZS_SUM_TOL}), moved {z['moved']:.3e}, "
+                          f"state {z['state_bytes']} of {one_zs['state_bytes']}")
+        if not max(f["sums_rel"]) > DP_ZS_SUM_TOL:
+            errors.append(f"[dp] (c) planted fault (own sums) reads inside the gate: "
+                          f"{f['sums_rel']}")
+
+    # (d) serving
+    gates = {"": ARM_UINT8_MEAN_TOL, "_bf16": DP_BF16_TOL}
+    levels = lambda a, b: np.abs(a.astype(np.int16) - b.astype(np.int16))
+    for name, w in witness.items():
+        d = levels(w, ref["_bf16"][0])
+        say(f"[dp] (d) bf16 noise floor, one process doing {name[6:8]} 2's arithmetic: images mean "
+            f"{d.mean():.4f}, max {int(d.max())} levels from its B{DP_SERVE_BATCH} request's "
+            f"(gate mean {DP_BF16_TOL}) [{card}]")
+    for r in res:
+        for name in ("serve_dp", "serve_tp", "serve_dp_bf16", "serve_tp_bf16"):
+            imgs, secs, _ = r[name]
+            suffix = name[8:]
+            base, base_s, _ = ref[suffix]
+            d = levels(imgs, base)
+            same = ""
+            if name in witness:
+                dw = levels(imgs, witness[name])
+                same = (f"; mean {dw.mean():.4f}, max {int(dw.max())} from the one process doing "
+                        f"its arithmetic (gate mean {DP_SAME_TOL})")
+                if not dw.mean() <= DP_SAME_TOL:
+                    errors.append(f"[dp] (d) {name} rank {r['rank']}: {dw.mean():.4f} levels off "
+                                  "its one-process witness")
+            say(f"[dp] (d) rank {r['rank']} {name[6:8]} 2 {'bf16' if suffix else 'fp32'} request "
+                f"DDIM-{DP_SERVE_STEPS} B{DP_SERVE_BATCH}: {secs:.3f} s (one process "
+                f"{base_s:.3f} s); images mean {d.mean():.4f}, max {int(d.max())} levels from one "
+                f"process's (gate mean {gates[suffix]}){same} [{card}]")
+            if imgs.shape != base.shape or not d.mean() <= gates[suffix]:
+                errors.append(f"[dp] (d) {name} rank {r['rank']}: images {d.mean():.4f} levels off")
+        for name in ("fault_geglu", "fault_to_out"):
+            d = levels(r[name], ref["_bf16"][0])
+            say(f"[dp] (d) rank {r['rank']} planted tp fault {name[6:]} (bf16): images mean "
+                f"{d.mean():.4f} levels off one process's")
+            if not d.mean() > max(gates.values()):
+                errors.append(f"[dp] (d) planted fault {name} reads inside the image gate")
+
+    # (e) launches
+    for r in res:
+        parts = {"recon": r["recon"]["kernels"], "compos": r["compos"]["kernels"],
+                 "zs": r["zs"]["kernels"], "serve dp": r["serve_dp"][2],
+                 "serve tp": r["serve_tp"][2], "serve dp bf16": r["serve_dp_bf16"][2],
+                 "serve tp bf16": r["serve_tp_bf16"][2]}
+        say(f"[dp] (e) rank {r['rank']} flash launches by kind and kernel id: {parts}")
+        need = {"recon": ("fwd_fp32", "dq_fp32", "dkv_fp32"),
+                "compos": ("fwd_fp32", "dq_fp32", "dkv_fp32"),
+                "zs": ("fwd", "dq", "dkv"), "serve dp": ("fwd_fp32",), "serve tp": ("fwd_fp32",),
+                "serve dp bf16": ("fwd",), "serve tp bf16": ("fwd",)}
+        for part, kinds in need.items():
+            got = {k.split()[0] for k, n in parts[part].items() if n > 0}
+            if not set(kinds) <= got:
+                errors.append(f"[dp] (e) rank {r['rank']} {part}: no launch of one of "
+                              f"{kinds}: {parts[part]}")
+    say(f"[dp] all-reduce over gloo between two ranks on one card: "
+        f"{res[0]['allreduce_grad_ms']:.3f} ms for the recon gradient "
+        f"({res[0]['allreduce_grad_n']} fp32), {res[0]['allreduce_mb_ms']:.3f} ms for "
+        f"{DP_ALLREDUCE_MB} MiB [{card}]")
+    say(f"[dp] phase {time.time() - t_phase:.1f} s")
+    if errors:
+        fail("; ".join(errors))
+    counts = {}
+    for rec in res[0]["recon"]["launches"] + res[0]["zs"]["launches"] + [
+            res[0]["compos"]["launches"]]:
+        for kind, shapes in rec.items():
+            for shape, n in shapes.items():
+                counts[(kind,) + shape] = counts.get((kind,) + shape, 0) + n
+    return counts
+
+
 def main():
     import torch
 
@@ -8631,6 +9353,9 @@ def main():
             zs_cli_counts = phase_zeroshot_cli(torch, fa, tmp, card)
             say(f"[main] slice 23's [filter] and [zeroshot-cli] {time.time() - t_slice:.1f} s")
     s23.cleanup()
+    # slice 27: data and tensor parallelism, two ranks on this card
+    with tempfile.TemporaryDirectory() as dp_dir:
+        phase_dp(torch, Trainer, dp_dir, card)
 
     entries = []
     for (b, l, h, d), (replaces, _) in MAIN_SHAPES.items():

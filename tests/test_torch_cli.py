@@ -31,6 +31,7 @@ PNGs written with PIL into a temporary folder).
 
 import copy
 import dataclasses
+import functools
 import importlib.util
 import os
 import shutil
@@ -47,6 +48,7 @@ from adaface_tpu.personalization.embedding_manager import EmbeddingManager as JE
 
 import adaface_tpu_torch.train as ttrain
 from adaface_tpu_torch.interop import from_jax
+from adaface_tpu_torch.parallel import mesh as pmesh
 from adaface_tpu_torch.personalization.embedding_manager import EmbeddingManager
 from adaface_tpu_torch.training.trainer import Trainer
 
@@ -259,7 +261,8 @@ UNPORTED = {
     # ported: these load and train (None)
     "actual_resume": (["--actual_resume", "CKPT"], None),
     "pt checkpoint": (["--embedding_manager_ckpt", "PT"], None),
-    "num_devices": (["--num_devices", "2"], "item 13"),
+    # ported: two gloo ranks train (None); rank 0 writes the metrics once
+    "num_devices": (["--num_devices", "2"], None),
     # ported: these run (None), and write what they add
     "val_every": (["--val_every", "1"], None),
     "val_every_steps": (["trainer.val_every_steps=1"], None),
@@ -338,8 +341,10 @@ def test_actual_resume_and_reference_pt_load(monkeypatch, data_root, tmp_path):
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_paths_exit(data_root, tmp_path, name):
+def test_unported_paths_exit(data_root, tmp_path, name, monkeypatch):
     extra, item = UNPORTED[name]
+    # the ranks of --num_devices: a hung rank fails the test
+    monkeypatch.setattr(pmesh, "launch", functools.partial(pmesh.launch, timeout=600, threads=1))
     files = {"SHARD": lambda: _shard(tmp_path / "s.tar"),
              "CKPT": lambda: (_tiny_ckpt(str(tmp_path / "sd.ckpt")), str(tmp_path / "sd.ckpt"))[1],
              "PT": lambda: (_reference_pt(str(tmp_path / "e.pt")), str(tmp_path / "e.pt"))[1]}
@@ -364,6 +369,9 @@ def test_unported_paths_exit(data_root, tmp_path, name):
         assert len([r for r in recs if "iter_type" in r]) == 2
         ckpt = torch.load(tmp_path / "subj_basis_last.pt", weights_only=True)
         assert ckpt["global_step"] == 2 and sorted(ckpt["generators"]) == ["y", "z"]
+    elif name == "num_devices":
+        assert [r["step"] for r in recs if "iter_type" in r] == [0, 1]
+        assert os.path.exists(tmp_path / "embeddings_last.npz")
     elif name == "wds_shards":
         assert [r["wds_comp"] for r in recs if "iter_type" in r] == [1.0, 1.0]
         assert EmbeddingManager.load_native(str(tmp_path / "embeddings_last.npz")).placeholders[

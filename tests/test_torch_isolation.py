@@ -1,7 +1,8 @@
 """The port stands alone: importing `adaface_tpu_torch` loads neither JAX,
 flax nor the JAX package (checked in a fresh interpreter, since this test
-process has JAX loaded by conftest), and no source file of the port or
-`chip_smoke.py` imports them. The card's machine has no pyyaml and no PIL:
+process has JAX loaded by conftest), and no source file of the port,
+`chip_smoke.py` or the data-parallel tests' rank module
+(`tests/torch_dp_workers.py`, which spawned ranks import) imports them. The card's machine has no pyyaml and no PIL:
 the training entry point, its config loader and the trainer load neither,
 and no source of the port imports yaml."""
 
@@ -31,7 +32,7 @@ def test_import_loads_no_jax():
     for m in ("pipeline", "training.trainer", "training.train_step", "training.losses",
               "training.prodigy", "data.personalized", "ops.grad", "models.clip_vision",
               "personalization.arc2face", "personalization.subj_basis_generator",
-              "personalization.zero_shot"):
+              "personalization.zero_shot", "parallel.mesh"):
         assert f"adaface_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -49,7 +50,8 @@ def test_import_loads_no_jax():
 def test_sources_import_no_jax():
     files = sorted((REPO / "adaface_tpu_torch").rglob("*.py")) + [
         REPO / name for name in ("chip_smoke.py", "flash_variants.py", "ff_variants.py",
-                                 "wino_variants.py", "gn_variants.py", "kernel_variants.py")]
+                                 "wino_variants.py", "gn_variants.py", "kernel_variants.py",
+                                 "tests/torch_dp_workers.py")]
     assert len(files) > 10
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in IMPORT_RE.finditer(f.read_text())]

@@ -15,14 +15,15 @@ one uint8 level (the bar of tests/test_golden_chain.py):
   read back as `generate` made them (a `--ckpt`, a reference `.pt` with
   conv attention), `--from_file` / `--n_repeat` / `--n_rows`, PLMS and
   compel, img2img and inpaint; `--compare_with` (with `--calc_face_sim`,
-  `--use_first_gt_img_as_init`) scores into `scores.csv`; the options of
-  ROADMAP item 13 exit naming it; without `--device cpu` they raise on a
-  machine without a card.
+  `--use_first_gt_img_as_init`) scores into `scores.csv`; `--num_devices`
+  / `--tp` serve over 2 gloo ranks within 1 uint8 level of one device;
+  without `--device cpu` they raise on a machine without a card.
 
 The cross-attention weights are scaled up (x10) so that the prompt, and
 with it guidance and compel, move the images by more than a level."""
 
 import csv
+import functools
 import importlib.util
 import os
 
@@ -55,6 +56,7 @@ from adaface_tpu_torch.interop import from_jax
 from adaface_tpu_torch.models.clip_text import CLIPTextConfig
 from adaface_tpu_torch.models.unet import UNetConfig
 from adaface_tpu_torch.models.vae import VAEConfig
+from adaface_tpu_torch.parallel import mesh as pmesh
 from adaface_tpu_torch.pipeline import StableDiffusionPipeline
 from tests import torch_serve_helpers as helpers
 
@@ -299,11 +301,16 @@ def test_img2img_and_inpaint_clis(tmp_path, mode):
     pytest.param("txt2img", ["--calc_face_sim"], None, id="txt2img-extra1-item 12"),
     pytest.param("txt2img", ["--use_first_gt_img_as_init", "--compare_with", "ref"], None,
                  id="txt2img-extra2-item 12"),
-    ("txt2img", ["--num_devices", "2"], "item 13"),
-    ("txt2img", ["--tp", "2"], "item 13"),
-    ("img2img", ["--num_devices", "4"], "item 13"),
+    # ported: these serve over 2 gloo ranks (dp 2; tp 2 alone; dp 1 x tp 2),
+    # rank 0 writing the samples once, within 1 uint8 level of one device
+    pytest.param("txt2img", ["--num_devices", "2"], None, id="txt2img-extra3-item 13"),
+    pytest.param("txt2img", ["--tp", "2"], None, id="txt2img-extra4-item 13"),
+    pytest.param("img2img", ["--num_devices", "2", "--tp", "2"], None,
+                 id="img2img-extra5-item 13"),
 ])
-def test_unported_options_exit(tmp_path, module, extra, item):
+def test_unported_options_exit(tmp_path, module, extra, item, monkeypatch):
+    # the ranks of --num_devices / --tp: a hung rank fails the test
+    monkeypatch.setattr(pmesh, "launch", functools.partial(pmesh.launch, timeout=600, threads=1))
     argv = ["--tiny", "--device", "cpu", "--prompt", "a z", "--out", str(tmp_path)]
     if module == "img2img":
         argv += ["--init_img", "x.png"]
@@ -311,6 +318,20 @@ def test_unported_options_exit(tmp_path, module, extra, item):
     if item is not None:
         with pytest.raises(SystemExit, match=item):
             main(argv + extra)
+        return
+    if "--compare_with" not in extra and "--calc_face_sim" not in extra:
+        png.write(str(tmp_path / "init.png"), _init_image())
+        argv = ["--tiny", "--device", "cpu", "--steps", "2", "--size", "32", "--n_samples", "2",
+                "--prompt", "a z person"]
+        if module == "img2img":
+            argv += ["--init_img", str(tmp_path / "init.png")]
+        one, ranks = tmp_path / "one", tmp_path / "ranks"
+        assert main(argv + ["--out", str(one)]) == 0
+        assert main(argv + extra + ["--out", str(ranks)]) == 0
+        assert _png_dir(ranks) == _png_dir(one) and len(_png_dir(one)) == 2
+        for f in _png_dir(one):
+            a, b = png.read(str(one / f)), png.read(str(ranks / f))
+            assert np.abs(a.astype(int) - b.astype(int)).max() <= 1, f
         return
     ref = tmp_path / "ref"
     ref.mkdir()
